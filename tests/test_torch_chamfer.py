@@ -1,0 +1,87 @@
+"""The port's Chamfer forward (vae_song_tpu_torch/ops/chamfer.py) against
+the JAX package: the plain packed-key version against the Pallas kernel
+`_chamfer_pallas_fwd_impl` in interpret mode (bitwise: both compute
+d2 = ((dx*dx) + (dy*dy)) + (dz*dz) in f32 without FMA), and the tiled
+`chamfer_distance` against its JAX counterpart."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_song_tpu.ops import chamfer as jax_chamfer
+from vae_song_tpu_torch.ops import chamfer
+
+VAL_RTOL = 2.0 ** -12  # packed truncation of the min value
+
+
+def _clouds(b, np_, ng, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, np_, 3)).astype(np.float32),
+            rng.normal(size=(b, ng, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("np_,ng,tile", [(128, 128, 128), (256, 128, 128), (128, 256, 64)])
+def test_plain_matches_pallas_bitwise(np_, ng, tile):
+    pred, gt = _clouds(8, np_, ng, seed=np_ + ng)
+    want = jax_chamfer._chamfer_pallas_fwd_impl(jnp.asarray(pred), jnp.asarray(gt), tile,
+                                                interpret=True)
+    got = chamfer.chamfer_nn_packed(torch.from_numpy(pred), torch.from_numpy(gt))
+    for name, w, g in zip(("minp", "argp", "ming", "argg"), want, got):
+        w = np.asarray(w)
+        assert g.dtype == (torch.float32 if w.dtype == np.float32 else torch.int32)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def test_exact_ties_pick_first():
+    """Duplicate gt points tie exactly; the lower index wins and an exact
+    zero survives packing (tests/test_chamfer_fwd_kernel.py:49)."""
+    rng = np.random.default_rng(1)
+    gt = rng.normal(size=(8, 16, 3)).astype(np.float32)
+    gt[:, 9] = gt[:, 3]
+    pred = rng.normal(size=(8, 16, 3)).astype(np.float32)
+    pred[:, 5] = gt[:, 3]
+    minp, argp, _, _ = chamfer.chamfer_nn_packed(torch.from_numpy(pred), torch.from_numpy(gt))
+    assert (argp[:, 5] == 3).all()
+    assert (minp[:, 5] == 0.0).all()
+
+
+@pytest.mark.parametrize("n", [96, 1100])  # dense and tiled branches
+def test_chamfer_distance_matches_jax(n):
+    pred, gt = _clouds(2, n, n + 32, seed=n)
+    want = float(jax_chamfer.chamfer_distance(jnp.asarray(pred), jnp.asarray(gt)))
+    got = float(chamfer.chamfer_distance(torch.from_numpy(pred), torch.from_numpy(gt)))
+    # f32 matmul expansion on both sides, different summation order
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+def test_packed_scalar_within_truncation_of_chamfer_distance():
+    pred, gt = _clouds(8, 128, 128, seed=2)
+    p, g = torch.from_numpy(pred), torch.from_numpy(gt)
+    minp, _, ming, _ = chamfer.chamfer_nn_packed(p, g)
+    packed = float((minp.mean(dim=1) + ming.mean(dim=1)).mean())
+    exact = float(chamfer.chamfer_distance(p, g))
+    # truncation only lowers the value, by <= 2^-12 relative; the
+    # expansion in chamfer_distance adds f32 roundoff on top
+    assert packed == pytest.approx(exact, rel=VAL_RTOL)
+    assert packed <= exact * (1 + 1e-6)
+
+
+def test_best_chamfer_on_cpu_is_the_tiled_path():
+    pred, gt = _clouds(2, 128, 128, seed=4)
+    p, g = torch.from_numpy(pred), torch.from_numpy(gt)
+    before = chamfer.chamfer_nn_packed.launches
+    assert float(chamfer.best_chamfer(p, g)) == float(chamfer.chamfer_distance(p, g))
+    chamfer.chamfer_nn_packed(p, g)
+    assert chamfer.chamfer_nn_packed.launches == before
+
+
+def test_packed_n_guard():
+    assert chamfer.MAX_PACKED_N == jax_chamfer.MAX_PACKED_N == 2048
+    small = torch.zeros(1, 16, 3)
+    with pytest.raises(ValueError):
+        chamfer.chamfer_nn_packed(torch.zeros(1, 2049, 3), small)
+    with pytest.raises(ValueError):
+        chamfer.chamfer_nn_packed(small, torch.zeros(1, 2049, 3))
+    with pytest.raises(TypeError):
+        chamfer.chamfer_nn_packed(small.double(), small.double())

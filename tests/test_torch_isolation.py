@@ -1,0 +1,79 @@
+"""The PyTorch port stands alone: no module of vae_song_tpu_torch and
+nothing chip_smoke.py imports pulls in jax or the JAX package (the
+machine with the card has neither), chip_smoke.py's MODEL_PARAMS is the
+shipped config's, and chip_smoke.py refuses to report a result without
+a CUDA card or without the rest of the repository."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+from vae_song_tpu.config import load_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import vae_song_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from vae_song_tpu_torch import _kernels
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vae_song_tpu"))
+assert not bad, bad
+assert _kernels._lib is None, "a kernel library was loaded at import"
+print(len(names))
+"""
+
+
+def _run(args, cwd, env_extra=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    proc = _run(["-c", _IMPORT_ALL], ROOT, {"PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20     # every module was imported
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(SMOKE).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+    roots = {m.split(".")[0] for m in mods}
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "vae_song_tpu", "yaml"}, roots
+    assert "vae_song_tpu_torch" in roots
+
+
+def test_chip_smoke_model_params_are_the_shipped_config():
+    tree = ast.parse(open(SMOKE).read())
+    literal = next(
+        node.value for node in tree.body
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == "MODEL_PARAMS" for t in node.targets)
+    )
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    assert ast.literal_eval(literal) == config["model_params"]
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    """No CUDA card here: non-zero exit, no result line. In a directory
+    holding only chip_smoke.py: non-zero exit too."""
+    proc = _run([SMOKE], ROOT, {"PYTHONPATH": ROOT, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,196 @@
+"""SetVAE / SetLRVAE for 3-D point clouds, transformer encoder and
+decoder (port of vae_song_tpu/models/setvae.py, inference path).
+
+The transformer layers follow torch's nn.TransformerEncoderLayer /
+nn.TransformerDecoderLayer defaults as the JAX package does: post-norm
+residuals, ReLU feed-forward, batch-first, dropout-free (attn_dropout is
+0.0 in every shipped config).
+
+Under `mixed_precision` the dtypes flow as in the JAX package: the
+attention projections, the FFN and the LayerNorm outputs are bf16; the
+encoder's input embedding, the latent heads, the decoder's memory
+projection and the final Dense(3) promote to f32, so recon, mu and
+logvar are f32 and the Chamfer loss runs in f32. The first residual add
+of the encoder is f32 + bf16 = f32.
+
+Randomness is explicit: `forward(x, eps)` takes the reparameterisation
+noise, and `decode(z)` the latent.
+
+The DeepSets SetEncoder / SetDecoder (BatchNorm) are not ported yet.
+"""
+
+import torch
+from torch import nn
+
+from vae_song_tpu_torch.nn.blocks import Dense, LayerNorm
+from vae_song_tpu_torch.nn.initializers import normal_scaled_
+from vae_song_tpu_torch.ops import losses
+from vae_song_tpu_torch.ops.attention import MultiHeadAttention
+from vae_song_tpu_torch.ops.chamfer import best_chamfer
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm self-attention + ReLU FFN."""
+
+    def __init__(self, d_model, num_heads, ff_dim, dropout_rate=0.0,
+                 compute_dtype=None, generator=None):
+        super().__init__()
+        cd = compute_dtype
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
+        self.norm1 = LayerNorm(d_model, cd)
+        self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
+        self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
+        self.norm2 = LayerNorm(d_model, cd)
+
+    def forward(self, x):
+        x = self.norm1(x + self.self_attn(x, x))
+        return self.norm2(x + self.ff_down(torch.relu(self.ff_up(x))))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm self-attention, cross-attention to the memory, ReLU FFN.
+    Split in two halves so the set decoder can run its first layer's
+    self-attention once on the batch-constant queries."""
+
+    def __init__(self, d_model, num_heads, ff_dim, dropout_rate=0.0,
+                 compute_dtype=None, generator=None):
+        super().__init__()
+        cd = compute_dtype
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
+        self.norm1 = LayerNorm(d_model, cd)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
+        self.norm2 = LayerNorm(d_model, cd)
+        self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
+        self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
+        self.norm3 = LayerNorm(d_model, cd)
+
+    def self_attn_block(self, tgt):
+        return self.norm1(tgt + self.self_attn(tgt, tgt))
+
+    def cross_ffn_block(self, tgt, memory):
+        tgt = self.norm2(tgt + self.cross_attn(tgt, memory))
+        return self.norm3(tgt + self.ff_down(torch.relu(self.ff_up(tgt))))
+
+    def forward(self, tgt, memory):
+        return self.cross_ffn_block(self.self_attn_block(tgt), memory)
+
+
+class SetEncoderAttn(nn.Module):
+    """Transformer set encoder + max-pool over points -> (mu, logvar)."""
+
+    def __init__(self, latent_dim=128, d_model=256, num_heads=4, num_layers=2,
+                 ff_dim=512, dropout_rate=0.0, compute_dtype=None, generator=None):
+        super().__init__()
+        self.embed = Dense(3, d_model, generator=generator)
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, num_heads, ff_dim, dropout_rate,
+                                    compute_dtype, generator)
+            for _ in range(num_layers)
+        )
+        self.fc_mu = Dense(d_model, latent_dim, generator=generator)
+        self.fc_logvar = Dense(d_model, latent_dim, generator=generator)
+
+    def forward(self, points):
+        x = self.embed(points)
+        for layer in self.layers:
+            x = layer(x)
+        s = x.amax(dim=1)
+        return self.fc_mu(s), self.fc_logvar(s)
+
+
+class SetDecoderAttn(nn.Module):
+    """Learned per-point queries cross-attending to one latent memory
+    token. The first layer's self-attention sees only the batch-constant
+    query embeddings, so it runs once at batch 1 and is broadcast."""
+
+    def __init__(self, latent_dim=128, num_points=2048, d_model=256, num_heads=4,
+                 num_layers=2, ff_dim=512, dropout_rate=0.0, compute_dtype=None,
+                 generator=None):
+        super().__init__()
+        self.query_embed = nn.Parameter(
+            normal_scaled_(torch.empty(num_points, d_model), 0.02, generator)
+        )
+        self.memory = Dense(latent_dim, d_model, generator=generator)
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, num_heads, ff_dim, dropout_rate,
+                                    compute_dtype, generator)
+            for _ in range(num_layers)
+        )
+        self.out = Dense(d_model, 3, generator=generator)
+
+    def forward(self, z):
+        b = z.shape[0]
+        memory = self.memory(z)[:, None, :]          # [B, 1, d_model]
+        n, d = self.query_embed.shape
+        x = self.query_embed[None]                   # [1, N, d_model]
+        for i, layer in enumerate(self.layers):
+            if i == 0:
+                x = layer.self_attn_block(x).expand(b, n, d)
+                x = layer.cross_ffn_block(x, memory)
+            else:
+                x = layer(x.expand(b, n, d), memory)
+        return self.out(x)
+
+
+class SetVAE(nn.Module):
+    """Point-cloud VAE: Chamfer + beta * KL."""
+
+    def __init__(self, latent_channel=128, num_points=2048, beta=1.0, d_model=256,
+                 num_heads=4, num_encoder_layers=2, num_decoder_layers=2, ff_dim=512,
+                 attn_dropout=0.0, mixed_precision=False, generator=None):
+        super().__init__()
+        self.latent_channel = latent_channel
+        self.beta = beta
+        cd = torch.bfloat16 if mixed_precision else None
+        self.encoder = SetEncoderAttn(latent_channel, d_model, num_heads, num_encoder_layers,
+                                      ff_dim, attn_dropout, cd, generator)
+        self.decoder = SetDecoderAttn(latent_channel, num_points, d_model, num_heads,
+                                      num_decoder_layers, ff_dim, attn_dropout, cd, generator)
+
+    def encode(self, x):
+        return self.encoder(x)
+
+    def decode(self, z):
+        return self.decoder(z)
+
+    @staticmethod
+    def _sample(mu, log_var, eps):
+        """z = mu + eps * exp(logvar / 2); z = mu when eps is None."""
+        return mu if eps is None else mu + eps * torch.exp(0.5 * log_var)
+
+    def forward(self, x, eps=None):
+        """Returns (recon, mu, logvar, z, z_recon=None)."""
+        mu, log_var = self.encode(x)
+        z = self._sample(mu, log_var, eps)
+        return self.decode(z), mu, log_var, z, None
+
+    def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):
+        """(total, recon, reg, lr) with reg the unscaled KL."""
+        loss_recon = best_chamfer(recon, x)
+        loss_reg = losses.kl_divergence(mu, log_var)
+        total = loss_recon + self.beta * loss_reg
+        return total, loss_recon, loss_reg, torch.zeros((), device=x.device)
+
+
+class SetLRVAE(SetVAE):
+    """SetVAE + latent reconstruction: decode from a detached z, re-encode,
+    add alpha * warmup * MSE(z, z_hat)."""
+
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = alpha
+
+    def forward(self, x, eps=None):
+        mu, log_var = self.encode(x)
+        z = self._sample(mu, log_var, eps)
+        recon = self.decode(z.detach())
+        z_recon, _ = self.encode(recon)
+        return recon, mu, log_var, z, z_recon
+
+    def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):
+        """(total, recon, beta * KL, alpha * warmup * latent-recon)."""
+        loss_recon = best_chamfer(recon, x)
+        loss_reg = losses.kl_divergence(mu, log_var)
+        loss_lr = losses.latent_recon_loss(z_input, z_recon)
+        total = loss_recon + self.beta * loss_reg + self.alpha * wu_alpha * loss_lr
+        return total, loss_recon, self.beta * loss_reg, self.alpha * wu_alpha * loss_lr

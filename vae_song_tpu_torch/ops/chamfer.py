@@ -1,0 +1,155 @@
+"""Symmetric Chamfer distance for point clouds (port of
+vae_song_tpu/ops/chamfer.py, forward only).
+
+Reference semantics: squared-L2 nearest-neighbour distances both ways,
+mean over points each way, sum the two means, mean over batch.
+
+  * `chamfer_distance` -- plain tiled PyTorch: the [B, N, N] distance
+    matrix never exists beyond one [B, T, N] tile. The off-kernel path.
+
+  * `chamfer_nn_packed` -- the port of the TPU kernel `_chamfer_kernel`
+    to a hand-written Hopper kernel (csrc/chamfer_fwd.cu): per query
+    point, ONE packed int32 min over `(bits(d2) & ~0x7FF) | j` gives the
+    min distance (truncated by <= 2^-12 relative) and the exact argmin
+    (lower index at ties). `chamfer_nn_packed_plain` is the same packed
+    computation in PyTorch.
+
+`best_chamfer` takes the kernel for CUDA clouds of at most MAX_PACKED_N
+points and the tiled path otherwise -- the JAX package's shape gate.
+"""
+
+import torch
+
+from vae_song_tpu_torch import _kernels
+
+_DENSE_LIMIT = 1024  # below this many points, build the full matrix
+MAX_PACKED_N = 2048  # 11 index bits
+_IDX_BITS = 0x7FF
+_VAL_MASK = ~0x7FF
+_PLAIN_TILE = 256    # query points per chunk of the plain packed version
+
+
+def _sq_dists(a, b):
+    """Squared pairwise distances [B, Na, Nb] by the inner-product
+    expansion, clamped at 0 (chamfer.py:_sq_dists)."""
+    a2 = (a * a).sum(-1)[..., :, None]
+    b2 = (b * b).sum(-1)[..., None, :]
+    ab = torch.einsum("bnd,bmd->bnm", a, b)
+    return torch.clamp(a2 + b2 - 2.0 * ab, min=0.0)
+
+
+def _min_dists_tiled(query, ref, tile: int):
+    """For each query point, min squared distance to ref. [B, Nq]."""
+    return torch.cat(
+        [_sq_dists(query[:, s:s + tile], ref).amin(dim=-1)
+         for s in range(0, query.shape[1], tile)],
+        dim=1,
+    )
+
+
+def chamfer_distance(points_pred, points_gt, tile: int = 512):
+    """Symmetric squared Chamfer distance, scalar (plain, tiled)."""
+    pred, gt = points_pred.float(), points_gt.float()
+    if max(pred.shape[1], gt.shape[1]) <= _DENSE_LIMIT:
+        d2 = _sq_dists(pred, gt)
+        min_p2g = d2.amin(dim=2)
+        min_g2p = d2.amin(dim=1)
+    else:
+        min_p2g = _min_dists_tiled(pred, gt, tile)
+        min_g2p = _min_dists_tiled(gt, pred, tile)
+    return (min_p2g.mean(dim=1) + min_g2p.mean(dim=1)).mean()
+
+
+def _packed_keys_plain(query, ref):
+    """[B, Nq] int32 packed keys of query against ref, in PyTorch."""
+    idx = torch.arange(ref.shape[1], dtype=torch.int32, device=ref.device)
+    keys = []
+    for s in range(0, query.shape[1], _PLAIN_TILE):
+        diff = query[:, s:s + _PLAIN_TILE, None, :] - ref[:, None, :, :]
+        dx, dy, dz = diff.unbind(-1)
+        # ((dx*dx) + (dy*dy)) + (dz*dz): the kernel's order, no FMA
+        d2 = (dx * dx + dy * dy) + dz * dz
+        k = (d2.view(torch.int32) & _VAL_MASK) | idx
+        keys.append(k.amin(dim=2))
+    return torch.cat(keys, dim=1)
+
+
+def _unpack(keys):
+    return (keys & _VAL_MASK).view(torch.float32), keys & _IDX_BITS
+
+
+def _check(pred, gt):
+    if pred.dim() != 3 or gt.dim() != 3 or pred.shape[2] != 3 or gt.shape[2] != 3:
+        raise ValueError(f"clouds must be [B, N, 3], got {tuple(pred.shape)}, {tuple(gt.shape)}")
+    if pred.shape[0] != gt.shape[0]:
+        raise ValueError(f"batch sizes differ: {pred.shape[0]} vs {gt.shape[0]}")
+    if pred.dtype != torch.float32 or gt.dtype != torch.float32:
+        raise TypeError(f"clouds must be float32, got {pred.dtype}, {gt.dtype}")
+    if pred.device != gt.device:
+        raise ValueError("clouds must lie on one device")
+    if max(pred.shape[1], gt.shape[1]) > MAX_PACKED_N:
+        raise ValueError(
+            f"packed keys hold indices below {MAX_PACKED_N + 1}; got clouds of "
+            f"{pred.shape[1]} and {gt.shape[1]} points"
+        )
+    if min(pred.shape[1], gt.shape[1]) == 0:
+        raise ValueError("clouds must hold at least one point")
+
+
+def chamfer_nn_packed_plain(pred, gt):
+    """Plain PyTorch version of the kernel: (minp, argp, ming, argg)."""
+    _check(pred, gt)
+    minp, argp = _unpack(_packed_keys_plain(pred, gt))
+    ming, argg = _unpack(_packed_keys_plain(gt, pred))
+    return minp, argp, ming, argg
+
+
+def _launch_keys(query, ref):
+    b, nq, _ = query.shape
+    keys = torch.empty((b, nq), dtype=torch.int32, device=query.device)
+    _kernels.launch(
+        "vst_chamfer_nn_packed", query.device,
+        query.data_ptr(), ref.data_ptr(), keys.data_ptr(), b, nq, ref.shape[1],
+    )
+    chamfer_nn_packed.launches += 1
+    return keys
+
+
+def chamfer_nn_packed(pred, gt):
+    """Nearest-neighbour minima and argminima both ways, from packed keys.
+
+    pred [B, Np, 3], gt [B, Ng, 3] float32, Np, Ng <= 2048. Returns
+    (minp [B, Np] f32, argp [B, Np] int32, ming [B, Ng] f32, argg [B, Ng]
+    int32), the outputs of the JAX `_chamfer_pallas_fwd_impl`. CUDA
+    tensors launch the Hopper kernel twice (pred -> gt, gt -> pred); CPU
+    tensors take the plain version. `chamfer_nn_packed.launches` counts
+    kernel launches."""
+    _check(pred, gt)
+    if pred.device.type == "cpu":
+        return chamfer_nn_packed_plain(pred, gt)
+    _kernels.check_device(pred)
+    if pred.requires_grad or gt.requires_grad:
+        raise NotImplementedError(
+            "chamfer_nn_packed has no backward kernel yet; call it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
+    if not (pred.is_contiguous() and gt.is_contiguous()):
+        raise ValueError("the Chamfer kernel reads contiguous [B, N, 3] clouds")
+    minp, argp = _unpack(_launch_keys(pred, gt))
+    ming, argg = _unpack(_launch_keys(gt, pred))
+    return minp, argp, ming, argg
+
+
+chamfer_nn_packed.launches = 0
+
+
+def best_chamfer(points_pred, points_gt):
+    """The kernel for CUDA clouds of at most MAX_PACKED_N points, else the
+    plain tiled path. The kernel's value is truncated by <= 2^-12
+    relative."""
+    if points_pred.device.type == "cuda" and max(
+        points_pred.shape[1], points_gt.shape[1]
+    ) <= MAX_PACKED_N:
+        minp, _, ming, _ = chamfer_nn_packed(points_pred.float(), points_gt.float())
+        return (minp.mean(dim=1) + ming.mean(dim=1)).mean()
+    return chamfer_distance(points_pred, points_gt)
