@@ -1,0 +1,128 @@
+"""Device-time breakdown of the PyTorch port's train step on one CUDA
+card, at the shipped ShapeNet configs (SetVAE at B = 64, SetLRVAE at
+its config's B = 16; random weights from a seed, fake clouds).
+
+    python scripts/profile_torch_step.py
+
+Prints the card's name and power limit, then for each model the median
+ms/step without the profiler (host clock, each step ending in a scalar
+fetch) and, from torch.profiler over PROFILED steps, the kernel time per
+step grouped into classes and the top kernels. Only kernel events count
+(not the op ranges that enclose them). The device's idle share is given
+two ways: 1 - busy / (wall time of the profiled steps), where busy is
+the union of the kernel intervals; and 1 - busy / (unprofiled ms/step),
+since the profiler slows the host's launches and so inflates the first
+where the host holds the device back.
+"""
+
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+sys.path.insert(0, ".")
+import chip_smoke as cs  # noqa: E402
+from vae_song_tpu_torch.data.shapenet import fake_point_clouds  # noqa: E402
+from vae_song_tpu_torch.models.registry import build_model  # noqa: E402
+from vae_song_tpu_torch.train.state import make_optimizer  # noqa: E402
+from vae_song_tpu_torch.train.steps import make_train_step  # noqa: E402
+
+PROFILED, TIMED = 4, 8
+CLASSES = (
+    ("K2 attention backward", ("attn_bwd_dkdv", "attn_bwd_dq", "attn_bwd_delta")),
+    ("K1 attention forward", ("dense_attn_fwd",)),
+    ("K4 Chamfer forward", ("chamfer_nn_packed",)),
+    ("K5 Chamfer backward", ("chamfer_bwd",)),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv")),
+    ("LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),
+    ("Adam (foreach)", ("multi_tensor", "foreach")),
+    ("reductions (bias grads, sums)", ("reduce_kernel",)),
+    ("dtype casts / copies", ("copy_kernel", "direct_copy")),
+    ("adds", ("CUDAFunctor_add",)),
+)
+
+
+def classify(name):
+    for label, keys in CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other elementwise"
+
+
+def run(exp_type, params, batch, dev):
+    n, latent = params["num_points"], params["latent_channel"]
+    model = build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
+                        alpha=params.get("alpha_list", [0.01])[0],
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
+    total = 3 + TIMED + PROFILED
+    x_all, _ = fake_point_clouds(batch * total, n, seed=4)
+    xs = torch.from_numpy(x_all).to(dev).view(total, batch, n, 3)
+    eps = torch.randn(total, batch, latent, generator=torch.Generator().manual_seed(5)).to(dev)
+    for i in range(3):
+        float(step(xs[i], eps[i], 0.5)["loss"])
+    times = []
+    for i in range(3, 3 + TIMED):
+        t0 = time.perf_counter()
+        float(step(xs[i], eps[i], 0.5)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3 + TIMED, total):
+            float(step(xs[i], eps[i], 0.5)["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events, without the GPU ranges of user annotations
+    # (Optimizer.step) that enclose kernels
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    per_class, per_name, spans = {}, {}, []
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        label = classify(e.name)
+        per_class[label] = per_class.get(label, 0.0) + us
+        c, t = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, t + us)
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    dev_ms = sum(per_class.values()) / 1e3 / PROFILED
+    busy_ms, unprofiled = busy / 1e3 / PROFILED, statistics.median(times)
+    print(f"== {exp_type} B={batch} N={n} bf16: {unprofiled:.3f} ms/step unprofiled "
+          f"(median of {TIMED}, host clock, scalar fetch); profiled wall {wall / PROFILED:.3f} "
+          f"ms/step; kernel time {dev_ms:.3f} ms/step in {len(kernels) // PROFILED} kernels; "
+          f"device busy {busy_ms:.3f} ms/step, idle {100 * (1 - busy_ms * PROFILED / wall):.1f}% "
+          f"of the profiled wall, {100 * (1 - busy_ms / unprofiled):.1f}% of the unprofiled step")
+    for label, us in sorted(per_class.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / PROFILED
+        print(f"    {ms:9.4f} ms  {100 * ms / dev_ms:5.1f}%  {label}")
+    print("  -- top kernels")
+    for name, (c, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:25]:
+        print(f"    {us / 1e3 / PROFILED:9.4f} ms  x{c // PROFILED:<4d} {name[:110]}")
+
+
+def main():
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev)
+    run("setlrvae", dict(cs.MODEL_PARAMS, **cs.SETLRVAE_PARAMS), cs.SETLRVAE_BATCH, dev)
+
+
+if __name__ == "__main__":
+    main()

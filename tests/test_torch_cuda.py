@@ -52,10 +52,100 @@ def test_dense_attention_reads_strided_heads(dev):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-def test_dense_attention_refuses_grad(dev):
-    q = torch.randn(1, 128, 2, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        denseattn.dense_attention_fwd(q, q, q, 0.125)
+def _attn_bwd_inputs(dev, b, n, h, dtype, strided, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if strided:       # q/k/v as views of one packed projection, as the model gives them
+        qkv = (torch.randn(b, n, 3 * h * 64, generator=gen, device=dev) * 2).to(dtype)
+        q, k, v = (qkv[..., i * h * 64:(i + 1) * h * 64].view(b, n, h, 64) for i in range(3))
+    else:
+        q, k, v = ((torch.randn(b, n, h * 64, generator=gen, device=dev) * s).to(dtype)
+                   .view(b, n, h, 64) for s in (2.0, 2.0, 1.0))
+    do = torch.randn(b, n, h, 64, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,n,h,dtype,strided", [
+    (1, 2048, 4, torch.bfloat16, False), (2, 256, 2, torch.bfloat16, True),
+    (3, 128, 6, torch.bfloat16, False), (2, 256, 2, torch.float32, True),
+])
+def test_dense_attention_bwd_kernel_matches_plain(dev, b, n, h, dtype, strided):
+    q, k, v, do = _attn_bwd_inputs(dev, b, n, h, dtype, strided, seed=n + h)
+    o, lse = denseattn.dense_attention_fwd(q, k, v, 0.125)
+    before = denseattn.dense_attention_bwd.launches
+    got = denseattn.dense_attention_bwd(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert denseattn.dense_attention_bwd.launches == before + 1
+    want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    # bf16: a rounded exp2 argument or dP one bf16 ulp apart (see
+    # chip_smoke.py); f32: summation order only
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+
+
+def test_dense_attention_grads_through_kernels(dev):
+    """Autograd through the Function: K1 forward, K2 backward, against
+    autograd through the plain forward, f32."""
+    qkv = torch.randn(2, 256, 3 * 128, device=dev, requires_grad=True)
+    w = torch.randn(2, 256, 2, 64, device=dev)
+    views = lambda t: [t[..., i * 128:(i + 1) * 128].view(2, 256, 2, 64) for i in range(3)]
+    before = denseattn.dense_attention_bwd.launches
+    o, _ = denseattn.dense_attention_fwd(*views(qkv), 0.125)
+    (got,) = torch.autograd.grad((o * w).sum(), qkv)
+    assert denseattn.dense_attention_bwd.launches == before + 1
+    o_ref, _ = denseattn.dense_attention_fwd_plain(*views(qkv), 0.125)
+    (want,) = torch.autograd.grad((o_ref * w).sum(), qkv)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("b,n,dup", [(64, 2048, False), (8, 128, True)])
+def test_chamfer_bwd_kernel_matches_plain(dev, b, n, dup):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    pred = torch.randn(b, n, 3, generator=gen, device=dev)
+    gt = torch.randn(b, n, 3, generator=gen, device=dev)
+    if dup:           # many gt points share a nearest pred point
+        gt[:, : n // 2] = pred[:, :4].repeat(1, n // 8, 1) + 1e-3
+    _, argp, _, argg = chamfer.chamfer_nn_packed(pred, gt)
+    before = chamfer.chamfer_bwd.launches
+    got = chamfer.chamfer_bwd(pred, gt, argp, argg)
+    torch.cuda.synchronize()
+    assert chamfer.chamfer_bwd.launches == before + 1
+    want = chamfer.chamfer_bwd_plain(pred, gt, argp, argg)
+    # the plain version's index_add adds with atomics in another order
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+    again = chamfer.chamfer_bwd(pred, gt, argp, argg)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))     # run to run
+
+
+def test_train_step_runs_the_kernels(dev):
+    """One SetVAE train step on the card: finite loss terms, every
+    parameter with a gradient moved, and each of K1, K2, K4, K5
+    launched."""
+    from vae_song_tpu_torch.models.registry import build_model
+    from vae_song_tpu_torch.train.state import make_optimizer
+    from vae_song_tpu_torch.train.steps import make_train_step
+
+    mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
+              num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
+    model = build_model("setvae", "shapenet", mp, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
+    counters = (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
+                chamfer.chamfer_nn_packed, chamfer.chamfer_bwd)
+    start = [f.launches for f in counters]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = step(torch.randn(4, 256, 3, generator=gen, device=dev),
+               torch.randn(4, 16, generator=gen, device=dev))
+    assert all(math.isfinite(float(v)) for v in out.values())
+    # 2 encoder + 2 decoder self-attentions; the Chamfer forward is 2 launches
+    assert [f.launches - s for f, s in zip(counters, start)] == [4, 4, 2, 1]
+    for name, p in model.named_parameters():
+        # a key bias has an analytically zero gradient (roundoff only)
+        if p.grad is not None and not name.endswith("key.bias"):
+            assert not torch.equal(p.detach(), before[name]), name
 
 
 @pytest.mark.parametrize("b,np_,ng", [(64, 2048, 2048), (3, 1000, 77), (2, 5, 2048)])

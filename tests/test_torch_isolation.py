@@ -57,14 +57,24 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_chip_smoke_model_params_are_the_shipped_config():
+    """MODEL_PARAMS and COMMON_PARAMS are the SetVAE config's; MODEL_PARAMS
+    updated with SETLRVAE_PARAMS, and SETLRVAE_BATCH, are the SetLRVAE
+    config's."""
     tree = ast.parse(open(SMOKE).read())
-    literal = next(
-        node.value for node in tree.body
-        if isinstance(node, ast.Assign) and any(
-            isinstance(t, ast.Name) and t.id == "MODEL_PARAMS" for t in node.targets)
-    )
+
+    def literal(name):
+        return ast.literal_eval(next(
+            node.value for node in tree.body
+            if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets)
+        ))
+
     config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
-    assert ast.literal_eval(literal) == config["model_params"]
+    assert literal("MODEL_PARAMS") == config["model_params"]
+    assert literal("COMMON_PARAMS") == config["common_params"]
+    lr_config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setlrvae.yaml"))
+    assert dict(literal("MODEL_PARAMS"), **literal("SETLRVAE_PARAMS")) == lr_config["model_params"]
+    assert literal("SETLRVAE_BATCH") == lr_config["common_params"]["batch_size"]
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

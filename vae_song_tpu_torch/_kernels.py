@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
 At first use, `nvcc` compiles every source under `csrc/` for Hopper
-(sm_90a) into one shared library with a plain C interface, and ctypes
-loads it. The library lands in `build/cuda/` at the root of the checkout
+(sm_90a), one compiler process per `.cu` file, all started together,
+then links the objects into one shared library with a plain C interface,
+which ctypes loads. The library lands in `build/cuda/` at the root of the checkout
 (listed in .gitignore), named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached file.
 Nothing builds at import time: the CPU tests import every module of the
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -37,7 +38,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "vst_dense_attn_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _P),
+    "vst_dense_attn_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _F, _F, _P),
     "vst_chamfer_nn_packed": (_P, _P, _P, _I, _I, _I, _P),
+    "vst_chamfer_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -65,24 +69,45 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/ unless the library for these sources exists. The
-    compiler's output, ptxas register and shared-memory counts included,
+    """Compile csrc/ unless the library for these sources exists: one
+    `nvcc -c` per `.cu` file, run in parallel, then one link. The
+    compilers' output, ptxas register and shared-memory counts included,
     is kept in build/cuda/build.log."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-        capture_output=True, text=True, check=False,
-    )
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr[-4000:]}"
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cu, obj in zip(cus, objs)
+    ]
+    logs, failed = [], []
+    for cu, proc in zip(cus, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {cu.name} (exit {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(cu.name)
+    tmp = so.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True, check=False,
         )
+        logs.append(f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    (BUILD_DIR / "build.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log[-6000:]}")
     os.replace(tmp, so)
     return so
 

@@ -1,0 +1,97 @@
+"""Experiment CLI of the PyTorch port (port of
+vae_song_tpu/cli/main.py for the set models):
+
+    python -m vae_song_tpu_torch.cli.main --config configs/config_shapenet_setvae.yaml \\
+        --fake_data [--device cpu]
+
+Loads the YAML, sweeps the hyperparameter grid of `experiment_type`
+(setvae, setlrvae) and runs `train_and_test` for every sweep point, with
+weights drawn from a CPU torch.Generator seeded with the point's seed.
+The device defaults to CUDA; `--device cpu` trains with the plain
+PyTorch versions of the kernels.
+"""
+
+import argparse
+
+import torch
+
+from vae_song_tpu_torch.config import load_config, resolve_names, sweep_grid
+from vae_song_tpu_torch.models.registry import build_model
+from vae_song_tpu_torch.train.loop import train_and_test
+
+
+def run_experiment(config_path: str, output_root: str = ".", seed: int = 42,
+                   fake_data: bool = False, profile_dir: str | None = None,
+                   resume_from: str | None = None, data_parallel: bool = False,
+                   checkpoint_every: int | None = None, device="cuda"):
+    config = load_config(config_path)
+    exp_type = config["experiment_type"]
+    common = config["common_params"]
+    mp = config["model_params"]
+    logfilename, resultname = resolve_names(config)
+    dataset_params = dict(common.get("dataset_params") or {})
+    if fake_data:
+        dataset_params["fake"] = True
+
+    results = []
+    for point in sweep_grid(config):
+        point_seed = seed + point["rep"]
+        model = build_model(
+            exp_type, common["exp_data"], mp, beta=point["beta"], alpha=point["alpha"],
+            generator=torch.Generator().manual_seed(point_seed),
+        )
+        _, summary = train_and_test(
+            model,
+            epochs=common["exp_epochs"],
+            batch_size=common["batch_size"],
+            dataset_name=common["exp_data"],
+            logfilename=logfilename,
+            resultname=resultname,
+            pt_param=common.get("pt_param"),
+            num_mc_samples=mp.get("num_mc_samples", 1),
+            grad_clip=common.get("grad_clip"),
+            wu_strat=common.get("wu_strat", "linear"),
+            seed=point_seed,
+            dataset_params=dataset_params,
+            output_root=output_root,
+            profile_dir=profile_dir,
+            resume_from=resume_from,
+            data_parallel=data_parallel,
+            checkpoint_every=checkpoint_every,
+            native_prefetch=bool(common.get("native_prefetch", False)),
+            pipeline_parallel=int(mp.get("pipeline_parallel", 0)),
+            expert_parallel=bool(mp.get("expert_parallel", False)),
+            tensor_parallel=int(mp.get("tensor_parallel", 0)),
+            sequence_parallel=int(mp.get("sequence_parallel", 0)),
+            sequence_parallel_ring=bool(mp.get("sequence_parallel_ring", False)),
+            fsdp=bool(mp.get("fsdp", False)),
+            async_checkpoint=bool(common.get("async_checkpoint", False)),
+            grad_accum=int(common.get("grad_accum", 0)),
+            device=device,
+        )
+        results.append(summary)
+    return results
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="vae_song_tpu_torch experiment CLI")
+    parser.add_argument("--config", type=str,
+                        default="./configs/config_shapenet_setvae.yaml",
+                        help="config file path")
+    parser.add_argument("--output_root", type=str, default=".")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--fake_data", action="store_true",
+                        help="use synthetic stand-in clouds instead of a dataset directory")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cpu", "cuda"])
+    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--resume_from", type=str, default=None)
+    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--checkpoint_every", type=int, default=None)
+    args = parser.parse_args(argv)
+    return run_experiment(args.config, args.output_root, args.seed, args.fake_data,
+                          args.profile_dir, args.resume_from, args.data_parallel,
+                          args.checkpoint_every, args.device)
+
+
+if __name__ == "__main__":
+    main()

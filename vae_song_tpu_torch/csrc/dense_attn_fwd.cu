@@ -38,7 +38,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using vst::acc_to_a;
+using vst::exp2_bf16;
+using vst::ld_u32;
+using vst::load_a_rows;
+using vst::mma_16816;
+using vst::pack_bf16;
 
 constexpr int kD = 64;            // head width
 constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
@@ -47,29 +56,6 @@ constexpr int kThreads = 128;
 // Rows padded by 8 bf16 (16 bytes): 72-element rows put the 8 row groups
 // of a fragment load on distinct banks.
 constexpr int kLds = kD + 8;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -117,16 +103,7 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   uint32_t qa[kD / 16][4];
-  {
-    const int r = warp * 16 + g;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = ld_u32(&qs[r][kk * 16 + 2 * t]);
-      qa[kk][1] = ld_u32(&qs[r + 8][kk * 16 + 2 * t]);
-      qa[kk][2] = ld_u32(&qs[r][kk * 16 + 2 * t + 8]);
-      qa[kk][3] = ld_u32(&qs[r + 8][kk * 16 + 2 * t + 8]);
-    }
-  }
+  load_a_rows<kLds>(qs, warp * 16, g, t, qa);
 
   float acc[kD / 8][4];
 #pragma unroll
@@ -176,10 +153,10 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = round_bf16(exp2f(round_bf16(s[nt][0] - n0)));
-      s[nt][1] = round_bf16(exp2f(round_bf16(s[nt][1] - n0)));
-      s[nt][2] = round_bf16(exp2f(round_bf16(s[nt][2] - n1)));
-      s[nt][3] = round_bf16(exp2f(round_bf16(s[nt][3] - n1)));
+      s[nt][0] = exp2_bf16(s[nt][0] - n0);
+      s[nt][1] = exp2_bf16(s[nt][1] - n0);
+      s[nt][2] = exp2_bf16(s[nt][2] - n1);
+      s[nt][3] = exp2_bf16(s[nt][3] - n1);
       ps0 += s[nt][0] + s[nt][1];
       ps1 += s[nt][2] + s[nt][3];
     }
@@ -198,10 +175,7 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kc = 0; kc < kBlockK / 16; ++kc) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      acc_to_a(s, kc, pa);
 #pragma unroll
       for (int dt = 0; dt < kD / 8; ++dt) {
         const __nv_bfloat16* vr = &vt[dt * 8 + g][kc * 16 + 2 * t];

@@ -1,0 +1,74 @@
+// bf16 helpers shared by the attention forward (dense_attn_fwd.cu) and
+// backward (dense_attn_bwd.cu): the same mma.sync fragments and the same
+// exp2 rounding, so P is computed by one code path in both directions.
+//
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) fragment layouts, lane =
+// 4 g + t:
+//   A (16x16, row): a0 = A[g][2t..2t+1],  a1 = A[g+8][2t..2t+1],
+//                   a2 = A[g][2t+8..],    a3 = A[g+8][2t+8..]
+//   B (16x8, col):  b0 = B[2t..2t+1][g],  b1 = B[2t+8..2t+9][g]
+//   C (16x8):       c0, c1 = C[g][2t, 2t+1],  c2, c3 = C[g+8][2t, 2t+1]
+// So the accumulator of two neighbouring 8-column n-tiles is the A
+// operand of one 16-deep product, without going through shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace vst {
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// P = exp2 of the bf16-rounded base-2 logit, rounded to bf16: the
+// roundings of the TPU kernel's bf16 softmax pass (denseattn.py:422, 468).
+__device__ __forceinline__ float exp2_bf16(float s_minus_m) {
+  return round_bf16(exp2f(round_bf16(s_minus_m)));
+}
+
+// A fragment of one 16-deep chunk kc of a 16 x 64 accumulator block
+// (8 n-tiles of 8 columns): columns 16 kc .. 16 kc + 15.
+__device__ __forceinline__ void acc_to_a(const float c[][4], int kc, uint32_t a[4]) {
+  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
+  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
+  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
+  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// A fragments of rows r0 .. r0 + 15 of a [rows][ld] bf16 shared tile,
+// 64 columns wide (4 chunks of 16).
+template <int LD>
+__device__ __forceinline__ void load_a_rows(const __nv_bfloat16 (*tile)[LD], int r0,
+                                            int g, int t, uint32_t a[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t]);
+    a[kk][1] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t]);
+    a[kk][2] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t + 8]);
+    a[kk][3] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t + 8]);
+  }
+}
+
+}  // namespace vst

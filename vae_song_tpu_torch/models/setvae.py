@@ -1,5 +1,6 @@
 """SetVAE / SetLRVAE for 3-D point clouds, transformer encoder and
-decoder (port of vae_song_tpu/models/setvae.py, inference path).
+decoder (port of vae_song_tpu/models/setvae.py:406-583, the attention
+models, for evaluation and training).
 
 The transformer layers follow torch's nn.TransformerEncoderLayer /
 nn.TransformerDecoderLayer defaults as the JAX package does: post-norm
@@ -15,6 +16,13 @@ of the encoder is f32 + bf16 = f32.
 
 Randomness is explicit: `forward(x, eps)` takes the reparameterisation
 noise, and `decode(z)` the latent.
+
+Training mode computes what evaluation computes (the shipped configs
+have no dropout); gradients follow the JAX package: SetLRVAE decodes
+from `z.detach()` (its `stop_gradient`), and the decoder's first
+self-attention, run once at batch 1 and broadcast with `expand`,
+receives the cotangent summed over the batch, so its backward runs at
+B = 1 too.
 
 The DeepSets SetEncoder / SetDecoder (BatchNorm) are not ported yet.
 """
@@ -135,11 +143,14 @@ class SetDecoderAttn(nn.Module):
 class SetVAE(nn.Module):
     """Point-cloud VAE: Chamfer + beta * KL."""
 
+    data_type = "set"
+
     def __init__(self, latent_channel=128, num_points=2048, beta=1.0, d_model=256,
                  num_heads=4, num_encoder_layers=2, num_decoder_layers=2, ff_dim=512,
                  attn_dropout=0.0, mixed_precision=False, generator=None):
         super().__init__()
         self.latent_channel = latent_channel
+        self.num_points = num_points
         self.beta = beta
         cd = torch.bfloat16 if mixed_precision else None
         self.encoder = SetEncoderAttn(latent_channel, d_model, num_heads, num_encoder_layers,

@@ -1,5 +1,6 @@
 """torch-style multi-head attention (port of
-vae_song_tpu/ops/attention.py:MultiHeadAttention, forward only).
+vae_song_tpu/ops/attention.py:MultiHeadAttention, the JAX :311 path
+without sequence parallelism).
 
 Separate query/key/value/out projections with torch
 nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
@@ -7,12 +8,17 @@ nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
   1. kv length 1 (the set decoder's cross-attention to its latent
      token): softmax over one key is identically 1, so the output is the
      value projection broadcast over the queries. Only the value and out
-     projections run; the query/key parameters exist but are unused.
+     projections run; the query/key parameters exist but are unused, so
+     they get no gradient and the optimizer leaves them as they are (the
+     JAX package gives them zero gradients, which optax's Adam turns into
+     zero updates).
   2. shapes the JAX package sends to its packed kernel (`packed_ok`):
-     the dense attention forward (ops/denseattn.py), which launches the
-     Hopper kernel on CUDA tensors.
+     dense attention (ops/denseattn.py), differentiable through its
+     autograd Function: the K1 forward and K2 backward kernels on CUDA
+     tensors.
   3. everything else: plain attention with bf16 matmuls and an f32
-     softmax, as the JAX package's `_xla_attention`.
+     softmax, as the JAX package's `_xla_attention`, differentiated by
+     autograd.
 """
 
 import math

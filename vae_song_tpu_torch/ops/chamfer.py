@@ -1,5 +1,5 @@
 """Symmetric Chamfer distance for point clouds (port of
-vae_song_tpu/ops/chamfer.py, forward only).
+vae_song_tpu/ops/chamfer.py).
 
 Reference semantics: squared-L2 nearest-neighbour distances both ways,
 mean over points each way, sum the two means, mean over batch.
@@ -14,8 +14,21 @@ mean over points each way, sum the two means, mean over batch.
     (lower index at ties). `chamfer_nn_packed_plain` is the same packed
     computation in PyTorch.
 
-`best_chamfer` takes the kernel for CUDA clouds of at most MAX_PACKED_N
-points and the tiled path otherwise -- the JAX package's shape gate.
+  * `chamfer_bwd` -- the port of the TPU kernel `_chamfer_bwd_kernel`
+    (csrc/chamfer_bwd.cu): the gradient routed through the saved
+    argmins, one thread per output point, no atomics.
+    `chamfer_bwd_plain` ports `_chamfer_bwd_xla` (gather, then
+    `index_add`).
+
+  * `chamfer_distance_packed` -- a torch.autograd.Function: forward from
+    the packed keys (the kernel's value), backward through
+    `chamfer_bwd`, scaled by the incoming gradient and cast to the
+    clouds' dtype (`_chamfer_bwd`).
+
+`best_chamfer` takes `chamfer_distance_packed` for CUDA clouds of at
+most MAX_PACKED_N points and the tiled path otherwise -- the JAX
+package's shape gate, not a fallback: larger clouds do not fit the
+packed key's 11 index bits.
 """
 
 import torch
@@ -128,11 +141,6 @@ def chamfer_nn_packed(pred, gt):
     if pred.device.type == "cpu":
         return chamfer_nn_packed_plain(pred, gt)
     _kernels.check_device(pred)
-    if pred.requires_grad or gt.requires_grad:
-        raise NotImplementedError(
-            "chamfer_nn_packed has no backward kernel yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
     if not (pred.is_contiguous() and gt.is_contiguous()):
         raise ValueError("the Chamfer kernel reads contiguous [B, N, 3] clouds")
     minp, argp = _unpack(_launch_keys(pred, gt))
@@ -143,13 +151,95 @@ def chamfer_nn_packed(pred, gt):
 chamfer_nn_packed.launches = 0
 
 
+def _scatter_add(base, idx, updates):
+    """base [B, N, 3] plus updates [B, M, 3] added at rows idx [B, M]
+    (`base.at[bidx, idx].add(updates)`)."""
+    b, n, _ = base.shape
+    flat = (idx + torch.arange(b, device=idx.device)[:, None] * n).reshape(-1)
+    return base.reshape(b * n, 3).index_add(0, flat, updates.reshape(-1, 3)).view(b, n, 3)
+
+
+def chamfer_bwd_plain(pred, gt, argp, argg):
+    """Plain PyTorch version of the backward kernel, the port of
+    `_chamfer_bwd_xla`: (d_pred, d_gt) of the Chamfer value for an
+    incoming gradient of 1, f32."""
+    b, np_, _ = pred.shape
+    ng = gt.shape[1]
+    argp, argg = argp.long(), argg.long()
+    nn_g = torch.gather(gt, 1, argp[..., None].expand(-1, -1, 3))      # gt_{argp_i}
+    d_pred_1 = 2.0 * (pred - nn_g) / (b * np_)
+    nn_p = torch.gather(pred, 1, argg[..., None].expand(-1, -1, 3))    # pred_{argg_j}
+    diff_g = 2.0 * (gt - nn_p) / (b * ng)
+    return _scatter_add(d_pred_1, argg, -diff_g), _scatter_add(diff_g, argp, -d_pred_1)
+
+
+def _check_bwd(pred, gt, argp, argg):
+    _check(pred, gt)
+    b, np_, _ = pred.shape
+    ng = gt.shape[1]
+    if argp.shape != (b, np_) or argg.shape != (b, ng):
+        raise ValueError(f"argp / argg must be [B, Np] / [B, Ng], got "
+                         f"{tuple(argp.shape)}, {tuple(argg.shape)}")
+    if argp.dtype != torch.int32 or argg.dtype != torch.int32:
+        raise TypeError(f"argp / argg must be int32, got {argp.dtype}, {argg.dtype}")
+
+
+def chamfer_bwd(pred, gt, argp, argg):
+    """(d_pred, d_gt) f32 of the Chamfer value through the forward's
+    argmins (argp: pred -> gt, argg: gt -> pred, int32), for an incoming
+    gradient of 1. CUDA tensors launch the Hopper kernel; CPU tensors take
+    the plain version. `chamfer_bwd.launches` counts kernel launches."""
+    _check_bwd(pred, gt, argp, argg)
+    if pred.device.type == "cpu":
+        return chamfer_bwd_plain(pred, gt, argp, argg)
+    _kernels.check_device(pred)
+    pred, gt, argp, argg = (t.contiguous() for t in (pred, gt, argp, argg))
+    b, np_, _ = pred.shape
+    ng = gt.shape[1]
+    dpred, dgt = torch.empty_like(pred), torch.empty_like(gt)
+    _kernels.launch(
+        "vst_chamfer_bwd", pred.device,
+        pred.data_ptr(), gt.data_ptr(), argp.data_ptr(), argg.data_ptr(),
+        dpred.data_ptr(), dgt.data_ptr(), b, np_, ng,
+    )
+    chamfer_bwd.launches += 1
+    return dpred, dgt
+
+
+chamfer_bwd.launches = 0
+
+
+class _PackedChamfer(torch.autograd.Function):
+    """Forward from the packed keys (K4), backward through the argmins (K5)."""
+
+    @staticmethod
+    def forward(ctx, pred, gt, save):
+        minp, argp, ming, argg = chamfer_nn_packed(pred, gt)
+        if save:
+            ctx.save_for_backward(pred, gt, argp, argg)
+        return (minp.mean(dim=1) + ming.mean(dim=1)).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, gt, argp, argg = ctx.saved_tensors
+        d_pred, d_gt = chamfer_bwd(pred, gt, argp, argg)
+        return g * d_pred.to(pred.dtype), g * d_gt.to(gt.dtype), None
+
+
+def chamfer_distance_packed(points_pred, points_gt):
+    """Chamfer value from the packed keys (truncated by <= 2^-12 relative),
+    differentiable through the argmins: the port of
+    `chamfer_distance_pallas` and its custom VJP."""
+    pred, gt = points_pred.float().contiguous(), points_gt.float().contiguous()
+    save = torch.is_grad_enabled() and (pred.requires_grad or gt.requires_grad)
+    return _PackedChamfer.apply(pred, gt, save)
+
+
 def best_chamfer(points_pred, points_gt):
-    """The kernel for CUDA clouds of at most MAX_PACKED_N points, else the
-    plain tiled path. The kernel's value is truncated by <= 2^-12
-    relative."""
+    """`chamfer_distance_packed` for CUDA clouds of at most MAX_PACKED_N
+    points (K4 forward, K5 backward), else the plain tiled path."""
     if points_pred.device.type == "cuda" and max(
         points_pred.shape[1], points_gt.shape[1]
     ) <= MAX_PACKED_N:
-        minp, _, ming, _ = chamfer_nn_packed(points_pred.float(), points_gt.float())
-        return (minp.mean(dim=1) + ming.mean(dim=1)).mean()
+        return chamfer_distance_packed(points_pred, points_gt)
     return chamfer_distance(points_pred, points_gt)

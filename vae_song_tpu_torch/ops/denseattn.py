@@ -1,8 +1,10 @@
-"""Dense attention forward: the port of vae_song_tpu/ops/denseattn.py's
-packed kernel (`_fwd_kernel_packed`) to a hand-written Hopper kernel
-(csrc/dense_attn_fwd.cu), with its plain PyTorch version beside it.
+"""Dense attention: the port of vae_song_tpu/ops/denseattn.py's packed
+kernels, the forward (`_fwd_kernel_packed`, K1) and the backward
+(`_bwd_kernel_packed`, K2), to hand-written Hopper kernels
+(csrc/dense_attn_fwd.cu, csrc/dense_attn_bwd.cu), each with its plain
+PyTorch version beside it.
 
-Both compute, per (batch, head):
+The forward computes, per (batch, head):
 
     qc   = round_to_input_dtype(q * scale * log2e)
     S2   = qc k^T                          (f32 accumulation)
@@ -21,8 +23,19 @@ kernel's `lse_a` / `lse_b` [B, H/2, N, 1] are heads 2j and 2j + 1 of it.
 The kernel keeps an online softmax (running exact max), so under bf16 it
 rounds P against the running max where the plain version and the TPU
 kernel use the final row max: the two agree within bf16 rounding.
-Forward only: a CUDA input that requires grad raises until the backward
-kernel lands.
+
+The backward recomputes P from LSE2 and follows the TPU kernel's
+roundings (cd = bf16 for bf16 inputs, f32 for f32 inputs):
+
+    P     = exp2(round_cd(qc k^T - LSE2)), rounded to cd
+    dV    = P^T dO,  dP = round_cd(dO v^T),  delta = round_cd(rowsum(dO O))
+    dS    = round_cd(P * round_cd(dP - delta))
+    dQ    = (dS k) * scale,  dK = (dS^T qc) * ln2   (f32 sums, cast at the end)
+
+`dense_attention_fwd` is differentiable: it runs through a
+torch.autograd.Function whose forward is K1 and whose backward is K2 on
+CUDA tensors (the plain versions on CPU tensors). It saves q, k, v, O and
+LSE only when a gradient will be asked for.
 """
 
 import torch
@@ -33,6 +46,7 @@ from vae_song_tpu_torch import _kernels
 MAX_DENSE_SEQ = 2048
 HEAD_DIM = 64
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 # query rows per plain-version chunk: bounds the f32 [chunk, H, N, N]
 # score tensor (1 GiB at N = 2048, H = 4, chunk = 16)
 _PLAIN_BATCH_CHUNK = 16
@@ -86,14 +100,9 @@ def dense_attention_fwd_plain(q, k, v, scale: float):
     return torch.cat(outs), torch.cat(lses)
 
 
-def _launch(q, k, v, scale):
+def _check_kernel_operands(q, k, v):
     _kernels.check_device(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.requires_grad:
-            raise NotImplementedError(
-                "dense_attention_fwd has no backward kernel yet; call it under "
-                "torch.no_grad() or torch.inference_mode()"
-            )
         if t.stride() != q.stride():
             raise ValueError(f"{name} must have q's strides {q.stride()}, got {t.stride()}")
         if t.data_ptr() % 16 != 0:
@@ -104,7 +113,12 @@ def _launch(q, k, v, scale):
             f"q/k/v need unit stride on D and batch/row/head strides that are "
             f"multiples of 8 elements, got {q.stride()}"
         )
+
+
+def _launch_fwd(q, k, v, scale):
+    _check_kernel_operands(q, k, v)
     b, n, h, d = q.shape
+    sb, sn, sh, _ = q.stride()
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     ob, on, oh, _ = o.stride()
@@ -118,15 +132,102 @@ def _launch(q, k, v, scale):
     return o, lse
 
 
+def _forward(q, k, v, scale):
+    if q.device.type == "cpu":
+        return dense_attention_fwd_plain(q, k, v, scale)
+    return _launch_fwd(q, k, v, scale)
+
+
+def dense_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """Plain PyTorch version of the backward kernel: same function, same
+    roundings. q, k, v, o, do [B, N, H, D] in one dtype, lse [B, H, N]
+    f32 (the forward's). Returns (dq, dk, dv) [B, N, H, D] in q's dtype."""
+    _check(q, k, v)
+    dt = q.dtype
+    rd = lambda t: t.to(dt).float()                       # round to cd
+    qc = (q.float() * (scale * LOG2E)).to(dt)
+    delta = rd((do.float() * o.float()).sum(dim=-1))      # [B, N, H]
+    dqs, dks, dvs = [], [], []
+    for s0 in range(0, q.shape[0], _PLAIN_BATCH_CHUNK):
+        sl = slice(s0, s0 + _PLAIN_BATCH_CHUNK)
+        qf, kf, vf, dof = qc[sl].float(), k[sl].float(), v[sl].float(), do[sl].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+        p = rd(torch.exp2(rd(s - lse[sl][..., None])))
+        dp = rd(torch.einsum("bqhd,bkhd->bhqk", dof, vf))
+        ds = rd(p * rd(dp - delta[sl].permute(0, 2, 1)[..., None]))
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, dof).to(dt))
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(dt))
+        dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, qf) * LN2).to(dt))
+    return torch.cat(dqs), torch.cat(dks), torch.cat(dvs)
+
+
+def _launch_bwd(q, k, v, o, lse, do, scale):
+    _check_kernel_operands(q, k, v)
+    b, n, h, d = q.shape
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and dO must be {q.dtype}, got {o.dtype}, {do.dtype}")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, n):
+        raise ValueError("o and dO must be [B, N, H, D] and lse [B, H, N]")
+    # O comes contiguous from the forward kernel; dO from autograd may
+    # not: one stated copy gives it O's layout
+    o, do, lse = o.contiguous(), do.contiguous(), lse.float().contiguous()
+    dq, dk, dv = (torch.empty_like(o) for _ in range(3))
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    sb, sn, sh, _ = q.stride()
+    ob, on, oh, _ = o.stride()
+    _kernels.launch(
+        "vst_dense_attn_bwd", q.device,
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, sb, sn, sh, ob, on, oh,
+        float(scale * LOG2E), float(scale),
+    )
+    dense_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def dense_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """Gradients (dq, dk, dv) of dense attention from the forward's o and
+    lse and the output cotangent do. CUDA tensors launch the Hopper
+    kernel; CPU tensors take the plain version.
+    `dense_attention_bwd.launches` counts kernel launches."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    return _launch_bwd(q, k, v, o, lse, do, scale)
+
+
+dense_attention_bwd.launches = 0
+
+
+class _DenseAttention(torch.autograd.Function):
+    """Forward K1, backward K2 (or their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, save):
+        o, lse = _forward(q, k, v, scale)
+        ctx.scale = scale
+        if save:
+            ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = dense_attention_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def dense_attention_fwd(q, k, v, scale: float):
     """Dense attention forward on [B, N, H, 64] q/k/v (float32 or bfloat16,
     N a multiple of 64, any B >= 1). Returns (o [B, N, H, 64], lse [B, H, N]
-    f32). CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version. `dense_attention_fwd.launches` counts kernel launches."""
+    f32); o is differentiable in q, k, v (backward: `dense_attention_bwd`),
+    lse is not. CUDA tensors launch the Hopper kernel; CPU tensors take the
+    plain version. `dense_attention_fwd.launches` counts kernel launches."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return dense_attention_fwd_plain(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _DenseAttention.apply(q, k, v, scale, save)
 
 
 dense_attention_fwd.launches = 0

@@ -1,0 +1,154 @@
+"""Optimizer and train state (port of vae_song_tpu/train/state.py).
+
+The JAX package chains optax transformations: an optional gradient clip,
+then Adam (b1 0.9, b2 0.999, eps 1e-8) whose learning rate follows
+`optax.cosine_decay_schedule(lr, total_steps)`. The port keeps optax's
+semantics where they differ from torch's defaults:
+
+  * Adam: `torch.optim.Adam` computes optax's update (bias-corrected
+    moments, eps added to the square root), with its learning rate set
+    before every step from the schedule. A parameter without a gradient
+    (the kv-length-1 cross-attention's query/key projections) is left as
+    it is, as optax's Adam leaves a parameter whose gradient is zero.
+  * cosine schedule: step k (0-based) uses lr * 0.5 * (1 + cos(pi *
+    min(k, T) / T)).
+  * clip, norm_type 2: `optax.clip_by_global_norm`, which leaves the
+    gradients alone below max_norm and otherwise scales them by
+    max_norm / norm. This is NOT `torch.nn.utils.clip_grad_norm_`,
+    which scales by max_norm / (norm + 1e-6).
+  * clip, other norm_type: the JAX package's `clip_by_global_pnorm`
+    (torch's rule: min(1, max_norm / (p-norm + 1e-6))).
+  * clip, value: `optax.clip`, element-wise into [-v, v].
+  * an unknown clip_type raises.
+"""
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+def cosine_decay(lr: float, total_steps: int):
+    """`optax.cosine_decay_schedule(lr, total_steps)` as a function of the
+    0-based step count."""
+    if not total_steps > 0:
+        raise ValueError(f"cosine decay needs positive total_steps, got {total_steps}")
+
+    def schedule(step: int) -> float:
+        k = min(step, total_steps)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * k / total_steps))
+
+    return schedule
+
+
+def _grads(params):
+    return [p.grad for p in params if p.grad is not None]
+
+
+def global_pnorm(grads, p: float) -> torch.Tensor:
+    """Global p-norm over every gradient element (p = inf: the largest
+    absolute element)."""
+    flat = [g.float().reshape(-1) for g in grads]
+    if p == float("inf"):
+        return torch.stack([g.abs().max() for g in flat]).max()
+    return sum((g.abs() ** p).sum() for g in flat) ** (1.0 / p)
+
+
+def _clip_by_global_norm(max_norm: float):
+    @torch.no_grad()
+    def clip(grads):
+        if not grads:
+            return
+        norm = global_pnorm(grads, 2.0)
+        if norm < max_norm:
+            return
+        for g in grads:
+            g.copy_((g / norm.to(g.dtype)) * max_norm)
+
+    return clip
+
+
+def _clip_by_global_pnorm(max_norm: float, p: float):
+    @torch.no_grad()
+    def clip(grads):
+        if not grads:
+            return
+        scale = torch.clamp(max_norm / (global_pnorm(grads, p) + 1e-6), max=1.0)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+
+    return clip
+
+
+def _clip_by_value(clip_value: float):
+    @torch.no_grad()
+    def clip(grads):
+        for g in grads:
+            g.clamp_(-clip_value, clip_value)
+
+    return clip
+
+
+def make_clip(grad_clip: dict | None):
+    """The in-place gradient clip a `grad_clip` config entry asks for, or
+    None (absent, null or `enabled: false`)."""
+    if not (grad_clip and grad_clip.get("enabled", False)):
+        return None
+    clip_type = grad_clip.get("clip_type", "norm")
+    if clip_type == "norm":
+        max_norm = float(grad_clip.get("max_norm", 1.0))
+        norm_type = float(grad_clip.get("norm_type", 2.0))
+        if norm_type == 2.0:
+            return _clip_by_global_norm(max_norm)
+        return _clip_by_global_pnorm(max_norm, norm_type)
+    if clip_type == "value":
+        return _clip_by_value(float(grad_clip.get("clip_value", 1.0)))
+    raise ValueError(f"unknown clip_type {clip_type!r}")
+
+
+class Optimizer:
+    """optax.chain(clip?, adam(schedule)) over a list of parameters.
+    `step()` clips the gradients in place, sets Adam's learning rate for
+    the current count and updates; `count` is the number of updates
+    taken."""
+
+    def __init__(self, params, lr: float = 1e-2, total_steps: int | None = None,
+                 grad_clip: dict | None = None):
+        self.params = list(params)
+        self.schedule = cosine_decay(lr, total_steps) if total_steps is not None else (lambda _: lr)
+        self.clip = make_clip(grad_clip)
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.count = 0
+
+    def lr(self) -> float:
+        """The learning rate the next update uses."""
+        return self.schedule(self.count)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        if self.clip is not None:
+            self.clip(_grads(self.params))
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr()
+        self.adam.step()
+        self.count += 1
+
+
+def make_optimizer(params, lr: float = 1e-2, total_steps: int | None = None,
+                   grad_clip: dict | None = None) -> Optimizer:
+    """Adam + optional cosine decay over `total_steps` + optional clip
+    (JAX `make_optimizer`, :60)."""
+    return Optimizer(params, lr, total_steps, grad_clip)
+
+
+@dataclass
+class TrainState:
+    """The model (which holds the parameters), its optimizer and the
+    number of train steps taken."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
