@@ -10,9 +10,12 @@ non-zero exit code:
      limit (nvidia-smi) and turns TF32 off.
   2. build: compiles the kernels from vae_song_tpu_torch/csrc with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card
-     at the shapes the main path gives it, with the stated bounds, and
-     the median time of both: attention forward (K1) and backward (K2),
-     Chamfer forward (K4) and backward (K5).
+     at the shapes its path gives it, with the stated bounds, the median
+     time of both, the least time the card could take (the bound) and,
+     where one PyTorch call computes the same function, that call's
+     time: attention forward and backward on the packed route (K1, K2)
+     and on the BHND route (K3f, K3b), Chamfer forward (K4) and backward
+     (K5), the fused FFN forward (K6f) and backward (K6b).
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -23,14 +26,23 @@ non-zero exit code:
      artifacts written, and the K1, K2, K4 and K5 launch counters must
      all rise. Then ms/step of `make_train_step` for SetVAE (B = 64) and
      SetLRVAE (its config's B = 16) on the host clock.
+  4c. the two further paths at full width: (1) the shipped SetVAE config
+     with `num_heads: 2` (head width 128, the BHND route): one fake-data
+     epoch of `train_and_test`, then the eval step's ms/batch and the
+     train step's ms/step; the K3f and K3b counters must rise and K1 and
+     K2 must not launch. (2) the shipped SetVAE and SetLRVAE configs with
+     VST_FUSED_FFN=1 (set and unset here): the train step's ms/step and
+     the eval step's ms/batch; the K6f and K6b counters must rise.
   5. reference: the same weights on the CPU (plain versions of the
      kernels) against the card on 2 clouds, in f32 and in bf16: the eval
      step, the decode, and one train step (loss terms, gradients and the
-     updated parameters).
+     updated parameters), for the shipped SetVAE config and for both
+     configurations of phase 4c.
 
 The kernels' JSON line reports, for each kernel, its launches on the
-training path (phase 4b) and the numbers phase 3 measured. The last two
-lines are that JSON line and the result line.
+path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
+K6b), the numbers phase 3 measured and the bound it computed. The last
+two lines are that JSON line and the result line.
 """
 
 import json
@@ -40,6 +52,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -48,7 +61,7 @@ from vae_song_tpu_torch import _kernels
 from vae_song_tpu_torch.cli.generate import generate_samples
 from vae_song_tpu_torch.data.shapenet import fake_point_clouds
 from vae_song_tpu_torch.models.registry import build_model
-from vae_song_tpu_torch.ops import chamfer, denseattn
+from vae_song_tpu_torch.ops import chamfer, denseattn, ffn
 from vae_song_tpu_torch.train.loop import train_and_test
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
@@ -93,6 +106,12 @@ COMMON_PARAMS = {
 # its batch size (held to the file by the same test)
 SETLRVAE_PARAMS = {"alpha_list": [0.1], "beta_list": [0.2], "wu_strat": "linear"}
 SETLRVAE_BATCH = 16
+# Phase 4c's configurations: the shipped configs with one override each
+# (held to the files by the same test). HEADS2_OVERRIDE gives 128-wide
+# heads, which the packed attention route refuses; FUSED_FFN_ENV is the
+# JAX package's opt-in switch for the fused FFN.
+HEADS2_OVERRIDE = {"num_heads": 2}
+FUSED_FFN_ENV = {"VST_FUSED_FFN": "1"}
 BATCH = COMMON_PARAMS["batch_size"]
 EVAL_BATCHES = 4
 GEN_BATCHES = 4
@@ -101,16 +120,33 @@ TIMED_STEPS = 5
 LR = 1e-2           # train_and_test's lr, the reference's Adam(lr=1e-2)
 SEED = 0
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# bf16 tensor cores, float32 outside the tensor cores (no TF32 is used),
+# HBM3 bandwidth. A kernel's bound is the larger of its operations over
+# the peak of their type and its bytes (each input read once, each output
+# written once) over the bandwidth.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
 # Bounds of kernel against plain version on the same inputs.
 # bf16 attention: the kernel rounds P to bf16 against the running row
 # max, the plain version against the final one, so single P entries
 # differ by <= 1 bf16 ulp (2^-8 relative) and O by about one output ulp;
 # bound: 2^-6 of max(1, max|O|). LSE is f32 from the same P: 1e-3 of
-# max(1, max|LSE|).
+# max(1, max|LSE|). The same for both routes and every head width: the
+# wider heads only lengthen the f32 sums.
 K1_BF16_O_TOL = 2.0 ** -6
 K1_BF16_LSE_TOL = 1e-3
 # f32 attention: same math, summation order only.
 K1_F32_TOL = 1e-5
+# The BHND route's f32 O, measured at D = 128 (H100): 4.05e-5 at max|O|
+# 4.35 (9.3e-6 relative) against the plain version. The base-2 scores
+# reach |S2| ~ 36, where an f32 ulp is 3.8e-6, and a 128-term dot product
+# in another order lands a few ulps away; exp2 turns 1e-5 on S2 into
+# 7e-6 relative on P and on O. So the bound is 3e-5 of max(1, max|O|),
+# not K1's 1e-5, which this route meets with no margin.
+K3_F32_O_TOL = 3e-5
 # Chamfer: identical d2 bits (no FMA contraction on either side), so the
 # packed keys, hence mins and argmins, must be bitwise equal.
 K4_TOL = 0.0
@@ -142,13 +178,34 @@ REF_BF16_MOVED_SHARE = 5e-2
 # orders, so a rounded exp2 argument or dP can land one bf16 ulp apart;
 # dq/dk/dv round to bf16 at the end (measured: one output ulp, 0.031 at
 # max|d| ~ 10); bound 2^-6 of max|d|. f32: summation order only
-# (measured 1.2e-5 at max|d| ~ 16); bound 1e-5 of max|d|.
+# (measured 1.2e-5 at max|d| ~ 16); bound 1e-5 of max|d|. Both routes.
 K2_BF16_TOL = 2.0 ** -6
 K2_F32_TOL = 1e-5
 # Chamfer backward: the same f32 terms; the plain version's index_add
 # adds with atomics in another order (measured 3.6e-12 at max|d| 5e-5);
 # bound 1e-6 of max|d|.
 K5_TOL = 1e-6
+# Fused FFN, kernel against plain version. The inputs lie on a coarse
+# grid (x, dy in steps of 1/8, the weights in steps of 1/256, b1 in steps
+# of 1/2048), so x W1 + b1 and dy W2^T are exact in f32 in any summation
+# order and both sides see the same ReLU mask (on random f32 inputs an
+# h32 within the summation error of 0 flips its mask and moves a whole
+# column of dW1). What is left is the order of the later f32 sums before
+# each output's one rounding: bf16 2^-6 of max|out| (two output ulps),
+# f32 1e-5 of max|out|, as for the attention kernels. Measured (H100):
+# 0, bitwise, in both dtypes.
+K6_BF16_TOL = 2.0 ** -6
+K6_F32_TOL = 1e-5
+
+# head shapes of phase 3 for each attention route: (B, H, D, dtype); the
+# first is the shape its main path gives it (N = num_points), the JSON line
+# reports it
+K1_CASES = ((BATCH, 4, 64, torch.bfloat16), (1, 4, 64, torch.bfloat16), (4, 4, 64, torch.float32))
+K3_CASES = ((BATCH, 2, 128, torch.bfloat16), (BATCH, 1, 256, torch.bfloat16),
+            (BATCH, 3, 64, torch.bfloat16), (4, 2, 128, torch.float32))
+# fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
+# the shipped widths, then a smaller M in f32
+K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (8192, 256, 512, torch.float32))
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -170,6 +227,16 @@ def _sync_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _bound(flops: float, nbytes: float, dtype) -> dict:
+    """{"bound_ms", "bound_by"} for `flops` operations of `dtype` and
+    `nbytes` of device-memory traffic."""
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    if t_ops >= t_bytes:
+        return {"bound_ms": t_ops, "bound_by": "operations"}
+    return {"bound_ms": t_bytes, "bound_by": "bytes"}
 
 
 def phase_environment():
@@ -201,93 +268,93 @@ def phase_build():
 
 
 def _attn_inputs(b, n, h, d, dtype, gen, dev):
-    # q, k scaled by 2 so the softmax is peaked, as in a trained model
+    # q, k scaled by 2 so the softmax is peaked, as in a trained model;
+    # views of [B, N, H * D] tensors, as the model's projections give them
     mk = lambda s: (torch.randn(b, n, h * d, generator=gen, device=dev) * s).to(dtype)
     return [t.view(b, n, h, d) for t in (mk(2.0), mk(2.0), mk(1.0))]
 
 
-def check_attention(dev, gen):
-    h, d = MODEL_PARAMS["num_heads"], MODEL_PARAMS["d_model"] // MODEL_PARAMS["num_heads"]
+def _sdpa_ms(q, k, v, do, scale):
+    """The library yardstick: F.scaled_dot_product_attention on contiguous
+    [B, H, N, D] copies of q, k, v. Returns (forward ms, backward ms: one
+    autograd.grad call on a kept graph, forward + backward ms)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd = _sync_ms(lambda: sdpa(qt, kt, vt, scale=scale), 10)
+    o = sdpa(qt, kt, vt, scale=scale)
+    bwd = _sync_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), 10)
+    both = _sync_ms(lambda: torch.autograd.grad(sdpa(qt, kt, vt, scale=scale), (qt, kt, vt), dot),
+                    10)
+    return fwd, bwd, both
+
+
+def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
+    """One attention route's forward (`fwd`, K1 or K3f) and backward
+    (`bwd`, K2 or K3b) against their plain versions at each (B, H, D,
+    dtype) of `cases`, O in f32 to `f32_o_tol`; returns the JSON fields
+    of both for cases[0]."""
     n = MODEL_PARAMS["num_points"]
-    scale = 1.0 / math.sqrt(d)
-    result = {"max_abs_err": 0.0}
-    for b, dtype in ((BATCH, torch.bfloat16), (1, torch.bfloat16), (4, torch.float32)):
+    res_f, res_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for i, (b, h, d, dtype) in enumerate(cases):
+        scale = 1.0 / math.sqrt(d)
         q, k, v = _attn_inputs(b, n, h, d, dtype, gen, dev)
-        o, lse = denseattn.dense_attention_fwd(q, k, v, scale)
+        do = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+        o, lse = fwd(q, k, v, scale)
+        got = bwd(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, scale)
+        want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
         err_o, err_l = _max_err(o, o_ref), _max_err(lse, lse_ref)
         if dtype == torch.bfloat16:
             tol_o = K1_BF16_O_TOL * max(1.0, float(o_ref.float().abs().max()))
             tol_l = K1_BF16_LSE_TOL * max(1.0, float(lse_ref.abs().max()))
+            tol_b = K2_BF16_TOL
         else:
-            tol_o = K1_F32_TOL * max(1.0, float(o_ref.abs().max()))
+            tol_o = f32_o_tol * max(1.0, float(o_ref.abs().max()))
             tol_l = K1_F32_TOL * max(1.0, float(lse_ref.abs().max()))
-        ms = _sync_ms(lambda: denseattn.dense_attention_fwd(q, k, v, scale), 10)
-        plain_ms = _sync_ms(lambda: denseattn.dense_attention_fwd_plain(q, k, v, scale), 3, 1)
-        flops = 4.0 * b * h * n * n * d
-        print(f"dense_attn_fwd B={b} N={n} H={h} D={d} {str(dtype)[6:]}: "
-              f"max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
-              f"(bound {tol_l:.3e}); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms")
-        if not (err_o <= tol_o and err_l <= tol_l):
-            raise AssertionError(f"dense_attn_fwd disagrees with its plain version at B={b} {dtype}")
-        result["max_abs_err"] = max(result["max_abs_err"], err_o, err_l)
-        if b == BATCH:
-            result["ms"], result["plain_ms"] = ms, plain_ms
-    return result
-
-
-def check_attention_bwd(dev, gen):
-    h, d = MODEL_PARAMS["num_heads"], MODEL_PARAMS["d_model"] // MODEL_PARAMS["num_heads"]
-    n = MODEL_PARAMS["num_points"]
-    scale = 1.0 / math.sqrt(d)
-    result = {"max_abs_err": 0.0}
-    for b, dtype in ((BATCH, torch.bfloat16), (1, torch.bfloat16), (4, torch.float32)):
-        q, k, v = _attn_inputs(b, n, h, d, dtype, gen, dev)
-        o, lse = denseattn.dense_attention_fwd(q, k, v, scale)
-        do = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
-        got = denseattn.dense_attention_bwd(q, k, v, o, lse, do, scale)
-        torch.cuda.synchronize()
-        want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
-        tol = K2_BF16_TOL if dtype == torch.bfloat16 else K2_F32_TOL
-        errs, bounds = [], []
-        for g_, w_ in zip(got, want):
-            errs.append(_max_err(g_, w_))
-            bounds.append(tol * float(w_.float().abs().max()))
-        ms = _sync_ms(lambda: denseattn.dense_attention_bwd(q, k, v, o, lse, do, scale), 10)
-        plain_ms = _sync_ms(
+            tol_b = K2_F32_TOL
+        errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
+        bounds = [tol_b * float(w_.float().abs().max()) for w_ in want]
+        ms_f = _sync_ms(lambda: fwd(q, k, v, scale), 10)
+        ms_b = _sync_ms(lambda: bwd(q, k, v, o, lse, do, scale), 10)
+        plain_f = _sync_ms(lambda: denseattn.dense_attention_fwd_plain(q, k, v, scale), 3, 1)
+        plain_b = _sync_ms(
             lambda: denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale), 3, 1)
-        flops = 10.0 * b * h * n * n * d
-        print(f"dense_attn_bwd B={b} N={n} H={h} D={d} {str(dtype)[6:]}: max|d dq,dk,dv| "
+        lib_f, lib_b, lib_fb = _sdpa_ms(q, k, v, do, scale)
+        es = q.element_size()
+        rows = b * n * h * d
+        bound_f = _bound(4.0 * b * h * n * n * d, 4 * es * rows + 4 * b * h * n, dtype)
+        bound_b = _bound(10.0 * b * h * n * n * d, 8 * es * rows + 4 * b * h * n, dtype)
+        tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
+        print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
+              f"(bound {tol_l:.3e}); kernel {ms_f:.4f} ms "
+              f"({4.0 * b * h * n * n * d / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, "
+              f"bound {bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}), "
+              f"sdpa {lib_f:.4f} ms")
+        print(f"{tag} bwd: max|d dq,dk,dv| "
               + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
-              + f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+              + f"; kernel {ms_b:.4f} ms ({10.0 * b * h * n * n * d / ms_b / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_b:.4f} ms, bound {bound_b['bound_ms']:.4f} ms "
+              f"({bound_b['bound_by']}), sdpa backward {lib_b:.4f} ms, sdpa forward + "
+              f"backward {lib_fb:.4f} ms (contiguous [B, H, N, D] copies)")
+        if not (err_o <= tol_o and err_l <= tol_l):
+            raise AssertionError(f"{name} forward disagrees with its plain version: {tag}")
         if not all(e <= t for e, t in zip(errs, bounds)):
-            raise AssertionError(f"dense_attn_bwd disagrees with its plain version at B={b} {dtype}")
-        result["max_abs_err"] = max(result["max_abs_err"], *errs)
-        if b == BATCH:
-            result["ms"], result["plain_ms"] = ms, plain_ms
-    return result
+            raise AssertionError(f"{name} backward disagrees with its plain version: {tag}")
+        res_f["max_abs_err"] = max(res_f["max_abs_err"], err_o, err_l)
+        res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
+        if i == 0:
+            res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=lib_f, **bound_f)
+            res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=lib_b, **bound_b)
+    return res_f, res_b
 
 
-def check_chamfer_bwd(dev, gen):
-    n = MODEL_PARAMS["num_points"]
-    pred = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-    gt = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-    _, argp, _, argg = chamfer.chamfer_nn_packed(pred, gt)
-    got = chamfer.chamfer_bwd(pred, gt, argp, argg)
-    torch.cuda.synchronize()
-    want = chamfer.chamfer_bwd_plain(pred, gt, argp, argg)
-    errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
-    bounds = [K5_TOL * float(w_.abs().max()) for w_ in want]
-    ms = _sync_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg), 10)
-    plain_ms = _sync_ms(lambda: chamfer.chamfer_bwd_plain(pred, gt, argp, argg), 3, 1)
-    print(f"chamfer_bwd B={BATCH} N={n}: max|d dpred, dgt| "
-          + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
-          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if not all(e <= t for e, t in zip(errs, bounds)):
-        raise AssertionError("chamfer_bwd disagrees with its plain version")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+def _chamfer_bytes(b, n, m):
+    """Clouds read once (f32 xyz) and one f32 value and one int32 index a
+    point written, both sides."""
+    return b * (n + m) * (3 * 4 + 8)
 
 
 def check_chamfer(dev, gen):
@@ -303,27 +370,140 @@ def check_chamfer(dev, gen):
                     for a, b in ((got[0], want[0]), (got[2], want[2])))
     ms = _sync_ms(lambda: chamfer.chamfer_nn_packed(pred, gt), 10)
     plain_ms = _sync_ms(lambda: chamfer.chamfer_nn_packed_plain(pred, gt), 3, 1)
+    # one d2 a pair (3 sub, 3 mul, 2 add) and a compare a pair each way
+    bound = _bound(10.0 * BATCH * n * n, _chamfer_bytes(BATCH, n, n), torch.float32)
     print(f"chamfer_nn_packed B={BATCH} N={n}: argmin equal {same_idx}, min bitwise "
           f"equal {same_bits}, max|dmin| {err:.3e} (bound {K4_TOL}); kernel {ms:.4f} ms "
-          f"(2 launches), plain {plain_ms:.4f} ms")
+          f"(2 launches), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
     if not (same_idx and same_bits and err <= K4_TOL):
         raise AssertionError("chamfer_nn_packed disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
+
+
+def check_chamfer_bwd(dev, gen):
+    n = MODEL_PARAMS["num_points"]
+    pred = torch.randn(BATCH, n, 3, generator=gen, device=dev)
+    gt = torch.randn(BATCH, n, 3, generator=gen, device=dev)
+    _, argp, _, argg = chamfer.chamfer_nn_packed(pred, gt)
+    got = chamfer.chamfer_bwd(pred, gt, argp, argg)
+    torch.cuda.synchronize()
+    want = chamfer.chamfer_bwd_plain(pred, gt, argp, argg)
+    errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
+    bounds = [K5_TOL * float(w_.abs().max()) for w_ in want]
+    ms = _sync_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg), 10)
+    plain_ms = _sync_ms(lambda: chamfer.chamfer_bwd_plain(pred, gt, argp, argg), 3, 1)
+    # a point a side: 3 sub and 3 mul for its own term, 3 adds scattered;
+    # clouds and argmins read, both gradients written
+    bound = _bound(9.0 * 2 * BATCH * n, 2 * BATCH * n * (12 + 4 + 12), torch.float32)
+    print(f"chamfer_bwd B={BATCH} N={n}: max|d dpred, dgt| "
+          + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    if not all(e <= t for e, t in zip(errs, bounds)):
+        raise AssertionError("chamfer_bwd disagrees with its plain version")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
+
+
+def _ffn_inputs(m, d, f, dtype, gen, dev):
+    """x, dy, w1 [F, D], b1, w2 [D, F], b2 on the grid K6_*_TOL explains:
+    every value a small integer times a power of two."""
+    grid = lambda shape, sd, step: (
+        torch.randn(shape, generator=gen, device=dev) * sd / step).round().clamp(-64, 64) * step
+    x, dy = grid((m, d), 1.0, 1 / 8), grid((m, d), 1.0, 1 / 8)
+    w1, w2 = grid((f, d), d ** -0.5, 1 / 256), grid((d, f), f ** -0.5, 1 / 256)
+    b1, b2 = grid((f,), 0.05, 1 / 2048), grid((d,), 0.05, 1 / 2048)
+    return [t.to(dtype) for t in (x, dy, w1, b1, w2, b2)]
+
+
+def check_ffn(dev, gen):
+    """The fused FFN forward (K6f) and backward (K6b) against their plain
+    versions at each case of K6_CASES, with the unfused Dense -> ReLU ->
+    Dense composition timed beside them as a reference (there is no one
+    PyTorch call for the fused function: library_ms is null)."""
+    res_f, res_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for i, (m, d, f, dtype) in enumerate(K6_CASES):
+        x, dy, w1, b1, w2, b2 = _ffn_inputs(m, d, f, dtype, gen, dev)
+        y = ffn.fused_ffn_fwd(x, w1, b1, w2, b2)
+        got = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
+        torch.cuda.synchronize()
+        y_ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+        want = ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2)
+        tol = K6_BF16_TOL if dtype == torch.bfloat16 else K6_F32_TOL
+        err_y, tol_y = _max_err(y, y_ref), tol * float(y_ref.float().abs().max())
+        errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
+        bounds = [tol * float(w_.float().abs().max()) for w_ in want]
+        ms_f = _sync_ms(lambda: ffn.fused_ffn_fwd(x, w1, b1, w2, b2), 10)
+        ms_b = _sync_ms(lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2), 10)
+        plain_f = _sync_ms(lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2), 3, 1)
+        plain_b = _sync_ms(lambda: ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2), 3, 1)
+        # reference, not a yardstick of the same function: the unfused
+        # path's Dense semantics (product and bias add rounded apart)
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        unfused = lambda xx, a1, c1, a2, c2: xx + (torch.relu(xx @ a1.t() + c1) @ a2.t() + c2)
+        with torch.no_grad():
+            ref_f = _sync_ms(lambda: unfused(*leaves), 10)
+        ref_fb = _sync_ms(lambda: torch.autograd.grad(unfused(*leaves), leaves, dy), 10)
+        es = x.element_size()
+        wbytes = es * (2 * d * f + f + d)
+        bound_f = _bound(4.0 * m * d * f, es * 2 * m * d + wbytes, dtype)
+        bound_b = _bound(10.0 * m * d * f, es * 3 * m * d + 2 * wbytes, dtype)
+        tag = f"fused_ffn M={m} D={d} F={f} {str(dtype)[6:]}"
+        print(f"{tag} fwd: max|dy| {err_y:.3e} (bound {tol_y:.3e}); kernel {ms_f:.4f} ms "
+              f"({4.0 * m * d * f / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, bound "
+              f"{bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}); unfused Dense-ReLU-Dense "
+              f"reference {ref_f:.4f} ms")
+        print(f"{tag} bwd: max|d dx,dw1,db1,dw2,db2| "
+              + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
+              + f"; kernel {ms_b:.4f} ms ({10.0 * m * d * f / ms_b / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_b:.4f} ms, bound {bound_b['bound_ms']:.4f} ms ({bound_b['bound_by']}); "
+              f"unfused reference forward + backward {ref_fb:.4f} ms")
+        if not err_y <= tol_y:
+            raise AssertionError(f"fused_ffn forward disagrees with its plain version: {tag}")
+        if not all(e <= t for e, t in zip(errs, bounds)):
+            raise AssertionError(f"fused_ffn backward disagrees with its plain version: {tag}")
+        again = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
+        if not all(torch.equal(a, g_) for a, g_ in zip(again, got)):
+            raise AssertionError(f"fused_ffn backward differs from run to run: {tag}")
+        res_f["max_abs_err"] = max(res_f["max_abs_err"], err_y)
+        res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
+        if i == 0:
+            res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=None, **bound_f)
+            res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=None, **bound_b)
+    return res_f, res_b
+
+
+# the launch counter of every kernel, by the name the JSON line gives it
+COUNTERS = {
+    "dense_attn_fwd": denseattn.dense_attention_fwd,
+    "dense_attn_bwd": denseattn.dense_attention_bwd,
+    "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
+    "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
+    "chamfer_nn_packed": chamfer.chamfer_nn_packed,
+    "chamfer_bwd": chamfer.chamfer_bwd,
+    "ffn_fwd": ffn.fused_ffn_fwd,
+    "ffn_bwd": ffn.fused_ffn_bwd,
+}
 
 
 def _reset_launches():
-    for fn in (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
-               chamfer.chamfer_nn_packed, chamfer.chamfer_bwd):
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def _read_launches():
-    return {
-        "dense_attn_fwd": denseattn.dense_attention_fwd.launches,
-        "dense_attn_bwd": denseattn.dense_attention_bwd.launches,
-        "chamfer_nn_packed": chamfer.chamfer_nn_packed.launches,
-        "chamfer_bwd": chamfer.chamfer_bwd.launches,
-    }
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def _expect_launches(launches, path, ran, idle=()):
+    """Raise unless every kernel of `ran` launched and none of `idle` did."""
+    print(f"{path} launches: {launches}")
+    for name in ran:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {path}")
+    for name in idle:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} ran on {path}: {launches}")
 
 
 def phase_eval_generation(dev):
@@ -364,88 +544,151 @@ def phase_eval_generation(dev):
           f"{samples.shape[0] / gen_s:.1f} clouds/s")
     if samples.shape != (GEN_BATCHES * BATCH, n, 3) or not np.isfinite(samples).all():
         raise AssertionError(f"bad generated clouds: shape {samples.shape}")
-    print(f"eval/generation launches: {launches}")
-    for name in ("dense_attn_fwd", "chamfer_nn_packed"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by eval and generation")
-    if launches["dense_attn_bwd"] or launches["chamfer_bwd"]:
-        raise AssertionError(f"a backward kernel ran during eval/generation: {launches}")
+    others = [k for k in COUNTERS if k not in ("dense_attn_fwd", "chamfer_nn_packed")]
+    _expect_launches(launches, "eval and generation", ("dense_attn_fwd", "chamfer_nn_packed"),
+                     others)
 
 
-def _time_train_step(exp_type, params, batch, dev):
+def _build(exp_type, params):
+    return build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
+                       alpha=params.get("alpha_list", [0.01])[0],
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def _clouds_and_noise(count, batch, params, dev, seed):
+    n, latent = params["num_points"], params["latent_channel"]
+    x_all, _ = fake_point_clouds(batch * count, n, seed=seed)
+    xs = torch.from_numpy(x_all).to(dev).view(count, batch, n, 3)
+    gen = torch.Generator().manual_seed(seed)
+    return xs, torch.randn(count, batch, latent, generator=gen).to(dev)
+
+
+def _time_train_step(exp_type, params, batch, dev, tag="bf16"):
     """Median ms/step of make_train_step over TIMED_STEPS steps after two
     warm-up steps, host clock, each step ending in a scalar fetch."""
-    n, latent = params["num_points"], params["latent_channel"]
-    model = build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
-                        alpha=params.get("alpha_list", [0.01])[0],
-                        generator=torch.Generator().manual_seed(SEED)).to(dev)
+    model = _build(exp_type, params).to(dev)
     step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
-    gen = torch.Generator().manual_seed(SEED + 4)
-    x_all, _ = fake_point_clouds(batch * (TIMED_STEPS + 2), n, seed=SEED + 4)
-    xs = torch.from_numpy(x_all).to(dev).view(TIMED_STEPS + 2, batch, n, 3)
-    eps = torch.randn(TIMED_STEPS + 2, batch, latent, generator=gen).to(dev)
+    xs, eps = _clouds_and_noise(TIMED_STEPS + 2, batch, params, dev, SEED + 4)
     for i in range(2):
         float(step(xs[i], eps[i], 0.5)["loss"])
-    times, losses = [], []
+    times, terms = [], []
     for i in range(2, TIMED_STEPS + 2):
         t0 = time.perf_counter()
-        losses.append(float(step(xs[i], eps[i], 0.5)["loss"]))
+        terms.append({k: float(v) for k, v in step(xs[i], eps[i], 0.5).items()})
         times.append((time.perf_counter() - t0) * 1e3)
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"{exp_type} train step: non-finite loss {losses}")
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"{exp_type} train step ({tag}): non-finite loss terms {terms}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"train step {exp_type} B={batch} N={n} bf16: {statistics.median(times):.3f} ms/step "
-          f"median, {statistics.mean(times):.3f} mean over {TIMED_STEPS} steps (host clock, "
-          f"each step ends in a scalar fetch); losses {[round(v, 4) for v in losses]}; "
-          f"peak device memory so far {peak:.2f} GiB")
+    print(f"train step {exp_type} B={batch} N={params['num_points']} {tag}: "
+          f"{statistics.median(times):.3f} ms/step median, {statistics.mean(times):.3f} mean "
+          f"over {TIMED_STEPS} steps (host clock, each step ends in a scalar fetch); losses "
+          f"{[round(t['loss'], 4) for t in terms]}; peak device memory so far {peak:.2f} GiB")
     return statistics.median(times)
 
 
-def phase_train(dev):
-    """The main path: train_and_test, then the train step's ms/step."""
-    model = build_model("setvae", "shapenet", MODEL_PARAMS, beta=MODEL_PARAMS["beta_list"][0],
-                        generator=torch.Generator().manual_seed(SEED))
+def _time_eval_step(exp_type, params, batch, dev, tag="bf16"):
+    """Median ms/batch of make_eval_step over EVAL_BATCHES batches after a
+    warm-up, host clock, each batch ending in a scalar fetch."""
+    model = _build(exp_type, params).to(dev)
+    step = make_eval_step(model)
+    xs, eps = _clouds_and_noise(EVAL_BATCHES + 1, batch, params, dev, SEED + 5)
+    step(xs[0], eps[0])
+    torch.cuda.synchronize()
+    times, terms = [], []
+    for i in range(1, EVAL_BATCHES + 1):
+        t0 = time.perf_counter()
+        terms.append({k: float(v) for k, v in step(xs[i], eps[i]).items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"{exp_type} eval step ({tag}): non-finite loss terms {terms}")
+    print(f"eval step {exp_type} B={batch} N={params['num_points']} {tag}: "
+          f"{statistics.median(times):.3f} ms/batch median over {EVAL_BATCHES} batches "
+          f"(host clock); loss {terms[-1]['loss']:.6f}")
+    return statistics.median(times)
+
+
+def _train_and_test(params, epochs, dev):
+    """train_and_test on fake clouds at the shipped SetVAE config's common
+    params into a temporary directory; checks its numbers and artifacts."""
+    model = _build("setvae", params)
     dataset_params = dict(COMMON_PARAMS["dataset_params"], fake=True)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as root:
-        _reset_launches()
         t0 = time.perf_counter()
         state, summary = train_and_test(
-            model, epochs=TRAIN_EPOCHS, batch_size=BATCH, dataset_name=COMMON_PARAMS["exp_data"],
+            model, epochs=epochs, batch_size=BATCH, dataset_name=COMMON_PARAMS["exp_data"],
             logfilename=COMMON_PARAMS["logfilename"], resultname=COMMON_PARAMS["resultname"],
             grad_clip=COMMON_PARAMS["grad_clip"], seed=SEED, dataset_params=dataset_params,
             output_root=root, lr=LR, device=dev,
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_launches()
         params_dir = os.path.join(summary["result_dir"], "params")
         clouds_dir = os.path.join(summary["result_dir"], "point_clouds")
         written = (sorted(os.listdir(params_dir)), len(os.listdir(clouds_dir)),
                    sorted(os.listdir(os.path.join(root, "log"))))
     numbers = dict(summary["eval"], **summary["posterior_metrics"])
-    print(f"train_and_test: {TRAIN_EPOCHS} epochs of {state.step // TRAIN_EPOCHS} steps at "
+    print(f"train_and_test: {epochs} epochs of {state.step // epochs} steps at "
           f"B={BATCH} in {wall:.2f} s; final eval {summary['eval']}; posterior metrics "
           f"{summary['posterior_metrics']}; wrote params {written[0]}, {written[1]} point-cloud "
           f"files, log {written[2]}")
-    print(f"training launches: {launches}")
     if not all(math.isfinite(v) for v in numbers.values()):
         raise AssertionError(f"non-finite train/eval numbers: {numbers}")
-    if written[0] != [f"model_{TRAIN_EPOCHS - 1}.pkl"] or written[1] != 24 or not written[2]:
+    if written[0] != [f"model_{epochs - 1}.pkl"] or written[1] != 24 or not written[2]:
         raise AssertionError(f"train_and_test did not write its artifacts: {written}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the training path")
+
+
+PACKED_PATH = ("dense_attn_fwd", "dense_attn_bwd", "chamfer_nn_packed", "chamfer_bwd")
+
+
+def phase_train(dev):
+    """The main path: train_and_test, then the train step's ms/step."""
+    _reset_launches()
+    _train_and_test(MODEL_PARAMS, TRAIN_EPOCHS, dev)
+    launches = _read_launches()
+    _expect_launches(launches, "the training path", PACKED_PATH,
+                     [k for k in COUNTERS if k not in PACKED_PATH])
     _time_train_step("setvae", MODEL_PARAMS, BATCH, dev)
     _time_train_step("setlrvae", dict(MODEL_PARAMS, **SETLRVAE_PARAMS), SETLRVAE_BATCH, dev)
+    return launches
+
+
+def phase_heads2(dev):
+    """SetVAE with num_heads 2 (128-wide heads): the BHND route."""
+    params = dict(MODEL_PARAMS, **HEADS2_OVERRIDE)
+    tag = f"bf16 num_heads {params['num_heads']}"
+    _reset_launches()
+    _train_and_test(params, 1, dev)
+    _time_eval_step("setvae", params, BATCH, dev, tag)
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    launches = _read_launches()
+    _expect_launches(launches, "the num_heads 2 path",
+                     ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "chamfer_nn_packed",
+                      "chamfer_bwd"),
+                     ("dense_attn_fwd", "dense_attn_bwd", "ffn_fwd", "ffn_bwd"))
+    return launches
+
+
+def phase_fused_ffn(dev):
+    """The shipped SetVAE and SetLRVAE configs with VST_FUSED_FFN=1."""
+    tag = "bf16 " + " ".join(f"{k}={v}" for k, v in FUSED_FFN_ENV.items())
+    lr_params = dict(MODEL_PARAMS, **SETLRVAE_PARAMS)
+    with mock.patch.dict(os.environ, FUSED_FFN_ENV):
+        _reset_launches()
+        _time_train_step("setvae", MODEL_PARAMS, BATCH, dev, tag)
+        _time_eval_step("setvae", MODEL_PARAMS, BATCH, dev, tag)
+        _time_train_step("setlrvae", lr_params, SETLRVAE_BATCH, dev, tag)
+        _time_eval_step("setlrvae", lr_params, SETLRVAE_BATCH, dev, tag)
+        launches = _read_launches()
+    _expect_launches(launches, "the VST_FUSED_FFN=1 path", PACKED_PATH + ("ffn_fwd", "ffn_bwd"),
+                     ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd"))
     return launches
 
 
 def _train_step_once(where, params, x, eps):
     """One train step at lr LR from the seeded weights: (loss terms,
     gradients, parameters after the update), on the host."""
-    model = build_model("setvae", "shapenet", params, beta=params["beta_list"][0],
-                        generator=torch.Generator().manual_seed(SEED)).to(where)
+    model = _build("setvae", params).to(where)
     step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
     terms = {k: float(v) for k, v in step(torch.from_numpy(x).to(where),
                                           torch.from_numpy(eps).to(where)).items()}
@@ -458,8 +701,7 @@ def _train_step_once(where, params, x, eps):
 def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_share):
     (t_cpu, g_cpu, p_cpu), (t_dev, g_dev, p_dev) = (
         _train_step_once(where, params, x, eps) for where in ("cpu", dev))
-    initial = build_model("setvae", "shapenet", params, beta=params["beta_list"][0],
-                          generator=torch.Generator().manual_seed(SEED)).state_dict()
+    initial = _build("setvae", params).state_dict()
     rel = max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12)
               for k in ("loss", "recon", "reg", "raw_kl"))
     if {k for k, g in g_cpu.items() if g is None} != {k for k, g in g_dev.items() if g is None}:
@@ -488,20 +730,20 @@ def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_sh
         raise AssertionError(f"card and CPU train steps disagree ({tag})")
 
 
-def phase_reference(dev):
-    """Card (kernels) vs CPU (plain versions) on the same weights, 2 clouds."""
-    n, latent = MODEL_PARAMS["num_points"], MODEL_PARAMS["latent_channel"]
+def _reference(dev, name, params):
+    """Card (kernels) vs CPU (plain versions) on the same weights, 2
+    clouds, f32 and bf16."""
+    n, latent = params["num_points"], params["latent_channel"]
     x, _ = fake_point_clouds(2, n, seed=SEED + 2)
     rng = np.random.default_rng(SEED + 3)
     eps = rng.standard_normal((2, latent)).astype(np.float32)
     z = rng.standard_normal((2, latent)).astype(np.float32)
     for mixed, loss_rtol, recon_atol in ((False, REF_F32_LOSS_RTOL, REF_F32_RECON_ATOL),
                                          (True, REF_BF16_LOSS_RTOL, REF_BF16_RECON_ATOL)):
-        params = dict(MODEL_PARAMS, mixed_precision=mixed)
+        mp = dict(params, mixed_precision=mixed)
         outs = {}
         for where in ("cpu", dev):
-            model = build_model("setvae", "shapenet", params, beta=params["beta_list"][0],
-                                generator=torch.Generator().manual_seed(SEED)).to(where)
+            model = _build("setvae", mp).to(where)
             step = make_eval_step(model)
             _, decode, forward = make_apply_fns(model)
             xt, et = torch.from_numpy(x).to(where), torch.from_numpy(eps).to(where)
@@ -514,7 +756,7 @@ def phase_reference(dev):
         rel = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                   for k in ("loss", "recon", "reg"))
         err_r, err_g = _max_err(r_dev, r_cpu), _max_err(g_dev, g_cpu)
-        tag = "bf16" if mixed else "f32"
+        tag = f"{name} {'bf16' if mixed else 'f32'}"
         print(f"reference {tag}: loss terms max rel diff {rel:.3e} (bound {loss_rtol}), "
               f"recon max|d| {err_r:.3e}, decode max|d| {err_g:.3e} (bound {recon_atol}); "
               f"cpu {m_cpu} card {m_dev}")
@@ -522,7 +764,19 @@ def phase_reference(dev):
             raise AssertionError(f"card and CPU disagree ({tag})")
         grad_rtol, moved_share = ((REF_F32_GRAD_RTOL, REF_F32_MOVED_SHARE) if not mixed
                                   else (REF_BF16_GRAD_RTOL, REF_BF16_MOVED_SHARE))
-        _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_share)
+        _compare_train_step(dev, tag, x, eps, mp, loss_rtol, grad_rtol, moved_share)
+
+
+def phase_reference(dev):
+    """The reference check for the shipped SetVAE config and for both
+    configurations of phase 4c."""
+    _reference(dev, "shipped", MODEL_PARAMS)
+    _reference(dev, "num_heads 2", dict(MODEL_PARAMS, **HEADS2_OVERRIDE))
+    with mock.patch.dict(os.environ, FUSED_FFN_ENV):
+        launches = ffn.fused_ffn_fwd.launches
+        _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
+        if ffn.fused_ffn_fwd.launches == launches:
+            raise AssertionError("the VST_FUSED_FFN=1 reference did not run the fused FFN")
 
 
 def _timed(fn, *args):
@@ -538,31 +792,35 @@ def main():
     dev = torch.device("cuda", 0)
     _timed(phase_build)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1 = _timed(check_attention, dev, gen)
-    k2 = _timed(check_attention_bwd, dev, gen)
+    k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
+                    denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
+                    K1_F32_TOL)
+    k3f, k3b = _timed(check_attention, dev, gen, "dense_attn (BHND route)",
+                      denseattn.dense_attention_bhnd, denseattn.dense_attention_bwd_bhnd,
+                      K3_CASES, K3_F32_O_TOL)
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
+    k6f, k6b = _timed(check_ffn, dev, gen)
     _timed(phase_eval_generation, dev)
-    launches = _timed(phase_train, dev)
+    main_path = _timed(phase_train, dev)
+    heads2 = _timed(phase_heads2, dev)
+    fused = _timed(phase_fused_ffn, dev)
     _timed(phase_reference, dev)
-    kernels = [
-        dict(name="dense_attn_fwd", route="cuda",
-             source="vae_song_tpu_torch/csrc/dense_attn_fwd.cu",
-             replaces="vae_song_tpu/ops/denseattn.py:408",
-             launches=launches["dense_attn_fwd"], **k1),
-        dict(name="dense_attn_bwd", route="cuda",
-             source="vae_song_tpu_torch/csrc/dense_attn_bwd.cu",
-             replaces="vae_song_tpu/ops/denseattn.py:433",
-             launches=launches["dense_attn_bwd"], **k2),
-        dict(name="chamfer_nn_packed", route="cuda",
-             source="vae_song_tpu_torch/csrc/chamfer_fwd.cu",
-             replaces="vae_song_tpu/ops/chamfer.py:103",
-             launches=launches["chamfer_nn_packed"], **k4),
-        dict(name="chamfer_bwd", route="cuda",
-             source="vae_song_tpu_torch/csrc/chamfer_bwd.cu",
-             replaces="vae_song_tpu/ops/chamfer.py:161",
-             launches=launches["chamfer_bwd"], **k5),
-    ]
+    rows = (
+        ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
+        ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),
+        ("dense_attn_bhnd_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:124", heads2,
+         k3f),
+        ("dense_attn_bhnd_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152", heads2,
+         k3b),
+        ("chamfer_nn_packed", "chamfer_fwd.cu", "vae_song_tpu/ops/chamfer.py:103", main_path, k4),
+        ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
+        ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),
+        ("ffn_bwd", "ffn_bwd.cu", "vae_song_tpu/ops/ffn.py:104", fused, k6b),
+    )
+    kernels = [dict(name=name, route="cuda", source=f"vae_song_tpu_torch/csrc/{src}",
+                    replaces=replaces, launches=launches[name], **numbers)
+               for name, src, replaces, launches, numbers in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

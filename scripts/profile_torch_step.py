@@ -1,6 +1,9 @@
 """Device-time breakdown of the PyTorch port's train step on one CUDA
 card, at the shipped ShapeNet configs (SetVAE at B = 64, SetLRVAE at
-its config's B = 16; random weights from a seed, fake clouds).
+its config's B = 16; random weights from a seed, fake clouds), then at
+the further paths chip_smoke.py phase 4c drives: SetVAE with
+`num_heads: 2` (the BHND attention route, K3f / K3b), and SetVAE and
+SetLRVAE with VST_FUSED_FFN=1 (the fused FFN, K6f / K6b).
 
     python scripts/profile_torch_step.py
 
@@ -15,10 +18,12 @@ since the profiler slows the host's launches and so inflates the first
 where the host holds the device back.
 """
 
+import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 from torch.autograd import DeviceType
@@ -32,8 +37,12 @@ from vae_song_tpu_torch.train.steps import make_train_step  # noqa: E402
 
 PROFILED, TIMED = 4, 8
 CLASSES = (
-    ("K2 attention backward", ("attn_bwd_dkdv", "attn_bwd_dq", "attn_bwd_delta")),
-    ("K1 attention forward", ("dense_attn_fwd",)),
+    # one kernel pair serves both attention routes: K1 / K2 on the packed
+    # route, K3f / K3b on the BHND route
+    ("K2/K3b attention backward", ("attn_bwd_dkdv", "attn_bwd_dq", "attn_bwd_delta")),
+    ("K1/K3f attention forward", ("dense_attn_fwd",)),
+    ("K6b fused FFN backward", ("ffn_bwd_rows", "ffn_wgrad", "ffn_sum_parts")),
+    ("K6f fused FFN forward", ("ffn_fwd",)),
     ("K4 Chamfer forward", ("chamfer_nn_packed",)),
     ("K5 Chamfer backward", ("chamfer_bwd",)),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv")),
@@ -52,7 +61,7 @@ def classify(name):
     return "other elementwise"
 
 
-def run(exp_type, params, batch, dev):
+def run(exp_type, params, batch, dev, tag="bf16"):
     n, latent = params["num_points"], params["latent_channel"]
     model = build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
                         alpha=params.get("alpha_list", [0.01])[0],
@@ -102,7 +111,7 @@ def run(exp_type, params, batch, dev):
         busy += cur_e - cur_s
     dev_ms = sum(per_class.values()) / 1e3 / PROFILED
     busy_ms, unprofiled = busy / 1e3 / PROFILED, statistics.median(times)
-    print(f"== {exp_type} B={batch} N={n} bf16: {unprofiled:.3f} ms/step unprofiled "
+    print(f"== {exp_type} B={batch} N={n} {tag}: {unprofiled:.3f} ms/step unprofiled "
           f"(median of {TIMED}, host clock, scalar fetch); profiled wall {wall / PROFILED:.3f} "
           f"ms/step; kernel time {dev_ms:.3f} ms/step in {len(kernels) // PROFILED} kernels; "
           f"device busy {busy_ms:.3f} ms/step, idle {100 * (1 - busy_ms * PROFILED / wall):.1f}% "
@@ -120,8 +129,14 @@ def main():
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    lr_params = dict(cs.MODEL_PARAMS, **cs.SETLRVAE_PARAMS)
     run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev)
-    run("setlrvae", dict(cs.MODEL_PARAMS, **cs.SETLRVAE_PARAMS), cs.SETLRVAE_BATCH, dev)
+    run("setlrvae", lr_params, cs.SETLRVAE_BATCH, dev)
+    run("setvae", dict(cs.MODEL_PARAMS, **cs.HEADS2_OVERRIDE), cs.BATCH, dev,
+        "bf16 num_heads 2")
+    with mock.patch.dict(os.environ, cs.FUSED_FFN_ENV):
+        run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev, "bf16 VST_FUSED_FFN=1")
+        run("setlrvae", lr_params, cs.SETLRVAE_BATCH, dev, "bf16 VST_FUSED_FFN=1")
 
 
 if __name__ == "__main__":

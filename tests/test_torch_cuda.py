@@ -11,7 +11,7 @@ import math
 import pytest
 import torch
 
-from vae_song_tpu_torch.ops import chamfer, denseattn
+from vae_song_tpu_torch.ops import chamfer, denseattn, ffn
 
 pytestmark = pytest.mark.cuda
 
@@ -119,33 +119,136 @@ def test_chamfer_bwd_kernel_matches_plain(dev, b, n, dup):
     assert all(torch.equal(a, g) for a, g in zip(again, got))     # run to run
 
 
-def test_train_step_runs_the_kernels(dev):
-    """One SetVAE train step on the card: finite loss terms, every
-    parameter with a gradient moved, and each of K1, K2, K4, K5
-    launched."""
+ALL_COUNTERS = (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
+                denseattn.dense_attention_bhnd, denseattn.dense_attention_bwd_bhnd,
+                chamfer.chamfer_nn_packed, chamfer.chamfer_bwd,
+                ffn.fused_ffn_fwd, ffn.fused_ffn_bwd)
+
+
+def _train_step_launches(dev, **overrides):
+    """One SetVAE train step on the card with the given model params:
+    finite loss terms, every parameter with a gradient moved; returns the
+    launches of each kernel of ALL_COUNTERS."""
     from vae_song_tpu_torch.models.registry import build_model
     from vae_song_tpu_torch.train.state import make_optimizer
     from vae_song_tpu_torch.train.steps import make_train_step
 
     mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
               num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
+    mp.update(overrides)
     model = build_model("setvae", "shapenet", mp, generator=torch.Generator().manual_seed(0))
     model.to(dev)
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
-    counters = (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
-                chamfer.chamfer_nn_packed, chamfer.chamfer_bwd)
-    start = [f.launches for f in counters]
+    start = [f.launches for f in ALL_COUNTERS]
     gen = torch.Generator(device=dev).manual_seed(1)
     out = step(torch.randn(4, 256, 3, generator=gen, device=dev),
                torch.randn(4, 16, generator=gen, device=dev))
     assert all(math.isfinite(float(v)) for v in out.values())
-    # 2 encoder + 2 decoder self-attentions; the Chamfer forward is 2 launches
-    assert [f.launches - s for f, s in zip(counters, start)] == [4, 4, 2, 1]
     for name, p in model.named_parameters():
         # a key bias has an analytically zero gradient (roundoff only)
         if p.grad is not None and not name.endswith("key.bias"):
             assert not torch.equal(p.detach(), before[name]), name
+    return [f.launches - s for f, s in zip(ALL_COUNTERS, start)]
+
+
+def test_train_step_runs_the_kernels(dev):
+    """The default route: each of K1, K2, K4, K5 launched, nothing else.
+    2 encoder + 2 decoder self-attentions; the Chamfer forward is 2
+    launches."""
+    assert _train_step_launches(dev) == [4, 4, 0, 0, 2, 1, 0, 0]
+
+
+def test_train_step_with_wide_heads_runs_the_bhnd_kernels(dev):
+    """One head of 128 (num_heads 1 at d_model 128): K3f and K3b in place
+    of K1 and K2."""
+    assert _train_step_launches(dev, num_heads=1) == [0, 0, 4, 4, 2, 1, 0, 0]
+
+
+def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
+    """VST_FUSED_FFN=1 at ff_dim 128 (rows 4 x 256 = 1024): K6f and K6b
+    for the 2 encoder and 2 decoder FFNs."""
+    monkeypatch.setenv("VST_FUSED_FFN", "1")
+    assert _train_step_launches(dev, ff_dim=128) == [4, 4, 0, 0, 2, 1, 4, 4]
+
+
+@pytest.mark.parametrize("b,n,h,d,dtype,strided", [
+    (2, 256, 2, 128, torch.bfloat16, True), (2, 256, 2, 128, torch.bfloat16, False),
+    (1, 256, 1, 256, torch.bfloat16, True), (2, 128, 1, 256, torch.bfloat16, False),
+    (2, 256, 3, 64, torch.bfloat16, True), (1, 128, 3, 64, torch.bfloat16, False),
+    (2, 128, 2, 128, torch.float32, True), (1, 128, 1, 256, torch.float32, False),
+    (1, 128, 3, 192, torch.bfloat16, True),
+])
+def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
+    """K3f and K3b at every head width they are built for and an odd
+    head count, on views of one packed projection or on contiguous
+    tensors, against their plain versions (bounds as chip_smoke.py's:
+    bf16 2^-6 of max(1, max|O|) and of max|d|, LSE 1e-3; f32 3e-5 on O,
+    1e-5 on the rest)."""
+    gen = torch.Generator(device=dev).manual_seed(n + h + d)
+    if strided:
+        qkv = (torch.randn(b, n, 3 * h * d, generator=gen, device=dev) * 2).to(dtype)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, n, h, d) for i in range(3))
+    else:
+        q, k, v = ((torch.randn(b, n, h, d, generator=gen, device=dev) * s).to(dtype)
+                   for s in (2.0, 2.0, 1.0))
+    do = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+    scale = d ** -0.5
+    before = (denseattn.dense_attention_bhnd.launches, denseattn.dense_attention_bwd_bhnd.launches)
+    o, lse = denseattn.dense_attention_bhnd(q, k, v, scale)
+    got = denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (denseattn.dense_attention_bhnd.launches,
+            denseattn.dense_attention_bwd_bhnd.launches) == (before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, scale)
+    want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    bf16 = dtype == torch.bfloat16
+    o_tol, l_tol, g_tol = (2.0 ** -6, 1e-3, 2.0 ** -6) if bf16 else (3e-5, 1e-5, 1e-5)
+    assert (o.float() - o_ref.float()).abs().max() <= o_tol * max(1.0, o_ref.float().abs().max())
+    assert (lse - lse_ref).abs().max() <= l_tol * max(1.0, lse_ref.abs().max())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert (g.float() - w.float()).abs().max() <= g_tol * w.float().abs().max()
+
+
+def test_head_width_above_kernels_raises_on_card(dev):
+    q = torch.zeros(1, 128, 1, 512, device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        denseattn.dense_attention(q, q, q, 0.1)
+
+
+def _grid(shape, sd, step, gen, dev):
+    return (torch.randn(shape, generator=gen, device=dev) * sd / step).round().clamp(-64, 64) * step
+
+
+@pytest.mark.parametrize("m,d,f,dtype", [
+    (4096, 256, 512, torch.bfloat16), (1024, 128, 256, torch.bfloat16),
+    (2048, 256, 512, torch.float32), (1024, 128, 128, torch.float32),
+])
+def test_fused_ffn_kernels_match_plain(dev, m, d, f, dtype):
+    """K6f and K6b against their plain versions on inputs on the grid of
+    chip_smoke.py's K6 bounds (bf16 2^-6, f32 1e-5 of max|ref|), and the
+    backward the same from run to run."""
+    gen = torch.Generator(device=dev).manual_seed(m + d + f)
+    x, dy = _grid((m, d), 1.0, 1 / 8, gen, dev), _grid((m, d), 1.0, 1 / 8, gen, dev)
+    w1 = _grid((f, d), d ** -0.5, 1 / 256, gen, dev)
+    w2 = _grid((d, f), f ** -0.5, 1 / 256, gen, dev)
+    b1, b2 = _grid((f,), 0.05, 1 / 2048, gen, dev), _grid((d,), 0.05, 1 / 2048, gen, dev)
+    x, dy, w1, b1, w2, b2 = (t.to(dtype) for t in (x, dy, w1, b1, w2, b2))
+    before = (ffn.fused_ffn_fwd.launches, ffn.fused_ffn_bwd.launches)
+    y = ffn.fused_ffn_fwd(x, w1, b1, w2, b2)
+    got = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert (ffn.fused_ffn_fwd.launches, ffn.fused_ffn_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    y_ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert (y.float() - y_ref.float()).abs().max() <= tol * y_ref.float().abs().max()
+    for g, w in zip(got, ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2)):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+    again = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.parametrize("b,np_,ng", [(64, 2048, 2048), (3, 1000, 77), (2, 5, 2048)])

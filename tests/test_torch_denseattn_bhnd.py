@@ -1,0 +1,133 @@
+"""The port's dense attention on the BHND route (`dense_attention_bhnd`,
+`dense_attention`: the K3f forward and K3b backward, their plain
+versions on the CPU) against the JAX package's `dense_attention` and
+its `_call_fwd` (the BHND Pallas kernels) in interpret mode, on the same
+numpy inputs; and the route MultiHeadAttention takes for each head
+shape."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_song_tpu.ops import denseattn as jax_denseattn
+from vae_song_tpu_torch.ops import attention, denseattn
+
+# f32: the same math in another summation order; measured max |d| 6.5e-7
+# of max|O|, 8.1e-8 of max|LSE2| ~ 28, 1.0e-6 of max|d| ~ 7 on the
+# gradients; bound 1e-5 of max(1, max|ref|).
+F32_TOL = 1e-5
+# bf16 forward: O rounds to bf16 on both sides (measured 4.7e-3 of
+# max|O|, about one ulp, as on the packed route); the LSE differs more
+# because jnp.exp2 on bf16 lowers to exp(bf16(ln 2) * x) on the CPU (see
+# test_torch_denseattn.py; measured 3.3e-4 of max|LSE2|): bounds 2^-6 and
+# 1e-3 of max(1, max|ref|). bf16 gradients: both sides round the exp2
+# argument, P, dP and dS to bf16 at different f32 inputs (see
+# test_torch_train.py's K2 bound; measured 1.8e-2 of max|d|): 2^-4.
+BF16_O_TOL, BF16_LSE_TOL, BF16_GRAD_TOL = 2.0 ** -6, 1e-3, 2.0 ** -4
+
+# (B, N, H, D): the widths the route takes at the shipped d_model 256
+# (2 heads of 128, 1 of 256) and an odd count of 64-wide heads
+CASES = [(2, 128, 2, 128), (1, 256, 1, 256), (2, 128, 3, 64)]
+
+
+def _inputs(b, n, h, d, seed):
+    rng = np.random.default_rng(seed)
+    # q, k scaled by 2: a peaked softmax, as in a trained model
+    return [(rng.normal(size=(b, n, h, d)) * s).astype(np.float32) for s in (2.0, 2.0, 1.0, 1.0)]
+
+
+def _jax(q, k, v, do, scale, jdt):
+    """O, LSE2 [B, H, N] and (dq, dk, dv) of the JAX BHND kernels."""
+    q, k, v, do = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o, vjp = jax.vjp(lambda a, b, c: jax_denseattn.dense_attention(a, b, c, scale, interpret=True),
+                     q, k, v)
+    grads = vjp(do)
+    bhnd = lambda a: a.transpose(0, 2, 1, 3)
+    _, lse = jax_denseattn._call_fwd(bhnd(q), bhnd(k), bhnd(v), scale, True)
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    return f32(o), f32(lse[..., 0]), [f32(g) for g in grads]
+
+
+def _port(q, k, v, do, scale, dt):
+    leaves = [torch.from_numpy(a).to(dt).requires_grad_() for a in (q, k, v)]
+    o, lse = denseattn.dense_attention_bhnd(*leaves, scale)
+    assert o.dtype == dt and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    grads = torch.autograd.grad(o, leaves, torch.from_numpy(do).to(dt))
+    f32 = lambda t: t.detach().float().numpy()
+    return f32(o), lse.numpy(), [f32(g) for g in grads]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,d", CASES)
+def test_bhnd_route_matches_jax_interpret(b, n, h, d, dtype):
+    q, k, v, do = _inputs(b, n, h, d, seed=b + n + h + d)
+    scale = 1.0 / np.sqrt(d)
+    jdt, dt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    o_ref, lse_ref, g_ref = _jax(q, k, v, do, scale, jdt)
+    o, lse, grads = _port(q, k, v, do, scale, dt)
+    o_tol, lse_tol, g_tol = ((F32_TOL,) * 3 if dtype == "float32"
+                             else (BF16_O_TOL, BF16_LSE_TOL, BF16_GRAD_TOL))
+    assert np.abs(o - o_ref).max() <= o_tol * max(1.0, np.abs(o_ref).max())
+    assert np.abs(lse - lse_ref).max() <= lse_tol * max(1.0, np.abs(lse_ref).max())
+    for name, g, w in zip(("dq", "dk", "dv"), grads, g_ref):
+        assert np.abs(g - w).max() <= g_tol * max(1.0, np.abs(w).max()), name
+
+
+def test_routes_count_apart_and_cpu_never_counts():
+    """The BHND route's own counters; CPU tensors take the plain versions
+    and count nothing on either route."""
+    counters = (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
+                denseattn.dense_attention_bhnd, denseattn.dense_attention_bwd_bhnd)
+    before = [c.launches for c in counters]
+    q = torch.randn(1, 128, 2, 128, requires_grad=True)
+    denseattn.dense_attention(q, q, q, 0.1).sum().backward()
+    assert [c.launches for c in counters] == before
+    assert q.grad is not None and q.grad.shape == q.shape
+
+
+@pytest.mark.parametrize("shape", [
+    (2048, 2048, 128), (2048, 2048, 256), (2048, 2048, 64), (2048, 2048, 96), (2048, 1, 128),
+    (4096, 4096, 128), (200, 200, 128), (256, 256, 512),
+])
+def test_dense_gate_matches_jax(shape):
+    assert denseattn.dense_ok(*shape) == jax_denseattn.dense_ok(*shape)
+
+
+def _route(monkeypatch, d_model, num_heads, n=128):
+    """Which of MultiHeadAttention's routes self-attention over n points
+    takes: 'packed', 'bhnd' or 'plain'."""
+    seen = []
+    for name, tag in (("dense_attention_fwd", "packed"), ("dense_attention", "bhnd"),
+                      ("attention_plain", "plain")):
+        fn = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *a, _fn=fn, _tag=tag: seen.append(_tag) or _fn(*a))
+    mha = attention.MultiHeadAttention(d_model, num_heads,
+                                       generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, n, d_model)
+    out = mha(x, x)
+    assert out.shape == x.shape
+    return seen
+
+
+@pytest.mark.parametrize("d_model,num_heads,n,want", [
+    (256, 4, 128, "packed"),     # 64-wide heads in pairs: K1 / K2
+    (256, 2, 128, "bhnd"),       # 128-wide heads: K3f / K3b
+    (256, 1, 128, "bhnd"),       # one 256-wide head
+    (192, 3, 128, "bhnd"),       # an odd count of 64-wide heads
+    (256, 4, 100, "plain"),      # a length neither dense kernel takes
+])
+def test_attention_routes_as_jax(monkeypatch, d_model, num_heads, n, want):
+    assert _route(monkeypatch, d_model, num_heads, n) == [want]
+
+
+def test_head_width_above_kernels_raises(monkeypatch):
+    """dense_ok takes a 512-wide head; the kernels are built up to 256:
+    the route raises and names the limit rather than taking the plain
+    version, on the CPU too."""
+    assert denseattn.dense_ok(128, 128, 512)
+    with pytest.raises(ValueError, match="up to 256"):
+        _route(monkeypatch, 512, 1)

@@ -2,7 +2,8 @@
 nothing chip_smoke.py imports pulls in jax or the JAX package (the
 machine with the card has neither), chip_smoke.py's MODEL_PARAMS is the
 shipped config's, and chip_smoke.py refuses to report a result without
-a CUDA card or without the rest of the repository."""
+a CUDA card or without the rest of the repository. Its further
+configurations are the shipped ones with one stated change each."""
 
 import ast
 import os
@@ -56,25 +57,65 @@ def test_chip_smoke_imports_no_jax():
     assert "vae_song_tpu_torch" in roots
 
 
+def _smoke_literal(name):
+    """The literal value chip_smoke.py assigns to the module constant `name`."""
+    tree = ast.parse(open(SMOKE).read())
+    return ast.literal_eval(next(
+        node.value for node in tree.body
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == name for t in node.targets)
+    ))
+
+
+def _smoke_function(name):
+    tree = ast.parse(open(SMOKE).read())
+    return ast.unparse(next(node for node in tree.body
+                            if isinstance(node, ast.FunctionDef) and node.name == name))
+
+
 def test_chip_smoke_model_params_are_the_shipped_config():
     """MODEL_PARAMS and COMMON_PARAMS are the SetVAE config's; MODEL_PARAMS
     updated with SETLRVAE_PARAMS, and SETLRVAE_BATCH, are the SetLRVAE
     config's."""
-    tree = ast.parse(open(SMOKE).read())
-
-    def literal(name):
-        return ast.literal_eval(next(
-            node.value for node in tree.body
-            if isinstance(node, ast.Assign) and any(
-                isinstance(t, ast.Name) and t.id == name for t in node.targets)
-        ))
-
+    literal = _smoke_literal
     config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
     assert literal("MODEL_PARAMS") == config["model_params"]
     assert literal("COMMON_PARAMS") == config["common_params"]
     lr_config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setlrvae.yaml"))
     assert dict(literal("MODEL_PARAMS"), **literal("SETLRVAE_PARAMS")) == lr_config["model_params"]
     assert literal("SETLRVAE_BATCH") == lr_config["common_params"]["batch_size"]
+
+
+def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch):
+    """Phase 4c's configurations are the shipped files plus one stated
+    change each and nothing else: the SetVAE config with `num_heads: 2`
+    (a key the file sets, to a value that takes the BHND route), and the
+    SetVAE and SetLRVAE configs as they are, under the VST_FUSED_FFN
+    switch that the port reads."""
+    from vae_song_tpu_torch.models import setvae
+    from vae_song_tpu_torch.ops import denseattn
+
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    mp = config["model_params"]
+    override = _smoke_literal("HEADS2_OVERRIDE")
+    assert override == {"num_heads": 2} and set(override) <= set(mp)
+    heads2 = dict(mp, **override)
+    n, d = heads2["num_points"], heads2["d_model"] // heads2["num_heads"]
+    assert denseattn.dense_ok(n, n, d) and not denseattn.packed_ok(n, n, heads2["num_heads"], d)
+    assert "params = dict(MODEL_PARAMS, **HEADS2_OVERRIDE)" in _smoke_function("phase_heads2")
+
+    env = _smoke_literal("FUSED_FFN_ENV")
+    assert env == {"VST_FUSED_FFN": "1"}
+    monkeypatch.delenv("VST_FUSED_FFN", raising=False)
+    assert not setvae._ffn_fused_on()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert setvae._ffn_fused_on()
+    fused = _smoke_function("phase_fused_ffn")
+    assert "with mock.patch.dict(os.environ, FUSED_FFN_ENV):" in fused
+    assert "lr_params = dict(MODEL_PARAMS, **SETLRVAE_PARAMS)" in fused
+    assert "_time_train_step('setvae', MODEL_PARAMS, BATCH, dev, tag)" in fused
+    assert "_time_train_step('setlrvae', lr_params, SETLRVAE_BATCH, dev, tag)" in fused
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

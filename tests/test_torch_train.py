@@ -26,11 +26,13 @@ from vae_song_tpu.models import build_model as jax_build_model
 from vae_song_tpu.ops import attention as jax_attention
 from vae_song_tpu.ops import chamfer as jax_chamfer
 from vae_song_tpu.ops import denseattn as jax_denseattn
+from vae_song_tpu.ops import ffn as jax_ffn
 from vae_song_tpu.train import state as jax_state
 from vae_song_tpu.train.steps import make_train_step as jax_make_train_step
 from vae_song_tpu_torch import weights
 from vae_song_tpu_torch.models import setvae as torch_setvae
 from vae_song_tpu_torch.models.registry import build_model
+from vae_song_tpu_torch.ops import attention as torch_attention
 from vae_song_tpu_torch.ops import chamfer, denseattn
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
@@ -272,9 +274,11 @@ def test_unknown_clip_type_raises():
 
 def test_adam_with_clip_matches_optax_over_steps():
     """Three updates of the chained clip + Adam + cosine schedule on fixed
-    gradients. optax computes Adam's bias corrections 1 - b^t in f32
-    (0.999 is 0.99900001 in f32, so 1 - 0.999^t is up to 2e-5 off), torch
-    in double: measured 7.4e-6 relative at |param| ~ 2e-2."""
+    gradients. The port's Adam computes the bias corrections 1 - b^t in
+    f32 as optax does (torch.optim.Adam, in double, measured 7.4e-6
+    relative here); now measured 7.9e-8 relative at |param| ~ 2e-2, under
+    one f32 ulp (the learning rate and the sums round at other points):
+    bound two f32 ulps."""
     rng = np.random.default_rng(9)
     grads = [rng.normal(size=s).astype(np.float32) * 3 for s in ((4, 3), (7,))]
     grad_clip = {"enabled": True, "clip_type": "norm", "max_norm": 1.0}
@@ -289,7 +293,7 @@ def test_adam_with_clip_matches_optax_over_steps():
     assert opt.count == 3
     for i, p in enumerate(params):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[f"p{i}"]),
-                                   rtol=5e-5, atol=0)
+                                   rtol=2.5e-7, atol=0)
 
 
 # ---------------------------------------------------------------- train step
@@ -324,13 +328,14 @@ def _patch_jax_kernels(monkeypatch):
     monkeypatch.setattr(torch_setvae, "best_chamfer", chamfer.chamfer_distance_packed)
 
 
-def _train_both(monkeypatch, kind, mixed):
+def _train_both(monkeypatch, kind, mixed, overrides=None):
     """STEPS train steps of the JAX package and of the port from the same
     weights (the port's seeded initialisation, handed to JAX through
-    vae_song_tpu_torch.weights), on the same clouds and noise. Returns
-    the per-step metrics, the first step's gradients and the final
-    parameters of both, state_dict-keyed, and the initial parameters."""
-    mp = dict(MODEL_PARAMS, mixed_precision=mixed)
+    vae_song_tpu_torch.weights), on the same clouds and noise, with
+    MODEL_PARAMS updated by `overrides`. Returns the per-step metrics,
+    the first step's gradients and the final parameters of both,
+    state_dict-keyed, and the initial parameters."""
+    mp = dict(MODEL_PARAMS, mixed_precision=mixed, **(overrides or {}))
     port = build_model(kind, "shapenet", mp, beta=BETA, alpha=ALPHA,
                        generator=torch.Generator().manual_seed(0))
     initial = {k: v.clone() for k, v in port.state_dict().items()}
@@ -367,14 +372,14 @@ def _train_both(monkeypatch, kind, mixed):
     return (jax_metrics, jax_grads, jax_final), (port_metrics, port_grads, port.state_dict()), initial
 
 
-def _train_diffs(monkeypatch, kind, mixed):
+def _train_diffs(monkeypatch, kind, mixed, overrides=None):
     """(max relative loss-term difference at the first step, the same
     over the later steps, relative L2 difference of the first step's
     gradients, L2 difference of the parameters after STEPS updates
     relative to the L2 of JAX's parameter movement, max |d param|, share
     of parameter elements apart by more than lr/100), after checking the
     parameters that get no gradient."""
-    (jm, jg, jp), (pm, pg, pp), initial = _train_both(monkeypatch, kind, mixed)
+    (jm, jg, jp), (pm, pg, pp), initial = _train_both(monkeypatch, kind, mixed, overrides)
     rel = lambda j, p: max(abs(p[k] - j[k]) / max(abs(j[k]), 1e-6)
                            for k in ("loss", "recon", "reg", "lr", "raw_kl"))
     first, later = rel(jm[0], pm[0]), max(rel(j, p) for j, p in zip(jm[1:], pm[1:]))
@@ -433,6 +438,50 @@ def _assert_within(diffs, bounds):
 def test_train_step_matches_jax_kernels_interpret(monkeypatch, kind):
     _patch_jax_kernels(monkeypatch)
     _assert_within(_train_diffs(monkeypatch, kind, False), KERNEL_BOUNDS)
+
+
+def _count_calls(monkeypatch, module, name):
+    """Replace module.name by a wrapper that counts its calls."""
+    calls, fn = [], getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+def test_train_step_bhnd_route_matches_jax_kernels_interpret(monkeypatch):
+    """One 128-wide head (num_heads 1 at d_model 128), which the packed
+    kernels refuse: the port's BHND route (the K3f / K3b plain versions)
+    against the JAX BHND kernels in interpret mode (MultiHeadAttention's
+    dense gate patched open, as for the packed one). Measured 2.1e-7,
+    5.2e-4, 4.3e-6, 2.2e-3, 5.7e-3, 3.9e-3: within KERNEL_BOUNDS."""
+    _patch_jax_kernels(monkeypatch)
+    monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
+    jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")
+    monkeypatch.setattr(jax_denseattn, "dense_attention",
+                        functools.partial(jax_denseattn.dense_attention, interpret=True))
+    port_calls = _count_calls(monkeypatch, torch_attention, "dense_attention")
+    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"num_heads": 1}), KERNEL_BOUNDS)
+    assert jax_calls and port_calls
+
+
+def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
+    """VST_FUSED_FFN=1 with ff_dim 128 (fused_ffn_ok shapes): every
+    encoder and decoder FFN of the port through `fused_ffn` (its plain
+    versions), against the JAX fused FFN in interpret mode (its gate's
+    TPU-backend check patched out, as tests/test_ffn_kernel.py does).
+    Measured 1.9e-7, 8.2e-5, 1.4e-6, 4.3e-4, 1.3e-3, 2.8e-4: within
+    KERNEL_BOUNDS."""
+    _patch_jax_kernels(monkeypatch)
+    monkeypatch.setattr(jax_ffn, "INTERPRET", True)
+    monkeypatch.setattr(
+        jax_setvae, "_use_fused_ffn",
+        lambda x, f, dr, tr: (not (dr > 0.0 and tr))
+        and jax_ffn.fused_ffn_ok(int(np.prod(x.shape[:-1])), x.shape[-1], f))
+    monkeypatch.setenv("VST_FUSED_FFN", "1")
+    jax_calls = _count_calls(monkeypatch, jax_ffn, "fused_ffn")
+    port_calls = _count_calls(monkeypatch, torch_setvae, "fused_ffn")
+    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"ff_dim": 128}), KERNEL_BOUNDS)
+    # per train step: 2 encoder and 2 decoder layers
+    assert len(port_calls) == 4 * STEPS and jax_calls
 
 
 @pytest.mark.parametrize("kind,mixed", [("setvae", False), ("setlrvae", False),

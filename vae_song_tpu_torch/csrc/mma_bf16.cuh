@@ -1,6 +1,7 @@
 // bf16 helpers shared by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu): the same mma.sync fragments and the same
-// exp2 rounding, so P is computed by one code path in both directions.
+// backward (dense_attn_bwd.cu), whose P is computed by one code path in
+// both directions (the same mma.sync fragments and exp2 rounding), and by
+// the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) fragment layouts, lane =
 // 4 g + t:
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -57,18 +59,32 @@ __device__ __forceinline__ void acc_to_a(const float c[][4], int kc, uint32_t a[
   a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
 }
 
-// A fragments of rows r0 .. r0 + 15 of a [rows][ld] bf16 shared tile,
-// 64 columns wide (4 chunks of 16).
+// A fragment of rows r0 .. r0 + 15, columns 16 kk .. 16 kk + 15, of a
+// [rows][LD] bf16 shared tile.
 template <int LD>
+__device__ __forceinline__ void load_a_chunk(const __nv_bfloat16 (*tile)[LD], int r0, int kk,
+                                             int g, int t, uint32_t a[4]) {
+  a[0] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t]);
+  a[1] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t]);
+  a[2] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t + 8]);
+  a[3] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t + 8]);
+}
+
+// A fragments of rows r0 .. r0 + 15 of a [rows][LD] bf16 shared tile,
+// 16 KC columns wide (KC chunks of 16).
+template <int LD, int KC = 4>
 __device__ __forceinline__ void load_a_rows(const __nv_bfloat16 (*tile)[LD], int r0,
-                                            int g, int t, uint32_t a[4][4]) {
+                                            int g, int t, uint32_t a[KC][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t]);
-    a[kk][1] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t]);
-    a[kk][2] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t + 8]);
-    a[kk][3] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t + 8]);
-  }
+  for (int kk = 0; kk < KC; ++kk) load_a_chunk<LD>(tile, r0, kk, g, t, a[kk]);
+}
+
+// Dynamic shared memory above the 48 KB a launch gets by default must be
+// granted per kernel; returns the attribute call's error.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace vst

@@ -14,6 +14,15 @@ projection and the final Dense(3) promote to f32, so recon, mu and
 logvar are f32 and the Chamfer loss runs in f32. The first residual add
 of the encoder is f32 + bf16 = f32.
 
+The FFN follows the JAX package's opt-in switch `VST_FUSED_FFN=1`
+(models/setvae.py:32-77), read at every call as the JAX package reads it
+at every trace: for a dropout-free call on `fused_ffn_ok` shapes, the
+residual FFN `x + ff_down(relu(ff_up(x)))` runs as one fused op
+(ops/ffn.py, the K6f / K6b kernels on CUDA tensors, their plain versions
+on CPU tensors) on the same `ff_up` / `ff_down` parameters, then the
+LayerNorm. The switch does not depend on the device. Off (the default),
+the two Dense layers run.
+
 Randomness is explicit: `forward(x, eps)` takes the reparameterisation
 noise, and `decode(z)` the latent.
 
@@ -27,6 +36,8 @@ B = 1 too.
 The DeepSets SetEncoder / SetDecoder (BatchNorm) are not ported yet.
 """
 
+import os
+
 import torch
 from torch import nn
 
@@ -35,6 +46,37 @@ from vae_song_tpu_torch.nn.initializers import normal_scaled_
 from vae_song_tpu_torch.ops import losses
 from vae_song_tpu_torch.ops.attention import MultiHeadAttention
 from vae_song_tpu_torch.ops.chamfer import best_chamfer
+from vae_song_tpu_torch.ops.ffn import fused_ffn, fused_ffn_ok
+
+
+def _ffn_fused_on() -> bool:
+    """The opt-in switch VST_FUSED_FFN=1 (or true), off by default."""
+    return os.environ.get("VST_FUSED_FFN", "0").lower() in ("1", "true")
+
+
+def _use_fused_ffn(x, ff_dim: int, dropout_rate: float, training: bool) -> bool:
+    """Route this FFN through `fused_ffn`? The switch on, a dropout-free
+    call (dropout acts on the hidden activation, which the fused op never
+    materialises) and kernel-eligible shapes, as the JAX gate has it."""
+    if dropout_rate > 0.0 and training:
+        return False
+    if not _ffn_fused_on():
+        return False
+    m = 1
+    for s in x.shape[:-1]:
+        m *= s
+    return fused_ffn_ok(m, x.shape[-1], ff_dim)
+
+
+def _residual_ffn(x, ff_up, ff_down, dropout_rate: float, training: bool):
+    """x + ff_down(relu(ff_up(x))), fused when `_use_fused_ffn` says so (the
+    residual added inside, the parameters cast to the compute dtype as
+    Dense casts them)."""
+    if _use_fused_ffn(x, ff_up.weight.shape[0], dropout_rate, training):
+        cd = ff_up.dtype or x.dtype
+        return fused_ffn(x.to(cd), ff_up.weight.to(cd), ff_up.bias.to(cd),
+                         ff_down.weight.to(cd), ff_down.bias.to(cd))
+    return x + ff_down(torch.relu(ff_up(x)))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -44,6 +86,7 @@ class TransformerEncoderLayer(nn.Module):
                  compute_dtype=None, generator=None):
         super().__init__()
         cd = compute_dtype
+        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
         self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
@@ -52,7 +95,8 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x):
         x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.ff_down(torch.relu(self.ff_up(x))))
+        return self.norm2(_residual_ffn(x, self.ff_up, self.ff_down, self.dropout_rate,
+                                        self.training))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -64,6 +108,7 @@ class TransformerDecoderLayer(nn.Module):
                  compute_dtype=None, generator=None):
         super().__init__()
         cd = compute_dtype
+        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
         self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
@@ -77,7 +122,8 @@ class TransformerDecoderLayer(nn.Module):
 
     def cross_ffn_block(self, tgt, memory):
         tgt = self.norm2(tgt + self.cross_attn(tgt, memory))
-        return self.norm3(tgt + self.ff_down(torch.relu(self.ff_up(tgt))))
+        return self.norm3(_residual_ffn(tgt, self.ff_up, self.ff_down, self.dropout_rate,
+                                        self.training))
 
     def forward(self, tgt, memory):
         return self.cross_ffn_block(self.self_attn_block(tgt), memory)

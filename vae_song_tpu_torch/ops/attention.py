@@ -13,12 +13,21 @@ nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
      JAX package gives them zero gradients, which optax's Adam turns into
      zero updates).
   2. shapes the JAX package sends to its packed kernel (`packed_ok`):
-     dense attention (ops/denseattn.py), differentiable through its
-     autograd Function: the K1 forward and K2 backward kernels on CUDA
-     tensors.
-  3. everything else: plain attention with bf16 matmuls and an f32
+     dense attention's packed route (ops/denseattn.py), differentiable
+     through its autograd Function: the K1 forward and K2 backward
+     kernels on CUDA tensors.
+  3. the other shapes the JAX package sends to its dense kernel
+     (`dense_ok`: heads not 64 wide, or an odd head count): dense
+     attention's BHND route, the K3f forward and K3b backward kernels on
+     CUDA tensors. A head width above 256 raises (the kernels are built
+     up to 256).
+  4. everything else: plain attention with bf16 matmuls and an f32
      softmax, as the JAX package's `_xla_attention`, differentiated by
      autograd.
+
+The route follows the JAX package's order (vae_song_tpu/ops/attention.py
+:424-448) and never the device: on a CPU tensor routes 2 and 3 run their
+kernels' plain versions.
 """
 
 import math
@@ -28,7 +37,8 @@ from torch import nn
 
 from vae_song_tpu_torch.nn.blocks import Dense
 from vae_song_tpu_torch.nn.initializers import mha_in_proj_bound
-from vae_song_tpu_torch.ops.denseattn import dense_attention_fwd, packed_ok
+from vae_song_tpu_torch.ops.denseattn import (dense_attention, dense_attention_fwd, dense_ok,
+                                              packed_ok)
 
 
 def attention_plain(q, k, v, scale: float):
@@ -83,6 +93,8 @@ class MultiHeadAttention(nn.Module):
         scale = 1.0 / math.sqrt(d)
         if packed_ok(n_q, n_kv, h, d):
             out, _ = dense_attention_fwd(q, k, v, scale)
+        elif dense_ok(n_q, n_kv, d):
+            out = dense_attention(q, k, v, scale)
         else:
             out = attention_plain(q, k, v, scale)
         return self.out(out.reshape(b, n_q, self.d_model))

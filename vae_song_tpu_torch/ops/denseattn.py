@@ -1,8 +1,21 @@
-"""Dense attention: the port of vae_song_tpu/ops/denseattn.py's packed
-kernels, the forward (`_fwd_kernel_packed`, K1) and the backward
-(`_bwd_kernel_packed`, K2), to hand-written Hopper kernels
-(csrc/dense_attn_fwd.cu, csrc/dense_attn_bwd.cu), each with its plain
-PyTorch version beside it.
+"""Dense attention: the port of vae_song_tpu/ops/denseattn.py's kernels
+to hand-written Hopper kernels (csrc/dense_attn_fwd.cu,
+csrc/dense_attn_bwd.cu), each with its plain PyTorch version beside it.
+Two routes share one kernel pair:
+
+  * the packed route (`dense_attention_fwd`, the JAX package's
+    `_fwd_kernel_packed` K1 and `_bwd_kernel_packed` K2): shapes that
+    `packed_ok` accepts, 64-wide heads in an even count;
+  * the BHND route (`dense_attention_bhnd` and `dense_attention`, the
+    JAX package's `_fwd_kernel` K3f and `_bwd_kernel` K3b): the other
+    shapes `dense_ok` accepts, head widths D % 64 == 0 other than 64 or
+    an odd head count.
+
+The JAX kernels of both routes compute the same function with the same
+roundings, so the port launches one kernel, instantiated for D = 64, 128,
+192 and 256; each route counts its own launches. A head width that
+`dense_ok` accepts above 256 raises a ValueError naming the limit, on any
+device.
 
 The forward computes, per (batch, head):
 
@@ -16,15 +29,17 @@ The forward computes, per (batch, head):
 
 q, k, v are [B, N, H, D] and may be views of the model's packed
 [B, N, H*D] projections: the kernel reads them through strides, so no
-transposes are made. O comes back as [B, N, H, D] (contiguous, so it
-reshapes to [B, N, H*D] for free) and LSE2 as [B, H, N]; the JAX
-kernel's `lse_a` / `lse_b` [B, H/2, N, 1] are heads 2j and 2j + 1 of it.
+transposes are made (the JAX BHND route transposes to [B, H, N, D]; the
+result is the same). O comes back as [B, N, H, D] (contiguous, so it
+reshapes to [B, N, H*D] for free) and LSE2 as [B, H, N]; the JAX packed
+kernel's `lse_a` / `lse_b` [B, H/2, N, 1] are heads 2j and 2j + 1 of it,
+its BHND kernel's [B, H, N, 1] is it.
 
 The kernel keeps an online softmax (running exact max), so under bf16 it
 rounds P against the running max where the plain version and the TPU
-kernel use the final row max: the two agree within bf16 rounding.
+kernels use the final row max: the two agree within bf16 rounding.
 
-The backward recomputes P from LSE2 and follows the TPU kernel's
+The backward recomputes P from LSE2 and follows the TPU kernels'
 roundings (cd = bf16 for bf16 inputs, f32 for f32 inputs):
 
     P     = exp2(round_cd(qc k^T - LSE2)), rounded to cd
@@ -32,19 +47,22 @@ roundings (cd = bf16 for bf16 inputs, f32 for f32 inputs):
     dS    = round_cd(P * round_cd(dP - delta))
     dQ    = (dS k) * scale,  dK = (dS^T qc) * ln2   (f32 sums, cast at the end)
 
-`dense_attention_fwd` is differentiable: it runs through a
-torch.autograd.Function whose forward is K1 and whose backward is K2 on
-CUDA tensors (the plain versions on CPU tensors). It saves q, k, v, O and
-LSE only when a gradient will be asked for.
+Both routes are differentiable through one torch.autograd.Function whose
+forward and backward are the kernels on CUDA tensors (the plain versions
+on CPU tensors). It saves q, k, v, O and LSE only when a gradient will be
+asked for.
 """
 
 import torch
 
 from vae_song_tpu_torch import _kernels
 
-# packed_ok gate of the JAX package (denseattn.py:372-378, 709-714)
+# dense_ok / packed_ok gates of the JAX package (denseattn.py:372-378,
+# 709-714)
 MAX_DENSE_SEQ = 2048
 HEAD_DIM = 64
+# head widths the kernels are instantiated for
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 # query rows per plain-version chunk: bounds the f32 [chunk, H, N, N]
@@ -52,15 +70,19 @@ LN2 = 0.6931471805599453
 _PLAIN_BATCH_CHUNK = 16
 
 
-def packed_ok(n_q: int, n_kv: int, num_heads: int, head_dim: int) -> bool:
-    """The JAX package's gate for the packed kernel, whose port this is."""
+def dense_ok(n_q: int, n_kv: int, head_dim: int) -> bool:
+    """The JAX package's gate for its dense (BHND) kernel."""
     return (
         n_q == n_kv
         and n_q <= MAX_DENSE_SEQ
         and n_q % 128 == 0
-        and head_dim == HEAD_DIM
-        and num_heads % 2 == 0
+        and head_dim % 64 == 0
     )
+
+
+def packed_ok(n_q: int, n_kv: int, num_heads: int, head_dim: int) -> bool:
+    """The JAX package's gate for its packed kernel."""
+    return dense_ok(n_q, n_kv, head_dim) and head_dim == HEAD_DIM and num_heads % 2 == 0
 
 
 def _check(q, k, v):
@@ -74,8 +96,11 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
     b, n, h, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"head width must be {HEAD_DIM}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"head width must be one of {KERNEL_HEAD_DIMS} (a multiple of 64 up to 256, "
+            f"the widths the attention kernels are built for), got {d}"
+        )
     if n % 64 != 0 or n == 0:
         raise ValueError(f"sequence length must be a positive multiple of 64, got {n}")
 
@@ -125,17 +150,10 @@ def _launch_fwd(q, k, v, scale):
     _kernels.launch(
         "vst_dense_attn_fwd", q.device,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, n, sb, sn, sh, ob, on, oh,
+        o.data_ptr(), lse.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
         float(scale * LOG2E),
     )
-    dense_attention_fwd.launches += 1
     return o, lse
-
-
-def _forward(q, k, v, scale):
-    if q.device.type == "cpu":
-        return dense_attention_fwd_plain(q, k, v, scale)
-    return _launch_fwd(q, k, v, scale)
 
 
 def dense_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
@@ -179,34 +197,55 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
         "vst_dense_attn_bwd", q.device,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, sb, sn, sh, ob, on, oh,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
         float(scale * LOG2E), float(scale),
     )
-    dense_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _forward(q, k, v, scale, counter):
+    """The kernel on a CUDA tensor (one more launch on `counter`), the
+    plain version on a CPU tensor."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return dense_attention_fwd_plain(q, k, v, scale)
+    out = _launch_fwd(q, k, v, scale)
+    counter.launches += 1
+    return out
+
+
+def _backward(q, k, v, o, lse, do, scale, counter):
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    out = _launch_bwd(q, k, v, o, lse, do, scale)
+    counter.launches += 1
+    return out
 
 
 def dense_attention_bwd(q, k, v, o, lse, do, scale: float):
     """Gradients (dq, dk, dv) of dense attention from the forward's o and
-    lse and the output cotangent do. CUDA tensors launch the Hopper
-    kernel; CPU tensors take the plain version.
+    lse and the output cotangent do, on the packed route (K2). CUDA
+    tensors launch the Hopper kernel; CPU tensors take the plain version.
     `dense_attention_bwd.launches` counts kernel launches."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
-    return _launch_bwd(q, k, v, o, lse, do, scale)
+    return _backward(q, k, v, o, lse, do, scale, dense_attention_bwd)
 
 
-dense_attention_bwd.launches = 0
+def dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale: float):
+    """The same gradients on the BHND route (K3b): the same kernel,
+    counted in `dense_attention_bwd_bhnd.launches`."""
+    return _backward(q, k, v, o, lse, do, scale, dense_attention_bwd_bhnd)
 
 
 class _DenseAttention(torch.autograd.Function):
-    """Forward K1, backward K2 (or their plain versions on the CPU)."""
+    """Forward and backward kernels of one route (or their plain versions
+    on the CPU): `fwd_counter` counts the forward's launches, `bwd` is the
+    route's backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, save):
-        o, lse = _forward(q, k, v, scale)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, scale, save, fwd_counter, bwd):
+        o, lse = _forward(q, k, v, scale, fwd_counter)
+        ctx.scale, ctx.bwd = scale, bwd
         if save:
             ctx.save_for_backward(q, k, v, o, lse)
         ctx.mark_non_differentiable(lse)
@@ -215,19 +254,42 @@ class _DenseAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = dense_attention_bwd(q, k, v, o, lse, do, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def _apply(q, k, v, scale, fwd_counter, bwd):
+    _check(q, k, v)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _DenseAttention.apply(q, k, v, scale, save, fwd_counter, bwd)
 
 
 def dense_attention_fwd(q, k, v, scale: float):
-    """Dense attention forward on [B, N, H, 64] q/k/v (float32 or bfloat16,
-    N a multiple of 64, any B >= 1). Returns (o [B, N, H, 64], lse [B, H, N]
-    f32); o is differentiable in q, k, v (backward: `dense_attention_bwd`),
-    lse is not. CUDA tensors launch the Hopper kernel; CPU tensors take the
-    plain version. `dense_attention_fwd.launches` counts kernel launches."""
-    _check(q, k, v)
-    save = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return _DenseAttention.apply(q, k, v, scale, save)
+    """Dense attention forward on the packed route (K1) on [B, N, H, D]
+    q/k/v (float32 or bfloat16, D in KERNEL_HEAD_DIMS, N a multiple of 64,
+    any B >= 1). Returns (o [B, N, H, D], lse [B, H, N] f32); o is
+    differentiable in q, k, v (backward: `dense_attention_bwd`), lse is
+    not. CUDA tensors launch the Hopper kernel; CPU tensors take the plain
+    version. `dense_attention_fwd.launches` counts kernel launches."""
+    return _apply(q, k, v, scale, dense_attention_fwd, dense_attention_bwd)
 
 
-dense_attention_fwd.launches = 0
+def dense_attention_bhnd(q, k, v, scale: float):
+    """Dense attention forward on the BHND route (K3f): q/k/v [B, N, H, D]
+    as `dense_attention_fwd` takes them, any head count. Returns (o, lse)
+    as `dense_attention_fwd` does; o is differentiable in q, k, v
+    (backward: `dense_attention_bwd_bhnd`, K3b). CUDA tensors launch the
+    Hopper kernel; CPU tensors take the plain version.
+    `dense_attention_bhnd.launches` counts kernel launches."""
+    return _apply(q, k, v, scale, dense_attention_bhnd, dense_attention_bwd_bhnd)
+
+
+def dense_attention(q, k, v, scale: float):
+    """The port of the JAX package's `dense_attention`: o [B, N, H, D] of
+    `dense_attention_bhnd`, differentiable in q, k, v."""
+    return dense_attention_bhnd(q, k, v, scale)[0]
+
+
+for _fn in (dense_attention_fwd, dense_attention_bwd, dense_attention_bhnd,
+            dense_attention_bwd_bhnd):
+    _fn.launches = 0

@@ -5,11 +5,12 @@ then Adam (b1 0.9, b2 0.999, eps 1e-8) whose learning rate follows
 `optax.cosine_decay_schedule(lr, total_steps)`. The port keeps optax's
 semantics where they differ from torch's defaults:
 
-  * Adam: `torch.optim.Adam` computes optax's update (bias-corrected
-    moments, eps added to the square root), with its learning rate set
-    before every step from the schedule. A parameter without a gradient
-    (the kv-length-1 cross-attention's query/key projections) is left as
-    it is, as optax's Adam leaves a parameter whose gradient is zero.
+  * Adam: the port's own foreach update (`Adam` below) with optax's
+    arithmetic, the bias corrections 1 - b^t in f32 included (torch.optim
+    .Adam computes them in double), its learning rate taken from the
+    schedule at every step. A parameter without a gradient (the
+    kv-length-1 cross-attention's query/key projections) is left as it
+    is, as optax's Adam leaves a parameter whose gradient is zero.
   * cosine schedule: step k (0-based) uses lr * 0.5 * (1 + cos(pi *
     min(k, T) / T)).
   * clip, norm_type 2: `optax.clip_by_global_norm`, which leaves the
@@ -25,6 +26,7 @@ semantics where they differ from torch's defaults:
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -106,18 +108,60 @@ def make_clip(grad_clip: dict | None):
     raise ValueError(f"unknown clip_type {clip_type!r}")
 
 
+class Adam:
+    """`optax.scale_by_adam` followed by the scaled learning rate, over a
+    list of parameters, with optax's arithmetic: the moments as
+    (1 - b) * g + b * m, the bias corrections 1 - b^t computed in f32
+    (b = 0.999 is 0.99900001 in f32; torch.optim.Adam computes them in
+    double), the update m_hat / (sqrt(v_hat) + eps) scaled by -lr. One
+    count for all parameters, as optax keeps it; a parameter without a
+    gradient keeps its moments and its value, as optax's zero gradient
+    leaves them."""
+
+    def __init__(self, params, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = params
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, lr: float, count: int):
+        """One update; `count` is the 1-based number of this update."""
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        if not live:
+            return
+        ps = [self.params[i] for i in live]
+        gs = [self.params[i].grad for i in live]
+        mus = [self.mu[i] for i in live]
+        nus = [self.nu[i] for i in live]
+        torch._foreach_mul_(mus, self.b1)
+        torch._foreach_add_(mus, torch._foreach_mul(gs, 1.0 - self.b1))
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(gs, gs), 1.0 - self.b2))
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mus, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, -float(f32(lr)))
+        torch._foreach_add_(ps, upd)
+
+
 class Optimizer:
     """optax.chain(clip?, adam(schedule)) over a list of parameters.
-    `step()` clips the gradients in place, sets Adam's learning rate for
-    the current count and updates; `count` is the number of updates
-    taken."""
+    `step()` clips the gradients in place and takes one Adam update at
+    the schedule's rate for the current count; `count` is the number of
+    updates taken."""
 
     def __init__(self, params, lr: float = 1e-2, total_steps: int | None = None,
                  grad_clip: dict | None = None):
         self.params = list(params)
         self.schedule = cosine_decay(lr, total_steps) if total_steps is not None else (lambda _: lr)
         self.clip = make_clip(grad_clip)
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.adam = Adam(self.params, b1=0.9, b2=0.999, eps=1e-8)
         self.count = 0
 
     def lr(self) -> float:
@@ -131,9 +175,7 @@ class Optimizer:
     def step(self):
         if self.clip is not None:
             self.clip(_grads(self.params))
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr()
-        self.adam.step()
+        self.adam.step(self.lr(), self.count + 1)
         self.count += 1
 
 
