@@ -38,8 +38,10 @@ from vae_song_tpu_torch.train.steps import make_train_step  # noqa: E402
 PROFILED, TIMED = 4, 8
 CLASSES = (
     # one kernel pair serves both attention routes: K1 / K2 on the packed
-    # route, K3f / K3b on the BHND route
-    ("K2/K3b attention backward", ("attn_bwd_dkdv", "attn_bwd_dq", "attn_bwd_delta")),
+    # route, K3f / K3b on the BHND route; the backward's three passes apart
+    ("K2/K3b attention backward: preprocess (delta, qc)", ("attn_bwd_preprocess",)),
+    ("K2/K3b attention backward: dK/dV", ("attn_bwd_dkdv",)),
+    ("K2/K3b attention backward: dQ", ("attn_bwd_dq",)),
     ("K1/K3f attention forward", ("dense_attn_fwd",)),
     ("K6b fused FFN backward", ("ffn_bwd_rows", "ffn_wgrad", "ffn_sum_parts")),
     ("K6f fused FFN forward", ("ffn_fwd",)),

@@ -67,6 +67,9 @@ def _attn_bwd_inputs(dev, b, n, h, dtype, strided, seed):
 @pytest.mark.parametrize("b,n,h,dtype,strided", [
     (1, 2048, 4, torch.bfloat16, False), (2, 256, 2, torch.bfloat16, True),
     (3, 128, 6, torch.bfloat16, False), (2, 256, 2, torch.float32, True),
+    # an odd number of 64-row tiles (the last 128-row block half empty)
+    (2, 192, 2, torch.bfloat16, False), (1, 192, 4, torch.bfloat16, True),
+    (1, 2048, 2, torch.bfloat16, True),
 ])
 def test_dense_attention_bwd_kernel_matches_plain(dev, b, n, h, dtype, strided):
     q, k, v, do = _attn_bwd_inputs(dev, b, n, h, dtype, strided, seed=n + h)
@@ -82,6 +85,8 @@ def test_dense_attention_bwd_kernel_matches_plain(dev, b, n, h, dtype, strided):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape
         assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+    again = denseattn.dense_attention_bwd(q, k, v, o, lse, do, 0.125)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))     # no atomics
 
 
 def test_dense_attention_grads_through_kernels(dev):
@@ -178,6 +183,10 @@ def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     (2, 256, 3, 64, torch.bfloat16, True), (1, 128, 3, 64, torch.bfloat16, False),
     (2, 128, 2, 128, torch.float32, True), (1, 128, 1, 256, torch.float32, False),
     (1, 128, 3, 192, torch.bfloat16, True),
+    # odd numbers of 64-row tiles, B = 1 at the shipped length, views of
+    # one fused [B, N, 3 H D] projection at D = 128
+    (2, 192, 2, 128, torch.bfloat16, False), (2, 192, 3, 64, torch.bfloat16, True),
+    (1, 2048, 2, 128, torch.bfloat16, True), (3, 320, 1, 128, torch.bfloat16, True),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     """K3f and K3b at every head width they are built for and an odd
@@ -209,6 +218,8 @@ def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape
         assert (g.float() - w.float()).abs().max() <= g_tol * w.float().abs().max()
+    again = denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))     # no atomics
 
 
 def test_head_width_above_kernels_raises_on_card(dev):

@@ -131,3 +131,30 @@ def test_head_width_above_kernels_raises(monkeypatch):
     assert denseattn.dense_ok(128, 128, 512)
     with pytest.raises(ValueError, match="up to 256"):
         _route(monkeypatch, 512, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,d", [(2, 128, 2, 128), (1, 192, 4, 64)])
+def test_bwd_preprocess_matches_jax_kernel(b, n, h, d, dtype):
+    """The backward's preprocess pass (its plain version, which the CPU
+    path and the card's checks use) against the JAX `_bwd_kernel`'s own
+    expressions for qc (denseattn.py:161) and delta (:182-185, cast to the
+    compute dtype where dS uses it): qc bit for bit; delta bit for bit in
+    bf16 (on these inputs the f32 sums round to the same bf16) and within
+    f32 summation order in f32."""
+    q, o, do, _ = _inputs(b, n, h, d, seed=b + n + h + d + 1)
+    scale = 1.0 / np.sqrt(d)
+    jdt, dt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    jq, jo, jdo = (jnp.asarray(a, jdt) for a in (q, o, do))
+    qc_ref = (jq.astype(jnp.float32) * (scale * jax_denseattn.LOG2E)).astype(jq.dtype)
+    cd = jax_denseattn._vpu_dtype(jq.dtype)
+    delta_ref = (jdo.astype(jnp.float32) * jo.astype(jnp.float32)).sum(axis=-1).astype(cd)
+    qc, delta = denseattn.attn_bwd_preprocess_plain(
+        *(torch.from_numpy(a).to(dt) for a in (q, o, do)), scale)
+    assert qc.dtype == dt and delta.dtype == torch.float32 and delta.shape == (b, h, n)
+    np.testing.assert_array_equal(qc.float().numpy(), np.asarray(qc_ref.astype(jnp.float32)))
+    # f32: the same products summed in another order
+    tol = 0.0 if dtype == "bfloat16" else 1e-5 * np.abs(np.asarray(delta_ref)).max()
+    want = np.asarray(delta_ref.astype(jnp.float32)).transpose(0, 2, 1)
+    assert np.abs(delta.numpy() - want).max() <= tol

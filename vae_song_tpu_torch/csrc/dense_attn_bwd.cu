@@ -15,41 +15,59 @@
 //   dQ    = (dS K) * scale,  dK = (dS^T qc) * ln2
 // dQ, dK, dV are accumulated in f32 and cast to the input dtype.
 //
-// What bounds it here: the TPU kernel walks query-row blocks in grid
+// What bounds it here: at B = 64, N = 2048, H = 4, D = 64 one call is
+// 10 B H N^2 D = 1.4e12 flop against ~0.5 GB of operand traffic, so the
+// tensor cores bound it. The TPU kernel walks query-row blocks in grid
 // order and adds dK/dV across them in VMEM scratch, which is safe only
 // because a TPU grid runs in sequence (denseattn.py:490-507). Hopper
 // blocks run at once, in no order. So the backward is split FA2-style
 // into three kernels on one stream, with no atomics and a result that is
 // the same on every run:
-//   1. delta: one thread per (b, n, h) row, rowsum(dO * O);
-//   2. dK/dV: one block per (b, h, 64-key tile), looping over all query
-//      tiles inside the block and holding its dK/dV rows in registers;
-//   3. dQ: one block per (b, h, 64-query tile), looping over all key
+//   1. preprocess: a warp per (b, n, h) row writes delta and, on the bf16
+//      path, qc into a bf16 scratch that the wrapper allocates (O's
+//      layout), so the prescale leaves the inner loops and the qc that S
+//      and dK read is one tensor, as in the JAX kernel;
+//   2. dK/dV: one block per (b, h, 128-key tile), looping over all query
+//      tiles and holding its dK/dV rows in registers;
+//   3. dQ: one block per (b, h, 128-query tile), looping over all key
 //      tiles.
-// P and dP are recomputed in kernels 2 and 3 (about 20% more tensor-core
-// work than a fused kernel with f32 atomics on dQ). At B = 64, N = 2048,
-// H = 4 one call is 10 B H N^2 D = 1.4e12 flop against ~0.5 GB of
-// operand traffic, so the tensor cores bound it. The bf16 path runs the
-// same mma.sync m16n8k16 fragments and the same exp2 rounding as the
-// forward (mma_bf16.cuh). Kernel 2 computes the scores transposed
-// (S^T = K qc^T, keys on the M side), so P^T and dS^T sit in the
-// accumulator layout that is also the A operand of dV = P^T dO and
-// dK = dS^T qc. Loads are synchronous and single-buffered; wgmma, TMA and
-// a load pipeline are left to the PRs that make it fast.
+// S and dP are computed in both kernels 2 and 3: 14 B H N^2 D of
+// tensor-core work against the bound's 10, the price of no atomics.
 //
-// Wider heads. A block owns 64 columns of its dK/dV or dQ rows: at
-// D > 64 the grid carries D / 64 column chunks, and each chunk's block
-// recomputes S and dP over the whole head width (the contraction is over
-// D). That keeps the accumulators at 64 columns (64 registers a thread for
-// dK and dV) at every D; the K/V (or qc/dO) A fragments are held in
-// registers at D = 64 and reloaded from shared memory per 16-wide chunk
-// above it. The tiles grow with D (154 KB for dK/dV at D = 256), so shared
-// memory is dynamic, granted per instantiation. At D = 64 there is one
-// chunk and the kernels do what the 64-wide kernels did.
+// bf16 at D = 64 and 128 (every configured path): warp-specialised wgmma
+// kernels (sm90.cuh). 384 threads: two consumer warpgroups of 64 rows
+// each and a producer warpgroup whose one thread issues TMA loads; the
+// producer gives its registers to the consumers (setmaxnreg 24 / 240).
+// The block's own 128 rows (K and V, or qc and dO) stay resident in
+// shared memory; the other side's 64-row tiles (qc, dO and their rows'
+// LSE2 and delta, or K and V) stream through a ring of TMA loads (4
+// stages at D = 64, 3 at D = 128) with full/empty mbarriers, so loads
+// overlap compute. Every tile is 128-byte-swizzled panels of 64 columns.
+// In the dK/dV kernel S^T = K qc^T and dP^T = V dO^T are wgmma with both
+// operands in shared memory (K-major); P^T and dS^T are computed in
+// registers in the accumulator layout, which is also wgmma's register A
+// layout, so dV += P^T dO and dK += dS^T qc take A from registers and
+// B = dO or qc from shared memory, transposed through the descriptor
+// (MN-major): no transposed copy is made. The dQ kernel is the mirror
+// image, with dQ += dS K reading K MN-major. Each warpgroup holds its
+// accumulators for the full head width (dK and dV: 2 x D / 2 registers a
+// thread), so S and dP are computed once per tile pair at every D.
+// The elementwise passes round to bf16 two values per conversion and
+// form dS with exact bf16x2 arithmetic (p_pair, ds_pair): one rounding
+// at a time, at the conversion pipe's eighth of the FMA rate, took more
+// time than the tensor cores. Tensor maps are built on the host per call
+// over the strided views (4-D: D, H, N, B); rows past N read as zeros,
+// so an N that is an odd multiple of 64 runs its last block with one
+// warpgroup on zero rows whose results are not stored.
 //
-// f32 inputs (mixed_precision: false) take plain FMA kernels of the same
-// three-pass shape: one thread per key row (dK/dV) or query row (dQ), its
-// row of K/V (or qc/dO) in shared memory, 64 output columns a block.
+// bf16 at D = 192 and 256 (no configured path): the mma.sync kernels of
+// the first port, synchronous single-buffered loads, 64-row tiles, 64
+// output columns a block with D / 64 column chunks in the grid, each
+// recomputing S and dP over the whole head width, reading the same qc
+// scratch. f32 inputs (mixed_precision: false) take plain FMA kernels of
+// the same three-pass shape, prescaling q as each tile is loaded: one
+// thread per key row (dK/dV) or query row (dQ), 64 output columns a
+// block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,74 +75,463 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using vst::acc_to_a;
 using vst::exp2_bf16;
 using vst::ld_u32;
 using vst::load_a_chunk;
-using vst::load_a_rows;
 using vst::mma_16816;
 using vst::pack_bf16;
 using vst::round_bf16;
 
-constexpr int kBlock = 64;     // rows per tile (4 warps x 16)
-constexpr int kCols = 64;      // output columns per block
-constexpr int kThreads = 128;
-constexpr int kLdt = kBlock + 8;   // padded row of a transposed tile
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, n, h;
 };
 
-// ---- delta = round_cd(rowsum(dO * O)), [B, H, N] f32 -------------------
-
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
 __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+__device__ __forceinline__ float to_f<bf16>(bf16 x) {
   return __bfloat162float(x);
 }
 
+// ---- preprocess: delta and qc ---------------------------------------------
+
+constexpr int kPreRows = 8;   // rows (warps) a block
+
+// One warp per (b, n, h) row; lane l holds columns l D/32 .. (l+1) D/32 - 1,
+// so a warp reads its row's contiguous bytes at once. delta =
+// round_cd(rowsum(dO * O)) into [B, H, N] f32; for bf16 also
+// qc = round_bf16(q * qscale) into a scratch with O's strides.
 template <typename T, int D>
-__global__ void __launch_bounds__(256)
-attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
-                      float* __restrict__ delta, int H, int N, long long rows,
-                      Strides os) {
-  const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
+__global__ void __launch_bounds__(32 * kPreRows)
+attn_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
+                           const T* __restrict__ q, T* __restrict__ qc,
+                           float* __restrict__ delta, int H, int N, long long rows,
+                           Strides s, Strides os, float qscale) {
+  constexpr int E = D / 32;
+  const long long r = (long long)blockIdx.x * kPreRows + (threadIdx.x >> 5);
   if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
   const int h = r % H;
   const int n = (r / H) % N;
-  const int b = r / ((long long)H * N);
-  const long long off = b * os.b + n * os.n + h * os.h;
+  const long long b = r / ((long long)H * N);
+  const long long off = b * os.b + n * os.n + h * os.h + lane * E;
   float acc = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) acc = fmaf(to_f(d_o[off + d]), to_f(o[off + d]), acc);
-  if (sizeof(T) == 2) acc = round_bf16(acc);
-  delta[((long long)b * H + h) * N + n] = acc;
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc = fmaf(to_f(d_o[off + e]), to_f(o[off + e]), acc);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane == 0) delta[(b * H + h) * N + n] = sizeof(T) == 2 ? round_bf16(acc) : acc;
+  if constexpr (sizeof(T) == 2) {
+    const long long qoff = b * s.b + n * s.n + h * s.h + lane * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qc[off + e] = __float2bfloat16_rn(__bfloat162float(q[qoff + e]) * qscale);
+  }
 }
 
-// Shared tiles of the bf16 kernels, in bf16 elements: four [64][D + 8]
-// row tiles and two [64][72] transposed column-chunk tiles; at D = 64 the
-// first two row tiles (K/V or qc/dO, staged once into register
-// fragments) alias the next two, as the 64-wide kernels had it.
+// ---- bf16, D = 64 and 128: warp-specialised wgmma kernels -----------------
+
+constexpr int kWgmmaThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr int kBlockRows = 128;      // rows a block owns, 64 per consumer
+constexpr int kStepRows = 64;        // rows of a streamed tile
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kPanel64 = 64 * vst::kPanelRowBytes;    // 64-row panel
+constexpr uint32_t kPanel128 = 128 * vst::kPanelRowBytes;  // 128-row panel
+
+// Shared memory of the two wgmma kernels, byte offsets from a 1024-byte
+// aligned base: the resident 128-row tiles (P panels each), the ring's
+// stages (two 64-row tiles of P panels; in the dK/dV kernel then 64 LSE2
+// and 64 delta values), and the mbarriers (resident, full[], empty[]).
+// The ring holds 4 stages at D = 64, 3 at D = 128 (161 KB for dK/dV).
+template <int D, bool kRowVectors>
+struct WgmmaSmem {
+  static constexpr int P = D / 64;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t res_a = 0;
+  static constexpr uint32_t res_b = P * kPanel128;
+  static constexpr uint32_t stage0 = 2 * P * kPanel128;
+  static constexpr uint32_t vec = 2 * P * kPanel64;                // in a stage
+  static constexpr uint32_t stage_bytes = vec + (kRowVectors ? 1024 : 0);
+  static constexpr uint32_t bars = stage0 + kStages * stage_bytes;
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;   // + alignment
+  static constexpr uint32_t tile_tx = 2 * P * kPanel64 + (kRowVectors ? 512 : 0);
+};
+
+__device__ __forceinline__ void zero_acc(float (&c)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
+// The elementwise passes work on pairs of neighbouring columns, packed as
+// bf16x2 in the layout of a wgmma A fragment (acc_to_a's), so that each
+// rounding to bf16 is one conversion for two values. Conversions issue at
+// a fraction of the FMA rate; with one value per conversion they, not the
+// tensor cores, set the time of both kernels.
+
+// P for two columns: exp2 of the bf16-rounded arguments, rounded to bf16
+// (vst::exp2_bf16 of each), packed.
+__device__ __forceinline__ uint32_t p_pair(float x0, float x1) {
+  const uint32_t a = vst::pack_bf16(x0, x1);
+  return vst::pack_bf16(exp2f(__uint_as_float(a << 16)), exp2f(__uint_as_float(a & 0xffff0000u)));
+}
+
+// dS = round(P * round(round(dP) - delta)) for two columns, with P and
+// delta packed bf16x2. The bf16x2 subtract and multiply round their exact
+// results once; on bf16 operands that is what the f32 operation followed
+// by a rounding to bf16 gives (the f32 difference of two bf16 values is
+// exact, or within 2^-16 of the larger one; their product is exact).
+__device__ __forceinline__ uint32_t ds_pair(uint32_t p, float dp0, float dp1, uint32_t dd) {
+  const uint32_t dpr = vst::pack_bf16(dp0, dp1);
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&p),
+                                   __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&dpr),
+                                           *reinterpret_cast<const __nv_bfloat162*>(&dd)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The resident tile's barrier (one arrival: the producer's) and the
+// ring's full (one arrival) and empty (one per consumer warp) barriers.
+__device__ __forceinline__ void init_barriers(uint32_t res_bar, uint32_t full0, uint32_t empty0,
+                                              int stages) {
+  if (threadIdx.x == 0) {
+    vst::mbar_init(res_bar, 1);
+    for (int s = 0; s < stages; ++s) {
+      vst::mbar_init(full0 + 8 * s, 1);
+      vst::mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// acc (64 x 64) = A (64 rows of the resident panels at a) B^T (64 rows of
+// the stage's panels at b), contracting over D: K-major both.
+template <int P>
+__device__ __forceinline__ void wgmma_rows(float (&acc)[8][4], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * P; ++kk)
+    vst::wgmma_ss_n64(acc, vst::desc_kmajor(a + (kk / 4) * kPanel128, kk % 4),
+                      vst::desc_kmajor(b + (kk / 4) * kPanel64, kk % 4), kk > 0);
+}
+
+// out[p] (64 x 64 column block p of 64 x D) += A (64 x 64 bf16 in
+// registers, four 16-deep fragments) B (the stage's 64 x D tile at b,
+// contracting over its rows: MN-major).
+template <int P>
+__device__ __forceinline__ void wgmma_frags_tile(float (&out)[P][8][4], const uint32_t (&a)[4][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      vst::wgmma_rs_n64_tb(out[p], a[kc], vst::desc_mnmajor(b + p * kPanel64, kc, kPanel64));
+}
+
+template <int P>
+__device__ __forceinline__ void fence_all(float (&c)[P][8][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) vst::fence_acc(c[p]);
+}
+
+// Issue S = A B^T and dP = A' B'^T (A, A' resident at a, a2; B, B' the
+// stage's two tiles at b, b2) into sc and dp, one commit group each.
+template <int P>
+__device__ __forceinline__ void issue_scores(float (&sc)[8][4], float (&dp)[8][4], uint32_t a,
+                                             uint32_t a2, uint32_t b, uint32_t b2) {
+  zero_acc(sc);
+  zero_acc(dp);
+  vst::fence_acc(sc);
+  vst::fence_acc(dp);
+  vst::wgmma_fence();
+  wgmma_rows<P>(sc, a, b);
+  vst::wgmma_commit();
+  wgmma_rows<P>(dp, a2, b2);
+  vst::wgmma_commit();
+}
+
+// One consumer warp's release of a ring stage.
+__device__ __forceinline__ void release_stage(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) vst::mbar_arrive(empty);
+}
+
+// Stores rows r and r + 8 (r = the thread's first accumulator row) of a
+// 64 x D f32 block, times `mul`, as bf16 at out + row * os.n; rows >= N
+// are skipped.
+template <int P>
+__device__ __forceinline__ void store_rows(const float (&c)[P][8][4], bf16* out, long long head,
+                                           int r, int N, long long sn, int t, float mul) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= N) continue;
+    bf16* dst = out + head + (long long)row * sn;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 64 * p + 8 * j + 2 * t) =
+            pack_bf16(c[p][j][2 * half] * mul, c[p][j][2 * half + 1] * mul);
+  }
+}
+
+// Producer of both wgmma kernels (one thread): the block's resident
+// 128-row tiles of ra and rb, then for each of the n streamed 64-row
+// tiles, once the consumers have released its stage, the tiles of sa and
+// sb (and, where lse is given, the tile rows' LSE2 and delta). Its last
+// kStages waits let the consumers release every stage before it leaves.
+template <int P, int kStages, uint32_t kStageBytes, uint32_t kTileTx>
+__device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap* rb,
+                                        const CUtensorMap* sa, const CUtensorMap* sb,
+                                        const float* lse, const float* delta, uint32_t res,
+                                        uint32_t stage0, uint32_t res_bar, uint32_t full0,
+                                        uint32_t empty0, int r0, int n, int h, int b) {
+  vst::mbar_arrive_expect_tx(res_bar, 2 * P * kPanel128);
+  for (int p = 0; p < P; ++p)
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t at = p * kPanel128 + half * kPanel64;
+      vst::tma_load_4d(res + at, ra, res_bar, 64 * p, h, r0 + 64 * half, b);
+      vst::tma_load_4d(res + P * kPanel128 + at, rb, res_bar, 64 * p, h, r0 + 64 * half, b);
+    }
+  for (int it = 0; it < n + kStages; ++it) {
+    const int s = it % kStages;
+    vst::mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
+    if (it >= n) continue;
+    const uint32_t st = stage0 + s * kStageBytes, full = full0 + 8 * s;
+    vst::mbar_arrive_expect_tx(full, kTileTx);
+    for (int p = 0; p < P; ++p) {
+      vst::tma_load_4d(st + p * kPanel64, sa, full, 64 * p, h, it * kStepRows, b);
+      vst::tma_load_4d(st + (P + p) * kPanel64, sb, full, 64 * p, h, it * kStepRows, b);
+    }
+    if (lse != nullptr) {
+      vst::bulk_load(st + 2 * P * kPanel64, lse + it * kStepRows, 256, full);
+      vst::bulk_load(st + 2 * P * kPanel64 + 256, delta + it * kStepRows, 256, full);
+    }
+  }
+}
+
+// Grid (ceil(N / 128), H, B), 384 threads. Warpgroup w < 2 owns keys
+// k0 + 64 w .. + 63; its warp i the 16 rows 16 i .. of those. Per query
+// tile: S^T and dP^T go out together; P^T is computed while dP^T runs,
+// dS^T while dV runs.
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mqc,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
+                           Strides os) {
+  using L = WgmmaSmem<D, true>;
+  constexpr int P = L::P, kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int k0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const int nq = N / kStepRows;
+  const long long vrow = ((long long)b * H + h) * N;
+  init_barriers(res_bar, full0, empty0, kStages);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256)
+      produce<P, kStages, L::stage_bytes, L::tile_tx>(&mk, &mv, &mqc, &mdo, lse + vrow,
+                                                      delta + vrow, base + L::res_a,
+                                                      base + L::stage0, res_bar, full0, empty0,
+                                                      k0, nq, h, b);
+    return;
+  }
+
+  // consumers
+  vst::regs_alloc<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t kw = base + L::res_a + wg * kPanel64;   // this warpgroup's 64 keys
+  const uint32_t vw = base + L::res_b + wg * kPanel64;
+  float adk[P][8][4], adv[P][8][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    zero_acc(adk[p]);
+    zero_acc(adv[p]);
+  }
+  vst::mbar_wait(res_bar, 0);
+
+  for (int it = 0; it < nq; ++it) {
+    const int s = it % kStages;
+    vst::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t qs = base + L::stage0 + s * L::stage_bytes, dos = qs + P * kPanel64;
+    const float* ls = reinterpret_cast<const float*>(gbase + (qs - base) + L::vec);
+    const float* dls = ls + kStepRows;
+
+    // S^T = K qc^T and dP^T = V dO^T (64 keys x 64 queries each)
+    float sc[8][4], dp[8][4];
+    issue_scores<P>(sc, dp, kw, vw, qs, dos);
+    vst::wgmma_wait<1>();
+    vst::fence_acc(sc);
+
+    // P^T (columns are queries), straight into A fragments
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float l0 = ls[8 * j + 2 * t], l1 = ls[8 * j + 2 * t + 1];
+      pa[j >> 1][(j & 1) * 2] = p_pair(sc[j][0] - l0, sc[j][1] - l1);
+      pa[j >> 1][(j & 1) * 2 + 1] = p_pair(sc[j][2] - l0, sc[j][3] - l1);
+    }
+
+    // dV += P^T dO, while dP^T finishes
+    fence_all<P>(adv);
+    vst::wgmma_fence();
+    wgmma_frags_tile<P>(adv, pa, dos);
+    vst::wgmma_commit();
+    vst::wgmma_wait<1>();
+    vst::fence_acc(dp);
+
+    // dS^T = P^T (dP^T - delta)
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t dd = vst::pack_bf16(dls[8 * j + 2 * t], dls[8 * j + 2 * t + 1]);
+      sa[j >> 1][(j & 1) * 2] = ds_pair(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd);
+      sa[j >> 1][(j & 1) * 2 + 1] = ds_pair(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd);
+    }
+
+    // dK += dS^T qc
+    fence_all<P>(adk);
+    vst::wgmma_fence();
+    wgmma_frags_tile<P>(adk, sa, qs);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    fence_all<P>(adk);
+    fence_all<P>(adv);
+    release_stage(empty0 + 8 * s, lane);
+  }
+
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  const int r = k0 + 64 * wg + 16 * warp + g;
+  store_rows<P>(adk, dk, head, r, N, os.n, t, kLn2);
+  store_rows<P>(adv, dv, head, r, N, os.n, t, 1.f);
+}
+
+// Grid (ceil(N / 128), H, B), 384 threads. Warpgroup w < 2 owns queries
+// q0 + 64 w .. + 63; its warp i the 16 rows 16 i .. of those. Per key
+// tile: S and dP go out together; P is computed while dP runs.
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int N, Strides os, float scale) {
+  using L = WgmmaSmem<D, false>;
+  constexpr int P = L::P, kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (vst::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const int nk = N / kStepRows;
+  init_barriers(res_bar, full0, empty0, kStages);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256)
+      produce<P, kStages, L::stage_bytes, L::tile_tx>(&mqc, &mdo, &mk, &mv, nullptr, nullptr,
+                                                      base + L::res_a, base + L::stage0,
+                                                      res_bar, full0, empty0, q0, nk, h, b);
+    return;
+  }
+
+  // consumers
+  vst::regs_alloc<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t qw = base + L::res_a + wg * kPanel64;   // this warpgroup's 64 queries
+  const uint32_t ow = base + L::res_b + wg * kPanel64;
+  const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+  const long long vrow = ((long long)b * H + h) * N;
+  // rows past N (zeros in shared memory) get LSE2 = delta = 0: finite,
+  // and never stored
+  const float l0 = r0 < N ? lse[vrow + r0] : 0.f, l1 = r1 < N ? lse[vrow + r1] : 0.f;
+  const float d0 = r0 < N ? delta[vrow + r0] : 0.f, d1 = r1 < N ? delta[vrow + r1] : 0.f;
+  const uint32_t dd0 = vst::pack_bf16(d0, d0), dd1 = vst::pack_bf16(d1, d1);
+  float acc[P][8][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p) zero_acc(acc[p]);
+  vst::mbar_wait(res_bar, 0);
+
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    vst::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t ks = base + L::stage0 + s * L::stage_bytes;
+
+    // S = qc K^T and dP = dO V^T (64 queries x 64 keys each)
+    float sc[8][4], dp[8][4];
+    issue_scores<P>(sc, dp, qw, ow, ks, ks + P * kPanel64);
+    vst::wgmma_wait<1>();
+    vst::fence_acc(sc);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pa[j >> 1][(j & 1) * 2] = p_pair(sc[j][0] - l0, sc[j][1] - l0);
+      pa[j >> 1][(j & 1) * 2 + 1] = p_pair(sc[j][2] - l1, sc[j][3] - l1);
+    }
+    vst::wgmma_wait<0>();
+    vst::fence_acc(dp);
+
+    // dS = P (dP - delta), then dQ += dS K
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sa[j >> 1][(j & 1) * 2] = ds_pair(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd0);
+      sa[j >> 1][(j & 1) * 2 + 1] = ds_pair(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd1);
+    }
+    fence_all<P>(acc);
+    vst::wgmma_fence();
+    wgmma_frags_tile<P>(acc, sa, ks);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    fence_all<P>(acc);
+    release_stage(empty0 + 8 * s, lane);
+  }
+
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  store_rows<P>(acc, dq, head, r0, N, os.n, t, scale);
+}
+
+// ---- bf16, D = 192 and 256: mma.sync kernels ------------------------------
+
+constexpr int kBlock = 64;     // rows per tile (4 warps x 16)
+constexpr int kCols = 64;      // output columns per block
+constexpr int kThreads = 128;
+constexpr int kLdt = kBlock + 8;   // padded row of a transposed tile
+
+// Shared tiles, in bf16 elements: four [64][D + 8] row tiles and two
+// [64][72] transposed column-chunk tiles, then LSE2 and delta.
 template <int D>
 constexpr size_t bwd_bf16_smem() {
-  return ((D == 64 ? 2 : 4) * kBlock * (D + 8) + 2 * kCols * kLdt) * sizeof(__nv_bfloat16) +
+  return (4 * kBlock * (D + 8) + 2 * kCols * kLdt) * sizeof(__nv_bfloat16) +
          2 * kBlock * sizeof(float);
 }
-
-// ---- bf16: dK / dV ------------------------------------------------------
 
 // Grid (N / 64 * D / 64, H, B), 128 threads; block x = 64-key tile * D / 64
 // + column chunk. Warp w owns keys k0 + 16w .. + 15, columns c0 .. c0 + 63.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ qc,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ d_o,
@@ -132,18 +539,17 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int H, int N,
-                          Strides s, Strides os, float qscale) {
+                          Strides s, Strides os) {
   constexpr int LD = D + 8;
   constexpr int KC = D / 16;
-  constexpr bool kFragRegs = D == 64;
   using Row = __nv_bfloat16[LD];
   using Col = __nv_bfloat16[kLdt];
   extern __shared__ __align__(16) unsigned char smem[];
   Row* qs = reinterpret_cast<Row*>(smem);                          // qc [q][d]
   Row* dos = qs + kBlock;                                          // dO [q][d]
-  Row* kts = kFragRegs ? qs : dos + kBlock;                        // K [key][d]
-  Row* vts = kFragRegs ? dos : dos + 2 * kBlock;                   // V [key][d]
-  Col* qt = reinterpret_cast<Col*>(kFragRegs ? dos + kBlock : dos + 3 * kBlock);  // qc^T
+  Row* kts = dos + kBlock;                                         // K [key][d]
+  Row* vts = dos + 2 * kBlock;                                     // V [key][d]
+  Col* qt = reinterpret_cast<Col*>(dos + 3 * kBlock);              // qc^T [c][q]
   Col* dot = qt + kCols;                                           // dO^T [c][q]
   float* ls = reinterpret_cast<float*>(dot + kCols);
   float* dls = ls + kBlock;
@@ -166,12 +572,6 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(&kts[r][c]) = *reinterpret_cast<const uint4*>(k + off);
     *reinterpret_cast<uint4*>(&vts[r][c]) = *reinterpret_cast<const uint4*>(v + off);
   }
-  __syncthreads();
-  uint32_t ka[kFragRegs ? KC : 1][4], va[kFragRegs ? KC : 1][4];
-  if constexpr (kFragRegs) {
-    load_a_rows<LD, KC>(kts, warp * 16, g, t, ka);
-    load_a_rows<LD, KC>(vts, warp * 16, g, t, va);
-  }
 
   float adk[kCols / 8][4], adv[kCols / 8][4];
 #pragma unroll
@@ -183,22 +583,20 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // every warp is done with the previous tiles
     for (int i = tid; i < kBlock * D / 8; i += kThreads) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool mine = c >= c0 && c < c0 + kCols;
-      uint4 raw = *reinterpret_cast<const uint4*>(q + head + (long long)(q0 + r) * s.n + c);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
-        if (mine) qt[c - c0 + j][r] = e[j];
-      }
+      const long long off = ohead + (long long)(q0 + r) * os.n + c;   // qc has O's strides
+      const uint4 raw = *reinterpret_cast<const uint4*>(qc + off);
+      const uint4 graw = *reinterpret_cast<const uint4*>(d_o + off);
       *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
-      uint4 graw = *reinterpret_cast<const uint4*>(d_o + ohead + (long long)(q0 + r) * os.n + c);
-      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&graw);
-      if (mine) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dot[c - c0 + j][r] = ge[j];
-      }
       *reinterpret_cast<uint4*>(&dos[r][c]) = graw;
+      if (c >= c0 && c < c0 + kCols) {
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&graw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          qt[c - c0 + j][r] = e[j];
+          dot[c - c0 + j][r] = ge[j];
+        }
+      }
     }
     if (tid < kBlock) {
       ls[tid] = lrow[q0 + tid];
@@ -213,11 +611,7 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t a[4];
-      if constexpr (kFragRegs) {
-        a[0] = ka[kk][0]; a[1] = ka[kk][1]; a[2] = ka[kk][2]; a[3] = ka[kk][3];
-      } else {
-        load_a_chunk<LD>(kts, warp * 16, kk, g, t, a);
-      }
+      load_a_chunk<LD>(kts, warp * 16, kk, g, t, a);
 #pragma unroll
       for (int nt = 0; nt < kBlock / 8; ++nt) {
         const __nv_bfloat16* br = &qs[nt * 8 + g][kk * 16 + 2 * t];
@@ -252,11 +646,7 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t a[4];
-      if constexpr (kFragRegs) {
-        a[0] = va[kk][0]; a[1] = va[kk][1]; a[2] = va[kk][2]; a[3] = va[kk][3];
-      } else {
-        load_a_chunk<LD>(vts, warp * 16, kk, g, t, a);
-      }
+      load_a_chunk<LD>(vts, warp * 16, kk, g, t, a);
 #pragma unroll
       for (int nt = 0; nt < kBlock / 8; ++nt) {
         const __nv_bfloat16* br = &dos[nt * 8 + g][kk * 16 + 2 * t];
@@ -304,25 +694,24 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // c0 .. c0 + 63.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ qc,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const __nv_bfloat16* __restrict__ d_o,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int H, int N,
-                        Strides s, Strides os, float qscale, float scale) {
+                        Strides s, Strides os, float scale) {
   constexpr int LD = D + 8;
   constexpr int KC = D / 16;
-  constexpr bool kFragRegs = D == 64;
   using Row = __nv_bfloat16[LD];
   using Col = __nv_bfloat16[kLdt];
   extern __shared__ __align__(16) unsigned char smem[];
   Row* ks = reinterpret_cast<Row*>(smem);                          // K [key][d]
   Row* vs = ks + kBlock;                                           // V [key][d]
-  Row* qas = kFragRegs ? ks : vs + kBlock;                         // qc [q][d]
-  Row* das = kFragRegs ? vs : vs + 2 * kBlock;                     // dO [q][d]
-  Col* kt = reinterpret_cast<Col*>(kFragRegs ? vs + kBlock : vs + 3 * kBlock);  // K^T [c][key]
+  Row* qas = vs + kBlock;                                          // qc [q][d]
+  Row* das = vs + 2 * kBlock;                                      // dO [q][d]
+  Col* kt = reinterpret_cast<Col*>(vs + 3 * kBlock);               // K^T [c][key]
 
   constexpr int kChunks = D / kCols;
   const int c0 = (blockIdx.x % kChunks) * kCols;
@@ -336,19 +725,9 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // qc and dO rows of this block
   for (int i = tid; i < kBlock * D / 8; i += kThreads) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(q + head + (long long)(q0 + r) * s.n + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
-    *reinterpret_cast<uint4*>(&qas[r][c]) = raw;
-    *reinterpret_cast<uint4*>(&das[r][c]) =
-        *reinterpret_cast<const uint4*>(d_o + ohead + (long long)(q0 + r) * os.n + c);
-  }
-  __syncthreads();
-  uint32_t qa[kFragRegs ? KC : 1][4], da[kFragRegs ? KC : 1][4];
-  if constexpr (kFragRegs) {
-    load_a_rows<LD, KC>(qas, warp * 16, g, t, qa);
-    load_a_rows<LD, KC>(das, warp * 16, g, t, da);
+    const long long off = ohead + (long long)(q0 + r) * os.n + c;   // qc has O's strides
+    *reinterpret_cast<uint4*>(&qas[r][c]) = *reinterpret_cast<const uint4*>(qc + off);
+    *reinterpret_cast<uint4*>(&das[r][c]) = *reinterpret_cast<const uint4*>(d_o + off);
   }
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
@@ -383,11 +762,7 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t a[4];
-      if constexpr (kFragRegs) {
-        a[0] = qa[kk][0]; a[1] = qa[kk][1]; a[2] = qa[kk][2]; a[3] = qa[kk][3];
-      } else {
-        load_a_chunk<LD>(qas, warp * 16, kk, g, t, a);
-      }
+      load_a_chunk<LD>(qas, warp * 16, kk, g, t, a);
 #pragma unroll
       for (int nt = 0; nt < kBlock / 8; ++nt) {
         const __nv_bfloat16* br = &ks[nt * 8 + g][kk * 16 + 2 * t];
@@ -409,11 +784,7 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t a[4];
-      if constexpr (kFragRegs) {
-        a[0] = da[kk][0]; a[1] = da[kk][1]; a[2] = da[kk][2]; a[3] = da[kk][3];
-      } else {
-        load_a_chunk<LD>(das, warp * 16, kk, g, t, a);
-      }
+      load_a_chunk<LD>(das, warp * 16, kk, g, t, a);
 #pragma unroll
       for (int nt = 0; nt < kBlock / 8; ++nt) {
         const __nv_bfloat16* br = &vs[nt * 8 + g][kk * 16 + 2 * t];
@@ -597,47 +968,89 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < kCols; ++d) dq[out + d] = acc[d] * scale;
 }
 
-template <int D>
-cudaError_t launch_bwd(int is_bf16, const void* q, const void* k, const void* v,
-                       const void* o, const void* d_o, const void* lse, void* delta,
-                       void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
-                       Strides os, float qscale, float scale, cudaStream_t st) {
+template <typename T, int D>
+void launch_preprocess(const void* q, const void* o, const void* d_o, void* qc, float* delta,
+                       int B, int H, int N, Strides s, Strides os, float qscale,
+                       cudaStream_t st) {
   const long long rows = (long long)B * N * H;
-  const unsigned delta_blocks = static_cast<unsigned>((rows + 255) / 256);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  const dim3 grid(N / kBlock * (D / kCols), H, B);
+  const unsigned blocks = static_cast<unsigned>((rows + kPreRows - 1) / kPreRows);
+  attn_bwd_preprocess_kernel<T, D><<<blocks, 32 * kPreRows, 0, st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_o), static_cast<const T*>(q),
+      static_cast<T*>(qc), delta, H, N, rows, s, os, qscale);
+}
+
+// bf16 at D = 64 or 128: preprocess (delta and qc), then the wgmma dK/dV
+// and dQ kernels over tensor maps of qc, dO (O's strides) and k, v.
+template <int D>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                             const void* d_o, const float* lse, float* delta, void* qc,
+                             void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
+                             Strides os, float qscale, float scale, cudaStream_t st) {
+  CUtensorMap mqc, mdo, mk, mv;
+  if (!vst::bhnd_tensor_map(&mqc, qc, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mdo, d_o, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, s.b, s.n, s.h) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, s.b, s.n, s.h))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem_dkdv = WgmmaSmem<D, true>::bytes;
+  constexpr size_t smem_dq = WgmmaSmem<D, false>::bytes;
   cudaError_t err;
-  if (is_bf16) {
-    using bf = __nv_bfloat16;
-    constexpr size_t smem = bwd_bf16_smem<D>();
-    if ((err = vst::allow_smem(attn_bwd_dkdv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-    if ((err = vst::allow_smem(attn_bwd_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-    attn_bwd_delta_kernel<bf, D><<<delta_blocks, 256, 0, st>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(d_o), dl, H, N, rows, os);
-    attn_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(d_o), l, dl, static_cast<bf*>(dk), static_cast<bf*>(dv),
-        H, N, s, os, qscale);
-    attn_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(d_o), l, dl, static_cast<bf*>(dq), H, N, s, os, qscale,
-        scale);
-  } else {
-    constexpr size_t smem = bwd_f32_smem<D>();
-    if ((err = vst::allow_smem(attn_bwd_dkdv_f32_kernel<D>, smem)) != cudaSuccess) return err;
-    if ((err = vst::allow_smem(attn_bwd_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
-    attn_bwd_delta_kernel<float, D><<<delta_blocks, 256, 0, st>>>(
-        static_cast<const float*>(o), static_cast<const float*>(d_o), dl, H, N, rows, os);
-    attn_bwd_dkdv_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(d_o), l, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), H, N, s, os, qscale);
-    attn_bwd_dq_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(d_o), l, dl,
-        static_cast<float*>(dq), H, N, s, os, qscale, scale);
-  }
+  if ((err = vst::allow_smem(attn_bwd_dkdv_wgmma_kernel<D>, smem_dkdv)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_wgmma_kernel<D>, smem_dq)) != cudaSuccess) return err;
+  launch_preprocess<bf16, D>(q, o, d_o, qc, delta, B, H, N, s, os, qscale, st);
+  const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
+  attn_bwd_dkdv_wgmma_kernel<D><<<grid, kWgmmaThreads, smem_dkdv, st>>>(
+      mk, mv, mqc, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, os);
+  attn_bwd_dq_wgmma_kernel<D><<<grid, kWgmmaThreads, smem_dq, st>>>(
+      mqc, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), H, N, os, scale);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 192 or 256: preprocess (delta and qc), then the mma.sync
+// kernels.
+template <int D>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                           const void* d_o, const float* lse, float* delta, void* qc, void* dq,
+                           void* dk, void* dv, int B, int H, int N, Strides s, Strides os,
+                           float qscale, float scale, cudaStream_t st) {
+  const dim3 grid(N / kBlock * (D / kCols), H, B);
+  constexpr size_t smem = bwd_bf16_smem<D>();
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dkdv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+  launch_preprocess<bf16, D>(q, o, d_o, qc, delta, B, H, N, s, os, qscale, st);
+  const bf16* qcb = static_cast<const bf16*>(qc);
+  attn_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
+      qcb, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, N, s, os);
+  attn_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
+      qcb, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dq), H, N, s, os, scale);
+  return cudaGetLastError();
+}
+
+// f32 at any D: preprocess (delta), then the FMA kernels, which prescale
+// q themselves (no qc scratch).
+template <int D>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                           const void* d_o, const float* lse, float* delta, void* /*qc*/,
+                           void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
+                           Strides os, float qscale, float scale, cudaStream_t st) {
+  const dim3 grid(N / kF32Rows * (D / kCols), H, B);
+  constexpr size_t smem = bwd_f32_smem<D>();
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dkdv_f32_kernel<D>, smem)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
+  launch_preprocess<float, D>(q, o, d_o, nullptr, delta, B, H, N, s, os, qscale, st);
+  attn_bwd_dkdv_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, N, s, os, qscale);
+  attn_bwd_dq_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dq), H, N, s, os, qscale,
+      scale);
   return cudaGetLastError();
 }
 
@@ -645,39 +1058,42 @@ cudaError_t launch_bwd(int is_bf16, const void* q, const void* k, const void* v,
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o, dO, dq, dk, dv: [B, N, H, D] with strides (ob, on, oh,
-// 1); lse and delta (scratch): [B, H, N] f32, contiguous. N % 64 == 0, D
-// one of 64, 128, 192, 256 (cudaErrorInvalidValue otherwise). The caller
-// checks all of it. Launches delta, dK/dV and dQ in order on `stream`;
-// returns cudaGetLastError() after the launches.
+// 1); lse and delta (scratch): [B, H, N] f32, contiguous; qc (scratch,
+// bf16 only; unused and may be null for f32): [B, N, H, D] with O's
+// strides. N % 64 == 0, D one of 64, 128, 192, 256
+// (cudaErrorInvalidValue otherwise). The caller checks all of it.
+// Launches preprocess, dK/dV and dQ in order on `stream`; returns
+// cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
                                   const void* v, const void* o, const void* d_o,
-                                  const void* lse, void* delta, void* dq, void* dk,
+                                  const void* lse, void* delta, void* qc, void* dq, void* dk,
                                   void* dv, int B, int H, int N, int D, long long sb,
                                   long long sn, long long sh, long long ob,
                                   long long on, long long oh, float qscale,
                                   float scale, void* stream) {
+  if (is_bf16 && qc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s{sb, sn, sh}, os{ob, on, oh};
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
   cudaError_t err;
+#define VST_BWD_ARGS q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, s, os, qscale, scale, st
   switch (D) {
     case 64:
-      err = launch_bwd<64>(is_bf16, q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, N, s, os,
-                           qscale, scale, st);
+      err = is_bf16 ? launch_bwd_wgmma<64>(VST_BWD_ARGS) : launch_bwd_f32<64>(VST_BWD_ARGS);
       break;
     case 128:
-      err = launch_bwd<128>(is_bf16, q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, N, s, os,
-                            qscale, scale, st);
+      err = is_bf16 ? launch_bwd_wgmma<128>(VST_BWD_ARGS) : launch_bwd_f32<128>(VST_BWD_ARGS);
       break;
     case 192:
-      err = launch_bwd<192>(is_bf16, q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, N, s, os,
-                            qscale, scale, st);
+      err = is_bf16 ? launch_bwd_mma<192>(VST_BWD_ARGS) : launch_bwd_f32<192>(VST_BWD_ARGS);
       break;
     case 256:
-      err = launch_bwd<256>(is_bf16, q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, N, s, os,
-                            qscale, scale, st);
+      err = is_bf16 ? launch_bwd_mma<256>(VST_BWD_ARGS) : launch_bwd_f32<256>(VST_BWD_ARGS);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
+#undef VST_BWD_ARGS
   return static_cast<int>(err);
 }

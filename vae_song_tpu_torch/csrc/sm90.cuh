@@ -1,0 +1,234 @@
+// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
+// tensor maps, wgmma with shared-memory descriptors, register
+// reallocation. Used by the attention backward (dense_attn_bwd.cu).
+//
+// Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
+// (one swizzle atom wide), one 128-byte row per tile row, each panel
+// 1024-byte aligned: the layout a TMA box of {64 columns, rows} with
+// CU_TENSOR_MAP_SWIZZLE_128B writes, and the layout a wgmma descriptor
+// with layout type 1 (128B swizzle) reads, in either major-ness:
+//   K-major (the contraction runs along the 64 columns): SBO = 1024 B
+//     between 8-row groups, LBO unused (1); the 16-deep k-step j of a
+//     panel starts 32 j bytes in.
+//   MN-major (the contraction runs along the rows, the 64 columns are
+//     the operand's M or N): SBO = 1024 B between 8-row groups of the
+//     contraction, LBO = the panel stride between 64-column atoms; the
+//     k-step j starts 16 rows (2048 bytes) in.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace vst {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Make the initialised barriers visible to the other threads and to the
+// async proxy (TMA); the block then syncs once.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA traffic before the phase
+// completes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait of more
+// than 2^32 clock cycles (about 2 s; a real one takes microseconds) is a
+// deadlock: trap, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; completes `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- register reallocation between warpgroups ------------------------------
+
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+constexpr uint32_t kPanelRowBytes = 128;        // 64 bf16 columns
+constexpr uint32_t kSwizzleGroupBytes = 1024;   // 8 rows of a panel
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(kSwizzleGroupBytes >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand: the 16-deep k-step j (0..3) of the panel at `panel`.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t panel, int j) {
+  return wgmma_desc(panel + 32 * j, 16);
+}
+
+// MN-major operand: k-step j (16 rows) of the panel at `panel`, whose
+// next 64-column atom lies `atom_stride` bytes on.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t panel, int j, uint32_t atom_stride) {
+  return wgmma_desc(panel + 16 * kPanelRowBytes * j, atom_stride);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator registers across an
+// asynchronous wgmma's issue and its wait.
+__device__ __forceinline__ void fence_acc(float (&c)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(c[i][j])::"memory");
+}
+
+#define VST_ACC32(c)                                                                         \
+  "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]), "+f"(c[1][0]), "+f"(c[1][1]),  \
+      "+f"(c[1][2]), "+f"(c[1][3]), "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]),             \
+      "+f"(c[2][3]), "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),             \
+      "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]), "+f"(c[5][0]),             \
+      "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]), "+f"(c[6][0]), "+f"(c[6][1]),             \
+      "+f"(c[6][2]), "+f"(c[6][3]), "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+
+#define VST_D32                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// c (64 x 64 f32, the accumulator layout of mma.sync's C per warp: c[j]
+// holds n-tile j) (+)= A (64 x 16, K-major in shared memory) B (16 x 64,
+// K-major in shared memory). `accumulate` 0 overwrites c.
+__device__ __forceinline__ void wgmma_ss_n64(float (&c)[8][4], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VST_ACC32(c)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// c (64 x 64 f32) += A (64 x 16 bf16 in registers, mma.sync's A fragment
+// layout per warp) B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&c)[8][4], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VST_ACC32(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef VST_D32
+#undef VST_ACC32
+
+// ---- tensor maps (host) -------------------------------------------------------
+
+using TensorMapEncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                       const cuuint32_t*, CUtensorMapInterleave,
+                                       CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                       CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded, so the kernel library needs no -lcuda at link time.
+inline TensorMapEncodeFn tensor_map_encoder() {
+  static const TensorMapEncodeFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<TensorMapEncodeFn>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map over a bf16 [B, N, H, D] view with element strides (sb, sn,
+// sh, 1): dims (D, H, N, B) innermost first, boxes of 64 columns x 64 rows
+// of one head, 128-byte swizzle; rows past N read as zeros.
+inline bool bhnd_tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
+                            long long sb, long long sn, long long sh) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sn) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace vst

@@ -13,9 +13,13 @@ Two routes share one kernel pair:
 
 The JAX kernels of both routes compute the same function with the same
 roundings, so the port launches one kernel, instantiated for D = 64, 128,
-192 and 256; each route counts its own launches. A head width that
-`dense_ok` accepts above 256 raises a ValueError naming the limit, on any
-device.
+192 and 256; each route counts its own launches. The backward starts
+with a preprocess pass that writes delta and, for bf16, qc into scratch
+that `_launch_bwd` allocates. The bf16 backward at D = 64 and 128 (every
+configured path) is then a wgmma kernel pair fed by TMA
+(csrc/dense_attn_bwd.cu); D = 192 and 256 and f32 run the first port's
+kernels. A head width that `dense_ok` accepts above 256 raises a
+ValueError naming the limit, on any device.
 
 The forward computes, per (batch, head):
 
@@ -156,6 +160,17 @@ def _launch_fwd(q, k, v, scale):
     return o, lse
 
 
+def attn_bwd_preprocess_plain(q, o, do, scale: float):
+    """Plain PyTorch version of the backward's preprocess pass: (qc
+    [B, N, H, D] in q's dtype, delta [B, H, N] f32), with
+    qc = round_to_input_dtype(q * scale * log2e) and
+    delta = round_cd(rowsum(dO * O)) (f32 sum)."""
+    dt = q.dtype
+    qc = (q.float() * (scale * LOG2E)).to(dt)
+    delta = (do.float() * o.float()).sum(dim=-1).to(dt).float()
+    return qc, delta.permute(0, 2, 1)
+
+
 def dense_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     """Plain PyTorch version of the backward kernel: same function, same
     roundings. q, k, v, o, do [B, N, H, D] in one dtype, lse [B, H, N]
@@ -163,8 +178,7 @@ def dense_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     _check(q, k, v)
     dt = q.dtype
     rd = lambda t: t.to(dt).float()                       # round to cd
-    qc = (q.float() * (scale * LOG2E)).to(dt)
-    delta = rd((do.float() * o.float()).sum(dim=-1))      # [B, N, H]
+    qc, delta = attn_bwd_preprocess_plain(q, o, do, scale)
     dqs, dks, dvs = [], [], []
     for s0 in range(0, q.shape[0], _PLAIN_BATCH_CHUNK):
         sl = slice(s0, s0 + _PLAIN_BATCH_CHUNK)
@@ -172,7 +186,7 @@ def dense_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
         p = rd(torch.exp2(rd(s - lse[sl][..., None])))
         dp = rd(torch.einsum("bqhd,bkhd->bhqk", dof, vf))
-        ds = rd(p * rd(dp - delta[sl].permute(0, 2, 1)[..., None]))
+        ds = rd(p * rd(dp - delta[sl][..., None]))
         dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, dof).to(dt))
         dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(dt))
         dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, qf) * LN2).to(dt))
@@ -191,12 +205,16 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     o, do, lse = o.contiguous(), do.contiguous(), lse.float().contiguous()
     dq, dk, dv = (torch.empty_like(o) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    # the bf16 kernels read qc from a scratch in O's layout, written by
+    # their preprocess pass
+    qc = torch.empty_like(o) if q.dtype == torch.bfloat16 else None
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     _kernels.launch(
         "vst_dense_attn_bwd", q.device,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if qc is None else qc.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
         float(scale * LOG2E), float(scale),
     )
