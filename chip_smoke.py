@@ -16,8 +16,8 @@ non-zero exit code:
      time: attention forward and backward on the packed route (K1, K2)
      and on the BHND route (K3f, K3b), Chamfer forward (K4) and backward
      (K5), the fused FFN forward (K6f) and backward (K6b). The attention
-     and FFN backward kernels use no atomics: a second call on the same
-     inputs must give the same bits.
+     kernels and the FFN backward use no atomics: a second call on the
+     same inputs must give the same bits.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -199,31 +199,41 @@ K5_TOL = 1e-6
 K6_BF16_TOL = 2.0 ** -6
 K6_F32_TOL = 1e-5
 
-# head shapes of phase 3 for each attention route: (B, H, D, dtype); the
-# first is the shape its main path gives it (N = num_points), the JSON line
-# reports it
-K1_CASES = ((BATCH, 4, 64, torch.bfloat16), (1, 4, 64, torch.bfloat16), (4, 4, 64, torch.float32))
-K3_CASES = ((BATCH, 2, 128, torch.bfloat16), (BATCH, 1, 256, torch.bfloat16),
-            (BATCH, 3, 64, torch.bfloat16), (4, 2, 128, torch.float32))
+# shapes of phase 3 for each attention route: (B, N, H, D, dtype); the
+# first is the shape its main path gives it, the JSON line reports it.
+# B = 1 is the decoder's batch-constant layer; N = 192, an odd number of
+# 64-row tiles, puts keys past N into the forward's last 128-key tile.
+NPTS = MODEL_PARAMS["num_points"]
+K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat16),
+            (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32))
+K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
+            (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
+            (4, NPTS, 2, 128, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
 # the shipped widths, then a smaller M in f32
 K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (8192, 256, 512, torch.float32))
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the current stream, CUDA events."""
+    """Milliseconds a call of fn() takes on the current stream: CUDA events
+    around a run of `iters` calls back to back, after `warmup` calls; the
+    median over 3 runs. In a run the host's launch path (Python, the
+    wrapper's checks, the tensor maps) overlaps the device's work, as on
+    the model's path; with one call between two events it would be timed
+    too (scripts/ab_attn_fwd.py prints both)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -297,20 +307,21 @@ def _sdpa_ms(q, k, v, do, scale):
 
 def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
     """One attention route's forward (`fwd`, K1 or K3f) and backward
-    (`bwd`, K2 or K3b) against their plain versions at each (B, H, D,
+    (`bwd`, K2 or K3b) against their plain versions at each (B, N, H, D,
     dtype) of `cases`, O in f32 to `f32_o_tol`; returns the JSON fields
     of both for cases[0]."""
-    n = MODEL_PARAMS["num_points"]
     res_f, res_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
-    for i, (b, h, d, dtype) in enumerate(cases):
+    for i, (b, n, h, d, dtype) in enumerate(cases):
         scale = 1.0 / math.sqrt(d)
         q, k, v = _attn_inputs(b, n, h, d, dtype, gen, dev)
         do = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
         o, lse = fwd(q, k, v, scale)
+        o2, lse2 = fwd(q, k, v, scale)
         got = bwd(q, k, v, o, lse, do, scale)
         again = bwd(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         # no atomics: the same inputs give the same bits on every run
+        repeat_f = torch.equal(o2, o) and torch.equal(lse2, lse)
         repeat = all(torch.equal(a, g_) for a, g_ in zip(again, got))
         o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, scale)
         want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
@@ -337,7 +348,7 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
         bound_b = _bound(10.0 * b * h * n * n * d, 8 * es * rows + 4 * b * h * n, dtype)
         tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
         print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
-              f"(bound {tol_l:.3e}); kernel {ms_f:.4f} ms "
+              f"(bound {tol_l:.3e}); repeat bitwise equal {repeat_f}; kernel {ms_f:.4f} ms "
               f"({4.0 * b * h * n * n * d / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, "
               f"bound {bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}), "
               f"sdpa {lib_f:.4f} ms")
@@ -353,6 +364,8 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
             raise AssertionError(f"{name} forward disagrees with its plain version: {tag}")
         if not all(e <= t for e, t in zip(errs, bounds)):
             raise AssertionError(f"{name} backward disagrees with its plain version: {tag}")
+        if not repeat_f:
+            raise AssertionError(f"{name} forward differs from run to run: {tag}")
         if not repeat:
             raise AssertionError(f"{name} backward differs from run to run: {tag}")
         res_f["max_abs_err"] = max(res_f["max_abs_err"], err_o, err_l)

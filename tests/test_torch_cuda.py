@@ -24,14 +24,33 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,n,h,dtype", [
-    (1, 2048, 4, torch.bfloat16), (3, 256, 2, torch.bfloat16),
-    (2, 128, 6, torch.bfloat16), (2, 256, 2, torch.float32), (1, 64, 2, torch.float32),
+def _packed_views(b, n, h, d, dtype, gen, dev):
+    """q, k, v as views of one [B, N, 3 H D] projection, as the model's
+    fused projection would give them."""
+    qkv = (torch.randn(b, n, 3 * h * d, generator=gen, device=dev) * 2).to(dtype)
+    return [qkv[..., i * h * d:(i + 1) * h * d].view(b, n, h, d) for i in range(3)]
+
+
+@pytest.mark.parametrize("b,n,h,dtype,strided", [
+    (1, 2048, 4, torch.bfloat16, False), (3, 256, 2, torch.bfloat16, False),
+    (2, 128, 6, torch.bfloat16, False), (2, 256, 2, torch.float32, False),
+    (1, 64, 2, torch.float32, False),
+    # an odd number of 64-row tiles: the last 128-key tile holds keys past
+    # N, which must not enter the softmax; at B = 48 and 40 the blocks
+    # hold two 64-row warpgroups, the second of the last block on rows
+    # past N
+    (2, 192, 2, torch.bfloat16, False), (1, 320, 4, torch.bfloat16, True),
+    (48, 192, 2, torch.bfloat16, True), (40, 320, 2, torch.bfloat16, False),
+    # views of one fused projection, at B = 1 on the shipped length too
+    (2, 256, 4, torch.bfloat16, True), (1, 2048, 4, torch.bfloat16, True),
 ])
-def test_dense_attention_kernel_matches_plain(dev, b, n, h, dtype):
+def test_dense_attention_kernel_matches_plain(dev, b, n, h, dtype, strided):
     gen = torch.Generator(device=dev).manual_seed(n + h)
-    q, k, v = ((torch.randn(b, n, h * 64, generator=gen, device=dev) * s).to(dtype)
-               .view(b, n, h, 64) for s in (2.0, 2.0, 1.0))
+    if strided:
+        q, k, v = _packed_views(b, n, h, 64, dtype, gen, dev)
+    else:
+        q, k, v = ((torch.randn(b, n, h * 64, generator=gen, device=dev) * s).to(dtype)
+                   .view(b, n, h, 64) for s in (2.0, 2.0, 1.0))
     before = denseattn.dense_attention_fwd.launches
     o, lse = denseattn.dense_attention_fwd(q, k, v, 0.125)
     torch.cuda.synchronize()
@@ -42,6 +61,8 @@ def test_dense_attention_kernel_matches_plain(dev, b, n, h, dtype):
     o_tol, l_tol = (2.0 ** -6, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     assert (o.float() - o_ref.float()).abs().max() <= o_tol * max(1.0, o_ref.float().abs().max())
     assert (lse - lse_ref).abs().max() <= l_tol * max(1.0, lse_ref.abs().max())
+    o2, lse2 = denseattn.dense_attention_fwd(q, k, v, 0.125)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)          # no atomics
 
 
 def test_dense_attention_reads_strided_heads(dev):
@@ -55,8 +76,7 @@ def test_dense_attention_reads_strided_heads(dev):
 def _attn_bwd_inputs(dev, b, n, h, dtype, strided, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     if strided:       # q/k/v as views of one packed projection, as the model gives them
-        qkv = (torch.randn(b, n, 3 * h * 64, generator=gen, device=dev) * 2).to(dtype)
-        q, k, v = (qkv[..., i * h * 64:(i + 1) * h * 64].view(b, n, h, 64) for i in range(3))
+        q, k, v = _packed_views(b, n, h, 64, dtype, gen, dev)
     else:
         q, k, v = ((torch.randn(b, n, h * 64, generator=gen, device=dev) * s).to(dtype)
                    .view(b, n, h, 64) for s in (2.0, 2.0, 1.0))
@@ -187,17 +207,20 @@ def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     # one fused [B, N, 3 H D] projection at D = 128
     (2, 192, 2, 128, torch.bfloat16, False), (2, 192, 3, 64, torch.bfloat16, True),
     (1, 2048, 2, 128, torch.bfloat16, True), (3, 320, 1, 128, torch.bfloat16, True),
+    # the same with two 64-row warpgroups a forward block (B H N / 128 at
+    # least the card's SM count), and B = 1 at an odd head count
+    (64, 192, 2, 128, torch.bfloat16, True), (48, 320, 1, 128, torch.bfloat16, False),
+    (1, 2048, 3, 64, torch.bfloat16, True),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     """K3f and K3b at every head width they are built for and an odd
     head count, on views of one packed projection or on contiguous
     tensors, against their plain versions (bounds as chip_smoke.py's:
     bf16 2^-6 of max(1, max|O|) and of max|d|, LSE 1e-3; f32 3e-5 on O,
-    1e-5 on the rest)."""
+    1e-5 on the rest); both repeat bitwise."""
     gen = torch.Generator(device=dev).manual_seed(n + h + d)
     if strided:
-        qkv = (torch.randn(b, n, 3 * h * d, generator=gen, device=dev) * 2).to(dtype)
-        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, n, h, d) for i in range(3))
+        q, k, v = _packed_views(b, n, h, d, dtype, gen, dev)
     else:
         q, k, v = ((torch.randn(b, n, h, d, generator=gen, device=dev) * s).to(dtype)
                    for s in (2.0, 2.0, 1.0))
@@ -218,6 +241,8 @@ def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape
         assert (g.float() - w.float()).abs().max() <= g_tol * w.float().abs().max()
+    o2, lse2 = denseattn.dense_attention_bhnd(q, k, v, scale)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)          # no atomics
     again = denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale)
     assert all(torch.equal(a, g) for a, g in zip(again, got))     # no atomics
 

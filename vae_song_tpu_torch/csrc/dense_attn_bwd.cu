@@ -86,6 +86,7 @@ using vst::ld_u32;
 using vst::load_a_chunk;
 using vst::mma_16816;
 using vst::pack_bf16;
+using vst::p_pair;
 using vst::round_bf16;
 
 constexpr float kLn2 = 0.6931471805599453f;
@@ -173,17 +174,8 @@ __device__ __forceinline__ void zero_acc(float (&c)[8][4]) {
 }
 
 // The elementwise passes work on pairs of neighbouring columns, packed as
-// bf16x2 in the layout of a wgmma A fragment (acc_to_a's), so that each
-// rounding to bf16 is one conversion for two values. Conversions issue at
-// a fraction of the FMA rate; with one value per conversion they, not the
-// tensor cores, set the time of both kernels.
-
-// P for two columns: exp2 of the bf16-rounded arguments, rounded to bf16
-// (vst::exp2_bf16 of each), packed.
-__device__ __forceinline__ uint32_t p_pair(float x0, float x1) {
-  const uint32_t a = vst::pack_bf16(x0, x1);
-  return vst::pack_bf16(exp2f(__uint_as_float(a << 16)), exp2f(__uint_as_float(a & 0xffff0000u)));
-}
+// bf16x2 in the layout of a wgmma A fragment: P by vst::p_pair (shared
+// with the forward), dS by ds_pair.
 
 // dS = round(P * round(round(dP) - delta)) for two columns, with P and
 // delta packed bf16x2. The bf16x2 subtract and multiply round their exact

@@ -15,35 +15,70 @@
 //
 // What bounds it here: the TPU kernel keeps a whole [N, N] row block of
 // scores in VMEM (16.8 MB at N = 2048); one SM has 227 KB of shared
-// memory, so the scores are never held whole. Each block owns 64 query
-// rows of one (batch, head) and walks the keys in 64-row tiles with an
-// online softmax, so only the [B, N, H*D] operands and O/LSE touch device
-// memory. At the SetVAE shapes (B = 64, N = 2048, H = 4) one call is
-// 2.7e11 flop against 0.27 GB of q/k/v/O traffic: the tensor cores are the
-// bound, not memory. The bf16 path issues mma.sync m16n8k16 (bf16 in, f32
-// accumulate) from registers: S stays in the accumulator layout, which is
-// also the A-operand layout of the P V product, so P never goes through
-// shared memory. Loads are synchronous and single-buffered; wgmma, TMA
-// and a load pipeline are left to the PRs that make it fast.
+// memory, so the scores are never held whole: each block walks the keys
+// with an online softmax, and only q, k, v, O and LSE touch device memory.
+// At the main-path shape (B = 64, N = 2048, H D = 256) one call is
+// 4 B H N^2 D = 2.75e11 flop against 0.27 GB of traffic: the tensor cores
+// are the bound (0.28 ms at 989 TFLOP/s). Next come the B H N^2 score
+// elements, each an exp2 on the MUFU unit (16 a clock per SM: as long as
+// the tensor cores' work at D = 64, half of it at D = 128) and about seven
+// other instructions, issued while no product of that warpgroup is in
+// flight.
 //
-// The row max is the exact running max of the scores seen so far (never
-// a norm bound: a bound underflowed whole rows to 0/0 under training
-// transients, denseattn.py:88-96). exp2(s - m) has a 1.0 entry per tile
-// at the max, so the row sum is >= 1 and log2 is safe. Because the
-// softmax is online, P is rounded to bf16 against the running max rather
-// than the final row max: the values differ from the TPU kernel within
-// bf16 rounding, and the f32 path differs only in summation order.
+// bf16 at D = 64 and 128 (every configured path): a warp-specialised
+// wgmma kernel (sm90.cuh). A block owns 64 NC query rows of one (b, h):
+// NC consumer warpgroups of 64 rows and a producer warpgroup, one thread
+// of which issues the TMA loads. Q is loaded once; K and V stream in
+// 128-key tiles through a ring of stages (4 at D = 64, 3 at D = 128:
+// 230 KB of shared memory) with full barriers for K and V apart and one
+// empty barrier a stage. Every tile is 128-byte-swizzled panels of 64
+// columns, written by 4-D TMA boxes over the strided views (dims D, H,
+// N, B). Each consumer warpgroup rewrites its Q rows in place as qc
+// (prescaled, rounded two values per conversion), fences the writes for
+// the async proxy and meets at a barrier; then S = qc K^T is a wgmma with
+// both operands in shared memory (m64n128, K-major). P is computed in the
+// accumulator layout, which is also the A layout of the next product,
+// by p_pair (mma_bf16.cuh: two values per conversion, the function the
+// backward uses); the row max and sum are taken over the four threads of
+// a row. O += P V is a register-A wgmma with V read MN-major through its
+// descriptor: no transposed copy. O is held at full width (D / 2 f32
+// registers a thread) and rescaled by exp2(m_old - m_new) in the softmax,
+// after the previous product's wait. P V of tile j and S of tile j + 1
+// go out back to back as one burst, and the two warpgroups take turns
+// (a ping-pong on named barriers): one's softmax runs while the other's
+// burst keeps the tensor cores busy. A software pipeline that keeps a
+// product in flight across the softmax made ptxas serialise the wgmmas
+// (C7511), as it did in the backward. The epilogue stores O times 1 / l
+// (one division a row; within an f32 ulp of O / l before the rounding to
+// bf16) as bf16x2, and LSE2 per row.
 //
-// Wider heads. The tiles grow with D (qs + ks + vt is 104 KB at D = 256),
-// so shared memory is dynamic, granted per instantiation above the 48 KB
-// default. The accumulator of O is D / 2 registers a thread; above
-// D = 128 the Q fragments are reloaded from shared memory for each
-// 16-wide chunk instead of being held (64 registers at D = 256).
+// Keys past N: N is a multiple of 64, so the last 128-key tile may hold
+// 64 rows past N, which TMA fills with zeros. A zero key would give
+// S2 = 0 and enter the softmax, so those scores are set to -inf (P = 0).
+// Query rows past N are computed on zeros and not stored.
+//
+// Launch shape: NC = 2 (384 threads, the producer giving its registers
+// to the consumers: setmaxnreg 24 / 240) unless B H N / 128 blocks would
+// leave SMs idle; then NC = 1 (256 threads, 64-row blocks), so the
+// decoder's batch-constant layer at B = 1 (B H N / 128 = 64 at the
+// shipped config) still spreads over 128 SMs.
+//
+// bf16 at D = 192 and 256 (no configured path): the mma.sync kernel of
+// the first port: 64-row blocks, synchronous single-buffered loads, V
+// transposed into shared memory, Q fragments reloaded from shared memory
+// per 16-wide chunk, one rounding a conversion (exp2_bf16). The row max
+// is the exact running max in both kernels (never a norm bound: a bound
+// underflowed whole rows to 0/0 under training transients,
+// denseattn.py:88-96); exp2(s - m) has a 1.0 entry per tile at the max,
+// so the row sum is >= 1 and log2 is safe. Because the softmax is online,
+// P is rounded to bf16 against the running max rather than the final row
+// max: the values differ from the TPU kernel within bf16 rounding.
 //
 // f32 inputs (mixed_precision: false) take a plain FMA kernel: one thread
 // per query row, its prescaled q row in shared memory, keys staged through
 // shared memory, no TF32. A block computes 64 columns of O; at D > 64 the
-// grid carries D / 64 column chunks, each recomputing the scores.
+// grid carries D / 64 column chunks, each recomputing the scores. It
+// differs from the plain version in summation order only.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,20 +86,17 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using vst::acc_to_a;
 using vst::exp2_bf16;
 using vst::ld_u32;
 using vst::load_a_chunk;
-using vst::load_a_rows;
 using vst::mma_16816;
 using vst::pack_bf16;
-
-constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
-constexpr int kBlockK = 64;       // keys per shared-memory tile
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -75,6 +107,277 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// ---- bf16, D = 64 and 128: warp-specialised wgmma kernel -------------------
+
+constexpr int kKeyTile = 128;                                  // keys a ring stage
+constexpr uint32_t kPanel64 = 64 * vst::kPanelRowBytes;        // 64-row panel
+constexpr uint32_t kPanel128 = 128 * vst::kPanelRowBytes;      // 128-row panel
+
+// Shared memory, byte offsets from a 1024-byte aligned base: the Q tile
+// (P panels of 64 NC rows, rewritten in place as qc), the ring's stages
+// (a K tile, then a V tile, each P panels of 128 rows), then the
+// mbarriers (Q, full K[], full V[], empty[]).
+template <int D, int NC>
+struct FwdSmem {
+  static constexpr int P = D / 64;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t q_panel = NC * kPanel64;
+  static constexpr uint32_t stage0 = P * q_panel;
+  static constexpr uint32_t kv_bytes = P * kPanel128;            // one K or V tile
+  static constexpr uint32_t stage_bytes = 2 * kv_bytes;
+  static constexpr uint32_t bars = stage0 + kStages * stage_bytes;
+  static constexpr size_t bytes = bars + 8 * (1 + 3 * kStages) + 1024;   // + alignment
+};
+
+// Byte offset of element (r, c) in a swizzled panel (the TMA 128-byte
+// swizzle: the 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r % 8)).
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * vst::kPanelRowBytes + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
+
+// Named barriers 1 .. NC order the consumer warpgroups' products (the
+// ping-pong); 4 + w closes warpgroup w's rewrite of its Q rows.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Issue S2 = qc K^T (64 queries x 128 keys; qc at qw in P panels q_panel
+// apart, the K tile at kt) as one commit group.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sc)[16][4], uint32_t qw, uint32_t q_panel,
+                                             uint32_t kt) {
+  vst::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    vst::wgmma_ss_n128(sc, vst::desc_kmajor(qw + (kk / 4) * q_panel, kk % 4),
+                       vst::desc_kmajor(kt + (kk / 4) * kPanel128, kk % 4), kk > 0);
+  vst::wgmma_commit();
+}
+
+// Issue O += P V (V at vt read MN-major: the contraction runs along its
+// rows) as one commit group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[8][4],
+                                         uint32_t vt) {
+  vst::fence_acc(acc);
+  vst::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    if constexpr (D == 64)
+      vst::wgmma_rs_n64_tb(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
+    else
+      vst::wgmma_rs_n128_tb(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
+  }
+  vst::wgmma_commit();
+}
+
+// The online softmax of one tile of scores, rows r and r + 8 of the
+// thread: the new running max (m0, m1; keys from 64 on masked when
+// `ragged_tile`), the row sums l0, l1 (this thread's share) and the
+// accumulator rescaled by exp2(m_old - m_new), and P into A fragments
+// (k-step kc covers keys 16 kc .. + 15).
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[16][4], bool ragged_tile, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float (&acc)[D / 8][4], uint32_t (&pa)[8][4]) {
+  if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
+#pragma unroll
+    for (int j = 8; j < 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
+  }
+  float n0 = m0, n1 = m1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    n0 = fmaxf(n0, fmaxf(sc[j][0], sc[j][1]));
+    n1 = fmaxf(n1, fmaxf(sc[j][2], sc[j][3]));
+  }
+  n0 = quad_max(n0);
+  n1 = quad_max(n1);
+  const float a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
+  const float a1 = exp2f(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t x = vst::p_pair(sc[j][0] - n0, sc[j][1] - n0);
+    const uint32_t y = vst::p_pair(sc[j][2] - n1, sc[j][3] - n1);
+    pa[j >> 1][(j & 1) * 2] = x;
+    pa[j >> 1][(j & 1) * 2 + 1] = y;
+    ps0 += vst::bf16_lo(x) + vst::bf16_hi(x);
+    ps1 += vst::bf16_lo(y) + vst::bf16_hi(y);
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= a0;
+    acc[j][1] *= a0;
+    acc[j][2] *= a1;
+    acc[j][3] *= a1;
+  }
+}
+
+// Grid (ceil(N / (64 NC)), H, B), 128 (NC + 1) threads. Warpgroup w < NC
+// owns queries q0 + 64 w .. + 63, its warp i the 16 rows 16 i .. of those;
+// in the accumulator layout lane = 4 g + t holds rows g and g + 8,
+// columns 8 j + 2 t and 8 j + 2 t + 1 of each 8-column block j.
+template <int D, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                            float* __restrict__ lse, int H, int N, long long ob, long long on,
+                            long long oh, float qscale) {
+  using L = FwdSmem<D, NC>;
+  constexpr int P = L::P, kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_bar = base + L::bars, full_k0 = q_bar + 8;
+  const uint32_t full_v0 = full_k0 + 8 * kStages, empty0 = full_v0 + 8 * kStages;
+  const int q0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z;
+  const int nk = (N + kKeyTile - 1) / kKeyTile;
+  if (threadIdx.x == 0) {
+    vst::mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      vst::mbar_init(full_k0 + 8 * s, 1);
+      vst::mbar_init(full_v0 + 8 * s, 1);
+      vst::mbar_init(empty0 + 8 * s, 4 * NC);   // one arrival a consumer warp
+    }
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  auto k_full = [&](int it) { return full_k0 + 8 * (it % kStages); };
+  auto v_full = [&](int it) { return full_v0 + 8 * (it % kStages); };
+  auto parity = [&](int it) { return (uint32_t)((it / kStages) & 1); };
+  auto kt_of = [&](int it) { return base + L::stage0 + (it % kStages) * L::stage_bytes; };
+
+  if (wg == NC) {   // producer
+    if constexpr (NC == 2) vst::regs_dealloc<24>();
+    if (threadIdx.x == 128 * NC) {
+      vst::mbar_arrive_expect_tx(q_bar, P * L::q_panel);
+      for (int p = 0; p < P; ++p)
+        for (int half = 0; half < NC; ++half)
+          vst::tma_load_4d(base + p * L::q_panel + half * kPanel64, &mq, q_bar, 64 * p, h,
+                           q0 + 64 * half, b);
+      // the last kStages waits let the consumers release every stage
+      for (int it = 0; it < nk + kStages; ++it) {
+        vst::mbar_wait(empty0 + 8 * (it % kStages), parity(it) ^ 1);
+        if (it >= nk) continue;
+        const uint32_t st = kt_of(it);
+        vst::mbar_arrive_expect_tx(k_full(it), L::kv_bytes);
+        for (int p = 0; p < P; ++p)
+          for (int half = 0; half < 2; ++half)
+            vst::tma_load_4d(st + p * kPanel128 + half * kPanel64, &mk, k_full(it), 64 * p, h,
+                             it * kKeyTile + 64 * half, b);
+        vst::mbar_arrive_expect_tx(v_full(it), L::kv_bytes);
+        for (int p = 0; p < P; ++p)
+          for (int half = 0; half < 2; ++half)
+            vst::tma_load_4d(st + L::kv_bytes + p * kPanel128 + half * kPanel64, &mv,
+                             v_full(it), 64 * p, h, it * kKeyTile + 64 * half, b);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  if constexpr (NC == 2) vst::regs_alloc<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 16 * warp + g;   // the thread's first row in its warpgroup's 64
+  const uint32_t qw = base + wg * kPanel64;   // this warpgroup's 64 rows of Q
+
+  // qc = round_bf16(q * qscale), written back in place: the fragments of
+  // the warpgroup's threads (rows r, r + 8; columns 16 kk + 2 t, + 8)
+  // cover its rows once. Generic-proxy writes that wgmma (the async
+  // proxy) reads: fenced, then the warpgroup meets at a barrier.
+  vst::mbar_wait(q_bar, 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned char* panel = gbase + (kk / 4) * L::q_panel + wg * kPanel64;
+    auto prescale = [&](int row, int col) {
+      uint32_t* at = reinterpret_cast<uint32_t*>(panel + swizzled(row, col));
+      *at = pack_bf16(vst::bf16_lo(*at) * qscale, vst::bf16_hi(*at) * qscale);
+    };
+    const int c = 16 * (kk % 4) + 2 * t;
+    prescale(r, c);
+    prescale(r + 8, c);
+    prescale(r, c + 8);
+    prescale(r + 8, c + 8);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(4 + wg, 128);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r and r + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+  const bool ragged = (N % kKeyTile) != 0;
+
+  // P V of tile it and S of tile it + 1 go out back to back, so no product
+  // is in flight during a softmax. With two warpgroups the pairs take
+  // turns (ping-pong): one warpgroup's softmax runs while the other's
+  // products do.
+  constexpr bool kPingpong = NC == 2;
+  if constexpr (kPingpong) {
+    if (wg == 1) named_arrive(1, 256);   // warpgroup 0 goes first
+  }
+  float sc[16][4];
+  vst::mbar_wait(k_full(0), 0);
+  issue_scores<D>(sc, qw, L::q_panel, kt_of(0));
+  vst::wgmma_wait<0>();
+  vst::fence_acc(sc);
+  for (int it = 0; it < nk; ++it) {
+    uint32_t pa[8][4];
+    softmax_tile<D>(sc, ragged && it == nk - 1, m0, m1, l0, l1, acc, pa);
+    if constexpr (kPingpong) named_sync(1 + wg, 256);
+    vst::mbar_wait(v_full(it), parity(it));
+    issue_pv<D>(acc, pa, kt_of(it) + L::kv_bytes);
+    if (it + 1 < nk) {
+      vst::mbar_wait(k_full(it + 1), parity(it + 1));
+      issue_scores<D>(sc, qw, L::q_panel, kt_of(it + 1));
+    }
+    if constexpr (kPingpong) named_arrive(2 - wg, 256);
+    vst::wgmma_wait<0>();
+    vst::fence_acc(acc);
+    vst::fence_acc(sc);
+    __syncwarp();
+    if (lane == 0) vst::mbar_arrive(empty0 + 8 * (it % kStages));   // release the stage
+  }
+  if constexpr (kPingpong) {
+    if (wg == 0) named_sync(1, 256);   // the arrival left from warpgroup 1's last tile
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int row0 = q0 + 64 * wg + r;
+  float* lrow = lse + ((long long)b * H + h) * N;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= N) continue;
+    const float l = half ? l1 : l0, inv = 1.f / l;
+    bf16* dst = o + (long long)b * ob + (long long)row * on + (long long)h * oh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * half] * inv, acc[j][2 * half + 1] * inv);
+    if (t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
+  }
+}
+
+// ---- bf16, D = 192 and 256: mma.sync kernel ----------------------------------
+
+constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
+constexpr int kBlockK = 64;       // keys per shared-memory tile
+constexpr int kThreads = 128;
 
 // Rows padded by 8 bf16 (16 bytes): the 8 row groups of a fragment load
 // land on distinct banks.
@@ -98,7 +401,6 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            float qscale) {
   constexpr int LD = D + 8;
   constexpr int KC = D / 16;           // 16-wide chunks of the head
-  constexpr bool kQInRegs = D <= 128;  // else reload Q fragments per chunk
   extern __shared__ __align__(16) unsigned char smem[];
   auto qs = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
   auto ks = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem + kBlockQ * LD * 2);
@@ -123,9 +425,6 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
   }
   __syncthreads();
-
-  uint32_t qa[kQInRegs ? KC : 1][4];
-  if constexpr (kQInRegs) load_a_rows<LD, KC>(qs, warp * 16, g, t, qa);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -154,11 +453,7 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t a[4];
-      if constexpr (kQInRegs) {
-        a[0] = qa[kk][0]; a[1] = qa[kk][1]; a[2] = qa[kk][2]; a[3] = qa[kk][3];
-      } else {
-        load_a_chunk<LD>(qs, warp * 16, kk, g, t, a);
-      }
+      load_a_chunk<LD>(qs, warp * 16, kk, g, t, a);
 #pragma unroll
       for (int nt = 0; nt < kBlockK / 8; ++nt) {
         const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
@@ -229,6 +524,8 @@ dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     lrow[r1] = m1 + log2f(l1);
   }
 }
+
+// ---- f32: plain FMA kernel ---------------------------------------------------
 
 constexpr int kF32Rows = 64;   // query rows per block, one per thread
 constexpr int kF32Keys = 32;   // keys per shared-memory tile
@@ -322,29 +619,70 @@ dense_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   if (chunk == 0) lse[((long long)b * H + h) * N + row] = m + log2f(l);
 }
 
+template <int D, int NC>
+cudaError_t launch_fwd_wgmma_nc(const CUtensorMap& mq, const CUtensorMap& mk,
+                                const CUtensorMap& mv, void* o, void* lse, int B, int H, int N,
+                                long long ob, long long on, long long oh, float qscale,
+                                cudaStream_t st) {
+  constexpr size_t smem = FwdSmem<D, NC>::bytes;
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_wgmma_kernel<D, NC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 64 * NC - 1) / (64 * NC), H, B);
+  dense_attn_fwd_wgmma_kernel<D, NC><<<grid, 128 * (NC + 1), smem, st>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, N, ob, on, oh, qscale);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 64 or 128: the wgmma kernel over tensor maps of q, k, v,
+// with two consumer warpgroups a block unless that gives fewer blocks
+// than the card has SMs.
 template <int D>
-cudaError_t launch_fwd(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int N, long long sb, long long sn,
-                       long long sh, long long ob, long long on, long long oh,
-                       float qscale, cudaStream_t st) {
-  if (is_bf16) {
-    constexpr size_t smem = fwd_bf16_smem<D>();
-    cudaError_t err = vst::allow_smem(dense_attn_fwd_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    dense_attn_fwd_bf16_kernel<D><<<dim3(N / kBlockQ, H, B), kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
-  } else {
-    constexpr size_t smem = fwd_f32_smem<D>();
-    cudaError_t err = vst::allow_smem(dense_attn_fwd_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    dense_attn_fwd_f32_kernel<D><<<dim3(N / kF32Rows * (D / kF32Cols), H, B), kF32Rows, smem,
-                                   st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
-  }
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int B, int H, int N, long long sb, long long sn, long long sh,
+                             long long ob, long long on, long long oh, float qscale,
+                             cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  if (!vst::bhnd_tensor_map(&mq, q, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, sb, sn, sh))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * H * ((N + 127) / 128) < sms)
+    return launch_fwd_wgmma_nc<D, 1>(mq, mk, mv, o, lse, B, H, N, ob, on, oh, qscale, st);
+  return launch_fwd_wgmma_nc<D, 2>(mq, mk, mv, o, lse, B, H, N, ob, on, oh, qscale, st);
+}
+
+// bf16 at D = 192 or 256: the mma.sync kernel.
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int H, int N, long long sb, long long sn, long long sh,
+                           long long ob, long long on, long long oh, float qscale,
+                           cudaStream_t st) {
+  constexpr size_t smem = fwd_bf16_smem<D>();
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dense_attn_fwd_bf16_kernel<D><<<dim3(N / kBlockQ, H, B), kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
+  return cudaGetLastError();
+}
+
+// f32 at any D: the FMA kernel.
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int H, int N, long long sb, long long sn, long long sh,
+                           long long ob, long long on, long long oh, float qscale,
+                           cudaStream_t st) {
+  constexpr size_t smem = fwd_f32_smem<D>();
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dense_attn_fwd_f32_kernel<D><<<dim3(N / kF32Rows * (D / kF32Cols), H, B), kF32Rows, smem,
+                                 st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
   return cudaGetLastError();
 }
 
@@ -362,22 +700,24 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
                                   long long oh, float qscale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#define VST_FWD_ARGS q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st
   switch (D) {
     case 64:
-      err = launch_fwd<64>(is_bf16, q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st);
+      err = is_bf16 ? launch_fwd_wgmma<64>(VST_FWD_ARGS) : launch_fwd_f32<64>(VST_FWD_ARGS);
       break;
     case 128:
-      err = launch_fwd<128>(is_bf16, q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st);
+      err = is_bf16 ? launch_fwd_wgmma<128>(VST_FWD_ARGS) : launch_fwd_f32<128>(VST_FWD_ARGS);
       break;
     case 192:
-      err = launch_fwd<192>(is_bf16, q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st);
+      err = is_bf16 ? launch_fwd_mma<192>(VST_FWD_ARGS) : launch_fwd_f32<192>(VST_FWD_ARGS);
       break;
     case 256:
-      err = launch_fwd<256>(is_bf16, q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st);
+      err = is_bf16 ? launch_fwd_mma<256>(VST_FWD_ARGS) : launch_fwd_f32<256>(VST_FWD_ARGS);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
+#undef VST_FWD_ARGS
   return static_cast<int>(err);
 }
 

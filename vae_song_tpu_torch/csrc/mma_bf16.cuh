@@ -1,7 +1,8 @@
 // bf16 helpers shared by the attention forward (dense_attn_fwd.cu) and
 // backward (dense_attn_bwd.cu), whose P is computed by one code path in
-// both directions (the same mma.sync fragments and exp2 rounding), and by
-// the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
+// both directions: p_pair in the wgmma kernels (D = 64 and 128),
+// exp2_bf16 in the mma.sync kernels (D = 192 and 256), the same
+// roundings; and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) fragment layouts, lane =
 // 4 g + t:
@@ -50,6 +51,33 @@ __device__ __forceinline__ float exp2_bf16(float s_minus_m) {
   return round_bf16(exp2f(round_bf16(s_minus_m)));
 }
 
+// The two bf16 values of a packed pair (pack_bf16's lo, hi) as f32.
+__device__ __forceinline__ float bf16_lo(uint32_t pair) { return __uint_as_float(pair << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t pair) {
+  return __uint_as_float(pair & 0xffff0000u);
+}
+
+// 2^x by the MUFU unit alone (ex2.approx.ftz.f32). exp2f compiles to the
+// same MUFU.EX2 with a halving of x before it and a squaring after it
+// for x < -126 only, three more instructions a value; so the two agree
+// wherever 2^x >= 2^-126, and below that this gives 0 where exp2f gives
+// a subnormal, which adds nothing to an f32 row sum of at least 1.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp2_bf16 of two neighbouring columns (below 2^-126 flushed to 0, see
+// ex2_ftz), packed as bf16x2 in the layout of a wgmma A fragment
+// (acc_to_a's): each rounding to bf16 is one conversion for two values.
+// Conversions issue at a fraction of the FMA rate; one value per
+// conversion set the time of the first attention kernels.
+__device__ __forceinline__ uint32_t p_pair(float x0, float x1) {
+  const uint32_t a = pack_bf16(x0, x1);
+  return pack_bf16(ex2_ftz(bf16_lo(a)), ex2_ftz(bf16_hi(a)));
+}
+
 // A fragment of one 16-deep chunk kc of a 16 x 64 accumulator block
 // (8 n-tiles of 8 columns): columns 16 kc .. 16 kc + 15.
 __device__ __forceinline__ void acc_to_a(const float c[][4], int kc, uint32_t a[4]) {
@@ -68,15 +96,6 @@ __device__ __forceinline__ void load_a_chunk(const __nv_bfloat16 (*tile)[LD], in
   a[1] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t]);
   a[2] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t + 8]);
   a[3] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t + 8]);
-}
-
-// A fragments of rows r0 .. r0 + 15 of a [rows][LD] bf16 shared tile,
-// 16 KC columns wide (KC chunks of 16).
-template <int LD, int KC = 4>
-__device__ __forceinline__ void load_a_rows(const __nv_bfloat16 (*tile)[LD], int r0,
-                                            int g, int t, uint32_t a[KC][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) load_a_chunk<LD>(tile, r0, kk, g, t, a[kk]);
 }
 
 // Dynamic shared memory above the 48 KB a launch gets by default must be

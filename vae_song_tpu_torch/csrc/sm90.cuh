@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
-// reallocation. Used by the attention backward (dense_attn_bwd.cu).
+// reallocation. Used by the attention forward (dense_attn_fwd.cu) and
+// backward (dense_attn_bwd.cu) at head widths 64 and 128.
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel
@@ -144,9 +145,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accumulator registers across an
 // asynchronous wgmma's issue and its wait.
-__device__ __forceinline__ void fence_acc(float (&c)[8][4]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&c)[R][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(c[i][j])::"memory");
 }
@@ -188,6 +190,46 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&c)[8][4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+#define VST_C4(c, j) "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+#define VST_ACC64(c)                                                                        \
+  VST_C4(c, 0), VST_C4(c, 1), VST_C4(c, 2), VST_C4(c, 3), VST_C4(c, 4), VST_C4(c, 5),       \
+      VST_C4(c, 6), VST_C4(c, 7), VST_C4(c, 8), VST_C4(c, 9), VST_C4(c, 10), VST_C4(c, 11), \
+      VST_C4(c, 12), VST_C4(c, 13), VST_C4(c, 14), VST_C4(c, 15)
+
+#define VST_D64                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "   \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// c (64 x 128 f32, c[j] holds columns 8 j .. 8 j + 7 in mma.sync's C
+// layout per warp) (+)= A (64 x 16, K-major in shared memory) B (16 x 128,
+// K-major in shared memory). `accumulate` 0 overwrites c.
+__device__ __forceinline__ void wgmma_ss_n128(float (&c)[16][4], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VST_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : VST_ACC64(c)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// c (64 x 128 f32) += A (64 x 16 bf16 in registers) B (16 x 128,
+// MN-major in shared memory: two 64-column atoms, LBO apart).
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&c)[16][4], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VST_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : VST_ACC64(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef VST_D64
+#undef VST_ACC64
+#undef VST_C4
 #undef VST_D32
 #undef VST_ACC32
 

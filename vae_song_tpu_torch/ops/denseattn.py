@@ -13,13 +13,13 @@ Two routes share one kernel pair:
 
 The JAX kernels of both routes compute the same function with the same
 roundings, so the port launches one kernel, instantiated for D = 64, 128,
-192 and 256; each route counts its own launches. The backward starts
-with a preprocess pass that writes delta and, for bf16, qc into scratch
-that `_launch_bwd` allocates. The bf16 backward at D = 64 and 128 (every
-configured path) is then a wgmma kernel pair fed by TMA
-(csrc/dense_attn_bwd.cu); D = 192 and 256 and f32 run the first port's
-kernels. A head width that `dense_ok` accepts above 256 raises a
-ValueError naming the limit, on any device.
+192 and 256; each route counts its own launches. In bf16 at D = 64 and
+128 (every configured path) the forward is one wgmma kernel fed by TMA
+(csrc/dense_attn_fwd.cu), and the backward a preprocess pass that writes
+delta and qc into scratch that `_launch_bwd` allocates, then a wgmma
+kernel pair (csrc/dense_attn_bwd.cu); D = 192 and 256 and f32 run the
+first port's kernels. A head width that `dense_ok` accepts above 256
+raises a ValueError naming the limit, on any device.
 
 The forward computes, per (batch, head):
 
