@@ -15,9 +15,15 @@ non-zero exit code:
      where one PyTorch call computes the same function, that call's
      time: attention forward and backward on the packed route (K1, K2)
      and on the BHND route (K3f, K3b), Chamfer forward (K4) and backward
-     (K5), the fused FFN forward (K6f) and backward (K6b). The attention
-     kernels and the FFN backward use no atomics: a second call on the
-     same inputs must give the same bits.
+     (K5), the fused FFN forward (K6f) and backward (K6b), each also at
+     the widths its route takes past the shipped config (heads of 320 and
+     512, FFN widths of 384 and 512). The attention kernels and the FFN
+     use no atomics: a second call on the same inputs must give the same
+     bits. Beside the fused FFN the unfused Dense -> ReLU -> Dense
+     (forward, and forward + backward) and, forward only (PyTorch has no
+     backward for it), cuBLASLt's bias + ReLU epilogue
+     (`torch._addmm_activation`, then `addmm` and the residual add) are
+     timed as references.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -35,6 +41,13 @@ non-zero exit code:
      K2 must not launch. (2) the shipped SetVAE and SetLRVAE configs with
      VST_FUSED_FFN=1 (set and unset here): the train step's ms/step and
      the eval step's ms/batch; the K6f and K6b counters must rise.
+  4d. routes: the shipped SetVAE eval step at full width once under each
+     of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
+     VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
+     showing which attention kernels ran and the loss terms within the
+     bf16 reference bound of the default route's; then a Chamfer call at
+     B = 12, which the packed kernel's gate refuses: no K4 launch and the
+     exact tiled value.
   5. reference: the same weights on the CPU (plain versions of the
      kernels) against the card on 2 clouds, in f32 and in bf16: the eval
      step, the decode, and one train step (loss terms, gradients and the
@@ -183,6 +196,12 @@ REF_BF16_MOVED_SHARE = 5e-2
 # (measured 1.2e-5 at max|d| ~ 16); bound 1e-5 of max|d|. Both routes.
 K2_BF16_TOL = 2.0 ** -6
 K2_F32_TOL = 1e-5
+# f32 heads wider than 256, backward: S2 and dP^T are sums of D products,
+# which the kernel adds in column order and the plain version in blocked
+# order; at D = 512 a few ulps on |S2| ~ 36 (ulp 3.8e-6) come through the
+# exp2 into P and dS (measured, H100: 1.25e-5 of max|dV| at B = 1, N = 256,
+# against 1e-5): bound 3e-5 of max|d|, K3_F32_O_TOL's reasoning for O.
+K3_F32_WIDE_TOL = 3e-5
 # Chamfer backward: the same f32 terms; the plain version's index_add
 # adds with atomics in another order (measured 3.6e-12 at max|d| 5e-5);
 # bound 1e-6 of max|d|.
@@ -208,10 +227,24 @@ K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat1
             (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32))
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
-            (4, NPTS, 2, 128, torch.float32))
+            (4, NPTS, 2, 128, torch.float32),
+            # heads wider than 256 (d_model 320 or 512 with one head)
+            (8, NPTS, 1, 320, torch.bfloat16), (8, NPTS, 1, 512, torch.bfloat16),
+            (1, NPTS, 1, 512, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
-# the shipped widths, then a smaller M in f32
-K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (8192, 256, 512, torch.float32))
+# the shipped widths, wider models' widths, then a smaller M in f32
+K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (16 * 2048, 384, 1536, torch.bfloat16),
+            (16 * 2048, 512, 2048, torch.bfloat16), (8192, 256, 512, torch.float32))
+# Phase 4d: the JAX package's attention switches, each with the attention
+# kernels it must launch on the shipped config's eval step and those it
+# must not
+ATTN_SWITCHES = (
+    ({"VST_DISABLE_DENSE_ATTN": "1"}, (),
+     ("dense_attn_fwd", "dense_attn_bhnd_fwd")),
+    ({"VST_DENSE_ATTN_PACKED": "0"}, ("dense_attn_bhnd_fwd",), ("dense_attn_fwd",)),
+    ({"VST_FUSED_QKV": "1"}, ("dense_attn_fwd",), ("dense_attn_bhnd_fwd",)),
+)
+CHAMFER_OFF_GATE_BATCH = 12
 
 
 def _sync_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -333,7 +366,7 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
         else:
             tol_o = f32_o_tol * max(1.0, float(o_ref.abs().max()))
             tol_l = K1_F32_TOL * max(1.0, float(lse_ref.abs().max()))
-            tol_b = K2_F32_TOL
+            tol_b = K2_F32_TOL if d <= 256 else K3_F32_WIDE_TOL
         errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
         bounds = [tol_b * float(w_.float().abs().max()) for w_ in want]
         ms_f = _sync_ms(lambda: fwd(q, k, v, scale), 10)
@@ -462,12 +495,16 @@ def check_ffn(dev, gen):
         ms_b = _sync_ms(lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2), 10)
         plain_f = _sync_ms(lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2), 3, 1)
         plain_b = _sync_ms(lambda: ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2), 3, 1)
-        # reference, not a yardstick of the same function: the unfused
-        # path's Dense semantics (product and bias add rounded apart)
+        # references, not yardsticks of the same function: the unfused
+        # path's Dense semantics (product and bias add rounded apart), and
+        # cuBLASLt's bias + ReLU epilogue on the first product
         leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
         unfused = lambda xx, a1, c1, a2, c2: xx + (torch.relu(xx @ a1.t() + c1) @ a2.t() + c2)
+        epilogue = lambda xx, a1, c1, a2, c2: xx + torch.addmm(
+            c2, torch._addmm_activation(c1, xx, a1.t()), a2.t())
         with torch.no_grad():
             ref_f = _sync_ms(lambda: unfused(*leaves), 10)
+            epi_f = _sync_ms(lambda: epilogue(*leaves), 10)
         ref_fb = _sync_ms(lambda: torch.autograd.grad(unfused(*leaves), leaves, dy), 10)
         es = x.element_size()
         wbytes = es * (2 * d * f + f + d)
@@ -477,19 +514,23 @@ def check_ffn(dev, gen):
         print(f"{tag} fwd: max|dy| {err_y:.3e} (bound {tol_y:.3e}); kernel {ms_f:.4f} ms "
               f"({4.0 * m * d * f / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, bound "
               f"{bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}); unfused Dense-ReLU-Dense "
-              f"reference {ref_f:.4f} ms")
+              f"reference {ref_f:.4f} ms, cuBLASLt bias+ReLU epilogue reference {epi_f:.4f} ms")
         print(f"{tag} bwd: max|d dx,dw1,db1,dw2,db2| "
               + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
               + f"; kernel {ms_b:.4f} ms ({10.0 * m * d * f / ms_b / 1e9:.1f} TFLOP/s), plain "
               f"{plain_b:.4f} ms, bound {bound_b['bound_ms']:.4f} ms ({bound_b['bound_by']}); "
-              f"unfused reference forward + backward {ref_fb:.4f} ms")
+              f"unfused reference forward + backward {ref_fb:.4f} ms; K6f + K6b "
+              f"{ms_f + ms_b:.4f} ms")
         if not err_y <= tol_y:
             raise AssertionError(f"fused_ffn forward disagrees with its plain version: {tag}")
         if not all(e <= t for e, t in zip(errs, bounds)):
             raise AssertionError(f"fused_ffn backward disagrees with its plain version: {tag}")
+        if not torch.equal(ffn.fused_ffn_fwd(x, w1, b1, w2, b2), y):
+            raise AssertionError(f"fused_ffn forward differs from run to run: {tag}")
         again = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
         if not all(torch.equal(a, g_) for a, g_ in zip(again, got)):
             raise AssertionError(f"fused_ffn backward differs from run to run: {tag}")
+        print(f"{tag}: forward and backward repeat bitwise equal True")
         res_f["max_abs_err"] = max(res_f["max_abs_err"], err_y)
         res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
         if i == 0:
@@ -710,6 +751,43 @@ def phase_fused_ffn(dev):
     return launches
 
 
+def phase_routes(dev):
+    """The shipped SetVAE eval step under each attention switch, then a
+    Chamfer call outside the packed kernel's gate; returns the launches."""
+    model = _build("setvae", MODEL_PARAMS).to(dev)
+    step = make_eval_step(model)
+    xs, eps = _clouds_and_noise(1, BATCH, MODEL_PARAMS, dev, SEED + 6)
+    _reset_launches()
+    base = {k: float(v) for k, v in step(xs[0], eps[0]).items()}
+    for env, ran, idle in ATTN_SWITCHES:
+        tag = " ".join(f"{k}={v}" for k, v in env.items())
+        with mock.patch.dict(os.environ, env):
+            _reset_launches()
+            terms = {k: float(v) for k, v in step(xs[0], eps[0]).items()}
+            launches = _read_launches()
+        rel = max(abs(terms[k] - base[k]) / max(abs(base[k]), 1e-12)
+                  for k in ("loss", "recon", "reg"))
+        print(f"eval step under {tag}: loss terms {terms}, max rel diff from the default route "
+              f"{rel:.3e} (bound {REF_BF16_LOSS_RTOL})")
+        _expect_launches(launches, f"the eval step under {tag}", ran + ("chamfer_nn_packed",),
+                         idle)
+        if not (all(math.isfinite(v) for v in terms.values()) and rel <= REF_BF16_LOSS_RTOL):
+            raise AssertionError(f"eval step under {tag} disagrees with the default route")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b, n = CHAMFER_OFF_GATE_BATCH, MODEL_PARAMS["num_points"]
+    pred = torch.randn(b, n, 3, generator=gen, device=dev)
+    gt = torch.randn(b, n, 3, generator=gen, device=dev)
+    _reset_launches()
+    val = chamfer.best_chamfer(pred, gt)
+    launches = _read_launches()
+    exact = chamfer.chamfer_distance(pred, gt)
+    print(f"best_chamfer B={b} N={n}: {float(val):.8f}, exact tiled {float(exact):.8f}, "
+          f"equal {torch.equal(val, exact)}")
+    _expect_launches(launches, f"best_chamfer at B={b}", (), tuple(COUNTERS))
+    if not torch.equal(val, exact):
+        raise AssertionError(f"best_chamfer at B={b} is not the exact tiled value")
+
+
 def _train_step_once(where, params, x, eps):
     """One train step at lr LR from the seeded weights: (loss terms,
     gradients, parameters after the update), on the host."""
@@ -830,6 +908,7 @@ def main():
     main_path = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
     fused = _timed(phase_fused_ffn, dev)
+    _timed(phase_routes, dev)
     _timed(phase_reference, dev)
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),

@@ -85,3 +85,22 @@ def test_packed_n_guard():
         chamfer.chamfer_nn_packed(small, torch.zeros(1, 2049, 3))
     with pytest.raises(TypeError):
         chamfer.chamfer_nn_packed(small.double(), small.double())
+
+
+@pytest.mark.parametrize("b", [64, 16, 12, 4, 1])
+@pytest.mark.parametrize("np_,ng", [(2048, 2048), (2000, 2048), (2048, 1920), (128, 256),
+                                    (4096, 2048), (2176, 128)])
+def test_packed_gate_matches_jax_choice(monkeypatch, b, np_, ng):
+    """`packed_chamfer_ok` against the choice the JAX `best_chamfer` makes on
+    a TPU backend (batch a multiple of 8, both clouds multiples of 128, at
+    most 2048 points), seen by answering its backend check with "tpu" and
+    recording whether it calls its Pallas path."""
+    import jax
+
+    chose = []
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax_chamfer, "chamfer_distance_pallas",
+                        lambda *a: chose.append(True) or jnp.float32(0.0))
+    monkeypatch.setattr(jax_chamfer, "chamfer_distance", lambda *a: jnp.float32(0.0))
+    jax_chamfer.best_chamfer(jnp.zeros((b, np_, 3)), jnp.zeros((b, ng, 3)))
+    assert chamfer.packed_chamfer_ok(b, np_, ng) == bool(chose)

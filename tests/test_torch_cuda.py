@@ -167,8 +167,9 @@ def _train_step_launches(dev, **overrides):
     step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
     start = [f.launches for f in ALL_COUNTERS]
     gen = torch.Generator(device=dev).manual_seed(1)
-    out = step(torch.randn(4, 256, 3, generator=gen, device=dev),
-               torch.randn(4, 16, generator=gen, device=dev))
+    # 8 clouds: a batch the packed Chamfer gate takes (B % 8 == 0)
+    out = step(torch.randn(8, 256, 3, generator=gen, device=dev),
+               torch.randn(8, 16, generator=gen, device=dev))
     assert all(math.isfinite(float(v)) for v in out.values())
     for name, p in model.named_parameters():
         # a key bias has an analytically zero gradient (roundoff only)
@@ -191,10 +192,24 @@ def test_train_step_with_wide_heads_runs_the_bhnd_kernels(dev):
 
 
 def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
-    """VST_FUSED_FFN=1 at ff_dim 128 (rows 4 x 256 = 1024): K6f and K6b
+    """VST_FUSED_FFN=1 at ff_dim 128 (rows 8 x 256 = 2048): K6f and K6b
     for the 2 encoder and 2 decoder FFNs."""
     monkeypatch.setenv("VST_FUSED_FFN", "1")
     assert _train_step_launches(dev, ff_dim=128) == [4, 4, 0, 0, 2, 1, 4, 4]
+
+
+@pytest.mark.parametrize("env,want", [
+    # the plain attention for every shape: no attention kernel
+    ({"VST_DISABLE_DENSE_ATTN": "1"}, [0, 0, 0, 0, 2, 1, 0, 0]),
+    # the packed shapes on the BHND kernels
+    ({"VST_DENSE_ATTN_PACKED": "0"}, [0, 0, 4, 4, 2, 1, 0, 0]),
+    # K1 and K2 reading q, k, v as views of the one [d, 3d] product
+    ({"VST_FUSED_QKV": "1"}, [4, 4, 0, 0, 2, 1, 0, 0]),
+])
+def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert _train_step_launches(dev) == want
 
 
 @pytest.mark.parametrize("b,n,h,d,dtype,strided", [
@@ -211,13 +226,19 @@ def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     # least the card's SM count), and B = 1 at an odd head count
     (64, 192, 2, 128, torch.bfloat16, True), (48, 320, 1, 128, torch.bfloat16, False),
     (1, 2048, 3, 64, torch.bfloat16, True),
+    # heads wider than 256: the column-chunk kernels, 128-wide chunks
+    # (D % 128 == 0) or 64-wide, an odd number of 64-row tiles included
+    (1, 128, 1, 320, torch.bfloat16, False), (2, 192, 1, 320, torch.bfloat16, True),
+    (2, 128, 2, 512, torch.bfloat16, True), (1, 256, 1, 384, torch.bfloat16, False),
+    (1, 128, 1, 320, torch.float32, True), (1, 192, 2, 512, torch.float32, False),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
-    """K3f and K3b at every head width they are built for and an odd
+    """K3f and K3b at head widths 64 to 512 and an odd
     head count, on views of one packed projection or on contiguous
     tensors, against their plain versions (bounds as chip_smoke.py's:
     bf16 2^-6 of max(1, max|O|) and of max|d|, LSE 1e-3; f32 3e-5 on O,
-    1e-5 on the rest); both repeat bitwise."""
+    1e-5 on the rest, 3e-5 on the gradients above D = 256); both repeat
+    bitwise."""
     gen = torch.Generator(device=dev).manual_seed(n + h + d)
     if strided:
         q, k, v = _packed_views(b, n, h, d, dtype, gen, dev)
@@ -236,6 +257,8 @@ def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
     bf16 = dtype == torch.bfloat16
     o_tol, l_tol, g_tol = (2.0 ** -6, 1e-3, 2.0 ** -6) if bf16 else (3e-5, 1e-5, 1e-5)
+    if not bf16 and d > 256:
+        g_tol = 3e-5   # chip_smoke.py's K3_F32_WIDE_TOL: sums of D products in other orders
     assert (o.float() - o_ref.float()).abs().max() <= o_tol * max(1.0, o_ref.float().abs().max())
     assert (lse - lse_ref).abs().max() <= l_tol * max(1.0, lse_ref.abs().max())
     for g, w in zip(got, want):
@@ -247,9 +270,9 @@ def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     assert all(torch.equal(a, g) for a, g in zip(again, got))     # no atomics
 
 
-def test_head_width_above_kernels_raises_on_card(dev):
-    q = torch.zeros(1, 128, 1, 512, device=dev)
-    with pytest.raises(ValueError, match="up to 256"):
+def test_head_width_off_the_grid_raises_on_card(dev):
+    q = torch.zeros(1, 128, 1, 96, device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
         denseattn.dense_attention(q, q, q, 0.1)
 
 
@@ -260,6 +283,11 @@ def _grid(shape, sd, step, gen, dev):
 @pytest.mark.parametrize("m,d,f,dtype", [
     (4096, 256, 512, torch.bfloat16), (1024, 128, 256, torch.bfloat16),
     (2048, 256, 512, torch.float32), (1024, 128, 128, torch.float32),
+    # every width the gate takes: y and dx in 128- or 256-column chunks,
+    # x and dy streamed past D = 256
+    (2048, 384, 512, torch.bfloat16), (1024, 512, 256, torch.bfloat16),
+    (1024, 128, 128, torch.bfloat16), (1024, 2048, 256, torch.bfloat16),
+    (1024, 384, 128, torch.float32), (1024, 512, 256, torch.float32),
 ])
 def test_fused_ffn_kernels_match_plain(dev, m, d, f, dtype):
     """K6f and K6b against their plain versions on inputs on the grid of
@@ -302,9 +330,22 @@ def test_chamfer_kernel_matches_plain_bitwise(dev, b, np_, ng):
 
 
 def test_best_chamfer_takes_kernel_on_card(dev):
-    pred = torch.randn(2, 512, 3, device=dev)
-    gt = torch.randn(2, 512, 3, device=dev)
+    pred = torch.randn(8, 512, 3, device=dev)
+    gt = torch.randn(8, 512, 3, device=dev)
     before = chamfer.chamfer_nn_packed.launches
     val = float(chamfer.best_chamfer(pred, gt))
     assert chamfer.chamfer_nn_packed.launches == before + 2
     assert math.isclose(val, float(chamfer.chamfer_distance(pred, gt)), rel_tol=2.0 ** -11)
+
+
+@pytest.mark.parametrize("b,np_,ng", [(12, 2048, 2048), (8, 2000, 2048), (16, 2048, 4096)])
+def test_best_chamfer_outside_the_gate_is_exact_on_card(dev, b, np_, ng):
+    """Clouds the JAX gate refuses (B % 8, N % 128, N > 2048) take the
+    exact tiled path: no K4 launch, the tiled value bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(b + np_)
+    pred = torch.randn(b, np_, 3, generator=gen, device=dev)
+    gt = torch.randn(b, ng, 3, generator=gen, device=dev)
+    before = chamfer.chamfer_nn_packed.launches
+    val = chamfer.best_chamfer(pred, gt)
+    assert chamfer.chamfer_nn_packed.launches == before
+    assert torch.equal(val, chamfer.chamfer_distance(pred, gt))

@@ -5,12 +5,15 @@ its `_call_fwd` (the BHND Pallas kernels) in interpret mode, on the same
 numpy inputs; and the route MultiHeadAttention takes for each head
 shape."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vae_song_tpu.ops import attention as jax_attention
 from vae_song_tpu.ops import denseattn as jax_denseattn
 from vae_song_tpu_torch.ops import attention, denseattn
 
@@ -28,8 +31,10 @@ F32_TOL = 1e-5
 BF16_O_TOL, BF16_LSE_TOL, BF16_GRAD_TOL = 2.0 ** -6, 1e-3, 2.0 ** -4
 
 # (B, N, H, D): the widths the route takes at the shipped d_model 256
-# (2 heads of 128, 1 of 256) and an odd count of 64-wide heads
-CASES = [(2, 128, 2, 128), (1, 256, 1, 256), (2, 128, 3, 64)]
+# (2 heads of 128, 1 of 256), an odd count of 64-wide heads, and heads
+# wider than 256 (an odd and an even number of 64-column panels)
+CASES = [(2, 128, 2, 128), (1, 256, 1, 256), (2, 128, 3, 64), (1, 128, 1, 320),
+         (1, 128, 2, 512)]
 
 
 def _inputs(b, n, h, d, seed):
@@ -125,12 +130,32 @@ def test_attention_routes_as_jax(monkeypatch, d_model, num_heads, n, want):
 
 
 def test_head_width_above_kernels_raises(monkeypatch):
-    """dense_ok takes a 512-wide head; the kernels are built up to 256:
-    the route raises and names the limit rather than taking the plain
-    version, on the CPU too."""
+    """dense_ok takes a 512-wide head, which the first kernels refused
+    (they were built up to 256): it now takes the BHND route like any
+    D % 64 == 0, and the layer's output matches the JAX layer running its
+    BHND kernel in interpret mode on the same weights (f32, summation
+    order only: F32_TOL). A width that is no multiple of 64 still raises."""
     assert denseattn.dense_ok(128, 128, 512)
-    with pytest.raises(ValueError, match="up to 256"):
-        _route(monkeypatch, 512, 1)
+    assert _route(monkeypatch, 512, 1) == ["bhnd"]
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax_denseattn, "dense_attention",
+                        functools.partial(jax_denseattn.dense_attention, interpret=True))
+    x = np.random.default_rng(5).normal(size=(1, 128, 512)).astype(np.float32)
+    mha = jax_attention.MultiHeadAttention(num_heads=1, d_model=512)
+    params = mha.init(jax.random.PRNGKey(0), x, x)["params"]
+    want = np.asarray(mha.apply({"params": params}, x, x))
+    port = attention.MultiHeadAttention(512, 1)
+    port.load_state_dict({
+        f"{proj}.{leaf}": torch.tensor(
+            np.asarray(params[proj]["kernel"]).T if leaf == "weight"
+            else np.asarray(params[proj]["bias"]))
+        for proj in ("query", "key", "value", "out") for leaf in ("weight", "bias")})
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x), torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= F32_TOL * max(1.0, np.abs(want).max())
+    q = torch.zeros(1, 128, 1, 96)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        denseattn.dense_attention(q, q, q, 0.1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -49,18 +49,20 @@ def _grid(rng, shape, sd, step):
         np.float32)
 
 
-def _op_inputs(seed):
-    """x, dy [M, D]; W1 [D, F], b1, W2 [F, D], b2 in the JAX layout."""
+def _op_inputs(seed, d=D, f=F):
+    """x, dy [M, d]; W1 [d, f], b1, W2 [f, d], b2 in the JAX layout."""
     rng = np.random.default_rng(seed)
-    x, dy = _grid(rng, (M, D), 1.0, 1 / 8), _grid(rng, (M, D), 1.0, 1 / 8)
-    w1, w2 = _grid(rng, (D, F), D ** -0.5, 1 / 256), _grid(rng, (F, D), F ** -0.5, 1 / 256)
-    b1, b2 = _grid(rng, (F,), 0.05, 1 / 2048), _grid(rng, (D,), 0.05, 1 / 2048)
+    x, dy = _grid(rng, (M, d), 1.0, 1 / 8), _grid(rng, (M, d), 1.0, 1 / 8)
+    w1, w2 = _grid(rng, (d, f), d ** -0.5, 1 / 256), _grid(rng, (f, d), f ** -0.5, 1 / 256)
+    b1, b2 = _grid(rng, (f,), 0.05, 1 / 2048), _grid(rng, (d,), 0.05, 1 / 2048)
     return x, dy, w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_ffn_matches_jax_interpret(dtype):
-    x, dy, w1, b1, w2, b2 = _op_inputs(seed=0)
+def _check_against_jax(dtype, d, f, seed):
+    """The port's fused_ffn (the plain versions on the CPU) and its five
+    gradients against the JAX `fused_ffn` in interpret mode at [M, d]
+    rows and hidden width f."""
+    x, dy, w1, b1, w2, b2 = _op_inputs(seed, d, f)
     jdt, dt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
                                                                          torch.bfloat16)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
@@ -73,7 +75,7 @@ def test_fused_ffn_matches_jax_interpret(dtype):
     y = ffn.fused_ffn(*leaves)
     grads = torch.autograd.grad(y, leaves, torch.from_numpy(dy).to(dt))
     f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
-    assert y.dtype == dt and y.shape == (M, D)
+    assert y.dtype == dt and y.shape == (M, d)
     y_ref = f32(y_ref)
     assert np.abs(y.detach().float().numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
     # JAX's dW1 [D, F] and dW2 [F, D] against the port's [F, D] and [D, F]
@@ -82,6 +84,12 @@ def test_fused_ffn_matches_jax_interpret(dtype):
         w = f32(w).T if t else f32(w)
         assert g.dtype == dt and tuple(g.shape) == w.shape, name
         assert np.abs(g.float().numpy() - w).max() <= tol * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,f", [(D, F), (384, 256)])
+def test_fused_ffn_matches_jax_interpret(dtype, d, f):
+    _check_against_jax(dtype, d, f, seed=0)
 
 
 def test_plain_versions_take_the_kernels_roundings():
@@ -114,14 +122,17 @@ def test_gate_matches_jax(shape):
 
 
 def test_width_above_kernels_raises():
-    """The gate takes D = 512; the kernels are built for 128 and 256: the
-    op raises and names the widths rather than taking the plain version,
-    on the CPU too."""
-    assert ffn.fused_ffn_ok(1024, 512, 512)
-    x = torch.zeros(1024, 512)
-    with pytest.raises(ValueError, match="128, 256"):
-        ffn.fused_ffn(x, torch.zeros(512, 512), torch.zeros(512), torch.zeros(512, 512),
-                      torch.zeros(512))
+    """The gate takes D = 512, which the first kernels refused (they were
+    built for 128 and 256): the op now takes it like every width the gate
+    accepts, and matches the JAX `fused_ffn` there. A width that is no
+    multiple of 128 still raises, on the CPU too."""
+    assert ffn.fused_ffn_ok(M, 512, 256)
+    for dtype in ("float32", "bfloat16"):
+        _check_against_jax(dtype, 512, 256, seed=2)
+    x = torch.zeros(M, 192)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ffn.fused_ffn(x, torch.zeros(256, 192), torch.zeros(256), torch.zeros(192, 256),
+                      torch.zeros(192))
 
 
 def test_cpu_tensors_never_count_launches():
@@ -207,3 +218,17 @@ def test_layer_with_fused_ffn_matches_jax(fused_on, kind, mixed):
             continue
         g, w = p.grad.float().numpy(), g_jax[prefix + name].numpy()
         assert np.abs(g - w).max() <= g_tol * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("m,d,f,dtype,sms,want", [
+    # the shipped shape: 16 output tiles of 128 x 128 (dW1 and dW2), 8 splits
+    (131072, 256, 512, torch.bfloat16, 132, 8),
+    # 64 f32 tiles of 64 x 64, eight small blocks an SM: 16 splits
+    (8192, 256, 512, torch.float32, 132, 16),
+    # more tiles than the card has SMs: one split
+    (1024, 2048, 2048, torch.bfloat16, 132, 1),
+    # few rows: never a split without a 64-row step
+    (128, 128, 128, torch.bfloat16, 132, 2),
+])
+def test_wgrad_splits_fill_the_card(m, d, f, dtype, sms, want):
+    assert ffn.wgrad_splits(m, d, f, dtype, sms) == want

@@ -140,6 +140,33 @@ attn_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
   }
 }
 
+// The same preprocess at a runtime D % 64 == 0 (the head widths above
+// 256): lane l takes columns l, l + 32, ...
+template <typename T>
+__global__ void __launch_bounds__(32 * kPreRows)
+attn_bwd_preprocess_wide_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
+                                const T* __restrict__ q, T* __restrict__ qc,
+                                float* __restrict__ delta, int H, int N, int D, long long rows,
+                                Strides s, Strides os, float qscale) {
+  const long long r = (long long)blockIdx.x * kPreRows + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int h = r % H;
+  const int n = (r / H) % N;
+  const long long b = r / ((long long)H * N);
+  const long long off = b * os.b + n * os.n + h * os.h;
+  float acc = 0.f;
+  for (int e = lane; e < D; e += 32) acc = fmaf(to_f(d_o[off + e]), to_f(o[off + e]), acc);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane == 0) delta[(b * H + h) * N + n] = sizeof(T) == 2 ? round_bf16(acc) : acc;
+  if constexpr (sizeof(T) == 2) {
+    const long long qoff = b * s.b + n * s.n + h * s.h;
+    for (int e = lane; e < D; e += 32)
+      qc[off + e] = __float2bfloat16_rn(__bfloat162float(q[qoff + e]) * qscale);
+  }
+}
+
 // ---- bf16, D = 64 and 128: warp-specialised wgmma kernels -----------------
 
 constexpr int kWgmmaThreads = 384;   // consumer warpgroups 0 and 1, producer 2
@@ -168,10 +195,7 @@ struct WgmmaSmem {
   static constexpr uint32_t tile_tx = 2 * P * kPanel64 + (kRowVectors ? 512 : 0);
 };
 
-__device__ __forceinline__ void zero_acc(float (&c)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
+using vst::zero_acc;
 
 // The elementwise passes work on pairs of neighbouring columns, packed as
 // bf16x2 in the layout of a wgmma A fragment: P by vst::p_pair (shared
@@ -211,7 +235,7 @@ template <int P>
 __device__ __forceinline__ void wgmma_rows(float (&acc)[8][4], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4 * P; ++kk)
-    vst::wgmma_ss_n64(acc, vst::desc_kmajor(a + (kk / 4) * kPanel128, kk % 4),
+    vst::wgmma_ss_n64_t<0, 0>(acc, vst::desc_kmajor(a + (kk / 4) * kPanel128, kk % 4),
                       vst::desc_kmajor(b + (kk / 4) * kPanel64, kk % 4), kk > 0);
 }
 
@@ -225,7 +249,7 @@ __device__ __forceinline__ void wgmma_frags_tile(float (&out)[P][8][4], const ui
   for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      vst::wgmma_rs_n64_tb(out[p], a[kc], vst::desc_mnmajor(b + p * kPanel64, kc, kPanel64));
+      vst::wgmma_rs_n64_t<1>(out[p], a[kc], vst::desc_mnmajor(b + p * kPanel64, kc, kPanel64));
 }
 
 template <int P>
@@ -250,11 +274,7 @@ __device__ __forceinline__ void issue_scores(float (&sc)[8][4], float (&dp)[8][4
   vst::wgmma_commit();
 }
 
-// One consumer warp's release of a ring stage.
-__device__ __forceinline__ void release_stage(uint32_t empty, int lane) {
-  __syncwarp();
-  if (lane == 0) vst::mbar_arrive(empty);
-}
+using vst::release_stage;
 
 // Stores rows r and r + 8 (r = the thread's first accumulator row) of a
 // 64 x D f32 block, times `mul`, as bf16 at out + row * os.n; rows >= N
@@ -960,6 +980,419 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < kCols; ++d) dq[out + d] = acc[d] * scale;
 }
 
+// ---- D > 256, any D % 64 == 0: column-chunk kernels --------------------------
+
+constexpr int kPanelCols = 64;          // columns of each row tile staged at a time
+constexpr int kLdp = kPanelCols + 8;
+
+// bf16: one 64-column panel of each of four 64-row tiles, two transposed
+// CW-column chunk tiles, then LSE2 and delta.
+template <int CW>
+constexpr size_t bwd_wide_bf16_smem() {
+  return (4 * kBlock * kLdp + 2 * CW * kLdt) * sizeof(__nv_bfloat16) +
+         2 * kBlock * sizeof(float);
+}
+
+// Stage panel d0 of rows r0 .. r0 + 63 of a (strides: head offset, row
+// stride) into a [64][kLdp] tile.
+__device__ __forceinline__ void stage_panel(__nv_bfloat16 (*dst)[kLdp],
+                                            const __nv_bfloat16* src, long long head,
+                                            long long sn, int r0, int d0, int tid) {
+  for (int i = tid; i < kBlock * kPanelCols / 8; i += kThreads) {
+    const int r = i / (kPanelCols / 8), c = (i % (kPanelCols / 8)) * 8;
+    *reinterpret_cast<uint4*>(&dst[r][c]) =
+        *reinterpret_cast<const uint4*>(src + head + (long long)(r0 + r) * sn + d0 + c);
+  }
+}
+
+// Stage columns c0 .. c0 + CW - 1 of rows r0 .. r0 + 63 transposed into a
+// [CW][kLdt] tile.
+template <int CW>
+__device__ __forceinline__ void stage_chunk_t(__nv_bfloat16 (*dst)[kLdt],
+                                              const __nv_bfloat16* src, long long head,
+                                              long long sn, int r0, int c0, int tid) {
+  for (int i = tid; i < kBlock * CW / 8; i += kThreads) {
+    const int r = i / (CW / 8), c = (i % (CW / 8)) * 8;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(src + head + (long long)(r0 + r) * sn + c0 + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[c + j][r] = e[j];
+  }
+}
+
+// acc[16 rows x 64 columns] (+)= rows 16 w .. of a (64 x 64) times b^T
+// (64 x 64), both [64][kLdp] tiles: one 64-deep step of S or dP.
+__device__ __forceinline__ void mma_panel(float (&acc)[kBlock / 8][4],
+                                          const __nv_bfloat16 (*a)[kLdp],
+                                          const __nv_bfloat16 (*b)[kLdp], int warp, int g,
+                                          int t) {
+#pragma unroll
+  for (int kk = 0; kk < kPanelCols / 16; ++kk) {
+    uint32_t fa[4];
+    load_a_chunk<kLdp>(a, warp * 16, kk, g, t, fa);
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+      const __nv_bfloat16* br = &b[nt * 8 + g][kk * 16 + 2 * t];
+      mma_16816(acc[nt], fa, ld_u32(br), ld_u32(br + 8));
+    }
+  }
+}
+
+// acc[16 x CW] += A (16 x 64, the accumulator-layout block x) B, with B^T
+// the [CW][kLdt] tile bt.
+template <int CW>
+__device__ __forceinline__ void mma_chunk(float (&acc)[CW / 8][4], const float (&x)[kBlock / 8][4],
+                                          const __nv_bfloat16 (*bt)[kLdt], int g, int t) {
+#pragma unroll
+  for (int kc = 0; kc < kBlock / 16; ++kc) {
+    uint32_t pa[4];
+    acc_to_a(x, kc, pa);
+#pragma unroll
+    for (int dt = 0; dt < CW / 8; ++dt) {
+      const __nv_bfloat16* br = &bt[dt * 8 + g][kc * 16 + 2 * t];
+      mma_16816(acc[dt], pa, ld_u32(br), ld_u32(br + 8));
+    }
+  }
+}
+
+// Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-key tile *
+// D / CW + column chunk. The mma.sync dK/dV kernel above with D a runtime
+// multiple of 64: S^T and dP^T are summed over the head in 64-column
+// panels of K, qc, V and dO staged through shared memory (the same order
+// of sums), and the block computes CW columns of dK and dV.
+template <int CW>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ qc,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ d_o, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int H, int N, int D, Strides s,
+                          Strides os) {
+  using Pan = __nv_bfloat16[kLdp];
+  using Col = __nv_bfloat16[kLdt];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Pan* kp = reinterpret_cast<Pan*>(smem);
+  Pan* vp = kp + kBlock;
+  Pan* qp = kp + 2 * kBlock;
+  Pan* dp = kp + 3 * kBlock;
+  Col* qt = reinterpret_cast<Col*>(kp + 4 * kBlock);   // qc^T chunk [c][q]
+  Col* dot = qt + CW;                                   // dO^T chunk [c][q]
+  float* ls = reinterpret_cast<float*>(dot + CW);
+  float* dls = ls + kBlock;
+
+  const int nchunk = D / CW, c0 = (blockIdx.x % nchunk) * CW;
+  const int k0 = (blockIdx.x / nchunk) * kBlock;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long head = (long long)b * s.b + (long long)h * s.h;
+  const long long ohead = (long long)b * os.b + (long long)h * os.h;
+  const float* lrow = lse + ((long long)b * H + h) * N;
+  const float* drow = delta + ((long long)b * H + h) * N;
+
+  float adk[CW / 8][4], adv[CW / 8][4];
+#pragma unroll
+  for (int i = 0; i < CW / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  for (int q0 = 0; q0 < N; q0 += kBlock) {
+    // S^T = K qc^T and dP^T = V dO^T (16 keys x 64 queries a warp)
+    float p[kBlock / 8][4], ds[kBlock / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[nt][j] = ds[nt][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
+      __syncthreads();   // every warp is done with the previous tiles
+      stage_panel(kp, k, head, s.n, k0, d0, tid);
+      stage_panel(vp, v, head, s.n, k0, d0, tid);
+      stage_panel(qp, qc, ohead, os.n, q0, d0, tid);   // qc has O's strides
+      stage_panel(dp, d_o, ohead, os.n, q0, d0, tid);
+      __syncthreads();
+      mma_panel(p, kp, qp, warp, g, t);
+      mma_panel(ds, vp, dp, warp, g, t);
+    }
+    stage_chunk_t<CW>(qt, qc, ohead, os.n, q0, c0, tid);
+    stage_chunk_t<CW>(dot, d_o, ohead, os.n, q0, c0, tid);
+    if (tid < kBlock) {
+      ls[tid] = lrow[q0 + tid];
+      dls[tid] = drow[q0 + tid];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+      const float l0 = ls[nt * 8 + 2 * t], l1 = ls[nt * 8 + 2 * t + 1];
+      const float d0 = dls[nt * 8 + 2 * t], d1 = dls[nt * 8 + 2 * t + 1];
+      p[nt][0] = exp2_bf16(p[nt][0] - l0);
+      p[nt][1] = exp2_bf16(p[nt][1] - l1);
+      p[nt][2] = exp2_bf16(p[nt][2] - l0);
+      p[nt][3] = exp2_bf16(p[nt][3] - l1);
+      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
+      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d1));
+      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d0));
+      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
+    }
+    mma_chunk<CW>(adv, p, dot, g, t);    // dV += P^T dO
+    mma_chunk<CW>(adk, ds, qt, g, t);    // dK += dS^T qc
+  }
+
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
+#pragma unroll
+  for (int dt = 0; dt < CW / 8; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dk + o0 + c) = pack_bf16(adk[dt][0] * kLn2, adk[dt][1] * kLn2);
+    *reinterpret_cast<uint32_t*>(dk + o1 + c) = pack_bf16(adk[dt][2] * kLn2, adk[dt][3] * kLn2);
+    *reinterpret_cast<uint32_t*>(dv + o0 + c) = pack_bf16(adv[dt][0], adv[dt][1]);
+    *reinterpret_cast<uint32_t*>(dv + o1 + c) = pack_bf16(adv[dt][2], adv[dt][3]);
+  }
+}
+
+// Grid (N / 64 * D / CW, H, B), 128 threads; the dQ counterpart: S and dP
+// over the head in 64-column panels, CW columns of dQ a block.
+template <int CW>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ qc,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ d_o, const float* __restrict__ lse,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
+                        int N, int D, Strides s, Strides os, float scale) {
+  using Pan = __nv_bfloat16[kLdp];
+  using Col = __nv_bfloat16[kLdt];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Pan* qp = reinterpret_cast<Pan*>(smem);
+  Pan* dp = qp + kBlock;
+  Pan* kp = qp + 2 * kBlock;
+  Pan* vp = qp + 3 * kBlock;
+  Col* kt = reinterpret_cast<Col*>(qp + 4 * kBlock);   // K^T chunk [c][key]
+
+  const int nchunk = D / CW, c0 = (blockIdx.x % nchunk) * CW;
+  const int q0 = (blockIdx.x / nchunk) * kBlock;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long head = (long long)b * s.b + (long long)h * s.h;
+  const long long ohead = (long long)b * os.b + (long long)h * os.h;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const long long hrow = ((long long)b * H + h) * N;
+  const float l0 = lse[hrow + r0], l1 = lse[hrow + r1];
+  const float d0 = delta[hrow + r0], d1 = delta[hrow + r1];
+
+  float acc[CW / 8][4];
+#pragma unroll
+  for (int i = 0; i < CW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kBlock) {
+    // S = qc K^T and dP = dO V^T (16 queries x 64 keys a warp)
+    float p[kBlock / 8][4], ds[kBlock / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[nt][j] = ds[nt][j] = 0.f;
+    for (int e0 = 0; e0 < D; e0 += kPanelCols) {
+      __syncthreads();
+      stage_panel(qp, qc, ohead, os.n, q0, e0, tid);   // qc has O's strides
+      stage_panel(dp, d_o, ohead, os.n, q0, e0, tid);
+      stage_panel(kp, k, head, s.n, k0, e0, tid);
+      stage_panel(vp, v, head, s.n, k0, e0, tid);
+      __syncthreads();
+      mma_panel(p, qp, kp, warp, g, t);
+      mma_panel(ds, dp, vp, warp, g, t);
+    }
+    stage_chunk_t<CW>(kt, k, head, s.n, k0, c0, tid);
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+      p[nt][0] = exp2_bf16(p[nt][0] - l0);
+      p[nt][1] = exp2_bf16(p[nt][1] - l0);
+      p[nt][2] = exp2_bf16(p[nt][2] - l1);
+      p[nt][3] = exp2_bf16(p[nt][3] - l1);
+      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
+      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d0));
+      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d1));
+      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
+    }
+    mma_chunk<CW>(acc, ds, kt, g, t);    // dQ += dS K
+  }
+
+  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
+#pragma unroll
+  for (int dt = 0; dt < CW / 8; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dq + o0 + c) = pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
+    *reinterpret_cast<uint32_t*>(dq + o1 + c) = pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
+  }
+}
+
+constexpr size_t kBwdWideF32Smem =
+    (2 * kF32Rows * (kPanelCols + 1) + 2 * kF32Tile * kPanelCols + 2 * kF32Tile * kCols +
+     2 * kF32Tile) * sizeof(float);
+
+// f32 at D > 256: the FMA dK/dV kernel with D a runtime multiple of 64,
+// the scores and dP^T summed over the head in 64-column panels (the same
+// order). Grid (N / 64 * D / 64, H, B), 64 threads; thread i owns key row
+// k0 + i, columns c0 .. c0 + 63.
+__global__ void __launch_bounds__(kF32Rows)
+attn_bwd_dkdv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ d_o,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv, int H, int N,
+                              int D, Strides s, Strides os, float qscale) {
+  constexpr int PL = kPanelCols + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float* kr = fsm;                          // k panel [64][65]
+  float* vr = kr + kF32Rows * PL;           // v panel [64][65]
+  float* qs = vr + kF32Rows * PL;           // q panel [16][64], prescaled
+  float* dos = qs + kF32Tile * kPanelCols;  // dO panel [16][64]
+  float* qcs = dos + kF32Tile * kPanelCols; // q chunk [16][64], prescaled
+  float* dcs = qcs + kF32Tile * kCols;      // dO chunk [16][64]
+  float* ls = dcs + kF32Tile * kCols;
+  float* dls = ls + kF32Tile;
+
+  const int nchunk = D / kCols, c0 = (blockIdx.x % nchunk) * kCols;
+  const int kb = (blockIdx.x / nchunk) * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int key = kb + tid;
+  const long long head = (long long)b * s.b + (long long)h * s.h;
+  const long long ohead = (long long)b * os.b + (long long)h * os.h;
+  const float* lrow = lse + ((long long)b * H + h) * N;
+  const float* drow = delta + ((long long)b * H + h) * N;
+  const float* myk = kr + tid * PL;
+  const float* myv = vr + tid * PL;
+  float adk[kCols], adv[kCols];
+#pragma unroll
+  for (int d = 0; d < kCols; ++d) adk[d] = adv[d] = 0.f;
+
+  for (int q0 = 0; q0 < N; q0 += kF32Tile) {
+    float sc[kF32Tile], dp[kF32Tile];
+#pragma unroll
+    for (int j = 0; j < kF32Tile; ++j) sc[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
+      __syncthreads();
+      for (int i = tid; i < kF32Rows * kPanelCols; i += kF32Rows) {
+        const int r = i / kPanelCols, c = i % kPanelCols;
+        kr[r * PL + c] = k[head + (long long)(kb + r) * s.n + d0 + c];
+        vr[r * PL + c] = v[head + (long long)(kb + r) * s.n + d0 + c];
+      }
+      for (int i = tid; i < kF32Tile * kPanelCols; i += kF32Rows) {
+        const int r = i / kPanelCols, c = i % kPanelCols;
+        qs[i] = q[head + (long long)(q0 + r) * s.n + d0 + c] * qscale;
+        dos[i] = d_o[ohead + (long long)(q0 + r) * os.n + d0 + c];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kF32Tile; ++j) {
+#pragma unroll 16
+        for (int d = 0; d < kPanelCols; ++d) {
+          sc[j] = fmaf(myk[d], qs[j * kPanelCols + d], sc[j]);
+          dp[j] = fmaf(myv[d], dos[j * kPanelCols + d], dp[j]);
+        }
+      }
+    }
+    for (int i = tid; i < kF32Tile * kCols; i += kF32Rows) {
+      const int r = i / kCols, c = i % kCols;
+      qcs[i] = q[head + (long long)(q0 + r) * s.n + c0 + c] * qscale;
+      dcs[i] = d_o[ohead + (long long)(q0 + r) * os.n + c0 + c];
+    }
+    if (tid < kF32Tile) {
+      ls[tid] = lrow[q0 + tid];
+      dls[tid] = drow[q0 + tid];
+    }
+    __syncthreads();
+    for (int j = 0; j < kF32Tile; ++j) {
+      const float p = exp2f(sc[j] - ls[j]);
+      const float ds = p * (dp[j] - dls[j]);
+#pragma unroll
+      for (int d = 0; d < kCols; ++d) {
+        adv[d] = fmaf(p, dcs[j * kCols + d], adv[d]);
+        adk[d] = fmaf(ds, qcs[j * kCols + d], adk[d]);
+      }
+    }
+  }
+  const long long out = ohead + (long long)key * os.n + c0;
+#pragma unroll
+  for (int d = 0; d < kCols; ++d) {
+    dk[out + d] = adk[d] * kLn2;
+    dv[out + d] = adv[d];
+  }
+}
+
+// The f32 dQ counterpart: grid (N / 64 * D / 64, H, B), 64 threads; thread
+// i owns query row q0 + i, columns c0 .. c0 + 63.
+__global__ void __launch_bounds__(kF32Rows)
+attn_bwd_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ d_o,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int H, int N, int D, Strides s, Strides os,
+                            float qscale, float scale) {
+  constexpr int PL = kPanelCols + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float* qr = fsm;                          // q panel [64][65], prescaled
+  float* dr = qr + kF32Rows * PL;           // dO panel [64][65]
+  float* ks = dr + kF32Rows * PL;           // k panel [16][64]
+  float* vs = ks + kF32Tile * kPanelCols;   // v panel [16][64]
+  float* kcs = vs + kF32Tile * kPanelCols;  // k chunk [16][64]
+
+  const int nchunk = D / kCols, c0 = (blockIdx.x % nchunk) * kCols;
+  const int qb = (blockIdx.x / nchunk) * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int row = qb + tid;
+  const long long head = (long long)b * s.b + (long long)h * s.h;
+  const long long ohead = (long long)b * os.b + (long long)h * os.h;
+  const float* myq = qr + tid * PL;
+  const float* myd = dr + tid * PL;
+  const long long hrow = ((long long)b * H + h) * N;
+  const float l = lse[hrow + row], dl = delta[hrow + row];
+  float acc[kCols];
+#pragma unroll
+  for (int d = 0; d < kCols; ++d) acc[d] = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kF32Tile) {
+    float sc[kF32Tile], dp[kF32Tile];
+#pragma unroll
+    for (int j = 0; j < kF32Tile; ++j) sc[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
+      __syncthreads();
+      for (int i = tid; i < kF32Rows * kPanelCols; i += kF32Rows) {
+        const int r = i / kPanelCols, c = i % kPanelCols;
+        qr[r * PL + c] = q[head + (long long)(qb + r) * s.n + d0 + c] * qscale;
+        dr[r * PL + c] = d_o[ohead + (long long)(qb + r) * os.n + d0 + c];
+      }
+      for (int i = tid; i < kF32Tile * kPanelCols; i += kF32Rows) {
+        const int r = i / kPanelCols, c = i % kPanelCols;
+        ks[i] = k[head + (long long)(k0 + r) * s.n + d0 + c];
+        vs[i] = v[head + (long long)(k0 + r) * s.n + d0 + c];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kF32Tile; ++j) {
+#pragma unroll 16
+        for (int d = 0; d < kPanelCols; ++d) {
+          sc[j] = fmaf(myq[d], ks[j * kPanelCols + d], sc[j]);
+          dp[j] = fmaf(myd[d], vs[j * kPanelCols + d], dp[j]);
+        }
+      }
+    }
+    for (int i = tid; i < kF32Tile * kCols; i += kF32Rows) {
+      const int r = i / kCols, c = i % kCols;
+      kcs[i] = k[head + (long long)(k0 + r) * s.n + c0 + c];
+    }
+    __syncthreads();
+    for (int j = 0; j < kF32Tile; ++j) {
+      const float ds = exp2f(sc[j] - l) * (dp[j] - dl);
+#pragma unroll
+      for (int d = 0; d < kCols; ++d) acc[d] = fmaf(ds, kcs[j * kCols + d], acc[d]);
+    }
+  }
+  const long long out = ohead + (long long)row * os.n + c0;
+#pragma unroll
+  for (int d = 0; d < kCols; ++d) dq[out + d] = acc[d] * scale;
+}
+
 template <typename T, int D>
 void launch_preprocess(const void* q, const void* o, const void* d_o, void* qc, float* delta,
                        int B, int H, int N, Strides s, Strides os, float qscale,
@@ -969,6 +1402,17 @@ void launch_preprocess(const void* q, const void* o, const void* d_o, void* qc, 
   attn_bwd_preprocess_kernel<T, D><<<blocks, 32 * kPreRows, 0, st>>>(
       static_cast<const T*>(o), static_cast<const T*>(d_o), static_cast<const T*>(q),
       static_cast<T*>(qc), delta, H, N, rows, s, os, qscale);
+}
+
+template <typename T>
+void launch_preprocess_wide(const void* q, const void* o, const void* d_o, void* qc,
+                            float* delta, int B, int H, int N, int D, Strides s, Strides os,
+                            float qscale, cudaStream_t st) {
+  const long long rows = (long long)B * N * H;
+  const unsigned blocks = static_cast<unsigned>((rows + kPreRows - 1) / kPreRows);
+  attn_bwd_preprocess_wide_kernel<T><<<blocks, 32 * kPreRows, 0, st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_o), static_cast<const T*>(q),
+      static_cast<T*>(qc), delta, H, N, D, rows, s, os, qscale);
 }
 
 // bf16 at D = 64 or 128: preprocess (delta and qc), then the wgmma dK/dV
@@ -1046,14 +1490,66 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+template <int CW>
+cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
+                                 const float* lse, const float* delta, const void* qc, void* dq,
+                                 void* dk, void* dv, int B, int H, int N, int D, Strides s,
+                                 Strides os, float scale, cudaStream_t st) {
+  const dim3 grid(N / kBlock * (D / CW), H, B);
+  constexpr size_t smem = bwd_wide_bf16_smem<CW>();
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dkdv_wide_kernel<CW>, smem)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_wide_kernel<CW>, smem)) != cudaSuccess) return err;
+  const bf16 *qcb = static_cast<const bf16*>(qc), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *dob = static_cast<const bf16*>(d_o);
+  attn_bwd_dkdv_wide_kernel<CW><<<grid, kThreads, smem, st>>>(
+      qcb, kb, vb, dob, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, D, s,
+      os);
+  attn_bwd_dq_wide_kernel<CW><<<grid, kThreads, smem, st>>>(
+      qcb, kb, vb, dob, lse, delta, static_cast<bf16*>(dq), H, N, D, s, os, scale);
+  return cudaGetLastError();
+}
+
+// D > 256: preprocess (delta, and qc for bf16), then the column-chunk
+// kernels (bf16 in 128-column chunks where D allows, else 64; f32 in
+// 64-column chunks).
+cudaError_t launch_bwd_wide(int is_bf16, const void* q, const void* k, const void* v,
+                            const void* o, const void* d_o, const float* lse, float* delta,
+                            void* qc, void* dq, void* dk, void* dv, int B, int H, int N, int D,
+                            Strides s, Strides os, float qscale, float scale, cudaStream_t st) {
+  cudaError_t err;
+  if (is_bf16) {
+    launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
+    return D % 128 == 0
+               ? launch_bwd_wide_bf16<128>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s,
+                                           os, scale, st)
+               : launch_bwd_wide_bf16<64>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s,
+                                          os, scale, st);
+  }
+  launch_preprocess_wide<float>(q, o, d_o, nullptr, delta, B, H, N, D, s, os, qscale, st);
+  const dim3 grid(N / kF32Rows * (D / kCols), H, B);
+  if ((err = vst::allow_smem(attn_bwd_dkdv_wide_f32_kernel, kBwdWideF32Smem)) != cudaSuccess)
+    return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_wide_f32_kernel, kBwdWideF32Smem)) != cudaSuccess)
+    return err;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *dof = static_cast<const float*>(d_o);
+  attn_bwd_dkdv_wide_f32_kernel<<<grid, kF32Rows, kBwdWideF32Smem, st>>>(
+      qf, kf, vf, dof, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, N, D, s,
+      os, qscale);
+  attn_bwd_dq_wide_f32_kernel<<<grid, kF32Rows, kBwdWideF32Smem, st>>>(
+      qf, kf, vf, dof, lse, delta, static_cast<float*>(dq), H, N, D, s, os, qscale, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o, dO, dq, dk, dv: [B, N, H, D] with strides (ob, on, oh,
 // 1); lse and delta (scratch): [B, H, N] f32, contiguous; qc (scratch,
 // bf16 only; unused and may be null for f32): [B, N, H, D] with O's
-// strides. N % 64 == 0, D one of 64, 128, 192, 256
-// (cudaErrorInvalidValue otherwise). The caller checks all of it.
+// strides. N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue otherwise).
+// The caller checks all of it.
 // Launches preprocess, dK/dV and dQ in order on `stream`; returns
 // cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
@@ -1084,7 +1580,10 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
       err = is_bf16 ? launch_bwd_mma<256>(VST_BWD_ARGS) : launch_bwd_f32<256>(VST_BWD_ARGS);
       break;
     default:
-      err = cudaErrorInvalidValue;
+      err = D > 256 && D % 64 == 0
+                ? launch_bwd_wide(is_bf16, q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D,
+                                  s, os, qscale, scale, st)
+                : cudaErrorInvalidValue;
   }
 #undef VST_BWD_ARGS
   return static_cast<int>(err);

@@ -130,20 +130,10 @@ struct FwdSmem {
   static constexpr size_t bytes = bars + 8 * (1 + 3 * kStages) + 1024;   // + alignment
 };
 
-// Byte offset of element (r, c) in a swizzled panel (the TMA 128-byte
-// swizzle: the 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r % 8)).
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return r * vst::kPanelRowBytes + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
-}
-
 // Named barriers 1 .. NC order the consumer warpgroups' products (the
 // ping-pong); 4 + w closes warpgroup w's rewrite of its Q rows.
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
+using vst::named_arrive;
+using vst::named_sync;
 
 // Issue S2 = qc K^T (64 queries x 128 keys; qc at qw in P panels q_panel
 // apart, the K tile at kt) as one commit group.
@@ -153,7 +143,7 @@ __device__ __forceinline__ void issue_scores(float (&sc)[16][4], uint32_t qw, ui
   vst::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    vst::wgmma_ss_n128(sc, vst::desc_kmajor(qw + (kk / 4) * q_panel, kk % 4),
+    vst::wgmma_ss_n128_t<0, 0>(sc, vst::desc_kmajor(qw + (kk / 4) * q_panel, kk % 4),
                        vst::desc_kmajor(kt + (kk / 4) * kPanel128, kk % 4), kk > 0);
   vst::wgmma_commit();
 }
@@ -168,9 +158,9 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t 
 #pragma unroll
   for (int kc = 0; kc < 8; ++kc) {
     if constexpr (D == 64)
-      vst::wgmma_rs_n64_tb(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
+      vst::wgmma_rs_n64_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
     else
-      vst::wgmma_rs_n128_tb(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
+      vst::wgmma_rs_n128_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
   }
   vst::wgmma_commit();
 }
@@ -302,7 +292,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   for (int kk = 0; kk < D / 16; ++kk) {
     unsigned char* panel = gbase + (kk / 4) * L::q_panel + wg * kPanel64;
     auto prescale = [&](int row, int col) {
-      uint32_t* at = reinterpret_cast<uint32_t*>(panel + swizzled(row, col));
+      uint32_t* at = reinterpret_cast<uint32_t*>(panel + vst::swizzled(row, col));
       *at = pack_bf16(vst::bf16_lo(*at) * qscale, vst::bf16_hi(*at) * qscale);
     };
     const int c = 16 * (kk % 4) + 2 * t;
@@ -311,7 +301,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     prescale(r, c + 8);
     prescale(r + 8, c + 8);
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  vst::fence_proxy_async();
   named_sync(4 + wg, 128);
 
   float acc[D / 8][4];
@@ -619,6 +609,267 @@ dense_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
   if (chunk == 0) lse[((long long)b * H + h) * N + row] = m + log2f(l);
 }
 
+// ---- D > 256, any D % 64 == 0: column-chunk kernels --------------------------
+
+constexpr int kWidePanel = 64;     // columns of q and k staged at a time
+constexpr int kLdp = kWidePanel + 8;
+
+// bf16: shared tiles of one 64-column panel of qc and of k, and the
+// chunk's V^T, rows padded by 8 elements.
+template <int CW>
+constexpr size_t fwd_wide_bf16_smem() {
+  return (2 * kBlockQ * kLdp + CW * (kBlockK + 8)) * sizeof(__nv_bfloat16);
+}
+
+// Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-query tile *
+// D / CW + column chunk. The mma.sync kernel above with D a runtime
+// multiple of 64: S is accumulated over the head in 64-column panels of
+// qc and k staged through shared memory (the same order of sums), and the
+// block computes CW columns of O, so no width is too wide for shared
+// memory; each column chunk recomputes the scores. Chunk 0 writes LSE2.
+template <int CW>
+__global__ void __launch_bounds__(kThreads)
+dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+                                int N, int D, long long sb, long long sn, long long sh,
+                                long long ob, long long on, long long oh, float qscale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto qs = reinterpret_cast<__nv_bfloat16 (*)[kLdp]>(smem);
+  auto ks = qs + kBlockQ;
+  auto vt = reinterpret_cast<__nv_bfloat16 (*)[kBlockK + 8]>(ks + kBlockK);   // V^T chunk
+
+  const int nchunk = D / CW, chunk = blockIdx.x % nchunk, c0 = chunk * CW;
+  const int q0 = (blockIdx.x / nchunk) * kBlockQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long head = (long long)b * sb + (long long)h * sh;
+
+  float acc[CW / 8][4];
+#pragma unroll
+  for (int i = 0; i < CW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kBlockK) {
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWidePanel) {
+      __syncthreads();   // every warp is done with the previous panels
+      for (int i = tid; i < kBlockQ * kWidePanel / 8; i += kThreads) {
+        const int r = i / (kWidePanel / 8), c = (i % (kWidePanel / 8)) * 8;
+        uint4 raw = *reinterpret_cast<const uint4*>(q + head + (long long)(q0 + r) * sn + d0 + c);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
+        *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
+        *reinterpret_cast<uint4*>(&ks[r][c]) =
+            *reinterpret_cast<const uint4*>(k + head + (long long)(k0 + r) * sn + d0 + c);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kWidePanel / 16; ++kk) {
+        uint32_t a[4];
+        load_a_chunk<kLdp>(qs, warp * 16, kk, g, t, a);
+#pragma unroll
+        for (int nt = 0; nt < kBlockK / 8; ++nt) {
+          const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
+          mma_16816(s[nt], a, ld_u32(kr), ld_u32(kr + 8));
+        }
+      }
+    }
+    // V^T of this chunk's columns
+    for (int i = tid; i < kBlockK * CW / 8; i += kThreads) {
+      const int r = i / (CW / 8), c = (i % (CW / 8)) * 8;
+      uint4 raw = *reinterpret_cast<const uint4*>(v + head + (long long)(k0 + r) * sn + c0 + c);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt[c + j][r] = e[j];
+    }
+
+    float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+      t0 = fmaxf(t0, fmaxf(s[nt][0], s[nt][1]));
+      t1 = fmaxf(t1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+    const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);   // 0 on the first tile
+    m0 = n0;
+    m1 = n1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+      s[nt][0] = exp2_bf16(s[nt][0] - n0);
+      s[nt][1] = exp2_bf16(s[nt][1] - n0);
+      s[nt][2] = exp2_bf16(s[nt][2] - n1);
+      s[nt][3] = exp2_bf16(s[nt][3] - n1);
+      ps0 += s[nt][0] + s[nt][1];
+      ps1 += s[nt][2] + s[nt][3];
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+#pragma unroll
+    for (int dt = 0; dt < CW / 8; ++dt) {
+      acc[dt][0] *= a0;
+      acc[dt][1] *= a0;
+      acc[dt][2] *= a1;
+      acc[dt][3] *= a1;
+    }
+    __syncthreads();   // V^T is complete
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a(s, kc, pa);
+#pragma unroll
+      for (int dt = 0; dt < CW / 8; ++dt) {
+        const __nv_bfloat16* vr = &vt[dt * 8 + g][kc * 16 + 2 * t];
+        mma_16816(acc[dt], pa, ld_u32(vr), ld_u32(vr + 8));
+      }
+    }
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  __nv_bfloat16* o0 = o + (long long)b * ob + (long long)r0 * on + (long long)h * oh + c0;
+  __nv_bfloat16* o1 = o + (long long)b * ob + (long long)r1 * on + (long long)h * oh + c0;
+#pragma unroll
+  for (int dt = 0; dt < CW / 8; ++dt) {
+    *reinterpret_cast<uint32_t*>(o0 + dt * 8 + 2 * t) = pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
+    *reinterpret_cast<uint32_t*>(o1 + dt * 8 + 2 * t) = pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
+  }
+  if (chunk == 0 && t == 0) {
+    float* lrow = lse + ((long long)b * H + h) * N;
+    lrow[r0] = m0 + log2f(l0);
+    lrow[r1] = m1 + log2f(l1);
+  }
+}
+
+constexpr size_t kFwdWideF32Smem =
+    (kF32Rows * (kWidePanel + 1) + kF32Keys * kWidePanel + kF32Keys * kF32Cols) * sizeof(float);
+
+// f32 at D > 256: the FMA kernel above with D a runtime multiple of 64 and
+// the scores summed over the head in 64-column panels of q (prescaled)
+// and k staged through shared memory, in the same order. Grid
+// (N / 64 * D / 64, H, B), 64 threads; thread i owns query row q0 + i and
+// columns c0 .. c0 + 63 of O.
+__global__ void __launch_bounds__(kF32Rows)
+dense_attn_fwd_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o,
+                               float* __restrict__ lse, int H, int N, int D, long long sb,
+                               long long sn, long long sh, long long ob, long long on,
+                               long long oh, float qscale) {
+  constexpr int QLD = kWidePanel + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                              // q panel [64][65]
+  float* ks = qs + kF32Rows * QLD;              // k panel [32][64]
+  float* vs = ks + kF32Keys * kWidePanel;       // [32][64], this chunk's columns
+
+  const int nchunk = D / kF32Cols, chunk = blockIdx.x % nchunk, c0 = chunk * kF32Cols;
+  const int q0 = (blockIdx.x / nchunk) * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int row = q0 + tid;
+  const long long head = (long long)b * sb + (long long)h * sh;
+  const float* qr = qs + tid * QLD;
+  float acc[kF32Cols];
+#pragma unroll
+  for (int d = 0; d < kF32Cols; ++d) acc[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kF32Keys) {
+    float s[kF32Keys];
+#pragma unroll
+    for (int j = 0; j < kF32Keys; ++j) s[j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWidePanel) {
+      __syncthreads();
+      for (int i = tid; i < kF32Rows * kWidePanel; i += kF32Rows) {
+        const int r = i / kWidePanel, c = i % kWidePanel;
+        qs[r * QLD + c] = q[head + (long long)(q0 + r) * sn + d0 + c] * qscale;
+      }
+      for (int i = tid; i < kF32Keys * kWidePanel; i += kF32Rows) {
+        const int r = i / kWidePanel, c = i % kWidePanel;
+        ks[i] = k[head + (long long)(k0 + r) * sn + d0 + c];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j) {
+#pragma unroll 16
+        for (int d = 0; d < kWidePanel; ++d) s[j] = fmaf(qr[d], ks[j * kWidePanel + d], s[j]);
+      }
+    }
+    for (int i = tid; i < kF32Keys * kF32Cols; i += kF32Rows) {
+      const int r = i / kF32Cols, c = i % kF32Cols;
+      vs[i] = v[head + (long long)(k0 + r) * sn + c0 + c];
+    }
+    __syncthreads();
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kF32Keys; ++j) tmax = fmaxf(tmax, s[j]);
+    const float mn = fmaxf(m, tmax);
+    const float alpha = exp2f(m - mn);
+    m = mn;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < kF32Cols; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kF32Keys; ++j) {
+      const float p = exp2f(s[j] - mn);
+      l += p;
+#pragma unroll
+      for (int d = 0; d < kF32Cols; ++d) acc[d] = fmaf(p, vs[j * kF32Cols + d], acc[d]);
+    }
+  }
+
+  float* op = o + (long long)b * ob + (long long)row * on + (long long)h * oh + c0;
+#pragma unroll
+  for (int d = 0; d < kF32Cols; d += 4)
+    *reinterpret_cast<float4*>(op + d) =
+        make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
+  if (chunk == 0) lse[((long long)b * H + h) * N + row] = m + log2f(l);
+}
+
+// D > 256: the column-chunk kernels (bf16 in 128-column chunks where D
+// allows, else 64; f32 in 64-column chunks).
+cudaError_t launch_fwd_wide(int is_bf16, const void* q, const void* k, const void* v, void* o,
+                            void* lse, int B, int H, int N, int D, long long sb, long long sn,
+                            long long sh, long long ob, long long on, long long oh,
+                            float qscale, cudaStream_t st) {
+  cudaError_t err;
+  if (!is_bf16) {
+    if ((err = vst::allow_smem(dense_attn_fwd_wide_f32_kernel, kFwdWideF32Smem)) != cudaSuccess)
+      return err;
+    dense_attn_fwd_wide_f32_kernel<<<dim3(N / kF32Rows * (D / kF32Cols), H, B), kF32Rows,
+                                     kFwdWideF32Smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), H, N,
+        D, sb, sn, sh, ob, on, oh, qscale);
+    return cudaGetLastError();
+  }
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
+  if (D % 128 == 0) {
+    constexpr size_t smem = fwd_wide_bf16_smem<128>();
+    if ((err = vst::allow_smem(dense_attn_fwd_wide_bf16_kernel<128>, smem)) != cudaSuccess)
+      return err;
+    dense_attn_fwd_wide_bf16_kernel<128><<<dim3(N / kBlockQ * (D / 128), H, B), kThreads, smem,
+                                           st>>>(qb, kb, vb, static_cast<bf16*>(o),
+                                                 static_cast<float*>(lse), H, N, D, sb, sn, sh,
+                                                 ob, on, oh, qscale);
+  } else {
+    constexpr size_t smem = fwd_wide_bf16_smem<64>();
+    if ((err = vst::allow_smem(dense_attn_fwd_wide_bf16_kernel<64>, smem)) != cudaSuccess)
+      return err;
+    dense_attn_fwd_wide_bf16_kernel<64><<<dim3(N / kBlockQ * (D / 64), H, B), kThreads, smem,
+                                          st>>>(qb, kb, vb, static_cast<bf16*>(o),
+                                                static_cast<float*>(lse), H, N, D, sb, sn, sh,
+                                                ob, on, oh, qscale);
+  }
+  return cudaGetLastError();
+}
+
 template <int D, int NC>
 cudaError_t launch_fwd_wgmma_nc(const CUtensorMap& mq, const CUtensorMap& mk,
                                 const CUtensorMap& mv, void* o, void* lse, int B, int H, int N,
@@ -690,7 +941,7 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o: [B, N, H, D] with strides (ob, on, oh, 1); lse:
-// [B, H, N] f32, contiguous. N % 64 == 0, D one of 64, 128, 192, 256
+// [B, H, N] f32, contiguous. N % 64 == 0, D % 64 == 0
 // (cudaErrorInvalidValue otherwise). The caller checks all of it.
 // Returns cudaGetLastError() after the launch.
 extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
@@ -715,7 +966,10 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
       err = is_bf16 ? launch_fwd_mma<256>(VST_FWD_ARGS) : launch_fwd_f32<256>(VST_FWD_ARGS);
       break;
     default:
-      err = cudaErrorInvalidValue;
+      err = D > 256 && D % 64 == 0
+                ? launch_fwd_wide(is_bf16, q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh,
+                                  qscale, st)
+                : cudaErrorInvalidValue;
   }
 #undef VST_FWD_ARGS
   return static_cast<int>(err);

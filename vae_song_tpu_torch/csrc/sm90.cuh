@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
 // reallocation. Used by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu) at head widths 64 and 128.
+// backward (dense_attn_bwd.cu) at head widths 64 and 128, and by the
+// fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel
@@ -75,6 +76,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// A ring of `n` stages: full barriers (one arrival, the producer's
+// expect_tx) and empty barriers (one arrival from each of `consumers`
+// warps), 8 bytes apart.
+__device__ __forceinline__ void ring_init(uint32_t full, uint32_t empty, int n, int consumers) {
+  for (int s = 0; s < n; ++s) {
+    mbar_init(full + 8 * s, 1);
+    mbar_init(empty + 8 * s, consumers);
+  }
+}
+
+// The producer's wait for ring item `it`'s stage to be free (at once for
+// the first `stages` items).
+__device__ __forceinline__ void ring_wait_free(uint32_t empty, int it, int stages) {
+  mbar_wait(empty + 8 * (it % stages), ((it / stages) & 1) ^ 1);
+}
+
+// One consumer warp's release of a ring stage.
+__device__ __forceinline__ void release_stage(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
 // ---- TMA --------------------------------------------------------------------
 
 // One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
@@ -88,6 +111,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 2-D tensor map at coordinates (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
 // global memory into shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -96,6 +129,41 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// One box of a 2-D tensor map at coordinates (c0, c1) from shared memory
+// at `src` to global memory, in the calling thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Close the calling thread's bulk group and wait until its stores have read
+// their shared memory (which may then be reused or freed).
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA, wgmma) accesses.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- named barriers ---------------------------------------------------------
+
+// Wait at barrier `id` until `threads` threads (a multiple of 32) have
+// arrived or waited there; arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- register reallocation between warpgroups ------------------------------
@@ -113,6 +181,12 @@ __device__ __forceinline__ void regs_alloc() {
 
 constexpr uint32_t kPanelRowBytes = 128;        // 64 bf16 columns
 constexpr uint32_t kSwizzleGroupBytes = 1024;   // 8 rows of a panel
+
+// Byte offset of element (r, c) in a swizzled panel (the TMA 128-byte
+// swizzle: the 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r % 8)).
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * kPanelRowBytes + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
 
 // Shared-memory matrix descriptor, 128-byte swizzle.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo_bytes) {
@@ -143,6 +217,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+template <int R>
+__device__ __forceinline__ void zero_acc(float (&c)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
 // Keep the compiler from moving accumulator registers across an
 // asynchronous wgmma's issue and its wait.
 template <int R>
@@ -165,29 +245,36 @@ __device__ __forceinline__ void fence_acc(float (&c)[R][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
+// The wgmma wrappers below take each operand's major-ness as a template
+// flag, wgmma's imm-trans: 0 K-major (the contraction runs along the 64
+// columns of the panel), 1 MN-major (it runs along the rows). An A operand
+// in registers is always mma.sync's A fragment layout per warp.
+
 // c (64 x 64 f32, the accumulator layout of mma.sync's C per warp: c[j]
-// holds n-tile j) (+)= A (64 x 16, K-major in shared memory) B (16 x 64,
-// K-major in shared memory). `accumulate` 0 overwrites c.
-__device__ __forceinline__ void wgmma_ss_n64(float (&c)[8][4], uint64_t da, uint64_t db,
-                                             int accumulate) {
+// holds n-tile j) (+)= A (64 x 16 in shared memory) B (16 x 64 in shared
+// memory). `accumulate` 0 overwrites c.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64_t(float (&c)[8][4], uint64_t da, uint64_t db,
+                                               int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : VST_ACC32(c)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// c (64 x 64 f32) += A (64 x 16 bf16 in registers, mma.sync's A fragment
-// layout per warp) B (16 x 64, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&c)[8][4], const uint32_t (&a)[4],
-                                                uint64_t db) {
+// c (64 x 64 f32) += A (64 x 16 bf16 in registers) B (16 x 64 in shared
+// memory).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&c)[8][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
       : VST_ACC32(c)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 
 #define VST_C4(c, j) "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
@@ -203,28 +290,31 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&c)[8][4], const uint32_t
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // c (64 x 128 f32, c[j] holds columns 8 j .. 8 j + 7 in mma.sync's C
-// layout per warp) (+)= A (64 x 16, K-major in shared memory) B (16 x 128,
-// K-major in shared memory). `accumulate` 0 overwrites c.
-__device__ __forceinline__ void wgmma_ss_n128(float (&c)[16][4], uint64_t da, uint64_t db,
-                                              int accumulate) {
+// layout per warp) (+)= A (64 x 16 in shared memory) B (16 x 128 in shared
+// memory; MN-major: two 64-column atoms, LBO apart). `accumulate` 0
+// overwrites c.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&c)[16][4], uint64_t da, uint64_t db,
+                                                int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VST_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
       : VST_ACC64(c)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// c (64 x 128 f32) += A (64 x 16 bf16 in registers) B (16 x 128,
-// MN-major in shared memory: two 64-column atoms, LBO apart).
-__device__ __forceinline__ void wgmma_rs_n128_tb(float (&c)[16][4], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+// c (64 x 128 f32) += A (64 x 16 bf16 in registers) B (16 x 128 in
+// shared memory; MN-major: two 64-column atoms, LBO apart).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128_t(float (&c)[16][4], const uint32_t (&a)[4],
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VST_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
       : VST_ACC64(c)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 
 #undef VST_D64
@@ -268,6 +358,22 @@ inline bool bhnd_tensor_map(CUtensorMap* map, const void* base, int B, int N, in
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over a contiguous row-major bf16 [rows, cols] matrix: dims
+// (cols, rows) innermost first, boxes of 64 columns x 64 rows, 128-byte
+// swizzle (the panel layout above).
+inline bool matrix_tensor_map(CUtensorMap* map, const void* base, long long rows, int cols) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

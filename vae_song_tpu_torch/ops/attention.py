@@ -17,20 +17,30 @@ nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
      through its autograd Function: the K1 forward and K2 backward
      kernels on CUDA tensors.
   3. the other shapes the JAX package sends to its dense kernel
-     (`dense_ok`: heads not 64 wide, or an odd head count): dense
-     attention's BHND route, the K3f forward and K3b backward kernels on
-     CUDA tensors. A head width above 256 raises (the kernels are built
-     up to 256).
+     (`dense_ok`: heads not 64 wide, or an odd head count, any width
+     D % 64 == 0): dense attention's BHND route, the K3f forward and K3b
+     backward kernels on CUDA tensors.
   4. everything else: plain attention with bf16 matmuls and an f32
      softmax, as the JAX package's `_xla_attention`, differentiated by
      autograd.
 
 The route follows the JAX package's order (vae_song_tpu/ops/attention.py
 :424-448) and never the device: on a CPU tensor routes 2 and 3 run their
-kernels' plain versions.
+kernels' plain versions. The JAX package's three switches are read at
+call time, with its spellings and defaults:
+
+  * VST_DISABLE_DENSE_ATTN=1 (any value but "", "0" or "false") turns
+    routes 2 and 3 off: every shape takes route 4;
+  * VST_DENSE_ATTN_PACKED=0 (or "false") turns route 2 off: its shapes
+    take route 3;
+  * VST_FUSED_QKV=1 (or "true") runs self-attention's in-projection (the
+    query input and the key/value input one tensor) as one [d, 3d]
+    product over the query, key and value weights concatenated at call
+    time; the parameters stay three projections.
 """
 
 import math
+import os
 
 import torch
 from torch import nn
@@ -51,6 +61,24 @@ def attention_plain(q, k, v, scale: float):
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(torch.bfloat16).float(), vc)
     return out.to(q.dtype)
+
+
+def _dense_attn_on() -> bool:
+    """Routes 2 and 3 allowed: VST_DISABLE_DENSE_ATTN unset, "", "0" or
+    "false" (the JAX package's `_dense_default_ok` opt-out)."""
+    return os.environ.get("VST_DISABLE_DENSE_ATTN", "").lower() in ("", "0", "false")
+
+
+def _packed_attn_on() -> bool:
+    """Route 2 allowed: VST_DENSE_ATTN_PACKED not "0" or "false" (the JAX
+    package's `_packed_attn_ok` switch, default on)."""
+    return os.environ.get("VST_DENSE_ATTN_PACKED", "1").lower() not in ("0", "false")
+
+
+def _fused_qkv_on() -> bool:
+    """The opt-in VST_FUSED_QKV=1 (or "true") of the JAX package's
+    `_fused_qkv_on`, off by default."""
+    return os.environ.get("VST_FUSED_QKV", "0").lower() in ("1", "true")
 
 
 class MultiHeadAttention(nn.Module):
@@ -87,13 +115,24 @@ class MultiHeadAttention(nn.Module):
             # softmax over one key is 1: out-project the value once per
             # cloud and broadcast it over the queries
             return self.out(self.value(inputs_kv)).expand(b, n_q, self.d_model)
-        q = self.query(inputs_q).view(b, n_q, h, d)
-        k = self.key(inputs_kv).view(b, n_kv, h, d)
-        v = self.value(inputs_kv).view(b, n_kv, h, d)
+        if inputs_q is inputs_kv and _fused_qkv_on():
+            # one [d, 3d] product over the three projections' parameters,
+            # with Dense's compute-dtype semantics; q, k, v are views of it
+            projs = (self.query, self.key, self.value)
+            w3 = torch.cat([p.weight for p in projs])
+            b3 = torch.cat([p.bias for p in projs])
+            dt = self.query.dtype or torch.promote_types(inputs_q.dtype, w3.dtype)
+            qkv = torch.matmul(inputs_q.to(dt), w3.to(dt).t()) + b3.to(dt)
+            q, k, v = (t.view(b, n_q, h, d) for t in qkv.split(self.d_model, dim=-1))
+        else:
+            q = self.query(inputs_q).view(b, n_q, h, d)
+            k = self.key(inputs_kv).view(b, n_kv, h, d)
+            v = self.value(inputs_kv).view(b, n_kv, h, d)
         scale = 1.0 / math.sqrt(d)
-        if packed_ok(n_q, n_kv, h, d):
+        dense_on = _dense_attn_on()
+        if dense_on and _packed_attn_on() and packed_ok(n_q, n_kv, h, d):
             out, _ = dense_attention_fwd(q, k, v, scale)
-        elif dense_ok(n_q, n_kv, d):
+        elif dense_on and dense_ok(n_q, n_kv, d):
             out = dense_attention(q, k, v, scale)
         else:
             out = attention_plain(q, k, v, scale)

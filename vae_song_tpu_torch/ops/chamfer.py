@@ -25,10 +25,11 @@ mean over points each way, sum the two means, mean over batch.
     `chamfer_bwd`, scaled by the incoming gradient and cast to the
     clouds' dtype (`_chamfer_bwd`).
 
-`best_chamfer` takes `chamfer_distance_packed` for CUDA clouds of at
-most MAX_PACKED_N points and the tiled path otherwise -- the JAX
-package's shape gate, not a fallback: larger clouds do not fit the
-packed key's 11 index bits.
+`best_chamfer` takes `chamfer_distance_packed` for CUDA clouds that pass
+`packed_chamfer_ok` -- the JAX package's shape gate, not a fallback: a
+batch in blocks of 8, both clouds in multiples of 128 points, at most
+MAX_PACKED_N (larger clouds do not fit the packed key's 11 index bits)
+-- and the exact tiled path everywhere else.
 """
 
 import torch
@@ -37,6 +38,7 @@ from vae_song_tpu_torch import _kernels
 
 _DENSE_LIMIT = 1024  # below this many points, build the full matrix
 MAX_PACKED_N = 2048  # 11 index bits
+_BB = 8              # the JAX kernel's batch block (chamfer.py:83)
 _IDX_BITS = 0x7FF
 _VAL_MASK = ~0x7FF
 _PLAIN_TILE = 256    # query points per chunk of the plain packed version
@@ -235,11 +237,18 @@ def chamfer_distance_packed(points_pred, points_gt):
     return _PackedChamfer.apply(pred, gt, save)
 
 
+def packed_chamfer_ok(b: int, n_pred: int, n_gt: int) -> bool:
+    """The JAX package's shape gate for its packed Chamfer kernel
+    (`best_chamfer`, chamfer.py:399-411, its TPU-backend check aside)."""
+    return (b % _BB == 0 and n_pred % 128 == 0 and n_gt % 128 == 0
+            and max(n_pred, n_gt) <= MAX_PACKED_N)
+
+
 def best_chamfer(points_pred, points_gt):
-    """`chamfer_distance_packed` for CUDA clouds of at most MAX_PACKED_N
-    points (K4 forward, K5 backward), else the plain tiled path."""
-    if points_pred.device.type == "cuda" and max(
-        points_pred.shape[1], points_gt.shape[1]
-    ) <= MAX_PACKED_N:
+    """`chamfer_distance_packed` (K4 forward, K5 backward) for CUDA
+    clouds that pass `packed_chamfer_ok`, else the exact tiled path."""
+    if points_pred.device.type == "cuda" and packed_chamfer_ok(
+        points_pred.shape[0], points_pred.shape[1], points_gt.shape[1]
+    ):
         return chamfer_distance_packed(points_pred, points_gt)
     return chamfer_distance(points_pred, points_gt)

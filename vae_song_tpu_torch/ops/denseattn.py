@@ -12,14 +12,15 @@ Two routes share one kernel pair:
     an odd head count.
 
 The JAX kernels of both routes compute the same function with the same
-roundings, so the port launches one kernel, instantiated for D = 64, 128,
-192 and 256; each route counts its own launches. In bf16 at D = 64 and
-128 (every configured path) the forward is one wgmma kernel fed by TMA
-(csrc/dense_attn_fwd.cu), and the backward a preprocess pass that writes
-delta and qc into scratch that `_launch_bwd` allocates, then a wgmma
-kernel pair (csrc/dense_attn_bwd.cu); D = 192 and 256 and f32 run the
-first port's kernels. A head width that `dense_ok` accepts above 256
-raises a ValueError naming the limit, on any device.
+roundings, so the port launches one kernel for both, at every head width
+D % 64 == 0 that `dense_ok` accepts; each route counts its own launches.
+In bf16 at D = 64 and 128 (every configured path) the forward is one
+wgmma kernel fed by TMA (csrc/dense_attn_fwd.cu), and the backward a
+preprocess pass that writes delta and qc into scratch that `_launch_bwd`
+allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu); D = 192
+and 256 and f32 run the first port's kernels; D above 256 runs
+column-chunk kernels that stream the head through shared memory in
+64-column panels.
 
 The forward computes, per (batch, head):
 
@@ -65,8 +66,6 @@ from vae_song_tpu_torch import _kernels
 # 709-714)
 MAX_DENSE_SEQ = 2048
 HEAD_DIM = 64
-# head widths the kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 # query rows per plain-version chunk: bounds the f32 [chunk, H, N, N]
@@ -100,11 +99,8 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
     b, n, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"head width must be one of {KERNEL_HEAD_DIMS} (a multiple of 64 up to 256, "
-            f"the widths the attention kernels are built for), got {d}"
-        )
+    if d % 64 != 0 or d == 0:
+        raise ValueError(f"head width must be a positive multiple of 64, got {d}")
     if n % 64 != 0 or n == 0:
         raise ValueError(f"sequence length must be a positive multiple of 64, got {n}")
 
@@ -284,7 +280,7 @@ def _apply(q, k, v, scale, fwd_counter, bwd):
 
 def dense_attention_fwd(q, k, v, scale: float):
     """Dense attention forward on the packed route (K1) on [B, N, H, D]
-    q/k/v (float32 or bfloat16, D in KERNEL_HEAD_DIMS, N a multiple of 64,
+    q/k/v (float32 or bfloat16, D a multiple of 64, N a multiple of 64,
     any B >= 1). Returns (o [B, N, H, D], lse [B, H, N] f32); o is
     differentiable in q, k, v (backward: `dense_attention_bwd`), lse is
     not. CUDA tensors launch the Hopper kernel; CPU tensors take the plain

@@ -28,19 +28,20 @@ the compute dtype, as Dense does.
 
 `fused_ffn` is differentiable: a torch.autograd.Function whose forward is
 K6f and whose backward is K6b on CUDA tensors (the plain versions on CPU
-tensors). The kernels are built for D = 128 and 256; another width raises
-a ValueError naming the limit, on any device.
+tensors). The kernels take every shape the gate `fused_ffn_ok` accepts
+(rows, width and hidden width multiples of 128): a block recomputes h per
+128- or 256-wide column chunk of y and dx where D is wider than 256.
 """
 
 import torch
 
 from vae_song_tpu_torch import _kernels
 
-# widths the kernels are built for
-KERNEL_WIDTHS = (128, 256)
-# splits of the rows over which the backward's weight-gradient pass sums
-# partial products before adding them in split order
-WGRAD_SPLITS = 16
+# the backward's weight-gradient pass, by dtype: its output tile edge and
+# the blocks one streaming multiprocessor holds at once (the bf16 wgmma
+# kernel takes a whole SM; the f32 FMA kernel's blocks are small)
+WGRAD_TILE = {torch.bfloat16: 128, torch.float32: 64}
+WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 8}
 
 
 def fused_ffn_ok(m: int, d: int, f: int) -> bool:
@@ -71,13 +72,9 @@ def _check(x2, w1, b1, w2, b2=None):
             raise ValueError(f"{name} must lie on x's device {x2.device}")
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x2.dtype}")
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"model width must be one of {KERNEL_WIDTHS} (the widths the FFN kernels are "
-            f"built for), got {d}"
-        )
-    if m % 64 or f % 64:
-        raise ValueError(f"rows and hidden width must be multiples of 64, got {m}, {f}")
+    if m % 128 or d % 128 or f % 128 or 0 in (m, d, f):
+        raise ValueError(f"rows, width and hidden width must be positive multiples of 128, "
+                         f"got {m}, {d}, {f}")
 
 
 def fused_ffn_plain(x2, w1, b1, w2, b2):
@@ -123,11 +120,21 @@ def _launch_fwd(x2, w1, b1, w2, b2):
     return y
 
 
+def wgrad_splits(m: int, d: int, f: int, dtype, sms: int) -> int:
+    """Splits of the M rows in the backward's weight-gradient pass: enough
+    blocks over the output tiles of dW1 and dW2 to fill the card's `sms`
+    streaming multiprocessors once, each split at least one 64-row step."""
+    tile = WGRAD_TILE[dtype]
+    tiles = 2 * (f // tile) * (d // tile)
+    return max(1, min(m // 64, sms * WGRAD_BLOCKS_PER_SM[dtype] // tiles))
+
+
 def _launch_bwd(x2, dy, w1, b1, w2):
     _kernel_operands(x2, dy, w1, b1, w2)
     m, d = x2.shape
     f = w1.shape[0]
     dev, dt = x2.device, x2.dtype
+    splits = wgrad_splits(m, d, f, dt, torch.cuda.get_device_properties(dev).multi_processor_count)
     dx = torch.empty_like(x2)
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty(d, dtype=dt, device=dev)
@@ -135,13 +142,13 @@ def _launch_bwd(x2, dy, w1, b1, w2):
     hbuf, dhbuf = (torch.empty((m, f), dtype=dt, device=dev) for _ in range(2))
     pb1 = torch.empty((m // 64, f), dtype=torch.float32, device=dev)
     pb2 = torch.empty((m // 64, d), dtype=torch.float32, device=dev)
-    pw1 = torch.empty((WGRAD_SPLITS, f, d), dtype=torch.float32, device=dev)
-    pw2 = torch.empty((WGRAD_SPLITS, d, f), dtype=torch.float32, device=dev)
+    pw1 = torch.empty((splits, f, d), dtype=torch.float32, device=dev)
+    pw2 = torch.empty((splits, d, f), dtype=torch.float32, device=dev)
     _kernels.launch(
         "vst_ffn_bwd", dev, int(dt == torch.bfloat16), x2.data_ptr(), dy.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), hbuf.data_ptr(), dhbuf.data_ptr(),
-        pb1.data_ptr(), pb2.data_ptr(), pw1.data_ptr(), pw2.data_ptr(), m, d, f, WGRAD_SPLITS,
+        pb1.data_ptr(), pb2.data_ptr(), pw1.data_ptr(), pw2.data_ptr(), m, d, f, splits,
     )
     return dx, dw1, db1, dw2, db2
 
