@@ -45,7 +45,7 @@ CLASSES = (
     ("K1/K3f attention forward", ("dense_attn_fwd",)),
     ("K6b fused FFN backward", ("ffn_bwd_rows", "ffn_wgrad", "ffn_sum_parts")),
     ("K6f fused FFN forward", ("ffn_fwd",)),
-    ("K4 Chamfer forward", ("chamfer_nn_packed",)),
+    ("K4 Chamfer forward", ("chamfer_fwd",)),
     ("K5 Chamfer backward", ("chamfer_bwd",)),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv")),
     ("LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),

@@ -1,8 +1,10 @@
 """The port's Chamfer forward (vae_song_tpu_torch/ops/chamfer.py) against
 the JAX package: the plain packed-key version against the Pallas kernel
 `_chamfer_pallas_fwd_impl` in interpret mode (bitwise: both compute
-d2 = ((dx*dx) + (dy*dy)) + (dz*dz) in f32 without FMA), and the tiled
-`chamfer_distance` against its JAX counterpart."""
+d2 = ((dx*dx) + (dy*dy)) + (dz*dz) in f32; the port without FMA, XLA's
+CPU code with FMA contraction allowed, which these inputs do not reach
+through the 11 truncated bits or which their grid makes exact), and the
+tiled `chamfer_distance` against its JAX counterpart."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +23,36 @@ def _clouds(b, np_, ng, seed):
             rng.normal(size=(b, ng, 3)).astype(np.float32))
 
 
-@pytest.mark.parametrize("np_,ng,tile", [(128, 128, 128), (256, 128, 128), (128, 256, 64)])
-def test_plain_matches_pallas_bitwise(np_, ng, tile):
-    pred, gt = _clouds(8, np_, ng, seed=np_ + ng)
+GRID = 2.0 ** -9
+
+
+def _collapsed_clouds(b, np_, ng, seed):
+    """pred concentrated on 4 points of each cloud plus noise of up to 2
+    steps of 2^-9 (about 1e-3): exact and near ties between pred points in
+    different pred tiles. Both clouds lie on the 2^-9 grid within [-1.51,
+    1.51], so every d2 is a multiple of 2^-18 below 48 and exact in f32:
+    XLA's CPU backend always allows FMA contraction, which on other inputs
+    moves a d2 by one rounding (measured with 1e-3 normal noise at these
+    shapes: one minp of 4096 one truncation step apart)."""
+    rng = np.random.default_rng(seed)
+    on_grid = lambda x: (np.round(np.clip(x, -1.5, 1.5) / GRID) * GRID).astype(np.float32)
+    centres = on_grid(rng.normal(size=(b, 4, 3)))
+    pred = centres[:, np.arange(np_) % 4] + GRID * rng.integers(-2, 3, size=(b, np_, 3))
+    return pred.astype(np.float32), on_grid(rng.normal(size=(b, ng, 3)))
+
+
+@pytest.mark.parametrize("np_,ng,tile,collapsed", [
+    pytest.param(128, 128, 128, False, id="128-128-128"),
+    pytest.param(256, 128, 128, False, id="256-128-128"),
+    pytest.param(128, 256, 64, False, id="128-256-64"),
+    pytest.param(512, 256, 128, True, id="512-256-128-collapsed"),
+])
+def test_plain_matches_pallas_bitwise(np_, ng, tile, collapsed):
+    if collapsed:
+        pred, gt = _collapsed_clouds(8, np_, ng, seed=np_ + ng)
+        assert len(np.unique(pred[0], axis=0)) < np_          # repeated points: exact ties
+    else:
+        pred, gt = _clouds(8, np_, ng, seed=np_ + ng)
     want = jax_chamfer._chamfer_pallas_fwd_impl(jnp.asarray(pred), jnp.asarray(gt), tile,
                                                 interpret=True)
     got = chamfer.chamfer_nn_packed(torch.from_numpy(pred), torch.from_numpy(gt))

@@ -149,18 +149,34 @@ def _clouds(dup: bool, seed: int):
     return pred, gt
 
 
-@pytest.mark.parametrize("dup", [False, True])
+def _all_to_one_clouds(seed: int):
+    """Every gt point's nearest pred point is pred point 0: gt lies within
+    1e-3 of it and the other pred points lie 100 away, so the inverse list
+    of pred point 0 holds all N gt points."""
+    rng = np.random.default_rng(seed)
+    pred = rng.normal(size=(B, N, 3)).astype(np.float32)
+    pred[:, 1:] += 100.0
+    gt = (pred[:, :1] + 1e-3 * rng.random(size=(B, N, 3))).astype(np.float32)
+    return pred, gt
+
+
+@pytest.mark.parametrize("dup", [False, True, "all_to_one"])
 def test_chamfer_bwd_plain_matches_jax(dup):
     """`chamfer_bwd_plain` against `_chamfer_bwd_xla` (the same gather and
     scatter-add; measured 0, bitwise) and against the Pallas backward in
     interpret mode, which routes through bf16 hi/lo column pairs
     (measured 3.6e-7 at max|d| 1.7e-2), on argmins from the Pallas
-    forward."""
-    pred, gt = _clouds(dup, seed=4 + dup)
+    forward; also where one pred point is every gt point's nearest."""
+    if dup == "all_to_one":
+        pred, gt = _all_to_one_clouds(seed=7)
+    else:
+        pred, gt = _clouds(dup, seed=4 + dup)
     jp, jg = jnp.asarray(pred), jnp.asarray(gt)
     _, argp, _, argg = jax_chamfer._chamfer_pallas_fwd_impl(jp, jg, 128, interpret=True)
     argp, argg = np.asarray(argp), np.asarray(argg)
-    if dup:
+    if dup == "all_to_one":
+        assert (argg == 0).all()
+    elif dup:
         assert len(np.unique(argg[0])) < N // 2 and len(np.unique(argp[0])) < N // 2
     want_xla = jax_chamfer._chamfer_bwd_xla((jp, jg, jnp.asarray(argp), jnp.asarray(argg)), 1.0)
     want_pallas = jax_chamfer._chamfer_bwd_pallas(jp, jg, jnp.asarray(argp), jnp.asarray(argg),

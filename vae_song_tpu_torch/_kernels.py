@@ -16,6 +16,7 @@ architecture) fails where it happened.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,7 +41,7 @@ _SIGNATURES = {
                            _L, _L, _L, _L, _L, _L, _F, _P),
     "vst_dense_attn_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _F, _P),
-    "vst_chamfer_nn_packed": (_P, _P, _P, _I, _I, _I, _P),
+    "vst_chamfer_nn_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "vst_chamfer_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "vst_ffn_fwd": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "vst_ffn_bwd": (_I, *(_P,) * 16, _L, _I, _I, _I, _P),
@@ -130,11 +131,17 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index: int):
+    return torch.cuda.get_device_capability(index)
+
+
 def check_device(t: torch.Tensor) -> None:
     """Raise unless `t` lies on a Hopper card the library was built for."""
     if t.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _capability(t.device.index if t.device.index is not None
+                      else torch.cuda.current_device())
     if cap != (9, 0):
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); {t.device} is sm_{cap[0]}{cap[1]}"
@@ -143,11 +150,18 @@ def check_device(t: torch.Tensor) -> None:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point `name` on `device`'s current stream (appended as
-    the last argument) and raise if the launch reported an error."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    the last argument) and raise if the launch reported an error. The
+    device becomes the current one for the call only if it is not already
+    (a short kernel's call is mostly this host path)."""
+    lib = _lib or library()
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == current:
         err = getattr(lib, name)(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.vst_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: launch failed with CUDA error {err} ({msg})")

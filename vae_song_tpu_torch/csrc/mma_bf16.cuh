@@ -2,7 +2,8 @@
 // backward (dense_attn_bwd.cu), whose P is computed by one code path in
 // both directions: p_pair in the wgmma kernels (D = 64 and 128),
 // exp2_bf16 in the mma.sync kernels (D = 192 and 256), the same
-// roundings; and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
+// roundings; and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu). allow_smem,
+// at the end, is the one grant of dynamic shared memory every kernel uses.
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) fragment layouts, lane =
 // 4 g + t:
@@ -19,6 +20,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace vst {
 
@@ -99,11 +104,24 @@ __device__ __forceinline__ void load_a_chunk(const __nv_bfloat16 (*tile)[LD], in
 }
 
 // Dynamic shared memory above the 48 KB a launch gets by default must be
-// granted per kernel; returns the attribute call's error.
+// granted per kernel and device. A grant lasts as long as the process, so
+// it is asked for once a kernel, device and size and then remembered (a
+// short kernel's call is mostly host path); returns the attribute call's
+// error.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> granted;
+  const std::lock_guard<std::mutex> hold(mu);
+  size_t& have = granted[{reinterpret_cast<const void*>(kernel), device}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) have = bytes;
+  return err;
 }
 
 }  // namespace vst

@@ -8,17 +8,23 @@ mean over points each way, sum the two means, mean over batch.
     matrix never exists beyond one [B, T, N] tile. The off-kernel path.
 
   * `chamfer_nn_packed` -- the port of the TPU kernel `_chamfer_kernel`
-    to a hand-written Hopper kernel (csrc/chamfer_fwd.cu): per query
-    point, ONE packed int32 min over `(bits(d2) & ~0x7FF) | j` gives the
-    min distance (truncated by <= 2^-12 relative) and the exact argmin
-    (lower index at ties). `chamfer_nn_packed_plain` is the same packed
-    computation in PyTorch.
+    to a hand-written Hopper kernel (csrc/chamfer_fwd.cu): one launch
+    computes each squared distance once and derives both packed keys from
+    it, `(bits(d2) & ~0x7FF) | j` for the pred side and `... | i` for the
+    gt side, so one int32 min a side gives the min distance (truncated by
+    <= 2^-12 relative) and the exact argmin (lower index at ties). The
+    gt side combines across pred tiles by an int32 atomicMin a column
+    and tile, exact and independent of order, into a key row the wrapper
+    fills; the cloud's last tile unpacks it. `chamfer_nn_packed_plain`
+    is the same packed computation in PyTorch.
 
   * `chamfer_bwd` -- the port of the TPU kernel `_chamfer_bwd_kernel`
     (csrc/chamfer_bwd.cu): the gradient routed through the saved
-    argmins, one thread per output point, no atomics.
-    `chamfer_bwd_plain` ports `_chamfer_bwd_xla` (gather, then
-    `index_add`).
+    argmins. A block per cloud and side inverts the other side's argmins
+    into per-point lists with a stable counting sort, so the work is
+    O(N) and each point subtracts its sources' terms in ascending index
+    order; no floating-point atomics. `chamfer_bwd_plain` ports
+    `_chamfer_bwd_xla` (gather, then `index_add`).
 
   * `chamfer_distance_packed` -- a torch.autograd.Function: forward from
     the packed keys (the kernel's value), backward through
@@ -119,34 +125,35 @@ def chamfer_nn_packed_plain(pred, gt):
     return minp, argp, ming, argg
 
 
-def _launch_keys(query, ref):
-    b, nq, _ = query.shape
-    keys = torch.empty((b, nq), dtype=torch.int32, device=query.device)
-    _kernels.launch(
-        "vst_chamfer_nn_packed", query.device,
-        query.data_ptr(), ref.data_ptr(), keys.data_ptr(), b, nq, ref.shape[1],
-    )
-    chamfer_nn_packed.launches += 1
-    return keys
-
-
 def chamfer_nn_packed(pred, gt):
     """Nearest-neighbour minima and argminima both ways, from packed keys.
 
     pred [B, Np, 3], gt [B, Ng, 3] float32, Np, Ng <= 2048. Returns
     (minp [B, Np] f32, argp [B, Np] int32, ming [B, Ng] f32, argg [B, Ng]
     int32), the outputs of the JAX `_chamfer_pallas_fwd_impl`. CUDA
-    tensors launch the Hopper kernel twice (pred -> gt, gt -> pred); CPU
-    tensors take the plain version. `chamfer_nn_packed.launches` counts
-    kernel launches."""
+    tensors launch the Hopper kernel once for both sides; CPU tensors take
+    the plain version. `chamfer_nn_packed.launches` counts kernel
+    launches."""
     _check(pred, gt)
     if pred.device.type == "cpu":
         return chamfer_nn_packed_plain(pred, gt)
     _kernels.check_device(pred)
     if not (pred.is_contiguous() and gt.is_contiguous()):
         raise ValueError("the Chamfer kernel reads contiguous [B, N, 3] clouds")
-    minp, argp = _unpack(_launch_keys(pred, gt))
-    ming, argg = _unpack(_launch_keys(gt, pred))
+    b, np_, _ = pred.shape
+    ng = gt.shape[1]
+    minp = torch.empty((b, np_), dtype=torch.float32, device=pred.device)
+    ming = torch.empty((b, ng), dtype=torch.float32, device=pred.device)
+    argp = torch.empty((b, np_), dtype=torch.int32, device=pred.device)
+    argg = torch.empty((b, ng), dtype=torch.int32, device=pred.device)
+    # the gt-side key row the CTAs combine into, then a count a cloud
+    scratch = torch.full((b * (ng + 1),), 0x7FFFFFFF, dtype=torch.int32, device=pred.device)
+    _kernels.launch(
+        "vst_chamfer_nn_packed", pred.device, pred.data_ptr(), gt.data_ptr(),
+        minp.data_ptr(), argp.data_ptr(), ming.data_ptr(), argg.data_ptr(),
+        scratch.data_ptr(), b, np_, ng,
+    )
+    chamfer_nn_packed.launches += 1
     return minp, argp, ming, argg
 
 
