@@ -22,7 +22,8 @@ non-zero exit code:
      on random clouds and on skewed ones, also bitwise equal to its plain
      version run on the CPU), the fused FFN forward (K6f) and backward
      (K6b), each also at the widths its route takes past the shipped
-     config (heads of 320 and 512, FFN widths of 384 and 512). No kernel
+     config (heads of 320 and 512, FFN widths of 384 and 512); K1, K2,
+     K4 and K5 also at phase 8's microbatch of 32 clouds. No kernel
      uses floating-point atomics: a second call on the same inputs must
      give the same bits. Beside the fused FFN the unfused Dense -> ReLU -> Dense
      (forward, and forward + backward) and, forward only (PyTorch has no
@@ -58,13 +59,39 @@ non-zero exit code:
      step, the decode, and one train step (loss terms, gradients and the
      updated parameters), for the shipped SetVAE config and for both
      configurations of phase 4c.
+  6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
+     false` (the MLP encoder and decoder with BatchNorm at the config's
+     encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
+     train step's ms/step, the eval step's ms/batch and generation
+     clouds/s, the K4 and K5 counters rising and no other kernel; then the
+     card against the CPU on the same weights and 8 clouds (the Chamfer
+     kernels' gate takes 8): one train step's loss terms, gradients,
+     updated parameters and BatchNorm running statistics, for SetVAE and
+     SetLRVAE (whose encoder statistics move twice a step).
+  7. attention dropout: the shipped SetVAE config with `attn_dropout: 0.1`:
+     train steps with masks from a CUDA generator (ms/step and peak device
+     memory; at B = 64, or B = 32 if the materialised [B, 4, N, N] scores
+     do not fit), during which K1 and K2 must not launch (training dropout
+     materialises the scores, as JAX does), then the eval step, which must
+     launch K1 (the decoder's first layer then runs at full batch); then
+     the card against the CPU, the same keep masks injected into both, at
+     a reduced size (8 clouds of 256 points), f32 and bf16.
+  8. trainer options: `train_and_test` on the shipped SetVAE config at
+     full width on fake clouds for 2 epochs with `checkpoint_every: 1`,
+     `async_checkpoint: true` and `grad_accum: 2` (microbatches of 32,
+     which run K1, K2, K4 and K5), the train step's ms/step under
+     grad_accum 2; then a fresh model resumed from `ckpt_0.pkl`, whose
+     final parameters, statistics and optimizer state must equal the
+     continuous run's bit for bit.
 
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
-K6b), the numbers phase 3 measured and the bound it computed. The last
-two lines are that JSON line and the result line.
+K6b), the numbers phase 3 measured and the bound it computed, and under
+`paths` its launches on each path of phases 6-8. The last two lines are
+that JSON line and the result line.
 """
 
+import gc
 import json
 import math
 import os
@@ -81,10 +108,12 @@ from vae_song_tpu_torch import _kernels
 from vae_song_tpu_torch.cli.generate import generate_samples
 from vae_song_tpu_torch.data.shapenet import fake_point_clouds
 from vae_song_tpu_torch.models.registry import build_model
+from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
 from vae_song_tpu_torch.ops import chamfer, denseattn, ffn
 from vae_song_tpu_torch.train.loop import train_and_test
-from vae_song_tpu_torch.train.state import make_optimizer
-from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
+from vae_song_tpu_torch.train.state import adam_state, make_optimizer
+from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
+                                             make_eval_step, make_train_step)
 
 # literal copy of configs/config_shapenet_setvae.yaml's model_params
 # (tests/test_torch_isolation.py holds it to the file)
@@ -132,7 +161,23 @@ SETLRVAE_BATCH = 16
 # JAX package's opt-in switch for the fused FFN.
 HEADS2_OVERRIDE = {"num_heads": 2}
 FUSED_FFN_ENV = {"VST_FUSED_FFN": "1"}
+# Phases 6-8's configurations: the shipped SetVAE config with one override
+# each (held to the file by the same test): the DeepSets encoder and decoder
+# at the config's encoder_hidden / decoder_hidden widths, and attention
+# dropout; and the trainer options of phase 8.
+DEEPSETS_OVERRIDE = {"use_attention": False}
+DROPOUT_OVERRIDE = {"attn_dropout": 0.1}
+TRAINER_OPTIONS = {"checkpoint_every": 1, "async_checkpoint": True, "grad_accum": 2}
 BATCH = COMMON_PARAMS["batch_size"]
+# phase 7: the train step's batch, then the one to fall back to if the
+# materialised scores of four attention layers do not fit the card
+DROPOUT_BATCHES = (BATCH, BATCH // 2)
+DROPOUT_STEPS = 3
+# the card-vs-CPU checks of phases 6 and 7: 8 clouds (the packed Chamfer
+# kernels' gate takes B % 8 == 0), of 256 points for dropout (the CPU
+# computes [B, H, N, N] scores)
+REF_CLOUDS = 8
+DROPOUT_REF_POINTS = 256
 EVAL_BATCHES = 4
 GEN_BATCHES = 4
 TRAIN_EPOCHS = 2
@@ -193,6 +238,10 @@ REF_F32_GRAD_RTOL = 1e-2
 REF_F32_MOVED_SHARE = 2e-3
 REF_BF16_GRAD_RTOL = 0.1
 REF_BF16_MOVED_SHARE = 5e-2
+# BatchNorm running statistics after one train step, card against CPU: the
+# same f32 batch statistics summed in other orders (the DeepSets step);
+# bound 1e-4 of max(1, max|stat|).
+REF_BN_TOL = 1e-4
 # Attention backward, kernel against plain version on the same inputs.
 # bf16: the tensor cores and the plain f32 einsum sum S and dP in other
 # orders, so a rounded exp2 argument or dP can land one bf16 ulp apart;
@@ -229,9 +278,15 @@ K6_F32_TOL = 1e-5
 # first is the shape its main path gives it, the JSON line reports it.
 # B = 1 is the decoder's batch-constant layer; N = 192, an odd number of
 # 64-row tiles, puts keys past N into the forward's last 128-key tile.
+# MICRO_BATCH is phase 8's: grad_accum's microbatch, on which it runs K1,
+# K2, K4 and K5.
 NPTS = MODEL_PARAMS["num_points"]
+MICRO_BATCH = BATCH // TRAINER_OPTIONS["grad_accum"]
 K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat16),
+            (MICRO_BATCH, NPTS, 4, 64, torch.bfloat16),
             (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32))
+# K4 and K5 at the main path's batch, then at phase 8's microbatch
+CHAMFER_BATCHES = (BATCH, MICRO_BATCH)
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
             (4, NPTS, 2, 128, torch.float32),
@@ -446,82 +501,92 @@ def _chamfer_bytes(b, n, m):
 
 
 def check_chamfer(dev, gen):
+    """K4 at each batch of CHAMFER_BATCHES, bitwise against the plain
+    version and from run to run, and timed; returns the JSON fields of
+    the first."""
     n = MODEL_PARAMS["num_points"]
-    pred = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-    gt = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-    got = chamfer.chamfer_nn_packed(pred, gt)
-    torch.cuda.synchronize()
-    want = chamfer.chamfer_nn_packed_plain(pred, gt)
-    err = max(_max_err(got[0], want[0]), _max_err(got[2], want[2]))
-    same_idx = torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
-    same_bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                    for a, b in ((got[0], want[0]), (got[2], want[2])))
-    same_bits = same_bits and all(
-        torch.equal(a, b) for a, b in zip(chamfer.chamfer_nn_packed(pred, gt), got))
-    ms = _sync_ms(lambda: chamfer.chamfer_nn_packed(pred, gt), 10)
-    device_ms = _device_ms(lambda: chamfer.chamfer_nn_packed(pred, gt))
-    plain_ms = _sync_ms(lambda: chamfer.chamfer_nn_packed_plain(pred, gt), 3, 1)
-    # one d2 a pair (3 sub, 3 mul, 2 add) and a compare a pair each way
-    bound = _bound(10.0 * BATCH * n * n, _chamfer_bytes(BATCH, n, n), torch.float32)
-    print(f"chamfer_nn_packed B={BATCH} N={n}: argmin equal {same_idx}, min bitwise "
-          f"equal and run to run {same_bits}, max|dmin| {err:.3e} (bound {K4_TOL}); kernel "
-          f"{ms:.4f} ms a call back to back (1 launch and the key row's fill), {device_ms:.4f} "
-          f"ms of it on the device, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']})")
-    if not (same_idx and same_bits and err <= K4_TOL):
-        raise AssertionError("chamfer_nn_packed disagrees with its plain version")
-    return dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=None, **bound)
+    res = None
+    for b in CHAMFER_BATCHES:
+        pred = torch.randn(b, n, 3, generator=gen, device=dev)
+        gt = torch.randn(b, n, 3, generator=gen, device=dev)
+        got = chamfer.chamfer_nn_packed(pred, gt)
+        torch.cuda.synchronize()
+        want = chamfer.chamfer_nn_packed_plain(pred, gt)
+        err = max(_max_err(got[0], want[0]), _max_err(got[2], want[2]))
+        same_idx = torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+        same_bits = all(torch.equal(a.view(torch.int32), w.view(torch.int32))
+                        for a, w in ((got[0], want[0]), (got[2], want[2])))
+        same_bits = same_bits and all(
+            torch.equal(a, g_) for a, g_ in zip(chamfer.chamfer_nn_packed(pred, gt), got))
+        ms = _sync_ms(lambda: chamfer.chamfer_nn_packed(pred, gt), 10)
+        device_ms = _device_ms(lambda: chamfer.chamfer_nn_packed(pred, gt))
+        plain_ms = _sync_ms(lambda: chamfer.chamfer_nn_packed_plain(pred, gt), 3, 1)
+        # one d2 a pair (3 sub, 3 mul, 2 add) and a compare a pair each way
+        bound = _bound(10.0 * b * n * n, _chamfer_bytes(b, n, n), torch.float32)
+        print(f"chamfer_nn_packed B={b} N={n}: argmin equal {same_idx}, min bitwise "
+              f"equal and run to run {same_bits}, max|dmin| {err:.3e} (bound {K4_TOL}); kernel "
+              f"{ms:.4f} ms a call back to back (1 launch and the key row's fill), "
+              f"{device_ms:.4f} ms of it on the device, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        if not (same_idx and same_bits and err <= K4_TOL):
+            raise AssertionError(f"chamfer_nn_packed disagrees with its plain version (B={b})")
+        if res is None:
+            res = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       library_ms=None, **bound)
+    return res
 
 
 def check_chamfer_bwd(dev, gen):
-    """K5 on random clouds (the row the JSON line reports) and on skewed
-    ones (half of gt on 4 pred points, long inverse lists), each bitwise
+    """K5 at each batch of CHAMFER_BATCHES on random clouds (the first
+    batch's row is the one the JSON line reports) and on skewed ones
+    (half of gt on 4 pred points, long inverse lists), each bitwise
     against the plain version run on the CPU and from run to run, and
     timed; on random clouds also within K5_TOL of the plain version on
     the card."""
     n = MODEL_PARAMS["num_points"]
     res = None
-    for inputs in ("random", "skewed"):
-        pred = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-        gt = torch.randn(BATCH, n, 3, generator=gen, device=dev)
-        if inputs == "skewed":
-            gt[:, : n // 2] = pred[:, :4].repeat(1, n // 8, 1) + 1e-3
-        _, argp, _, argg = chamfer.chamfer_nn_packed(pred, gt)
-        got = chamfer.chamfer_bwd(pred, gt, argp, argg)
-        torch.cuda.synchronize()
-        want = chamfer.chamfer_bwd_plain(pred, gt, argp, argg)
-        errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
-        bounds = [K5_TOL * float(w_.abs().max()) for w_ in want]
-        cpu = chamfer.chamfer_bwd_plain(pred.cpu(), gt.cpu(), argp.cpu(), argg.cpu())
-        same_cpu = all(torch.equal(g_.cpu(), c_) for g_, c_ in zip(got, cpu))
-        again = chamfer.chamfer_bwd(pred, gt, argp, argg)
-        repeat = all(torch.equal(a_, g_) for a_, g_ in zip(again, got))
-        ms = _sync_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg), 10)
-        device_ms = _device_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg))
-        plain_ms = _sync_ms(lambda: chamfer.chamfer_bwd_plain(pred, gt, argp, argg), 3, 1)
-        # a point a side: 3 sub and 3 mul for its own term, 3 adds scattered;
-        # clouds and argmins read, both gradients written
-        bound = _bound(9.0 * 2 * BATCH * n, 2 * BATCH * n * (12 + 4 + 12), torch.float32)
-        longest = int(torch.bincount(argg[0].long()).max())
-        print(f"chamfer_bwd B={BATCH} N={n} {inputs} (longest inverse list {longest}): "
-              "max|d dpred, dgt| from the card's plain version "
-              + ", ".join(f"{e:.3e}" + ("" if inputs == "skewed" else f" (bound {t:.3e})")
-                          for e, t in zip(errs, bounds))
-              + f", bitwise equal to the CPU plain version {same_cpu}, run to run {repeat}; "
-              f"kernel {ms:.4f} ms a call back to back, {device_ms:.4f} ms of it on the device, "
-              f"plain "
-              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        # the card's plain version adds with atomics, in an order that changes
-        # from run to run; a list of hundreds of terms can move it by more
-        # than K5_TOL (the line above prints how far), so there the CPU
-        # run, which adds in the kernel's order, decides alone
-        near = inputs == "skewed" or all(e <= t for e, t in zip(errs, bounds))
-        if not (near and same_cpu and repeat):
-            raise AssertionError(f"chamfer_bwd disagrees with its plain version ({inputs})")
-        if res is None:
-            res = dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                       library_ms=None, **bound)
+    for b in CHAMFER_BATCHES:
+        for inputs in ("random", "skewed"):
+            pred = torch.randn(b, n, 3, generator=gen, device=dev)
+            gt = torch.randn(b, n, 3, generator=gen, device=dev)
+            if inputs == "skewed":
+                gt[:, : n // 2] = pred[:, :4].repeat(1, n // 8, 1) + 1e-3
+            _, argp, _, argg = chamfer.chamfer_nn_packed(pred, gt)
+            got = chamfer.chamfer_bwd(pred, gt, argp, argg)
+            torch.cuda.synchronize()
+            want = chamfer.chamfer_bwd_plain(pred, gt, argp, argg)
+            errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
+            bounds = [K5_TOL * float(w_.abs().max()) for w_ in want]
+            cpu = chamfer.chamfer_bwd_plain(pred.cpu(), gt.cpu(), argp.cpu(), argg.cpu())
+            same_cpu = all(torch.equal(g_.cpu(), c_) for g_, c_ in zip(got, cpu))
+            again = chamfer.chamfer_bwd(pred, gt, argp, argg)
+            repeat = all(torch.equal(a_, g_) for a_, g_ in zip(again, got))
+            ms = _sync_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg), 10)
+            device_ms = _device_ms(lambda: chamfer.chamfer_bwd(pred, gt, argp, argg))
+            plain_ms = _sync_ms(lambda: chamfer.chamfer_bwd_plain(pred, gt, argp, argg), 3, 1)
+            # a point a side: 3 sub and 3 mul for its own term, 3 adds scattered;
+            # clouds and argmins read, both gradients written
+            bound = _bound(9.0 * 2 * b * n, 2 * b * n * (12 + 4 + 12), torch.float32)
+            longest = int(torch.bincount(argg[0].long()).max())
+            print(f"chamfer_bwd B={b} N={n} {inputs} (longest inverse list {longest}): "
+                  "max|d dpred, dgt| from the card's plain version "
+                  + ", ".join(f"{e:.3e}" + ("" if inputs == "skewed" else f" (bound {t:.3e})")
+                              for e, t in zip(errs, bounds))
+                  + f", bitwise equal to the CPU plain version {same_cpu}, run to run "
+                  f"{repeat}; kernel {ms:.4f} ms a call back to back, {device_ms:.4f} ms of it "
+                  f"on the device, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']})")
+            # the card's plain version adds with atomics, in an order that changes
+            # from run to run; a list of hundreds of terms can move it by more
+            # than K5_TOL (the line above prints how far), so there the CPU
+            # run, which adds in the kernel's order, decides alone
+            near = inputs == "skewed" or all(e <= t for e, t in zip(errs, bounds))
+            if not (near and same_cpu and repeat):
+                raise AssertionError(
+                    f"chamfer_bwd disagrees with its plain version ({inputs}, B={b})")
+            if res is None:
+                res = dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms,
+                           plain_ms=plain_ms, library_ms=None, **bound)
     return res
 
 
@@ -677,10 +742,10 @@ def phase_eval_generation(dev):
                      others)
 
 
-def _build(exp_type, params):
+def _build(exp_type, params, seed=SEED):
     return build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
                        alpha=params.get("alpha_list", [0.01])[0],
-                       generator=torch.Generator().manual_seed(SEED))
+                       generator=torch.Generator().manual_seed(seed))
 
 
 def _clouds_and_noise(count, batch, params, dev, seed):
@@ -691,25 +756,29 @@ def _clouds_and_noise(count, batch, params, dev, seed):
     return xs, torch.randn(count, batch, latent, generator=gen).to(dev)
 
 
-def _time_train_step(exp_type, params, batch, dev, tag="bf16"):
-    """Median ms/step of make_train_step over TIMED_STEPS steps after two
-    warm-up steps, host clock, each step ending in a scalar fetch."""
+def _time_train_step(exp_type, params, batch, dev, tag="bf16", n_micro=1, dropout=False,
+                     steps=TIMED_STEPS):
+    """Median ms/step of the train step (make_train_step, or with n_micro
+    > 1 make_accum_train_step; with `dropout`, keep masks from a CUDA
+    generator) over `steps` steps after two warm-up steps, host clock,
+    each step ending in a scalar fetch."""
     model = _build(exp_type, params).to(dev)
-    step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
-    xs, eps = _clouds_and_noise(TIMED_STEPS + 2, batch, params, dev, SEED + 4)
+    step = make_accum_train_step(model, make_optimizer(model.parameters(), lr=LR), n_micro)
+    masks = torch.Generator(device=dev).manual_seed(SEED) if dropout else None
+    xs, eps = _clouds_and_noise(steps + 2, batch, params, dev, SEED + 4)
     for i in range(2):
-        float(step(xs[i], eps[i], 0.5)["loss"])
+        float(step(xs[i], eps[i], 0.5, masks)["loss"])
     times, terms = [], []
-    for i in range(2, TIMED_STEPS + 2):
+    for i in range(2, steps + 2):
         t0 = time.perf_counter()
-        terms.append({k: float(v) for k, v in step(xs[i], eps[i], 0.5).items()})
+        terms.append({k: float(v) for k, v in step(xs[i], eps[i], 0.5, masks).items()})
         times.append((time.perf_counter() - t0) * 1e3)
     if not all(math.isfinite(v) for t in terms for v in t.values()):
         raise AssertionError(f"{exp_type} train step ({tag}): non-finite loss terms {terms}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"train step {exp_type} B={batch} N={params['num_points']} {tag}: "
           f"{statistics.median(times):.3f} ms/step median, {statistics.mean(times):.3f} mean "
-          f"over {TIMED_STEPS} steps (host clock, each step ends in a scalar fetch); losses "
+          f"over {steps} steps (host clock, each step ends in a scalar fetch); losses "
           f"{[round(t['loss'], 4) for t in terms]}; peak device memory so far {peak:.2f} GiB")
     return statistics.median(times)
 
@@ -850,31 +919,62 @@ def phase_routes(dev):
         raise AssertionError(f"best_chamfer at B={b} is not the exact tiled value")
 
 
-def _train_step_once(where, params, x, eps):
+class _MaskTape:
+    """Keep masks for dropout: drawn on the host from a seeded generator
+    and recorded on the first run, handed out again in the same order on
+    the second, so the card and the CPU drop the same elements."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.masks, self.next = [], None
+
+    def __call__(self, shape, keep_prob):
+        if self.next is None:
+            self.masks.append(torch.rand(shape, generator=self.gen) < keep_prob)
+            return self.masks[-1]
+        self.next += 1
+        return self.masks[self.next - 1]
+
+    def replay(self):
+        self.next = 0
+        return self
+
+
+def _train_step_once(where, exp_type, params, x, eps, masks=None):
     """One train step at lr LR from the seeded weights: (loss terms,
-    gradients, parameters after the update), on the host."""
-    model = _build("setvae", params).to(where)
+    gradients, parameters after the update, buffers after it), on the
+    host."""
+    model = _build(exp_type, params).to(where)
     step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
     terms = {k: float(v) for k, v in step(torch.from_numpy(x).to(where),
-                                          torch.from_numpy(eps).to(where)).items()}
+                                          torch.from_numpy(eps).to(where), 0.5, masks).items()}
     grads = {k: None if p.grad is None else p.grad.float().cpu()
              for k, p in model.named_parameters()}
     after = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
-    return terms, grads, after
+    buffers = {k: b.float().cpu() for k, b in model.named_buffers()}
+    return terms, grads, after, buffers
 
 
-def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_share):
-    (t_cpu, g_cpu, p_cpu), (t_dev, g_dev, p_dev) = (
-        _train_step_once(where, params, x, eps) for where in ("cpu", dev))
-    initial = _build("setvae", params).state_dict()
+def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_share,
+                        exp_type="setvae", masks=None):
+    """One train step on the CPU and on the card from the same weights,
+    clouds, noise and (with `masks`, a _MaskTape) keep masks."""
+    t_cpu, g_cpu, p_cpu, b_cpu = _train_step_once("cpu", exp_type, params, x, eps, masks)
+    t_dev, g_dev, p_dev, b_dev = _train_step_once(dev, exp_type, params, x, eps,
+                                                  masks and masks.replay())
+    initial = _build(exp_type, params).state_dict()
     rel = max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12)
               for k in ("loss", "recon", "reg", "raw_kl"))
     if {k for k, g in g_cpu.items() if g is None} != {k for k, g in g_dev.items() if g is None}:
         raise AssertionError(f"train step {tag}: card and CPU give gradients to other parameters")
     # a key projection's bias has an analytically zero gradient (the
-    # softmax is shift-invariant along each row): what is computed is
-    # roundoff on either side, so it is left out of the comparisons
-    keys = [k for k, g in g_cpu.items() if g is not None and not k.endswith("key.bias")]
+    # softmax is shift-invariant along each row), as have the DeepSets
+    # hidden Dense biases (a BatchNorm follows each): what is computed is
+    # roundoff on either side, which Adam's first update turns into +-lr,
+    # so they are left out of the comparisons
+    skip = pre_batchnorm_biases(g_cpu)
+    keys = [k for k, g in g_cpu.items()
+            if g is not None and not k.endswith("key.bias") and k not in skip]
     diff = math.sqrt(sum(float(((g_dev[k] - g_cpu[k]) ** 2).sum()) for k in keys))
     norm = math.sqrt(sum(float((g_cpu[k] ** 2).sum()) for k in keys))
     grad_rel = diff / norm
@@ -885,13 +985,19 @@ def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_sh
     share = float((deltas > LR / 10).float().mean())
     frozen = [k for k, g in g_dev.items() if g is None]
     unchanged = all(torch.equal(p_dev[k], initial[k].float()) for k in frozen)
+    # the cross-attention's query/key get no gradient unless dropout sends
+    # it through the materialised scores; the DeepSets models have none
+    want_frozen = masks is None and params.get("use_attention", True)
+    stats = max((float((b_dev[k] - b_cpu[k]).abs().max()) / max(1.0, float(b_cpu[k].abs().max()))
+                 for k in b_cpu), default=0.0)
     print(f"reference train step {tag}: loss terms max rel diff {rel:.3e} (bound {loss_rtol}); "
           f"gradient rel L2 diff {grad_rel:.3e} (bound {grad_rtol}) over {len(keys)} tensors; "
           f"updated params: share moved apart by > lr/10 {share:.3e} (bound {moved_share}), "
           f"max|d| {float(deltas.max()):.3e} (not bounded); {len(frozen)} parameters without a "
-          f"gradient unchanged: {unchanged}; cpu {t_cpu} card {t_dev}")
+          f"gradient unchanged: {unchanged}; BatchNorm running statistics over {len(b_cpu)} "
+          f"buffers max rel diff {stats:.3e} (bound {REF_BN_TOL}); cpu {t_cpu} card {t_dev}")
     if not (rel <= loss_rtol and grad_rel <= grad_rtol and share <= moved_share
-            and unchanged and frozen):
+            and unchanged and bool(frozen) == want_frozen and stats <= REF_BN_TOL):
         raise AssertionError(f"card and CPU train steps disagree ({tag})")
 
 
@@ -944,6 +1050,137 @@ def phase_reference(dev):
             raise AssertionError("the VST_FUSED_FFN=1 reference did not run the fused FFN")
 
 
+CHAMFER_PATH = ("chamfer_nn_packed", "chamfer_bwd")
+
+
+def _others(ran):
+    """Every kernel but those of `ran`."""
+    return tuple(k for k in COUNTERS if k not in ran)
+
+
+def phase_deepsets(dev):
+    """The DeepSets SetVAE at the shipped widths: train step, eval step,
+    generation; then card against CPU for SetVAE and SetLRVAE."""
+    params = dict(MODEL_PARAMS, **DEEPSETS_OVERRIDE)
+    tag = "f32 DeepSets"
+    _reset_launches()
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    _time_eval_step("setvae", params, BATCH, dev, tag)
+    model = _build("setvae", params).to(dev)
+    generate_samples(model, BATCH, BATCH, seed=SEED)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = generate_samples(model, GEN_BATCHES * BATCH, BATCH, seed=SEED + 1)
+    gen_s = time.perf_counter() - t0
+    launches = _read_launches()
+    print(f"generation {tag}: {samples.shape} in {gen_s:.4f} s -> "
+          f"{samples.shape[0] / gen_s:.1f} clouds/s")
+    if samples.shape != (GEN_BATCHES * BATCH, params["num_points"], 3) or not np.isfinite(
+            samples).all():
+        raise AssertionError(f"bad generated clouds: shape {samples.shape}")
+    _expect_launches(launches, "the DeepSets path", CHAMFER_PATH, _others(CHAMFER_PATH))
+    n, latent = params["num_points"], params["latent_channel"]
+    x, _ = fake_point_clouds(REF_CLOUDS, n, seed=SEED + 2)
+    eps = np.random.default_rng(SEED + 3).standard_normal((REF_CLOUDS, latent)).astype(np.float32)
+    for exp_type, mp in (("setvae", params), ("setlrvae", dict(params, **SETLRVAE_PARAMS))):
+        _compare_train_step(dev, f"DeepSets {exp_type} f32", x, eps, mp, REF_F32_LOSS_RTOL,
+                            REF_F32_GRAD_RTOL, REF_F32_MOVED_SHARE, exp_type)
+    return launches
+
+
+def phase_dropout(dev):
+    """The shipped SetVAE with attn_dropout 0.1: train steps (no attention
+    kernel), peak memory, the eval step (K1); card against CPU with the
+    same masks at a reduced size."""
+    params = dict(MODEL_PARAMS, **DROPOUT_OVERRIDE)
+    train = None
+    for batch in DROPOUT_BATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        try:
+            _time_train_step("setvae", params, batch, dev, "bf16 attn_dropout 0.1", dropout=True,
+                             steps=DROPOUT_STEPS)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"dropout train step at B={batch} does not fit the card: {str(e)[:200]}")
+            continue
+        train = _read_launches()
+        print(f"dropout train step B={batch}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated)")
+        break
+    if train is None:
+        raise AssertionError(f"the dropout train step fits at none of B = {DROPOUT_BATCHES}")
+    _expect_launches(train, "dropout training", CHAMFER_PATH, _others(CHAMFER_PATH))
+    _reset_launches()
+    _time_eval_step("setvae", params, BATCH, dev, "bf16 attn_dropout 0.1")
+    evaluation = _read_launches()
+    ran = ("dense_attn_fwd", "chamfer_nn_packed")
+    _expect_launches(evaluation, "eval with attn_dropout 0.1", ran, _others(ran))
+    ref = dict(params, num_points=DROPOUT_REF_POINTS)
+    x, _ = fake_point_clouds(REF_CLOUDS, DROPOUT_REF_POINTS, seed=SEED + 2)
+    eps = np.random.default_rng(SEED + 3).standard_normal(
+        (REF_CLOUDS, ref["latent_channel"])).astype(np.float32)
+    for mixed, bounds in ((False, (REF_F32_LOSS_RTOL, REF_F32_GRAD_RTOL, REF_F32_MOVED_SHARE)),
+                          (True, (REF_BF16_LOSS_RTOL, REF_BF16_GRAD_RTOL, REF_BF16_MOVED_SHARE))):
+        _compare_train_step(dev, f"attn_dropout 0.1 N={DROPOUT_REF_POINTS} "
+                            f"{'bf16' if mixed else 'f32'}", x, eps,
+                            dict(ref, mixed_precision=mixed), *bounds,
+                            masks=_MaskTape(SEED + 8))
+    return train, evaluation
+
+
+def _same_state(a, b) -> bool:
+    """Parameters, statistics, Adam's moments, count and step bit for bit."""
+    same = all(torch.equal(v, w) for v, w in zip(a.model.state_dict().values(),
+                                                 b.model.state_dict().values()))
+    for name in ("mu", "nu"):
+        same = same and all(torch.equal(v, w) for v, w in zip(
+            adam_state(a)[name].values(), adam_state(b)[name].values()))
+    return same and (a.optimizer.count, a.step) == (b.optimizer.count, b.step)
+
+
+def phase_trainer_options(dev):
+    """train_and_test with checkpoint_every, async_checkpoint and
+    grad_accum at full width, then a resumed run that must end where the
+    continuous one did; the grad_accum 2 train step's ms/step."""
+    kw = dict(epochs=TRAIN_EPOCHS, batch_size=BATCH, dataset_name=COMMON_PARAMS["exp_data"],
+              grad_clip=COMMON_PARAMS["grad_clip"], seed=SEED, lr=LR, device=dev,
+              dataset_params=dict(COMMON_PARAMS["dataset_params"], fake=True))
+    with tempfile.TemporaryDirectory() as root:
+        _reset_launches()
+        t0 = time.perf_counter()
+        cont, summary = train_and_test(_build("setvae", MODEL_PARAMS),
+                                       output_root=os.path.join(root, "a"), **TRAINER_OPTIONS,
+                                       **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        params_dir = os.path.join(summary["result_dir"], "params")
+        written = sorted(os.listdir(params_dir))
+        resumed, _ = train_and_test(_build("setvae", MODEL_PARAMS, seed=SEED + 1),
+                                    output_root=os.path.join(root, "b"),
+                                    resume_from=os.path.join(params_dir, "ckpt_0.pkl"),
+                                    grad_accum=TRAINER_OPTIONS["grad_accum"], **kw)
+        same = _same_state(cont, resumed)
+    print(f"train_and_test {TRAINER_OPTIONS}: {TRAIN_EPOCHS} epochs of "
+          f"{cont.step // TRAIN_EPOCHS} steps at B={BATCH} in {wall:.2f} s; wrote {written}; "
+          f"final eval {summary['eval']}; resumed from ckpt_0.pkl: step {resumed.step}, final "
+          f"parameters, statistics and Adam state bitwise equal to the continuous run's {same}")
+    if written != [f"ckpt_{e}.pkl" for e in range(TRAIN_EPOCHS)] + [
+            f"model_{TRAIN_EPOCHS - 1}.pkl"]:
+        raise AssertionError(f"train_and_test did not write its checkpoints: {written}")
+    if not (same and all(math.isfinite(v) for v in summary["eval"].values())):
+        raise AssertionError("the resumed run does not end where the continuous run did")
+    _expect_launches(launches, "train_and_test with grad_accum 2", PACKED_PATH,
+                     _others(PACKED_PATH))
+    _time_train_step("setvae", MODEL_PARAMS, BATCH, dev,
+                     f"bf16 grad_accum {TRAINER_OPTIONS['grad_accum']}",
+                     n_micro=TRAINER_OPTIONS["grad_accum"])
+    return launches
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -972,6 +1209,9 @@ def main():
     fused = _timed(phase_fused_ffn, dev)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
+    paths = {"deepsets": _timed(phase_deepsets, dev)}
+    paths["dropout_train"], paths["dropout_eval"] = _timed(phase_dropout, dev)
+    paths["trainer_options"] = _timed(phase_trainer_options, dev)
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),
@@ -985,7 +1225,8 @@ def main():
         ("ffn_bwd", "ffn_bwd.cu", "vae_song_tpu/ops/ffn.py:104", fused, k6b),
     )
     kernels = [dict(name=name, route="cuda", source=f"vae_song_tpu_torch/csrc/{src}",
-                    replaces=replaces, launches=launches[name], **numbers)
+                    replaces=replaces, launches=launches[name], **numbers,
+                    paths={path: counts[name] for path, counts in paths.items()})
                for name, src, replaces, launches, numbers in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ card, at the shipped ShapeNet configs (SetVAE at B = 64, SetLRVAE at
 its config's B = 16; random weights from a seed, fake clouds), then at
 the further paths chip_smoke.py phase 4c drives: SetVAE with
 `num_heads: 2` (the BHND attention route, K3f / K3b), and SetVAE and
-SetLRVAE with VST_FUSED_FFN=1 (the fused FFN, K6f / K6b).
+SetLRVAE with VST_FUSED_FFN=1 (the fused FFN, K6f / K6b); then those of
+phases 6-8: the DeepSets SetVAE (f32), SetVAE with `attn_dropout: 0.1`
+(keep masks from a CUDA generator) and SetVAE under `grad_accum: 2`.
 
     python scripts/profile_torch_step.py
 
@@ -33,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 from vae_song_tpu_torch.data.shapenet import fake_point_clouds  # noqa: E402
 from vae_song_tpu_torch.models.registry import build_model  # noqa: E402
 from vae_song_tpu_torch.train.state import make_optimizer  # noqa: E402
-from vae_song_tpu_torch.train.steps import make_train_step  # noqa: E402
+from vae_song_tpu_torch.train.steps import make_accum_train_step  # noqa: E402
 
 PROFILED, TIMED = 4, 8
 CLASSES = (
@@ -50,6 +52,8 @@ CLASSES = (
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv")),
     ("LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),
     ("Adam (foreach)", ("multi_tensor", "foreach")),
+    ("softmax fwd+bwd", ("softmax",)),
+    ("random numbers (dropout masks)", ("distribution", "philox", "rand")),
     ("reductions (bias grads, sums)", ("reduce_kernel",)),
     ("dtype casts / copies", ("copy_kernel", "direct_copy")),
     ("adds", ("CUDAFunctor_add",)),
@@ -63,29 +67,30 @@ def classify(name):
     return "other elementwise"
 
 
-def run(exp_type, params, batch, dev, tag="bf16"):
+def run(exp_type, params, batch, dev, tag="bf16", n_micro=1, dropout=False):
     n, latent = params["num_points"], params["latent_channel"]
     model = build_model(exp_type, "shapenet", params, beta=params["beta_list"][0],
                         alpha=params.get("alpha_list", [0.01])[0],
                         generator=torch.Generator().manual_seed(0)).to(dev)
-    step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
+    step = make_accum_train_step(model, make_optimizer(model.parameters(), lr=1e-2), n_micro)
+    masks = torch.Generator(device=dev).manual_seed(6) if dropout else None
     total = 3 + TIMED + PROFILED
     x_all, _ = fake_point_clouds(batch * total, n, seed=4)
     xs = torch.from_numpy(x_all).to(dev).view(total, batch, n, 3)
     eps = torch.randn(total, batch, latent, generator=torch.Generator().manual_seed(5)).to(dev)
     for i in range(3):
-        float(step(xs[i], eps[i], 0.5)["loss"])
+        float(step(xs[i], eps[i], 0.5, masks)["loss"])
     times = []
     for i in range(3, 3 + TIMED):
         t0 = time.perf_counter()
-        float(step(xs[i], eps[i], 0.5)["loss"])
+        float(step(xs[i], eps[i], 0.5, masks)["loss"])
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(3 + TIMED, total):
-            float(step(xs[i], eps[i], 0.5)["loss"])
+            float(step(xs[i], eps[i], 0.5, masks)["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events, without the GPU ranges of user annotations
@@ -139,6 +144,11 @@ def main():
     with mock.patch.dict(os.environ, cs.FUSED_FFN_ENV):
         run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev, "bf16 VST_FUSED_FFN=1")
         run("setlrvae", lr_params, cs.SETLRVAE_BATCH, dev, "bf16 VST_FUSED_FFN=1")
+    run("setvae", dict(cs.MODEL_PARAMS, **cs.DEEPSETS_OVERRIDE), cs.BATCH, dev, "f32 DeepSets")
+    run("setvae", dict(cs.MODEL_PARAMS, **cs.DROPOUT_OVERRIDE), cs.BATCH, dev,
+        "bf16 attn_dropout 0.1", dropout=True)
+    accum = cs.TRAINER_OPTIONS["grad_accum"]
+    run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev, f"bf16 grad_accum {accum}", n_micro=accum)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ run them there without the conftest:
 """
 
 import math
+import os
 
 import pytest
 import torch
@@ -185,31 +186,45 @@ ALL_COUNTERS = (denseattn.dense_attention_fwd, denseattn.dense_attention_bwd,
                 ffn.fused_ffn_fwd, ffn.fused_ffn_bwd)
 
 
-def _train_step_launches(dev, **overrides):
-    """One SetVAE train step on the card with the given model params:
-    finite loss terms, every parameter with a gradient moved; returns the
-    launches of each kernel of ALL_COUNTERS."""
+def _train_step_launches(dev, n_micro=1, dropout=False, kind="setvae", **overrides):
+    """One SetVAE train step on the card with the given model params (with
+    n_micro > 1 the accumulated step over 8 clouds a microbatch; with
+    `dropout`, keep masks from a CUDA generator): finite loss terms, every
+    parameter with a gradient moved; returns the launches of each kernel
+    of ALL_COUNTERS."""
     from vae_song_tpu_torch.models.registry import build_model
+    from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
     from vae_song_tpu_torch.train.state import make_optimizer
-    from vae_song_tpu_torch.train.steps import make_train_step
+    from vae_song_tpu_torch.train.steps import make_accum_train_step
 
     mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
               num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
     mp.update(overrides)
-    model = build_model("setvae", "shapenet", mp, generator=torch.Generator().manual_seed(0))
+    model = build_model(kind, "shapenet", mp, generator=torch.Generator().manual_seed(0))
     model.to(dev)
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    step = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))
+    step = make_accum_train_step(model, make_optimizer(model.parameters(), lr=1e-2), n_micro)
     start = [f.launches for f in ALL_COUNTERS]
     gen = torch.Generator(device=dev).manual_seed(1)
-    # 8 clouds: a batch the packed Chamfer gate takes (B % 8 == 0)
-    out = step(torch.randn(8, 256, 3, generator=gen, device=dev),
-               torch.randn(8, 16, generator=gen, device=dev))
+    # 8 clouds a microbatch: a batch the packed Chamfer gate takes (B % 8 == 0)
+    b = 8 * n_micro
+    out = step(torch.randn(b, 256, 3, generator=gen, device=dev),
+               torch.randn(b, 16, generator=gen, device=dev), 0.5,
+               torch.Generator(device=dev).manual_seed(2) if dropout else None)
     assert all(math.isfinite(float(v)) for v in out.values())
+    # a key bias, and a Dense bias that a BatchNorm follows, have an
+    # analytically zero gradient (roundoff only)
+    pre_bn = pre_batchnorm_biases(before)
     for name, p in model.named_parameters():
-        # a key bias has an analytically zero gradient (roundoff only)
-        if p.grad is not None and not name.endswith("key.bias"):
+        # the cross-attention's query and key: softmax over one key is 1,
+        # so their gradient is none, or with dropout exactly zero
+        one_key = "cross_attn.query" in name or "cross_attn.key" in name
+        if p.grad is not None and not name.endswith("key.bias") and not (
+                name in pre_bn or one_key):
             assert not torch.equal(p.detach(), before[name]), name
+    if dropout:
+        # the materialised scores give every parameter a gradient, as in JAX
+        assert all(p.grad is not None for p in model.parameters())
     return [f.launches - s for f, s in zip(ALL_COUNTERS, start)]
 
 
@@ -218,6 +233,65 @@ def test_train_step_runs_the_kernels(dev):
     2 encoder + 2 decoder self-attentions; the Chamfer forward is one
     launch for both sides."""
     assert _train_step_launches(dev) == [4, 4, 0, 0, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("kind", ["setvae", "setlrvae"])
+def test_deepsets_train_step_runs_the_chamfer_kernels(dev, kind):
+    """The DeepSets models (use_attention false): K4 and K5 only (SetLRVAE
+    computes one Chamfer loss too)."""
+    launches = _train_step_launches(dev, kind=kind, use_attention=False,
+                                    encoder_hidden=[32, 64], decoder_hidden=[64, 32])
+    assert launches == [0, 0, 0, 0, 1, 1, 0, 0]
+
+
+def test_dropout_train_step_runs_no_attention_kernel(dev):
+    """attn_dropout > 0 in training: every attention materialises its
+    scores (no K1, K2); the Chamfer kernels run."""
+    assert _train_step_launches(dev, dropout=True, attn_dropout=0.1) == [0, 0, 0, 0, 1, 1, 0, 0]
+
+
+def test_dropout_draws_its_mask_on_the_card(dev):
+    """A CUDA generator draws the keep mask on the card; a CPU generator
+    for a tensor on the card raises."""
+    from vae_song_tpu_torch.nn.blocks import dropout
+
+    x = torch.ones(64, 64, device=dev)
+    a = dropout(x, 0.25, torch.Generator(device=dev).manual_seed(3))
+    assert a.device == x.device and 0.7 < float((a > 0).float().mean()) < 0.8
+    with pytest.raises(ValueError):
+        dropout(x, 0.25, torch.Generator().manual_seed(3))
+
+
+def test_accum_train_step_runs_the_kernels_per_microbatch(dev):
+    """grad_accum 2: K1, K2, K4 and K5 once a microbatch each."""
+    assert _train_step_launches(dev, n_micro=2) == [8, 8, 0, 0, 2, 2, 0, 0]
+
+
+def test_resume_on_card_replays_the_continuous_run(dev, tmp_path):
+    """train_and_test on the card with checkpoint_every, async_checkpoint
+    and grad_accum, then a fresh model resumed from the first checkpoint:
+    the same final state bit for bit (every kernel is repeatable)."""
+    from vae_song_tpu_torch.models.registry import build_model
+    from vae_song_tpu_torch.train.loop import train_and_test
+    from vae_song_tpu_torch.train.state import adam_state
+
+    mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
+              num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
+    kw = dict(epochs=2, batch_size=16, dataset_name="shapenet", seed=3, device=dev,
+              grad_accum=2, dataset_params={"fake": True, "num_points": 256,
+                                            "num_samples": 32, "num_test_samples": 16})
+    mk = lambda seed: build_model("setlrvae", "shapenet", mp,
+                                  generator=torch.Generator().manual_seed(seed))
+    cont, summary = train_and_test(mk(0), output_root=str(tmp_path / "a"), checkpoint_every=1,
+                                   async_checkpoint=True, **kw)
+    ckpt = os.path.join(summary["result_dir"], "params", "ckpt_0.pkl")
+    resumed, _ = train_and_test(mk(1), output_root=str(tmp_path / "b"), resume_from=ckpt, **kw)
+    for (k, v), w in zip(cont.model.state_dict().items(), resumed.model.state_dict().values()):
+        assert torch.equal(v, w), k
+    for name in ("mu", "nu"):
+        for k, v in adam_state(cont)[name].items():
+            assert torch.equal(v, adam_state(resumed)[name][k]), (name, k)
+    assert cont.step == resumed.step == 4
 
 
 def test_train_step_with_wide_heads_runs_the_bhnd_kernels(dev):

@@ -118,6 +118,30 @@ def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch)
     assert "_time_train_step('setlrvae', lr_params, SETLRVAE_BATCH, dev, tag)" in fused
 
 
+def test_chip_smoke_slice_paths_are_shipped_configs_with_one_override():
+    """Phases 6-8 run the shipped SetVAE config with one stated change
+    each: `use_attention: false` (the DeepSets models at the file's own
+    encoder_hidden / decoder_hidden widths), `attn_dropout: 0.1`, and the
+    trainer options (keys the trainer takes) on the config as it is."""
+    import inspect
+
+    from vae_song_tpu_torch.train.loop import train_and_test
+
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    mp = config["model_params"]
+    for name, want in (("DEEPSETS_OVERRIDE", {"use_attention": False}),
+                       ("DROPOUT_OVERRIDE", {"attn_dropout": 0.1})):
+        override = _smoke_literal(name)
+        assert override == want and set(override) <= set(mp)
+        assert f"params = dict(MODEL_PARAMS, **{name})" in _smoke_function(
+            "phase_deepsets" if name == "DEEPSETS_OVERRIDE" else "phase_dropout")
+    assert mp["encoder_hidden"] == [128, 256, 512] and mp["decoder_hidden"] == [512, 256, 128]
+    options = _smoke_literal("TRAINER_OPTIONS")
+    assert options == {"checkpoint_every": 1, "async_checkpoint": True, "grad_accum": 2}
+    assert set(options) <= set(inspect.signature(train_and_test).parameters)
+    assert config["common_params"]["batch_size"] % options["grad_accum"] == 0
+
+
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
     """No CUDA card here: non-zero exit, no result line. In a directory
     holding only chip_smoke.py: non-zero exit too."""

@@ -238,13 +238,7 @@ def test_unported_families_name_their_roadmap_item(exp_type):
 
 def test_unported_set_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("setvae", "shapenet", dict(MODEL_PARAMS, use_attention=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model("setvae", "shapenet", dict(MODEL_PARAMS, moe_experts=2))
-    mha = MultiHeadAttention(128, 2, dropout_rate=0.1).train()
-    x = torch.zeros(1, 128, 128)
-    with pytest.raises(NotImplementedError):
-        mha(x, x)
 
 
 def test_seeded_init_follows_reference_bounds():

@@ -37,6 +37,8 @@ from vae_song_tpu_torch.ops import chamfer, denseattn
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
 
+from jax_parity import grads_capture
+
 B, N, LATENT = 8, 128, 16          # the Pallas Chamfer needs B % 8 == 0
 MODEL_PARAMS = dict(latent_channel=LATENT, num_points=N, d_model=128, num_heads=2,
                     num_encoder_layers=2, num_decoder_layers=2, ff_dim=64)
@@ -315,16 +317,6 @@ def test_adam_with_clip_matches_optax_over_steps():
 # ---------------------------------------------------------------- train step
 
 
-def _grads_capture():
-    """A gradient transformation that passes its input through and keeps
-    it as its state, so the jitted JAX train step hands back the
-    gradient it computed."""
-    return optax.GradientTransformation(
-        lambda params: jax.tree.map(jnp.zeros_like, params),
-        lambda updates, state, params=None: (updates, updates),
-    )
-
-
 def _patch_jax_kernels(monkeypatch):
     """JAX MultiHeadAttention through its packed Pallas kernel and the
     set models' Chamfer through its Pallas forward and backward, all in
@@ -364,7 +356,7 @@ def _train_both(monkeypatch, kind, mixed, overrides=None):
     normal = jax.random.normal
     monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: (
         jnp.asarray(eps, dtype) if tuple(shape) == (B, LATENT) else normal(key, shape, dtype)))
-    tx = optax.chain(_grads_capture(), jax_state.make_optimizer(lr=LR, total_steps=STEPS))
+    tx = optax.chain(grads_capture(), jax_state.make_optimizer(lr=LR, total_steps=STEPS))
     state = jax_state.TrainState.create(params, {}, tx)
     step = jax_make_train_step(jmodel, tx)
     jax_metrics, jax_grads = [], None

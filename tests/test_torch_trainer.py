@@ -3,7 +3,9 @@
 export loads into the JAX package, options it does not port raise, and
 the helpers it copies from the JAX package (batches, warmup, posterior
 metrics, TensorBoard records, unified CSV, config sweep) give the JAX
-package's results."""
+package's results. The trainer options that are ported (grad_accum,
+resume_from, checkpoint_every, async_checkpoint) have their own file,
+tests/test_torch_trainer_options.py."""
 
 import csv
 import glob
@@ -114,9 +116,6 @@ def test_saved_params_load_into_jax_and_decode_the_same_clouds(tmp_path):
     ({"data_parallel": True}, "Queue 1 item 15"),
     ({"tensor_parallel": 2}, "Queue 1 item 15"),
     ({"fsdp": True}, "Queue 1 item 15"),
-    ({"grad_accum": 2}, "Queue 1 item 17"),
-    ({"resume_from": "ckpt"}, "Queue 1 item 17"),
-    ({"checkpoint_every": 1}, "Queue 1 item 17"),
     ({"profile_dir": "prof"}, "Queue 1 item 16"),
     ({"native_prefetch": True}, "Queue 1 item 10"),
     ({"epochs": -1}, "Queue 1 item 13"),

@@ -2,8 +2,9 @@
 NVIDIA Hopper card (H100, sm_90a).
 
 The JAX package vae_song_tpu stays the reference; this package never
-imports it, nor jax. Ported so far: the SetVAE / SetLRVAE inference path
-(eval step and generation) with hand-written CUDA kernels for the dense
-attention forward (ops/denseattn.py) and the Chamfer forward
-(ops/chamfer.py), built from csrc/ at first use (_kernels.py).
+imports it, nor jax. Ported so far: the SetVAE / SetLRVAE models (the
+transformer and the DeepSets variants), their training (train/) and
+generation (cli/), with hand-written CUDA kernels for the dense attention
+(ops/denseattn.py), the Chamfer loss (ops/chamfer.py) and the fused FFN
+(ops/ffn.py), built from csrc/ at first use (_kernels.py).
 """

@@ -7,6 +7,10 @@ vae_song_tpu/cli/main.py for the set models):
 Loads the YAML, sweeps the hyperparameter grid of `experiment_type`
 (setvae, setlrvae) and runs `train_and_test` for every sweep point, with
 weights drawn from a CPU torch.Generator seeded with the point's seed.
+`--resume_from` continues one point's run from a `ckpt_*.pkl` the port
+wrote (refused for a sweep of more than one point); the config's
+`common_params` keys `async_checkpoint` and `grad_accum` reach the
+trainer as in the JAX CLI.
 The device defaults to CUDA; `--device cpu` trains with the plain
 PyTorch versions of the kernels.
 """
@@ -33,8 +37,16 @@ def run_experiment(config_path: str, output_root: str = ".", seed: int = 42,
     if fake_data:
         dataset_params["fake"] = True
 
+    points = list(sweep_grid(config))
+    if resume_from is not None and len(points) > 1:
+        raise ValueError(
+            f"--resume_from with a {len(points)}-point sweep grid would restore "
+            f"one checkpoint (trained under a single hyperparameter setting) "
+            f"into every grid cell; narrow the config to the cell being resumed."
+        )
+
     results = []
-    for point in sweep_grid(config):
+    for point in points:
         point_seed = seed + point["rep"]
         model = build_model(
             exp_type, common["exp_data"], mp, beta=point["beta"], alpha=point["alpha"],

@@ -30,11 +30,6 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
     if exp_type not in ("setvae", "setlrvae"):
         raise ValueError(f"Unsupported experiment type: {exp_type}")
     mp = model_params
-    if not mp.get("use_attention", True):
-        raise NotImplementedError(
-            "the DeepSets SetEncoder/SetDecoder (use_attention: false) are not "
-            "ported yet; see ROADMAP.md Queue 1 item 5"
-        )
     if mp.get("moe_experts", 0) > 0:
         raise NotImplementedError(
             "moe_experts > 0 is not ported yet; see ROADMAP.md Queue 1 item 15"
@@ -43,6 +38,10 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
         beta=beta,
         latent_channel=mp.get("latent_channel", 128),
         num_points=mp.get("num_points", 2048),
+        encoder_hidden=tuple(mp.get("encoder_hidden", (128, 256, 512))),
+        decoder_hidden=tuple(mp.get("decoder_hidden", (512, 256, 128))),
+        pool_type=mp.get("pool_type", "max"),
+        use_attention=mp.get("use_attention", True),
         d_model=mp.get("d_model", 256),
         num_heads=mp.get("num_heads", 4),
         num_encoder_layers=mp.get("num_encoder_layers", 2),

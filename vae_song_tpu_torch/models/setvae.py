@@ -1,18 +1,27 @@
-"""SetVAE / SetLRVAE for 3-D point clouds, transformer encoder and
-decoder (port of vae_song_tpu/models/setvae.py:406-583, the attention
-models, for evaluation and training).
+"""SetVAE / SetLRVAE for 3-D point clouds (port of
+vae_song_tpu/models/setvae.py): the transformer encoder and decoder
+(`use_attention: true`, :80-225 and :265-406) and the DeepSets MLP
+encoder and decoder with BatchNorm (`use_attention: false`, :227-247
+and :303-327), for evaluation and training.
 
 The transformer layers follow torch's nn.TransformerEncoderLayer /
 nn.TransformerDecoderLayer defaults as the JAX package does: post-norm
-residuals, ReLU feed-forward, batch-first, dropout-free (attn_dropout is
-0.0 in every shipped config).
+residuals, ReLU feed-forward, batch-first, and in training dropout at
+the torch positions (attn_dropout; 0.0 in every shipped config): on the
+attention weights (ops/attention.py), on the attention output, on the
+FFN's hidden activation after the ReLU and on the FFN output; the
+decoder layer applies its one shared dropout after the cross-attention
+too. Eval mode is dropout-free. The keep masks come from an explicit
+source (`dropout_rng`: a torch.Generator, or a callable that hands out
+masks; nn.blocks.keep_mask), drawn in the JAX package's call order.
 
 Under `mixed_precision` the dtypes flow as in the JAX package: the
 attention projections, the FFN and the LayerNorm outputs are bf16; the
 encoder's input embedding, the latent heads, the decoder's memory
 projection and the final Dense(3) promote to f32, so recon, mu and
 logvar are f32 and the Chamfer loss runs in f32. The first residual add
-of the encoder is f32 + bf16 = f32.
+of the encoder is f32 + bf16 = f32. The DeepSets models run in f32
+whatever `mixed_precision` says, as the JAX package passes them no dtype.
 
 The FFN follows the JAX package's opt-in switch `VST_FUSED_FFN=1`
 (models/setvae.py:32-77), read at every call as the JAX package reads it
@@ -23,17 +32,19 @@ on CPU tensors) on the same `ff_up` / `ff_down` parameters, then the
 LayerNorm. The switch does not depend on the device. Off (the default),
 the two Dense layers run.
 
-Randomness is explicit: `forward(x, eps)` takes the reparameterisation
-noise, and `decode(z)` the latent.
+Randomness is explicit: `forward(x, eps, dropout_rng)` takes the
+reparameterisation noise and the dropout mask source, and `decode(z)`
+the latent.
 
-Training mode computes what evaluation computes (the shipped configs
-have no dropout); gradients follow the JAX package: SetLRVAE decodes
-from `z.detach()` (its `stop_gradient`), and the decoder's first
+Gradients follow the JAX package: SetLRVAE decodes from `z.detach()`
+(its `stop_gradient`); without dropout the decoder's first
 self-attention, run once at batch 1 and broadcast with `expand`,
 receives the cotangent summed over the batch, so its backward runs at
-B = 1 too.
-
-The DeepSets SetEncoder / SetDecoder (BatchNorm) are not ported yet.
+B = 1 too (with attn_dropout > 0 that layer runs at full batch, as in
+JAX, whose masks differ per cloud). The DeepSets BatchNorm layers move
+their running statistics at every train-mode call, so SetLRVAE's
+re-encode moves the encoder's twice a step: encode(x), then
+encode(recon), as Flax's mutable `batch_stats` does.
 """
 
 import os
@@ -41,7 +52,7 @@ import os
 import torch
 from torch import nn
 
-from vae_song_tpu_torch.nn.blocks import Dense, LayerNorm
+from vae_song_tpu_torch.nn.blocks import BatchNorm, Dense, Dropout, LayerNorm
 from vae_song_tpu_torch.nn.initializers import normal_scaled_
 from vae_song_tpu_torch.ops import losses
 from vae_song_tpu_torch.ops.attention import MultiHeadAttention
@@ -68,15 +79,16 @@ def _use_fused_ffn(x, ff_dim: int, dropout_rate: float, training: bool) -> bool:
     return fused_ffn_ok(m, x.shape[-1], ff_dim)
 
 
-def _residual_ffn(x, ff_up, ff_down, dropout_rate: float, training: bool):
-    """x + ff_down(relu(ff_up(x))), fused when `_use_fused_ffn` says so (the
-    residual added inside, the parameters cast to the compute dtype as
-    Dense casts them)."""
-    if _use_fused_ffn(x, ff_up.weight.shape[0], dropout_rate, training):
+def _residual_ffn(x, ff_up, ff_down, drop, dropout_rng):
+    """x + drop(ff_down(drop(relu(ff_up(x))))), fused when
+    `_use_fused_ffn` says so (the residual added inside, the parameters
+    cast to the compute dtype as Dense casts them)."""
+    if _use_fused_ffn(x, ff_up.weight.shape[0], drop.rate, drop.training):
         cd = ff_up.dtype or x.dtype
         return fused_ffn(x.to(cd), ff_up.weight.to(cd), ff_up.bias.to(cd),
                          ff_down.weight.to(cd), ff_down.bias.to(cd))
-    return x + ff_down(torch.relu(ff_up(x)))
+    ff = drop(torch.relu(ff_up(x)), dropout_rng)
+    return x + drop(ff_down(ff), dropout_rng)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -86,17 +98,17 @@ class TransformerEncoderLayer(nn.Module):
                  compute_dtype=None, generator=None):
         super().__init__()
         cd = compute_dtype
-        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
         self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
         self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
         self.norm2 = LayerNorm(d_model, cd)
+        self.drop = Dropout(dropout_rate)
 
-    def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(_residual_ffn(x, self.ff_up, self.ff_down, self.dropout_rate,
-                                        self.training))
+    def forward(self, x, dropout_rng=None):
+        attn = self.drop(self.self_attn(x, x, dropout_rng), dropout_rng)
+        x = self.norm1(x + attn)
+        return self.norm2(_residual_ffn(x, self.ff_up, self.ff_down, self.drop, dropout_rng))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -108,7 +120,6 @@ class TransformerDecoderLayer(nn.Module):
                  compute_dtype=None, generator=None):
         super().__init__()
         cd = compute_dtype
-        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
         self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
@@ -116,17 +127,19 @@ class TransformerDecoderLayer(nn.Module):
         self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
         self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
         self.norm3 = LayerNorm(d_model, cd)
+        self.drop = Dropout(dropout_rate)
 
-    def self_attn_block(self, tgt):
-        return self.norm1(tgt + self.self_attn(tgt, tgt))
+    def self_attn_block(self, tgt, dropout_rng=None):
+        sa = self.drop(self.self_attn(tgt, tgt, dropout_rng), dropout_rng)
+        return self.norm1(tgt + sa)
 
-    def cross_ffn_block(self, tgt, memory):
-        tgt = self.norm2(tgt + self.cross_attn(tgt, memory))
-        return self.norm3(_residual_ffn(tgt, self.ff_up, self.ff_down, self.dropout_rate,
-                                        self.training))
+    def cross_ffn_block(self, tgt, memory, dropout_rng=None):
+        ca = self.drop(self.cross_attn(tgt, memory, dropout_rng), dropout_rng)
+        tgt = self.norm2(tgt + ca)
+        return self.norm3(_residual_ffn(tgt, self.ff_up, self.ff_down, self.drop, dropout_rng))
 
-    def forward(self, tgt, memory):
-        return self.cross_ffn_block(self.self_attn_block(tgt), memory)
+    def forward(self, tgt, memory, dropout_rng=None):
+        return self.cross_ffn_block(self.self_attn_block(tgt, dropout_rng), memory, dropout_rng)
 
 
 class SetEncoderAttn(nn.Module):
@@ -144,18 +157,19 @@ class SetEncoderAttn(nn.Module):
         self.fc_mu = Dense(d_model, latent_dim, generator=generator)
         self.fc_logvar = Dense(d_model, latent_dim, generator=generator)
 
-    def forward(self, points):
+    def forward(self, points, dropout_rng=None):
         x = self.embed(points)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, dropout_rng)
         s = x.amax(dim=1)
         return self.fc_mu(s), self.fc_logvar(s)
 
 
 class SetDecoderAttn(nn.Module):
     """Learned per-point queries cross-attending to one latent memory
-    token. The first layer's self-attention sees only the batch-constant
-    query embeddings, so it runs once at batch 1 and is broadcast."""
+    token. Without dropout the first layer's self-attention sees only the
+    batch-constant query embeddings, so it runs once at batch 1 and is
+    broadcast (JAX :391 takes that shortcut only at dropout_rate 0)."""
 
     def __init__(self, latent_dim=128, num_points=2048, d_model=256, num_heads=4,
                  num_layers=2, ff_dim=512, dropout_rate=0.0, compute_dtype=None,
@@ -171,19 +185,89 @@ class SetDecoderAttn(nn.Module):
             for _ in range(num_layers)
         )
         self.out = Dense(d_model, 3, generator=generator)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, z):
+    def forward(self, z, dropout_rng=None):
         b = z.shape[0]
         memory = self.memory(z)[:, None, :]          # [B, 1, d_model]
         n, d = self.query_embed.shape
         x = self.query_embed[None]                   # [1, N, d_model]
         for i, layer in enumerate(self.layers):
-            if i == 0:
+            if i == 0 and self.dropout_rate == 0.0:
                 x = layer.self_attn_block(x).expand(b, n, d)
                 x = layer.cross_ffn_block(x, memory)
             else:
-                x = layer(x.expand(b, n, d), memory)
+                x = layer(x.expand(b, n, d), memory, dropout_rng)
         return self.out(x)
+
+
+class SetEncoder(nn.Module):
+    """DeepSets encoder: per-point Dense -> BatchNorm -> ReLU over
+    `hidden_dims`, max / mean / sum pooling over the points, two Dense
+    latent heads (JAX :227-247). `dense` holds the hidden layers, then
+    the mu and logvar heads."""
+
+    def __init__(self, hidden_dims=(128, 256, 512), latent_dim=128, pool_type="max",
+                 generator=None):
+        super().__init__()
+        dims = (3, *hidden_dims)
+        self.dense = nn.ModuleList(
+            [Dense(i, o, generator=generator) for i, o in zip(dims, dims[1:])]
+            + [Dense(dims[-1], latent_dim, generator=generator) for _ in range(2)]
+        )
+        self.norm = nn.ModuleList(BatchNorm(h) for h in hidden_dims)
+        self.pool_type = pool_type
+
+    def forward(self, points, dropout_rng=None):
+        x = points
+        for dense, norm in zip(self.dense, self.norm):
+            x = torch.relu(norm(dense(x)))
+        if self.pool_type == "mean":
+            s = x.mean(dim=1)
+        elif self.pool_type == "sum":
+            s = x.sum(dim=1)
+        else:
+            s = x.amax(dim=1)
+        return self.dense[-2](s), self.dense[-1](s)
+
+
+class SetDecoder(nn.Module):
+    """DeepSets decoder: learned per-point queries [N, 64] (N(0, 1) *
+    0.02), the latent broadcast and concatenated before them, Dense ->
+    BatchNorm -> ReLU over `hidden_dims`, Dense(3) (JAX :303-327).
+    `dense` holds the hidden layers, then the output layer."""
+
+    def __init__(self, latent_dim=128, num_points=2048, hidden_dims=(512, 256, 128),
+                 generator=None):
+        super().__init__()
+        self.point_queries = nn.Parameter(
+            normal_scaled_(torch.empty(num_points, 64), 0.02, generator)
+        )
+        dims = (latent_dim + 64, *hidden_dims)
+        self.dense = nn.ModuleList(
+            [Dense(i, o, generator=generator) for i, o in zip(dims, dims[1:])]
+            + [Dense(dims[-1], 3, generator=generator)]
+        )
+        self.norm = nn.ModuleList(BatchNorm(h) for h in hidden_dims)
+
+    def forward(self, z, dropout_rng=None):
+        b = z.shape[0]
+        n, q = self.point_queries.shape
+        x = torch.cat([z[:, None, :].expand(b, n, z.shape[-1]),
+                       self.point_queries[None].expand(b, n, q)], dim=-1)
+        for dense, norm in zip(self.dense, self.norm):
+            x = torch.relu(norm(dense(x)))
+        return self.dense[-1](x)
+
+
+def pre_batchnorm_biases(keys):
+    """The state_dict keys, among `keys`, of the DeepSets hidden Dense
+    biases: `SetEncoder` and `SetDecoder` follow `dense.i` with `norm.i`,
+    a BatchNorm that subtracts the batch mean, so these biases' gradient
+    is zero analytically and what a backward pass computes is roundoff."""
+    keys = set(keys)
+    return {k for k in keys if ".dense." in k and k.endswith(".bias")
+            and k.replace(".dense.", ".norm.").replace(".bias", ".weight") in keys}
 
 
 class SetVAE(nn.Module):
@@ -191,35 +275,42 @@ class SetVAE(nn.Module):
 
     data_type = "set"
 
-    def __init__(self, latent_channel=128, num_points=2048, beta=1.0, d_model=256,
-                 num_heads=4, num_encoder_layers=2, num_decoder_layers=2, ff_dim=512,
-                 attn_dropout=0.0, mixed_precision=False, generator=None):
+    def __init__(self, latent_channel=128, num_points=2048, encoder_hidden=(128, 256, 512),
+                 decoder_hidden=(512, 256, 128), beta=1.0, pool_type="max", use_attention=True,
+                 d_model=256, num_heads=4, num_encoder_layers=2, num_decoder_layers=2,
+                 ff_dim=512, attn_dropout=0.0, mixed_precision=False, generator=None):
         super().__init__()
         self.latent_channel = latent_channel
         self.num_points = num_points
         self.beta = beta
-        cd = torch.bfloat16 if mixed_precision else None
-        self.encoder = SetEncoderAttn(latent_channel, d_model, num_heads, num_encoder_layers,
-                                      ff_dim, attn_dropout, cd, generator)
-        self.decoder = SetDecoderAttn(latent_channel, num_points, d_model, num_heads,
-                                      num_decoder_layers, ff_dim, attn_dropout, cd, generator)
+        if use_attention:
+            cd = torch.bfloat16 if mixed_precision else None
+            self.encoder = SetEncoderAttn(latent_channel, d_model, num_heads,
+                                          num_encoder_layers, ff_dim, attn_dropout, cd,
+                                          generator)
+            self.decoder = SetDecoderAttn(latent_channel, num_points, d_model, num_heads,
+                                          num_decoder_layers, ff_dim, attn_dropout, cd,
+                                          generator)
+        else:
+            self.encoder = SetEncoder(encoder_hidden, latent_channel, pool_type, generator)
+            self.decoder = SetDecoder(latent_channel, num_points, decoder_hidden, generator)
 
-    def encode(self, x):
-        return self.encoder(x)
+    def encode(self, x, dropout_rng=None):
+        return self.encoder(x, dropout_rng)
 
-    def decode(self, z):
-        return self.decoder(z)
+    def decode(self, z, dropout_rng=None):
+        return self.decoder(z, dropout_rng)
 
     @staticmethod
     def _sample(mu, log_var, eps):
         """z = mu + eps * exp(logvar / 2); z = mu when eps is None."""
         return mu if eps is None else mu + eps * torch.exp(0.5 * log_var)
 
-    def forward(self, x, eps=None):
+    def forward(self, x, eps=None, dropout_rng=None):
         """Returns (recon, mu, logvar, z, z_recon=None)."""
-        mu, log_var = self.encode(x)
+        mu, log_var = self.encode(x, dropout_rng)
         z = self._sample(mu, log_var, eps)
-        return self.decode(z), mu, log_var, z, None
+        return self.decode(z, dropout_rng), mu, log_var, z, None
 
     def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):
         """(total, recon, reg, lr) with reg the unscaled KL."""
@@ -237,11 +328,11 @@ class SetLRVAE(SetVAE):
         super().__init__(**kwargs)
         self.alpha = alpha
 
-    def forward(self, x, eps=None):
-        mu, log_var = self.encode(x)
+    def forward(self, x, eps=None, dropout_rng=None):
+        mu, log_var = self.encode(x, dropout_rng)
         z = self._sample(mu, log_var, eps)
-        recon = self.decode(z.detach())
-        z_recon, _ = self.encode(recon)
+        recon = self.decode(z.detach(), dropout_rng)
+        z_recon, _ = self.encode(recon, dropout_rng)
         return recon, mu, log_var, z, z_recon
 
     def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):

@@ -5,6 +5,13 @@ without sequence parallelism).
 Separate query/key/value/out projections with torch
 nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
 
+  0. training with dropout_rate > 0 (JAX :407-423): materialised
+     scores, as torch's MultiheadAttention drops attention WEIGHTS:
+     logits = bf16(q) bf16(k)^T in f32 times the scale, an f32 softmax,
+     dropout on the weights, then bf16(weights) bf16(v) in f32, cast to
+     q's dtype. No kernel: the JAX package computes this branch in XLA.
+     At kv length 1 training falls through to this branch too (JAX
+     :328-329), where the dropout zeroes whole rows.
   1. kv length 1 (the set decoder's cross-attention to its latent
      token): softmax over one key is identically 1, so the output is the
      value projection broadcast over the queries. Only the value and out
@@ -45,20 +52,23 @@ import os
 import torch
 from torch import nn
 
-from vae_song_tpu_torch.nn.blocks import Dense
+from vae_song_tpu_torch.nn.blocks import Dense, Dropout
 from vae_song_tpu_torch.nn.initializers import mha_in_proj_bound
 from vae_song_tpu_torch.ops.denseattn import (dense_attention, dense_attention_fwd, dense_ok,
                                               packed_ok)
 
 
-def attention_plain(q, k, v, scale: float):
+def attention_plain(q, k, v, scale: float, drop=None):
     """q, k, v: [B, N, H, D]; matmuls on bf16-rounded inputs with f32
     accumulation, softmax in f32, output in q's dtype (_xla_attention
     with its default bf16 compute dtype, which the JAX package uses for
-    f32 models too)."""
+    f32 models too). `drop`, if given, is applied to the f32 weights
+    [B, H, Nq, Nk] (the training-dropout branch)."""
     qc, kc, vc = (a.to(torch.bfloat16).float() for a in (q, k, v))
-    logits = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", qc, kc).mul_(scale)
     weights = torch.softmax(logits, dim=-1)
+    if drop is not None:
+        weights = drop(weights)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(torch.bfloat16).float(), vc)
     return out.to(q.dtype)
 
@@ -100,18 +110,17 @@ class MultiHeadAttention(nn.Module):
         self.value = in_proj()
         self.out = Dense(d_model, d_model, dtype=compute_dtype, bias_bound=0.0,
                          generator=generator)
+        self.drop = Dropout(dropout_rate)
 
-    def forward(self, inputs_q, inputs_kv):
-        if self.dropout_rate > 0.0 and self.training:
-            raise NotImplementedError(
-                "attention-weight dropout in training is not ported yet "
-                "(the shipped configs set attn_dropout: 0.0)"
-            )
+    def forward(self, inputs_q, inputs_kv, dropout_rng=None):
+        """`dropout_rng` is the keep-mask source of training dropout
+        (nn.blocks.keep_mask); unused in eval mode or at rate 0."""
         h = self.num_heads
         d = self.d_model // h
         b, n_q = inputs_q.shape[0], inputs_q.shape[1]
         n_kv = inputs_kv.shape[1]
-        if n_kv == 1:
+        train_dropout = self.dropout_rate > 0.0 and self.training
+        if n_kv == 1 and not train_dropout:
             # softmax over one key is 1: out-project the value once per
             # cloud and broadcast it over the queries
             return self.out(self.value(inputs_kv)).expand(b, n_q, self.d_model)
@@ -130,7 +139,9 @@ class MultiHeadAttention(nn.Module):
             v = self.value(inputs_kv).view(b, n_kv, h, d)
         scale = 1.0 / math.sqrt(d)
         dense_on = _dense_attn_on()
-        if dense_on and _packed_attn_on() and packed_ok(n_q, n_kv, h, d):
+        if train_dropout:
+            out = attention_plain(q, k, v, scale, lambda w: self.drop(w, dropout_rng))
+        elif dense_on and _packed_attn_on() and packed_ok(n_q, n_kv, h, d):
             out, _ = dense_attention_fwd(q, k, v, scale)
         elif dense_on and dense_ok(n_q, n_kv, d):
             out = dense_attention(q, k, v, scale)

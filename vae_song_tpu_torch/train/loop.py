@@ -3,11 +3,16 @@ vae_song_tpu/train/loop.py:train_and_test, its single-device set-model
 branch with per-batch steps, :802-1009 and :1016-1096).
 
 Per epoch: the warmup alpha (SetLRVAE), one train step per shuffled
-batch, the eval step over the test split, TensorBoard scalars and the
-progress line. At the last epoch: `params/model_{epoch}.pkl` in the JAX
-package's format and the `.ply`/`.npy` point-cloud dumps. At the end:
-the posterior metrics on one batch of 50 test clouds, the experiment log
-and the unified CSV row. The artifact tree is the JAX trainer's:
+batch (or, with `grad_accum`, one optimizer update per batch from that
+many microbatches), the eval step over the test split, TensorBoard
+scalars and the progress line, and with `checkpoint_every` the full
+train state at `params/ckpt_{epoch}.pkl` (optionally written by the
+AsyncCheckpointer's worker thread). At the last epoch:
+`params/model_{epoch}.pkl` in the JAX package's format and the
+`.ply`/`.npy` point-cloud dumps. At the end: the posterior metrics on
+one batch of 50 test clouds, the experiment log and the unified CSV
+row. `resume_from` continues a run from such a checkpoint at the next
+epoch. The artifact tree is the JAX trainer's:
 
     <output_root>/results/<resultname>/<run name>/{log.txt, params/, point_clouds/}
     <output_root>/runs/<run name>/events.out.tfevents.*
@@ -16,12 +21,20 @@ and the unified CSV row. The artifact tree is the JAX trainer's:
 Randomness: the batch order is the JAX pipeline's (a numpy Generator
 seeded with [seed, epoch]); the reparameterisation noise, which JAX
 draws from its own PRNG, comes from CPU torch.Generators seeded from
-(seed, epoch, stream), so a run does not depend on the device. The JAX
-package's multistep and scanned dispatch paths are TPU machinery and
-have no counterpart; options that are not ported raise.
+(seed, epoch, stream), so it does not depend on the device. The
+training-dropout masks come from a generator on the training device
+seeded the same way (a [64, 4, 2048, 2048] mask a layer cannot be drawn
+on the host every step), so a run with attn_dropout > 0 depends on the
+device: the card's and the CPU's streams differ. Per-epoch seeding
+makes a resumed run replay the continuous one. The JAX package's
+multistep and scanned dispatch paths are TPU machinery and have no
+counterpart; the options that are not ported (the parallel strategies,
+profile_dir, native_prefetch, epochs < 0) raise naming their ROADMAP.md
+item.
 """
 
 import os
+import sys
 import time
 from datetime import datetime
 
@@ -36,12 +49,13 @@ from vae_song_tpu_torch.ops.warmup import warmup_alpha
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loggers
 from vae_song_tpu_torch.train.state import TrainState, make_optimizer
-from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
+from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
+                                             make_eval_step)
 from vae_song_tpu_torch.viz.plots import save_point_cloud
 
 _METRICS = ("loss", "recon", "reg", "lr")
-# noise streams of one run
-_TRAIN, _EVAL, _FINAL, _DUMP = range(4)
+# random streams of one run
+_TRAIN, _EVAL, _FINAL, _DUMP, _DROPOUT = range(5)
 
 
 def synth_run_name(model, alpha=None) -> str:
@@ -54,20 +68,19 @@ def synth_run_name(model, alpha=None) -> str:
     return name
 
 
-def _generator(seed: int, *stream: int) -> torch.Generator:
-    """CPU generator seeded from (seed, *stream) through numpy's
+def _generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
+    """Generator on `device` seeded from (seed, *stream) through numpy's
     SeedSequence."""
     state = np.random.SeedSequence([seed, *stream]).generate_state(1)[0]
-    return torch.Generator().manual_seed(int(state))
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_parallel,
                      tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
-                     grad_accum, resume_from, checkpoint_every, async_checkpoint,
                      profile_dir, native_prefetch):
     if not isinstance(model, SetVAE):
         raise NotImplementedError(
-            f"train_and_test trains the attention set models only; {type(model).__name__} "
+            f"train_and_test trains the set models only; {type(model).__name__} "
             "is not ported yet (see ROADMAP.md Queue 1 items 9 and 12)"
         )
     parallel = {
@@ -80,12 +93,6 @@ def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_
         "fsdp": fsdp,
     }
     unported = [(k, "Queue 1 item 15 (nn/moe.py and parallel/)") for k, on in parallel.items() if on]
-    if (grad_accum or 0) > 1:
-        unported.append(("grad_accum", "Queue 1 item 17 (trainer options)"))
-    for key, val in (("resume_from", resume_from), ("checkpoint_every", checkpoint_every),
-                     ("async_checkpoint", async_checkpoint)):
-        if val:
-            unported.append((key, "Queue 1 item 17 (trainer options)"))
     if profile_dir is not None:
         unported.append(("profile_dir", "Queue 1 item 16 (train/profiling.py)"))
     if native_prefetch:
@@ -148,16 +155,31 @@ def train_and_test(
     evaluate it every epoch; returns (TrainState, summary dict). The
     arguments keep the JAX function's names; the learning rate always
     follows the cosine schedule, and `num_mc_samples` is accepted and,
-    as in the JAX set models, does not change the step (L = 1)."""
+    as in the JAX set models, does not change the step (L = 1).
+
+    checkpoint_every: write the full train state to
+    `params/ckpt_{epoch}.pkl` after every that many epochs, with the
+    warmup state (`wu_alpha`, `last_kl`) as its `extra`.
+    async_checkpoint: write those on the AsyncCheckpointer's worker
+    thread; a failed write warns at the end instead of raising.
+    resume_from: a `checkpoint_every` file; training continues at its
+    epoch + 1 with its parameters, BatchNorm statistics, Adam state,
+    step and warmup state, and replays the continuous run.
+    grad_accum: >= 2 takes each optimizer update from that many
+    sequential microbatches of the batch (`make_accum_train_step`);
+    `batch_size` must divide by it."""
     del num_mc_samples
     _refuse_unported(
         model, epochs, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, sequence_parallel_ring=sequence_parallel_ring,
-        fsdp=fsdp, grad_accum=grad_accum, resume_from=resume_from,
-        checkpoint_every=checkpoint_every, async_checkpoint=async_checkpoint,
-        profile_dir=profile_dir, native_prefetch=native_prefetch,
+        fsdp=fsdp, profile_dir=profile_dir, native_prefetch=native_prefetch,
     )
+    if grad_accum and grad_accum > 1 and batch_size % grad_accum != 0:
+        raise ValueError(
+            f"batch_size={batch_size} must divide over "
+            f"grad_accum={grad_accum} microbatches"
+        )
     device = torch.device(device)
     train_ds, test_ds, _ = data_lib.load_dataset(dataset_name, **(dataset_params or {}))
     steps_per_epoch = num_batches(train_ds, batch_size)
@@ -176,6 +198,11 @@ def train_and_test(
     )
     state = TrainState(model, optimizer)
 
+    start_epoch, resume_extra = 0, {}
+    if resume_from is not None:
+        state, ckpt_epoch, resume_extra = ckpt_lib.load_checkpoint(resume_from, state)
+        start_epoch = ckpt_epoch + 1
+
     name = synth_run_name(model)
     result_dir = os.path.join(output_root, "results", resultname, name)
     os.makedirs(os.path.join(result_dir, "params"), exist_ok=True)
@@ -187,26 +214,38 @@ def train_and_test(
     )
     explog.log_model_info(model)
 
-    train_step = make_train_step(model, optimizer)
+    train_step = make_accum_train_step(model, optimizer, max(1, grad_accum or 1))
     eval_step = make_eval_step(model)
     _, decode_fn, forward_fn = make_apply_fns(model)
     latent = model.latent_channel
     has_warmup = isinstance(model, SetLRVAE)
     wu_alpha, last_kl = 0.0, 0.0
+    if has_warmup and start_epoch > 0:
+        if "wu_alpha" in resume_extra:
+            # the restored warmup state continues kl_adaptive exactly
+            wu_alpha = float(resume_extra["wu_alpha"])
+            last_kl = float(resume_extra.get("last_kl", 0.0))
+        else:
+            # a checkpoint without it: replay the deterministic schedules
+            # (kl_adaptive degrades to alpha(kl=0)), as the JAX trainer does
+            for e in range(start_epoch):
+                wu_alpha = warmup_alpha(wu_alpha, e, epochs, wu_strat, last_kl_loss=last_kl)
     eval_means = {k: 0.0 for k in _METRICS}
+    async_ckpt = ckpt_lib.AsyncCheckpointer() if async_checkpoint and checkpoint_every else None
     t_start = time.time()
 
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         if has_warmup:
             wu_alpha = warmup_alpha(wu_alpha, epoch, epochs, wu_strat, last_kl_loss=last_kl)
             explog.log_alpha_value(epoch, wu_alpha)
 
         ep_np_rng = np.random.default_rng([seed, epoch])
         noise = _generator(seed, epoch, _TRAIN)
+        dropout_rng = _generator(seed, epoch, _DROPOUT, device=device)
         ms = []
         for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device):
             eps = torch.randn(x.shape[0], latent, generator=noise).to(device)
-            ms.append(train_step(x, eps, wu_alpha))
+            ms.append(train_step(x, eps, wu_alpha, dropout_rng))
             state.step += 1
         train_means = _means(ms)
         writer.add_scalar("loss/train", train_means["loss"], epoch)
@@ -231,6 +270,14 @@ def train_and_test(
                 f"| test loss {eval_means['loss']:.4f}",
                 flush=True,
             )
+
+        if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+            ckpt_path = os.path.join(result_dir, "params", f"ckpt_{epoch}.pkl")
+            ckpt_extra = {"wu_alpha": float(wu_alpha), "last_kl": float(last_kl)}
+            if async_ckpt is not None:
+                async_ckpt.submit(ckpt_path, state, epoch, extra=ckpt_extra)
+            else:
+                ckpt_lib.save_checkpoint(ckpt_path, state, epoch, extra=ckpt_extra)
 
         if last_epoch:
             ckpt_lib.save_params_only(
@@ -270,6 +317,16 @@ def train_and_test(
         },
         logfilename=logfilename,
     )
+    if async_ckpt is not None:
+        # join the writes in flight before handing the result dir back; a
+        # failed write must not discard the trained state the caller is owed
+        try:
+            async_ckpt.close()
+        except Exception as e:
+            print(f"[{name}] WARNING: async checkpoint write failed: {e!r} "
+                  "(training completed; the periodic snapshot is missing)",
+                  file=sys.stderr, flush=True)
+
     summary = dict(name=name, duration_sec=duration, eval=eval_means,
                    posterior_metrics=pm, result_dir=result_dir)
     return state, summary

@@ -21,6 +21,10 @@ semantics where they differ from torch's defaults:
     (torch's rule: min(1, max_norm / (p-norm + 1e-6))).
   * clip, value: `optax.clip`, element-wise into [-v, v].
   * an unknown clip_type raises.
+
+The moments, the count and the train step are state that a checkpoint
+carries (`adam_state`, `load_optax_state`), in optax's layout, so a JAX
+TrainState's optimizer state carries across as well.
 """
 
 import math
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from vae_song_tpu_torch import weights
 
 
 def cosine_decay(lr: float, total_steps: int):
@@ -194,3 +200,55 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
+
+
+def _slot_names(state: TrainState) -> list[str]:
+    """The parameter name of each of the optimizer's slots."""
+    names = {id(p): name for name, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.optimizer.params]
+
+
+def adam_state(state: TrainState) -> dict:
+    """The optimizer's state as optax's ScaleByAdamState holds it:
+    {"count": updates taken, "mu": {parameter name: tensor}, "nu": ...},
+    the tensors the live moments (not copies)."""
+    names = _slot_names(state)
+    adam = state.optimizer.adam
+    return {"count": state.optimizer.count, "mu": dict(zip(names, adam.mu)),
+            "nu": dict(zip(names, adam.nu))}
+
+
+def _adam_slot(tree: dict) -> dict:
+    """The one ScaleByAdamState node {count, mu, nu} in an optax chain
+    state as `flax.serialization.to_state_dict` gives it: the clip slot
+    first when a clip is configured, then (ScaleByAdamState, the
+    schedule's slot)."""
+    if set(tree) == {"count", "mu", "nu"}:
+        return tree
+    found = [_adam_slot(sub) for sub in tree.values() if isinstance(sub, dict) and sub]
+    found = [f for f in found if f is not None]
+    if len(found) > 1:
+        raise ValueError("optimizer state holds more than one Adam slot")
+    return found[0] if found else None
+
+
+@torch.no_grad()
+def load_optax_state(state: TrainState, opt_state: dict, step: int) -> TrainState:
+    """Set the port's Adam moments and count and the train step from an
+    optax chain state (nested dicts of numpy arrays in the Flax
+    parameter layout, `flax.serialization.to_state_dict(opt_state)`) and
+    a TrainState's `step`; the moments cross through
+    vae_song_tpu_torch.weights. Returns `state`."""
+    slot = _adam_slot(opt_state)
+    if slot is None:
+        raise ValueError("optimizer state holds no Adam slot {count, mu, nu}")
+    keys = [name for name, _ in state.model.named_parameters()]
+    mu = weights.params_to_state_dict(slot["mu"], keys)
+    nu = weights.params_to_state_dict(slot["nu"], keys)
+    adam = state.optimizer.adam
+    for i, name in enumerate(_slot_names(state)):
+        adam.mu[i].copy_(mu[name])
+        adam.nu[i].copy_(nu[name])
+    state.optimizer.count = int(slot["count"])
+    state.step = int(step)
+    return state

@@ -1,4 +1,4 @@
-"""The one map between the JAX package's Flax parameter tree (nested
+"""The one map between the JAX package's Flax variable trees (nested
 dicts of numpy arrays, as `save_params_only` pickles them) and the port's
 `state_dict`, in both directions.
 
@@ -6,11 +6,17 @@ dicts of numpy arrays, as `save_params_only` pickles them) and the port's
     `bias` as is. vae_song_tpu.nn.blocks.Dense nests an nn.Dense named
     Dense_0, so those leaves sit one level deeper than the MHA ones.
   * LayerNorm `scale` <-> `weight`, `bias` as is.
-  * `decoder/query_embed` as is.
+  * BatchNorm (the DeepSets models; vae_song_tpu.nn.blocks.BatchNorm
+    nests an nn.BatchNorm named BatchNorm_0): `params` `scale` / `bias`
+    <-> `weight` / `bias`, and the `batch_stats` collection's `mean` /
+    `var` <-> the buffers `running_mean` / `running_var`.
+  * `decoder/query_embed` and `decoder/point_queries` as is.
 
 Each rule maps a port module path to its Flax path; the conversion
 refuses leaves that no rule names, so a tree from a model the port does
-not build (MoE, DeepSets) fails loudly instead of loading partly.
+not build (MoE) fails loudly instead of loading partly. A tree shaped
+like the parameters (Adam's moments in optax's state) goes through the
+same map.
 """
 
 import re
@@ -37,21 +43,32 @@ _RULES = [
     (r"decoder\.layers\.(\d+)\.(norm[123])", _DEC + r"/\2", "norm"),
     (r"decoder\.layers\.(\d+)\.(ff_up|ff_down)", _DEC + r"/\2/Dense_0", "dense"),
     (r"decoder\.out", "decoder/Dense_1/Dense_0", "dense"),
+    # the DeepSets SetEncoder / SetDecoder
+    (r"(encoder|decoder)\.dense\.(\d+)", r"\1/Dense_\2/Dense_0", "dense"),
+    (r"(encoder|decoder)\.norm\.(\d+)", r"\1/BatchNorm_\2/BatchNorm_0", "batchnorm"),
 ]
-_LEAF = {"dense": {"weight": "kernel", "bias": "bias"},
-         "norm": {"weight": "scale", "bias": "bias"}}
+# leaf name -> (Flax collection, Flax leaf name)
+_LEAF = {"dense": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+         "norm": {"weight": ("params", "scale"), "bias": ("params", "bias")},
+         "batchnorm": {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                       "running_mean": ("batch_stats", "mean"),
+                       "running_var": ("batch_stats", "var")}}
+_PLAIN = {"decoder.query_embed", "decoder.point_queries"}
+COLLECTIONS = ("params", "batch_stats")
 
 
-def flax_path(key: str) -> tuple[tuple[str, ...], bool]:
-    """(Flax path, transpose?) of one port state_dict key."""
-    if key == "decoder.query_embed":
-        return ("decoder", "query_embed"), False
+def flax_path(key: str) -> tuple[str, tuple[str, ...], bool]:
+    """(Flax collection, path in it, transpose?) of one port state_dict
+    key."""
+    if key in _PLAIN:
+        return "params", tuple(key.split(".")), False
     module, _, leaf = key.rpartition(".")
     for pattern, template, kind in _RULES:
         m = re.fullmatch(pattern, module)
         if m and leaf in _LEAF[kind]:
-            path = m.expand(template).split("/") + [_LEAF[kind][leaf]]
-            return tuple(path), kind == "dense" and leaf == "weight"
+            collection, name = _LEAF[kind][leaf]
+            path = m.expand(template).split("/") + [name]
+            return collection, tuple(path), kind == "dense" and leaf == "weight"
     raise KeyError(f"no Flax counterpart for port parameter {key!r}")
 
 
@@ -63,38 +80,54 @@ def _flatten(tree, prefix=()):
             yield prefix + (name,), sub
 
 
-def params_to_state_dict(params: dict, keys) -> dict[str, torch.Tensor]:
-    """Flax params -> float32 tensors for the port keys `keys` (e.g.
-    `model.state_dict().keys()`). Raises on a missing or unused leaf."""
-    leaves = dict(_flatten(params))
-    out, used = {}, set()
+def params_to_state_dict(params: dict, keys, batch_stats: dict | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """Flax params (and batch_stats) -> float32 tensors for those port
+    keys `keys` (e.g. `model.state_dict().keys()`) whose collection is
+    given: without `batch_stats` only the params' keys are converted.
+    Raises on a missing or unused leaf."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    leaves = {c: dict(_flatten(t)) for c, t in trees.items() if t is not None}
+    out, used = {}, {c: set() for c in leaves}
     for key in keys:
-        path, transpose = flax_path(key)
-        if path not in leaves:
-            raise KeyError(f"Flax tree has no {'/'.join(path)} for {key!r}")
-        arr = np.asarray(leaves[path], dtype=np.float32)
+        collection, path, transpose = flax_path(key)
+        if collection not in leaves:
+            continue
+        if path not in leaves[collection]:
+            raise KeyError(f"Flax {collection} has no {'/'.join(path)} for {key!r}")
+        arr = np.asarray(leaves[collection][path], dtype=np.float32)
         out[key] = torch.tensor(arr.T if transpose else arr)
-        used.add(path)
-    unused = sorted("/".join(p) for p in leaves.keys() - used)
+        used[collection].add(path)
+    unused = sorted(f"{c}:{'/'.join(p)}" for c in leaves for p in leaves[c].keys() - used[c])
     if unused:
         raise KeyError(f"Flax leaves with no port counterpart: {unused[:8]}")
     return out
 
 
-def state_dict_to_params(state_dict) -> dict:
-    """Port state_dict -> nested Flax params of float32 numpy arrays."""
-    params: dict = {}
+def state_dict_to_variables(state_dict) -> dict[str, dict]:
+    """Port state_dict -> {"params": ..., "batch_stats": ...}, nested Flax
+    trees of float32 numpy arrays ({} where the model has none)."""
+    trees: dict = {c: {} for c in COLLECTIONS}
     for key, t in state_dict.items():
-        path, transpose = flax_path(key)
+        collection, path, transpose = flax_path(key)
         arr = t.detach().float().cpu().numpy()
-        node = params
+        node = trees[collection]
         for name in path[:-1]:
             node = node.setdefault(name, {})
         node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
-    return params
+    return trees
 
 
-def load_flax_params(model: torch.nn.Module, params: dict) -> torch.nn.Module:
-    """Copy a Flax parameter tree into `model` (on whatever device it is)."""
-    model.load_state_dict(params_to_state_dict(params, model.state_dict().keys()))
+def state_dict_to_params(state_dict) -> dict:
+    """Port state_dict -> nested Flax params of float32 numpy arrays."""
+    return state_dict_to_variables(state_dict)["params"]
+
+
+def load_flax_params(model: torch.nn.Module, params: dict,
+                     batch_stats: dict | None = None) -> torch.nn.Module:
+    """Copy a Flax parameter tree, and the BatchNorm statistics, into
+    `model` (on whatever device it is). A model with BatchNorm layers
+    needs `batch_stats`; every key of the model must be loaded."""
+    keys = model.state_dict().keys()
+    model.load_state_dict(params_to_state_dict(params, keys, batch_stats))
     return model
