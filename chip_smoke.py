@@ -84,13 +84,31 @@ non-zero exit code:
      final parameters, statistics and optimizer state must equal the
      continuous run's bit for bit.
 
+  9. the FlexibleVAE family, which runs no kernel of the port (JAX runs it
+     through XLA alone): the shipped pinwheel config (LR-VAE, twelve
+     blocks of 16, B = 1024, both sweep points) through `run_experiment`
+     for 3 epochs instead of its 1000, every term finite and the tree
+     written; the train step's ms/step of the pinwheel LR-VAE, of the
+     MNIST config's MLP LR-VAE (B = 256, L = 4, on seeded images of
+     MNIST's shape) and of the JAX benchmark's conv VAE (bench.py:72,
+     B = 256, f32), with its eval ms/batch, all timed before the first
+     torch.profiler session opens, then each one's idle share
+     (torch.profiler); then the card against the CPU for one staged
+     LR-VAE step and one conv VanillaVAE step, in f32 and in float64, the
+     card's f32 step held to the CPU's float64 step on the same LeakyReLU
+     pieces; the conv step with cuDNN's TF32 switched back to PyTorch's
+     default (on), which the port's f32 convolutions must override, and
+     once more with that override off, which must fail the f32 bound. No
+     kernel counter may rise on any of these.
+
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-8. The last two lines are
-that JSON line and the result line.
+`paths` its launches on each path of phases 6-9 (zero on phase 9's). The
+last two lines are that JSON line and the result line.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -106,9 +124,13 @@ import torch
 
 from vae_song_tpu_torch import _kernels
 from vae_song_tpu_torch.cli.generate import generate_samples
+from vae_song_tpu_torch.cli.main import run_experiment
+from vae_song_tpu_torch.data import load_dataset
+from vae_song_tpu_torch.data.pipeline import num_batches
 from vae_song_tpu_torch.data.shapenet import fake_point_clouds
 from vae_song_tpu_torch.models.registry import build_model
-from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
+from vae_song_tpu_torch.nn import blocks
+from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
 from vae_song_tpu_torch.ops import chamfer, denseattn, ffn
 from vae_song_tpu_torch.train.loop import train_and_test
 from vae_song_tpu_torch.train.state import adam_state, make_optimizer
@@ -1181,6 +1203,365 @@ def phase_trainer_options(dev):
     return launches
 
 
+# Phase 9: the FlexibleVAE family. A literal copy of
+# configs/config_pinwheel.yaml (tests/test_torch_isolation.py holds it to
+# the file): LR-VAE on the pinwheel points, twelve blocks of 16, B = 1024,
+# two sweep points. Its 1000 epochs are cut to PINWHEEL_EPOCHS.
+PINWHEEL_CONFIG = {
+    "experiment_type": "lrvae",
+    "common_params": {
+        "exp_data": "pinwheel",
+        "exp_epochs": 1000,
+        "batch_size": 1024,
+        "niter": 1,
+        "logfilename": None,
+        "resultname": None,
+        "grad_clip": {"enabled": True, "clip_type": "norm", "max_norm": 1.0,
+                      "norm_type": 2.0, "clip_value": 1.0},
+    },
+    "model_params": {
+        "beta_list": [0.001, 0.01],
+        "log_mse": False,
+        "encoder_type": "mlp",
+        "decoder_type": "mlp",
+        "fixed_var": False,
+        "residual_connection": False,
+        "hchans": [16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16],
+        "num_mc_samples": 1,
+        "alpha_list": [0.0001],
+        "pwise_reg": False,
+    },
+}
+PINWHEEL_EPOCHS = 3
+# configs/config_mnist.yaml's model_params and batch (held to the file by
+# the same test): the MLP LR-VAE, ten blocks of 16, L = 4, B = 256. The
+# MNIST readers are not ported (ROADMAP.md Queue 1 item 10b): the step
+# runs on seeded [0, 1) images of MNIST's shape.
+MNIST_PARAMS = {
+    "beta_list": [0.001],
+    "log_mse": False,
+    "encoder_type": "mlp",
+    "decoder_type": "mlp",
+    "fixed_var": False,
+    "residual_connection": False,
+    "hchans": [16, 16, 16, 16, 16, 16, 16, 16, 16, 16],
+    "num_mc_samples": 4,
+    "alpha_list": [0.1],
+    "pwise_reg": False,
+}
+MNIST_BATCH = 256
+# The JAX benchmark's model (bench.py:72): VanillaVAE.for_dataset("mnist",
+# encoder_type="conv", decoder_type="mlp", beta=1.0), f32, B = 256.
+CONV_VAE_PARAMS = {"encoder_type": "conv", "decoder_type": "mlp"}
+CONV_VAE_BATCH = 256
+FLEX_PROFILED = 5
+# Card against CPU, the same weights and inputs, one train step: f32 on
+# both, and float64 on both. The gradient is piecewise smooth: each
+# LeakyReLU input picks one of two slopes, and some lie within f32
+# roundoff of zero, so f32 and float64 runs can compute on different
+# pieces. At the pinwheel config's state 14 of 794624 do, in the LR-VAE's
+# second encoder pass, and there the decoder's gradient differs by 0.56
+# relative L2 (the CPU's f32 step 0.37 from float64 over every leaf; on
+# the f32 run's pieces float64 lands 1.7e-4 from it;
+# tests/test_torch_flexible_config.py); the conv VAE's f32 step, 425
+# inputs of 24293376 on the other side, is 3.3e-3 from float64, and
+# 2.4e-5 on its own pieces (CPU). So the card's f32 step is held to the
+# CPU's float64 step computed on the card's pieces (every LeakyReLU's
+# slope taken from the card's run). Bounds:
+#  - f32 loss terms, card against CPU: FLEX_REF_LOSS_RTOL relative;
+#    statistics REF_BN_TOL;
+#  - the float64 steps' gradients, card against CPU: FLEX_F64_GRAD_RTOL
+#    relative L2 over every leaf (the same function in another summation
+#    order);
+#  - the card's f32 gradient against the CPU's float64 one on its pieces,
+#    relative L2 over every leaf but the pre-BatchNorm biases (phase 6
+#    leaves them out too): FLEX_F32_GRAD_RTOL for the pinwheel LR-VAE (CPU
+#    1.7e-4; H100 9.3e-5), FLEX_CONV_F32_GRAD_RTOL for the conv VAE (CPU
+#    and H100 2.4e-5); and REF_F32_MOVED_SHARE of the parameter elements
+#    moved apart by more than lr/10 by Adam's first update.
+# The conv VAE's step also runs once with the port's TF32 override off,
+# under PyTorch's default cuDNN setting, and must then fail its bound
+# (H100: 6.7e-4), or the bound could not tell TF32 from f32.
+FLEX_REF_LOSS_RTOL = 1e-4
+FLEX_F64_GRAD_RTOL = 1e-8
+FLEX_F32_GRAD_RTOL = 1e-3
+FLEX_CONV_F32_GRAD_RTOL = 2e-4
+
+
+def _busy_us(prof) -> float:
+    """Microseconds the card was busy in a torch.profiler session: the
+    union of its kernel intervals (the GPU ranges of user annotations,
+    which enclose kernels, left out)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def _flex_inputs(dataset, batch, count, seed):
+    """`count` batches: the pinwheel config's seeded training points, or
+    seeded [0, 1) images of MNIST's shape (NHWC)."""
+    if dataset == "pinwheel":
+        x = load_dataset("pinwheel", seed=seed)[0].X[:batch * count]
+    else:
+        x = np.random.default_rng(seed).random((batch * count, 28, 28, 1), dtype=np.float32)
+    return x.reshape(count, batch, *x.shape[1:])
+
+
+def _flex_build(kind, dataset, params, beta, alpha):
+    return build_model(kind, dataset, params, beta=beta, alpha=alpha,
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def _flex_time(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev, evaluate=False):
+    """The train step's median ms/step over TIMED_STEPS steps after two
+    warm-ups (host clock, each step ending in a scalar fetch), with
+    `evaluate` the eval step's ms/batch too; the batches cycle through the
+    9 batches of the pinwheel config (10000 points). No profiler session
+    may have opened before (they slow later steps: scripts/ab_train_step.py).
+    Returns a function that profiles FLEX_PROFILED more steps and prints the
+    device's idle share, 1 - busy / the median."""
+    model = _flex_build(kind, dataset, params, beta, alpha).to(dev)
+    step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
+    count = 9
+    xs = torch.from_numpy(_flex_inputs(dataset, batch, count, SEED + 6)).to(dev)
+    eps = torch.randn(count, n_samples, batch, model.latent_channel,
+                      generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+    for i in range(2):
+        float(step(xs[i], eps[i], 0.5)["loss"])
+    times, terms = [], []
+    for i in range(2, 2 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        terms.append({k: float(v) for k, v in step(xs[i % count], eps[i % count], 0.5).items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"{tag} train step: non-finite loss terms {terms}")
+    print(f"train step {tag} B={batch} L={n_samples}: {ms:.3f} ms/step median, "
+          f"{statistics.mean(times):.3f} mean over {TIMED_STEPS} steps (host clock, each step ends "
+          f"in a scalar fetch); losses {[round(t['loss'], 4) for t in terms]}")
+    if evaluate:
+        eval_step = make_eval_step(model)
+        eval_eps = eps[:, :1]
+        eval_step(xs[0], eval_eps[0], 0.5)
+        torch.cuda.synchronize()
+        ev = []
+        for i in range(1, EVAL_BATCHES + 1):
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in eval_step(xs[i], eval_eps[i], 0.5).items()}
+            ev.append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag} eval step: non-finite loss terms {m}")
+        print(f"eval step {tag} B={batch}: {statistics.median(ev):.3f} ms/batch median over "
+              f"{EVAL_BATCHES} batches (host clock, scalar fetch); loss {m['loss']:.6f}")
+
+    def profile():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(FLEX_PROFILED):
+                float(step(xs[i % count], eps[i % count], 0.5)["loss"])
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation) / FLEX_PROFILED
+        busy = _busy_us(prof) / 1e3 / FLEX_PROFILED
+        print(f"train step {tag}: device busy {busy:.3f} ms/step in {kernels:.0f} kernels "
+              f"(torch.profiler, {FLEX_PROFILED} steps), idle {100 * (1 - busy / ms):.1f}% of the "
+              f"unprofiled step ({ms:.3f} ms)")
+
+    return profile
+
+
+@contextlib.contextmanager
+def _lrelu_pieces(signs, force=False):
+    """Within it every LeakyReLU (torch.nn.functional.leaky_relu) appends
+    the sign pattern of its input (x > 0, on the CPU) to `signs`; with
+    `force` it takes its slopes from the next pattern of `signs` instead,
+    so that a second run of the same step computes on the first run's
+    pieces."""
+    leaky, patterns = torch.nn.functional.leaky_relu, iter(signs)
+
+    def piecewise(x, slope=0.01, inplace=False):
+        if force:
+            return torch.where(next(patterns).to(x.device), x, x * slope)
+        signs.append((x > 0).cpu())
+        return leaky(x, slope)
+
+    with mock.patch.object(torch.nn.functional, "leaky_relu", piecewise):
+        yield
+
+
+def _flex_train_once(where, kind, dataset, params, beta, alpha, x, eps, dtype=torch.float32):
+    """One train step at lr LR from the seeded weights (in `dtype`: float64
+    makes every layer compute in float64): (loss terms, gradients,
+    parameters after, buffers after), on the host in float64."""
+    model = _flex_build(kind, dataset, params, beta, alpha).to(where, dtype)
+    for m in model.modules():
+        if getattr(m, "dtype", None) == torch.float32:
+            m.dtype = dtype
+    terms = make_train_step(model, make_optimizer(model.parameters(), lr=LR))(
+        torch.from_numpy(x).to(where, dtype), torch.from_numpy(eps).to(where, dtype), 0.5)
+    return ({k: float(v) for k, v in terms.items()},
+            {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+            {k: p.detach().double().cpu() for k, p in model.named_parameters()},
+            {k: b.double().cpu() for k, b in model.named_buffers()})
+
+
+def _flex_compare(dev, tag, kind, dataset, params, beta, alpha, batch, n_samples, f32_rtol,
+                  tf32_probe=False):
+    """One train step on the CPU and on the card, the same weights, inputs
+    and noise, in f32 and in float64, under the bounds above (`f32_rtol`
+    on the card's f32 gradient). With `tf32_probe`, the card's f32 step
+    once more with the port's TF32 override off (cuDNN's TF32 on), which
+    must exceed `f32_rtol`."""
+    x = _flex_inputs(dataset, batch, 1, SEED + 8)[0]
+    latent = _flex_build(kind, dataset, params, beta, alpha).latent_channel
+    eps = np.random.default_rng(SEED + 9).standard_normal(
+        (n_samples, batch, latent)).astype(np.float32)
+    run = lambda where, dtype=torch.float32: _flex_train_once(
+        where, kind, dataset, params, beta, alpha, x, eps, dtype)
+
+    def on_pieces(step):
+        """`step`'s result, and the CPU's float64 step on its pieces."""
+        signs = []
+        with _lrelu_pieces(signs):
+            out = step()
+        with _lrelu_pieces(signs, force=True):
+            return out, run("cpu", torch.float64), signs
+
+    (t_dev, g_dev, p_dev, b_dev), (_, g_ref, p_ref, _), card_signs = on_pieces(lambda: run(dev))
+    signs_64 = []
+    with _lrelu_pieces(signs_64):
+        _, g_64, _, _ = run("cpu", torch.float64)
+    t_cpu, g_cpu, _, b_cpu = run("cpu")
+    _, g_dev64, _, _ = run(dev, torch.float64)
+    live = [k for k in g_64 if k not in pre_batchnorm_biases(g_64)]
+    gap = lambda g, w, keys: math.sqrt(sum(float(((g[k] - w[k]) ** 2).sum()) for k in keys)
+                                       / sum(float((w[k] ** 2).sum()) for k in keys))
+    share = lambda p, w: float(torch.cat([(p[k] - w[k]).abs().reshape(-1) for k in live])
+                               .gt(LR / 10).float().mean())
+    rel = max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12) for k in t_cpu)
+    stats = max(float((b_dev[k] - b_cpu[k]).abs().max()) / max(1.0, float(b_cpu[k].abs().max()))
+                for k in b_cpu)
+    checks = {
+        "loss terms, card f32 vs CPU f32": (rel, FLEX_REF_LOSS_RTOL),
+        "statistics, card f32 vs CPU f32": (stats, REF_BN_TOL),
+        "gradient, card float64 vs CPU float64, every leaf": (gap(g_dev64, g_64, list(g_64)),
+                                                               FLEX_F64_GRAD_RTOL),
+        f"gradient, card f32 vs CPU float64 on the card's pieces, {len(live)} leaves": (
+            gap(g_dev, g_ref, live), f32_rtol),
+        "moved share, card f32 vs CPU float64 on the card's pieces": (share(p_dev, p_ref),
+                                                                     REF_F32_MOVED_SHARE)}
+    flips = sum(int((a != b).sum()) for a, b in zip(card_signs, signs_64))
+    print(f"reference train step {tag}: " + "; ".join(
+        f"{name} {v:.3e} (bound {b:g})" for name, (v, b) in checks.items())
+        + f"; LeakyReLU inputs on the other side of 0 in the card's f32 step than in the CPU's "
+        f"float64 step: {flips} of {sum(a.numel() for a in signs_64)}; f32 gradient from the "
+        f"float64 step on its own pieces: card {gap(g_dev, g_64, live):.3e}, CPU "
+        f"{gap(g_cpu, g_64, live):.3e}; cpu {t_cpu} card {t_dev}")
+    if tf32_probe:
+        with mock.patch.object(blocks, "_ieee_f32", lambda x: contextlib.nullcontext()):
+            (_, g_tf32, p_tf32, _), (_, g_tf32_ref, p_tf32_ref, _), _ = on_pieces(
+                lambda: run(dev))
+        tf32_gap = gap(g_tf32, g_tf32_ref, live)
+        print(f"reference train step {tag}, the port's TF32 override off: f32 gradient from "
+              f"the CPU's float64 on its pieces {tf32_gap:.3e} (must exceed the bound "
+              f"{f32_rtol:g}), moved share {share(p_tf32, p_tf32_ref):.3e}")
+        if not tf32_gap > f32_rtol:
+            raise AssertionError(f"{tag}: the f32 bound does not tell TF32 convolutions apart")
+    failed = [name for name, (v, b) in checks.items() if not v <= b]
+    if failed:
+        raise AssertionError(f"card and CPU train steps disagree ({tag}): {failed}")
+
+
+def phase_flexible(dev):
+    """The FlexibleVAE family on the card: the pinwheel config through
+    run_experiment (both sweep points, PINWHEEL_EPOCHS epochs), the train
+    steps' ms/step and idle share of the pinwheel LR-VAE, the MNIST-config
+    MLP LR-VAE and the conv VAE of bench.py:72 (with its eval ms/batch),
+    the card against the CPU for one staged LR-VAE step and one conv
+    VanillaVAE step (under PyTorch's default cuDNN TF32 setting, which the
+    port's f32 convolutions must override). No kernel counter may rise."""
+    paths = {}
+    config = dict(PINWHEEL_CONFIG, common_params=dict(PINWHEEL_CONFIG["common_params"],
+                                                      exp_epochs=PINWHEEL_EPOCHS))
+    common, mp = config["common_params"], config["model_params"]
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        summaries = run_experiment(config, output_root=root, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        written = [(sorted(os.listdir(os.path.join(s["result_dir"], "params"))),
+                    os.path.isdir(os.path.join(s["result_dir"], "scatter2d")),
+                    len(os.listdir(os.path.join(root, "runs", s["name"])))) for s in summaries]
+        logs = sorted(os.listdir(os.path.join(root, "log")))
+        with open(os.path.join(root, "log", logs[0])) as f:
+            rows = f.read().strip().splitlines()
+    paths["pinwheel_train_and_test"] = _read_launches()
+    steps = num_batches(load_dataset("pinwheel", seed=SEED)[0], common["batch_size"])
+    epochs_run, full = len(summaries) * PINWHEEL_EPOCHS, PINWHEEL_CONFIG["common_params"]["exp_epochs"]
+    print(f"run_experiment pinwheel LR-VAE: {len(summaries)} sweep points x {PINWHEEL_EPOCHS} "
+          f"epochs of {steps} steps at B={common['batch_size']} in {wall:.2f} s "
+          f"({wall / epochs_run:.3f} s an epoch with its eval and artifacts; the config's "
+          f"{full} epochs x {len(summaries)} points would take "
+          f"{wall / epochs_run * full * len(summaries) / 3600:.2f} h); wrote "
+          f"{written}, log {logs} with {len(rows) - 1} rows; final eval "
+          f"{[s['eval'] for s in summaries]}; posterior metrics "
+          f"{[s['posterior_metrics'] for s in summaries]}")
+    numbers = [v for s in summaries for v in (*s["eval"].values(),
+                                               *s["posterior_metrics"].values())]
+    if len(summaries) != len(mp["beta_list"]) or not all(math.isfinite(v) for v in numbers):
+        raise AssertionError(f"pinwheel run_experiment: non-finite numbers {numbers}")
+    if any(w[0] != [f"model_{PINWHEEL_EPOCHS - 1}.pkl"] or w[2] < 1 for w in written) or len(
+            rows) != 1 + len(summaries):
+        raise AssertionError(f"pinwheel run_experiment did not write its artifacts: {written}")
+    _expect_launches(paths["pinwheel_train_and_test"], "the pinwheel trainer", (), COUNTERS)
+
+    beta, alpha = mp["beta_list"][0], mp["alpha_list"][0]
+    profiles = {}
+    for name, args, evaluate in (
+            ("pinwheel_step", ("pinwheel LR-VAE f32", "lrvae", "pinwheel", mp, beta, alpha,
+                               common["batch_size"], mp["num_mc_samples"]), False),
+            ("mnist_mlp_step", ("MNIST-config MLP LR-VAE f32", "lrvae", "mnist", MNIST_PARAMS,
+                                MNIST_PARAMS["beta_list"][0], MNIST_PARAMS["alpha_list"][0],
+                                MNIST_BATCH, MNIST_PARAMS["num_mc_samples"]), False),
+            ("conv_vae_step", ("conv VAE (bench.py:72) f32", "vae", "mnist", CONV_VAE_PARAMS,
+                               1.0, 0.0, CONV_VAE_BATCH, 1), True)):
+        _reset_launches()
+        profiles[name] = _flex_time(*args, dev, evaluate=evaluate)
+        paths[name] = _read_launches()
+        _expect_launches(paths[name], name, (), COUNTERS)
+    # profiled only after every step and eval was timed
+    for name, profile in profiles.items():
+        _reset_launches()
+        profile()
+        _expect_launches(_read_launches(), f"{name} (profiled)", (), COUNTERS)
+
+    _reset_launches()
+    _flex_compare(dev, "pinwheel LR-VAE (staged) f32", "lrvae", "pinwheel", mp, beta, alpha,
+                  common["batch_size"], mp["num_mc_samples"], FLEX_F32_GRAD_RTOL)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default
+    try:
+        _flex_compare(dev, "conv VanillaVAE f32, cudnn.allow_tf32 True", "vae", "mnist",
+                      CONV_VAE_PARAMS, 1.0, 0.0, CONV_VAE_BATCH, 1, FLEX_CONV_F32_GRAD_RTOL,
+                      tf32_probe=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    paths["flexible_reference"] = _read_launches()
+    _expect_launches(paths["flexible_reference"], "the flexible reference steps", (), COUNTERS)
+    return paths
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1212,6 +1593,7 @@ def main():
     paths = {"deepsets": _timed(phase_deepsets, dev)}
     paths["dropout_train"], paths["dropout_eval"] = _timed(phase_dropout, dev)
     paths["trainer_options"] = _timed(phase_trainer_options, dev)
+    paths.update(_timed(phase_flexible, dev))
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

@@ -5,9 +5,13 @@ the further paths chip_smoke.py phase 4c drives: SetVAE with
 `num_heads: 2` (the BHND attention route, K3f / K3b), and SetVAE and
 SetLRVAE with VST_FUSED_FFN=1 (the fused FFN, K6f / K6b); then those of
 phases 6-8: the DeepSets SetVAE (f32), SetVAE with `attn_dropout: 0.1`
-(keep masks from a CUDA generator) and SetVAE under `grad_accum: 2`.
+(keep masks from a CUDA generator) and SetVAE under `grad_accum: 2`;
+then phase 9's FlexibleVAE steps: the pinwheel config's LR-VAE
+(B = 1024), the MNIST config's MLP LR-VAE (B = 256, L = 4) and the conv
+VAE of bench.py:72 (B = 256, f32).
 
-    python scripts/profile_torch_step.py
+    python scripts/profile_torch_step.py            # every step
+    python scripts/profile_torch_step.py flexible   # phase 9's steps only
 
 Prints the card's name and power limit, then for each model the median
 ms/step without the profiler (host clock, each step ending in a scalar
@@ -49,7 +53,9 @@ CLASSES = (
     ("K6f fused FFN forward", ("ffn_fwd",)),
     ("K4 Chamfer forward", ("chamfer_fwd",)),
     ("K5 Chamfer backward", ("chamfer_bwd",)),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "dgrad", "wgrad")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv")),
+    ("LeakyReLU fwd+bwd", ("leaky_relu",)),
     ("LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),
     ("Adam (foreach)", ("multi_tensor", "foreach")),
     ("softmax fwd+bwd", ("softmax",)),
@@ -78,47 +84,55 @@ def run(exp_type, params, batch, dev, tag="bf16", n_micro=1, dropout=False):
     x_all, _ = fake_point_clouds(batch * total, n, seed=4)
     xs = torch.from_numpy(x_all).to(dev).view(total, batch, n, 3)
     eps = torch.randn(total, batch, latent, generator=torch.Generator().manual_seed(5)).to(dev)
+    report(f"{exp_type} B={batch} N={n} {tag}",
+           lambda i: float(step(xs[i], eps[i], 0.5, masks)["loss"]))
+
+
+def run_flexible(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev):
+    """A FlexibleVAE train step, as chip_smoke.py phase 9 times it."""
+    model = cs._flex_build(kind, dataset, params, beta, alpha).to(dev)
+    step = make_accum_train_step(model, make_optimizer(model.parameters(), lr=1e-2), 1)
+    xs = torch.from_numpy(cs._flex_inputs(dataset, batch, 9, 6)).to(dev)
+    eps = torch.randn(9, n_samples, batch, model.latent_channel,
+                      generator=torch.Generator().manual_seed(7)).to(dev)
+    report(f"{tag} B={batch} L={n_samples}",
+           lambda i: float(step(xs[i % 9], eps[i % 9], 0.5)["loss"]))
+
+
+def report(tag, step):
+    """Time `step(i)` (one train step on batch i, ending in a scalar
+    fetch) unprofiled, then profile it; print the breakdown."""
+    total = 3 + TIMED + PROFILED
     for i in range(3):
-        float(step(xs[i], eps[i], 0.5, masks)["loss"])
+        step(i)
     times = []
     for i in range(3, 3 + TIMED):
         t0 = time.perf_counter()
-        float(step(xs[i], eps[i], 0.5, masks)["loss"])
+        step(i)
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(3 + TIMED, total):
-            float(step(xs[i], eps[i], 0.5, masks)["loss"])
+            step(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events, without the GPU ranges of user annotations
     # (Optimizer.step) that enclose kernels
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    per_class, per_name, spans = {}, {}, []
+    per_class, per_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        spans.append((e.time_range.start, e.time_range.end))
         label = classify(e.name)
         per_class[label] = per_class.get(label, 0.0) + us
         c, t = per_name.get(e.name, (0, 0.0))
         per_name[e.name] = (c + 1, t + us)
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = cs._busy_us(prof)
     dev_ms = sum(per_class.values()) / 1e3 / PROFILED
     busy_ms, unprofiled = busy / 1e3 / PROFILED, statistics.median(times)
-    print(f"== {exp_type} B={batch} N={n} {tag}: {unprofiled:.3f} ms/step unprofiled "
+    print(f"== {tag}: {unprofiled:.3f} ms/step unprofiled "
           f"(median of {TIMED}, host clock, scalar fetch); profiled wall {wall / PROFILED:.3f} "
           f"ms/step; kernel time {dev_ms:.3f} ms/step in {len(kernels) // PROFILED} kernels; "
           f"device busy {busy_ms:.3f} ms/step, idle {100 * (1 - busy_ms * PROFILED / wall):.1f}% "
@@ -131,11 +145,7 @@ def run(exp_type, params, batch, dev, tag="bf16", n_micro=1, dropout=False):
         print(f"    {us / 1e3 / PROFILED:9.4f} ms  x{c // PROFILED:<4d} {name[:110]}")
 
 
-def main():
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+def run_set_models(dev):
     lr_params = dict(cs.MODEL_PARAMS, **cs.SETLRVAE_PARAMS)
     run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev)
     run("setlrvae", lr_params, cs.SETLRVAE_BATCH, dev)
@@ -149,6 +159,24 @@ def main():
         "bf16 attn_dropout 0.1", dropout=True)
     accum = cs.TRAINER_OPTIONS["grad_accum"]
     run("setvae", cs.MODEL_PARAMS, cs.BATCH, dev, f"bf16 grad_accum {accum}", n_micro=accum)
+
+
+def main():
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if "flexible" not in sys.argv[1:]:
+        run_set_models(dev)
+    pin = cs.PINWHEEL_CONFIG["model_params"]
+    run_flexible("pinwheel LR-VAE f32", "lrvae", "pinwheel", pin, pin["beta_list"][0],
+                 pin["alpha_list"][0], cs.PINWHEEL_CONFIG["common_params"]["batch_size"],
+                 pin["num_mc_samples"], dev)
+    mnist = cs.MNIST_PARAMS
+    run_flexible("MNIST-config MLP LR-VAE f32", "lrvae", "mnist", mnist, mnist["beta_list"][0],
+                 mnist["alpha_list"][0], cs.MNIST_BATCH, mnist["num_mc_samples"], dev)
+    run_flexible("conv VAE (bench.py:72) f32", "vae", "mnist", cs.CONV_VAE_PARAMS, 1.0, 0.0,
+                 cs.CONV_VAE_BATCH, 1, dev)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 """Helpers shared by the tests that hold the PyTorch port to the JAX
 package on the CPU (tests/test_torch_*.py). Not a test module."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import torch
 
 
 def to_np(tree):
@@ -29,3 +32,156 @@ def patch_eps(monkeypatch, eps):
     normal = jax.random.normal
     monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: (
         jnp.asarray(eps, dtype) if tuple(shape) == eps.shape else normal(key, shape, dtype)))
+
+
+# ---------------------------------------------------------------- the FlexibleVAE family
+
+# Small configurations of each encoder/decoder pair, by name: (dataset,
+# model_params). Three hidden blocks of width 8; MNIST's 28 x 28 x 1
+# geometry for the image models (the conv pyramid 28 -> 4 -> 28).
+FLEX_ARCHS = {
+    "mlp1d": ("pinwheel", dict(encoder_type="mlp", decoder_type="mlp", hchans=[8, 8, 8])),
+    "mlp1d-res": ("pinwheel", dict(encoder_type="mlp", decoder_type="mlp", hchans=[8, 8, 8],
+                                   residual_connection=True)),
+    "mlp2d": ("mnist", dict(encoder_type="mlp", decoder_type="mlp", hchans=[8, 8, 8])),
+    "conv-mlp": ("mnist", dict(encoder_type="conv", decoder_type="mlp", hchans=[8, 8, 8])),
+    "conv-conv": ("mnist", dict(encoder_type="conv", decoder_type="conv", hchans=[8, 8, 8])),
+}
+
+
+def random_stats(bs, seed):
+    """BatchNorm running statistics away from their initial 0 / 1."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.random(a.shape) + 0.5 if path[-1].key == "var"
+                         else rng.normal(size=a.shape)).astype(np.float32), to_np(bs))
+
+
+def flex_inputs(arch, batch, seed=0):
+    """Inputs of `arch`'s dataset: pinwheel points, or [0, 1) images NHWC."""
+    rng = np.random.default_rng(seed)
+    if FLEX_ARCHS[arch][0] == "pinwheel":
+        from vae_song_tpu_torch.data.synthetic import generate_spin_data
+        return generate_spin_data(batch * 5, rng=rng)[0][:batch]
+    return rng.random((batch, 28, 28, 1)).astype(np.float32)
+
+
+def flex_pair(kind, arch, mixed=False, beta=0.01, alpha=0.5, extra=None, seed=0):
+    """The JAX model of `kind` ("vae", "nae", "lrvae") and `arch` with its
+    initial variables (running statistics made random), and the port model
+    holding the same."""
+    from vae_song_tpu.models import build_model as jax_build_model
+    from vae_song_tpu.train.loop import init_model
+    from vae_song_tpu_torch import weights
+    from vae_song_tpu_torch.models.registry import build_model
+
+    dataset, mp = FLEX_ARCHS[arch]
+    mp = dict(mp, mixed_precision=mixed, **(extra or {}))
+    jmodel = jax_build_model(kind, dataset, mp, beta=beta, alpha=alpha)
+    params, bs = init_model(jmodel, flex_inputs(arch, 2), seed=seed)
+    params, bs = to_np(params), random_stats(bs, seed + 1)
+    port = build_model(kind, dataset, mp, beta=beta, alpha=alpha)
+    weights.load_flax_params(port, params, bs)
+    return jmodel, params, bs, port
+
+
+def rel_err(got, want):
+    """max|got - want| / max(1, max|want|) of a tensor or array against an
+    array of the same shape."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+def max_rel(got_tree, want_tree):
+    """Largest |got - want| / max(1, max|want|) over matching leaves."""
+    got = dict(jax.tree_util.tree_flatten_with_path(to_np(got_tree))[0])
+    want = dict(jax.tree_util.tree_flatten_with_path(to_np(want_tree))[0])
+    assert got.keys() == want.keys()
+    return max(float(np.abs(got[k] - want[k]).max()) / max(1.0, float(np.abs(want[k]).max()))
+               for k in want)
+
+
+def grad_gap(a, b, keys):
+    """Relative L2 distance of gradient dict `a` from `b` over `keys`."""
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys)
+    return (num / sum(float((b[k] ** 2).sum()) for k in keys)) ** 0.5
+
+
+def flex_step_parity(monkeypatch, kind, arch, mixed, n_samples, extra=None, n_micro=1,
+                     batch=16, eager=False, lr=1e-2, wu_alpha=0.3, alpha=0.5):
+    """One train step of the JAX package (make_train_step, or
+    make_accum_train_step at n_micro > 1; with `eager` under
+    jax.disable_jit, so each op rounds as Flax declares) and of the port
+    from the same weights, statistics, inputs and noise [L, B, latent]
+    (JAX's scan hands every microbatch the same patched noise, which the
+    port gets tiled along its batch axis). Returns a dict:
+
+      diffs: (loss terms and raw_kl, max relative; gradient, relative L2;
+              share of parameter elements Adam's first update moves apart
+              by more than lr/100; running statistics, max_rel), the
+              pre-BatchNorm biases left out of the last three;
+      pre_bn: (port, JAX) largest pre-BatchNorm bias gradient element over
+              the largest gradient element;
+      f64_gap: the port's gradient's relative L2 distance from a float64
+              copy's, the same step;
+      jax_f64_gap: JAX's gradient's distance from that float64 copy's."""
+    from vae_song_tpu.train import state as jax_state
+    from vae_song_tpu.train.steps import make_accum_train_step as jax_accum_step
+    from vae_song_tpu.train.steps import make_train_step as jax_train_step
+    from vae_song_tpu_torch import weights
+    from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
+    from vae_song_tpu_torch.train.state import make_optimizer
+    from vae_song_tpu_torch.train.steps import make_accum_train_step
+
+    jmodel, params, bs, port = flex_pair(kind, arch, mixed, alpha=alpha, extra=extra)
+    assert port.grad_mode == jmodel.grad_mode == ("staged" if kind == "lrvae" else "composite")
+    x = flex_inputs(arch, batch, seed=7)
+    eps = np.random.default_rng(8).normal(
+        size=(n_samples, batch // n_micro, port.latent_channel)).astype(np.float32)
+    patch_eps(monkeypatch, eps)
+    keys = [k for k, _ in port.named_parameters()]
+    before_bn = pre_batchnorm_biases(keys)
+    live = [k for k in keys if k not in before_bn]
+
+    def jax_step(no_jit):
+        tx = optax.chain(grads_capture(), jax_state.make_optimizer(lr=lr))
+        state = jax_state.TrainState.create(params, bs, tx)
+        step = (jax_accum_step(jmodel, tx, n_micro, L=n_samples) if n_micro > 1
+                else jax_train_step(jmodel, tx, L=n_samples))
+        with jax.disable_jit(no_jit):
+            state, m = step(state, jnp.asarray(x), wu_alpha, jax.random.PRNGKey(0))
+        return ({k: float(v) for k, v in m.items()},
+                weights.params_to_state_dict(to_np(state.opt_state[0]), keys),
+                weights.params_to_state_dict(to_np(state.params), keys),
+                to_np(state.batch_stats))
+
+    jm, j_grads, j_after, j_stats = jax_step(eager)
+
+    port_eps = np.concatenate([eps] * n_micro, axis=1)
+    ref = copy.deepcopy(port).double()
+    for m in ref.modules():                 # the f32 heads and the bf16 trunk too
+        if getattr(m, "dtype", None) in (torch.float32, torch.bfloat16):
+            m.dtype = torch.float64
+    make_accum_train_step(ref, make_optimizer(ref.parameters(), lr=lr), n_micro)(
+        torch.from_numpy(x).double(), torch.from_numpy(port_eps).double(), wu_alpha)
+    pm = make_accum_train_step(port, make_optimizer(port.parameters(), lr=lr), n_micro)(
+        torch.from_numpy(x), torch.from_numpy(port_eps), wu_alpha)
+    grads = {k: p.grad for k, p in port.named_parameters()}
+    assert all(g is not None for g in grads.values())
+    f64 = {k: p.grad for k, p in ref.named_parameters()}
+    f64_gap = grad_gap({k: g.double() for k, g in grads.items()}, f64, live)
+    jax_f64_gap = grad_gap({k: g.double() for k, g in j_grads.items()}, f64, live)
+
+    scale = max(float(g.abs().max()) for g in grads.values())
+    pre_bn = tuple(max(float(g[k].abs().max()) for k in before_bn) / scale
+                   for g in (grads, j_grads))
+    rel = max(abs(float(pm[k]) - jm[k]) / max(abs(jm[k]), 1e-6)
+              for k in ("loss", "recon", "reg", "lr", "raw_kl"))
+    after = dict(port.named_parameters())
+    share = float(torch.cat([(after[k].detach() - j_after[k]).abs().reshape(-1)
+                             for k in live]).gt(lr / 100).float().mean())
+    stats = max_rel(weights.state_dict_to_variables(port.state_dict())["batch_stats"], j_stats)
+    return {"diffs": (rel, grad_gap(grads, j_grads, live), share, stats), "pre_bn": pre_bn,
+            "f64_gap": f64_gap, "jax_f64_gap": jax_f64_gap}

@@ -193,7 +193,7 @@ def _train_step_launches(dev, n_micro=1, dropout=False, kind="setvae", **overrid
     parameter with a gradient moved; returns the launches of each kernel
     of ALL_COUNTERS."""
     from vae_song_tpu_torch.models.registry import build_model
-    from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
+    from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
     from vae_song_tpu_torch.train.state import make_optimizer
     from vae_song_tpu_torch.train.steps import make_accum_train_step
 
@@ -475,3 +475,78 @@ def test_best_chamfer_outside_the_gate_is_exact_on_card(dev, b, np_, ng):
     val = chamfer.best_chamfer(pred, gt)
     assert chamfer.chamfer_nn_packed.launches == before
     assert torch.equal(val, chamfer.chamfer_distance(pred, gt))
+
+
+# ---------------------------------------------------------------- the FlexibleVAE family
+
+
+def test_f32_convolutions_run_without_tf32_on_card(dev):
+    """PyTorch leaves cuDNN's TF32 on by default (this test does not turn
+    it off): the port's f32 Conv and ConvTranspose still compute in f32,
+    forward and backward, within 1e-5 of a float64 run on the CPU (TF32
+    rounds the operands to 10 mantissa bits, ~1e-3), and leave the
+    caller's setting as it was."""
+    from vae_song_tpu_torch.nn.blocks import Conv, ConvTranspose
+
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator().manual_seed(3)
+    for layer, shape in ((Conv(32, 64, 3, 2, 1, generator=gen), (16, 28, 28, 32)),
+                         (ConvTranspose(64, 32, 1, generator=gen), (16, 7, 7, 64))):
+        x = torch.randn(*shape, generator=gen)
+        want_layer = layer.double()
+        xd = x.double().requires_grad_()
+        want = want_layer(xd)
+        gy = torch.randn(want.shape, generator=gen, dtype=torch.float64)
+        want_grads = torch.autograd.grad(want, (xd, want_layer.weight), gy)
+        card = layer.float().to(dev)
+        xc = x.to(dev).requires_grad_()
+        got = card(xc)
+        got_grads = torch.autograd.grad(got, (xc, card.weight), gy.float().to(dev))
+        assert torch.backends.cudnn.allow_tf32
+        for g, w in zip((got, *got_grads), (want, *want_grads)):
+            err = float((g.double().cpu() - w).abs().max()) / float(w.abs().max())
+            assert err <= 1e-5, (type(layer).__name__, err)
+
+
+def _flex_step_on(where, kind, dataset, mp, x, eps):
+    from vae_song_tpu_torch.models.registry import build_model
+    from vae_song_tpu_torch.train.state import make_optimizer
+    from vae_song_tpu_torch.train.steps import make_train_step
+
+    model = build_model(kind, dataset, mp, beta=0.01, alpha=0.5,
+                        generator=torch.Generator().manual_seed(0)).to(where)
+    terms = make_train_step(model, make_optimizer(model.parameters(), lr=1e-2))(
+        x.to(where), eps.to(where), 0.5)
+    return ({k: float(v) for k, v in terms.items()},
+            {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+            {k: b.double().cpu() for k, b in model.named_buffers()})
+
+
+@pytest.mark.parametrize("kind,dataset,mp,shape", [
+    ("lrvae", "pinwheel", {"encoder_type": "mlp", "decoder_type": "mlp", "hchans": [16] * 4},
+     (256, 2)),
+    ("vae", "mnist", {"encoder_type": "conv", "decoder_type": "conv", "hchans": [8, 16, 32]},
+     (32, 28, 28, 1)),
+])
+def test_flexible_f32_train_step_on_card_matches_cpu(dev, kind, dataset, mp, shape):
+    """One f32 train step (LR-VAE staged; the conv VAE under PyTorch's
+    default cuDNN TF32 setting) on the card and on the CPU from the same
+    weights: loss terms within 1e-4 relative, the gradient within 1e-3
+    relative L2 (pre-BatchNorm biases left out), the statistics within
+    1e-4; no kernel of the port launches."""
+    from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
+
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(*shape, generator=gen)
+    eps = torch.randn(1, shape[0], 2 if dataset == "pinwheel" else 28, generator=gen)
+    start = [f.launches for f in ALL_COUNTERS]
+    t_dev, g_dev, b_dev = _flex_step_on(dev, kind, dataset, mp, x, eps)
+    assert [f.launches for f in ALL_COUNTERS] == start
+    t_cpu, g_cpu, b_cpu = _flex_step_on("cpu", kind, dataset, mp, x, eps)
+    assert max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12) for k in t_cpu) <= 1e-4
+    keys = [k for k in g_cpu if k not in pre_batchnorm_biases(g_cpu)]
+    num = sum(float(((g_dev[k] - g_cpu[k]) ** 2).sum()) for k in keys)
+    assert (num / sum(float((g_cpu[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-3
+    assert all(float((b_dev[k] - b_cpu[k]).abs().max()) <= 1e-4 * max(1.0, float(
+        b_cpu[k].abs().max())) for k in b_cpu)

@@ -27,8 +27,7 @@ from vae_song_tpu.train.steps import make_apply_fns as jax_apply_fns
 from vae_song_tpu.train.steps import make_train_step as jax_make_train_step
 from vae_song_tpu_torch import weights
 from vae_song_tpu_torch.models.registry import build_model
-from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
-from vae_song_tpu_torch.nn.blocks import BatchNorm
+from vae_song_tpu_torch.nn.blocks import BatchNorm, pre_batchnorm_biases
 from vae_song_tpu_torch.train import checkpoint
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_train_step

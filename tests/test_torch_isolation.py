@@ -142,6 +142,22 @@ def test_chip_smoke_slice_paths_are_shipped_configs_with_one_override():
     assert config["common_params"]["batch_size"] % options["grad_accum"] == 0
 
 
+def test_chip_smoke_flexible_configs_are_the_shipped_files():
+    """Phase 9's PINWHEEL_CONFIG is configs/config_pinwheel.yaml and
+    MNIST_PARAMS / MNIST_BATCH configs/config_mnist.yaml's; CONV_VAE_PARAMS
+    is the JAX benchmark's model (bench.py:72)."""
+    assert _smoke_literal("PINWHEEL_CONFIG") == load_config(
+        os.path.join(ROOT, "configs", "config_pinwheel.yaml"))
+    mnist = load_config(os.path.join(ROOT, "configs", "config_mnist.yaml"))
+    assert _smoke_literal("MNIST_PARAMS") == mnist["model_params"]
+    assert _smoke_literal("MNIST_BATCH") == mnist["common_params"]["batch_size"]
+    assert _smoke_literal("CONV_VAE_PARAMS") == {"encoder_type": "conv", "decoder_type": "mlp"}
+    bench = open(os.path.join(ROOT, "bench.py")).read()
+    assert ('VanillaVAE.for_dataset("mnist", encoder_type="conv", decoder_type="mlp",'
+            in bench)
+    assert _smoke_literal("CONV_VAE_BATCH") == 256 and "BATCH = 256" in bench
+
+
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
     """No CUDA card here: non-zero exit, no result line. In a directory
     holding only chip_smoke.py: non-zero exit too."""

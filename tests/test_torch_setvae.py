@@ -230,10 +230,45 @@ def test_generate_samples_shape_and_seed():
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("exp_type", ["vae", "nae", "lrvae", "lidvae"])
+@pytest.mark.parametrize("exp_type", ["lidvae"])
 def test_unported_families_name_their_roadmap_item(exp_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
         build_model(exp_type, "mnist", {})
+
+
+@pytest.mark.parametrize("exp_type", ["vae", "nae", "lrvae"])
+def test_flexible_families_build_with_jax_defaults(exp_type):
+    """With no model_params the registry builds JAX's defaults: the
+    dataset's architecture (MNIST: 1 channel, 28 x 28, latent 28, hidden
+    32-64-128), a conv encoder and an MLP decoder, f32; the same
+    parameter count and shapes as the JAX model's tree."""
+    port = build_model(exp_type, "mnist", {}, beta=0.5, alpha=0.1)
+    jmodel = jax_build_model(exp_type, "mnist", {}, beta=0.5, alpha=0.1)
+    for attr in ("in_channel", "latent_channel", "hidden_channels", "input_dim",
+                 "encoder_type", "decoder_type", "mixed_precision", "beta", "grad_mode"):
+        assert getattr(port, attr) == getattr(jmodel, attr), attr
+    assert (port.encoder_type, port.decoder_type, port.grad_mode) == (
+        "conv", "mlp", "staged" if exp_type == "lrvae" else "composite")
+    variables = jax.eval_shape(lambda x: init_model(jmodel, x),
+                               np.zeros((2, 28, 28, 1), np.float32))
+    want = jax.tree_util.tree_flatten_with_path(variables[0])[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(
+        weights.state_dict_to_variables(port.state_dict())["params"])[0])
+    assert {k: tuple(v.shape) for k, v in want} == {k: v.shape for k, v in got.items()}
+    assert sum(p.numel() for p in port.parameters()) == sum(int(np.prod(v.shape))
+                                                            for _, v in want)
+
+
+def test_warmup_is_declared_by_the_model():
+    """train_and_test runs the wu_alpha warmup for the models that declare
+    `has_warmup` (JAX: the LR* class names, loop.py:779), whatever a
+    subclass is called."""
+    from vae_song_tpu_torch.models import flexible, setvae
+
+    warm = {cls.__name__ for cls in (flexible.NaiveAE, flexible.VanillaVAE, flexible.LRVAE,
+                                     setvae.SetVAE, setvae.SetLRVAE)
+            if getattr(cls, "has_warmup", False)}
+    assert warm == {"LRVAE", "SetLRVAE"}
 
 
 def test_unported_set_options_raise():

@@ -336,11 +336,12 @@ def _patch_jax_kernels(monkeypatch):
     monkeypatch.setattr(torch_setvae, "best_chamfer", chamfer.chamfer_distance_packed)
 
 
-def _train_both(monkeypatch, kind, mixed, overrides=None):
+def _train_both(monkeypatch, kind, mixed, overrides=None, grad_mode=None):
     """STEPS train steps of the JAX package and of the port from the same
     weights (the port's seeded initialisation, handed to JAX through
     vae_song_tpu_torch.weights), on the same clouds and noise, with
-    MODEL_PARAMS updated by `overrides`. Returns the per-step metrics,
+    MODEL_PARAMS updated by `overrides` and the gradient `grad_mode`
+    (None: the model's). Returns the per-step metrics,
     the first step's gradients and the final parameters of both,
     state_dict-keyed, and the initial parameters."""
     mp = dict(MODEL_PARAMS, mixed_precision=mixed, **(overrides or {}))
@@ -358,7 +359,7 @@ def _train_both(monkeypatch, kind, mixed, overrides=None):
         jnp.asarray(eps, dtype) if tuple(shape) == (B, LATENT) else normal(key, shape, dtype)))
     tx = optax.chain(grads_capture(), jax_state.make_optimizer(lr=LR, total_steps=STEPS))
     state = jax_state.TrainState.create(params, {}, tx)
-    step = jax_make_train_step(jmodel, tx)
+    step = jax_make_train_step(jmodel, tx, grad_mode=grad_mode)
     jax_metrics, jax_grads = [], None
     for i in range(STEPS):
         state, m = step(state, jnp.asarray(xs[i]), WU_ALPHA, jax.random.PRNGKey(i))
@@ -369,7 +370,8 @@ def _train_both(monkeypatch, kind, mixed, overrides=None):
     jax_grads = weights.params_to_state_dict(jax_grads, keys)
     jax_final = weights.params_to_state_dict(jax.tree.map(np.asarray, state.params), keys)
 
-    train_step = make_train_step(port, make_optimizer(port.parameters(), lr=LR, total_steps=STEPS))
+    train_step = make_train_step(port, make_optimizer(port.parameters(), lr=LR, total_steps=STEPS),
+                                 grad_mode)
     port_metrics, port_grads = [], None
     for i in range(STEPS):
         m = train_step(torch.from_numpy(xs[i]), torch.from_numpy(eps), WU_ALPHA)
@@ -380,14 +382,15 @@ def _train_both(monkeypatch, kind, mixed, overrides=None):
     return (jax_metrics, jax_grads, jax_final), (port_metrics, port_grads, port.state_dict()), initial
 
 
-def _train_diffs(monkeypatch, kind, mixed, overrides=None):
+def _train_diffs(monkeypatch, kind, mixed, overrides=None, grad_mode=None):
     """(max relative loss-term difference at the first step, the same
     over the later steps, relative L2 difference of the first step's
     gradients, L2 difference of the parameters after STEPS updates
     relative to the L2 of JAX's parameter movement, max |d param|, share
     of parameter elements apart by more than lr/100), after checking the
     parameters that get no gradient."""
-    (jm, jg, jp), (pm, pg, pp), initial = _train_both(monkeypatch, kind, mixed, overrides)
+    (jm, jg, jp), (pm, pg, pp), initial = _train_both(monkeypatch, kind, mixed, overrides,
+                                                      grad_mode)
     rel = lambda j, p: max(abs(p[k] - j[k]) / max(abs(j[k]), 1e-6)
                            for k in ("loss", "recon", "reg", "lr", "raw_kl"))
     first, later = rel(jm[0], pm[0]), max(rel(j, p) for j, p in zip(jm[1:], pm[1:]))
@@ -518,7 +521,12 @@ def test_train_step_mode_survives_other_steps_being_built():
     assert modes == [True, False, True, False]
 
 
-def test_staged_grad_mode_raises():
-    model = build_model("setvae", "shapenet", MODEL_PARAMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, make_optimizer(model.parameters()), grad_mode="staged")
+def test_staged_grad_mode_matches_jax(monkeypatch):
+    """SetLRVAE under grad_mode="staged" (g_main + g_lr with the encoder's
+    share of g_lr scaled by 1e-4) against JAX make_train_step(...,
+    grad_mode="staged"), the JAX kernels in interpret mode: within
+    KERNEL_BOUNDS (measured 2.8e-7, 3.3e-6, 1.5e-6, 3.2e-5, 1.5e-4,
+    4.7e-6)."""
+    _patch_jax_kernels(monkeypatch)
+    _assert_within(_train_diffs(monkeypatch, "setlrvae", False, grad_mode="staged"),
+                   KERNEL_BOUNDS)

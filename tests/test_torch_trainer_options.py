@@ -28,7 +28,7 @@ from vae_song_tpu.train.steps import make_train_step as jax_make_train_step
 from vae_song_tpu_torch import weights
 from vae_song_tpu_torch.cli import main as cli_main
 from vae_song_tpu_torch.models.registry import build_model
-from vae_song_tpu_torch.models.setvae import pre_batchnorm_biases
+from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
 from vae_song_tpu_torch.train import checkpoint
 from vae_song_tpu_torch.train.loop import train_and_test
 from vae_song_tpu_torch.train.state import TrainState, adam_state, load_optax_state, make_optimizer

@@ -1,6 +1,7 @@
 """Sample generation from a trained checkpoint (port of
-vae_song_tpu/cli/generate.py for the set models): checkpoint -> z ~ N(0, I)
--> decode -> .npy/.ply point clouds.
+vae_song_tpu/cli/generate.py for the set models; the other families
+raise, naming their ROADMAP.md item): checkpoint -> z ~ N(0, I) ->
+decode -> .npy/.ply point clouds.
 
 Usage:
     python -m vae_song_tpu_torch.cli.generate \
@@ -64,9 +65,14 @@ def main(argv=None):
 
     with open(args.config) as f:
         config = yaml.safe_load(f)
+    model = create_model_from_config(config)
+    if getattr(model, "data_type", None) != "set":
+        raise NotImplementedError(
+            f"generation for {type(model).__name__} is not ported yet; see ROADMAP.md "
+            "Queue 1 item 13 (FID and generation)"
+        )
     if not os.path.exists(args.param_dir):
         raise FileNotFoundError(f"Checkpoint file not found: {args.param_dir}")
-    model = create_model_from_config(config)
     ckpt_lib.load_params_only(args.param_dir, model)
     model.to(args.device)
 

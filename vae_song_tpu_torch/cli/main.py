@@ -1,12 +1,14 @@
-"""Experiment CLI of the PyTorch port (port of
-vae_song_tpu/cli/main.py for the set models):
+"""Experiment CLI of the PyTorch port (port of vae_song_tpu/cli/main.py):
 
+    python -m vae_song_tpu_torch.cli.main --config configs/config_pinwheel.yaml [--device cpu]
     python -m vae_song_tpu_torch.cli.main --config configs/config_shapenet_setvae.yaml \\
         --fake_data [--device cpu]
 
 Loads the YAML, sweeps the hyperparameter grid of `experiment_type`
-(setvae, setlrvae) and runs `train_and_test` for every sweep point, with
-weights drawn from a CPU torch.Generator seeded with the point's seed.
+(vae, nae, lrvae, setvae, setlrvae; lidvae is not ported yet) and runs
+`train_and_test` for every sweep point, with weights drawn from a CPU
+torch.Generator seeded with the point's seed. `run_experiment` also
+takes the config as a dict (the card's machine has no pyyaml).
 `--resume_from` continues one point's run from a `ckpt_*.pkl` the port
 wrote (refused for a sweep of more than one point); the config's
 `common_params` keys `async_checkpoint` and `grad_accum` reach the
@@ -24,11 +26,14 @@ from vae_song_tpu_torch.models.registry import build_model
 from vae_song_tpu_torch.train.loop import train_and_test
 
 
-def run_experiment(config_path: str, output_root: str = ".", seed: int = 42,
+def run_experiment(config, output_root: str = ".", seed: int = 42,
                    fake_data: bool = False, profile_dir: str | None = None,
                    resume_from: str | None = None, data_parallel: bool = False,
                    checkpoint_every: int | None = None, device="cuda"):
-    config = load_config(config_path)
+    """Every sweep point of `config` (a YAML path, or the dict it holds)
+    through `train_and_test`; returns their summaries."""
+    if not isinstance(config, dict):
+        config = load_config(config)
     exp_type = config["experiment_type"]
     common = config["common_params"]
     mp = config["model_params"]

@@ -1,25 +1,27 @@
 """Model construction from (experiment_type, model_params) -- port of
-vae_song_tpu/models/registry.py for the families ported so far."""
+vae_song_tpu/models/registry.py: the FlexibleVAE family (vae, nae,
+lrvae) and the set models (setvae, setlrvae); lidvae is not ported
+yet."""
 
 import torch
 
+from vae_song_tpu_torch.models.flexible import LRVAE, NaiveAE, VanillaVAE
 from vae_song_tpu_torch.models.setvae import SetLRVAE, SetVAE
 
 # families not ported yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "vae": "Queue 1 item 9 (nn/blocks.py and models/flexible.py)",
-    "nae": "Queue 1 item 9 (nn/blocks.py and models/flexible.py)",
-    "lrvae": "Queue 1 item 9 (nn/blocks.py and models/flexible.py)",
     "lidvae": "Queue 1 item 12 (LIDVAE and the Lipschitz analysis)",
 }
 
 
 def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1.0,
                 alpha: float = 0.01, generator: torch.Generator | None = None):
-    """Build one model for a sweep point; the same `model_params` keys as
-    the JAX registry. Weights are drawn from `generator` (a CPU
-    torch.Generator; None uses torch's global one) on the CPU: move the
-    model with `.to(device)`. Keys that only steer TPU execution
+    """Build one model for a sweep point; the same `model_params` keys and
+    defaults as the JAX registry (the FlexibleVAE family takes the
+    dataset's architecture defaults, `encoder_type` conv and
+    `decoder_type` mlp unless set). Weights are drawn from `generator` (a
+    CPU torch.Generator; None uses torch's global one) on the CPU: move
+    the model with `.to(device)`. Keys that only steer TPU execution
     (`use_flash`) or training memory (`remat`) do not change the forward
     pass and are not read."""
     if exp_type in _NOT_PORTED:
@@ -27,9 +29,25 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
             f"experiment type {exp_type!r} is not ported to PyTorch yet; see "
             f"ROADMAP.md {_NOT_PORTED[exp_type]}"
         )
+    mp = model_params
+    if exp_type in ("vae", "nae", "lrvae"):
+        hchans = tuple(mp.get("hchans") or ()) or None
+        common = dict(hidden_channels=hchans,
+                      encoder_type=mp.get("encoder_type", "conv"),
+                      decoder_type=mp.get("decoder_type", "mlp"),
+                      mixed_precision=mp.get("mixed_precision", False), generator=generator)
+        if exp_type == "vae":
+            return VanillaVAE.for_dataset(
+                dataset, beta=beta, fixed_var=mp.get("fixed_var", False),
+                residual_connection=mp.get("residual_connection", False), **common)
+        if exp_type == "nae":
+            return NaiveAE.for_dataset(dataset, **common)
+        return LRVAE.for_dataset(
+            dataset, beta=beta, alpha=alpha, z_source=mp.get("z_source", "Ex"),
+            pwise_reg=mp.get("pwise_reg", False),
+            residual_connection=mp.get("residual_connection", False), **common)
     if exp_type not in ("setvae", "setlrvae"):
         raise ValueError(f"Unsupported experiment type: {exp_type}")
-    mp = model_params
     if mp.get("moe_experts", 0) > 0:
         raise NotImplementedError(
             "moe_experts > 0 is not ported yet; see ROADMAP.md Queue 1 item 15"

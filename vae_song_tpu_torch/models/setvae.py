@@ -260,16 +260,6 @@ class SetDecoder(nn.Module):
         return self.dense[-1](x)
 
 
-def pre_batchnorm_biases(keys):
-    """The state_dict keys, among `keys`, of the DeepSets hidden Dense
-    biases: `SetEncoder` and `SetDecoder` follow `dense.i` with `norm.i`,
-    a BatchNorm that subtracts the batch mean, so these biases' gradient
-    is zero analytically and what a backward pass computes is roundoff."""
-    keys = set(keys)
-    return {k for k in keys if ".dense." in k and k.endswith(".bias")
-            and k.replace(".dense.", ".norm.").replace(".bias", ".weight") in keys}
-
-
 class SetVAE(nn.Module):
     """Point-cloud VAE: Chamfer + beta * KL."""
 
@@ -323,6 +313,9 @@ class SetVAE(nn.Module):
 class SetLRVAE(SetVAE):
     """SetVAE + latent reconstruction: decode from a detached z, re-encode,
     add alpha * warmup * MSE(z, z_hat)."""
+
+    # the trainer runs the kl_adaptive warmup of wu_alpha for this model
+    has_warmup = True
 
     def __init__(self, alpha=0.01, **kwargs):
         super().__init__(**kwargs)

@@ -1,18 +1,30 @@
-"""Dense, LayerNorm, BatchNorm and dropout with the Flax semantics of
-vae_song_tpu/nn/blocks.py (port). Parameters stay float32; `dtype` is
-the compute dtype.
+"""The building blocks of vae_song_tpu/nn/blocks.py with their Flax
+semantics (port): Dense, LayerNorm, BatchNorm, dropout, and the MLP and
+convolution blocks of the FlexibleVAE family. Parameters stay float32;
+`dtype` is the compute dtype.
 
   * Dense(dtype=bf16): input, weight and bias cast to bf16, the product
     rounded to bf16, then the bias added in bf16 (flax.linen.Dense).
   * Dense(dtype=None): the input is promoted with the f32 parameters, so
     a bf16 input gives an f32 result.
+  * Conv / ConvTranspose: the same casts and roundings as Dense (the
+    convolution, then the bias add); images are NHWC at the API, as in
+    the JAX package, and each convolution reads and writes them through
+    a channels-last view, so no layout copy is made. f32 convolutions
+    run with cuDNN's TF32 off, forward and backward, whatever the
+    caller's `torch.backends.cudnn.allow_tf32` says.
   * LayerNorm(dtype=bf16): statistics and normalisation in f32, output
     rounded to bf16; eps 1e-5.
   * BatchNorm: flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5), the
-    running statistics kept in buffers.
+    running statistics kept in buffers; its output is at least f32.
   * dropout: flax.linen.Dropout in training, its keep mask drawn from an
     explicit source.
+  * MLPBlock, ResidualMLPBlock, ResidualConvBlock, PlainConvolution:
+    Dense / Conv -> BatchNorm -> LeakyReLU(0.01) stacks.
 """
+
+import contextlib
+import re
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +94,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        x = x.float()
+        # at least f32, as Flax promotes (float64 stays float64)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(axes)
@@ -143,3 +156,199 @@ class Dropout(nn.Module):
 
     def forward(self, x, source=None):
         return dropout(x, self.rate, source) if self.training else x
+
+
+LRELU_SLOPE = 0.01  # torch nn.LeakyReLU's default, as the JAX package's lrelu
+
+
+def lrelu(x, slope: float = LRELU_SLOPE):
+    return F.leaky_relu(x, slope)
+
+
+@contextlib.contextmanager
+def _ieee_f32(x):
+    """cuDNN's TF32 off while an f32 convolution on the card runs (PyTorch
+    leaves `torch.backends.cudnn.allow_tf32` on by default); nothing
+    otherwise."""
+    if x.dtype != torch.float32 or x.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv2d(torch.autograd.Function):
+    """conv2d (or conv_transpose2d) of NCHW x by w, no bias, dilation 1,
+    one group; forward and backward under `_ieee_f32`, since autograd runs
+    the backward after the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = stride, padding, transposed
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        with _ieee_f32(x):
+            return conv(x, w, None, stride, padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.conf
+        with _ieee_f32(x):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [stride] * 2, [padding] * 2, [1, 1], transposed, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
+def _conv_nhwc(x, w, stride, padding, transposed=False):
+    """`_Conv2d` on NHWC x through its channels-last NCHW view; NHWC out."""
+    return _Conv2d.apply(x.permute(0, 3, 1, 2), w, stride, padding, transposed).permute(
+        0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """flax.linen.Conv as the JAX package's `Conv` uses it (k x k, stride,
+    symmetric zero padding) on NHWC images, with torch's Conv2d layout
+    (weight [out, in, k, k]) and default init; the bounds can be set as
+    for Dense."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dtype=None, weight_bound=None,
+                 bias_bound=None, generator=None):
+        super().__init__()
+        self.dtype, self.stride, self.padding = dtype, stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        default = init.torch_linear_bound(in_features * kernel_size * kernel_size)
+        init.uniform_(self.weight, default if weight_bound is None else weight_bound, generator)
+        init.uniform_(self.bias, default if bias_bound is None else bias_bound, generator)
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        y = _conv_nhwc(x.to(dt), self.weight.to(dt), self.stride, self.padding)
+        return y + self.bias.to(dt)
+
+
+class ConvTranspose(nn.Module):
+    """The JAX package's UpConv on NHWC images: flax.linen.ConvTranspose(3,
+    strides 2, padding "SAME") cropped to 2n - 1 + output_padding rows and
+    columns. Flax's "SAME" transposed convolution of an n-wide input is
+    torch's conv_transpose2d(stride 2, padding 0) cut to its first 2n, so
+    this is that cut to its first 2n - 1 + output_padding. Not torch's
+    ConvTranspose2d(padding=1, output_padding=p), which is the same image
+    shifted by one pixel. The weight is torch's ConvTranspose2d layout
+    [in, out, 3, 3], the Flax kernel flipped in both spatial axes
+    (weights.py). Init: U(+-1/sqrt(9 * out)) for weight and bias, the fan
+    of torch's ConvTranspose2d."""
+
+    def __init__(self, in_features: int, out_features: int, output_padding: int, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.dtype, self.output_padding = dtype, output_padding
+        self.weight = nn.Parameter(torch.empty(in_features, out_features, 3, 3))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        bound = init.torch_linear_bound(9 * out_features)
+        init.uniform_(self.weight, bound, generator)
+        init.uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        h = 2 * x.shape[1] - 1 + self.output_padding
+        w = 2 * x.shape[2] - 1 + self.output_padding
+        y = _conv_nhwc(x.to(dt), self.weight.to(dt), 2, 0, transposed=True)
+        return y[:, :h, :w] + self.bias.to(dt)
+
+
+class MLPBlock(nn.Module):
+    """Dense -> BatchNorm -> LeakyReLU."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None, generator=None):
+        super().__init__()
+        self.dense = Dense(in_features, out_features, dtype=dtype, generator=generator)
+        self.norm = BatchNorm(out_features)
+
+    def forward(self, x):
+        return lrelu(self.norm(self.dense(x)))
+
+
+class ResidualMLPBlock(nn.Module):
+    """Dense-BN-LReLU -> Dense-BN, plus the input (through Dense-BN when
+    the widths differ), then LReLU. `dense` and `norm` hold the layers in
+    the JAX block's order: main path, then the projection."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None, generator=None):
+        super().__init__()
+        dims = [(in_features, out_features), (out_features, out_features)]
+        if in_features != out_features:
+            dims.append((in_features, out_features))
+        self.dense = nn.ModuleList(Dense(i, o, dtype=dtype, generator=generator) for i, o in dims)
+        self.norm = nn.ModuleList(BatchNorm(out_features) for _ in dims)
+
+    def forward(self, x):
+        out = lrelu(self.norm[0](self.dense[0](x)))
+        out = self.norm[1](self.dense[1](out))
+        identity = x if len(self.dense) == 2 else self.norm[2](self.dense[2](x))
+        return lrelu(out + identity)
+
+
+class ResidualConvBlock(nn.Module):
+    """Conv3x3(stride)-BN-LReLU -> Conv3x3-BN, plus the input (through a
+    1x1 Conv(stride)-BN when the stride or the width changes), then
+    LReLU. NHWC. `conv` and `norm` hold the layers in the JAX block's
+    order."""
+
+    def __init__(self, in_features: int, out_features: int, stride: int = 1, dtype=None,
+                 generator=None):
+        super().__init__()
+        convs = [Conv(in_features, out_features, 3, stride, 1, dtype, generator=generator),
+                 Conv(out_features, out_features, 3, 1, 1, dtype, generator=generator)]
+        if stride != 1 or in_features != out_features:
+            convs.append(Conv(in_features, out_features, 1, stride, 0, dtype,
+                              generator=generator))
+        self.conv = nn.ModuleList(convs)
+        self.norm = nn.ModuleList(BatchNorm(out_features) for _ in convs)
+
+    def forward(self, x):
+        out = lrelu(self.norm[0](self.conv[0](x)))
+        out = self.norm[1](self.conv[1](out))
+        identity = x if len(self.conv) == 2 else self.norm[2](self.conv[2](x))
+        return lrelu(out + identity)
+
+
+class PlainConvolution(nn.Module):
+    """2 x (Conv3x3 -> BatchNorm -> LeakyReLU), no skip. NHWC."""
+
+    def __init__(self, in_features: int, out_features: int, stride: int = 1, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.conv = nn.ModuleList([
+            Conv(in_features, out_features, 3, stride, 1, dtype, generator=generator),
+            Conv(out_features, out_features, 3, 1, 1, dtype, generator=generator)])
+        self.norm = nn.ModuleList(BatchNorm(out_features) for _ in range(2))
+
+    def forward(self, x):
+        for conv, norm in zip(self.conv, self.norm):
+            x = lrelu(norm(conv(x)))
+        return x
+
+
+_PRE_NORM_BIAS = re.compile(r"\.(dense|conv)(\.\d+)?\.bias$")
+
+
+def pre_batchnorm_biases(keys):
+    """The state_dict keys, among `keys`, of the Dense and Conv biases that
+    a BatchNorm follows: `<path>.dense[.i].bias` or `<path>.conv[.i].bias`
+    beside a `<path>.norm[.i]` (the DeepSets SetEncoder / SetDecoder, the
+    MLP and conv blocks, the conv decoder's up-sampling steps). The
+    BatchNorm subtracts the batch mean, so these biases' gradient is zero
+    analytically and what a backward pass computes is roundoff."""
+    keys = set(keys)
+    return {k for k in keys
+            if _PRE_NORM_BIAS.search(k)
+            and _PRE_NORM_BIAS.sub(r".norm\2.weight", k) in keys}

@@ -1,22 +1,32 @@
-"""End-to-end train/eval loop for the set models on one device (port of
-vae_song_tpu/train/loop.py:train_and_test, its single-device set-model
-branch with per-batch steps, :802-1009 and :1016-1096).
+"""End-to-end train/eval loop on one device for the set models and the
+FlexibleVAE family (port of vae_song_tpu/train/loop.py:train_and_test,
+its single-device branch with per-batch steps, :802-1009 and
+:1016-1096).
 
-Per epoch: the warmup alpha (SetLRVAE), one train step per shuffled
-batch (or, with `grad_accum`, one optimizer update per batch from that
-many microbatches), the eval step over the test split, TensorBoard
-scalars and the progress line, and with `checkpoint_every` the full
-train state at `params/ckpt_{epoch}.pkl` (optionally written by the
-AsyncCheckpointer's worker thread). At the last epoch:
-`params/model_{epoch}.pkl` in the JAX package's format and the
-`.ply`/`.npy` point-cloud dumps. At the end: the posterior metrics on
-one batch of 50 test clouds, the experiment log and the unified CSV
+Per epoch: the warmup alpha (the models that set `has_warmup`: LRVAE,
+SetLRVAE), one train step per shuffled batch (or, with `grad_accum`, one
+optimizer update per batch from that many microbatches), the eval step
+over the test split (in the order of the pipeline, shuffled for the 1-D
+datasets as JAX's dispatched loop does), TensorBoard scalars and the
+progress line, and with `checkpoint_every` the full train state at
+`params/ckpt_{epoch}.pkl` (optionally written by the AsyncCheckpointer's
+worker thread). At the last epoch: `params/model_{epoch}.pkl` in the JAX
+package's format, and the set models' `.ply`/`.npy` point-cloud dumps
+or, for the 1-D datasets, the five
+`scatter2d/{epoch}_{input,mu,z,recon,sample}.png` plots of the last eval
+batch (matplotlib is imported there; without it the run prints which
+plots it did not write and goes on). At the end: the posterior metrics
+on one batch of 50 test samples, the experiment log and the unified CSV
 row. `resume_from` continues a run from such a checkpoint at the next
 epoch. The artifact tree is the JAX trainer's:
 
-    <output_root>/results/<resultname>/<run name>/{log.txt, params/, point_clouds/}
+    <output_root>/results/<resultname>/<run name>/{log.txt, params/, point_clouds/, scatter2d/}
     <output_root>/runs/<run name>/events.out.tfevents.*
     <output_root>/log/<logfilename>
+
+The FlexibleVAE family trains with L = num_mc_samples Monte-Carlo
+latents a step and evaluates with L = 1, as JAX does; the set models
+take one latent a step.
 
 Randomness: the batch order is the JAX pipeline's (a numpy Generator
 seeded with [seed, epoch]); the reparameterisation noise, which JAX
@@ -30,7 +40,7 @@ makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
 counterpart; the options that are not ported (the parallel strategies,
 profile_dir, native_prefetch, epochs < 0) raise naming their ROADMAP.md
-item.
+item, and so does a model of a family not ported (LIDVAE).
 """
 
 import os
@@ -43,7 +53,8 @@ import torch
 
 from vae_song_tpu_torch import data as data_lib
 from vae_song_tpu_torch.data.pipeline import iterate_batches, num_batches
-from vae_song_tpu_torch.models.setvae import SetLRVAE, SetVAE
+from vae_song_tpu_torch.models.flexible import FlexibleVAE
+from vae_song_tpu_torch.models.setvae import SetVAE
 from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
@@ -51,7 +62,7 @@ from vae_song_tpu_torch.train import loggers
 from vae_song_tpu_torch.train.state import TrainState, make_optimizer
 from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
                                              make_eval_step)
-from vae_song_tpu_torch.viz.plots import save_point_cloud
+from vae_song_tpu_torch.viz.plots import save_point_cloud, visualize_2c_points_on_image
 
 _METRICS = ("loss", "recon", "reg", "lr")
 # random streams of one run
@@ -65,6 +76,8 @@ def synth_run_name(model, alpha=None) -> str:
         name += "_b=" + str(float(model.beta))
     if type(model).__name__.startswith(("LR", "SetLR")):
         name += "_a=" + str(model.alpha if alpha is None else alpha)
+    if getattr(model, "is_log_mse", False):
+        name += "_logmse"
     return name
 
 
@@ -78,10 +91,10 @@ def _generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
 def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_parallel,
                      tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
                      profile_dir, native_prefetch):
-    if not isinstance(model, SetVAE):
+    if not isinstance(model, (SetVAE, FlexibleVAE)):
         raise NotImplementedError(
-            f"train_and_test trains the set models only; {type(model).__name__} "
-            "is not ported yet (see ROADMAP.md Queue 1 items 9 and 12)"
+            f"train_and_test trains the set models and the FlexibleVAE family; "
+            f"{type(model).__name__} is not ported yet (see ROADMAP.md Queue 1 item 12)"
         )
     parallel = {
         "data_parallel": data_parallel,
@@ -96,7 +109,7 @@ def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_
     if profile_dir is not None:
         unported.append(("profile_dir", "Queue 1 item 16 (train/profiling.py)"))
     if native_prefetch:
-        unported.append(("native_prefetch", "Queue 1 item 10 (the data layer)"))
+        unported.append(("native_prefetch", "Queue 1 item 10c (the native loader)"))
     if epochs < 0:
         unported.append(("generation-only mode (epochs < 0)",
                          "Queue 1 item 13 (FID and generation)"))
@@ -111,6 +124,11 @@ def _device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return f"{device} ({torch.cuda.get_device_name(device)})"
     return str(device)
+
+
+def _noise(shape, generator, device) -> torch.Tensor:
+    """N(0, 1) noise of `shape` drawn on the CPU from `generator`, on `device`."""
+    return torch.randn(*shape, generator=generator).to(device)
 
 
 def _means(ms: list[dict]) -> dict:
@@ -151,11 +169,12 @@ def train_and_test(
     grad_accum: int = 0,
     device="cuda",
 ):
-    """Train `model` (a SetVAE or SetLRVAE, moved to `device`) and
+    """Train `model` (a set model or a FlexibleVAE, moved to `device`) and
     evaluate it every epoch; returns (TrainState, summary dict). The
     arguments keep the JAX function's names; the learning rate always
-    follows the cosine schedule, and `num_mc_samples` is accepted and,
-    as in the JAX set models, does not change the step (L = 1).
+    follows the cosine schedule. `num_mc_samples` is the FlexibleVAE
+    train step's L; as in JAX, it does not change the set models' step
+    (L = 1).
 
     checkpoint_every: write the full train state to
     `params/ckpt_{epoch}.pkl` after every that many epochs, with the
@@ -168,7 +187,6 @@ def train_and_test(
     grad_accum: >= 2 takes each optimizer update from that many
     sequential microbatches of the batch (`make_accum_train_step`);
     `batch_size` must divide by it."""
-    del num_mc_samples
     _refuse_unported(
         model, epochs, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
@@ -182,6 +200,9 @@ def train_and_test(
         )
     device = torch.device(device)
     train_ds, test_ds, _ = data_lib.load_dataset(dataset_name, **(dataset_params or {}))
+    is_set = getattr(model, "data_type", None) == "set"
+    data_type = "set" if is_set else "1d" if dataset_name in ("pinwheel", "chessboard") else "2d"
+    n_samples = 1 if is_set else num_mc_samples
     steps_per_epoch = num_batches(train_ds, batch_size)
     if steps_per_epoch == 0:
         raise ValueError("Dataset smaller than one batch")
@@ -210,7 +231,8 @@ def train_and_test(
     explog = loggers.create_experiment_logger(result_dir, name)
     explog.log_hyperparameters(
         epochs=epochs, batch_size=batch_size, device=_device_name(device),
-        dataset_name=dataset_name, num_mc_samples=1, wu_strat=wu_strat, grad_clip=grad_clip,
+        dataset_name=dataset_name, num_mc_samples=n_samples, wu_strat=wu_strat,
+        grad_clip=grad_clip,
     )
     explog.log_model_info(model)
 
@@ -218,7 +240,13 @@ def train_and_test(
     eval_step = make_eval_step(model)
     _, decode_fn, forward_fn = make_apply_fns(model)
     latent = model.latent_channel
-    has_warmup = isinstance(model, SetLRVAE)
+
+    def eps_of(b, gen, samples=n_samples):
+        """Noise of one batch of b: [b, latent] for the set models,
+        [samples, b, latent] for the FlexibleVAE family."""
+        return _noise((b, latent) if is_set else (samples, b, latent), gen, device)
+
+    has_warmup = getattr(model, "has_warmup", False)
     wu_alpha, last_kl = 0.0, 0.0
     if has_warmup and start_epoch > 0:
         if "wu_alpha" in resume_extra:
@@ -241,11 +269,10 @@ def train_and_test(
 
         ep_np_rng = np.random.default_rng([seed, epoch])
         noise = _generator(seed, epoch, _TRAIN)
-        dropout_rng = _generator(seed, epoch, _DROPOUT, device=device)
+        dropout_rng = _generator(seed, epoch, _DROPOUT, device=device) if is_set else None
         ms = []
         for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device):
-            eps = torch.randn(x.shape[0], latent, generator=noise).to(device)
-            ms.append(train_step(x, eps, wu_alpha, dropout_rng))
+            ms.append(train_step(x, eps_of(x.shape[0], noise), wu_alpha, dropout_rng))
             state.step += 1
         train_means = _means(ms)
         writer.add_scalar("loss/train", train_means["loss"], epoch)
@@ -256,10 +283,11 @@ def train_and_test(
         last_epoch = epoch == epochs - 1
 
         noise = _generator(seed, epoch, _EVAL)
-        ev_ms = []
-        for x, _y in iterate_batches(test_ds, batch_size, shuffle=False, device=device):
-            eps = torch.randn(x.shape[0], latent, generator=noise).to(device)
-            ev_ms.append(eval_step(x, eps, wu_alpha))
+        ev_ms, last_eval_batch = [], None
+        for x, y in iterate_batches(test_ds, batch_size, rng=ep_np_rng,
+                                    shuffle=data_type == "1d", device=device):
+            ev_ms.append(eval_step(x, eps_of(x.shape[0], noise, 1), wu_alpha))
+            last_eval_batch = (x, y)
         eval_means = _means(ev_ms)
         writer.add_scalar("loss/test", eval_means["loss"], epoch)
 
@@ -282,8 +310,13 @@ def train_and_test(
         if last_epoch:
             ckpt_lib.save_params_only(
                 os.path.join(result_dir, "params", f"model_{epoch}.pkl"), model)
-            _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name,
-                              epoch, output_root, _generator(seed, epoch, _DUMP), device)
+            dump_noise = _generator(seed, epoch, _DUMP)
+            if is_set:
+                _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name,
+                                  epoch, output_root, dump_noise, device)
+            elif data_type == "1d" and last_eval_batch is not None:
+                _dump_scatter2d(model, last_eval_batch, decode_fn, forward_fn, resultname,
+                                name, epoch, output_root, dump_noise, device)
 
     writer.close()
 
@@ -291,8 +324,7 @@ def train_and_test(
     noise = _generator(seed, max(epochs, 0), _FINAL)
     mb = min(50, len(test_ds))
     xb = torch.from_numpy(test_ds.X[:mb]).to(device)
-    eps = torch.randn(mb, latent, generator=noise).to(device)
-    outs = forward_fn(xb, eps)
+    outs = forward_fn(xb, eps_of(mb, noise, 1))
     with torch.inference_mode():
         _, loss_rec, _, _ = model.loss(xb, *outs, wu_alpha=wu_alpha)
         pm = metrics_lib.measure_posterior_metrics(noise, outs[1], outs[2], loss_rec)
@@ -348,3 +380,24 @@ def _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name, e
         z = torch.randn(1, model.latent_channel, generator=noise).to(device)
         pts = decode_fn(z)
         save_point_cloud(pts[0], os.path.join(outdir, f"{name}_epoch{epoch}_prior_{i:02d}"))
+
+
+def _dump_scatter2d(model, last_batch, decode_fn, forward_fn, resultname, name, epoch, root,
+                    noise, device):
+    """The 1-D datasets' last-epoch plots (main.py:110-170): the last eval
+    batch, its mu, z and reconstruction (one latent sample each), and
+    the decode of z ~ N(0, I), coloured by class, as
+    `scatter2d/{epoch}_{input,mu,z,recon,sample}.png`. The 2-D image
+    grids and the PCA plot are not ported yet (ROADMAP.md Queue 1 items
+    10b and 13)."""
+    x, y = last_batch
+    latent = model.latent_channel
+    outs = forward_fn(x, _noise((1, x.shape[0], latent), noise, device))
+    sample = decode_fn(_noise((x.shape[0], latent), noise, device))
+    plots = {"input": x, "mu": outs[1], "z": outs[3][0], "recon": outs[0], "sample": sample}
+    try:
+        for tensor_name, points in plots.items():
+            visualize_2c_points_on_image(points, y, resultname, name, epoch, tensor_name, root)
+    except ImportError as e:
+        # visualization must never kill a training run (the JAX trainer's rule)
+        print(f"[{name}] scatter2d plots {list(plots)} not written: {e!r}", flush=True)

@@ -8,10 +8,21 @@ statistics), so the returned functions take only the data. Each call
 puts the model in the mode it needs (train for the train steps, eval for
 the others), so a trainer that builds both steps runs each in its own
 mode. The randomness is in the arguments: the reparameterisation noise
-`eps` (the steps of the reference sample z, L = 1) and, for training
-dropout, the keep-mask source `dropout_rng` (a torch.Generator, or a
+`eps` ([B, latent] for the set models; [L, B, latent], L Monte-Carlo
+samples, for the FlexibleVAE family) and, for training dropout (the set
+models), the keep-mask source `dropout_rng` (a torch.Generator, or a
 callable that hands out masks: nn.blocks.keep_mask), so tests feed both
 packages the same numbers.
+
+The gradient is the JAX `make_grads_fn`'s:
+
+  * composite (every model but LRVAE): one backward of the total loss;
+  * staged (LRVAE's `grad_mode`, or asked for): one forward and two
+    pulls, g_main of (recon + scaled reg) and g_lr of the scaled
+    latent-recon term, combined as g_main + g_lr with g_lr scaled by
+    ENCODER_LR_LAMBDA on every parameter of the `encoder` submodule
+    (BatchNorm's scale and bias included). The reference's backward
+    (main.py:262-287) gives the same sum.
 """
 
 import torch
@@ -19,6 +30,40 @@ import torch
 from vae_song_tpu_torch.ops import losses
 
 _TERMS = ("loss", "recon", "reg", "lr", "raw_kl")
+ENCODER_LR_LAMBDA = 1e-4  # main.py:269
+
+
+def _pull(loss, params, retain_graph=False):
+    """d loss / d params, None where a parameter does not reach the loss
+    (every one when the loss is a constant)."""
+    if not loss.requires_grad:
+        return [None] * len(params)
+    return list(torch.autograd.grad(loss, params, retain_graph=retain_graph,
+                                    allow_unused=True))
+
+
+def _staged_grads(terms, params, encoder_ids):
+    """g_main + g_lr, g_lr scaled by ENCODER_LR_LAMBDA on the encoder's
+    parameters, from one graph (JAX: one vjp, two cotangent pulls)."""
+    _, rec, reg, lr = terms
+    g_main = _pull(rec + reg, params, retain_graph=True)
+    g_lr = _pull(lr, params)
+    out = []
+    for p, a, b in zip(params, g_main, g_lr):
+        if b is not None and id(p) in encoder_ids:
+            b = b * ENCODER_LR_LAMBDA
+        out.append(b if a is None else a if b is None else a + b)
+    return out
+
+
+def _raw_kl(model, outs):
+    """The unscaled regulariser the reference stashes as last_kl_loss (the
+    kl_adaptive warmup reads it): the KL of (mu, logvar), mixed with the
+    batch-statistics KL when the model sets `pwise_reg`."""
+    kl = losses.kl_divergence(outs[1], outs[2])
+    if getattr(model, "pwise_reg", False) and outs[3] is not None:
+        kl = losses.pairwise_reg(kl, outs[3])
+    return kl
 
 
 def make_train_step(model, optimizer, grad_mode: str | None = None):
@@ -26,18 +71,20 @@ def make_train_step(model, optimizer, grad_mode: str | None = None):
     "reg", "lr", "raw_kl"}, each a 0-dim tensor on the model's device;
     the model's parameters are updated in place by one `optimizer` step.
 
-    The gradient is the composite one the set models use: one backward
-    of the total loss (JAX `make_grads_fn`, :45). `raw_kl` is the
-    unscaled KL of this batch (JAX :76-80), which feeds the kl_adaptive
-    warmup. After the call each parameter's `.grad` holds this step's
-    gradient, clipped if the optimizer clips."""
+    The gradient is the model's `grad_mode` (composite, or LRVAE's
+    staged) unless `grad_mode` names one (JAX `make_grads_fn`, :45).
+    `raw_kl` is the unscaled regulariser of this batch (JAX :76-80),
+    which feeds the kl_adaptive warmup. After the call each parameter's
+    `.grad` holds this step's gradient, clipped if the optimizer clips."""
     return make_accum_train_step(model, optimizer, 1, grad_mode)
 
 
 def make_accum_train_step(model, optimizer, n_micro: int, grad_mode: str | None = None):
     """Gradient accumulation (JAX `make_accum_train_step`): one optimizer
-    update from `n_micro` sequential microbatches, x and eps [B, latent]
-    split along their first axis (B must divide by n_micro).
+    update from `n_micro` sequential microbatches, x split along its
+    first axis and eps along its batch axis, the second to last (eps
+    [B, latent] along dim 0, [L, B, latent] along dim 1); B must divide
+    by n_micro.
 
     As in JAX: the gradient is the mean of the per-microbatch gradients,
     accumulated as 0 + g_0 / n + g_1 / n + ...; the metrics are the mean
@@ -48,12 +95,11 @@ def make_accum_train_step(model, optimizer, n_micro: int, grad_mode: str | None 
     1/n_micro (each microbatch sums over its own clouds). n_micro = 1 is
     `make_train_step`."""
     mode = grad_mode or getattr(model, "grad_mode", "composite")
-    if mode != "composite":
-        raise NotImplementedError(
-            f"grad_mode {mode!r}: the staged gradient belongs to the MLP families "
-            "and is not ported yet; see ROADMAP.md Queue 1 item 9"
-        )
+    if mode not in ("composite", "staged"):
+        raise ValueError(f"unknown grad_mode {mode!r}")
     params = [p for p in optimizer.params if p.requires_grad]
+    encoder = getattr(model, "encoder", None)
+    encoder_ids = {id(p) for p in encoder.parameters()} if encoder is not None else set()
 
     def train_step(x, eps, wu_alpha=0.0, dropout_rng=None):
         model.train()
@@ -62,13 +108,15 @@ def make_accum_train_step(model, optimizer, n_micro: int, grad_mode: str | None 
         if b % n_micro:
             raise ValueError(f"batch of {b} does not divide over {n_micro} microbatches")
         acc, m_acc = None, None
-        for xi, ei in zip(x.split(b // n_micro), eps.split(b // n_micro)):
-            outs = model(xi, ei, dropout_rng)
-            total, rec, reg, lr = model.loss(xi, *outs, wu_alpha=wu_alpha)
-            grads = torch.autograd.grad(total, params, allow_unused=True)
+        for xi, ei in zip(x.split(b // n_micro), eps.split(b // n_micro, dim=eps.dim() - 2)):
+            outs = model(xi, ei) if dropout_rng is None else model(xi, ei, dropout_rng)
+            terms = model.loss(xi, *outs, wu_alpha=wu_alpha)
+            if mode == "staged":
+                grads = _staged_grads(terms, params, encoder_ids)
+            else:
+                grads = _pull(terms[0], params)
             with torch.no_grad():
-                raw_kl = losses.kl_divergence(outs[1], outs[2])
-                m = torch.stack([total, rec, reg, lr, raw_kl]).float()
+                m = torch.stack([*terms, _raw_kl(model, outs)]).float()
                 if n_micro == 1:
                     acc, m_acc = list(grads), m
                     continue

@@ -1,16 +1,24 @@
-"""Point-cloud export (port of vae_song_tpu/viz/plots.py:save_point_cloud;
-the plotting functions there need matplotlib and are not ported)."""
+"""Artifact exports (port of vae_song_tpu/viz/plots.py: save_point_cloud
+and visualize_2c_points_on_image; the other plots wait for ROADMAP.md
+Queue 1 items 10b and 13). matplotlib is imported inside the plotting
+function, so the module imports where matplotlib is not installed."""
+
+import os
 
 import numpy as np
 import torch
 
 
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
+
+
 def save_point_cloud(points, filepath):
     """Save a [N, 3] cloud as `filepath`.npy and as ASCII `filepath`.ply
     (the format the reference writes through open3d)."""
-    if isinstance(points, torch.Tensor):
-        points = points.detach().float().cpu().numpy()
-    points = np.asarray(points)
+    points = _np(points)
     np.save(filepath + ".npy", points)
     with open(filepath + ".ply", "w") as f:
         f.write("ply\nformat ascii 1.0\n")
@@ -19,3 +27,33 @@ def save_point_cloud(points, filepath):
         f.write("end_header\n")
         for p in points:
             f.write(f"{p[0]} {p[1]} {p[2]}\n")
+
+
+def visualize_2c_points_on_image(points, label, resultname, name, epoch, tensor_name="recon",
+                                 root="."):
+    """2-D scatter coloured by class (utils.py:427-450), written to
+    `<root>/results/<resultname>/<name>/scatter2d/{epoch}_{tensor_name}.png`.
+    Raises ImportError where matplotlib is not installed."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    points = _np(points)
+    label = _np(label)
+    if points.ndim == 3:
+        points = points.reshape(-1, points.shape[-1])
+        label = np.tile(label, points.shape[0] // max(1, label.shape[0]))[: points.shape[0]]
+    assert points.shape[1] == 2, f"Tensor must have shape [N, 2], got {points.shape}"
+    fontsize = 16
+    fig = plt.figure(figsize=(8, 8))
+    plt.scatter(points[:, 0], points[:, 1], c=label, cmap="tab10", marker="o")
+    plt.title(tensor_name, fontsize=fontsize)
+    plt.xticks(fontsize=fontsize)
+    plt.yticks(fontsize=fontsize)
+    plt.grid(False)
+    outdir = os.path.join(root, "results", resultname, name, "scatter2d")
+    os.makedirs(outdir, exist_ok=True)
+    plt.savefig(os.path.join(outdir, f"{epoch}_{tensor_name}.png"), bbox_inches="tight",
+                pad_inches=0.1)
+    plt.close(fig)

@@ -4,12 +4,19 @@ dicts of numpy arrays, as `save_params_only` pickles them) and the port's
 
   * Flax Dense `kernel [in, out]` <-> Linear-shaped `weight [out, in]`,
     `bias` as is. vae_song_tpu.nn.blocks.Dense nests an nn.Dense named
-    Dense_0, so those leaves sit one level deeper than the MHA ones.
+    Dense_0, so those leaves sit one level deeper than the MHA ones; the
+    JAX Conv wrapper nests an nn.Conv named Conv_0 the same way.
+  * Flax Conv `kernel [kh, kw, in, out]` <-> Conv2d-shaped
+    `weight [out, in, kh, kw]`.
+  * Flax ConvTranspose `kernel [kh, kw, in, out]` <-> ConvTranspose2d-
+    shaped `weight [in, out, kh, kw]`, flipped in both spatial axes (Flax
+    convolves with the kernel as it is, torch's transposed convolution
+    with it flipped).
   * LayerNorm `scale` <-> `weight`, `bias` as is.
-  * BatchNorm (the DeepSets models; vae_song_tpu.nn.blocks.BatchNorm
-    nests an nn.BatchNorm named BatchNorm_0): `params` `scale` / `bias`
-    <-> `weight` / `bias`, and the `batch_stats` collection's `mean` /
-    `var` <-> the buffers `running_mean` / `running_var`.
+  * BatchNorm (vae_song_tpu.nn.blocks.BatchNorm nests an nn.BatchNorm
+    named BatchNorm_0): `params` `scale` / `bias` <-> `weight` / `bias`,
+    and the `batch_stats` collection's `mean` / `var` <-> the buffers
+    `running_mean` / `running_var`.
   * `decoder/query_embed` and `decoder/point_queries` as is.
 
 Each rule maps a port module path to its Flax path; the conversion
@@ -46,30 +53,61 @@ _RULES = [
     # the DeepSets SetEncoder / SetDecoder
     (r"(encoder|decoder)\.dense\.(\d+)", r"\1/Dense_\2/Dense_0", "dense"),
     (r"(encoder|decoder)\.norm\.(\d+)", r"\1/BatchNorm_\2/BatchNorm_0", "batchnorm"),
+    # the FlexibleVAE encoders and decoders (models/flexible.py)
+    (r"(encoder|decoder)\.mlp\.(\d+)\.dense", r"\1/MLPBlock_\2/Dense_0/Dense_0", "dense"),
+    (r"(encoder|decoder)\.mlp\.(\d+)\.norm", r"\1/MLPBlock_\2/BatchNorm_0/BatchNorm_0",
+     "batchnorm"),
+    (r"(encoder|decoder)\.res_mlp\.(\d+)\.dense\.(\d+)",
+     r"\1/ResidualMLPBlock_\2/Dense_\3/Dense_0", "dense"),
+    (r"(encoder|decoder)\.res_mlp\.(\d+)\.norm\.(\d+)",
+     r"\1/ResidualMLPBlock_\2/BatchNorm_\3/BatchNorm_0", "batchnorm"),
+    (r"(encoder|decoder)\.res_conv\.(\d+)\.conv\.(\d+)",
+     r"\1/ResidualConvBlock_\2/Conv_\3/Conv_0", "conv"),
+    (r"(encoder|decoder)\.res_conv\.(\d+)\.norm\.(\d+)",
+     r"\1/ResidualConvBlock_\2/BatchNorm_\3/BatchNorm_0", "batchnorm"),
+    (r"(encoder|decoder)\.head", r"\1/Dense_0/Dense_0", "dense"),
+    (r"decoder\.up\.(\d+)\.conv", r"decoder/UpConv_\1/ConvTranspose_0", "conv_transpose"),
+    (r"decoder\.up\.(\d+)\.norm", r"decoder/BatchNorm_\1/BatchNorm_0", "batchnorm"),
+    (r"decoder\.out_conv", "decoder/Conv_0", "conv"),
 ]
 # leaf name -> (Flax collection, Flax leaf name)
-_LEAF = {"dense": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+_PARAMS = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_LEAF = {"dense": _PARAMS, "conv": _PARAMS, "conv_transpose": _PARAMS,
          "norm": {"weight": ("params", "scale"), "bias": ("params", "bias")},
          "batchnorm": {"weight": ("params", "scale"), "bias": ("params", "bias"),
                        "running_mean": ("batch_stats", "mean"),
                        "running_var": ("batch_stats", "var")}}
+# the weight's layout change, Flax -> port and port -> Flax
+_TO_PORT = {"dense": lambda a: a.T,
+            "conv": lambda a: a.transpose(3, 2, 0, 1),
+            "conv_transpose": lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)}
+_TO_FLAX = {"dense": lambda a: a.T,
+            "conv": lambda a: a.transpose(2, 3, 1, 0),
+            "conv_transpose": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1]}
 _PLAIN = {"decoder.query_embed", "decoder.point_queries"}
 COLLECTIONS = ("params", "batch_stats")
 
 
-def flax_path(key: str) -> tuple[str, tuple[str, ...], bool]:
-    """(Flax collection, path in it, transpose?) of one port state_dict
-    key."""
+def flax_path(key: str) -> tuple[str, tuple[str, ...], str | None]:
+    """(Flax collection, path in it, the weight's layout kind: "dense",
+    "conv", "conv_transpose" or None for a leaf kept as it is) of one port
+    state_dict key. Exactly one rule may claim a key."""
     if key in _PLAIN:
-        return "params", tuple(key.split(".")), False
+        return "params", tuple(key.split(".")), None
     module, _, leaf = key.rpartition(".")
+    found = []
     for pattern, template, kind in _RULES:
         m = re.fullmatch(pattern, module)
         if m and leaf in _LEAF[kind]:
             collection, name = _LEAF[kind][leaf]
             path = m.expand(template).split("/") + [name]
-            return collection, tuple(path), kind == "dense" and leaf == "weight"
-    raise KeyError(f"no Flax counterpart for port parameter {key!r}")
+            layout = kind if leaf == "weight" and kind in _TO_PORT else None
+            found.append((collection, tuple(path), layout))
+    if len(found) > 1:
+        raise KeyError(f"port parameter {key!r} matches {len(found)} rules: {found}")
+    if not found:
+        raise KeyError(f"no Flax counterpart for port parameter {key!r}")
+    return found[0]
 
 
 def _flatten(tree, prefix=()):
@@ -90,13 +128,13 @@ def params_to_state_dict(params: dict, keys, batch_stats: dict | None = None
     leaves = {c: dict(_flatten(t)) for c, t in trees.items() if t is not None}
     out, used = {}, {c: set() for c in leaves}
     for key in keys:
-        collection, path, transpose = flax_path(key)
+        collection, path, layout = flax_path(key)
         if collection not in leaves:
             continue
         if path not in leaves[collection]:
             raise KeyError(f"Flax {collection} has no {'/'.join(path)} for {key!r}")
         arr = np.asarray(leaves[collection][path], dtype=np.float32)
-        out[key] = torch.tensor(arr.T if transpose else arr)
+        out[key] = torch.tensor(np.ascontiguousarray(_TO_PORT[layout](arr) if layout else arr))
         used[collection].add(path)
     unused = sorted(f"{c}:{'/'.join(p)}" for c in leaves for p in leaves[c].keys() - used[c])
     if unused:
@@ -109,12 +147,12 @@ def state_dict_to_variables(state_dict) -> dict[str, dict]:
     trees of float32 numpy arrays ({} where the model has none)."""
     trees: dict = {c: {} for c in COLLECTIONS}
     for key, t in state_dict.items():
-        collection, path, transpose = flax_path(key)
+        collection, path, layout = flax_path(key)
         arr = t.detach().float().cpu().numpy()
         node = trees[collection]
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+        node[path[-1]] = np.ascontiguousarray(_TO_FLAX[layout](arr) if layout else arr)
     return trees
 
 
