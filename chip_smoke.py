@@ -100,15 +100,27 @@ non-zero exit code:
      default (on), which the port's f32 convolutions must override, and
      once more with that override off, which must fail the f32 bound. No
      kernel counter may rise on any of these.
+  10. LID-VAE and the Lipschitz analysis, no kernel of the port either:
+     cli/lipschitz.main on the card for LR-VAE and LIDVAE at the CLI's full
+     data size and grids (10000 points, K = K_z = 16, 2000 pairs a cell,
+     5000 data-based pairs) for 3 epochs instead of 1000, the CSVs and
+     finite metrics asserted, with each one's s/epoch, analysis wall time
+     and peak device memory; the card's analysis fields held to the CPU's
+     on the same weights and draws (2000 points, 4 x 4 grids); the LIDVAE
+     train step's ms/step and idle share at the CLI's width and at MNIST's
+     (conv encoder, latent 32, B = 256), and each held to the CPU's float64
+     step on the card's LeakyReLU pieces. No kernel counter may rise.
 
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-9 (zero on phase 9's). The
+`paths` its launches on each path of phases 6-10 (zero on phases 9 and
+10). The
 last two lines are that JSON line and the result line.
 """
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -123,6 +135,7 @@ import numpy as np
 import torch
 
 from vae_song_tpu_torch import _kernels
+from vae_song_tpu_torch.cli import lipschitz as lipschitz_cli
 from vae_song_tpu_torch.cli.generate import generate_samples
 from vae_song_tpu_torch.cli.main import run_experiment
 from vae_song_tpu_torch.data import load_dataset
@@ -1283,6 +1296,7 @@ FLEX_PROFILED = 5
 # under PyTorch's default cuDNN setting, and must then fail its bound
 # (H100: 6.7e-4), or the bound could not tell TF32 from f32.
 FLEX_REF_LOSS_RTOL = 1e-4
+ADAM_F32_SQUARE_LIMIT = math.sqrt(torch.finfo(torch.float32).max)   # 1.84e19
 FLEX_F64_GRAD_RTOL = 1e-8
 FLEX_F32_GRAD_RTOL = 1e-3
 FLEX_CONV_F32_GRAD_RTOL = 2e-4
@@ -1316,12 +1330,13 @@ def _flex_inputs(dataset, batch, count, seed):
     return x.reshape(count, batch, *x.shape[1:])
 
 
-def _flex_build(kind, dataset, params, beta, alpha):
-    return build_model(kind, dataset, params, beta=beta, alpha=alpha,
+def _flex_build(kind, dataset, params, beta, alpha, il=0.0):
+    return build_model(kind, dataset, params, beta=beta, alpha=alpha, il=il,
                        generator=torch.Generator().manual_seed(SEED))
 
 
-def _flex_time(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev, evaluate=False):
+def _flex_time(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev, evaluate=False,
+               il=0.0):
     """The train step's median ms/step over TIMED_STEPS steps after two
     warm-ups (host clock, each step ending in a scalar fetch), with
     `evaluate` the eval step's ms/batch too; the batches cycle through the
@@ -1329,7 +1344,7 @@ def _flex_time(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev, e
     may have opened before (they slow later steps: scripts/ab_train_step.py).
     Returns a function that profiles FLEX_PROFILED more steps and prints the
     device's idle share, 1 - busy / the median."""
-    model = _flex_build(kind, dataset, params, beta, alpha).to(dev)
+    model = _flex_build(kind, dataset, params, beta, alpha, il).to(dev)
     step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
     count = 9
     xs = torch.from_numpy(_flex_inputs(dataset, batch, count, SEED + 6)).to(dev)
@@ -1399,35 +1414,40 @@ def _lrelu_pieces(signs, force=False):
         yield
 
 
-def _flex_train_once(where, kind, dataset, params, beta, alpha, x, eps, dtype=torch.float32):
+def _flex_train_once(where, kind, dataset, params, beta, alpha, x, eps, dtype=torch.float32,
+                     il=0.0):
     """One train step at lr LR from the seeded weights (in `dtype`: float64
     makes every layer compute in float64): (loss terms, gradients,
     parameters after, buffers after), on the host in float64."""
-    model = _flex_build(kind, dataset, params, beta, alpha).to(where, dtype)
+    model = _flex_build(kind, dataset, params, beta, alpha, il).to(where, dtype)
     for m in model.modules():
         if getattr(m, "dtype", None) == torch.float32:
             m.dtype = dtype
     terms = make_train_step(model, make_optimizer(model.parameters(), lr=LR))(
         torch.from_numpy(x).to(where, dtype), torch.from_numpy(eps).to(where, dtype), 0.5)
+    # a parameter the loss does not reach has no gradient: zero (the ICNN
+    # biases after its first layer, whose gradient through a Brenier map is
+    # zero, when the LeakyReLU pieces are forced)
     return ({k: float(v) for k, v in terms.items()},
-            {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+            {k: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+             for k, p in model.named_parameters()},
             {k: p.detach().double().cpu() for k, p in model.named_parameters()},
             {k: b.double().cpu() for k, b in model.named_buffers()})
 
 
 def _flex_compare(dev, tag, kind, dataset, params, beta, alpha, batch, n_samples, f32_rtol,
-                  tf32_probe=False):
+                  tf32_probe=False, il=0.0):
     """One train step on the CPU and on the card, the same weights, inputs
     and noise, in f32 and in float64, under the bounds above (`f32_rtol`
     on the card's f32 gradient). With `tf32_probe`, the card's f32 step
     once more with the port's TF32 override off (cuDNN's TF32 on), which
     must exceed `f32_rtol`."""
     x = _flex_inputs(dataset, batch, 1, SEED + 8)[0]
-    latent = _flex_build(kind, dataset, params, beta, alpha).latent_channel
+    latent = _flex_build(kind, dataset, params, beta, alpha, il).latent_channel
     eps = np.random.default_rng(SEED + 9).standard_normal(
         (n_samples, batch, latent)).astype(np.float32)
     run = lambda where, dtype=torch.float32: _flex_train_once(
-        where, kind, dataset, params, beta, alpha, x, eps, dtype)
+        where, kind, dataset, params, beta, alpha, x, eps, dtype, il)
 
     def on_pieces(step):
         """`step`'s result, and the CPU's float64 step on its pieces."""
@@ -1446,8 +1466,15 @@ def _flex_compare(dev, tag, kind, dataset, params, beta, alpha, batch, n_samples
     live = [k for k in g_64 if k not in pre_batchnorm_biases(g_64)]
     gap = lambda g, w, keys: math.sqrt(sum(float(((g[k] - w[k]) ** 2).sum()) for k in keys)
                                        / sum(float((w[k] ** 2).sum()) for k in keys))
-    share = lambda p, w: float(torch.cat([(p[k] - w[k]).abs().reshape(-1) for k in live])
+    # an f32 gradient element above sqrt(f32 max) squares to inf in Adam's
+    # second moment (optax's and the port's alike), which leaves that
+    # element where it was; float64 moves it by lr. Those elements (an
+    # untrained LIDVAE's, whose gradients reach 1e20) are left out of the
+    # share, with a margin of 2
+    sane = {k: g_ref[k].abs() < ADAM_F32_SQUARE_LIMIT / 2 for k in live}
+    share = lambda p, w: float(torch.cat([(p[k] - w[k]).abs()[sane[k]] for k in live])
                                .gt(LR / 10).float().mean())
+    overflow = sum(int((~v).sum()) for v in sane.values())
     rel = max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12) for k in t_cpu)
     stats = max(float((b_dev[k] - b_cpu[k]).abs().max()) / max(1.0, float(b_cpu[k].abs().max()))
                 for k in b_cpu)
@@ -1463,6 +1490,7 @@ def _flex_compare(dev, tag, kind, dataset, params, beta, alpha, batch, n_samples
     flips = sum(int((a != b).sum()) for a, b in zip(card_signs, signs_64))
     print(f"reference train step {tag}: " + "; ".join(
         f"{name} {v:.3e} (bound {b:g})" for name, (v, b) in checks.items())
+        + f"; {overflow} gradient elements above sqrt(f32 max) / 2 left out of the moved share"
         + f"; LeakyReLU inputs on the other side of 0 in the card's f32 step than in the CPU's "
         f"float64 step: {flips} of {sum(a.numel() for a in signs_64)}; f32 gradient from the "
         f"float64 step on its own pieces: card {gap(g_dev, g_64, live):.3e}, CPU "
@@ -1562,6 +1590,163 @@ def phase_flexible(dev):
     return paths
 
 
+# Phase 10: LID-VAE and the Lipschitz analysis, which run no kernel of
+# the port (JAX runs them through XLA alone). The CLI runs at its full
+# data size and grids (10000 points, K = K_z = 16, CELL_PAIRS and
+# DATA_PAIRS pairs) for LIPSCHITZ_EPOCHS epochs instead of its 1000, with
+# each model at the sweep's flags (seed 42, beta 0.1, protocol B's two
+# components). The LIDVAE train step is timed at the CLI's width (MLP
+# encoder 64-128-64-2, ICNNs of 512 and 1024, B = 256) and at MNIST's
+# (LIDVAE.for_dataset("mnist"): conv encoder 32-64-128, latent 32, ICNNs of
+# 512 on 32 inputs and 1024 on 784, B = 256, seeded [0, 1) images).
+LIPSCHITZ_EPOCHS = 3
+LIPSCHITZ_ARGS = ["--K", "16", "--K_z", "16", "--seed", "42", "--beta", "0.1",
+                  "--num_training_components", "2", "--wu_strat", "linear"]
+LIPSCHITZ_MODELS = {"lrvae": ["--model", "lrvae", "--alpha", "0.1"],
+                    "lidvae": ["--model", "lidvae", "--IL", "0.1"]}
+LIDVAE_IL = 0.1
+LIDVAE_CLI_PARAMS = {"hchans": [64, 128, 64, 2]}
+LIDVAE_BATCH = 256
+# The card's analysis against the CPU's, the same weights (the card's
+# trained model) and draws, on LIPSCHITZ_REF_POINTS points with 4 x 4
+# grids (the CPU's LIDVAE decode of the full grids would take minutes):
+# every field and data-based metric within LIPSCHITZ_REF_RTOL of the
+# CPU's, relative to the field's largest magnitude (the inverse
+# Lipschitz fields as the quantiles they invert; H100: up to 6.8e-5, and
+# the LR-VAE's inverse field read as 1/quantile 8.7e-4). The card's LIDVAE
+# train step against the CPU's float64 step on the card's LeakyReLU
+# pieces: LIDVAE_F32_GRAD_RTOL relative L2 (CPU, small widths: 1.0e-6
+# MLP, 3.9e-6 conv; tests/test_torch_lidvae.py), the other bounds of
+# phase 9.
+LIPSCHITZ_REF_POINTS = 2000
+LIPSCHITZ_REF_K = 4
+LIPSCHITZ_REF_RTOL = 1e-3
+LIDVAE_F32_GRAD_RTOL = 1e-3
+
+
+def _lipschitz_cli(dev, root, name, flags):
+    """cli/lipschitz.main on the card: the CSVs (K^2 + K_z^2 field rows, a
+    row appended to exp_lip.csv), finite metrics and X fields; prints the
+    training's s/epoch, the analysis' wall time, the peak device memory
+    and the projected time of one 1000-epoch sweep point."""
+    out = os.path.join(root, name, "run")
+    args = lipschitz_cli.build_argparser().parse_args(LIPSCHITZ_ARGS + flags)
+    n_rows = args.K ** 2 + args.K_z ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = lipschitz_cli.main(LIPSCHITZ_ARGS + flags + [
+        "--epochs", str(LIPSCHITZ_EPOCHS), "--output_dir", out, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out, "experiment_metrics.csv")) as f:
+        rows = [line.split(",") for line in f.read().strip().splitlines()]
+    with open(os.path.join(root, name, "exp_lip.csv")) as f:
+        exp_lip = f.read().strip().splitlines()
+    x_fields = [float(v) for r in rows[1:] if r[1] == "X" for v in r[3:]]
+    z_bad = sum(not math.isfinite(float(v)) for r in rows[1:] if r[1] == "Z" for v in r[3:])
+    per_epoch = m["train_sec"] / LIPSCHITZ_EPOCHS
+    print(f"lipschitz CLI {name}: train {m['train_sec']:.3f} s for {LIPSCHITZ_EPOCHS} epochs "
+          f"({per_epoch:.4f} s/epoch, {args.train_total_samples // args.batch_size} steps of "
+          f"B={args.batch_size}), analysis {m['analysis_sec']:.3f} s, "
+          f"run {wall:.2f} s, peak device memory {peak:.2f} GiB; one 1000-epoch sweep point "
+          f"projected {(per_epoch * 1000 + m['analysis_sec']) / 60:.1f} min; data-based KL "
+          f"{m['kl']:.6g}, L(z) {m['bi_lips']:.6g} (inv {m['inv_lips']:.6g}, lips "
+          f"{m['lips']:.6g}); {len(rows) - 1} field rows, {z_bad} non-finite Z-field values")
+    if rows[0] != ["alpha", "space", "cell_idx", "kl_div", "lipschitz"] or len(rows) != 1 + n_rows:
+        raise AssertionError(f"{name}: experiment_metrics.csv is not the CLI's: {rows[:2]}")
+    if exp_lip != ["alpha,beta,kl,L(z)", exp_lip[1]] or not all(
+            math.isfinite(v) for v in (*m.values(), *x_fields)):
+        raise AssertionError(f"{name}: non-finite metrics or X fields, or exp_lip {exp_lip}")
+    return m
+
+
+def _lipschitz_reference(dev, name, flags):
+    """A model trained on the card for LIPSCHITZ_EPOCHS epochs, then its
+    analysis on the card and on the CPU, the same weights and draws."""
+    args = lipschitz_cli.build_argparser().parse_args(LIPSCHITZ_ARGS + flags + [
+        "--epochs", str(LIPSCHITZ_EPOCHS)])
+    X = lipschitz_cli.generate_simple_gaussian_mixture(
+        num_components=args.num_training_components, total_samples=args.train_total_samples,
+        center_range=args.K, stds=args.std, pattern=args.distribution_pattern, seed=args.seed)[0]
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "lidvae":
+        model = lipschitz_cli.LIDVAE.for_dataset(
+            "pinwheel", hidden_channels=tuple(args.hidden_channels), inverse_lipschitz=args.IL,
+            beta=args.beta, generator=gen)
+    else:
+        model = lipschitz_cli.LRVAE.for_dataset(
+            "pinwheel", hidden_channels=tuple(args.hidden_channels), encoder_type="mlp",
+            decoder_type="mlp", alpha=args.alpha, beta=args.beta, generator=gen)
+    lipschitz_cli.train_model(model.to(dev), torch.from_numpy(X).to(dev), args,
+                              {"enabled": False}, initial_wu_alpha=1.0,
+                              generator=torch.Generator().manual_seed(SEED))
+    Xr = X[:LIPSCHITZ_REF_POINTS]
+    k = LIPSCHITZ_REF_K
+    draws = lipschitz_cli.draw_analysis(torch.Generator().manual_seed(SEED), len(Xr),
+                                        model.latent_channel, k, k)
+    card = lipschitz_cli.analyse(model, Xr, k, k, draws)
+    cpu = lipschitz_cli.analyse(copy.deepcopy(model).cpu(), Xr, k, k, draws)
+    gaps = {}
+    for key in ("kl_x", "lips_x", "inv_x", "kl_z", "lips_z", "inv_z"):
+        a, b = np.asarray(card[key], np.float64), np.asarray(cpu[key], np.float64)
+        if key.startswith("inv"):
+            # inv is 1 / (the 5% quantile of the ratios), which can sit at
+            # the 1e-3 clamp: held as the quantile itself, which is what
+            # the analysis computes (1 / inv amplifies its f32 roundoff);
+            # bi = max(inv, lips) follows from the two
+            a, b = 1.0 / a, 1.0 / b
+        both = np.isfinite(a) & np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            raise AssertionError(f"{name} analysis: {key} finite on one side only")
+        gaps[key] = (float(np.abs(a - b)[both].max() / max(1.0, np.abs(b[both]).max()))
+                     if both.any() else 0.0)
+    for key in ("data_kl", "data_inv", "data_lips", "data_bi"):
+        gaps[key] = abs(card[key] - cpu[key]) / max(abs(cpu[key]), 1e-12)
+    worst = max(gaps, key=gaps.get)
+    print(f"reference analysis {name} ({len(Xr)} points, {k} x {k} grids, trained "
+          f"{LIPSCHITZ_EPOCHS} epochs on the card): card against CPU, largest gap {worst} "
+          f"{gaps[worst]:.3e} (bound {LIPSCHITZ_REF_RTOL:g}); " + ", ".join(
+              f"{key} {v:.2e}" for key, v in gaps.items()))
+    if not gaps[worst] <= LIPSCHITZ_REF_RTOL:
+        raise AssertionError(f"{name}: card and CPU analyses disagree: {gaps}")
+
+
+def phase_lipschitz(dev):
+    """LID-VAE and the Lipschitz analysis on the card: cli/lipschitz.main
+    for LR-VAE and LIDVAE, the card's analysis held to the CPU's, the
+    LIDVAE train step's ms/step and idle share at the CLI's and MNIST's
+    widths, and the card's LIDVAE steps held to the CPU's float64 steps
+    on their pieces. No kernel counter may rise."""
+    paths = {}
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        for name, flags in LIPSCHITZ_MODELS.items():
+            _lipschitz_cli(dev, root, name, flags)
+    paths["lipschitz_cli"] = _read_launches()
+    _expect_launches(paths["lipschitz_cli"], "the Lipschitz CLI", (), COUNTERS)
+
+    _reset_launches()
+    for name, flags in LIPSCHITZ_MODELS.items():
+        _lipschitz_reference(dev, name, flags)
+    paths["lipschitz_reference"] = _read_launches()
+    _expect_launches(paths["lipschitz_reference"], "the Lipschitz reference", (), COUNTERS)
+
+    _reset_launches()
+    widths = (("LIDVAE CLI width f32", "pinwheel", LIDVAE_CLI_PARAMS),
+              ("LIDVAE MNIST width f32", "mnist", {}))
+    profiles = [_flex_time(tag, "lidvae", dataset, params, 0.1, 0.0, LIDVAE_BATCH, 1, dev,
+                           il=LIDVAE_IL) for tag, dataset, params in widths]
+    for profile in profiles:
+        profile()
+    for tag, dataset, params in widths:
+        _flex_compare(dev, tag, "lidvae", dataset, params, 0.1, 0.0, LIDVAE_BATCH, 1,
+                      LIDVAE_F32_GRAD_RTOL, il=LIDVAE_IL)
+    paths["lidvae_steps"] = _read_launches()
+    _expect_launches(paths["lidvae_steps"], "the LIDVAE steps", (), COUNTERS)
+    return paths
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1594,6 +1779,7 @@ def main():
     paths["dropout_train"], paths["dropout_eval"] = _timed(phase_dropout, dev)
     paths["trainer_options"] = _timed(phase_trainer_options, dev)
     paths.update(_timed(phase_flexible, dev))
+    paths.update(_timed(phase_lipschitz, dev))
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

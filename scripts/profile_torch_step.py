@@ -8,10 +8,11 @@ phases 6-8: the DeepSets SetVAE (f32), SetVAE with `attn_dropout: 0.1`
 (keep masks from a CUDA generator) and SetVAE under `grad_accum: 2`;
 then phase 9's FlexibleVAE steps: the pinwheel config's LR-VAE
 (B = 1024), the MNIST config's MLP LR-VAE (B = 256, L = 4) and the conv
-VAE of bench.py:72 (B = 256, f32).
+VAE of bench.py:72 (B = 256, f32); then phase 10's LIDVAE steps at the
+Lipschitz CLI's width and at MNIST's (B = 256, f32).
 
     python scripts/profile_torch_step.py            # every step
-    python scripts/profile_torch_step.py flexible   # phase 9's steps only
+    python scripts/profile_torch_step.py flexible   # phases 9 and 10's steps only
 
 Prints the card's name and power limit, then for each model the median
 ms/step without the profiler (host clock, each step ending in a scalar
@@ -88,9 +89,10 @@ def run(exp_type, params, batch, dev, tag="bf16", n_micro=1, dropout=False):
            lambda i: float(step(xs[i], eps[i], 0.5, masks)["loss"]))
 
 
-def run_flexible(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev):
-    """A FlexibleVAE train step, as chip_smoke.py phase 9 times it."""
-    model = cs._flex_build(kind, dataset, params, beta, alpha).to(dev)
+def run_flexible(tag, kind, dataset, params, beta, alpha, batch, n_samples, dev, il=0.0):
+    """A FlexibleVAE (or LIDVAE) train step, as chip_smoke.py phases 9 and
+    10 time it."""
+    model = cs._flex_build(kind, dataset, params, beta, alpha, il).to(dev)
     step = make_accum_train_step(model, make_optimizer(model.parameters(), lr=1e-2), 1)
     xs = torch.from_numpy(cs._flex_inputs(dataset, batch, 9, 6)).to(dev)
     eps = torch.randn(9, n_samples, batch, model.latent_channel,
@@ -177,6 +179,10 @@ def main():
                  mnist["alpha_list"][0], cs.MNIST_BATCH, mnist["num_mc_samples"], dev)
     run_flexible("conv VAE (bench.py:72) f32", "vae", "mnist", cs.CONV_VAE_PARAMS, 1.0, 0.0,
                  cs.CONV_VAE_BATCH, 1, dev)
+    run_flexible("LIDVAE CLI width f32", "lidvae", "pinwheel", cs.LIDVAE_CLI_PARAMS, 0.1, 0.0,
+                 cs.LIDVAE_BATCH, 1, dev, il=cs.LIDVAE_IL)
+    run_flexible("LIDVAE MNIST width f32", "lidvae", "mnist", {}, 0.1, 0.0, cs.LIDVAE_BATCH, 1,
+                 dev, il=cs.LIDVAE_IL)
 
 
 if __name__ == "__main__":

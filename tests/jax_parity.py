@@ -185,3 +185,121 @@ def flex_step_parity(monkeypatch, kind, arch, mixed, n_samples, extra=None, n_mi
     stats = max_rel(weights.state_dict_to_variables(port.state_dict())["batch_stats"], j_stats)
     return {"diffs": (rel, grad_gap(grads, j_grads, live), share, stats), "pre_bn": pre_bn,
             "f64_gap": f64_gap, "jax_f64_gap": jax_f64_gap}
+
+
+# ---------------------------------------------------------------- the Lipschitz CLI
+
+# a small Lipschitz CLI run (2 epochs of 600 points, 4 x 4 and 3 x 3 grids)
+# and each model's flags
+LIPSCHITZ_SMALL = ["--epochs", "2", "--train_total_samples", "600", "--K", "4", "--K_z", "3",
+                   "--batch_size", "64", "--num_training_components", "2", "--seed", "5",
+                   "--beta", "0.1"]
+LIPSCHITZ_ARGS = {"lrvae": ["--model", "lrvae", "--alpha", "0.1", "--hidden_channels", "8", "8",
+                            "2"],
+                  "lidvae": ["--model", "lidvae", "--IL", "0.2", "--hidden_channels", "8", "2"]}
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def lipschitz_jax_run(argv, out):
+    """JAX's `cli.lipschitz.main(argv)` into `out` with its plots switched
+    off: {state: the trained TrainState, metrics: its returned dict,
+    fields: experiment_metrics.csv's rows, exp_lip: ../exp_lip.csv's}."""
+    import pytest
+
+    from vae_song_tpu import viz as jax_viz
+    from vae_song_tpu.cli import lipschitz as jax_lip
+
+    captured, train_model = {}, jax_lip.train_model
+
+    def capture(*a, **k):
+        captured["out"] = train_model(*a, **k)
+        return captured["out"]
+
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("plot_heatmap", "plot_2d_histogram"):
+            mp.setattr(jax_viz, name, lambda *a, **k: None)
+        mp.setattr(jax_lip, "train_model", capture)
+        metrics = jax_lip.main(argv + ["--output_dir", str(out)])
+    finally:
+        mp.undo()
+    return dict(state=captured["out"][0], metrics=metrics,
+                fields=csv_rows(out / "experiment_metrics.csv"),
+                exp_lip=csv_rows(out.parent / "exp_lip.csv"))
+
+
+def lipschitz_jax_draws(seed, n, K, K_z, zdim=2):
+    """The draws JAX's Lipschitz CLI makes after training, from its key
+    splits, as the port's AnalysisDraws."""
+    from vae_song_tpu_torch.cli import lipschitz as L
+
+    t = lambda a: torch.from_numpy(np.array(a))
+    pairs = lambda key, shape, high: tuple(
+        t(jax.random.randint(k, shape, 0, high)) for k in jax.random.split(key))
+    key = jax.random.PRNGKey(seed)
+    key, kz = jax.random.split(key)
+    z_test_eps = t(jax.random.normal(kz, (n, zdim)))
+    key, kg, kl_key = jax.random.split(key, 3)
+    cell_seed = int(jax.random.randint(kg, (), 0, 2 ** 31 - 1))
+    x_pairs = pairs(kl_key, (K * K, L.CELL_PAIRS), L.CELL_SAMPLES)
+    key, kzs, kzl = jax.random.split(key, 3)
+    z_grid_eps = t(jax.random.normal(kzs, (K_z * K_z, L.Z_GRID_SAMPLES, 2)))
+    z_pairs = pairs(kzl, (K_z * K_z, L.CELL_PAIRS), L.Z_GRID_SAMPLES)
+    key, kd, kl2 = jax.random.split(key, 3)
+    if n < L.DATA_SAMPLES:
+        perm, eps = None, t(jax.random.normal(kd, (n, L.DATA_SAMPLES // n + 1, zdim)))
+    else:
+        k1, k2 = jax.random.split(kd)
+        perm = t(jax.random.permutation(k1, n))
+        eps = t(jax.random.normal(k2, (L.DATA_SAMPLES, zdim)))
+    return L.AnalysisDraws(z_test_eps, cell_seed, x_pairs, z_grid_eps, z_pairs, eps, perm,
+                           pairs(kl2, (L.DATA_PAIRS,), L.DATA_SAMPLES))
+
+
+def check_lipschitz_analysis(run, argv):
+    """JAX-trained parameters (`run`, lipschitz_jax_run's), JAX's data and
+    JAX's draws: the port's analysis stage gives the X and Z fields of
+    JAX's experiment_metrics.csv (per-cell KL and Lipschitz) and its
+    data-based KL and L(z). f32 on both sides; bound 1e-4 relative to
+    each field's largest magnitude (measured up to 3.2e-5 LRVAE, 2.4e-5
+    LIDVAE, both in the Z-grid Lipschitz quantiles; the data-based metrics
+    6.2e-7). An untrained LIDVAE's decode reaches 1e10 and its Z-grid KL
+    overflows to NaN in both packages: NaN must then meet NaN."""
+    import pytest
+
+    from vae_song_tpu_torch import weights
+    from vae_song_tpu_torch.cli import lipschitz as L
+    from vae_song_tpu_torch.models.flexible import LRVAE
+    from vae_song_tpu_torch.models.lidvae import LIDVAE
+
+    args = L.build_argparser().parse_args(argv)
+    hchans = tuple(args.hidden_channels)
+    if args.model == "lidvae":
+        port = LIDVAE.for_dataset("pinwheel", hidden_channels=hchans, inverse_lipschitz=args.IL,
+                                  beta=args.beta)
+    else:
+        port = LRVAE.for_dataset("pinwheel", hidden_channels=hchans, encoder_type="mlp",
+                                 decoder_type="mlp", alpha=args.alpha, beta=args.beta)
+    weights.load_flax_params(port, to_np(run["state"].params), to_np(run["state"].batch_stats))
+    X = L.generate_simple_gaussian_mixture(
+        num_components=args.num_training_components, total_samples=args.train_total_samples,
+        center_range=args.K, stds=args.std, pattern=args.distribution_pattern, seed=args.seed)[0]
+    f = L.analyse(port, X, args.K, args.K_z, lipschitz_jax_draws(args.seed, len(X), args.K,
+                                                                 args.K_z))
+    rows = run["fields"][1:]
+    assert len(rows) == args.K ** 2 + args.K_z ** 2
+    want = {(r[1], int(r[2])): (float(r[3]), float(r[4])) for r in rows}
+    for space, sfx, k in (("X", "x", args.K), ("Z", "z", args.K_z)):
+        for col, name in ((0, f"kl_{sfx}"), (1, f"lips_{sfx}")):
+            w = np.array([want[(space, i)][col] for i in range(k * k)])
+            np.testing.assert_allclose(f[name], w, rtol=0,
+                                       atol=1e-4 * max(1.0, float(np.abs(w).max())))
+    got = {"kl": f["data_kl"], "bi_lips": f["data_bi"], "inv_lips": f["data_inv"],
+           "lips": f["data_lips"]}
+    assert got == pytest.approx(run["metrics"], rel=1e-4)

@@ -550,3 +550,65 @@ def test_flexible_f32_train_step_on_card_matches_cpu(dev, kind, dataset, mp, sha
     assert (num / sum(float((g_cpu[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-3
     assert all(float((b_dev[k] - b_cpu[k]).abs().max()) <= 1e-4 * max(1.0, float(
         b_cpu[k].abs().max())) for k in b_cpu)
+
+
+def test_lidvae_decode_and_analysis_on_card_match_cpu(dev):
+    """LIDVAE's Brenier decode (small ICNNs) and the cell Lipschitz field on
+    the card against the CPU, the same weights and draws: decode within
+    1e-5 relative to its largest magnitude, no graph outside training,
+    the fields within 1e-4; no kernel of the port launches."""
+    from vae_song_tpu_torch import analysis
+    from vae_song_tpu_torch.models.lidvae import LIDVAE
+    from vae_song_tpu_torch.train.steps import make_apply_fns
+
+    model = LIDVAE.for_dataset("pinwheel", hidden_channels=(16, 2), icnn_channels=(64, 128),
+                               inverse_lipschitz=0.2, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn(8, 64, 2, generator=gen)
+    idx = [torch.randint(0, 64, (8, 500), generator=gen) for _ in range(2)]
+    start = [f.launches for f in ALL_COUNTERS]
+    cpu = make_apply_fns(model)[1]
+    want_dec = cpu(z[0])
+    want = analysis.cellwise_decoder_lipschitz(cpu, z, torch.ones(8, dtype=torch.bool),
+                                               idx1=idx[0], idx2=idx[1])
+    card = make_apply_fns(model.to(dev))[1]
+    got_dec = card(z[0].to(dev))
+    got = analysis.cellwise_decoder_lipschitz(card, z.to(dev),
+                                              torch.ones(8, dtype=torch.bool, device=dev),
+                                              idx1=idx[0], idx2=idx[1])
+    assert [f.launches for f in ALL_COUNTERS] == start
+    assert got_dec.grad_fn is None and not got_dec.requires_grad
+    assert float((got_dec.cpu() - want_dec).abs().max()) <= 1e-5 * float(want_dec.abs().max())
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def test_lidvae_train_step_on_card_matches_cpu(dev):
+    """One LIDVAE f32 train step (second-order through the decode) on the
+    card and on the CPU from the same weights: loss terms within 1e-4
+    relative, the gradient within 1e-3 relative L2 (pre-BatchNorm biases
+    left out), every ICNN weight's gradient nonzero."""
+    from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
+
+    gen = torch.Generator().manual_seed(5)
+    x, eps = torch.randn(64, 2, generator=gen), torch.randn(1, 64, 2, generator=gen)
+    from vae_song_tpu_torch.models.lidvae import LIDVAE
+    from vae_song_tpu_torch.train.state import make_optimizer
+    from vae_song_tpu_torch.train.steps import make_train_step
+
+    steps = []
+    for where in (dev, "cpu"):
+        model = LIDVAE.for_dataset("pinwheel", hidden_channels=(16, 16, 2),
+                                   icnn_channels=(32, 64), inverse_lipschitz=0.2, beta=0.1,
+                                   generator=torch.Generator().manual_seed(0)).to(where)
+        terms = make_train_step(model, make_optimizer(model.parameters(), lr=1e-3))(
+            x.to(where), eps.to(where))
+        steps.append(({k: float(v) for k, v in terms.items()},
+                      {k: p.grad.double().cpu() for k, p in model.named_parameters()}))
+    (t_dev, g_dev), (t_cpu, g_cpu) = steps
+    assert max(abs(t_dev[k] - t_cpu[k]) / max(abs(t_cpu[k]), 1e-12) for k in t_cpu) <= 1e-4
+    keys = [k for k in g_cpu if k not in pre_batchnorm_biases(g_cpu)]
+    num = sum(float(((g_dev[k] - g_cpu[k]) ** 2).sum()) for k in keys)
+    assert (num / sum(float((g_cpu[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-3
+    assert all(float(g_dev[k].abs().sum()) > 0 for k in g_dev
+               if k.startswith("icnn") and k.endswith("weight"))

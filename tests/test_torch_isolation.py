@@ -27,8 +27,13 @@ from vae_song_tpu_torch import _kernels
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vae_song_tpu"))
 assert not bad, bad
 assert _kernels._lib is None, "a kernel library was loaded at import"
+print(" ".join(names))
 print(len(names))
 """
+# the LID-VAE / Lipschitz slice's modules, each of which must be among them
+SLICE_MODULES = {"vae_song_tpu_torch." + m for m in (
+    "analysis", "models.lidvae", "ops.lipschitz", "train.scan", "cli.lipschitz", "cli.figures",
+    "parallel", "parallel.sweep", "viz.plots", "nn.blocks")}
 
 
 def _run(args, cwd, env_extra=None):
@@ -42,6 +47,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], ROOT, {"PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 20     # every module was imported
+    assert SLICE_MODULES <= set(proc.stdout.splitlines()[-2].split())
 
 
 def test_chip_smoke_imports_no_jax():

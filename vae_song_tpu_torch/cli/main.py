@@ -5,7 +5,7 @@
         --fake_data [--device cpu]
 
 Loads the YAML, sweeps the hyperparameter grid of `experiment_type`
-(vae, nae, lrvae, setvae, setlrvae; lidvae is not ported yet) and runs
+(lidvae, vae, nae, lrvae, setvae, setlrvae) and runs
 `train_and_test` for every sweep point, with weights drawn from a CPU
 torch.Generator seeded with the point's seed. `run_experiment` also
 takes the config as a dict (the card's machine has no pyyaml).
@@ -55,7 +55,7 @@ def run_experiment(config, output_root: str = ".", seed: int = 42,
         point_seed = seed + point["rep"]
         model = build_model(
             exp_type, common["exp_data"], mp, beta=point["beta"], alpha=point["alpha"],
-            generator=torch.Generator().manual_seed(point_seed),
+            il=point["il"], generator=torch.Generator().manual_seed(point_seed),
         )
         _, summary = train_and_test(
             model,

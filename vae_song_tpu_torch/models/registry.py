@@ -1,21 +1,17 @@
 """Model construction from (experiment_type, model_params) -- port of
-vae_song_tpu/models/registry.py: the FlexibleVAE family (vae, nae,
-lrvae) and the set models (setvae, setlrvae); lidvae is not ported
-yet."""
+vae_song_tpu/models/registry.py: LIDVAE (lidvae), the FlexibleVAE family
+(vae, nae, lrvae) and the set models (setvae, setlrvae)."""
 
 import torch
 
 from vae_song_tpu_torch.models.flexible import LRVAE, NaiveAE, VanillaVAE
+from vae_song_tpu_torch.models.lidvae import LIDVAE
 from vae_song_tpu_torch.models.setvae import SetLRVAE, SetVAE
-
-# families not ported yet -> the ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "lidvae": "Queue 1 item 12 (LIDVAE and the Lipschitz analysis)",
-}
 
 
 def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1.0,
-                alpha: float = 0.01, generator: torch.Generator | None = None):
+                alpha: float = 0.01, il: float = 0.0,
+                generator: torch.Generator | None = None):
     """Build one model for a sweep point; the same `model_params` keys and
     defaults as the JAX registry (the FlexibleVAE family takes the
     dataset's architecture defaults, `encoder_type` conv and
@@ -24,12 +20,11 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
     the model with `.to(device)`. Keys that only steer TPU execution
     (`use_flash`) or training memory (`remat`) do not change the forward
     pass and are not read."""
-    if exp_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"experiment type {exp_type!r} is not ported to PyTorch yet; see "
-            f"ROADMAP.md {_NOT_PORTED[exp_type]}"
-        )
     mp = model_params
+    if exp_type == "lidvae":
+        return LIDVAE.for_dataset(dataset, hidden_channels=tuple(mp.get("hchans") or ()) or None,
+                                  is_log_mse=mp.get("log_mse", False), inverse_lipschitz=il,
+                                  beta=beta, generator=generator)
     if exp_type in ("vae", "nae", "lrvae"):
         hchans = tuple(mp.get("hchans") or ()) or None
         common = dict(hidden_channels=hchans,

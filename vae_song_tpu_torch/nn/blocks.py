@@ -21,6 +21,9 @@ convolution blocks of the FlexibleVAE family. Parameters stay float32;
     explicit source.
   * MLPBlock, ResidualMLPBlock, ResidualConvBlock, PlainConvolution:
     Dense / Conv -> BatchNorm -> LeakyReLU(0.01) stacks.
+  * PositiveLinear, ICNN, LinearModuleEP: LID-VAE's input-convex network
+    (module.py:97-182): `dense` holds the Flax Dense_i children in order,
+    `positive` the PositiveLinear_i.
 """
 
 import contextlib
@@ -336,6 +339,75 @@ class PlainConvolution(nn.Module):
         for conv, norm in zip(self.conv, self.norm):
             x = lrelu(norm(conv(x)))
         return x
+
+
+class PositiveLinear(nn.Module):
+    """x @ exp(W)^T, or x @ clamp(W, min=1e-2)^T with `is_exp=False`; no
+    bias. `weight` is the raw W, Linear-shaped [out, in] (the Flax kernel
+    [in, out] transposed, weights.py)."""
+
+    def __init__(self, in_features: int, out_features: int, is_exp: bool = True,
+                 generator=None):
+        super().__init__()
+        self.is_exp = is_exp
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        init.uniform_(self.weight, init.torch_positive_linear_bound(in_features), generator)
+
+    def forward(self, x):
+        w = torch.exp(self.weight) if self.is_exp else torch.clamp(self.weight, min=1e-2)
+        return torch.matmul(x, w.t())
+
+
+ICNN_SLOPE = 0.2  # the ICNN's LeakyReLU (module.py:117-148)
+
+
+def _icnn_act(x):
+    return F.leaky_relu(x, ICNN_SLOPE)
+
+
+class ICNN(nn.Module):
+    """Input-convex network with a scalar output: z0 = lrelu_0.2(A_0 x)^2,
+    z_{k+1} = lrelu_0.2(W_k+ z_k + A_{k+1} x), the last to width 1. Convex
+    in x: the W_k+ are positive and the activation is convex and
+    nondecreasing. `dense[k]` is A_k (Flax Dense_k), `positive[k]` W_k+
+    (PositiveLinear_k)."""
+
+    def __init__(self, in_features: int, hidden_channel: int = 128, num_layers: int = 2,
+                 generator=None):
+        super().__init__()
+        outs = [hidden_channel] * num_layers + [1]
+        self.dense = nn.ModuleList(Dense(in_features, o, generator=generator) for o in outs)
+        self.positive = nn.ModuleList(PositiveLinear(hidden_channel, o, generator=generator)
+                                      for o in outs[1:])
+
+    def forward(self, x):
+        z = _icnn_act(self.dense[0](x)) ** 2
+        for pos, dense in zip(self.positive, self.dense[1:]):
+            z = _icnn_act(pos(z) + dense(x))
+        return z
+
+
+class LinearModuleEP(nn.Module):
+    """The ICNN's non-convex ablation twin (module.py:151-182): plain Dense
+    layers in place of PositiveLinear, the last hidden -> in_features plus
+    a Dense(1) of x. `dense` holds the Flax Dense_i children in the order
+    Flax names them: A_0, then per layer the z and x products, then the
+    last z and x products."""
+
+    def __init__(self, in_features: int, hidden_channel: int = 128, num_layers: int = 2,
+                 generator=None):
+        super().__init__()
+        dims = [(in_features, hidden_channel)]
+        for _ in range(num_layers - 1):
+            dims += [(hidden_channel, hidden_channel), (in_features, hidden_channel)]
+        dims += [(hidden_channel, in_features), (in_features, 1)]
+        self.dense = nn.ModuleList(Dense(i, o, generator=generator) for i, o in dims)
+
+    def forward(self, x):
+        z = _icnn_act(self.dense[0](x)) ** 2
+        for k in range(1, len(self.dense), 2):
+            z = _icnn_act(self.dense[k](z) + self.dense[k + 1](x))
+        return z
 
 
 _PRE_NORM_BIAS = re.compile(r"\.(dense|conv)(\.\d+)?\.bias$")

@@ -9,6 +9,9 @@
     (vae_song_tpu/ops/attention.py:25-30).
   * Learned query embeddings: N(0, 1) * 0.02
     (vae_song_tpu/models/setvae.py:356-360).
+  * PositiveLinear's raw weight (the ICNN's, module.py:97-114):
+    kaiming_uniform_(a=sqrt(5)), the Linear bound 1/sqrt(fan_in)
+    (vae_song_tpu/nn/initializers.py:torch_positive_linear_init).
 """
 
 import math
@@ -24,6 +27,12 @@ def uniform_(t: torch.Tensor, bound: float, generator=None) -> torch.Tensor:
 def torch_linear_bound(fan_in: int) -> float:
     """kaiming_uniform(a=sqrt(5)) == uniform with bound 1/sqrt(fan_in)."""
     return 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+
+
+def torch_positive_linear_bound(fan_in: int) -> float:
+    """PositiveLinear's weight bound: kaiming_uniform(a=sqrt(5)) on the raw
+    weight, whose bound depends only on fan_in."""
+    return torch_linear_bound(fan_in)
 
 
 def mha_in_proj_bound(fan_in: int) -> float:

@@ -1,5 +1,5 @@
-"""End-to-end train/eval loop on one device for the set models and the
-FlexibleVAE family (port of vae_song_tpu/train/loop.py:train_and_test,
+"""End-to-end train/eval loop on one device for the set models, the
+FlexibleVAE family and LIDVAE (port of vae_song_tpu/train/loop.py:train_and_test,
 its single-device branch with per-batch steps, :802-1009 and
 :1016-1096).
 
@@ -26,7 +26,7 @@ epoch. The artifact tree is the JAX trainer's:
 
 The FlexibleVAE family trains with L = num_mc_samples Monte-Carlo
 latents a step and evaluates with L = 1, as JAX does; the set models
-take one latent a step.
+and LIDVAE (single-sample in JAX too) take one latent a step.
 
 Randomness: the batch order is the JAX pipeline's (a numpy Generator
 seeded with [seed, epoch]); the reparameterisation noise, which JAX
@@ -40,7 +40,7 @@ makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
 counterpart; the options that are not ported (the parallel strategies,
 profile_dir, native_prefetch, epochs < 0) raise naming their ROADMAP.md
-item, and so does a model of a family not ported (LIDVAE).
+item.
 """
 
 import os
@@ -54,6 +54,7 @@ import torch
 from vae_song_tpu_torch import data as data_lib
 from vae_song_tpu_torch.data.pipeline import iterate_batches, num_batches
 from vae_song_tpu_torch.models.flexible import FlexibleVAE
+from vae_song_tpu_torch.models.lidvae import LIDVAE
 from vae_song_tpu_torch.models.setvae import SetVAE
 from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
@@ -78,6 +79,8 @@ def synth_run_name(model, alpha=None) -> str:
         name += "_a=" + str(model.alpha if alpha is None else alpha)
     if getattr(model, "is_log_mse", False):
         name += "_logmse"
+    if type(model).__name__ == "LIDVAE":
+        name += "_il=" + str(float(model.inverse_lipschitz) / 2.0)
     return name
 
 
@@ -91,10 +94,10 @@ def _generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
 def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_parallel,
                      tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
                      profile_dir, native_prefetch):
-    if not isinstance(model, (SetVAE, FlexibleVAE)):
-        raise NotImplementedError(
-            f"train_and_test trains the set models and the FlexibleVAE family; "
-            f"{type(model).__name__} is not ported yet (see ROADMAP.md Queue 1 item 12)"
+    if not isinstance(model, (SetVAE, FlexibleVAE, LIDVAE)):
+        raise TypeError(
+            f"train_and_test trains the set models, the FlexibleVAE family and LIDVAE; "
+            f"got {type(model).__name__}"
         )
     parallel = {
         "data_parallel": data_parallel,
@@ -169,12 +172,12 @@ def train_and_test(
     grad_accum: int = 0,
     device="cuda",
 ):
-    """Train `model` (a set model or a FlexibleVAE, moved to `device`) and
+    """Train `model` (a set model, a FlexibleVAE or LIDVAE, moved to `device`) and
     evaluate it every epoch; returns (TrainState, summary dict). The
     arguments keep the JAX function's names; the learning rate always
     follows the cosine schedule. `num_mc_samples` is the FlexibleVAE
-    train step's L; as in JAX, it does not change the set models' step
-    (L = 1).
+    train step's L; as in JAX, it does not change the set models' or
+    LIDVAE's step (L = 1).
 
     checkpoint_every: write the full train state to
     `params/ckpt_{epoch}.pkl` after every that many epochs, with the
@@ -202,7 +205,7 @@ def train_and_test(
     train_ds, test_ds, _ = data_lib.load_dataset(dataset_name, **(dataset_params or {}))
     is_set = getattr(model, "data_type", None) == "set"
     data_type = "set" if is_set else "1d" if dataset_name in ("pinwheel", "chessboard") else "2d"
-    n_samples = 1 if is_set else num_mc_samples
+    n_samples = 1 if is_set or isinstance(model, LIDVAE) else num_mc_samples
     steps_per_epoch = num_batches(train_ds, batch_size)
     if steps_per_epoch == 0:
         raise ValueError("Dataset smaller than one batch")
@@ -243,7 +246,7 @@ def train_and_test(
 
     def eps_of(b, gen, samples=n_samples):
         """Noise of one batch of b: [b, latent] for the set models,
-        [samples, b, latent] for the FlexibleVAE family."""
+        [samples, b, latent] for the FlexibleVAE family and LIDVAE."""
         return _noise((b, latent) if is_set else (samples, b, latent), gen, device)
 
     has_warmup = getattr(model, "has_warmup", False)
@@ -325,7 +328,7 @@ def train_and_test(
     mb = min(50, len(test_ds))
     xb = torch.from_numpy(test_ds.X[:mb]).to(device)
     outs = forward_fn(xb, eps_of(mb, noise, 1))
-    with torch.inference_mode():
+    with torch.no_grad():
         _, loss_rec, _, _ = model.loss(xb, *outs, wu_alpha=wu_alpha)
         pm = metrics_lib.measure_posterior_metrics(noise, outs[1], outs[2], loss_rec)
     pm = {k: float(v) for k, v in pm.items()}
@@ -394,7 +397,8 @@ def _dump_scatter2d(model, last_batch, decode_fn, forward_fn, resultname, name, 
     latent = model.latent_channel
     outs = forward_fn(x, _noise((1, x.shape[0], latent), noise, device))
     sample = decode_fn(_noise((x.shape[0], latent), noise, device))
-    plots = {"input": x, "mu": outs[1], "z": outs[3][0], "recon": outs[0], "sample": sample}
+    z = outs[3].reshape(-1, latent)          # [1, B, latent] or LIDVAE's [B, latent]
+    plots = {"input": x, "mu": outs[1], "z": z, "recon": outs[0], "sample": sample}
     try:
         for tensor_name, points in plots.items():
             visualize_2c_points_on_image(points, y, resultname, name, epoch, tensor_name, root)

@@ -16,7 +16,8 @@ packages the same numbers.
 
 The gradient is the JAX `make_grads_fn`'s:
 
-  * composite (every model but LRVAE): one backward of the total loss;
+  * composite (every model but LRVAE, LIDVAE included, though it has an
+    `encoder`): one backward of the total loss;
   * staged (LRVAE's `grad_mode`, or asked for): one forward and two
     pulls, g_main of (recon + scaled reg) and g_lr of the scaled
     latent-recon term, combined as g_main + g_lr with g_lr scaled by
@@ -137,11 +138,13 @@ def make_accum_train_step(model, optimizer, n_micro: int, grad_mode: str | None 
 def make_eval_step(model):
     """eval_step(x, eps, wu_alpha) -> {"loss", "recon", "reg", "lr"}, each
     a 0-dim tensor on the model's device; eval mode, under
-    torch.inference_mode()."""
+    torch.no_grad(). Not torch.inference_mode(): LIDVAE's decode takes a
+    gradient inside its forward (models/lidvae.py), which autograd refuses
+    on inference tensors."""
 
     def eval_step(x, eps, wu_alpha=0.0):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             outs = model(x, eps)
             total, rec, reg, lr = model.loss(x, *outs, wu_alpha=wu_alpha)
         return {"loss": total, "recon": rec, "reg": reg, "lr": lr}
@@ -151,21 +154,22 @@ def make_eval_step(model):
 
 def make_apply_fns(model):
     """(encode(x), decode(z), forward(x, eps=None)) in eval mode under
-    torch.inference_mode(). forward without eps decodes from mu."""
+    torch.no_grad() (as the eval step), returning tensors with no graph.
+    forward without eps decodes from mu."""
 
     def encode(x):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             return model.encode(x)
 
     def decode(z):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             return model.decode(z)
 
     def forward(x, eps=None):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             return model(x, eps)
 
     return encode, decode, forward

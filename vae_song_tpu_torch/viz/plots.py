@@ -1,7 +1,9 @@
-"""Artifact exports (port of vae_song_tpu/viz/plots.py: save_point_cloud
-and visualize_2c_points_on_image; the other plots wait for ROADMAP.md
-Queue 1 items 10b and 13). matplotlib is imported inside the plotting
-function, so the module imports where matplotlib is not installed."""
+"""Artifact exports (port of vae_song_tpu/viz/plots.py: save_point_cloud,
+visualize_2c_points_on_image and the Lipschitz CLI's plot_heatmap,
+plot_2d_histogram and logscale_plt_color_map; the other plots wait for
+ROADMAP.md Queue 1 items 10b and 13). matplotlib is imported inside each
+plotting function, so the module imports where matplotlib is not
+installed, and a plot raises ImportError there."""
 
 import os
 
@@ -34,11 +36,7 @@ def visualize_2c_points_on_image(points, label, resultname, name, epoch, tensor_
     """2-D scatter coloured by class (utils.py:427-450), written to
     `<root>/results/<resultname>/<name>/scatter2d/{epoch}_{tensor_name}.png`.
     Raises ImportError where matplotlib is not installed."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = _pyplot()
     points = _np(points)
     label = _np(label)
     if points.ndim == 3:
@@ -57,3 +55,55 @@ def visualize_2c_points_on_image(points, label, resultname, name, epoch, tensor_
     plt.savefig(os.path.join(outdir, f"{epoch}_{tensor_name}.png"), bbox_inches="tight",
                 pad_inches=0.1)
     plt.close(fig)
+
+
+def _pyplot():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def logscale_plt_color_map(original_cmap_name):
+    """Log-scaled colormap (utils.py:188-192)."""
+    import matplotlib
+
+    origin = matplotlib.colormaps[original_cmap_name].resampled(256)
+    newcolors = origin(np.logspace(0, 1, 256) / 10)
+    return matplotlib.colors.ListedColormap(newcolors)
+
+
+def plot_heatmap(vals, K, title, filepath, cmap="viridis", extent=None):
+    """K x K heatmap of a flat array (utils.py:569-593)."""
+    plt = _pyplot()
+    arr = np.array(_np(vals)).reshape(K, K)
+    plt.figure(figsize=(8, 6))
+    plt.imshow(arr, cmap=cmap, origin="lower", extent=extent, aspect="equal")
+    plt.colorbar()
+    os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
+    plt.savefig(filepath, bbox_inches="tight", pad_inches=0)
+    plt.close()
+
+
+def plot_2d_histogram(X, bins=16, title="2D Data Distribution", filepath="histogram.png",
+                      cmap="viridis", xlim=None, ylim=None):
+    """2-D histogram dump (utils.py:595-636); returns the plotted extent."""
+    plt = _pyplot()
+    X = _np(X)
+    plt.figure(figsize=(8, 6))
+    _, xedges, yedges, _ = plt.hist2d(X[:, 0], X[:, 1], bins=bins, cmap=cmap)
+    plt.colorbar()
+    actual_xmin, actual_xmax = xedges[0], xedges[-1]
+    actual_ymin, actual_ymax = yedges[0], yedges[-1]
+    if xlim is not None:
+        plt.xlim(xlim)
+        actual_xmin, actual_xmax = xlim
+    if ylim is not None:
+        plt.ylim(ylim)
+        actual_ymin, actual_ymax = ylim
+    os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
+    plt.savefig(filepath, bbox_inches="tight", pad_inches=0)
+    plt.close()
+    return (actual_xmin, actual_xmax, actual_ymin, actual_ymax)

@@ -18,6 +18,10 @@ dicts of numpy arrays, as `save_params_only` pickles them) and the port's
     and the `batch_stats` collection's `mean` / `var` <-> the buffers
     `running_mean` / `running_var`.
   * `decoder/query_embed` and `decoder/point_queries` as is.
+  * LIDVAE's ICNNs: `icnn{1,2}.dense.i` <-> `icnn{1,2}/Dense_i/Dense_0` and
+    `icnn{1,2}.positive.i` <-> `icnn{1,2}/PositiveLinear_i`, whose raw
+    `kernel [in, out]` is the port's Linear-shaped `weight [out, in]`
+    (no bias).
 
 Each rule maps a port module path to its Flax path; the conversion
 refuses leaves that no rule names, so a tree from a model the port does
@@ -69,6 +73,9 @@ _RULES = [
     (r"decoder\.up\.(\d+)\.conv", r"decoder/UpConv_\1/ConvTranspose_0", "conv_transpose"),
     (r"decoder\.up\.(\d+)\.norm", r"decoder/BatchNorm_\1/BatchNorm_0", "batchnorm"),
     (r"decoder\.out_conv", "decoder/Conv_0", "conv"),
+    # LIDVAE's ICNNs (nn/blocks.py:ICNN)
+    (r"(icnn[12])\.dense\.(\d+)", r"\1/Dense_\2/Dense_0", "dense"),
+    (r"(icnn[12])\.positive\.(\d+)", r"\1/PositiveLinear_\2", "dense"),
 ]
 # leaf name -> (Flax collection, Flax leaf name)
 _PARAMS = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
