@@ -138,13 +138,16 @@ from vae_song_tpu_torch import _kernels
 from vae_song_tpu_torch.cli import lipschitz as lipschitz_cli
 from vae_song_tpu_torch.cli.generate import generate_samples
 from vae_song_tpu_torch.cli.main import run_experiment
-from vae_song_tpu_torch.data import load_dataset
+from vae_song_tpu_torch.data import load_dataset, native
 from vae_song_tpu_torch.data.pipeline import num_batches
 from vae_song_tpu_torch.data.shapenet import fake_point_clouds
 from vae_song_tpu_torch.models.registry import build_model
 from vae_song_tpu_torch.nn import blocks
 from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
-from vae_song_tpu_torch.ops import chamfer, denseattn, ffn
+from vae_song_tpu_torch.ops import chamfer, denseattn, ffn, inception
+from vae_song_tpu_torch.ops import fid as fid_lib
+from vae_song_tpu_torch.train import checkpoint as ckpt_lib
+from vae_song_tpu_torch.train import loop as train_loop
 from vae_song_tpu_torch.train.loop import train_and_test
 from vae_song_tpu_torch.train.state import adam_state, make_optimizer
 from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
@@ -1747,6 +1750,285 @@ def phase_lipschitz(dev):
     return paths
 
 
+# Phase 11: the image path, which runs no kernel of the port either (JAX runs
+# the FlexibleVAE family, the augments, the FID and Inception through XLA
+# alone). A literal copy of configs/config_mnist.yaml
+# (tests/test_torch_isolation.py holds it to the file): LR-VAE, ten MLP
+# blocks of 16, L = 4, B = 256, the staged backward. It runs on the stand-in
+# images (MNIST_DATASET: 4096 train, 1024 test, so 16 steps an epoch) with
+# the MNIST augment on the card, for MNIST_EPOCHS epochs instead of its 100,
+# then in generation-only mode (epochs < 0) from its checkpoint at B = 256:
+# 50 batches, 12800 images, and the random-conv FID.
+MNIST_CONFIG = {
+    "experiment_type": "lrvae",
+    "common_params": {
+        "exp_data": "mnist",
+        "exp_epochs": 100,
+        "batch_size": 256,
+        "niter": 1,
+        "logfilename": None,
+        "resultname": None,
+        "grad_clip": {"enabled": True, "clip_type": "norm", "max_norm": 1.0,
+                      "norm_type": 2.0, "clip_value": 1.0},
+    },
+    "model_params": {
+        "beta_list": [0.001],
+        "log_mse": False,
+        "encoder_type": "mlp",
+        "decoder_type": "mlp",
+        "fixed_var": False,
+        "residual_connection": False,
+        "hchans": [16, 16, 16, 16, 16, 16, 16, 16, 16, 16],
+        "num_mc_samples": 4,
+        "alpha_list": [0.1],
+        "pwise_reg": False,
+    },
+}
+MNIST_DATASET = {"fake": True}      # the config's own comment: no IDX files here
+MNIST_EPOCHS = 2
+IMAGE_TIMED_STEPS = 10
+# Card against CPU on the same inputs. The warp: bilinear weights and four
+# products, fused or not, on coordinates < 28 (H100 measured below). The
+# random-conv features: three f32 convolutions (IEEE f32 on both sides,
+# cuDNN TF32 off) and a mean, relative to max|f|. InceptionV3: 94
+# convolutions and the resize, relative to max|f|, 4 images.
+IMAGE_WARP_ATOL = 1e-5
+IMAGE_FID_FEATURE_RTOL = 1e-5
+IMAGE_INCEPTION_RTOL = 1e-4
+IMAGE_INCEPTION_IMAGES = 4
+INCEPTION_BATCH = 256
+
+
+def _mnist_config(**common):
+    return dict(MNIST_CONFIG, common_params=dict(
+        MNIST_CONFIG["common_params"], dataset_params=MNIST_DATASET, **common))
+
+
+def _mnist_run(dev, root, tag, **common):
+    """run_experiment on the MNIST config; its summary, wall time and the
+    native loader's batches."""
+    before = native.loader_batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (summary,) = run_experiment(_mnist_config(**common), output_root=os.path.join(root, tag),
+                                seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    return summary, time.perf_counter() - t0, native.loader_batches - before
+
+
+def _image_step_ms(dev, augment):
+    """The MNIST config's train step, ms/step median over IMAGE_TIMED_STEPS
+    steps after two warm-ups, each step ending in a scalar fetch (host
+    clock), on the stand-in images, with or without the MNIST augment
+    applied on the card before each step."""
+    mp = MNIST_CONFIG["model_params"]
+    model = _flex_build("lrvae", "mnist", mp, mp["beta_list"][0], mp["alpha_list"][0]).to(dev)
+    step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
+    batch = MNIST_CONFIG["common_params"]["batch_size"]
+    train, _, aug = load_dataset("mnist", **MNIST_DATASET)
+    xs = torch.from_numpy(train.X[:batch * 4]).to(dev).reshape(4, batch, 28, 28, 1)
+    eps = torch.randn(4, mp["num_mc_samples"], batch, model.latent_channel,
+                      generator=torch.Generator().manual_seed(SEED + 11)).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    times = []
+    for i in range(2 + IMAGE_TIMED_STEPS):
+        t0 = time.perf_counter()
+        x = aug(xs[i % 4], gen) if augment else xs[i % 4]
+        loss = float(step(x, eps[i % 4], 0.5)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(loss):
+            raise AssertionError(f"MNIST config train step: loss {loss}")
+    return statistics.median(times[2:])
+
+
+def _conv_step_ms(dev, kind, deterministic):
+    """ms/step (median of IMAGE_TIMED_STEPS after two warm-ups) of the conv
+    VAE of bench.py:72 or LIDVAE.for_dataset("mnist"), B = 256, with cuDNN's
+    deterministic algorithms on (the port's convolutions) or off (cuDNN's
+    default choice, the port before it took them)."""
+    off = mock.patch.object(blocks, "_deterministic", lambda x: contextlib.nullcontext())
+    with contextlib.nullcontext() if deterministic else off:
+        params, beta, il = (CONV_VAE_PARAMS, 1.0, 0.0) if kind == "vae" else ({}, 0.1, LIDVAE_IL)
+        model = _flex_build(kind, "mnist", params, beta, 0.0, il).to(dev)
+        step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
+        x = torch.from_numpy(_flex_inputs("mnist", CONV_VAE_BATCH, 1, SEED + 13)[0]).to(dev)
+        eps = torch.randn(1, CONV_VAE_BATCH, model.latent_channel,
+                          generator=torch.Generator().manual_seed(SEED + 14)).to(dev)
+        times = []
+        for _ in range(2 + IMAGE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            float(step(x, eps, 0.5)["loss"])
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[2:])
+
+
+def _image_resume(dev, root, kind):
+    """train_and_test of the conv VAE of bench.py:72 or LIDVAE.for_dataset(
+    "mnist") on the stand-in MNIST images (with the augment) for 2 epochs,
+    and a fresh model resumed from ckpt_0.pkl: the final states must be
+    equal bit for bit."""
+    batch = MNIST_CONFIG["common_params"]["batch_size"]
+    params, beta, il = (CONV_VAE_PARAMS, 1.0, 0.0) if kind == "vae" else ({}, 0.1, LIDVAE_IL)
+    kw = dict(epochs=2, batch_size=batch, dataset_name="mnist", dataset_params=MNIST_DATASET,
+              seed=SEED, lr=LR, device=dev)
+    cont, summary = train_and_test(_flex_build(kind, "mnist", params, beta, 0.0, il),
+                                   output_root=os.path.join(root, kind, "a"), checkpoint_every=1,
+                                   **kw)
+    ckpt = os.path.join(summary["result_dir"], "params", "ckpt_0.pkl")
+    model = build_model(kind, "mnist", params, beta=beta, alpha=0.0, il=il,
+                        generator=torch.Generator().manual_seed(SEED + 1))
+    resumed, _ = train_and_test(model, output_root=os.path.join(root, kind, "b"),
+                                resume_from=ckpt, **kw)
+    same = _same_state(cont, resumed)
+    print(f"resume {type(cont.model).__name__} (mnist, B={batch}, 2 epochs of "
+          f"{cont.step // 2} steps with the MNIST augment): resumed from ckpt_0.pkl, final "
+          f"parameters, statistics and Adam state bitwise equal to the continuous run's {same}")
+    if not same or not all(math.isfinite(v) for v in summary["eval"].values()):
+        raise AssertionError(f"{kind}: the resumed run does not end where the continuous run did")
+
+
+def _image_reference(dev):
+    """The card against the CPU on the same inputs: the MNIST warp on the
+    same matrices, the flip on the same mask, the random-conv FID features
+    (1 and 3 channels) and InceptionV3 with the synthetic state dict."""
+    train, _, aug = load_dataset("mnist", **MNIST_DATASET)
+    x = torch.from_numpy(train.X[:256])
+    draws = aug.draw(torch.Generator().manual_seed(SEED + 15), 256)
+    warp = _max_err(aug.apply(x.to(dev), draws).cpu(), aug.apply(x, draws))
+    cifar, _, flip_aug = load_dataset("cifar10", **MNIST_DATASET)
+    c = torch.from_numpy(cifar.X[:256])
+    mask = flip_aug.draw(torch.Generator().manual_seed(SEED + 16), 256)
+    flip_same = torch.equal(flip_aug.apply(c.to(dev), mask).cpu(), flip_aug.apply(c, mask))
+    gaps = {}
+    for name, imgs in (("mnist", x), ("cifar10", c)):
+        card = fid_lib.extract(fid_lib.make_conv_feature_extractor(imgs.shape[1:], device=dev),
+                               imgs)
+        cpu = fid_lib.extract(fid_lib.make_conv_feature_extractor(imgs.shape[1:], device="cpu"),
+                              imgs)
+        gaps[name] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    sd = inception.synthetic_state_dict()
+    few = x[:IMAGE_INCEPTION_IMAGES]
+    card = fid_lib.extract(inception.InceptionV3Features(device=dev, state_dict=sd), few)
+    cpu = fid_lib.extract(inception.InceptionV3Features(device="cpu", state_dict=sd), few)
+    incep = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"reference image path, card against CPU: MNIST warp on the same matrices "
+          f"{warp:.3e} (bound {IMAGE_WARP_ATOL:g}), flip bitwise {flip_same}, random-conv FID "
+          f"features relative {gaps} (bound {IMAGE_FID_FEATURE_RTOL:g}), InceptionV3 "
+          f"(synthetic state dict, {IMAGE_INCEPTION_IMAGES} images) relative {incep:.3e} "
+          f"(bound {IMAGE_INCEPTION_RTOL:g})")
+    if not (warp <= IMAGE_WARP_ATOL and flip_same and incep <= IMAGE_INCEPTION_RTOL
+            and max(gaps.values()) <= IMAGE_FID_FEATURE_RTOL):
+        raise AssertionError("the card and the CPU disagree on the image path")
+
+
+def phase_images(dev):
+    """The image path on the card: config_mnist.yaml through run_experiment
+    with native_prefetch (which must use the native loader) and without,
+    then its generation-only mode with the FID; the conv VAE on CIFAR-10's
+    stand-in images with the flip; the conv VAE's and LIDVAE's resume
+    bitwise; the card against the CPU; the timings. No kernel counter may
+    rise."""
+    if not native.available():
+        raise AssertionError("the native host library did not build on the card's host")
+    steps = 4096 // MNIST_CONFIG["common_params"]["batch_size"]
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        runs = {}
+        for tag, prefetch in (("prefetch", True), ("plain", False), ("prefetch again", True)):
+            summary, wall, loaded = _mnist_run(dev, root, tag.replace(" ", "_"),
+                                               exp_epochs=MNIST_EPOCHS, native_prefetch=prefetch)
+            runs[tag] = summary, wall
+            numbers = dict(summary["eval"], **summary["posterior_metrics"])
+            print(f"run_experiment config_mnist.yaml ({tag}, native_prefetch {prefetch}): "
+                  f"{MNIST_EPOCHS} epochs of {steps} steps at B=256 in {wall:.3f} s "
+                  f"({wall / MNIST_EPOCHS:.3f} s an epoch with its eval, artifacts and final "
+                  f"metrics); native loader batches {loaded}; final eval {summary['eval']}; "
+                  f"posterior metrics {summary['posterior_metrics']}")
+            if not all(math.isfinite(v) for v in numbers.values()):
+                raise AssertionError(f"config_mnist.yaml ({tag}): non-finite numbers {numbers}")
+            if loaded != (MNIST_EPOCHS * steps if prefetch else 0):
+                raise AssertionError(f"config_mnist.yaml ({tag}): {loaded} native loader batches")
+            written = sorted(os.listdir(os.path.join(summary["result_dir"], "params")))
+            if written != [f"model_{MNIST_EPOCHS - 1}.pkl"]:
+                raise AssertionError(f"config_mnist.yaml ({tag}) wrote {written}")
+        pkl = os.path.join(runs["prefetch"][0]["result_dir"], "params",
+                           f"model_{MNIST_EPOCHS - 1}.pkl")
+        gen, wall, _ = _mnist_run(dev, root, "generation", exp_epochs=-1, pt_param=pkl)
+        print(f"generation-only mode (epochs -1) from {os.path.basename(pkl)}: 50 batches of 256 "
+              f"(12800 images) and the random-conv FID {gen['fid']:.6f} in {wall:.3f} s; "
+              f"posterior metrics {gen['posterior_metrics']}")
+        if not (math.isfinite(gen["fid"]) and gen["fid"] > 0):
+            raise AssertionError(f"generation-only mode: FID {gen['fid']}")
+
+        model = build_model("lrvae", "mnist", MNIST_CONFIG["model_params"],
+                            beta=MNIST_CONFIG["model_params"]["beta_list"][0],
+                            alpha=MNIST_CONFIG["model_params"]["alpha_list"][0])
+        ckpt_lib.load_params_only(pkl, model)
+        model.to(dev)
+        generate_samples(model, 256, 256, seed=SEED)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = generate_samples(model, 12800, 256, seed=SEED + 1)
+        gen_s = time.perf_counter() - t0
+        _, test_ds, _ = load_dataset("mnist", **MNIST_DATASET)
+        t0 = time.perf_counter()
+        score = train_loop._compute_fid(test_ds, np.clip(images, 0, 1), dev)
+        fid_s = time.perf_counter() - t0
+        print(f"generation: {images.shape[0] / gen_s:.1f} images/s (12800 in {gen_s:.3f} s, "
+              f"B=256, host clock, to numpy on the host); FID of 1024 test against 12800 "
+              f"generated images {score:.6f} in {fid_s:.3f} s (random-conv features on the card, "
+              f"the Frechet distance on the host)")
+
+        cifar = build_model("vae", "cifar10", CONV_VAE_PARAMS, beta=1.0,
+                            generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, summary = train_and_test(cifar, epochs=1, batch_size=CONV_VAE_BATCH,
+                                        dataset_name="cifar10", dataset_params=MNIST_DATASET,
+                                        seed=SEED, lr=LR, output_root=os.path.join(root, "cifar"),
+                                        device=dev)
+        torch.cuda.synchronize()
+        print(f"train_and_test conv VAE (bench.py:72's, for_dataset cifar10) on the CIFAR-10 "
+              f"stand-in images with the flip: 1 epoch of {state.step} steps at "
+              f"B={CONV_VAE_BATCH} in {time.perf_counter() - t0:.3f} s; final eval "
+              f"{summary['eval']}")
+        if not all(math.isfinite(v) for v in summary["eval"].values()):
+            raise AssertionError(f"conv VAE on CIFAR-10: {summary['eval']}")
+        for kind in ("vae", "lidvae"):
+            _image_resume(dev, root, kind)
+
+    _image_reference(dev)
+    plain = [_image_step_ms(dev, False)]
+    aug = [_image_step_ms(dev, True), _image_step_ms(dev, True)]
+    plain.append(_image_step_ms(dev, False))
+    print(f"train step config_mnist.yaml (B=256, L=4, staged): {plain[0]:.3f}, {plain[1]:.3f} "
+          f"ms/step without the augment, {aug[0]:.3f}, {aug[1]:.3f} ms/step with the MNIST augment "
+          f"on the card (median of {IMAGE_TIMED_STEPS} steps, host clock, alternating)")
+    for kind in ("vae", "lidvae"):
+        off = [_conv_step_ms(dev, kind, False)]
+        on = [_conv_step_ms(dev, kind, True), _conv_step_ms(dev, kind, True)]
+        off.append(_conv_step_ms(dev, kind, False))
+        print(f"train step {'conv VAE (bench.py:72)' if kind == 'vae' else 'LIDVAE mnist'} "
+              f"B={CONV_VAE_BATCH}: cuDNN deterministic off {off[0]:.3f}, {off[1]:.3f} ms/step, "
+              f"on {on[0]:.3f}, {on[1]:.3f} ms/step (median of {IMAGE_TIMED_STEPS}, "
+              f"alternating)")
+    sd = inception.synthetic_state_dict()
+    extractor = inception.InceptionV3Features(device=dev, state_dict=sd)
+    x = torch.from_numpy(load_dataset("mnist", **MNIST_DATASET)[0].X[:INCEPTION_BATCH]).to(dev)
+    fid_lib.extract(extractor, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        fid_lib.extract(extractor, x)
+    incep_s = time.perf_counter() - t0
+    print(f"InceptionV3 pool3 (synthetic state dict, f32): {4 * INCEPTION_BATCH / incep_s:.1f} "
+          f"features/s (4 batches of {INCEPTION_BATCH} MNIST images resized to 299, host clock, "
+          f"to numpy)")
+    launches = _read_launches()
+    _expect_launches(launches, "the image path", (), COUNTERS)
+    return launches
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1780,6 +2062,7 @@ def main():
     paths["trainer_options"] = _timed(phase_trainer_options, dev)
     paths.update(_timed(phase_flexible, dev))
     paths.update(_timed(phase_lipschitz, dev))
+    paths["image_path"] = _timed(phase_images, dev)
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

@@ -7,7 +7,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op torch thread for the test: under pytest-xdist's workers
+    every process would otherwise run 8 OpenMP threads on the same cores,
+    and a small model's training then spends most of its time waiting at
+    thread barriers (a 16-step fake-MNIST run: 3.6 s alone, 60 s beside 7
+    busy processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_np(tree):

@@ -30,10 +30,13 @@ assert _kernels._lib is None, "a kernel library was loaded at import"
 print(" ".join(names))
 print(len(names))
 """
-# the LID-VAE / Lipschitz slice's modules, each of which must be among them
+# the LID-VAE / Lipschitz slice's modules and the image slice's, each of
+# which must be among them
 SLICE_MODULES = {"vae_song_tpu_torch." + m for m in (
     "analysis", "models.lidvae", "ops.lipschitz", "train.scan", "cli.lipschitz", "cli.figures",
-    "parallel", "parallel.sweep", "viz.plots", "nn.blocks")}
+    "parallel", "parallel.sweep", "viz.plots", "nn.blocks",
+    "data.images", "data.native", "data.pipeline", "ops.fid", "ops.inception", "viz.pca",
+    "cli.generate", "train.loop")}
 
 
 def _run(args, cwd, env_extra=None):
@@ -162,6 +165,33 @@ def test_chip_smoke_flexible_configs_are_the_shipped_files():
     assert ('VanillaVAE.for_dataset("mnist", encoder_type="conv", decoder_type="mlp",'
             in bench)
     assert _smoke_literal("CONV_VAE_BATCH") == 256 and "BATCH = 256" in bench
+
+
+def test_chip_smoke_image_config_is_the_shipped_file():
+    """Phase 11's MNIST_CONFIG is configs/config_mnist.yaml, run on the
+    stand-in images the file's own comment names (dataset_params {fake:
+    true}); the conv VAE it trains on CIFAR-10's stand-ins is bench.py:72's
+    model (CONV_VAE_PARAMS, held above) built for cifar10."""
+    assert _smoke_literal("MNIST_CONFIG") == load_config(
+        os.path.join(ROOT, "configs", "config_mnist.yaml"))
+    assert _smoke_literal("MNIST_DATASET") == {"fake": True}
+    assert "#   fake: true" in open(os.path.join(ROOT, "configs", "config_mnist.yaml")).read()
+    assert "build_model('vae', 'cifar10', CONV_VAE_PARAMS" in _smoke_function("phase_images")
+
+
+def test_fid_weights_load_with_numpy_alone():
+    """The random-conv FID weights the port carries are a plain .npz: numpy
+    reads them in a process that imports neither torch nor jax."""
+    code = ("import sys, numpy as np\n"
+            "z = np.load('vae_song_tpu_torch/ops/fid_conv_seed0.npz')\n"
+            "assert sorted(z.files) == sorted(f'c{c}_{k}' for c in (1, 3) for k in "
+            "('conv0', 'conv1', 'conv2', 'proj')), z.files\n"
+            "assert z['c1_conv0'].shape == (3, 3, 1, 8) and z['c3_proj'].shape == (32, 64)\n"
+            "assert not {'torch', 'jax'} & set(sys.modules)\n"
+            "print(sum(z[k].nbytes for k in z.files))")
+    proc = _run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 0 < int(proc.stdout.split()[-1]) < 100_000
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

@@ -138,10 +138,13 @@ def test_unported_model_names_its_roadmap_item(tmp_path):
 
 
 def test_generation_of_the_flexible_family_names_its_roadmap_item(tmp_path):
+    """cli/generate.py generates for the FlexibleVAE family now (held to
+    JAX in tests/test_torch_generate.py); its int8 serving is not ported
+    and names its item before anything is loaded."""
     from vae_song_tpu_torch.cli import generate
 
     path = tmp_path / "pinwheel.yaml"
     path.write_text(open(os.path.join(ROOT, "configs", "config_pinwheel.yaml")).read())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
         generate.main(["--config", str(path), "--param_dir", str(tmp_path / "none.pkl"),
-                       "--device", "cpu"])
+                       "--device", "cpu", "--quant", "int8"])

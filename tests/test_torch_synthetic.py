@@ -2,7 +2,9 @@
 numpy generators) against the JAX package: the same `default_rng` draws
 give bitwise equal arrays, generator by generator and through
 `load_dataset`'s dispatch; `seed=None` stays non-deterministic; the image
-datasets, not ported yet, raise naming their ROADMAP.md item."""
+datasets without their files raise naming where they looked."""
+
+import re
 
 import numpy as np
 import pytest
@@ -82,6 +84,12 @@ def test_unseeded_draws_differ():
 
 
 @pytest.mark.parametrize("name", data.IMAGE_DATASETS)
-def test_image_datasets_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10b"):
+def test_image_datasets_name_their_roadmap_item(name, tmp_path, monkeypatch):
+    """The image datasets are ported (tests/test_torch_images.py); without
+    their files under the data root each one raises FileNotFoundError
+    naming where it looked, as in JAX."""
+    from vae_song_tpu_torch.data import images
+
+    monkeypatch.setattr(images, "DATA_ROOT", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=re.escape(str(tmp_path))):
         data.load_dataset(name)

@@ -117,8 +117,8 @@ def test_saved_params_load_into_jax_and_decode_the_same_clouds(tmp_path):
     ({"tensor_parallel": 2}, "Queue 1 item 15"),
     ({"fsdp": True}, "Queue 1 item 15"),
     ({"profile_dir": "prof"}, "Queue 1 item 16"),
-    ({"native_prefetch": True}, "Queue 1 item 10"),
-    ({"epochs": -1}, "Queue 1 item 13"),
+    ({"pipeline_parallel": 2}, "Queue 1 item 15"),
+    ({"sequence_parallel": 2}, "Queue 1 item 15"),
 ])
 def test_unported_trainer_options_name_their_roadmap_item(tmp_path, option, item):
     model = build_model("setvae", "shapenet", MODEL_PARAMS)
@@ -132,8 +132,10 @@ def test_unported_trainer_options_name_their_roadmap_item(tmp_path, option, item
 
 
 def test_unported_dataset_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        data.load_dataset("mnist")
+    """A dataset name neither package knows (every dataset of the JAX
+    package is ported)."""
+    with pytest.raises(NotImplementedError, match="imagenet is not implemented"):
+        data.load_dataset("imagenet")
 
 
 def test_batches_match_the_jax_pipeline():
@@ -162,9 +164,9 @@ def test_batches_match_the_jax_pipeline():
 def test_directory_loader_matches_jax(tmp_path):
     """A ShapeNet-style directory (<root>/<class>/<split>/*.npy|npz|txt)
     gives the JAX loader's arrays, category filter included. The clouds
-    hold exactly num_points points: where the JAX package finds its
-    native host library it resamples other clouds with that library's
-    stream (data/shapenet.py:resample_point_clouds)."""
+    hold exactly num_points points; clouds of other sizes, resampled
+    through the native host library, are held in
+    tests/test_torch_native.py."""
     rng = np.random.default_rng(8)
     for cls in ("airplane", "chair"):
         for split, count in (("train", 3), ("test", 2)):

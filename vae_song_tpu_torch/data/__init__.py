@@ -1,10 +1,9 @@
-"""Data loading of the PyTorch port, numpy only (port of
-vae_song_tpu/data/__init__.py for the synthetic 2-D and the point-cloud
-datasets)."""
+"""Data loading of the PyTorch port (port of vae_song_tpu/data/__init__.py):
+the image datasets, the synthetic 2-D datasets and the point clouds."""
 
 import numpy as np
 
-from vae_song_tpu_torch.data import shapenet, synthetic
+from vae_song_tpu_torch.data import images, shapenet, synthetic
 from vae_song_tpu_torch.data.pipeline import ArrayDataset, iterate_batches, num_batches
 
 IMAGE_DATASETS = ("mnist", "fashionmnist", "cifar10", "omniglot", "celeba")
@@ -22,10 +21,15 @@ def load_dataset(dataset_name: str, **kwargs):
         `rgm_std`, `rgm_L`, `rgm_centers`, `rgm_weights`);
       * ShapeNet point clouds: `fake` (synthetic stand-in clouds:
         `num_samples` train, default 256, and `num_test_samples` test,
-        default a quarter), `shapenet_root`, `category`, `num_points`.
+        default a quarter), `shapenet_root`, `category`, `num_points`;
+      * the image datasets (data/images.py): the files under
+        $VST_DATA_ROOT, or with `fake` the 4096 train and 1024 test
+        stand-in images from `seed` (default 0); the augment is MNIST's
+        rotation and crop, or CIFAR-10's and CelebA's flip, None for
+        the others.
 
     `seed=None` draws fresh entropy, as in JAX. A `fake_` prefix on the
-    name sets `fake`. The image datasets are not ported yet."""
+    name sets `fake`."""
     pattern = kwargs.get("distribution_pattern", "uniform")
     num_components = kwargs.get("num_components", 16)
     total_samples = kwargs.get("train_total", 10000)
@@ -38,10 +42,11 @@ def load_dataset(dataset_name: str, **kwargs):
         fake = True
 
     if dataset_name in IMAGE_DATASETS:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported to PyTorch yet; see ROADMAP.md "
-            "Queue 1 item 10b (the image readers)"
-        )
+        (xtr, ytr), (xte, yte) = images.load_image_dataset(dataset_name, fake=fake,
+                                                           seed=seed or 0)
+        aug_factory = images.AUGMENTATIONS.get(dataset_name)
+        aug = aug_factory() if aug_factory else None
+        return ArrayDataset(xtr, ytr), ArrayDataset(xte, yte), aug
 
     if dataset_name == "pinwheel":
         rng = np.random.default_rng(seed)
@@ -107,5 +112,5 @@ def load_dataset(dataset_name: str, **kwargs):
     raise NotImplementedError(f"{dataset_name} is not implemented")
 
 
-__all__ = ["load_dataset", "ArrayDataset", "iterate_batches", "num_batches", "shapenet",
-           "synthetic"]
+__all__ = ["load_dataset", "ArrayDataset", "iterate_batches", "num_batches", "images",
+           "shapenet", "synthetic"]

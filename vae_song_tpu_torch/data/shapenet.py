@@ -14,6 +14,8 @@ import os
 
 import numpy as np
 
+from vae_song_tpu_torch.data import native
+
 NPZ_KEYS = ("points", "pc", "pos", "xyz")
 
 
@@ -83,21 +85,6 @@ def resample(pts, num_points, rng=None):
     return np.concatenate([pts, pts[idx]], axis=0)
 
 
-def resample_point_clouds(clouds, target: int, seed: int = 0):
-    """[len, target, 3] from a list of [n_i, 3] clouds, one numpy
-    Generator seeded with `seed` for all of them: the numpy path of the
-    JAX package's `data/native.py:resample_point_clouds`. Where the JAX
-    package finds its native host library it resamples with that
-    library's own stream instead, so clouds that need resampling can
-    differ between the packages; clouds of exactly `target` points never
-    do."""
-    rng = np.random.default_rng(seed)
-    out = np.empty((len(clouds), target, clouds[0].shape[1]), np.float32)
-    for i, pts in enumerate(clouds):
-        out[i] = resample(pts, target, rng)
-    return out
-
-
 class ShapeNetPointClouds:
     """One split of a ShapeNet directory; materialize() stacks it in
     memory (2048 points x 4 B x 3 = 24 KB a shape)."""
@@ -111,9 +98,11 @@ class ShapeNetPointClouds:
         return len(self.files)
 
     def materialize(self):
-        """(X [N, num_points, 3] float32, y [N] int64 zeros)."""
+        """(X [N, num_points, 3] float32, y [N] int64 zeros); the
+        variable-size clouds are resampled through the native host
+        library (data/native.py, with its numpy fallback), as in JAX."""
         clouds = [load_points(f) for f in self.files]
-        X = resample_point_clouds(
+        X = native.resample_point_clouds(
             clouds, self.num_points, seed=int(self.rng.integers(2**31 - 1))
         )
         return X, np.zeros(len(self), np.int64)

@@ -184,24 +184,44 @@ def _ieee_f32(x):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def _deterministic(x):
+    """cuDNN's deterministic algorithms while a convolution on the card
+    runs; nothing otherwise. cuDNN's default choice for some convolution
+    backwards is not deterministic (H100: two runs of six steps of the
+    conv VAE of bench.py:72 from the same weights and inputs end 8e-2
+    apart); with these a resumed run repeats the continuous one bit for
+    bit."""
+    if x.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 class _Conv2d(torch.autograd.Function):
     """conv2d (or conv_transpose2d) of NCHW x by w, no bias, dilation 1,
-    one group; forward and backward under `_ieee_f32`, since autograd runs
-    the backward after the forward's context has closed."""
+    one group; forward and backward under `_ieee_f32` and `_deterministic`,
+    since autograd runs the backward after the forward's context has
+    closed."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, transposed):
         ctx.save_for_backward(x, w)
         ctx.conf = stride, padding, transposed
         conv = F.conv_transpose2d if transposed else F.conv2d
-        with _ieee_f32(x):
+        with _ieee_f32(x), _deterministic(x):
             return conv(x, w, None, stride, padding)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         stride, padding, transposed = ctx.conf
-        with _ieee_f32(x):
+        with _ieee_f32(x), _deterministic(x):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, [stride] * 2, [padding] * 2, [1, 1], transposed, [0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])

@@ -5,22 +5,33 @@ its single-device branch with per-batch steps, :802-1009 and
 
 Per epoch: the warmup alpha (the models that set `has_warmup`: LRVAE,
 SetLRVAE), one train step per shuffled batch (or, with `grad_accum`, one
-optimizer update per batch from that many microbatches), the eval step
-over the test split (in the order of the pipeline, shuffled for the 1-D
-datasets as JAX's dispatched loop does), TensorBoard scalars and the
-progress line, and with `checkpoint_every` the full train state at
-`params/ckpt_{epoch}.pkl` (optionally written by the AsyncCheckpointer's
-worker thread). At the last epoch: `params/model_{epoch}.pkl` in the JAX
-package's format, and the set models' `.ply`/`.npy` point-cloud dumps
-or, for the 1-D datasets, the five
-`scatter2d/{epoch}_{input,mu,z,recon,sample}.png` plots of the last eval
-batch (matplotlib is imported there; without it the run prints which
-plots it did not write and goes on). At the end: the posterior metrics
-on one batch of 50 test samples, the experiment log and the unified CSV
-row. `resume_from` continues a run from such a checkpoint at the next
-epoch. The artifact tree is the JAX trainer's:
+optimizer update per batch from that many microbatches), the dataset's
+augment applied to each training batch on the device (MNIST's rotation
+and crop, CIFAR-10's and CelebA's flip), the eval step over the test split
+(in the order of the pipeline, shuffled for the 1-D datasets as JAX's
+dispatched loop does), TensorBoard scalars and the progress line, and with
+`checkpoint_every` the full train state at `params/ckpt_{epoch}.pkl`
+(optionally written by the AsyncCheckpointer's worker thread). With
+`native_prefetch` the training batches come from the native loader's C++
+threads (data/native.py), seeded from the epoch's numpy Generator as in
+JAX. At the last epoch: `params/model_{epoch}.pkl` in the JAX package's
+format, and the set models' `.ply`/`.npy` point-cloud dumps, or for the
+other models, from the last eval batch, the 1-D datasets' five
+`scatter2d/{epoch}_{input,mu,z,recon,sample}.png` plots or the images'
+four `valontr/{epoch}_{origin,recon,recon_wos,sample}.png` grids, and the
+`pca/` plots of mu and z (matplotlib is imported there; without it the run
+prints which plots it did not write and goes on). At the end: the
+posterior metrics on one batch of 50 test samples, the experiment log and
+the unified CSV row. `resume_from` continues a run from such a checkpoint
+at the next epoch. Generation-only mode (`epochs < 0`, main.py:323-360)
+trains nothing: it decodes 50 batches of z ~ N(0, I) from the model (its
+`pt_param` checkpoint), writes one PNG an image under `generation/`, and
+scores them against the test images with the FID (ops/fid.py) on the
+device, which the CSV row carries. The artifact tree is the JAX
+trainer's:
 
-    <output_root>/results/<resultname>/<run name>/{log.txt, params/, point_clouds/, scatter2d/}
+    <output_root>/results/<resultname>/<run name>/{log.txt, params/, point_clouds/,
+        scatter2d/, valontr/, pca/, generation/}
     <output_root>/runs/<run name>/events.out.tfevents.*
     <output_root>/log/<logfilename>
 
@@ -29,18 +40,17 @@ latents a step and evaluates with L = 1, as JAX does; the set models
 and LIDVAE (single-sample in JAX too) take one latent a step.
 
 Randomness: the batch order is the JAX pipeline's (a numpy Generator
-seeded with [seed, epoch]); the reparameterisation noise, which JAX
-draws from its own PRNG, comes from CPU torch.Generators seeded from
-(seed, epoch, stream), so it does not depend on the device. The
-training-dropout masks come from a generator on the training device
+seeded with [seed, epoch]); the reparameterisation noise and the augment's
+draws, which JAX takes from its own PRNG, come from CPU torch.Generators
+seeded from (seed, epoch, stream), so they do not depend on the device.
+The training-dropout masks come from a generator on the training device
 seeded the same way (a [64, 4, 2048, 2048] mask a layer cannot be drawn
 on the host every step), so a run with attn_dropout > 0 depends on the
 device: the card's and the CPU's streams differ. Per-epoch seeding
 makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
 counterpart; the options that are not ported (the parallel strategies,
-profile_dir, native_prefetch, epochs < 0) raise naming their ROADMAP.md
-item.
+profile_dir) raise naming their ROADMAP.md item.
 """
 
 import os
@@ -56,6 +66,7 @@ from vae_song_tpu_torch.data.pipeline import iterate_batches, num_batches
 from vae_song_tpu_torch.models.flexible import FlexibleVAE
 from vae_song_tpu_torch.models.lidvae import LIDVAE
 from vae_song_tpu_torch.models.setvae import SetVAE
+from vae_song_tpu_torch.ops import fid as fid_lib
 from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
@@ -63,11 +74,15 @@ from vae_song_tpu_torch.train import loggers
 from vae_song_tpu_torch.train.state import TrainState, make_optimizer
 from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
                                              make_eval_step)
-from vae_song_tpu_torch.viz.plots import save_point_cloud, visualize_2c_points_on_image
+from vae_song_tpu_torch.viz.pca import pca_visualization
+from vae_song_tpu_torch.viz.plots import (save_image_grid, save_point_cloud,
+                                          visualize_2c_points_on_image)
 
 _METRICS = ("loss", "recon", "reg", "lr")
 # random streams of one run
-_TRAIN, _EVAL, _FINAL, _DUMP, _DROPOUT = range(5)
+_TRAIN, _EVAL, _FINAL, _DUMP, _DROPOUT, _AUGMENT, _GENERATE = range(7)
+# generation-only mode decodes this many batches (main.py:326)
+SAMPLE_ITERATION = 50
 
 
 def synth_run_name(model, alpha=None) -> str:
@@ -91,9 +106,29 @@ def _generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_parallel,
+def _compute_fid(test_ds, generated: np.ndarray, device, chunk: int = 256) -> float:
+    """FID between the first 5000 test images and the generated ones
+    (main.py:349-360 analogue), the features computed on `device`:
+    InceptionV3 pool3 with $VST_FID_WEIGHTS (pytorch_fid-comparable), else
+    the seeded random-conv features (comparable between runs of either
+    package, not to Inception-FID)."""
+    real = np.asarray(test_ds.X[:5000], np.float32)
+    extractor, is_inception = fid_lib.default_extractor(real.shape[1:], seed=0, device=device)
+
+    def chunks(a):
+        for i in range(0, len(a), chunk):
+            yield a[i:i + chunk]
+
+    score = fid_lib.fid_score(extractor, chunks(real), chunks(generated))
+    tag = ("InceptionV3 pool3, $VST_FID_WEIGHTS — pytorch_fid-comparable"
+           if is_inception else "seeded random-conv features, non-Inception")
+    print(f"FID ({tag}): {score:.4f}")
+    return score
+
+
+def _refuse_unported(model, *, data_parallel, pipeline_parallel, expert_parallel,
                      tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
-                     profile_dir, native_prefetch):
+                     profile_dir):
     if not isinstance(model, (SetVAE, FlexibleVAE, LIDVAE)):
         raise TypeError(
             f"train_and_test trains the set models, the FlexibleVAE family and LIDVAE; "
@@ -111,11 +146,6 @@ def _refuse_unported(model, epochs, *, data_parallel, pipeline_parallel, expert_
     unported = [(k, "Queue 1 item 15 (nn/moe.py and parallel/)") for k, on in parallel.items() if on]
     if profile_dir is not None:
         unported.append(("profile_dir", "Queue 1 item 16 (train/profiling.py)"))
-    if native_prefetch:
-        unported.append(("native_prefetch", "Queue 1 item 10c (the native loader)"))
-    if epochs < 0:
-        unported.append(("generation-only mode (epochs < 0)",
-                         "Queue 1 item 13 (FID and generation)"))
     if unported:
         key, item = unported[0]
         raise NotImplementedError(
@@ -189,12 +219,18 @@ def train_and_test(
     step and warmup state, and replays the continuous run.
     grad_accum: >= 2 takes each optimizer update from that many
     sequential microbatches of the batch (`make_accum_train_step`);
-    `batch_size` must divide by it."""
+    `batch_size` must divide by it.
+    native_prefetch: assemble the training batches on the native loader's
+    C++ threads (data/native.py:NativeBatchLoader); its shuffle is the
+    library's, so the batch order differs from a run without it (as in
+    JAX); without the library it takes the numpy path, as in JAX.
+    epochs < 0: generation-only mode (the module's docstring); image
+    datasets only, since it writes image PNGs and an image FID."""
     _refuse_unported(
-        model, epochs, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
+        model, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, sequence_parallel_ring=sequence_parallel_ring,
-        fsdp=fsdp, profile_dir=profile_dir, native_prefetch=native_prefetch,
+        fsdp=fsdp, profile_dir=profile_dir,
     )
     if grad_accum and grad_accum > 1 and batch_size % grad_accum != 0:
         raise ValueError(
@@ -202,9 +238,14 @@ def train_and_test(
             f"grad_accum={grad_accum} microbatches"
         )
     device = torch.device(device)
-    train_ds, test_ds, _ = data_lib.load_dataset(dataset_name, **(dataset_params or {}))
+    train_ds, test_ds, augment = data_lib.load_dataset(dataset_name, **(dataset_params or {}))
     is_set = getattr(model, "data_type", None) == "set"
     data_type = "set" if is_set else "1d" if dataset_name in ("pinwheel", "chessboard") else "2d"
+    is_image = not is_set and train_ds.X.ndim == 4
+    if epochs < 0 and not is_image:
+        raise ValueError(
+            f"generation-only mode (epochs < 0) writes image PNGs and an image FID; "
+            f"{dataset_name!r} is not an image dataset")
     n_samples = 1 if is_set or isinstance(model, LIDVAE) else num_mc_samples
     steps_per_epoch = num_batches(train_ds, batch_size)
     if steps_per_epoch == 0:
@@ -241,7 +282,7 @@ def train_and_test(
 
     train_step = make_accum_train_step(model, optimizer, max(1, grad_accum or 1))
     eval_step = make_eval_step(model)
-    _, decode_fn, forward_fn = make_apply_fns(model)
+    encode_fn, decode_fn, forward_fn = make_apply_fns(model)
     latent = model.latent_channel
 
     def eps_of(b, gen, samples=n_samples):
@@ -273,8 +314,11 @@ def train_and_test(
         ep_np_rng = np.random.default_rng([seed, epoch])
         noise = _generator(seed, epoch, _TRAIN)
         dropout_rng = _generator(seed, epoch, _DROPOUT, device=device) if is_set else None
+        augment_rng = _generator(seed, epoch, _AUGMENT) if augment is not None else None
         ms = []
-        for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device):
+        for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device,
+                                     augment=augment, augment_rng=augment_rng,
+                                     native_prefetch=native_prefetch):
             ms.append(train_step(x, eps_of(x.shape[0], noise), wu_alpha, dropout_rng))
             state.step += 1
         train_means = _means(ms)
@@ -317,11 +361,18 @@ def train_and_test(
             if is_set:
                 _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name,
                                   epoch, output_root, dump_noise, device)
-            elif data_type == "1d" and last_eval_batch is not None:
-                _dump_scatter2d(model, last_eval_batch, decode_fn, forward_fn, resultname,
-                                name, epoch, output_root, dump_noise, device)
+            elif last_eval_batch is not None:
+                _dump_artifacts(model, last_eval_batch, encode_fn, decode_fn, forward_fn,
+                                data_type, resultname, name, epoch, output_root, dump_noise,
+                                device)
 
     writer.close()
+
+    fid = -1
+    if epochs < 0:
+        generated = _generate_images(model, decode_fn, batch_size, result_dir, name,
+                                     _generator(seed, 0, _GENERATE), device)
+        fid = _compute_fid(test_ds, generated, device)
 
     # final metrics on one 50-sample batch (main.py:363-372)
     noise = _generator(seed, max(epochs, 0), _FINAL)
@@ -344,7 +395,7 @@ def train_and_test(
     loggers.log_unified_dict(
         os.path.join(output_root, "log"),
         {
-            "name": name, "dataset_name": dataset_name, "epoch": epochs, "fid": -1,
+            "name": name, "dataset_name": dataset_name, "epoch": epochs, "fid": fid,
             "au": pm["au"], "kl": pm["kl"], "mi": pm["mi"], "nll": pm["nll"],
             "vloss": eval_means["loss"], "vlrec": eval_means["recon"],
             "vlreg": eval_means["reg"], "vllr": eval_means["lr"],
@@ -363,7 +414,7 @@ def train_and_test(
                   file=sys.stderr, flush=True)
 
     summary = dict(name=name, duration_sec=duration, eval=eval_means,
-                   posterior_metrics=pm, result_dir=result_dir)
+                   posterior_metrics=pm, result_dir=result_dir, fid=fid)
     return state, summary
 
 
@@ -385,23 +436,69 @@ def _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name, e
         save_point_cloud(pts[0], os.path.join(outdir, f"{name}_epoch{epoch}_prior_{i:02d}"))
 
 
-def _dump_scatter2d(model, last_batch, decode_fn, forward_fn, resultname, name, epoch, root,
-                    noise, device):
-    """The 1-D datasets' last-epoch plots (main.py:110-170): the last eval
-    batch, its mu, z and reconstruction (one latent sample each), and
-    the decode of z ~ N(0, I), coloured by class, as
-    `scatter2d/{epoch}_{input,mu,z,recon,sample}.png`. The 2-D image
-    grids and the PCA plot are not ported yet (ROADMAP.md Queue 1 items
-    10b and 13)."""
+def _dump_artifacts(model, last_batch, encode_fn, decode_fn, forward_fn, data_type,
+                    resultname, name, epoch, root, noise, device):
+    """The last-epoch plots of the last eval batch (main.py:110-170): for
+    the 1-D datasets its points, mu, z and reconstruction (one latent
+    sample each) and the decode of z ~ N(0, I), coloured by class, as
+    `scatter2d/{epoch}_{input,mu,z,recon,sample}.png`; for images the grids
+    `valontr/{epoch}_{origin,recon,recon_wos,sample}.png` (recon_wos decodes
+    mu) of the first 256; then the PCA/t-SNE plots of mu and z under
+    `pca/`. The noise is drawn from `noise` in that order: the forward's,
+    the prior's, the PCA's. Non-image 2-D data gets only the PCA (JAX's
+    image grid would fail on it)."""
     x, y = last_batch
     latent = model.latent_channel
     outs = forward_fn(x, _noise((1, x.shape[0], latent), noise, device))
     sample = decode_fn(_noise((x.shape[0], latent), noise, device))
-    z = outs[3].reshape(-1, latent)          # [1, B, latent] or LIDVAE's [B, latent]
-    plots = {"input": x, "mu": outs[1], "z": z, "recon": outs[0], "sample": sample}
+    pca_eps = _noise((min(x.shape[0], 1000), latent), noise, "cpu")
+    if data_type == "1d":
+        z = outs[3].reshape(-1, latent)          # [1, B, latent] or LIDVAE's [B, latent]
+        plots = {"input": x, "mu": outs[1], "z": z, "recon": outs[0], "sample": sample}
+        try:
+            for tensor_name, points in plots.items():
+                visualize_2c_points_on_image(points, y, resultname, name, epoch, tensor_name,
+                                             root)
+        except ImportError as e:
+            # visualization must never kill a training run (the JAX trainer's rule)
+            print(f"[{name}] scatter2d plots {list(plots)} not written: {e!r}", flush=True)
+    elif x.dim() == 4:
+        outdir = os.path.join(root, "results", resultname, name, "valontr")
+        grids = {"origin": x, "recon": outs[0].clamp(0, 1),
+                 "recon_wos": forward_fn(x)[0].clamp(0, 1), "sample": sample.clamp(0, 1)}
+        try:
+            for tag, images in grids.items():
+                save_image_grid(images[:256], os.path.join(outdir, f"{epoch}_{tag}.png"))
+        except ImportError as e:
+            print(f"[{name}] valontr grids {list(grids)} not written: {e!r}", flush=True)
+
+    def enc(xx):
+        return encode_fn(torch.from_numpy(np.ascontiguousarray(xx)).to(device))
+
     try:
-        for tensor_name, points in plots.items():
-            visualize_2c_points_on_image(points, y, resultname, name, epoch, tensor_name, root)
-    except ImportError as e:
-        # visualization must never kill a training run (the JAX trainer's rule)
-        print(f"[{name}] scatter2d plots {list(plots)} not written: {e!r}", flush=True)
+        pca_visualization(enc, x, y, pca_eps, epoch, name, resultname, root=root)
+    except Exception as e:  # visualization must never kill a training run
+        print(f"[{name}] pca_visualization failed: {e!r}", flush=True)
+
+
+def _generate_images(model, decode_fn, batch_size, result_dir, name, noise, device):
+    """Generation-only mode: SAMPLE_ITERATION batches of z ~ N(0, I) from
+    `noise`, decoded and clipped to [0, 1], one PNG an image at
+    `generation/{index}.png`; returns them [N, H, W, C] as numpy. Without
+    matplotlib the PNGs are skipped with one line."""
+    gen_dir = os.path.join(result_dir, "generation")
+    os.makedirs(gen_dir, exist_ok=True)
+    out, write = [], True
+    for i in range(SAMPLE_ITERATION):
+        z = _noise((batch_size, model.latent_channel), noise, device)
+        images = decode_fn(z).clamp(0, 1).float().cpu().numpy()
+        out.append(images)
+        for j in range(batch_size if write else 0):
+            try:
+                save_image_grid(images[j:j + 1], os.path.join(gen_dir, f"{i * batch_size + j}.png"),
+                                nrow=1, normalize=True)
+            except ImportError as e:
+                print(f"[{name}] generation PNGs not written: {e!r}", flush=True)
+                write = False
+                break
+    return np.concatenate(out)

@@ -1,9 +1,9 @@
-"""Artifact exports (port of vae_song_tpu/viz/plots.py: save_point_cloud,
-visualize_2c_points_on_image and the Lipschitz CLI's plot_heatmap,
-plot_2d_histogram and logscale_plt_color_map; the other plots wait for
-ROADMAP.md Queue 1 items 10b and 13). matplotlib is imported inside each
-plotting function, so the module imports where matplotlib is not
-installed, and a plot raises ImportError there."""
+"""Artifact exports (port of vae_song_tpu/viz/plots.py): save_point_cloud,
+visualize_2c_points_on_image, save_image_grid, visualize_flows and the
+Lipschitz CLI's plot_heatmap, plot_2d_histogram and
+logscale_plt_color_map. matplotlib is imported inside each plotting
+function, so the module imports where matplotlib is not installed, and a
+plot raises ImportError there."""
 
 import os
 
@@ -12,8 +12,10 @@ import torch
 
 
 def _np(x):
+    """numpy array of x; a tensor comes to the host, bf16 as float32."""
     if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
 
@@ -54,6 +56,59 @@ def visualize_2c_points_on_image(points, label, resultname, name, epoch, tensor_
     os.makedirs(outdir, exist_ok=True)
     plt.savefig(os.path.join(outdir, f"{epoch}_{tensor_name}.png"), bbox_inches="tight",
                 pad_inches=0.1)
+    plt.close(fig)
+
+
+def save_image_grid(images, filepath, nrow=16, normalize=True):
+    """Image grid as torchvision's save_image writes it (main.py:135-166):
+    images [N, H, W, C] float, `nrow` a row, 2-pixel borders of 1, min-max
+    normalised to [0, 1] when `normalize`; grayscale through the gray
+    colormap. Raises ImportError where matplotlib is not installed."""
+    plt = _pyplot()
+    images = _np(images)
+    n, h, w, c = images.shape
+    ncol = nrow
+    nrows = -(-n // ncol)
+    if normalize:
+        lo, hi = images.min(), images.max()
+        images = (images - lo) / max(hi - lo, 1e-8)
+    grid = np.ones((nrows * (h + 2) + 2, ncol * (w + 2) + 2, c), images.dtype)
+    for i in range(n):
+        r, col = divmod(i, ncol)
+        grid[r * (h + 2) + 2: r * (h + 2) + 2 + h,
+             col * (w + 2) + 2: col * (w + 2) + 2 + w] = images[i]
+    os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
+    if c == 1:
+        plt.imsave(filepath, grid[..., 0], cmap="gray", vmin=0, vmax=1)
+    else:
+        plt.imsave(filepath, np.clip(grid, 0, 1))
+
+
+def visualize_flows(inp, mu, z, output, resultname, name, epoch, num_flows=8, root="."):
+    """Input -> mu -> z -> recon parallel-coordinates plot
+    (utils.py:454-506), written to
+    `<root>/results/<resultname>/<name>/visualize_flows/{epoch}_flows.png`.
+    Raises ImportError where matplotlib is not installed."""
+    plt = _pyplot()
+    inp, mu, z, output = [_np(a).reshape(_np(a).shape[0], -1)[:num_flows]
+                          for a in (inp, mu, z, output)]
+    fig, ax = plt.subplots(figsize=(10, 6))
+    colors = plt.cm.Spectral(np.linspace(0, 1, len(inp)))
+    dummy = [np.ones_like(inp[0]) * i for i in range(4)]
+    for i in range(len(inp)):
+        ax.scatter(dummy[0], inp[i], color=colors[i])
+        ax.scatter(dummy[1], mu[i], color=colors[i])
+        ax.scatter(dummy[2], z[i], color=colors[i])
+        ax.scatter(dummy[3], output[i], color=colors[i])
+        ax.plot([0, 1], [inp[i], mu[i]], color=colors[i], linestyle="-")
+        ax.plot([1, 2], [mu[i], z[i]], color=colors[i], linestyle="-")
+        ax.plot([2, 3], [z[i], output[i]], color=colors[i], linestyle="-")
+    ax.set_xticks([0, 1, 2, 3])
+    ax.set_xticklabels(["input", "mu", "z", "recon"])
+    ax.set_title("Visualized flows")
+    outdir = os.path.join(root, "results", resultname, name, "visualize_flows")
+    os.makedirs(outdir, exist_ok=True)
+    plt.savefig(os.path.join(outdir, f"{epoch}_flows.png"))
     plt.close(fig)
 
 
