@@ -111,12 +111,30 @@ non-zero exit code:
      (conv encoder, latent 32, B = 256), and each held to the CPU's float64
      step on the card's LeakyReLU pieces. No kernel counter may rise.
 
+  12. the rest of the single-device surface, after phase 11's image path:
+     (1) the shipped SetVAE config with `moe_experts: 4` (the top-1 MoE FFN
+     in every transformer layer, B = 64, N = 2048, bf16): train ms/step
+     (median and spread) and peak memory, K1, K2, K4 and K5 rising by the
+     launches its steps count; card against CPU at 8 clouds of 256 points
+     (one train step, f32 and bf16) and the share of tokens the router
+     sends to the same expert slot on both; (2) `remat: true` on the
+     shipped config: ms/step and peak memory with and without, the loss
+     terms of one step equal and the gradients within the bf16 bound, K1
+     rising by one launch a recomputed self-attention layer a step; the
+     same with `attn_dropout: 0.1` (peak memory beside the run without
+     remat); (3) the shipped SetVAE decoded in int8 (`generate_samples(...,
+     quant="int8")`): clouds/s beside the float decode, its relative
+     error against it under the JAX package's 0.05, K1 launching, and the
+     int32 products of `torch._int_mm` bitwise equal to the CPU's at the
+     decode's shapes; (4) the complexity CLI on the stand-in MNIST images
+     for 1 epoch and (5) a `profile_dir` run of `train_and_test` whose
+     trace holds the card's kernels; no counter rises on (4) and (5).
+
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-10 (zero on phases 9 and
-10). The
-last two lines are that JSON line and the result line.
+`paths` its launches on each path of phases 6-12 (zero on phases 9-11).
+The last two lines are that JSON line and the result line.
 """
 
 import contextlib
@@ -135,6 +153,7 @@ import numpy as np
 import torch
 
 from vae_song_tpu_torch import _kernels
+from vae_song_tpu_torch.cli import complexity as complexity_cli
 from vae_song_tpu_torch.cli import lipschitz as lipschitz_cli
 from vae_song_tpu_torch.cli.generate import generate_samples
 from vae_song_tpu_torch.cli.main import run_experiment
@@ -146,6 +165,8 @@ from vae_song_tpu_torch.nn import blocks
 from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
 from vae_song_tpu_torch.ops import chamfer, denseattn, ffn, inception
 from vae_song_tpu_torch.ops import fid as fid_lib
+from vae_song_tpu_torch.parallel import ep
+from vae_song_tpu_torch.serving import quant
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loop as train_loop
 from vae_song_tpu_torch.train.loop import train_and_test
@@ -2029,6 +2050,272 @@ def phase_images(dev):
     return launches
 
 
+# Phase 12: the shipped SetVAE config with one override each (held to the
+# file by tests/test_torch_isolation.py).
+MOE_OVERRIDE = {"moe_experts": 4}
+REMAT_OVERRIDE = {"remat": True}
+SURFACE_STEPS = 5
+# MoE card against CPU: 8 clouds of 256 points (the packed kernels' gates
+# take them), the reference phase's bounds. The router's bf16 logits and
+# softmax round at other points on the two sides, and a probability one
+# ulp apart can move a near-tie to another expert: at least 99% of the
+# tokens must take the same expert slot on both.
+MOE_REF_POINTS = 256
+MOE_ROUTED_ALIKE = 0.99
+# remat against no remat from the same weights on the card: the forward is
+# the same computation (the decoder's first self-attention at full batch
+# instead of once at batch 1), so the loss terms agree to f32 roundoff;
+# the gradients differ where the batch-summed cotangent of that layer
+# rounds to bf16 once instead of per cloud (CPU, small: 1.6e-3 relative
+# L2; tests/test_torch_remat.py): the reference phase's bf16 bound.
+REMAT_LOSS_RTOL = 1e-6
+# int8 decode against the float decode: the JAX package's bound
+# (tests/test_quant.py)
+INT8_REL_TOL = 0.05
+COMPLEXITY_ARGS = ["--epochs", "1", "--fake_data"]
+
+
+def _surface_steps(params, dev, tag, steps=SURFACE_STEPS, dropout=False, batch=BATCH):
+    """SetVAE train steps at `params` on the card from the seeded weights:
+    two warm-ups, then `steps` timed ones (host clock, each ending in a
+    scalar fetch). Returns (ms of each timed step, peak device memory in
+    GiB over all of them, launches, steps taken)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    model = _build("setvae", params).to(dev)
+    step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
+    masks = torch.Generator(device=dev).manual_seed(SEED) if dropout else None
+    xs, eps = _clouds_and_noise(steps + 2, batch, params, dev, SEED + 9)
+    times, terms = [], []
+    for i in range(steps + 2):
+        t0 = time.perf_counter()
+        terms.append({k: float(v) for k, v in step(xs[i], eps[i], 0.5, masks).items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[2:]
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"train step ({tag}): non-finite loss terms {terms}")
+    print(f"train step setvae B={batch} N={params['num_points']} {tag}: "
+          f"{statistics.median(times):.3f} ms/step median, min {min(times):.3f}, max "
+          f"{max(times):.3f} over {steps} steps (host clock, each ends in a scalar fetch); "
+          f"peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"launches {launches}")
+    return times, peak, launches, steps + 2
+
+
+def _per_step(params):
+    """K1, K2, K4, K5 launches of one SetVAE train step without remat: one
+    attention forward and backward a transformer layer's self-attention
+    (the cross-attention to the one latent token needs no kernel), one
+    Chamfer forward and backward."""
+    layers = params["num_encoder_layers"] + params["num_decoder_layers"]
+    return {"dense_attn_fwd": layers, "dense_attn_bwd": layers, "chamfer_nn_packed": 1,
+            "chamfer_bwd": 1}
+
+
+def _expect_counts(launches, path, want, steps):
+    """Each kernel of `want` launched exactly want[k] * steps times, every
+    other kernel never."""
+    got = {k: v for k, v in launches.items() if v}
+    expected = {k: v * steps for k, v in want.items()}
+    print(f"{path}: launches {got}, counted {expected} ({steps} steps)")
+    if got != expected:
+        raise AssertionError(f"{path}: launches {got}, not the counted {expected}")
+
+
+def _moe_routing_alike(dev, params):
+    """Share of tokens the card and the CPU route to the same expert slot,
+    bf16, one MoE FFN of the config on 8 clouds of 256 random points'
+    worth of tokens."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    moe = _build("setvae", params).encoder.layers[0].moe_ffn
+    x = torch.randn(REF_CLOUDS * MOE_REF_POINTS, params["d_model"], generator=gen)
+    slots = []
+    for where in ("cpu", dev):
+        p = moe.to(where).params()
+        c = ep._capacity(x.shape[0], params["moe_experts"], params.get("moe_capacity_factor", 1.25))
+        with torch.no_grad():
+            _, slot, keep = ep._dispatch_combine(x.to(where, torch.bfloat16),
+                                                 p.router.to(torch.bfloat16),
+                                                 params["moe_experts"], c)
+        slots.append(torch.where(keep, slot, -1).cpu())
+    return float((slots[0] == slots[1]).float().mean())
+
+
+def _phase_moe(dev):
+    params = dict(MODEL_PARAMS, **MOE_OVERRIDE)
+    tag = "bf16 moe_experts 4"
+    _, _, launches, steps = _surface_steps(params, dev, tag)
+    _expect_counts(launches, f"the {tag} train steps", _per_step(params), steps)
+    ref = dict(params, num_points=MOE_REF_POINTS)
+    x, _ = fake_point_clouds(REF_CLOUDS, MOE_REF_POINTS, seed=SEED + 2)
+    eps = np.random.default_rng(SEED + 3).standard_normal(
+        (REF_CLOUDS, ref["latent_channel"])).astype(np.float32)
+    for mixed, bounds in ((False, (REF_F32_LOSS_RTOL, REF_F32_GRAD_RTOL, REF_F32_MOVED_SHARE)),
+                          (True, (REF_BF16_LOSS_RTOL, REF_BF16_GRAD_RTOL, REF_BF16_MOVED_SHARE))):
+        _compare_train_step(dev, f"moe_experts 4 N={MOE_REF_POINTS} "
+                            f"{'bf16' if mixed else 'f32'}", x, eps,
+                            dict(ref, mixed_precision=mixed), *bounds)
+    alike = _moe_routing_alike(dev, ref)
+    print(f"MoE router, bf16, card against CPU: {alike:.6f} of {REF_CLOUDS * MOE_REF_POINTS} "
+          f"tokens in the same expert slot (bound {MOE_ROUTED_ALIKE})")
+    if alike < MOE_ROUTED_ALIKE:
+        raise AssertionError("the MoE router routes card and CPU tokens apart")
+    return launches
+
+
+def _phase_remat(dev):
+    params = dict(MODEL_PARAMS, **REMAT_OVERRIDE)
+    plain_times, plain_peak, plain, steps = _surface_steps(MODEL_PARAMS, dev, "bf16")
+    times, peak, launches, _ = _surface_steps(params, dev, "bf16 remat")
+    _expect_counts(plain, "the bf16 train steps", _per_step(MODEL_PARAMS), steps)
+    per_step = dict(_per_step(params))
+    per_step["dense_attn_fwd"] *= 2          # each self-attention again in its recompute
+    _expect_counts(launches, "the bf16 remat train steps", per_step, steps)
+    print(f"remat: {statistics.median(times):.3f} against {statistics.median(plain_times):.3f} "
+          f"ms/step, peak {peak:.2f} against {plain_peak:.2f} GiB; K1 "
+          f"{launches['dense_attn_fwd']} against {plain['dense_attn_fwd']} launches, "
+          f"{launches['dense_attn_fwd'] - plain['dense_attn_fwd']} more in {steps} steps")
+    x, _ = fake_point_clouds(BATCH, NPTS, seed=SEED + 11)
+    eps = np.random.default_rng(SEED + 11).standard_normal(
+        (BATCH, params["latent_channel"])).astype(np.float32)
+    t_off, g_off, _, _ = _train_step_once(dev, "setvae", MODEL_PARAMS, x, eps)
+    t_on, g_on, _, _ = _train_step_once(dev, "setvae", params, x, eps)
+    rel = max(abs(t_on[k] - t_off[k]) / max(abs(t_off[k]), 1e-12) for k in t_off)
+    keys = [k for k, g in g_off.items() if g is not None and not k.endswith("key.bias")]
+    gap = math.sqrt(sum(float(((g_on[k] - g_off[k]) ** 2).sum()) for k in keys)
+                    / sum(float((g_off[k] ** 2).sum()) for k in keys))
+    print(f"remat against no remat, one step from the same weights: loss terms max rel diff "
+          f"{rel:.3e} (bound {REMAT_LOSS_RTOL}), gradient rel L2 diff {gap:.3e} (bound "
+          f"{REF_BF16_GRAD_RTOL}); {t_on} and {t_off}")
+    if ({k for k, g in g_on.items() if g is None} != {k for k, g in g_off.items() if g is None}
+            or rel > REMAT_LOSS_RTOL or gap > REF_BF16_GRAD_RTOL):
+        raise AssertionError("remat changes the train step")
+    for batch in DROPOUT_BATCHES:
+        try:
+            _, drop_peak, _, _ = _surface_steps(dict(params, **DROPOUT_OVERRIDE), dev,
+                                                "bf16 remat attn_dropout 0.1",
+                                                steps=DROPOUT_STEPS, dropout=True, batch=batch)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"remat dropout train step at B={batch} does not fit the card: {str(e)[:200]}")
+            continue
+        print(f"remat with attn_dropout 0.1 at B={batch}: peak {drop_peak:.2f} GiB "
+              f"(phase 7's run without remat prints its own peak above)")
+        break
+    else:
+        raise AssertionError(f"the remat dropout step fits at none of B = {DROPOUT_BATCHES}")
+    return launches
+
+
+def _phase_int8(dev):
+    model = _build("setvae", MODEL_PARAMS).to(dev)
+    n = GEN_BATCHES * BATCH
+    rates, clouds = {}, {}
+    for mode in ("none", "int8"):
+        generate_samples(model, BATCH, BATCH, seed=SEED, quant=mode)     # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        clouds[mode] = generate_samples(model, n, BATCH, seed=SEED + 1, quant=mode)
+        rates[mode] = n / (time.perf_counter() - t0)
+    launches = _read_launches()      # the int8 decode's
+    rel = float(np.abs(clouds["int8"] - clouds["none"]).max() / np.abs(clouds["none"]).max())
+    table = quant.quantize_dense_params(model)
+    covered, total = quant.quantized_coverage(table, model)
+    # the decodes alone, the int8 copy built once
+    z = torch.randn(GEN_BATCHES, BATCH, MODEL_PARAMS["latent_channel"],
+                    generator=torch.Generator().manual_seed(SEED + 13)).to(dev)
+    decodes = {"none": make_apply_fns(model)[1],
+               "int8": quant.make_quantized_decode(model, table)}
+    alone = {}
+    for mode in ("none", "int8", "int8", "none"):
+        decodes[mode](z[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for zb in z:
+            decodes[mode](zb)
+        torch.cuda.synchronize()
+        alone.setdefault(mode, []).append(n / (time.perf_counter() - t0))
+    print(f"int8 decode of the shipped SetVAE: {rates['int8']:.1f} clouds/s against "
+          f"{rates['none']:.1f} float (generate_samples, {n} clouds in batches of {BATCH}, to "
+          f"the host, the table and the int8 copy built in each call); the decodes alone, on "
+          f"the card, alternating: int8 {alone['int8'][0]:.1f}, {alone['int8'][1]:.1f}, float "
+          f"{alone['none'][0]:.1f}, {alone['none'][1]:.1f} clouds/s; max|int8 - float| / "
+          f"max|float| {rel:.3e} (bound {INT8_REL_TOL}); {len(table)} layers, {covered} of "
+          f"{total} kernel elements in int8")
+    if not (np.isfinite(clouds["int8"]).all() and rel < INT8_REL_TOL):
+        raise AssertionError("the int8 decode disagrees with the float decode")
+    # the decode's int32 products, card against CPU: the FFN's up projection
+    # (1024 of its 131072 rows), the memory token's value projection (M = 64)
+    # and the output layer (F = 3, padded to 8 for torch._int_mm)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    for name, rows in (("decoder/TransformerDecoderLayer_1/ff_up/Dense_0", 1024),
+                       ("decoder/TransformerDecoderLayer_1/cross_attn/value", BATCH),
+                       ("decoder/Dense_1/Dense_0", 8)):
+        w8 = table[name]["w8"]
+        x8 = torch.randint(-127, 128, (rows, w8.shape[0]), generator=gen, dtype=torch.int8)
+        got = quant.int8_matmul(x8.to(dev), w8).cpu()
+        want = quant.int8_matmul(x8, w8.cpu())
+        print(f"int8 product {name} [{rows}, {w8.shape[0]}] x {list(w8.shape)}: card against "
+              f"CPU bitwise equal {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"torch._int_mm and the CPU's int32 product differ ({name})")
+    _expect_counts(launches, "the int8 decode",
+                   {"dense_attn_fwd": MODEL_PARAMS["num_decoder_layers"]}, GEN_BATCHES)
+    return launches
+
+
+def _phase_complexity_profile(dev):
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = complexity_cli.main(["--output_dir", os.path.join(root, "complexity"),
+                                    *COMPLEXITY_ARGS])
+        wall = time.perf_counter() - t0
+        for r in rows:
+            print(f"complexity {r}")
+        print(f"complexity CLI {' '.join(COMPLEXITY_ARGS)}: {wall:.2f} s")
+        if [r["model"] for r in rows] != ["VanillaVAE", "LIDVAE", "LRVAE"] or not all(
+                math.isfinite(r["train_time_sec"]) and r["train_gpu_memory_mb"] > 0
+                for r in rows):
+            raise AssertionError(f"the complexity CLI's rows: {rows}")
+        prof = os.path.join(root, "prof")
+        t0 = time.perf_counter()
+        train_and_test(_build("setvae", MODEL_PARAMS), epochs=TRAIN_EPOCHS, batch_size=BATCH,
+                       dataset_name=COMMON_PARAMS["exp_data"], seed=SEED, lr=LR, device=dev,
+                       dataset_params=dict(COMMON_PARAMS["dataset_params"], fake=True),
+                       output_root=os.path.join(root, "run"), profile_dir=prof,
+                       visualize_artifacts=False, progress=False)
+        wall = time.perf_counter() - t0
+        traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"profile_dir holds {os.listdir(prof)}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        attn = sum("attn" in e.get("name", "") for e in kernels)
+        print(f"train_and_test with profile_dir, {TRAIN_EPOCHS} epochs at B={BATCH}: {wall:.2f} s; "
+              f"{os.path.basename(traces[0])} {os.path.getsize(traces[0]) / 2**20:.1f} MiB, "
+              f"{len(kernels)} kernel events, {attn} of the attention kernels")
+        if not kernels or not attn:
+            raise AssertionError("the profile_dir trace holds no kernel of the card")
+    launches = _read_launches()
+    ran = PACKED_PATH
+    _expect_launches(launches, "the complexity CLI and the profiled run", ran, _others(ran))
+
+
+def phase_surface(dev):
+    """MoE, remat, int8 decoding, the complexity CLI and profile_dir on the
+    card; returns the launches of the MoE, remat and int8 paths."""
+    paths = {"moe": _phase_moe(dev), "remat": _phase_remat(dev), "int8_decode": _phase_int8(dev)}
+    _phase_complexity_profile(dev)
+    return paths
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2063,6 +2350,7 @@ def main():
     paths.update(_timed(phase_flexible, dev))
     paths.update(_timed(phase_lipschitz, dev))
     paths["image_path"] = _timed(phase_images, dev)
+    paths.update(_timed(phase_surface, dev))
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

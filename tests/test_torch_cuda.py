@@ -612,3 +612,77 @@ def test_lidvae_train_step_on_card_matches_cpu(dev):
     assert (num / sum(float((g_cpu[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-3
     assert all(float(g_dev[k].abs().sum()) > 0 for k in g_dev
                if k.startswith("icnn") and k.endswith("weight"))
+
+
+def test_remat_train_step_recomputes_the_attention_forward(dev):
+    """remat: K1 once more for each self-attention layer's recompute (4
+    more a step), K2, K4, K5 as without; with attn_dropout the recompute
+    draws the first pass's masks from the CUDA generator (tests/
+    test_torch_remat.py holds that on the CPU), and still no K1 / K2."""
+    assert _train_step_launches(dev, remat=True) == [8, 4, 0, 0, 1, 1, 0, 0]
+    assert _train_step_launches(dev, dropout=True, remat=True,
+                                attn_dropout=0.1) == [0, 0, 0, 0, 1, 1, 0, 0]
+
+
+def test_moe_train_step_runs_the_kernels(dev):
+    """moe_experts 4: every FFN a top-1 MoE; the attention and Chamfer
+    kernels as on the default route."""
+    assert _train_step_launches(dev, moe_experts=4) == [4, 4, 0, 0, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_matches_cpu(dev, dtype):
+    """The MoE FFN on the card against the CPU on the same tokens and
+    weights: every token in the same expert slot (f32; bf16 at least 99%,
+    the router's roundings can move a near-tie), the outputs of the tokens
+    routed alike to 1e-5 (f32) and 2^-6 (bf16) of max|out|."""
+    from vae_song_tpu_torch.nn.moe import MoEFFN
+    from vae_song_tpu_torch.parallel import ep
+
+    moe = MoEFFN(64, 128, 4, 1.25, compute_dtype=None if dtype == torch.float32 else dtype,
+                 generator=torch.Generator().manual_seed(0))
+    x = torch.randn(8, 256, 64, generator=torch.Generator().manual_seed(1))
+    outs, slots = [], []
+    for where in ("cpu", dev):
+        moe.to(where)
+        xd = x.to(where)
+        with torch.no_grad():
+            outs.append(moe(xd).float().cpu().reshape(-1, 64))
+            p = moe.params()
+            _, slot, keep = ep._dispatch_combine(xd.reshape(-1, 64).to(p.router.dtype), p.router,
+                                                 4, ep._capacity(2048, 4, 1.25))
+        slots.append(torch.where(keep, slot, -1).cpu())
+    alike = slots[0] == slots[1]
+    assert float(alike.float().mean()) >= (1.0 if dtype == torch.float32 else 0.99)
+    err = float((outs[0][alike] - outs[1][alike]).abs().max())
+    assert err <= (1e-5 if dtype == torch.float32 else 2.0 ** -6) * float(outs[0].abs().max())
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 256, 512), (64, 128, 256), (8, 256, 3), (17, 20, 5)])
+def test_int8_matmul_on_card_is_the_cpu_product(dev, m, k, n):
+    """torch._int_mm, padded where its shape rules (M > 16, K and N
+    multiples of 8) need it, bitwise equal to the CPU's int32 product."""
+    from vae_song_tpu_torch.serving import quant
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    assert torch.equal(quant.int8_matmul(a.to(dev), b.to(dev)).cpu(), quant.int8_matmul(a, b))
+
+
+def test_int8_decode_on_card_runs_the_attention_forward(dev):
+    """The int8 decode of a SetVAE launches K1 in the decoder's
+    self-attentions and lands within the JAX package's 0.05 of the float
+    decode."""
+    from vae_song_tpu_torch.cli.generate import generate_samples
+    from vae_song_tpu_torch.models.registry import build_model
+
+    mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
+              num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
+    model = build_model("setvae", "shapenet", mp, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    before = denseattn.dense_attention_fwd.launches
+    q = generate_samples(model, 16, 8, seed=1, quant="int8")
+    assert denseattn.dense_attention_fwd.launches - before == 2 * 2
+    f = generate_samples(model, 16, 8, seed=1)
+    assert float(abs(q - f).max() / abs(f).max()) < 0.05

@@ -36,7 +36,8 @@ SLICE_MODULES = {"vae_song_tpu_torch." + m for m in (
     "analysis", "models.lidvae", "ops.lipschitz", "train.scan", "cli.lipschitz", "cli.figures",
     "parallel", "parallel.sweep", "viz.plots", "nn.blocks",
     "data.images", "data.native", "data.pipeline", "ops.fid", "ops.inception", "viz.pca",
-    "cli.generate", "train.loop")}
+    "cli.generate", "train.loop",
+    "nn.moe", "parallel.ep", "serving", "serving.quant", "train.profiling", "cli.complexity")}
 
 
 def _run(args, cwd, env_extra=None):
@@ -177,6 +178,22 @@ def test_chip_smoke_image_config_is_the_shipped_file():
     assert _smoke_literal("MNIST_DATASET") == {"fake": True}
     assert "#   fake: true" in open(os.path.join(ROOT, "configs", "config_mnist.yaml")).read()
     assert "build_model('vae', 'cifar10', CONV_VAE_PARAMS" in _smoke_function("phase_images")
+
+
+def test_chip_smoke_surface_paths_are_the_shipped_config_with_one_override():
+    """Phase 12 runs the shipped SetVAE config with one stated change each,
+    keys the JAX registry reads: `moe_experts: 4` and `remat: true`."""
+    from vae_song_tpu.models import build_model as jax_build_model
+
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    mp = config["model_params"]
+    for name, want, fn in (("MOE_OVERRIDE", {"moe_experts": 4}, "_phase_moe"),
+                           ("REMAT_OVERRIDE", {"remat": True}, "_phase_remat")):
+        override = _smoke_literal(name)
+        assert override == want
+        assert f"params = dict(MODEL_PARAMS, **{name})" in _smoke_function(fn)
+        jmodel = jax_build_model("setvae", "shapenet", dict(mp, **override))
+        assert all(getattr(jmodel, k) == v for k, v in override.items())
 
 
 def test_fid_weights_load_with_numpy_alone():

@@ -138,13 +138,17 @@ def test_unported_model_names_its_roadmap_item(tmp_path):
 
 
 def test_generation_of_the_flexible_family_names_its_roadmap_item(tmp_path):
-    """cli/generate.py generates for the FlexibleVAE family now (held to
-    JAX in tests/test_torch_generate.py); its int8 serving is not ported
-    and names its item before anything is loaded."""
+    """cli/generate.py generates for the FlexibleVAE family (held to JAX in
+    tests/test_torch_generate.py), its int8 serving included (ROADMAP.md
+    Queue 1 item 14, held to JAX in tests/test_torch_quant.py): the
+    pinwheel config from a port checkpoint."""
     from vae_song_tpu_torch.cli import generate
 
     path = tmp_path / "pinwheel.yaml"
     path.write_text(open(os.path.join(ROOT, "configs", "config_pinwheel.yaml")).read())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        generate.main(["--config", str(path), "--param_dir", str(tmp_path / "none.pkl"),
-                       "--device", "cpu", "--quant", "int8"])
+    model = generate.create_model_from_config(yaml.safe_load(path.read_text()))
+    ckpt = tmp_path / "params" / "model_0.pkl"
+    checkpoint.save_params_only(str(ckpt), model)
+    out = generate.main(["--config", str(path), "--param_dir", str(ckpt), "--n_samples", "8",
+                         "--batch_size", "4", "--device", "cpu", "--quant", "int8"])
+    assert out == str(tmp_path / "params" / "gen_samples")

@@ -234,8 +234,9 @@ def test_generate_samples_shape_and_seed():
 def test_unported_families_name_their_roadmap_item(exp_type):
     """LIDVAE, the last family the registry refused, now builds with JAX's
     defaults for the dataset (MNIST: latent 32, the conv encoder, ICNNs of
-    512 and 1024) and the same parameter tree; what the registry still
-    refuses (MoE layers) names its ROADMAP.md item."""
+    512 and 1024) and the same parameter tree; so do the MoE layers, the
+    last option the registry refused (`moe_experts`, ROADMAP.md Queue 1
+    item 15's single-device half)."""
     port = build_model(exp_type, "mnist", {})
     jmodel = jax_build_model(exp_type, "mnist", {})
     variables = jax.eval_shape(lambda x: init_model(jmodel, x),
@@ -244,8 +245,13 @@ def test_unported_families_name_their_roadmap_item(exp_type):
     got = dict(jax.tree_util.tree_flatten_with_path(
         weights.state_dict_to_variables(port.state_dict())["params"])[0])
     assert {k: tuple(v.shape) for k, v in want} == {k: v.shape for k, v in got.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        build_model("setvae", "shapenet", {"moe_experts": 4})
+    mp = {"moe_experts": 4, "num_points": 64}
+    variables = jax.eval_shape(lambda x: init_model(jax_build_model("setvae", "shapenet", mp), x),
+                               np.zeros((2, 64, 3), np.float32))
+    want = jax.tree_util.tree_flatten_with_path(variables[0])[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(weights.state_dict_to_variables(
+        build_model("setvae", "shapenet", mp).state_dict())["params"])[0])
+    assert {k: tuple(v.shape) for k, v in want} == {k: v.shape for k, v in got.items()}
 
 
 @pytest.mark.parametrize("exp_type", ["vae", "nae", "lrvae"])
@@ -283,9 +289,18 @@ def test_warmup_is_declared_by_the_model():
     assert warm == {"LRVAE", "SetLRVAE"}
 
 
-def test_unported_set_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("setvae", "shapenet", dict(MODEL_PARAMS, moe_experts=2))
+def test_unported_set_options_raise(tmp_path):
+    """MoE layers build now (tests/test_torch_moe.py); what the set models'
+    training still refuses is expert parallelism, which names its
+    ROADMAP.md item before anything is written."""
+    from vae_song_tpu_torch.train.loop import train_and_test
+
+    model = build_model("setvae", "shapenet", dict(MODEL_PARAMS, moe_experts=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+        train_and_test(model, expert_parallel=True, epochs=1, batch_size=8,
+                       dataset_name="shapenet", output_root=str(tmp_path), device="cpu",
+                       dataset_params={"fake": True, "num_points": N, "num_samples": 8})
+    assert not os.listdir(tmp_path)
 
 
 def test_seeded_init_follows_reference_bounds():

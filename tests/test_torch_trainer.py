@@ -116,7 +116,7 @@ def test_saved_params_load_into_jax_and_decode_the_same_clouds(tmp_path):
     ({"data_parallel": True}, "Queue 1 item 15"),
     ({"tensor_parallel": 2}, "Queue 1 item 15"),
     ({"fsdp": True}, "Queue 1 item 15"),
-    ({"profile_dir": "prof"}, "Queue 1 item 16"),
+    ({"expert_parallel": True}, "Queue 1 item 15"),
     ({"pipeline_parallel": 2}, "Queue 1 item 15"),
     ({"sequence_parallel": 2}, "Queue 1 item 15"),
 ])

@@ -1,8 +1,9 @@
 """The port's trainer options against the JAX package on the CPU:
 gradient accumulation (`grad_accum`, `make_accum_train_step`), the
 full-state checkpoint and its map from optax's state, `resume_from`,
-`checkpoint_every` and `async_checkpoint`. Every bound sits beside the
-difference it was set from; the resume checks are bitwise.
+`checkpoint_every` and `async_checkpoint`, `use_cosine`, `progress` and
+`visualize_artifacts`. Every bound sits beside the difference it was set
+from; the resume checks are bitwise.
 """
 
 import os
@@ -17,11 +18,8 @@ import torch
 import yaml
 from flax import serialization
 
-from vae_song_tpu.models import LRVAE
 from vae_song_tpu.models import build_model as jax_build_model
-from vae_song_tpu.train import checkpoint as jax_ckpt
 from vae_song_tpu.train import state as jax_state
-from vae_song_tpu.train.loop import init_model
 from vae_song_tpu.train.loop import train_and_test as jax_train_and_test
 from vae_song_tpu.train.steps import make_accum_train_step as jax_make_accum_train_step
 from vae_song_tpu.train.steps import make_train_step as jax_make_train_step
@@ -34,7 +32,7 @@ from vae_song_tpu_torch.train.loop import train_and_test
 from vae_song_tpu_torch.train.state import TrainState, adam_state, load_optax_state, make_optimizer
 from vae_song_tpu_torch.train.steps import make_accum_train_step, make_train_step
 
-from jax_parity import grads_capture, patch_eps, to_np
+from jax_parity import grads_capture, one_thread, patch_eps, to_np  # noqa: F401
 
 B, N, LATENT, N_MICRO = 8, 128, 16, 2
 ATTN = dict(latent_channel=LATENT, num_points=N, d_model=128, num_heads=2,
@@ -410,20 +408,6 @@ def test_async_checkpoint_write_failure_warns_and_keeps_the_state(tmp_path, monk
     assert "async checkpoint write failed" in capsys.readouterr().err
 
 
-def test_jax_checkpoint_is_refused(tmp_path):
-    """The JAX trainer's ckpt_*.pkl holds flax msgpack bytes: the port
-    says so instead of mis-reading it."""
-    m = LRVAE.for_dataset("pinwheel", hidden_channels=(8, 8), encoder_type="mlp",
-                          decoder_type="mlp")
-    params, bs = init_model(m, np.zeros((4, 2), np.float32), seed=0)
-    path = str(tmp_path / "ckpt_1.pkl")
-    jax_ckpt.save_checkpoint(path, jax_state.TrainState.create(
-        params, bs, jax_state.make_optimizer(lr=1e-3)), epoch=1)
-    model = build_model("setvae", "shapenet", RUN_ATTN)
-    with pytest.raises(ValueError, match="msgpack"):
-        train_and_test(model, resume_from=path, **_trainer_kw(tmp_path / "out"))
-
-
 def test_cli_refuses_resume_for_a_sweep(tmp_path):
     """As the JAX CLI: one checkpoint cannot seed every cell of a sweep."""
     common = {"niter": 1, "exp_epochs": 1, "batch_size": 8, "exp_data": "shapenet",
@@ -436,3 +420,76 @@ def test_cli_refuses_resume_for_a_sweep(tmp_path):
         cli_main.main(["--config", str(cfg), "--fake_data", "--device", "cpu",
                        "--resume_from", str(tmp_path / "ckpt_0.pkl"),
                        "--output_root", str(tmp_path)])
+
+
+# ---------------------------------------------------------------- use_cosine, progress, artifacts
+
+
+def test_constant_lr_without_cosine_matches_jax(one_thread, tmp_path, monkeypatch):
+    """`use_cosine=False` builds the optimizer without a schedule, as JAX
+    (train/loop.py:267, `total_steps=None`): the learning rate stays at
+    `lr` through a run, and three updates of the chained clip + Adam at a
+    constant rate on fixed gradients match optax's to two f32 ulps (the
+    bound of tests/test_torch_train.py's cosine case)."""
+    from vae_song_tpu_torch.train import loop
+
+    built = []
+    make = loop.make_optimizer
+    monkeypatch.setattr(loop, "make_optimizer", lambda *a, **k: built.append(k) or make(*a, **k))
+    state, _ = train_and_test(build_model("setvae", "shapenet", RUN_ATTN), use_cosine=False,
+                              **dict(_trainer_kw(tmp_path, visualize_artifacts=False), epochs=1))
+    assert built[0]["total_steps"] is None and state.optimizer.lr() == LR
+
+    rng = np.random.default_rng(9)
+    grads = [rng.normal(size=s).astype(np.float32) * 3 for s in ((4, 3), (7,))]
+    tx = jax_state.make_optimizer(lr=LR, total_steps=None, grad_clip=CLIP)
+    tree = {f"p{i}": jnp.zeros(g.shape) for i, g in enumerate(grads)}
+    opt_state = tx.init(tree)
+    for _ in range(3):
+        upd, opt_state = tx.update({f"p{i}": jnp.asarray(g) for i, g in enumerate(grads)},
+                                   opt_state, tree)
+        tree = optax.apply_updates(tree, upd)
+    params = [torch.zeros(g.shape, requires_grad=True) for g in grads]
+    opt = make_optimizer(params, lr=LR, total_steps=None, grad_clip=CLIP)
+    for _ in range(3):
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g.copy())
+        opt.step()
+    for i, p in enumerate(params):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(tree[f"p{i}"]),
+                                   rtol=2.5e-7, atol=0)
+
+
+def _tree(root):
+    """The files a run wrote under results/, by path below the run's
+    directory, the run's name (which carries the minute it started) in
+    them replaced by RUN."""
+    out = set()
+    for r, _d, fs in os.walk(os.path.join(root, "results")):
+        parts = os.path.relpath(r, root).split(os.sep)
+        if len(parts) < 3:
+            continue
+        out.update("/".join(parts[3:] + [f]).replace(parts[2], "RUN") for f in fs)
+    return out
+
+
+@pytest.mark.parametrize("visualize", [True, False])
+def test_progress_and_artifacts_as_jax(one_thread, tmp_path, capsys, visualize):
+    """`progress=False` prints no progress line, `visualize_artifacts`
+    writes the point-cloud dumps or none of them (JAX train/loop.py:977,
+    :999-1004): the port and the JAX trainer write the same files under
+    results/ for the same options (the log and the exported parameters
+    either way)."""
+    mp = dict(latent_channel=4, num_points=16, d_model=16, num_heads=2, ff_dim=32)
+    kw = dict(epochs=1, batch_size=8, dataset_name="shapenet", seed=0,
+              dataset_params={"fake": True, "num_points": 16, "num_samples": 16},
+              visualize_artifacts=visualize, progress=False)
+    jax_train_and_test(jax_build_model("setvae", "shapenet", mp),
+                       output_root=str(tmp_path / "jax"), **kw)
+    capsys.readouterr()
+    train_and_test(build_model("setvae", "shapenet", mp), output_root=str(tmp_path / "port"),
+                   device="cpu", **kw)
+    assert "epoch 0" not in capsys.readouterr().out
+    got, want = _tree(str(tmp_path / "port")), _tree(str(tmp_path / "jax"))
+    assert got == want
+    assert any(f.startswith("point_clouds/") for f in got) == visualize

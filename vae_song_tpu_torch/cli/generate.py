@@ -12,7 +12,8 @@ The checkpoint is the JAX trainer's `params/model_{epoch}.pkl`, written
 by either package. The device defaults to CUDA; `--device cpu` runs the
 plain PyTorch versions of the kernels on the CPU. The PNGs need
 matplotlib; without it the run names the files it did not write.
-`--quant int8` is not ported yet (ROADMAP.md Queue 1 item 14).
+`--quant int8` decodes from int8 weights and activations
+(serving/quant.py), for every family.
 """
 
 import argparse
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from vae_song_tpu_torch.models.registry import build_model
+from vae_song_tpu_torch.serving.quant import make_quantized_decode, quantize_dense_params
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train.steps import make_apply_fns
 from vae_song_tpu_torch.viz.plots import plot_2d_histogram, save_image_grid, save_point_cloud
@@ -37,24 +39,20 @@ def create_model_from_config(config):
     )
 
 
-def _check_quant(quant):
-    if quant == "int8":
-        raise NotImplementedError(
-            "int8 serving (--quant int8) is not ported to PyTorch yet; see ROADMAP.md "
-            "Queue 1 item 14 (serving/quant.py)")
-    if quant not in (None, "none"):
-        raise ValueError(f"unknown quant mode {quant!r}")
-
-
 def generate_samples(model, n_samples, batch_size=32, seed=0, z=None, quant=None):
     """Batched z ~ N(0, I) -> decode on the model's device (test.py:113-140),
     one full batch at a time, cut to `n_samples`. z: the noise of every
     batch, [ceil(n_samples / batch_size), batch_size, latent] (JAX draws
     it from its PRNG); None draws it on the CPU from a torch.Generator
     seeded with `seed`, so the samples do not depend on the device.
-    Returns float32 numpy [n_samples, ...]."""
-    _check_quant(quant)
-    _, decode, _ = make_apply_fns(model)
+    quant="int8" decodes with the dense layers served from int8
+    (serving/quant.py). Returns float32 numpy [n_samples, ...]."""
+    if quant == "int8":
+        decode = make_quantized_decode(model, quantize_dense_params(model))
+    elif quant in (None, "none"):
+        _, decode, _ = make_apply_fns(model)
+    else:
+        raise ValueError(f"unknown quant mode {quant!r}")
     device = next(model.parameters()).device
     gen = torch.Generator().manual_seed(seed)
     samples = []
@@ -76,9 +74,8 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda", choices=["cpu", "cuda"])
     parser.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
-                        help="serve the dense layers from int8 weights (not ported yet)")
+                        help="serve the dense layers from int8 weights (serving/quant.py)")
     args = parser.parse_args(argv)
-    _check_quant(args.quant)
 
     import yaml
 

@@ -17,9 +17,8 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
     dataset's architecture defaults, `encoder_type` conv and
     `decoder_type` mlp unless set). Weights are drawn from `generator` (a
     CPU torch.Generator; None uses torch's global one) on the CPU: move
-    the model with `.to(device)`. Keys that only steer TPU execution
-    (`use_flash`) or training memory (`remat`) do not change the forward
-    pass and are not read."""
+    the model with `.to(device)`. `use_flash`, which only steers TPU
+    execution, is not read."""
     mp = model_params
     if exp_type == "lidvae":
         return LIDVAE.for_dataset(dataset, hidden_channels=tuple(mp.get("hchans") or ()) or None,
@@ -43,10 +42,6 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
             residual_connection=mp.get("residual_connection", False), **common)
     if exp_type not in ("setvae", "setlrvae"):
         raise ValueError(f"Unsupported experiment type: {exp_type}")
-    if mp.get("moe_experts", 0) > 0:
-        raise NotImplementedError(
-            "moe_experts > 0 is not ported yet; see ROADMAP.md Queue 1 item 15"
-        )
     kwargs = dict(
         beta=beta,
         latent_channel=mp.get("latent_channel", 128),
@@ -62,6 +57,9 @@ def build_model(exp_type: str, dataset: str, model_params: dict, beta: float = 1
         ff_dim=mp.get("ff_dim", 512),
         attn_dropout=mp.get("attn_dropout", 0.0),
         mixed_precision=mp.get("mixed_precision", False),
+        moe_experts=mp.get("moe_experts", 0),
+        moe_capacity_factor=mp.get("moe_capacity_factor", 1.25),
+        remat=mp.get("remat", False),
         generator=generator,
     )
     if exp_type == "setlrvae":

@@ -30,7 +30,17 @@ residual FFN `x + ff_down(relu(ff_up(x)))` runs as one fused op
 (ops/ffn.py, the K6f / K6b kernels on CUDA tensors, their plain versions
 on CPU tensors) on the same `ff_up` / `ff_down` parameters, then the
 LayerNorm. The switch does not depend on the device. Off (the default),
-the two Dense layers run.
+the two Dense layers run. With `moe_experts: E` (JAX :113-120, :182-207)
+every transformer layer's FFN is a top-1 mixture of E experts instead
+(nn/moe.py), followed by the dropout; the fused FFN never applies then.
+
+`remat` (JAX :267-277, :349, :373-391) wraps each transformer layer in
+`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`: the
+backward recomputes the layer's activations instead of keeping them, so
+the attention kernels' forward runs again there. The recompute draws the
+same dropout masks as the first pass (`_checkpointed`). Under remat the
+decoder's first layer forgoes the batch-constant self-attention shortcut,
+as JAX does.
 
 Randomness is explicit: `forward(x, eps, dropout_rng)` takes the
 reparameterisation noise and the dropout mask source, and `decode(z)`
@@ -51,9 +61,11 @@ import os
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vae_song_tpu_torch.nn.blocks import BatchNorm, Dense, Dropout, LayerNorm
 from vae_song_tpu_torch.nn.initializers import normal_scaled_
+from vae_song_tpu_torch.nn.moe import MoEFFN
 from vae_song_tpu_torch.ops import losses
 from vae_song_tpu_torch.ops.attention import MultiHeadAttention
 from vae_song_tpu_torch.ops.chamfer import best_chamfer
@@ -79,10 +91,15 @@ def _use_fused_ffn(x, ff_dim: int, dropout_rate: float, training: bool) -> bool:
     return fused_ffn_ok(m, x.shape[-1], ff_dim)
 
 
-def _residual_ffn(x, ff_up, ff_down, drop, dropout_rng):
-    """x + drop(ff_down(drop(relu(ff_up(x))))), fused when
-    `_use_fused_ffn` says so (the residual added inside, the parameters
-    cast to the compute dtype as Dense casts them)."""
+def _residual_ffn(layer, x, dropout_rng):
+    """x + drop(moe_ffn(x)) with experts, else x +
+    drop(ff_down(drop(relu(ff_up(x))))), fused when `_use_fused_ffn` says
+    so (the residual added inside, the parameters cast to the compute
+    dtype as Dense casts them)."""
+    drop = layer.drop
+    if layer.moe_ffn is not None:
+        return x + drop(layer.moe_ffn(x), dropout_rng)
+    ff_up, ff_down = layer.ff_up, layer.ff_down
     if _use_fused_ffn(x, ff_up.weight.shape[0], drop.rate, drop.training):
         cd = ff_up.dtype or x.dtype
         return fused_ffn(x.to(cd), ff_up.weight.to(cd), ff_up.bias.to(cd),
@@ -91,24 +108,73 @@ def _residual_ffn(x, ff_up, ff_down, drop, dropout_rng):
     return x + drop(ff_down(ff), dropout_rng)
 
 
+def _ffn(layer, d_model, ff_dim, moe_experts, moe_capacity_factor, cd, generator):
+    """The layer's FFN parameters: `moe_ffn` with experts, else `ff_up`
+    and `ff_down`."""
+    if moe_experts > 0:
+        layer.moe_ffn = MoEFFN(d_model, ff_dim, moe_experts, moe_capacity_factor, cd, generator)
+    else:
+        layer.moe_ffn = None
+        layer.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
+        layer.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
+
+
+def _checkpointed(fn, x, dropout_rng, *args):
+    """fn(x, *args, dropout_rng) under torch.utils.checkpoint (non-
+    reentrant), its recompute in the backward drawing the masks of the
+    first pass: a torch.Generator is set back to its state before the
+    first pass for the recompute and restored after it (checkpoint's
+    preserve_rng_state covers only the default generators); a callable
+    source's masks are recorded and handed out again."""
+    if dropout_rng is None:
+        return checkpoint(fn, x, *args, None, use_reentrant=False)
+    passes = []
+    if isinstance(dropout_rng, torch.Generator):
+        start = dropout_rng.get_state()
+
+        def run(x, *args):
+            if not passes:
+                passes.append(True)
+                return fn(x, *args, dropout_rng)
+            now = dropout_rng.get_state()
+            dropout_rng.set_state(start)
+            try:
+                return fn(x, *args, dropout_rng)
+            finally:
+                dropout_rng.set_state(now)
+    else:
+        masks = []
+
+        def record(shape, keep_prob):
+            masks.append(dropout_rng(shape, keep_prob))
+            return masks[-1]
+
+        def run(x, *args):
+            if not passes:
+                passes.append(True)
+                return fn(x, *args, record)
+            replay = iter(masks)
+            return fn(x, *args, lambda shape, keep_prob: next(replay))
+    return checkpoint(run, x, *args, use_reentrant=False)
+
+
 class TransformerEncoderLayer(nn.Module):
     """Post-norm self-attention + ReLU FFN."""
 
     def __init__(self, d_model, num_heads, ff_dim, dropout_rate=0.0,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, moe_experts=0, moe_capacity_factor=1.25):
         super().__init__()
         cd = compute_dtype
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
-        self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
-        self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
+        _ffn(self, d_model, ff_dim, moe_experts, moe_capacity_factor, cd, generator)
         self.norm2 = LayerNorm(d_model, cd)
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x, dropout_rng=None):
         attn = self.drop(self.self_attn(x, x, dropout_rng), dropout_rng)
         x = self.norm1(x + attn)
-        return self.norm2(_residual_ffn(x, self.ff_up, self.ff_down, self.drop, dropout_rng))
+        return self.norm2(_residual_ffn(self, x, dropout_rng))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -117,15 +183,14 @@ class TransformerDecoderLayer(nn.Module):
     self-attention once on the batch-constant queries."""
 
     def __init__(self, d_model, num_heads, ff_dim, dropout_rate=0.0,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, moe_experts=0, moe_capacity_factor=1.25):
         super().__init__()
         cd = compute_dtype
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm1 = LayerNorm(d_model, cd)
         self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm2 = LayerNorm(d_model, cd)
-        self.ff_up = Dense(d_model, ff_dim, dtype=cd, generator=generator)
-        self.ff_down = Dense(ff_dim, d_model, dtype=cd, generator=generator)
+        _ffn(self, d_model, ff_dim, moe_experts, moe_capacity_factor, cd, generator)
         self.norm3 = LayerNorm(d_model, cd)
         self.drop = Dropout(dropout_rate)
 
@@ -136,7 +201,7 @@ class TransformerDecoderLayer(nn.Module):
     def cross_ffn_block(self, tgt, memory, dropout_rng=None):
         ca = self.drop(self.cross_attn(tgt, memory, dropout_rng), dropout_rng)
         tgt = self.norm2(tgt + ca)
-        return self.norm3(_residual_ffn(tgt, self.ff_up, self.ff_down, self.drop, dropout_rng))
+        return self.norm3(_residual_ffn(self, tgt, dropout_rng))
 
     def forward(self, tgt, memory, dropout_rng=None):
         return self.cross_ffn_block(self.self_attn_block(tgt, dropout_rng), memory, dropout_rng)
@@ -146,21 +211,26 @@ class SetEncoderAttn(nn.Module):
     """Transformer set encoder + max-pool over points -> (mu, logvar)."""
 
     def __init__(self, latent_dim=128, d_model=256, num_heads=4, num_layers=2,
-                 ff_dim=512, dropout_rate=0.0, compute_dtype=None, generator=None):
+                 ff_dim=512, dropout_rate=0.0, compute_dtype=None, generator=None,
+                 moe_experts=0, moe_capacity_factor=1.25, remat=False):
         super().__init__()
         self.embed = Dense(3, d_model, generator=generator)
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, ff_dim, dropout_rate,
-                                    compute_dtype, generator)
+                                    compute_dtype, generator, moe_experts, moe_capacity_factor)
             for _ in range(num_layers)
         )
         self.fc_mu = Dense(d_model, latent_dim, generator=generator)
         self.fc_logvar = Dense(d_model, latent_dim, generator=generator)
+        self.remat = remat
 
     def forward(self, points, dropout_rng=None):
         x = self.embed(points)
         for layer in self.layers:
-            x = layer(x, dropout_rng)
+            if self.remat and torch.is_grad_enabled():
+                x = _checkpointed(layer, x, dropout_rng)
+            else:
+                x = layer(x, dropout_rng)
         s = x.amax(dim=1)
         return self.fc_mu(s), self.fc_logvar(s)
 
@@ -169,11 +239,12 @@ class SetDecoderAttn(nn.Module):
     """Learned per-point queries cross-attending to one latent memory
     token. Without dropout the first layer's self-attention sees only the
     batch-constant query embeddings, so it runs once at batch 1 and is
-    broadcast (JAX :391 takes that shortcut only at dropout_rate 0)."""
+    broadcast (JAX :391 takes that shortcut only at dropout_rate 0 and
+    without remat)."""
 
     def __init__(self, latent_dim=128, num_points=2048, d_model=256, num_heads=4,
                  num_layers=2, ff_dim=512, dropout_rate=0.0, compute_dtype=None,
-                 generator=None):
+                 generator=None, moe_experts=0, moe_capacity_factor=1.25, remat=False):
         super().__init__()
         self.query_embed = nn.Parameter(
             normal_scaled_(torch.empty(num_points, d_model), 0.02, generator)
@@ -181,11 +252,12 @@ class SetDecoderAttn(nn.Module):
         self.memory = Dense(latent_dim, d_model, generator=generator)
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, num_heads, ff_dim, dropout_rate,
-                                    compute_dtype, generator)
+                                    compute_dtype, generator, moe_experts, moe_capacity_factor)
             for _ in range(num_layers)
         )
         self.out = Dense(d_model, 3, generator=generator)
         self.dropout_rate = dropout_rate
+        self.remat = remat
 
     def forward(self, z, dropout_rng=None):
         b = z.shape[0]
@@ -193,9 +265,11 @@ class SetDecoderAttn(nn.Module):
         n, d = self.query_embed.shape
         x = self.query_embed[None]                   # [1, N, d_model]
         for i, layer in enumerate(self.layers):
-            if i == 0 and self.dropout_rate == 0.0:
+            if i == 0 and self.dropout_rate == 0.0 and not self.remat:
                 x = layer.self_attn_block(x).expand(b, n, d)
                 x = layer.cross_ffn_block(x, memory)
+            elif self.remat and torch.is_grad_enabled():
+                x = _checkpointed(layer, x.expand(b, n, d), dropout_rng, memory)
             else:
                 x = layer(x.expand(b, n, d), memory, dropout_rng)
         return self.out(x)
@@ -268,19 +342,28 @@ class SetVAE(nn.Module):
     def __init__(self, latent_channel=128, num_points=2048, encoder_hidden=(128, 256, 512),
                  decoder_hidden=(512, 256, 128), beta=1.0, pool_type="max", use_attention=True,
                  d_model=256, num_heads=4, num_encoder_layers=2, num_decoder_layers=2,
-                 ff_dim=512, attn_dropout=0.0, mixed_precision=False, generator=None):
+                 ff_dim=512, attn_dropout=0.0, mixed_precision=False, moe_experts=0,
+                 moe_capacity_factor=1.25, remat=False, generator=None):
         super().__init__()
         self.latent_channel = latent_channel
         self.num_points = num_points
         self.beta = beta
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        if moe_experts > 0 and not use_attention:
+            raise NotImplementedError(
+                "moe_experts applies to the attention set models' transformer FFNs "
+                "(use_attention=True)")
         if use_attention:
             cd = torch.bfloat16 if mixed_precision else None
+            moe = dict(moe_experts=moe_experts, moe_capacity_factor=moe_capacity_factor,
+                       remat=remat)
             self.encoder = SetEncoderAttn(latent_channel, d_model, num_heads,
                                           num_encoder_layers, ff_dim, attn_dropout, cd,
-                                          generator)
+                                          generator, **moe)
             self.decoder = SetDecoderAttn(latent_channel, num_points, d_model, num_heads,
                                           num_decoder_layers, ff_dim, attn_dropout, cd,
-                                          generator)
+                                          generator, **moe)
         else:
             self.encoder = SetEncoder(encoder_hidden, latent_channel, pool_type, generator)
             self.decoder = SetDecoder(latent_channel, num_points, decoder_hidden, generator)

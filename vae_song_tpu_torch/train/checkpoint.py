@@ -13,11 +13,12 @@ map between the port's state_dict and the JAX package's variables:
   * `save_checkpoint` writes `params/ckpt_{epoch}.pkl`: params,
     batch_stats, the Adam moments and count in optax's ScaleByAdamState
     layout, the train step, the epoch and `extra` (the warmup state).
-    It is the port's own format: the JAX trainer's `ckpt_*.pkl` holds
-    `flax.serialization.to_bytes` of its TrainState (msgpack), which
-    the port cannot decode without flax; `load_checkpoint` recognises
-    that payload and raises. A JAX TrainState that is at hand in Python
-    carries across through `train.state.load_optax_state`.
+    It is the port's own format. The JAX trainer's `ckpt_*.pkl` holds
+    `flax.serialization.to_bytes` of its TrainState (msgpack) beside the
+    epoch and `extra`; `load_checkpoint` reads that too, with the small
+    msgpack reader below (`msgpack_restore`: no flax, no msgpack
+    package), and resumes it through the same weight map and
+    `train.state.load_optax_state`.
 
 Writes are atomic (a `.tmp` file, then `os.replace`). Unpickling runs
 code from the file, so load only files this project wrote.
@@ -26,6 +27,7 @@ code from the file, so load only files this project wrote.
 import os
 import pickle
 import queue
+import struct
 import sys
 import threading
 
@@ -73,19 +75,106 @@ def save_checkpoint(path, state: TrainState, epoch: int = 0, extra: dict | None 
     _write(path, _capture(state, copy=False), epoch, extra)
 
 
+class _Reader:
+    """A msgpack decoder for what `flax.serialization.to_bytes` writes:
+    maps, arrays, strings, binaries, integers, floats, booleans, nil and
+    the ext types under which flax stores an ndarray (1) and a numpy scalar
+    (3), each itself the msgpack of (shape, dtype name, raw C-order
+    bytes)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(">" + fmt)))[0]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    def ext(self, code: int, n: int):
+        if code not in (1, 3):
+            raise ValueError(f"msgpack ext type {code} is not a flax ndarray")
+        shape, dtype, raw = _Reader(self.take(n)).read()
+        arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+        return arr if code == 1 else arr[()]
+
+    def read(self):
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self.take(b & 0x1F).decode()
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xC4: "B", 0xC5: "H", 0xC6: "I", 0xD9: "B", 0xDA: "H", 0xDB: "I"}
+        if b in sized:
+            raw = self.take(self.unpack(sized[b]))
+            return raw if b <= 0xC6 else raw.decode()
+        numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I", 0xCF: "Q",
+                   0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        if b in (0xDC, 0xDD):
+            return [self.read() for _ in range(self.unpack("H" if b == 0xDC else "I"))]
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        if b in (0xC7, 0xC8, 0xC9):
+            n = self.unpack({0xC7: "B", 0xC8: "H", 0xC9: "I"}[b])
+            return self.ext(self.unpack("b"), n)
+        if 0xD4 <= b <= 0xD8:
+            code = self.unpack("b")
+            return self.ext(code, 1 << (b - 0xD4))
+        raise ValueError(f"msgpack type byte {b:#04x} is not supported")
+
+
+def _unchunk(tree):
+    """flax stores arrays over its chunk size as {"__msgpack_chunked_array__",
+    "shape", "chunks"}: put them back together."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = [tree["shape"][k] for k in sorted(tree["shape"], key=int)]
+        chunks = [tree["chunks"][k] for k in sorted(tree["chunks"], key=int)]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def msgpack_restore(data: bytes):
+    """The state dict that `flax.serialization.msgpack_restore` would give
+    for `data`: nested dicts, numpy arrays and Python scalars."""
+    reader = _Reader(data)
+    tree = reader.read()
+    if reader.pos != len(data):
+        raise ValueError(f"{len(data) - reader.pos} bytes after the msgpack object")
+    return _unchunk(tree)
+
+
 def load_checkpoint(path, state: TrainState):
-    """Restore a `save_checkpoint` file into `state` (its model and
-    optimizer, on their device); returns (state, epoch, extra). A JAX
-    trainer checkpoint (flax msgpack) raises ValueError."""
+    """Restore a `save_checkpoint` file, or a JAX trainer's checkpoint
+    (its TrainState as flax msgpack bytes), into `state` (its model and
+    optimizer, on their device); returns (state, epoch, extra)."""
     with open(path, "rb") as f:
         payload = pickle.load(f)
     if isinstance(payload.get("state"), bytes):
-        raise ValueError(
-            f"{path} is a JAX trainer checkpoint (flax.serialization msgpack bytes), "
-            "which the PyTorch port cannot decode without flax; resume it with the JAX "
-            "package, or carry its TrainState across with "
-            "vae_song_tpu_torch.train.state.load_optax_state (ROADMAP.md Queue 1)"
-        )
+        payload = dict(payload, **msgpack_restore(payload["state"]))
     weights.load_flax_params(state.model, payload["params"], payload["batch_stats"])
     load_optax_state(state, payload["opt_state"], payload["step"])
     return state, payload["epoch"], payload.get("extra", {})

@@ -49,13 +49,16 @@ on the host every step), so a run with attn_dropout > 0 depends on the
 device: the card's and the CPU's streams differ. Per-epoch seeding
 makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
-counterpart; the options that are not ported (the parallel strategies,
-profile_dir) raise naming their ROADMAP.md item.
+counterpart; the parallel strategies, which are not ported, raise naming
+their ROADMAP.md item. With `profile_dir` the training steps of epoch 1
+(epoch 0 holds the first calls) run under torch.profiler
+(train/profiling.py:trace), which writes their trace there.
 """
 
 import os
 import sys
 import time
+from contextlib import nullcontext
 from datetime import datetime
 
 import numpy as np
@@ -71,6 +74,7 @@ from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loggers
+from vae_song_tpu_torch.train.profiling import trace
 from vae_song_tpu_torch.train.state import TrainState, make_optimizer
 from vae_song_tpu_torch.train.steps import (make_accum_train_step, make_apply_fns,
                                              make_eval_step)
@@ -127,8 +131,7 @@ def _compute_fid(test_ds, generated: np.ndarray, device, chunk: int = 256) -> fl
 
 
 def _refuse_unported(model, *, data_parallel, pipeline_parallel, expert_parallel,
-                     tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
-                     profile_dir):
+                     tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp):
     if not isinstance(model, (SetVAE, FlexibleVAE, LIDVAE)):
         raise TypeError(
             f"train_and_test trains the set models, the FlexibleVAE family and LIDVAE; "
@@ -143,13 +146,11 @@ def _refuse_unported(model, *, data_parallel, pipeline_parallel, expert_parallel
         "sequence_parallel_ring": sequence_parallel_ring,
         "fsdp": fsdp,
     }
-    unported = [(k, "Queue 1 item 15 (nn/moe.py and parallel/)") for k, on in parallel.items() if on]
-    if profile_dir is not None:
-        unported.append(("profile_dir", "Queue 1 item 16 (train/profiling.py)"))
+    unported = [k for k, on in parallel.items() if on]
     if unported:
-        key, item = unported[0]
         raise NotImplementedError(
-            f"{key} is not ported to the PyTorch trainer yet; see ROADMAP.md {item}"
+            f"{unported[0]} is not ported to the PyTorch trainer yet; see ROADMAP.md "
+            "Queue 1 item 15 (parallel/)"
         )
 
 
@@ -187,7 +188,10 @@ def train_and_test(
     dataset_params: dict | None = None,
     output_root: str = ".",
     lr: float = 1e-2,
+    use_cosine: bool = True,
+    visualize_artifacts: bool = True,
     checkpoint_every: int | None = None,
+    progress: bool = True,
     profile_dir: str | None = None,
     resume_from: str | None = None,
     data_parallel: bool = False,
@@ -204,10 +208,17 @@ def train_and_test(
 ):
     """Train `model` (a set model, a FlexibleVAE or LIDVAE, moved to `device`) and
     evaluate it every epoch; returns (TrainState, summary dict). The
-    arguments keep the JAX function's names; the learning rate always
-    follows the cosine schedule. `num_mc_samples` is the FlexibleVAE
-    train step's L; as in JAX, it does not change the set models' or
-    LIDVAE's step (L = 1).
+    arguments keep the JAX function's names and defaults. `num_mc_samples`
+    is the FlexibleVAE train step's L; as in JAX, it does not change the
+    set models' or LIDVAE's step (L = 1).
+
+    use_cosine: the learning rate follows the cosine decay over the run's
+    steps; False keeps it at `lr`.
+    visualize_artifacts: write the last epoch's plots, grids and
+    point-cloud dumps; False writes none of them.
+    progress: print the progress line every epochs // 20 epochs and at
+    the last.
+    profile_dir: trace epoch 1's training steps into this directory.
 
     checkpoint_every: write the full train state to
     `params/ckpt_{epoch}.pkl` after every that many epochs, with the
@@ -230,7 +241,7 @@ def train_and_test(
         model, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, sequence_parallel_ring=sequence_parallel_ring,
-        fsdp=fsdp, profile_dir=profile_dir,
+        fsdp=fsdp,
     )
     if grad_accum and grad_accum > 1 and batch_size % grad_accum != 0:
         raise ValueError(
@@ -258,7 +269,7 @@ def train_and_test(
     model.to(device)
     optimizer = make_optimizer(
         model.parameters(), lr=lr,
-        total_steps=max(1, epochs * steps_per_epoch),
+        total_steps=max(1, epochs * steps_per_epoch) if use_cosine else None,
         grad_clip=grad_clip,
     )
     state = TrainState(model, optimizer)
@@ -316,12 +327,14 @@ def train_and_test(
         dropout_rng = _generator(seed, epoch, _DROPOUT, device=device) if is_set else None
         augment_rng = _generator(seed, epoch, _AUGMENT) if augment is not None else None
         ms = []
-        for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device,
-                                     augment=augment, augment_rng=augment_rng,
-                                     native_prefetch=native_prefetch):
-            ms.append(train_step(x, eps_of(x.shape[0], noise), wu_alpha, dropout_rng))
-            state.step += 1
-        train_means = _means(ms)
+        # epoch 0 holds the first calls; the metrics' fetch ends the trace
+        with trace(profile_dir) if profile_dir is not None and epoch == 1 else nullcontext():
+            for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device,
+                                         augment=augment, augment_rng=augment_rng,
+                                         native_prefetch=native_prefetch):
+                ms.append(train_step(x, eps_of(x.shape[0], noise), wu_alpha, dropout_rng))
+                state.step += 1
+            train_means = _means(ms)
         writer.add_scalar("loss/train", train_means["loss"], epoch)
         writer.add_scalar("recon/train", train_means["recon"], epoch)
         writer.add_scalar("reg/train", train_means["reg"], epoch)
@@ -338,7 +351,7 @@ def train_and_test(
         eval_means = _means(ev_ms)
         writer.add_scalar("loss/test", eval_means["loss"], epoch)
 
-        if epoch % max(1, epochs // 20) == 0 or last_epoch:
+        if progress and (epoch % max(1, epochs // 20) == 0 or last_epoch):
             print(
                 f"[{name}] epoch {epoch}: train loss {train_means['loss']:.4f} "
                 f"recon {train_means['recon']:.4f} reg {train_means['reg']:.4f} "
@@ -357,6 +370,7 @@ def train_and_test(
         if last_epoch:
             ckpt_lib.save_params_only(
                 os.path.join(result_dir, "params", f"model_{epoch}.pkl"), model)
+        if last_epoch and visualize_artifacts:
             dump_noise = _generator(seed, epoch, _DUMP)
             if is_set:
                 _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name,

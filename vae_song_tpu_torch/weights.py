@@ -18,6 +18,9 @@ dicts of numpy arrays, as `save_params_only` pickles them) and the port's
     and the `batch_stats` collection's `mean` / `var` <-> the buffers
     `running_mean` / `running_var`.
   * `decoder/query_embed` and `decoder/point_queries` as is.
+  * The MoE FFN (nn/moe.py): `router`, `w1`, `b1`, `w2`, `b2` as they are
+    (JAX's stacked layout, not Dense kernels), under the encoder layer's
+    `MoEFFN_0` and the decoder layer's `moe_ffn`.
   * LIDVAE's ICNNs: `icnn{1,2}.dense.i` <-> `icnn{1,2}/Dense_i/Dense_0` and
     `icnn{1,2}.positive.i` <-> `icnn{1,2}/PositiveLinear_i`, whose raw
     `kernel [in, out]` is the port's Linear-shaped `weight [out, in]`
@@ -25,7 +28,7 @@ dicts of numpy arrays, as `save_params_only` pickles them) and the port's
 
 Each rule maps a port module path to its Flax path; the conversion
 refuses leaves that no rule names, so a tree from a model the port does
-not build (MoE) fails loudly instead of loading partly. A tree shaped
+not build fails loudly instead of loading partly. A tree shaped
 like the parameters (Adam's moments in optax's state) goes through the
 same map.
 """
@@ -54,6 +57,9 @@ _RULES = [
     (r"decoder\.layers\.(\d+)\.(norm[123])", _DEC + r"/\2", "norm"),
     (r"decoder\.layers\.(\d+)\.(ff_up|ff_down)", _DEC + r"/\2/Dense_0", "dense"),
     (r"decoder\.out", "decoder/Dense_1/Dense_0", "dense"),
+    # the MoE FFN (nn/moe.py)
+    (r"encoder\.layers\.(\d+)\.moe_ffn", _ENC + "/MoEFFN_0", "moe"),
+    (r"decoder\.layers\.(\d+)\.moe_ffn", _DEC + "/moe_ffn", "moe"),
     # the DeepSets SetEncoder / SetDecoder
     (r"(encoder|decoder)\.dense\.(\d+)", r"\1/Dense_\2/Dense_0", "dense"),
     (r"(encoder|decoder)\.norm\.(\d+)", r"\1/BatchNorm_\2/BatchNorm_0", "batchnorm"),
@@ -81,6 +87,7 @@ _RULES = [
 _PARAMS = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
 _LEAF = {"dense": _PARAMS, "conv": _PARAMS, "conv_transpose": _PARAMS,
          "norm": {"weight": ("params", "scale"), "bias": ("params", "bias")},
+         "moe": {name: ("params", name) for name in ("router", "w1", "b1", "w2", "b2")},
          "batchnorm": {"weight": ("params", "scale"), "bias": ("params", "bias"),
                        "running_mean": ("batch_stats", "mean"),
                        "running_var": ("batch_stats", "var")}}
