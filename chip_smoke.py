@@ -130,10 +130,26 @@ non-zero exit code:
      for 1 epoch and (5) a `profile_dir` run of `train_and_test` whose
      trace holds the card's kernels; no counter rises on (4) and (5).
 
+  13. the batch- and weight-sharding strategies (parallel/) in a one-rank
+     NCCL process group the phase opens on the card (a free localhost
+     port) and closes: for the shipped SetVAE (B = 64, bf16) and SetLRVAE
+     (B = 16) configs, one train step of the data-parallel step
+     (DistributedDataParallel), the FSDP step (FSDP2), the TP step
+     (DTensor, the plan on a 1 x 1 mesh) and the TP x FSDP step from the
+     single-device step's weights, clouds and noise, each held to the
+     single-device step on the card (loss terms, gradients, updated
+     parameters, BatchNorm statistics) with PARALLEL_BOUNDS; K1, K2, K4
+     and K5 must launch under each wrapper and no other kernel or plain
+     attention; each wrapper's ms/step beside the plain step's; then
+     `train_and_test` with `fsdp: true` for 2 epochs with checkpoint_every
+     1, and its ckpt_0.pkl resumed single-device, which must land on the
+     FSDP run. One card cannot hold two NCCL ranks: multi-rank semantics
+     are the CPU tests' (gloo).
+
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-12 (zero on phases 9-11).
+`paths` its launches on each path of phases 6-13 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
 """
 
@@ -151,6 +167,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import init_device_mesh
 
 from vae_song_tpu_torch import _kernels
 from vae_song_tpu_torch.cli import complexity as complexity_cli
@@ -163,9 +180,14 @@ from vae_song_tpu_torch.data.shapenet import fake_point_clouds
 from vae_song_tpu_torch.models.registry import build_model
 from vae_song_tpu_torch.nn import blocks
 from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
+from vae_song_tpu_torch.nn.sync import full_tensor
+from vae_song_tpu_torch.ops import attention as attention_lib
 from vae_song_tpu_torch.ops import chamfer, denseattn, ffn, inception
 from vae_song_tpu_torch.ops import fid as fid_lib
 from vae_song_tpu_torch.parallel import ep
+from vae_song_tpu_torch.parallel import fsdp as fsdp_lib
+from vae_song_tpu_torch.parallel import mesh as mesh_lib
+from vae_song_tpu_torch.parallel import tp as tp_lib
 from vae_song_tpu_torch.serving import quant
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loop as train_loop
@@ -2316,6 +2338,177 @@ def phase_surface(dev):
     return paths
 
 
+# Phase 13: each strategy's step on one rank against the single-device step
+# from the same weights, clouds and noise on the card. On one rank every
+# collective is the identity, so the arithmetic is the single-device
+# step's, apart from where DTensor's ops (the 1 x 1 TP plan) and DDP's
+# bucket copies cut or order it. Bounds: loss terms 1e-5 relative (f32
+# loss sums); gradients 1e-3 relative L2 over the tensors (bf16 GEMM
+# outputs, the reference phase's bf16 bound is 0.05); updated parameters:
+# share of elements moved apart by more than lr/10 at most 1e-3 (Adam's
+# first update is lr * sign(g): a ~0 gradient of the other sign moves an
+# element 2 lr); BatchNorm statistics REF_BN_TOL. The trainer's FSDP run
+# resumed single-device from its ckpt_0.pkl: eval loss within 1e-3
+# relative, parameters within the second epoch's update budget, 4 lr.
+PARALLEL_BOUNDS = {"loss": 1e-5, "grad": 1e-3, "moved": 1e-3}
+PARALLEL_PATH = ("dense_attn_fwd", "dense_attn_bwd", "chamfer_nn_packed", "chamfer_bwd")
+STRATEGIES = ("dp", "fsdp", "tp", "tp_fsdp")
+
+
+def _full(t):
+    return full_tensor(t).detach().float().cpu()
+
+
+def _strategy_step(kind, model, dev):
+    """(train step, model's TrainState) of strategy `kind` on a one-rank
+    mesh, the model on the card."""
+    from vae_song_tpu_torch.train.state import TrainState
+
+    state = TrainState(model, make_optimizer(model.parameters(), lr=LR))
+    if kind == "dp":
+        mesh = mesh_lib.make_mesh()
+        mesh_lib.replicate_state(state, mesh)
+        return mesh_lib.make_dp_train_step(model, state.optimizer, mesh), state
+    if kind == "fsdp":
+        mesh = fsdp_lib.make_fsdp_mesh(1)
+        state = fsdp_lib.shard_state(state, mesh)
+        return fsdp_lib.make_fsdp_train_step(model, state.optimizer, mesh,
+                                             state.fsdp_params), state
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+    if kind == "tp":
+        state = tp_lib.shard_state(state, mesh)
+        return tp_lib.make_tp_dp_train_step(model, state.optimizer, mesh), state
+    state = fsdp_lib.shard_state_tp_fsdp(state, mesh)
+    return fsdp_lib.make_tp_fsdp_train_step(model, state.optimizer, mesh,
+                                            state.fsdp_params), state
+
+
+def _one_step(step, model, x, eps):
+    terms = {k: float(v) for k, v in step(x, eps, 0.5).items()}
+    grads = {k: _full(p.grad) for k, p in model.named_parameters() if p.grad is not None}
+    return terms, grads, {k: _full(v) for k, v in model.state_dict().items()}
+
+
+def _strategy_ms(step, xs, eps):
+    """Median ms/step over TIMED_STEPS steps after two warm-ups, host clock,
+    each step ending in a scalar fetch."""
+    for i in range(2):
+        float(step(xs[i], eps[i], 0.5)["loss"])
+    times = []
+    for i in range(2, TIMED_STEPS + 2):
+        t0 = time.perf_counter()
+        float(step(xs[i], eps[i], 0.5)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _strategies_of(exp_type, params, batch, dev, card):
+    """Phase 13 for one config: each strategy's step against the plain one;
+    returns {strategy: launches}."""
+    xs, eps = _clouds_and_noise(TIMED_STEPS + 2, batch, params, dev, SEED + 13)
+    plain = _build(exp_type, params).to(dev)
+    plain_step = make_train_step(plain, make_optimizer(plain.parameters(), lr=LR))
+    want_terms, want_grads, want_state = _one_step(plain_step, plain, xs[0], eps[0])
+    plain_ms = _strategy_ms(plain_step, xs, eps)
+    frozen = set(dict(plain.named_parameters())) - set(want_grads)
+    keys = [k for k in want_grads if not k.endswith("key.bias")]
+    params_keys = [k for k, _ in plain.named_parameters() if k in keys]
+    plain_calls, plain_attention = [], attention_lib.attention_plain
+    out = {}
+    for kind in STRATEGIES:
+        model = _build(exp_type, params).to(dev)
+        step, _ = _strategy_step(kind, model, dev)
+        _reset_launches()
+        with mock.patch.object(attention_lib, "attention_plain",
+                               lambda *a, **k: plain_calls.append(1) or plain_attention(*a, **k)):
+            terms, grads, state = _one_step(step, model, xs[0], eps[0])
+            launches = _read_launches()
+            ms = _strategy_ms(step, xs, eps)
+        rel = max(abs(terms[k] - want_terms[k]) / max(abs(want_terms[k]), 1e-12)
+                  for k in ("loss", "recon", "reg", "raw_kl"))
+        diff = math.sqrt(sum(float(((grads[k] - want_grads[k]) ** 2).sum()) for k in keys))
+        grad_rel = diff / math.sqrt(sum(float((want_grads[k] ** 2).sum()) for k in keys))
+        deltas = torch.cat([(state[k] - want_state[k]).abs().reshape(-1) for k in params_keys])
+        moved = float((deltas > LR / 10).float().mean())
+        unchanged = all(torch.equal(state[k], want_state[k]) for k in frozen)
+        bufs = [k for k, _ in plain.named_buffers()]
+        stats = max((float((state[k] - want_state[k]).abs().max())
+                     / max(1.0, float(want_state[k].abs().max())) for k in bufs), default=0.0)
+        print(f"{card}: {exp_type} B={batch} {kind} step {ms:.3f} ms/step vs plain step "
+              f"{plain_ms:.3f} ms/step (median of {TIMED_STEPS}, host clock); against the plain "
+              f"step: loss terms max rel {rel:.3e}, gradients rel L2 {grad_rel:.3e}, params "
+              f"moved apart > lr/10 {moved:.3e}, max|d| {float(deltas.max()):.3e}, "
+              f"{len(frozen)} params without a gradient unchanged: {unchanged}, BatchNorm "
+              f"statistics {stats:.3e}; launches in one step {launches}")
+        _expect_launches(launches, f"the {kind} step ({exp_type})", PARALLEL_PATH,
+                         [k for k in COUNTERS if k not in PARALLEL_PATH])
+        if not (rel <= PARALLEL_BOUNDS["loss"] and grad_rel <= PARALLEL_BOUNDS["grad"]
+                and moved <= PARALLEL_BOUNDS["moved"] and unchanged and stats <= REF_BN_TOL):
+            raise AssertionError(f"the {kind} step ({exp_type}) disagrees with the plain step")
+        out[kind] = launches
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if plain_calls:
+        raise AssertionError(f"plain attention ran {len(plain_calls)} times under the wrappers")
+    return out
+
+
+def _fsdp_trainer(dev, card):
+    """train_and_test with fsdp for TRAIN_EPOCHS epochs (checkpoint_every 1),
+    then its ckpt_0.pkl resumed single-device: the same eval loss and
+    parameters within the last epoch's update budget. Returns the FSDP
+    run's launches."""
+    dataset_params = dict(COMMON_PARAMS["dataset_params"], fake=True)
+    kw = dict(epochs=TRAIN_EPOCHS, batch_size=BATCH, dataset_name=COMMON_PARAMS["exp_data"],
+              resultname=COMMON_PARAMS["resultname"], seed=SEED, dataset_params=dataset_params,
+              lr=LR, device=dev, checkpoint_every=1, visualize_artifacts=False, progress=False)
+    with tempfile.TemporaryDirectory() as root:
+        _reset_launches()
+        t0 = time.perf_counter()
+        state, summary = train_and_test(_build("setvae", MODEL_PARAMS), fsdp=True,
+                                        output_root=os.path.join(root, "fsdp"), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        fsdp_params = {k: _full(v) for k, v in state.model.state_dict().items()}
+        ckpt = os.path.join(summary["result_dir"], "params", "ckpt_0.pkl")
+        single, resumed = train_and_test(_build("setvae", MODEL_PARAMS), resume_from=ckpt,
+                                         output_root=os.path.join(root, "single"), **kw)
+    steps_per_epoch = state.step // TRAIN_EPOCHS
+    gap = max(float((v.float().cpu() - fsdp_params[k]).abs().max())
+              for k, v in single.model.state_dict().items())
+    rel = abs(resumed["eval"]["loss"] - summary["eval"]["loss"]) / abs(summary["eval"]["loss"])
+    print(f"{card}: train_and_test fsdp: {TRAIN_EPOCHS} epochs of {steps_per_epoch} steps at "
+          f"B={BATCH} in {wall:.2f} s, eval {summary['eval']}; launches {launches}; resumed "
+          f"single-device from ckpt_0.pkl: eval loss rel diff {rel:.3e} (bound 1e-3), "
+          f"max|d param| {gap:.3e} (bound {2 * steps_per_epoch * LR})")
+    _expect_launches(launches, "train_and_test with fsdp", PARALLEL_PATH,
+                     [k for k in COUNTERS if k not in PARALLEL_PATH])
+    if not (single.step == state.step and rel <= 1e-3 and gap <= 2 * steps_per_epoch * LR):
+        raise AssertionError("the FSDP checkpoint resumed single-device left the FSDP run")
+    return launches
+
+
+def phase_parallel(dev, card):
+    """Phase 13 in a one-rank NCCL group it opens and closes; returns the
+    launches of each strategy's path."""
+    os.environ.pop("MASTER_ADDR", None)
+    os.environ.pop("MASTER_PORT", None)
+    mesh_lib.init_multihost("nccl")
+    try:
+        paths = {}
+        for exp_type, params, batch in (
+                ("setvae", MODEL_PARAMS, BATCH),
+                ("setlrvae", dict(MODEL_PARAMS, **SETLRVAE_PARAMS), SETLRVAE_BATCH)):
+            for kind, launches in _strategies_of(exp_type, params, batch, dev, card).items():
+                paths[f"{kind}_{exp_type}"] = launches
+        paths["fsdp_train_and_test"] = _fsdp_trainer(dev, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return paths
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2325,7 +2518,7 @@ def _timed(fn, *args):
 
 
 def main():
-    phase_environment()
+    card = phase_environment()
     dev = torch.device("cuda", 0)
     _timed(phase_build)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2351,6 +2544,7 @@ def main():
     paths.update(_timed(phase_lipschitz, dev))
     paths["image_path"] = _timed(phase_images, dev)
     paths.update(_timed(phase_surface, dev))
+    paths.update(_timed(phase_parallel, dev, card))
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

@@ -201,6 +201,114 @@ def flex_step_parity(monkeypatch, kind, arch, mixed, n_samples, extra=None, n_mi
             "f64_gap": f64_gap, "jax_f64_gap": jax_f64_gap}
 
 
+# ---------------------------------------------------------------- the sharded steps
+
+
+def jax_sharded_step(phase, port):
+    """One train step of the JAX package's GSPMD strategy
+    phase["strategy"] ("fsdp": make_fsdp_train_step on a ('data',) mesh;
+    "tp_dp": make_tp_dp_train_step; "tp_fsdp": make_tp_fsdp_train_step;
+    both on phase["mesh"] = [n_data, n_model]) on conftest's virtual
+    devices, from `port`'s weights and statistics, on the global batch
+    phase["x"] with the noise phase["eps"] (patch_eps: every shard draws
+    its block of it). Returns {"metrics", "grads" and "params"
+    (state_dict-keyed tensors), "stats" (the batch_stats tree)}."""
+    from vae_song_tpu.models import build_model as jax_build_model
+    from vae_song_tpu.parallel import fsdp as jax_fsdp
+    from vae_song_tpu.parallel import make_mesh
+    from vae_song_tpu.parallel import tp as jax_tp
+    from vae_song_tpu.train import state as jax_state
+    from vae_song_tpu_torch import weights
+
+    variables = weights.state_dict_to_variables(port.state_dict())
+    jmodel = jax_build_model(phase["exp_type"], phase["dataset"], phase["model_params"],
+                             beta=phase.get("beta", 1.0), alpha=phase.get("alpha", 0.01))
+    tx = optax.chain(grads_capture(), jax_state.make_optimizer(lr=phase["lr"]))
+    state = jax_state.TrainState.create(
+        jax.tree.map(jnp.array, variables["params"]),
+        jax.tree.map(jnp.array, variables.get("batch_stats", {})), tx)
+    n_data, n_model = phase["mesh"]
+    devices = jax.devices()[:n_data * n_model]
+    mse = phase.get("min_shard_elems", jax_fsdp.DEFAULT_MIN_SHARD_ELEMS)
+    kind = phase["strategy"]
+    mp = pytest.MonkeyPatch()
+    patch_eps(mp, phase["eps"])
+    try:
+        if kind == "fsdp":
+            mesh = jax_fsdp.make_fsdp_mesh(n_data, devices)
+            state = jax_fsdp.shard_state(state, mesh, mse)
+            step = jax_fsdp.make_fsdp_train_step(jmodel, tx, mesh, state, min_shard_elems=mse)
+        elif kind == "tp_fsdp":
+            mesh = make_mesh(n_data, n_model, devices)
+            state = jax_fsdp.shard_state_tp_fsdp(state, mesh, mse)
+            step = jax_fsdp.make_tp_fsdp_train_step(jmodel, tx, mesh, state,
+                                                    min_shard_elems=mse)
+        else:
+            mesh = make_mesh(n_data, n_model, devices)
+            state = jax_tp.shard_state(state, mesh)
+            step = jax_tp.make_tp_dp_train_step(jmodel, tx, mesh, state)
+        state, m = step(state, jnp.asarray(phase["x"]), jnp.float32(phase["wu"]),
+                        jax.random.PRNGKey(0))
+    finally:
+        mp.undo()
+    keys = [k for k, _ in port.named_parameters()]
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": weights.params_to_state_dict(to_np(state.opt_state[0]), keys),
+            "params": weights.params_to_state_dict(to_np(state.params), keys),
+            "stats": to_np(state.batch_stats)}
+
+
+def port_spec_as_flax(name, spec, ndim):
+    """A port placement (a tuple over the parameter's port axes, () for
+    whole) laid out over its Flax axes (a Dense weight [out, in] is the
+    kernel [in, out]), padded with None to `ndim`."""
+    from vae_song_tpu_torch.parallel.fsdp import _flax_axes
+
+    out = [None] * ndim
+    for i, a in enumerate(tuple(spec) + (None,) * (ndim - len(spec))):
+        out[_flax_axes(name, ndim)[i]] = a
+    return tuple(out)
+
+
+def jax_spec_at(specs, name, ndim):
+    """The JAX PartitionSpec, in the tree `specs` over a Flax params tree,
+    of port parameter `name`, as a tuple padded with None to `ndim`."""
+    from vae_song_tpu_torch import weights
+
+    node = specs
+    for key in weights.flax_path(name)[1]:
+        node = node[key]
+    return tuple(node) + (None,) * (ndim - len(tuple(node)))
+
+
+def sharded_jax_gaps(got, want, lr):
+    """(loss terms and raw_kl, max relative; gradient, relative L2; share
+    of parameter elements the update leaves apart by more than lr/100;
+    running statistics, max_rel, 0 without BatchNorm) of a port rank's
+    step output `got` (numpy trees: "metrics", "grads", "state") against
+    `jax_sharded_step`'s. Left out of the last three: the biases before a
+    BatchNorm and the attention's key biases, whose gradient is zero
+    analytically (roundoff on both sides)."""
+    from vae_song_tpu_torch import weights
+    from vae_song_tpu_torch.nn.blocks import pre_batchnorm_biases
+
+    keys = list(want["params"])
+    live = [k for k in keys if k not in pre_batchnorm_biases(keys)
+            and not k.endswith("key.bias") and k in got["grads"]]
+    rel = max(abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-6)
+              for k in want["metrics"])
+    gap = grad_gap({k: torch.from_numpy(got["grads"][k]) for k in live}, want["grads"], live)
+    share = float(np.mean(np.concatenate([
+        (np.abs(got["state"][k] - want["params"][k].numpy()) > lr / 100).reshape(-1)
+        for k in live])))
+    stats = 0.0
+    if jax.tree.leaves(want["stats"]):
+        stats = max_rel(weights.state_dict_to_variables(
+            {k: torch.from_numpy(v) for k, v in got["state"].items()})["batch_stats"],
+            want["stats"])
+    return rel, gap, share, stats
+
+
 # ---------------------------------------------------------------- the Lipschitz CLI
 
 # a small Lipschitz CLI run (2 epochs of 600 points, 4 x 4 and 3 x 3 grids)

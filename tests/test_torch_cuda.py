@@ -686,3 +686,78 @@ def test_int8_decode_on_card_runs_the_attention_forward(dev):
     assert denseattn.dense_attention_fwd.launches - before == 2 * 2
     f = generate_samples(model, 16, 8, seed=1)
     assert float(abs(q - f).max() / abs(f).max()) < 0.05
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A one-rank NCCL process group on the card (a free localhost port),
+    closed after the test. One card holds one NCCL rank: the multi-rank
+    semantics are held on the CPU with gloo (tests/test_torch_parallel_*.py)."""
+    import torch.distributed as dist
+
+    from vae_song_tpu_torch.parallel.mesh import init_multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already open")
+    saved = {k: os.environ.pop(k, None) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    init_multihost("nccl")
+    yield
+    dist.destroy_process_group()
+    for k, v in saved.items():
+        if v is not None:
+            os.environ[k] = v
+
+
+@pytest.mark.parametrize("kind", ["dp", "fsdp", "tp", "tp_fsdp"])
+def test_one_rank_strategy_steps_run_the_kernels(dev, nccl_group, kind):
+    """DistributedDataParallel, FSDP2, the DTensor plan on a 1 x 1 mesh and
+    TP x FSDP in a one-rank NCCL group: one train step launches K1, K2, K4
+    and K5 as the plain step does (4 layers: 4 K1 and 4 K2) and lands on
+    the plain step's loss (1e-5 relative) and gradients (1e-3 relative L2,
+    bf16 GEMM outputs cut or ordered elsewhere by the wrappers)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from vae_song_tpu_torch.models.registry import build_model
+    from vae_song_tpu_torch.nn.sync import full_tensor
+    from vae_song_tpu_torch.parallel import fsdp, mesh, tp
+    from vae_song_tpu_torch.train.state import TrainState, make_optimizer
+    from vae_song_tpu_torch.train.steps import make_train_step
+
+    mp = dict(latent_channel=16, num_points=256, d_model=128, num_heads=2,
+              num_encoder_layers=2, num_decoder_layers=2, ff_dim=64, mixed_precision=True)
+    mk = lambda: build_model("setvae", "shapenet", mp,  # noqa: E731
+                             generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(8, 256, 3, generator=gen, device=dev)
+    eps = torch.randn(8, 16, generator=gen, device=dev)
+    plain = mk()
+    want = make_train_step(plain, make_optimizer(plain.parameters(), lr=1e-2))(x, eps, 0.5)
+    model = mk()
+    state = TrainState(model, make_optimizer(model.parameters(), lr=1e-2))
+    if kind == "dp":
+        m = mesh.make_mesh()
+        step = mesh.make_dp_train_step(model, state.optimizer, m)
+    elif kind == "fsdp":
+        m = fsdp.make_fsdp_mesh(1)
+        state = fsdp.shard_state(state, m)
+        step = fsdp.make_fsdp_train_step(model, state.optimizer, m, state.fsdp_params)
+    else:
+        m = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        if kind == "tp":
+            state = tp.shard_state(state, m)
+            step = tp.make_tp_dp_train_step(model, state.optimizer, m)
+        else:
+            state = fsdp.shard_state_tp_fsdp(state, m)
+            step = fsdp.make_tp_fsdp_train_step(model, state.optimizer, m, state.fsdp_params)
+    start = [f.launches for f in ALL_COUNTERS]
+    got = step(x, eps, 0.5)
+    torch.cuda.synchronize()
+    launches = [f.launches - s for f, s in zip(ALL_COUNTERS, start)]
+    assert launches == [4, 4, 0, 0, 1, 1, 0, 0]
+    for k in ("loss", "recon", "reg"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-5 * abs(float(want[k])), k
+    grads = {k: p.grad.float() for k, p in plain.named_parameters() if p.grad is not None}
+    num = sum(float(((full_tensor(p.grad).float() - grads[k]) ** 2).sum())
+              for k, p in model.named_parameters() if k in grads and not k.endswith("key.bias"))
+    den = sum(float((g ** 2).sum()) for k, g in grads.items() if not k.endswith("key.bias"))
+    assert (num / den) ** 0.5 <= 1e-3

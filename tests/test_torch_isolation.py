@@ -37,7 +37,8 @@ SLICE_MODULES = {"vae_song_tpu_torch." + m for m in (
     "parallel", "parallel.sweep", "viz.plots", "nn.blocks",
     "data.images", "data.native", "data.pipeline", "ops.fid", "ops.inception", "viz.pca",
     "cli.generate", "train.loop",
-    "nn.moe", "parallel.ep", "serving", "serving.quant", "train.profiling", "cli.complexity")}
+    "nn.moe", "parallel.ep", "serving", "serving.quant", "train.profiling", "cli.complexity",
+    "parallel.mesh", "parallel.fsdp", "parallel.tp", "parallel.optree", "nn.sync")}
 
 
 def _run(args, cwd, env_extra=None):

@@ -26,13 +26,11 @@ from vae_song_tpu.models import build_model as jax_build_model
 from vae_song_tpu.ops import attention as jax_attention
 from vae_song_tpu.ops import chamfer as jax_chamfer
 from vae_song_tpu.ops import denseattn as jax_denseattn
-from vae_song_tpu.ops import ffn as jax_ffn
 from vae_song_tpu.train import state as jax_state
 from vae_song_tpu.train.steps import make_train_step as jax_make_train_step
 from vae_song_tpu_torch import weights
 from vae_song_tpu_torch.models import setvae as torch_setvae
 from vae_song_tpu_torch.models.registry import build_model
-from vae_song_tpu_torch.ops import attention as torch_attention
 from vae_song_tpu_torch.ops import chamfer, denseattn
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
@@ -445,61 +443,11 @@ def _assert_within(diffs, bounds):
     assert all(b is None or d <= b for d, b in zip(diffs, bounds)), (diffs, bounds)
 
 
-@pytest.mark.parametrize("kind", ["setvae", "setlrvae"])
-def test_train_step_matches_jax_kernels_interpret(monkeypatch, kind):
-    _patch_jax_kernels(monkeypatch)
-    _assert_within(_train_diffs(monkeypatch, kind, False), KERNEL_BOUNDS)
-
-
 def _count_calls(monkeypatch, module, name):
     """Replace module.name by a wrapper that counts its calls."""
     calls, fn = [], getattr(module, name)
     monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or fn(*a, **k))
     return calls
-
-
-def test_train_step_bhnd_route_matches_jax_kernels_interpret(monkeypatch):
-    """One 128-wide head (num_heads 1 at d_model 128), which the packed
-    kernels refuse: the port's BHND route (the K3f / K3b plain versions)
-    against the JAX BHND kernels in interpret mode (MultiHeadAttention's
-    dense gate patched open, as for the packed one). Measured 2.1e-7,
-    5.2e-4, 4.3e-6, 2.2e-3, 5.7e-3, 3.9e-3: within KERNEL_BOUNDS."""
-    _patch_jax_kernels(monkeypatch)
-    monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
-    jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")
-    monkeypatch.setattr(jax_denseattn, "dense_attention",
-                        functools.partial(jax_denseattn.dense_attention, interpret=True))
-    port_calls = _count_calls(monkeypatch, torch_attention, "dense_attention")
-    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"num_heads": 1}), KERNEL_BOUNDS)
-    assert jax_calls and port_calls
-
-
-def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
-    """VST_FUSED_FFN=1 with ff_dim 128 (fused_ffn_ok shapes): every
-    encoder and decoder FFN of the port through `fused_ffn` (its plain
-    versions), against the JAX fused FFN in interpret mode (its gate's
-    TPU-backend check patched out, as tests/test_ffn_kernel.py does).
-    Measured 1.9e-7, 8.2e-5, 1.4e-6, 4.3e-4, 1.3e-3, 2.8e-4: within
-    KERNEL_BOUNDS."""
-    _patch_jax_kernels(monkeypatch)
-    monkeypatch.setattr(jax_ffn, "INTERPRET", True)
-    monkeypatch.setattr(
-        jax_setvae, "_use_fused_ffn",
-        lambda x, f, dr, tr: (not (dr > 0.0 and tr))
-        and jax_ffn.fused_ffn_ok(int(np.prod(x.shape[:-1])), x.shape[-1], f))
-    monkeypatch.setenv("VST_FUSED_FFN", "1")
-    jax_calls = _count_calls(monkeypatch, jax_ffn, "fused_ffn")
-    port_calls = _count_calls(monkeypatch, torch_setvae, "fused_ffn")
-    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"ff_dim": 128}), KERNEL_BOUNDS)
-    # per train step: 2 encoder and 2 decoder layers
-    assert len(port_calls) == 4 * STEPS and jax_calls
-
-
-@pytest.mark.parametrize("kind,mixed", [("setvae", False), ("setlrvae", False),
-                                        ("setvae", True), ("setlrvae", True)])
-def test_train_step_matches_jax_cpu_path(monkeypatch, kind, mixed):
-    _assert_within(_train_diffs(monkeypatch, kind, mixed),
-                   CPU_BF16_BOUNDS if mixed else CPU_F32_BOUNDS)
 
 
 def test_train_step_mode_survives_other_steps_being_built():
@@ -521,12 +469,10 @@ def test_train_step_mode_survives_other_steps_being_built():
     assert modes == [True, False, True, False]
 
 
-def test_staged_grad_mode_matches_jax(monkeypatch):
-    """SetLRVAE under grad_mode="staged" (g_main + g_lr with the encoder's
-    share of g_lr scaled by 1e-4) against JAX make_train_step(...,
-    grad_mode="staged"), the JAX kernels in interpret mode: within
-    KERNEL_BOUNDS (measured 2.8e-7, 3.3e-6, 1.5e-6, 3.2e-5, 1.5e-4,
-    4.7e-6)."""
-    _patch_jax_kernels(monkeypatch)
-    _assert_within(_train_diffs(monkeypatch, "setlrvae", False, grad_mode="staged"),
-                   KERNEL_BOUNDS)
+# The train steps against JAX's run ~35-55 s each (JAX compiling its
+# step): they live in tests/test_torch_train_kernels.py (interpret-mode
+# kernels, the staged gradient), tests/test_torch_train_routes.py (the
+# BHND route, the fused FFN) and tests/test_torch_train_cpu_f32.py /
+# test_torch_train_cpu_bf16.py (JAX's CPU path), so that pytest-xdist's
+# --dist loadfile spreads them over its workers; they import the helpers
+# above.

@@ -1,0 +1,55 @@
+"""The port's train step on its two further routes against JAX's kernels in
+interpret mode: the BHND attention (K3f / K3b) and the fused FFN (K6f / K6b).
+The helpers and bounds are tests/test_torch_train.py's (its docstring
+says how the JAX side runs); the cases sit in files of their own so that
+pytest-xdist's --dist loadfile spreads them over its workers."""
+
+import functools
+
+import numpy as np
+
+import vae_song_tpu.models.setvae as jax_setvae
+from test_torch_train import (KERNEL_BOUNDS, STEPS, _assert_within, _count_calls,
+                              _patch_jax_kernels, _train_diffs)
+from vae_song_tpu.ops import attention as jax_attention
+from vae_song_tpu.ops import denseattn as jax_denseattn
+from vae_song_tpu.ops import ffn as jax_ffn
+from vae_song_tpu_torch.models import setvae as torch_setvae
+from vae_song_tpu_torch.ops import attention as torch_attention
+
+
+def test_train_step_bhnd_route_matches_jax_kernels_interpret(monkeypatch):
+    """One 128-wide head (num_heads 1 at d_model 128), which the packed
+    kernels refuse: the port's BHND route (the K3f / K3b plain versions)
+    against the JAX BHND kernels in interpret mode (MultiHeadAttention's
+    dense gate patched open, as for the packed one). Measured 2.1e-7,
+    5.2e-4, 4.3e-6, 2.2e-3, 5.7e-3, 3.9e-3: within KERNEL_BOUNDS."""
+    _patch_jax_kernels(monkeypatch)
+    monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
+    jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")
+    monkeypatch.setattr(jax_denseattn, "dense_attention",
+                        functools.partial(jax_denseattn.dense_attention, interpret=True))
+    port_calls = _count_calls(monkeypatch, torch_attention, "dense_attention")
+    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"num_heads": 1}), KERNEL_BOUNDS)
+    assert jax_calls and port_calls
+
+
+def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
+    """VST_FUSED_FFN=1 with ff_dim 128 (fused_ffn_ok shapes): every
+    encoder and decoder FFN of the port through `fused_ffn` (its plain
+    versions), against the JAX fused FFN in interpret mode (its gate's
+    TPU-backend check patched out, as tests/test_ffn_kernel.py does).
+    Measured 1.9e-7, 8.2e-5, 1.4e-6, 4.3e-4, 1.3e-3, 2.8e-4: within
+    KERNEL_BOUNDS."""
+    _patch_jax_kernels(monkeypatch)
+    monkeypatch.setattr(jax_ffn, "INTERPRET", True)
+    monkeypatch.setattr(
+        jax_setvae, "_use_fused_ffn",
+        lambda x, f, dr, tr: (not (dr > 0.0 and tr))
+        and jax_ffn.fused_ffn_ok(int(np.prod(x.shape[:-1])), x.shape[-1], f))
+    monkeypatch.setenv("VST_FUSED_FFN", "1")
+    jax_calls = _count_calls(monkeypatch, jax_ffn, "fused_ffn")
+    port_calls = _count_calls(monkeypatch, torch_setvae, "fused_ffn")
+    _assert_within(_train_diffs(monkeypatch, "setvae", False, {"ff_dim": 128}), KERNEL_BOUNDS)
+    # per train step: 2 encoder and 2 decoder layers
+    assert len(port_calls) == 4 * STEPS and jax_calls

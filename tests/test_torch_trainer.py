@@ -113,9 +113,9 @@ def test_saved_params_load_into_jax_and_decode_the_same_clouds(tmp_path):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"data_parallel": True}, "Queue 1 item 15"),
-    ({"tensor_parallel": 2}, "Queue 1 item 15"),
-    ({"fsdp": True}, "Queue 1 item 15"),
+    ({"data_parallel": True, "sequence_parallel": 2}, "Queue 1 item 15"),
+    ({"sequence_parallel": 2, "sequence_parallel_ring": True}, "Queue 1 item 15"),
+    ({"data_parallel": True, "pipeline_parallel": 2}, "Queue 1 item 15"),
     ({"expert_parallel": True}, "Queue 1 item 15"),
     ({"pipeline_parallel": 2}, "Queue 1 item 15"),
     ({"sequence_parallel": 2}, "Queue 1 item 15"),

@@ -345,51 +345,10 @@ def _ckpts(root):
                   if f.startswith("ckpt_"))
 
 
-@pytest.mark.parametrize("mp,options", [
-    (RUN_ATTN, {"checkpoint_every": 1}),
-    (RUN_DEEPSETS, {"checkpoint_every": 1, "async_checkpoint": True, "grad_accum": 2}),
-    (dict(RUN_ATTN, attn_dropout=0.1), {"checkpoint_every": 2}),
-])
-def test_resume_replays_the_continuous_run(tmp_path, mp, options):
-    """SetLRVAE under kl_adaptive for 3 epochs with checkpoints, then a
-    fresh model (other weights) resumed from the first checkpoint: its
-    final parameters, statistics and optimizer state equal the
-    continuous run's bit for bit (per-epoch seeding of every stream, the
-    dropout masks' included, and the warmup state from `extra`)."""
-    mk = lambda seed: build_model("setlrvae", "shapenet", mp, beta=BETA, alpha=ALPHA,
-                                  generator=torch.Generator().manual_seed(seed))
-    cont, _ = train_and_test(mk(0), **_trainer_kw(tmp_path / "a", **options))
-    ckpts = _ckpts(tmp_path / "a")
-    every = options["checkpoint_every"]
-    assert [os.path.basename(c) for c in ckpts] == [
-        f"ckpt_{e}.pkl" for e in range(3) if (e + 1) % every == 0]
-    with open(ckpts[0], "rb") as f:
-        extra = pickle.load(f)["extra"]
-    assert extra["last_kl"] > 0.0 and extra["wu_alpha"] > 0.0
-    resumed, _ = train_and_test(mk(7), resume_from=ckpts[0],
-                                **_trainer_kw(tmp_path / "b", **{k: v for k, v in options.items()
-                                                                 if k == "grad_accum"}))
-    assert resumed.step == cont.step == 3 * 2
-    _assert_same_state(cont, resumed)
-
-
-def test_resume_without_warmup_state_replays_the_schedule(tmp_path):
-    """A checkpoint whose `extra` lacks the warmup state: the resumed run
-    replays the deterministic schedule from epoch 0, as the JAX trainer
-    does, and under `linear` ends where the continuous run ends."""
-    mk = lambda seed: build_model("setlrvae", "shapenet", RUN_ATTN, beta=BETA, alpha=ALPHA,
-                                  generator=torch.Generator().manual_seed(seed))
-    kw = dict(_trainer_kw(tmp_path / "a"), wu_strat="linear")
-    cont, _ = train_and_test(mk(0), checkpoint_every=1, **kw)
-    path = _ckpts(tmp_path / "a")[1]
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
-    payload["extra"] = {}
-    with open(path, "wb") as f:
-        pickle.dump(payload, f)
-    resumed, _ = train_and_test(mk(7), resume_from=path,
-                                **dict(kw, output_root=str(tmp_path / "b")))
-    _assert_same_state(cont, resumed)
+# The resume runs (test_resume_replays_the_continuous_run and
+# test_resume_without_warmup_state_replays_the_schedule) live in
+# tests/test_torch_trainer_resume.py, so that pytest-xdist's --dist
+# loadfile puts them on another worker; they import the helpers above.
 
 
 def test_async_checkpoint_write_failure_warns_and_keeps_the_state(tmp_path, monkeypatch, capsys):

@@ -40,7 +40,10 @@ def test_pca_calculation_matches_jax():
 def test_pca_visualization_writes_its_plots(tmp_path, monkeypatch):
     """mu and z = mu + eps exp(log_var / 2) with the given eps; t-SNE
     skipped (no scikit-learn: it prints and goes on)."""
+    # the submodule too: an earlier test in the process may have imported
+    # it, and a cached submodule imports past a None parent
     monkeypatch.setitem(__import__("sys").modules, "sklearn", None)
+    monkeypatch.setitem(__import__("sys").modules, "sklearn.manifold", None)
     rng = np.random.default_rng(1)
     x = rng.random((40, 3), dtype=np.float32)
     y = rng.integers(0, 10, 40)

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from vae_song_tpu_torch.nn.sync import is_dtensor
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 NVCC_FLAGS = (
@@ -137,7 +139,12 @@ def _capability(index: int):
 
 
 def check_device(t: torch.Tensor) -> None:
-    """Raise unless `t` lies on a Hopper card the library was built for."""
+    """Raise unless `t` is a plain tensor on a Hopper card the library was
+    built for: a DTensor (a sharded parameter or activation) has no one
+    device pointer to hand the kernel."""
+    if is_dtensor(t):
+        raise TypeError("a DTensor reached a kernel wrapper; the kernels take its "
+                        "local tensor (DTensor.to_local())")
     if t.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
     cap = _capability(t.device.index if t.device.index is not None

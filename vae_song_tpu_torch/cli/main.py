@@ -12,12 +12,20 @@ takes the config as a dict (the card's machine has no pyyaml).
 `--resume_from` continues one point's run from a `ckpt_*.pkl` the port
 wrote (refused for a sweep of more than one point); the config's
 `common_params` keys `async_checkpoint` and `grad_accum` reach the
-trainer as in the JAX CLI.
+trainer as in the JAX CLI, and so do the `model_params` keys
+`data_parallel` (or the `--data_parallel` flag), `fsdp` and
+`tensor_parallel`, which train one process per device:
+
+    torchrun --nproc_per_node N -m vae_song_tpu_torch.cli.main --config ...
+
+Under torchrun the process group (NCCL on the card, gloo with `--device
+cpu`) opens before anything else, and only rank 0 writes the result tree.
 The device defaults to CUDA; `--device cpu` trains with the plain
 PyTorch versions of the kernels.
 """
 
 import argparse
+import os
 
 import torch
 
@@ -73,7 +81,7 @@ def run_experiment(config, output_root: str = ".", seed: int = 42,
             output_root=output_root,
             profile_dir=profile_dir,
             resume_from=resume_from,
-            data_parallel=data_parallel,
+            data_parallel=data_parallel or bool(mp.get("data_parallel", False)),
             checkpoint_every=checkpoint_every,
             native_prefetch=bool(common.get("native_prefetch", False)),
             pipeline_parallel=int(mp.get("pipeline_parallel", 0)),
@@ -105,6 +113,13 @@ def main(argv=None):
     parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--checkpoint_every", type=int, default=None)
     args = parser.parse_args(argv)
+    if "RANK" in os.environ:
+        # launched by torchrun: one process per device, the group opened
+        # before any model moves (a failure ends the run with its error)
+        from vae_song_tpu_torch.parallel.mesh import init_multihost
+
+        rank, world = init_multihost("nccl" if args.device == "cuda" else "gloo")
+        print(f"process group: rank {rank} of {world}", flush=True)
     return run_experiment(args.config, args.output_root, args.seed, args.fake_data,
                           args.profile_dir, args.resume_from, args.data_parallel,
                           args.checkpoint_every, args.device)

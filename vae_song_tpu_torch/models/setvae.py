@@ -64,6 +64,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vae_song_tpu_torch.nn.blocks import BatchNorm, Dense, Dropout, LayerNorm
+from vae_song_tpu_torch.nn.sync import full_tensor
 from vae_song_tpu_torch.nn.initializers import normal_scaled_
 from vae_song_tpu_torch.nn.moe import MoEFFN
 from vae_song_tpu_torch.ops import losses
@@ -102,8 +103,12 @@ def _residual_ffn(layer, x, dropout_rng):
     ff_up, ff_down = layer.ff_up, layer.ff_down
     if _use_fused_ffn(x, ff_up.weight.shape[0], drop.rate, drop.training):
         cd = ff_up.dtype or x.dtype
-        return fused_ffn(x.to(cd), ff_up.weight.to(cd), ff_up.bias.to(cd),
-                         ff_down.weight.to(cd), ff_down.bias.to(cd))
+        # under tensor parallelism every rank runs the whole FFN on the
+        # gathered weights, as GSPMD runs the JAX kernel, which has no
+        # partition rule; the weights' backward keeps each rank's slice
+        w = [full_tensor(t).to(cd) for t in (ff_up.weight, ff_up.bias,
+                                             ff_down.weight, ff_down.bias)]
+        return fused_ffn(x.to(cd), *w)
     ff = drop(torch.relu(ff_up(x)), dropout_rng)
     return x + drop(ff_down(ff), dropout_rng)
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vae_song_tpu_torch.nn import initializers as init
+from vae_song_tpu_torch.nn import sync
 
 
 class Dense(nn.Module):
@@ -84,7 +85,8 @@ class BatchNorm(nn.Module):
     and moves the running buffers to 0.9 * running + 0.1 * batch with the
     BIASED batch variance (torch's own running update stores the unbiased
     one). Eval mode normalises with the running statistics. The buffers
-    are the JAX package's `batch_stats` {mean, var}."""
+    are the JAX package's `batch_stats` {mean, var}. Under
+    nn.sync.global_batch the statistics are the global batch's."""
 
     eps = 1e-5
     momentum = 0.9
@@ -101,8 +103,9 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            # the global batch's statistics under nn.sync.global_batch
+            mean = sync.mean_over_batch(x.mean(axes))
+            var = torch.clamp(sync.mean_over_batch((x * x).mean(axes)) - mean * mean, min=0.0)
             with torch.no_grad():
                 for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
                     buf.copy_(self.momentum * buf + (1 - self.momentum) * stat)

@@ -31,6 +31,12 @@ nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
      softmax, as the JAX package's `_xla_attention`, differentiated by
      autograd.
 
+The head count is read from the projections' width: under tensor
+parallelism (parallel/tp.py) they give this rank's heads, on which the
+route is chosen, as the JAX dense kernels partition over heads (with two
+local heads of 64 the packed route, with one the BHND route).
+VST_FUSED_QKV=1 is refused under tensor parallelism.
+
 The route follows the JAX package's order (vae_song_tpu/ops/attention.py
 :424-448) and never the device: on a CPU tensor routes 2 and 3 run their
 kernels' plain versions. The JAX package's three switches are read at
@@ -53,6 +59,7 @@ import torch
 from torch import nn
 
 from vae_song_tpu_torch.nn.blocks import Dense, Dropout
+from vae_song_tpu_torch.nn.sync import is_dtensor
 from vae_song_tpu_torch.nn.initializers import mha_in_proj_bound
 from vae_song_tpu_torch.ops.denseattn import (dense_attention, dense_attention_fwd, dense_ok,
                                               packed_ok)
@@ -114,9 +121,11 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, inputs_q, inputs_kv, dropout_rng=None):
         """`dropout_rng` is the keep-mask source of training dropout
-        (nn.blocks.keep_mask); unused in eval mode or at rate 0."""
-        h = self.num_heads
-        d = self.d_model // h
+        (nn.blocks.keep_mask); unused in eval mode or at rate 0. The head
+        count is the projections' width over the head width: under tensor
+        parallelism (parallel/tp.py) the projections give this rank's
+        heads only, and the route is chosen for them."""
+        d = self.d_model // self.num_heads
         b, n_q = inputs_q.shape[0], inputs_q.shape[1]
         n_kv = inputs_kv.shape[1]
         train_dropout = self.dropout_rate > 0.0 and self.training
@@ -128,13 +137,19 @@ class MultiHeadAttention(nn.Module):
             # one [d, 3d] product over the three projections' parameters,
             # with Dense's compute-dtype semantics; q, k, v are views of it
             projs = (self.query, self.key, self.value)
+            if is_dtensor(self.query.weight):
+                raise ValueError("VST_FUSED_QKV=1 is refused under tensor parallelism "
+                                 "(parallel/tp.py:check_flash_partitionable)")
+            h = self.num_heads
             w3 = torch.cat([p.weight for p in projs])
             b3 = torch.cat([p.bias for p in projs])
             dt = self.query.dtype or torch.promote_types(inputs_q.dtype, w3.dtype)
             qkv = torch.matmul(inputs_q.to(dt), w3.to(dt).t()) + b3.to(dt)
             q, k, v = (t.view(b, n_q, h, d) for t in qkv.split(self.d_model, dim=-1))
         else:
-            q = self.query(inputs_q).view(b, n_q, h, d)
+            q = self.query(inputs_q)
+            h = q.shape[-1] // d
+            q = q.view(b, n_q, h, d)
             k = self.key(inputs_kv).view(b, n_kv, h, d)
             v = self.value(inputs_kv).view(b, n_kv, h, d)
         scale = 1.0 / math.sqrt(d)
@@ -147,4 +162,4 @@ class MultiHeadAttention(nn.Module):
             out = dense_attention(q, k, v, scale)
         else:
             out = attention_plain(q, k, v, scale)
-        return self.out(out.reshape(b, n_q, self.d_model))
+        return self.out(out.reshape(b, n_q, h * d))

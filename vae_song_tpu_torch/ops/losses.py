@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from vae_song_tpu_torch.nn import sync
+
 
 def mse_recon(x, recon):
     """Mean over batch, sum over features."""
@@ -48,8 +50,11 @@ def kl_per_sample(mu, log_var):
 
 
 def latent_recon_loss(z_input, z_recon):
-    """((z_in - z_rec)**2).mean(axis=0).sum()."""
-    return ((z_input - z_recon) ** 2).mean(dim=0).sum()
+    """((z_in - z_rec)**2).mean(axis=0).sum(). The batch is the second to
+    last axis: of an [L, B, D] stack it is summed, which
+    nn.sync.summed_over_batch scales under a sharded batch."""
+    out = ((z_input - z_recon) ** 2).mean(dim=0).sum()
+    return sync.summed_over_batch(out) if z_input.dim() > 2 else out
 
 
 def pairwise_reg(loss_reg, z_input):
@@ -57,7 +62,7 @@ def pairwise_reg(loss_reg, z_input):
     reference does: with z [L, B, D], mu_zp = z.mean(1, keepdim) is
     [L, 1, D] and logvar_zp = log(((z - mu_zp)**2).mean(1)) is [L, D], so
     the KL expression broadcasts to [L, L, D]; then .mean(1).sum()."""
-    mu_zp = z_input.mean(dim=1, keepdim=True)
-    logvar_zp = torch.log(((z_input - mu_zp) ** 2).mean(dim=1))
+    mu_zp = sync.mean_over_batch(z_input.mean(dim=1, keepdim=True))
+    logvar_zp = torch.log(sync.mean_over_batch(((z_input - mu_zp) ** 2).mean(dim=1)))
     term = -0.5 * (1.0 + logvar_zp - mu_zp ** 2 - torch.exp(logvar_zp))
     return loss_reg / 2.0 + term.mean(dim=1).sum() / 2.0

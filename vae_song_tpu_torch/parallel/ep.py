@@ -2,7 +2,7 @@
 device (port of vae_song_tpu/parallel/ep.py:56-130: MoEParams, init_moe,
 _capacity, _dispatch_combine, _expert_ffn, moe_ffn_dense). The expert-
 parallel half of that module (moe_ffn_ep, the all_to_all exchange and the
-sharded train steps) waits for ROADMAP.md Queue 1 item 15.
+sharded train steps) waits for ROADMAP.md Queue 1 item 15b.
 
 Routing, as in JAX: router logits [T, E] = x @ router in x's dtype, the
 softmax of those logits in that dtype (jax.nn.softmax's formula), the

@@ -34,14 +34,21 @@ import threading
 import numpy as np
 
 from vae_song_tpu_torch import weights
+from vae_song_tpu_torch.nn.sync import full_tensor
 from vae_song_tpu_torch.train.state import TrainState, adam_state, load_optax_state
 
 
 def _capture(state: TrainState, copy: bool) -> dict:
     """The tensors and numbers a checkpoint holds, where they live;
     cloned on their device when `copy`, so later in-place updates of
-    the live state cannot reach them."""
-    dup = (lambda t: t.detach().clone()) if copy else (lambda t: t.detach())
+    the live state cannot reach them. A sharded tensor (a DTensor under
+    FSDP or tensor parallelism) is gathered whole, a collective every
+    rank makes, so that the file is the single-device one whatever the
+    strategy."""
+    def dup(t):
+        t = full_tensor(t).detach()
+        return t.clone() if copy else t
+
     adam = adam_state(state)
     return {"model": {k: dup(v) for k, v in state.model.state_dict().items()},
             "mu": {k: dup(v) for k, v in adam["mu"].items()},
@@ -246,8 +253,9 @@ def save_params_only(path, model):
     """Write `model`'s variables as the JAX package's `save_params_only`
     does: {"params", "batch_stats"}, Flax trees of float32 numpy arrays."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    state_dict = {k: full_tensor(v) for k, v in model.state_dict().items()}
     with open(path, "wb") as f:
-        pickle.dump(weights.state_dict_to_variables(model.state_dict()), f)
+        pickle.dump(weights.state_dict_to_variables(state_dict), f)
 
 
 def load_params_only(path, model):

@@ -49,29 +49,41 @@ on the host every step), so a run with attn_dropout > 0 depends on the
 device: the card's and the CPU's streams differ. Per-epoch seeding
 makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
-counterpart; the parallel strategies, which are not ported, raise naming
-their ROADMAP.md item. With `profile_dir` the training steps of epoch 1
+counterpart. The batch- and weight-sharding strategies (`data_parallel`,
+`fsdp`, `tensor_parallel` and fsdp x tensor_parallel, parallel/) run one
+process per device (torchrun; without it a one-process group): every
+rank iterates the same global batches and noise and takes its slice of
+them; only rank 0 writes the result tree; checkpoints and the last
+epoch's export are gathered whole into the single-device format, so they
+load under any strategy. Sequence, pipeline and expert parallelism raise
+naming ROADMAP.md Queue 1 item 15b. With `profile_dir` the training steps of epoch 1
 (epoch 0 holds the first calls) run under torch.profiler
 (train/profiling.py:trace), which writes their trace there.
 """
 
+import copy
 import os
+import shutil
 import sys
+import tempfile
 import time
 from contextlib import nullcontext
 from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vae_song_tpu_torch import data as data_lib
 from vae_song_tpu_torch.data.pipeline import iterate_batches, num_batches
 from vae_song_tpu_torch.models.flexible import FlexibleVAE
 from vae_song_tpu_torch.models.lidvae import LIDVAE
-from vae_song_tpu_torch.models.setvae import SetVAE
+from vae_song_tpu_torch.models.setvae import SetEncoderAttn, SetVAE
+from vae_song_tpu_torch.nn.sync import full_tensor
 from vae_song_tpu_torch.ops import fid as fid_lib
 from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
+from vae_song_tpu_torch.parallel.mesh import data_coordinate, init_multihost, shard_batch
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loggers
 from vae_song_tpu_torch.train.profiling import trace
@@ -130,28 +142,132 @@ def _compute_fid(test_ds, generated: np.ndarray, device, chunk: int = 256) -> fl
     return score
 
 
-def _refuse_unported(model, *, data_parallel, pipeline_parallel, expert_parallel,
-                     tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp):
+def _check_strategies(model, *, data_parallel, pipeline_parallel, expert_parallel,
+                      tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
+                      grad_accum):
+    """The JAX trainer's strategy guards (its :210-255), with its
+    conditions and messages, then the refusal of the strategies that are
+    not ported (sequence, pipeline and expert parallelism)."""
     if not isinstance(model, (SetVAE, FlexibleVAE, LIDVAE)):
         raise TypeError(
             f"train_and_test trains the set models, the FlexibleVAE family and LIDVAE; "
             f"got {type(model).__name__}"
         )
-    parallel = {
-        "data_parallel": data_parallel,
-        "pipeline_parallel": (pipeline_parallel or 0) > 1,
-        "expert_parallel": expert_parallel,
-        "tensor_parallel": (tensor_parallel or 0) > 1,
-        "sequence_parallel": (sequence_parallel or 0) > 1,
-        "sequence_parallel_ring": sequence_parallel_ring,
-        "fsdp": fsdp,
-    }
-    unported = [k for k, on in parallel.items() if on]
+    active = [name for name, on in (
+        ("pipeline_parallel", (pipeline_parallel or 0) > 1),
+        ("expert_parallel", expert_parallel),
+        ("tensor_parallel", (tensor_parallel or 0) > 1),
+        ("sequence_parallel", (sequence_parallel or 0) > 1),
+    ) if on]
+    if len(active) > 1:
+        raise ValueError(
+            f"{' and '.join(active)} are exclusive (each owns "
+            "the device mesh; compose with data_parallel instead)"
+        )
+    if fsdp and active and active != ["tensor_parallel"]:
+        raise ValueError(
+            f"fsdp and {active[0]} are exclusive (fsdp composes "
+            "only with tensor_parallel: 2-D data x model weight sharding)"
+        )
+    if grad_accum and grad_accum > 1 and (active or fsdp or data_parallel):
+        raise ValueError(
+            "grad_accum is the single-device microbatching path; it does "
+            "not compose with the parallel strategies (shard the batch "
+            "instead)"
+        )
+    if sequence_parallel_ring and not (sequence_parallel and sequence_parallel > 1):
+        raise ValueError(
+            "sequence_parallel_ring selects the ring variant OF sequence "
+            f"parallelism; it requires sequence_parallel >= 2 (got "
+            f"{sequence_parallel})"
+        )
+    unported = [k for k in active if k != "tensor_parallel"]
     if unported:
         raise NotImplementedError(
             f"{unported[0]} is not ported to the PyTorch trainer yet; see ROADMAP.md "
-            "Queue 1 item 15 (parallel/)"
+            "Queue 1 item 15b (parallel/)"
         )
+
+
+def _world_size() -> int:
+    """Ranks of the open process group, else of the torchrun launch."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def _mesh_shape(model, *, data_parallel, tensor_parallel, fsdp, batch_size):
+    """(n_data, n_model) of the strategy asked for, after the JAX
+    trainer's checks of its TP (:479-520), FSDP (:593-602) and DP
+    branches; the launch must hold exactly that many ranks."""
+    world = _world_size()
+    if tensor_parallel and tensor_parallel > 1:
+        if getattr(model, "data_type", None) != "set" or not isinstance(
+                getattr(model, "encoder", None), SetEncoderAttn):
+            raise ValueError(
+                "tensor_parallel targets the attention set models "
+                "(Megatron-style head/FFN sharding, parallel/tp.py); "
+                f"got {type(model).__name__}"
+            )
+        n_data = world // tensor_parallel if (data_parallel or fsdp) else 1
+        if (data_parallel or fsdp) and n_data < 2:
+            raise ValueError(
+                f"{'fsdp' if fsdp else 'data_parallel'} x tensor_parallel="
+                f"{tensor_parallel} needs >= {2 * tensor_parallel} devices; "
+                f"have {world}"
+            )
+        if world < n_data * tensor_parallel:
+            raise ValueError(
+                f"tensor_parallel={tensor_parallel} needs that many "
+                f"devices; have {world}"
+            )
+        heads = model.encoder.layers[0].self_attn.num_heads
+        if heads % tensor_parallel != 0:
+            raise ValueError(
+                f"num_heads={heads} must divide over "
+                f"tensor_parallel={tensor_parallel} 'model' shards"
+            )
+        shape = (n_data, tensor_parallel)
+    else:
+        shape = (world, 1)
+    if batch_size % shape[0] != 0:
+        kind = "fsdp batch" if fsdp and shape[1] == 1 else "data-parallel"
+        raise ValueError(f"batch_size={batch_size} must divide over {shape[0]} {kind} shards")
+    if world != shape[0] * shape[1]:
+        raise ValueError(
+            f"the mesh holds {shape[0] * shape[1]} ranks but {world} processes were "
+            f"launched; launch it with torchrun --nproc_per_node {shape[0] * shape[1]}"
+        )
+    return shape
+
+
+def _setup_strategy(state, shape, *, data_parallel, tensor_parallel, fsdp):
+    """(state, train step, eval step, mesh) of the strategy asked for on a
+    mesh of `shape`, the state sharded as it says."""
+    from vae_song_tpu_torch.parallel import fsdp as fsdp_lib
+    from vae_song_tpu_torch.parallel import mesh as mesh_lib
+    from vae_song_tpu_torch.parallel import optree
+    from vae_song_tpu_torch.parallel import tp as tp_lib
+
+    model = state.model
+    mesh = mesh_lib.make_mesh(*shape)
+    if tensor_parallel and tensor_parallel > 1:
+        tp_lib.check_flash_partitionable(model, mesh)
+        if fsdp:
+            state = fsdp_lib.shard_state_tp_fsdp(state, mesh)
+            step = fsdp_lib.make_tp_fsdp_train_step(model, state.optimizer, mesh,
+                                                    state.fsdp_params)
+        else:
+            state = tp_lib.shard_state(state, mesh)
+            step = tp_lib.make_tp_dp_train_step(model, state.optimizer, mesh)
+    elif fsdp:
+        state = fsdp_lib.shard_state(state, mesh)
+        step = fsdp_lib.make_fsdp_train_step(model, state.optimizer, mesh, state.fsdp_params)
+    else:
+        mesh_lib.replicate_state(state, mesh)
+        return (state, mesh_lib.make_dp_train_step(model, state.optimizer, mesh),
+                mesh_lib.make_dp_eval_step(model, mesh), mesh)
+    return state, step, optree.make_gspmd_eval_step(model, mesh), mesh
 
 
 def _device_name(device: torch.device) -> str:
@@ -236,13 +352,42 @@ def train_and_test(
     library's, so the batch order differs from a run without it (as in
     JAX); without the library it takes the numpy path, as in JAX.
     epochs < 0: generation-only mode (the module's docstring); image
-    datasets only, since it writes image PNGs and an image FID."""
-    _refuse_unported(
+    datasets only, since it writes image PNGs and an image FID.
+
+    The strategies (JAX's guards hold: one of pipeline, expert, tensor and
+    sequence parallelism at a time; fsdp composes only with
+    tensor_parallel; grad_accum with none; the launch holds exactly the
+    mesh's ranks):
+    data_parallel: DistributedDataParallel over every rank, the JAX DP
+    step's per-shard semantics (parallel/mesh.py); on one device it warns
+    and trains single-device.
+    fsdp: FSDP2 over every rank, any model family, the single-device
+    step's semantics on the global batch (parallel/fsdp.py).
+    tensor_parallel: >= 2 splits the attention set models' heads and FFN
+    columns over that many ranks (parallel/tp.py); with data_parallel or
+    fsdp on a (ranks // tensor_parallel) x tensor_parallel mesh."""
+    _check_strategies(
         model, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, sequence_parallel_ring=sequence_parallel_ring,
-        fsdp=fsdp,
+        fsdp=fsdp, grad_accum=grad_accum,
     )
+    if data_parallel and not fsdp and not (tensor_parallel and tensor_parallel > 1) \
+            and _world_size() == 1:
+        # training single-device while the caller believes it measured DP
+        # would be worse than a loud downgrade (JAX :322-332)
+        print("WARNING: data_parallel requested but only 1 device is "
+              "visible; training single-device", flush=True)
+        data_parallel = False
+    sharded = data_parallel or fsdp or bool(tensor_parallel and tensor_parallel > 1)
+    owns_group = sharded and not dist.is_initialized()
+    if sharded:
+        mesh_shape = _mesh_shape(model, data_parallel=data_parallel,
+                                 tensor_parallel=tensor_parallel, fsdp=fsdp,
+                                 batch_size=batch_size)
+        # before the model moves: on the card each rank takes its own device;
+        # the backend follows the device asked for, not the cards visible
+        init_multihost("nccl" if torch.device(device).type == "cuda" else "gloo")
     if grad_accum and grad_accum > 1 and batch_size % grad_accum != 0:
         raise ValueError(
             f"batch_size={batch_size} must divide over "
@@ -279,6 +424,12 @@ def train_and_test(
         state, ckpt_epoch, resume_extra = ckpt_lib.load_checkpoint(resume_from, state)
         start_epoch = ckpt_epoch + 1
 
+    # under a process group only rank 0 writes the result tree; the others
+    # write to a throwaway directory, removed at the end, so the loggers
+    # stay callable without file races (JAX :285-295)
+    is_main = not sharded or dist.get_rank() == 0
+    if not is_main:
+        output_root = tempfile.mkdtemp(prefix=f"vst_rank{dist.get_rank()}_")
     name = synth_run_name(model)
     result_dir = os.path.join(output_root, "results", resultname, name)
     os.makedirs(os.path.join(result_dir, "params"), exist_ok=True)
@@ -293,8 +444,26 @@ def train_and_test(
 
     train_step = make_accum_train_step(model, optimizer, max(1, grad_accum or 1))
     eval_step = make_eval_step(model)
-    encode_fn, decode_fn, forward_fn = make_apply_fns(model)
     latent = model.latent_channel
+    mesh, plain = None, model
+    if sharded:
+        # FSDP and TP split the parameters: the last epoch's exports, plots
+        # and the final metrics run on a whole copy, gathered from them
+        if fsdp or (tensor_parallel and tensor_parallel > 1):
+            plain = copy.deepcopy(model)
+        setup = _setup_strategy(state, mesh_shape, data_parallel=data_parallel,
+                                tensor_parallel=tensor_parallel, fsdp=fsdp)
+        state, train_step, eval_step, mesh = setup
+    encode_fn, decode_fn, forward_fn = make_apply_fns(plain)
+
+    def gather_plain():
+        """The whole parameters on `plain` (a collective under FSDP / TP)."""
+        if plain is not model:
+            plain.load_state_dict({k: full_tensor(v) for k, v in model.state_dict().items()})
+        return plain
+
+    def shard(t, dim=0):
+        return t if mesh is None else shard_batch(t, mesh, dim)
 
     def eps_of(b, gen, samples=n_samples):
         """Noise of one batch of b: [b, latent] for the set models,
@@ -324,7 +493,9 @@ def train_and_test(
 
         ep_np_rng = np.random.default_rng([seed, epoch])
         noise = _generator(seed, epoch, _TRAIN)
-        dropout_rng = _generator(seed, epoch, _DROPOUT, device=device) if is_set else None
+        # each 'data' rank draws its own masks (JAX folds the rank into its key)
+        drop_stream = (_DROPOUT,) if mesh is None else (_DROPOUT, data_coordinate(mesh)[0])
+        dropout_rng = _generator(seed, epoch, *drop_stream, device=device) if is_set else None
         augment_rng = _generator(seed, epoch, _AUGMENT) if augment is not None else None
         ms = []
         # epoch 0 holds the first calls; the metrics' fetch ends the trace
@@ -332,7 +503,9 @@ def train_and_test(
             for x, _y in iterate_batches(train_ds, batch_size, rng=ep_np_rng, device=device,
                                          augment=augment, augment_rng=augment_rng,
                                          native_prefetch=native_prefetch):
-                ms.append(train_step(x, eps_of(x.shape[0], noise), wu_alpha, dropout_rng))
+                eps = eps_of(x.shape[0], noise)
+                ms.append(train_step(shard(x), shard(eps, eps.dim() - 2), wu_alpha,
+                                     dropout_rng))
                 state.step += 1
             train_means = _means(ms)
         writer.add_scalar("loss/train", train_means["loss"], epoch)
@@ -346,12 +519,13 @@ def train_and_test(
         ev_ms, last_eval_batch = [], None
         for x, y in iterate_batches(test_ds, batch_size, rng=ep_np_rng,
                                     shuffle=data_type == "1d", device=device):
-            ev_ms.append(eval_step(x, eps_of(x.shape[0], noise, 1), wu_alpha))
+            eps = eps_of(x.shape[0], noise, 1)
+            ev_ms.append(eval_step(shard(x), shard(eps, eps.dim() - 2), wu_alpha))
             last_eval_batch = (x, y)
         eval_means = _means(ev_ms)
         writer.add_scalar("loss/test", eval_means["loss"], epoch)
 
-        if progress and (epoch % max(1, epochs // 20) == 0 or last_epoch):
+        if progress and is_main and (epoch % max(1, epochs // 20) == 0 or last_epoch):
             print(
                 f"[{name}] epoch {epoch}: train loss {train_means['loss']:.4f} "
                 f"recon {train_means['recon']:.4f} reg {train_means['reg']:.4f} "
@@ -369,18 +543,19 @@ def train_and_test(
 
         if last_epoch:
             ckpt_lib.save_params_only(
-                os.path.join(result_dir, "params", f"model_{epoch}.pkl"), model)
+                os.path.join(result_dir, "params", f"model_{epoch}.pkl"), gather_plain())
         if last_epoch and visualize_artifacts:
             dump_noise = _generator(seed, epoch, _DUMP)
             if is_set:
-                _dump_set_samples(model, test_ds, decode_fn, forward_fn, resultname, name,
+                _dump_set_samples(plain, test_ds, decode_fn, forward_fn, resultname, name,
                                   epoch, output_root, dump_noise, device)
             elif last_eval_batch is not None:
-                _dump_artifacts(model, last_eval_batch, encode_fn, decode_fn, forward_fn,
+                _dump_artifacts(plain, last_eval_batch, encode_fn, decode_fn, forward_fn,
                                 data_type, resultname, name, epoch, output_root, dump_noise,
                                 device)
 
     writer.close()
+    gather_plain()
 
     fid = -1
     if epochs < 0:
@@ -394,7 +569,7 @@ def train_and_test(
     xb = torch.from_numpy(test_ds.X[:mb]).to(device)
     outs = forward_fn(xb, eps_of(mb, noise, 1))
     with torch.no_grad():
-        _, loss_rec, _, _ = model.loss(xb, *outs, wu_alpha=wu_alpha)
+        _, loss_rec, _, _ = plain.loss(xb, *outs, wu_alpha=wu_alpha)
         pm = metrics_lib.measure_posterior_metrics(noise, outs[1], outs[2], loss_rec)
     pm = {k: float(v) for k, v in pm.items()}
 
@@ -429,6 +604,10 @@ def train_and_test(
 
     summary = dict(name=name, duration_sec=duration, eval=eval_means,
                    posterior_metrics=pm, result_dir=result_dir, fid=fid)
+    if not is_main:
+        shutil.rmtree(output_root, ignore_errors=True)
+    if owns_group:
+        dist.destroy_process_group()
     return state, summary
 
 

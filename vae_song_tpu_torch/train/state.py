@@ -28,12 +28,13 @@ TrainState's optimizer state carries across as well.
 """
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from vae_song_tpu_torch import weights
+from vae_song_tpu_torch.nn.sync import local_tensor as _local
 
 
 def cosine_decay(lr: float, total_steps: int):
@@ -136,10 +137,12 @@ class Adam:
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         if not live:
             return
-        ps = [self.params[i] for i in live]
-        gs = [self.params[i].grad for i in live]
-        mus = [self.mu[i] for i in live]
-        nus = [self.nu[i] for i in live]
+        # elementwise, so a sharded parameter (a DTensor) updates its
+        # local slice from the slices of its gradient and moments
+        ps = [_local(self.params[i]) for i in live]
+        gs = [_local(self.params[i].grad) for i in live]
+        mus = [_local(self.mu[i]) for i in live]
+        nus = [_local(self.nu[i]) for i in live]
         torch._foreach_mul_(mus, self.b1)
         torch._foreach_add_(mus, torch._foreach_mul(gs, 1.0 - self.b1))
         torch._foreach_mul_(nus, self.b2)
@@ -166,6 +169,7 @@ class Optimizer:
                  grad_clip: dict | None = None):
         self.params = list(params)
         self.schedule = cosine_decay(lr, total_steps) if total_steps is not None else (lambda _: lr)
+        self.grad_clip = grad_clip
         self.clip = make_clip(grad_clip)
         self.adam = Adam(self.params, b1=0.9, b2=0.999, eps=1e-8)
         self.count = 0
@@ -195,11 +199,13 @@ def make_optimizer(params, lr: float = 1e-2, total_steps: int | None = None,
 @dataclass
 class TrainState:
     """The model (which holds the parameters), its optimizer and the
-    number of train steps taken."""
+    number of train steps taken; under FSDP (parallel/fsdp.py) also the
+    parameters FSDP2 manages."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
+    fsdp_params: list = field(default_factory=list)
 
 
 def _slot_names(state: TrainState) -> list[str]:

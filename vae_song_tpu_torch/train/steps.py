@@ -14,6 +14,12 @@ models), the keep-mask source `dropout_rng` (a torch.Generator, or a
 callable that hands out masks: nn.blocks.keep_mask), so tests feed both
 packages the same numbers.
 
+`make_grads_fn` (JAX :45) is the step's first half, the gradients and
+the moved BatchNorm statistics of one batch, and `make_backward_fn` the
+same taken with `.backward()` for the wrappers that reduce gradients in
+their backward hooks (DDP, FSDP2; parallel/); a strategy reduces between
+it and the optimizer update.
+
 The gradient is the JAX `make_grads_fn`'s:
 
   * composite (every model but LRVAE, LIDVAE included, though it has an
@@ -67,6 +73,112 @@ def _raw_kl(model, outs):
     return kl
 
 
+def _mode(model, grad_mode):
+    mode = grad_mode or getattr(model, "grad_mode", "composite")
+    if mode not in ("composite", "staged"):
+        raise ValueError(f"unknown grad_mode {mode!r}")
+    return mode
+
+
+def _encoder_ids(model) -> set:
+    encoder = getattr(model, "encoder", None)
+    return {id(p) for p in encoder.parameters()} if encoder is not None else set()
+
+
+def _metrics(model, terms, outs):
+    with torch.no_grad():
+        return torch.stack([*terms, _raw_kl(model, outs)]).float()
+
+
+def make_grads_fn(model, params, grad_mode: str | None = None):
+    """grads_fn(x, eps, wu_alpha, dropout_rng=None) -> (grads, metrics)
+    (JAX `make_grads_fn`, :45): the gradient of one batch with respect to
+    `params` (a list; None where a parameter does not reach the loss) and
+    its metrics stacked [loss, recon, reg, lr, raw_kl] in f32. The model
+    runs in train mode, so its BatchNorm statistics move: the new
+    statistics are its buffers after the call. No parameter changes; a
+    strategy reduces between this and the update (parallel/)."""
+    mode = _mode(model, grad_mode)
+    encoder_ids = _encoder_ids(model)
+
+    def grads_fn(x, eps, wu_alpha=0.0, dropout_rng=None):
+        model.train()
+        outs = model(x, eps) if dropout_rng is None else model(x, eps, dropout_rng)
+        terms = model.loss(x, *outs, wu_alpha=wu_alpha)
+        if mode == "staged":
+            grads = _staged_grads(terms, params, encoder_ids)
+        else:
+            grads = _pull(terms[0], params)
+        return grads, _metrics(model, terms, outs)
+
+    return grads_fn
+
+
+def make_backward_fn(forward, model, params, grad_mode: str | None = None,
+                     after_backward=None):
+    """The gradient of `make_grads_fn` taken with `.backward()`, for the
+    wrappers whose gradient reduction hooks into it (DDP's reducer,
+    FSDP2's reduce-scatter): backward_fn(x, eps, wu_alpha, dropout_rng)
+    -> metrics, leaving each parameter's `.grad` (None where it does not
+    reach the loss). `forward(x, eps[, dropout_rng])` is the wrapped
+    model's call; `after_backward()`, if given, runs after each backward
+    pass (the reduction of the gradients the wrapper does not reduce).
+
+    The staged gradient takes two passes, one forward and one backward
+    each, since a wrapper reduces once per backward: first the scaled
+    latent-recon term, whose encoder share is then scaled by
+    ENCODER_LR_LAMBDA (the reduction is linear, so scaling after it is
+    the same), then recon + scaled reg; the sum is g_main + g_lr. The
+    BatchNorm buffers and a torch.Generator dropout source are set back
+    before the second pass, so both passes see the same statistics and
+    masks."""
+    mode = _mode(model, grad_mode)
+    encoder_ids = _encoder_ids(model)
+
+    def run(x, eps, wu_alpha, dropout_rng):
+        outs = forward(x, eps) if dropout_rng is None else forward(x, eps, dropout_rng)
+        return outs, model.loss(x, *outs, wu_alpha=wu_alpha)
+
+    def backward(loss):
+        if loss.requires_grad:
+            loss.backward()
+        if after_backward is not None:
+            after_backward()
+
+    def backward_fn(x, eps, wu_alpha=0.0, dropout_rng=None):
+        model.train()
+        for p in params:
+            p.grad = None
+        if mode == "composite":
+            outs, terms = run(x, eps, wu_alpha, dropout_rng)
+            backward(terms[0])
+            return _metrics(model, terms, outs)
+        buffers = [b.detach().clone() for b in model.buffers()]
+        rng_state = dropout_rng.get_state() if isinstance(dropout_rng, torch.Generator) else None
+        _, terms = run(x, eps, wu_alpha, dropout_rng)
+        backward(terms[3])
+        g_lr = []
+        for p in params:
+            g = p.grad
+            if g is not None and id(p) in encoder_ids:
+                g = g * ENCODER_LR_LAMBDA
+            g_lr.append(g)
+            p.grad = None
+        with torch.no_grad():
+            for b, saved in zip(model.buffers(), buffers):
+                b.copy_(saved)
+        if rng_state is not None:
+            dropout_rng.set_state(rng_state)
+        outs, terms = run(x, eps, wu_alpha, dropout_rng)
+        backward(terms[1] + terms[2])
+        for p, b in zip(params, g_lr):
+            if b is not None:
+                p.grad = b if p.grad is None else p.grad + b
+        return _metrics(model, terms, outs)
+
+    return backward_fn
+
+
 def make_train_step(model, optimizer, grad_mode: str | None = None):
     """train_step(x, eps, wu_alpha, dropout_rng=None) -> {"loss", "recon",
     "reg", "lr", "raw_kl"}, each a 0-dim tensor on the model's device;
@@ -95,29 +207,18 @@ def make_accum_train_step(model, optimizer, n_micro: int, grad_mode: str | None 
     SetLRVAE's batch-summed latent-recon term therefore carries JAX's
     1/n_micro (each microbatch sums over its own clouds). n_micro = 1 is
     `make_train_step`."""
-    mode = grad_mode or getattr(model, "grad_mode", "composite")
-    if mode not in ("composite", "staged"):
-        raise ValueError(f"unknown grad_mode {mode!r}")
     params = [p for p in optimizer.params if p.requires_grad]
-    encoder = getattr(model, "encoder", None)
-    encoder_ids = {id(p) for p in encoder.parameters()} if encoder is not None else set()
+    grads_fn = make_grads_fn(model, params, grad_mode)
 
     def train_step(x, eps, wu_alpha=0.0, dropout_rng=None):
-        model.train()
         optimizer.zero_grad()
         b = x.shape[0]
         if b % n_micro:
             raise ValueError(f"batch of {b} does not divide over {n_micro} microbatches")
         acc, m_acc = None, None
         for xi, ei in zip(x.split(b // n_micro), eps.split(b // n_micro, dim=eps.dim() - 2)):
-            outs = model(xi, ei) if dropout_rng is None else model(xi, ei, dropout_rng)
-            terms = model.loss(xi, *outs, wu_alpha=wu_alpha)
-            if mode == "staged":
-                grads = _staged_grads(terms, params, encoder_ids)
-            else:
-                grads = _pull(terms[0], params)
+            grads, m = grads_fn(xi, ei, wu_alpha, dropout_rng)
             with torch.no_grad():
-                m = torch.stack([*terms, _raw_kl(model, outs)]).float()
                 if n_micro == 1:
                     acc, m_acc = list(grads), m
                     continue
