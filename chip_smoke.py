@@ -146,10 +146,25 @@ non-zero exit code:
      FSDP run. One card cannot hold two NCCL ranks: multi-rank semantics
      are the CPU tests' (gloo).
 
+  14. sequence, pipeline and expert parallelism (parallel/sp.py, pp.py,
+     pp_setvae.py, ep.py) in a one-rank NCCL group the phase opens and
+     closes: for the shipped SetVAE (B = 64, bf16) and SetLRVAE (B = 16),
+     one train step of the SP step (all-gather, then ring), the PP step
+     (one stage, the trainer's microbatch rule) and the EP step (one
+     expert, `moe_experts: 1`) from the plain step's weights, clouds and
+     noise, against the plain step of the same model: PP and EP with
+     PARALLEL_BOUNDS (and whether bitwise equal), launching the plain
+     step's K1, K2, K4 and K5 as many times; SP with the kernel-against-
+     plain bounds, launching no kernel and running plain attention, its
+     peak device memory printed (B = 32 where B = 64 does not fit); each
+     step's ms/step beside the plain step's; then `train_and_test` with
+     `sequence_parallel` and with `pipeline_parallel` for one epoch on a
+     1 x 1 mesh (their mesh-shape rule patched to the one rank).
+
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-13 (zero on phases 9-11).
+`paths` its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
 """
 
@@ -187,6 +202,7 @@ from vae_song_tpu_torch.ops import fid as fid_lib
 from vae_song_tpu_torch.parallel import ep
 from vae_song_tpu_torch.parallel import fsdp as fsdp_lib
 from vae_song_tpu_torch.parallel import mesh as mesh_lib
+from vae_song_tpu_torch.parallel import pp, pp_setvae, sp
 from vae_song_tpu_torch.parallel import tp as tp_lib
 from vae_song_tpu_torch.serving import quant
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
@@ -2509,6 +2525,205 @@ def phase_parallel(dev, card):
     return paths
 
 
+# Phase 14: sequence, pipeline and expert parallelism on one rank, each step
+# against the plain step from the same weights, clouds and noise on the
+# card. PP (one stage; microbatches by the trainer's rule) and EP (one
+# expert a rank, moe_experts 1, against the plain step of that MoE model)
+# run the plain step's kernels on the same arithmetic but for the
+# pipeline's f32 output buffer and the reductions over one rank, so they
+# are held to PARALLEL_BOUNDS and the line says whether they came out
+# bitwise equal; their launches in one step must equal the plain step's.
+# SP runs no kernel (the JAX package routes `seq_axis` attention through
+# XLA): all-gather or ring attention in plain PyTorch against the plain
+# step's K1/K2, and the plain Chamfer minima against K4/K5, so it is held
+# at the kernel-against-plain bounds of phases 4d and 5 (loss terms
+# REF_BF16_LOSS_RTOL, gradients REF_BF16_GRAD_RTOL, moved share
+# REF_BF16_MOVED_SHARE), no counter may rise and plain attention must run.
+# Peak device memory of each SP step; B = 32 where B = 64 does not fit.
+MODEL_PARALLEL = ("sp", "sp_ring", "pp", "ep")
+SP_BOUNDS = {"loss": REF_BF16_LOSS_RTOL, "grad": REF_BF16_GRAD_RTOL,
+             "moved": REF_BF16_MOVED_SHARE}
+SP_BATCHES = (BATCH, BATCH // 2)
+EP_OVERRIDE = {"moe_experts": 1}
+PHASE14_EPOCHS = 1
+
+
+def _model_parallel_step(kind, model, batch):
+    """(train step(x, eps, wu), state) of `kind` on a one-rank mesh."""
+    from vae_song_tpu_torch.train.state import TrainState
+
+    state = TrainState(model, make_optimizer(model.parameters(), lr=LR))
+    if kind in ("sp", "sp_ring"):
+        mesh = sp.make_sp_mesh(1, 1)
+        mesh_lib.replicate_state(state, mesh)
+        step = sp.make_sp_train_step(model, state.optimizer, mesh, kind == "sp_ring")
+        return (lambda x, eps, wu: step(sp.shard_points(x, mesh), eps, wu)), state
+    if kind == "pp":
+        mesh = pp.make_pp_mesh(1)
+        pp_setvae.shard_pp_setvae_state(state, mesh)
+        n_micro = pp_setvae.default_n_micro(batch, 1)  # the trainer's rule
+        return pp_setvae.make_setvae_pp_train_step(model, state.optimizer, mesh, n_micro), state
+    mesh = ep.make_ep_mesh(1)
+    ep.shard_setvae_ep_state(state, mesh)
+    return ep.make_setvae_ep_train_step(model, state.optimizer, mesh), state
+
+
+def _gaps(terms, grads, state, want):
+    """(loss terms max rel, gradients rel L2, share moved apart > lr/10,
+    bitwise equal) of one step against the plain step's (terms, grads,
+    state)."""
+    want_terms, want_grads, want_state = want
+    keys = [k for k in want_grads if not k.endswith("key.bias")]
+    rel = max(abs(terms[k] - want_terms[k]) / max(abs(want_terms[k]), 1e-12)
+              for k in ("loss", "recon", "reg", "raw_kl"))
+    diff = math.sqrt(sum(float(((grads[k] - want_grads[k]) ** 2).sum()) for k in keys))
+    grad_rel = diff / math.sqrt(sum(float((want_grads[k] ** 2).sum()) for k in keys))
+    deltas = torch.cat([(state[k] - want_state[k]).abs().reshape(-1) for k in keys])
+    moved = float((deltas > LR / 10).float().mean())
+    bitwise = (terms == want_terms and set(grads) == set(want_grads)
+               and all(torch.equal(grads[k], want_grads[k]) for k in want_grads)
+               and all(torch.equal(state[k], want_state[k]) for k in want_state))
+    return rel, grad_rel, moved, bitwise
+
+
+def _model_parallel_of(exp_type, params, batch, dev, card):
+    """Phase 14 for one config; returns {strategy: launches}."""
+    plains = {}
+    for tag, p in (("plain", params), ("moe", dict(params, **EP_OVERRIDE))):
+        model = _build(exp_type, p).to(dev)
+        step = make_train_step(model, make_optimizer(model.parameters(), lr=LR))
+        xs, eps = _clouds_and_noise(TIMED_STEPS + 2, batch, params, dev, SEED + 14)
+        _reset_launches()
+        want = _one_step(step, model, xs[0], eps[0])
+        plains[tag] = (want, _read_launches(), _strategy_ms(step, xs, eps))
+        del model, step
+    out = {}
+    for kind in MODEL_PARALLEL:
+        want, want_launches, plain_ms = plains["moe" if kind == "ep" else "plain"]
+        b = batch
+        for b in (SP_BATCHES if kind.startswith("sp") and batch == BATCH else (batch,)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = _build(exp_type, dict(params, **EP_OVERRIDE) if kind == "ep" else params)
+            model = model.to(dev)
+            step, _ = _model_parallel_step(kind, model, b)
+            xs, eps = _clouds_and_noise(TIMED_STEPS + 2, batch, params, dev, SEED + 14)
+            xs, eps = xs[:, :b], eps[:, :b]
+            plain_calls, plain_attention = [], attention_lib.attention_plain
+            _reset_launches()
+            try:
+                with mock.patch.object(attention_lib, "attention_plain", lambda *a, **k: (
+                        plain_calls.append(1) or plain_attention(*a, **k))):
+                    terms, grads, state = _one_step(step, model, xs[0], eps[0])
+                    launches = _read_launches()
+                    ms = _strategy_ms(step, xs, eps)
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"{card}: {exp_type} {kind} step at B={b} does not fit the card: "
+                      f"{str(e)[:200]}")
+                del model, step
+                continue
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            break
+        else:
+            raise AssertionError(f"the {kind} step ({exp_type}) fits at none of B = {SP_BATCHES}")
+        if b != batch:
+            # the plain step at the batch that fitted, from the same weights
+            model_p = _build(exp_type, params).to(dev)
+            step_p = make_train_step(model_p, make_optimizer(model_p.parameters(), lr=LR))
+            _reset_launches()
+            want = _one_step(step_p, model_p, xs[0], eps[0])
+            want_launches, plain_ms = _read_launches(), _strategy_ms(step_p, xs, eps)
+            del model_p, step_p
+        rel, grad_rel, moved, bitwise = _gaps(terms, grads, state, want)
+        bounds = SP_BOUNDS if kind.startswith("sp") else PARALLEL_BOUNDS
+        fitted = "" if b == batch else f" (B={batch} does not fit)"
+        print(f"{card}: {exp_type} B={b} {kind} step {ms:.3f} ms/step vs plain step "
+              f"{plain_ms:.3f} ms/step (median of {TIMED_STEPS}, host clock){fitted}; "
+              f"against the plain step: loss terms max rel {rel:.3e} (bound {bounds['loss']}), "
+              f"gradients rel L2 {grad_rel:.3e} (bound {bounds['grad']}), params moved apart "
+              f"> lr/10 {moved:.3e} (bound {bounds['moved']}), bitwise equal {bitwise}; peak "
+              f"device memory {peak:.2f} GiB; plain attention calls {len(plain_calls)}; "
+              f"launches in one step {launches} (plain step {want_launches})")
+        if kind.startswith("sp"):
+            _expect_launches(launches, f"the {kind} step ({exp_type})", (), tuple(COUNTERS))
+            if kind == "sp" and not plain_calls:
+                raise AssertionError(f"the {kind} step ({exp_type}) ran no plain attention")
+        else:
+            _expect_launches(launches, f"the {kind} step ({exp_type})", PARALLEL_PATH,
+                             [k for k in COUNTERS if k not in PARALLEL_PATH])
+            if launches != want_launches or plain_calls:
+                raise AssertionError(f"the {kind} step ({exp_type}) launched {launches}, the "
+                                     f"plain step {want_launches}; plain attention "
+                                     f"{len(plain_calls)} calls")
+        if not (rel <= bounds["loss"] and grad_rel <= bounds["grad"]
+                and moved <= bounds["moved"]):
+            raise AssertionError(f"the {kind} step ({exp_type}) disagrees with the plain step")
+        out[kind] = launches
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _model_parallel_trainer(dev, card):
+    """train_and_test with sequence_parallel and with pipeline_parallel on
+    the one rank: each branch's mesh-shape rule needs two ranks, so it is
+    patched to a 1 x 1 mesh; the branch's steps, eval and sync run as they
+    are. Returns {path: launches}."""
+    dataset_params = dict(COMMON_PARAMS["dataset_params"], fake=True)
+    kw = dict(epochs=PHASE14_EPOCHS, batch_size=BATCH, dataset_name=COMMON_PARAMS["exp_data"],
+              resultname=COMMON_PARAMS["resultname"], seed=SEED, dataset_params=dataset_params,
+              lr=LR, device=dev, visualize_artifacts=False, progress=False)
+    out = {}
+    for name, option in (("sp_train_and_test", {"sequence_parallel": 2}),
+                         ("pp_train_and_test", {"pipeline_parallel": 2})):
+        with tempfile.TemporaryDirectory() as root, \
+                mock.patch.object(train_loop, "_mesh_shape", lambda *a, **k: (1, 1)):
+            _reset_launches()
+            t0 = time.perf_counter()
+            state, summary = train_and_test(_build("setvae", MODEL_PARAMS), output_root=root,
+                                            **kw, **option)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _read_launches()
+        print(f"{card}: train_and_test {option} on a 1 x 1 mesh: {PHASE14_EPOCHS} epoch of "
+              f"{state.step} steps at B={BATCH} in {wall:.2f} s, eval {summary['eval']}; "
+              f"launches {launches}")
+        if not all(math.isfinite(v) for v in summary["eval"].values()):
+            raise AssertionError(f"train_and_test {option}: non-finite eval {summary['eval']}")
+        if "sequence_parallel" in option:
+            # the SP train and eval steps run no kernel; the last-epoch
+            # export and the final metrics run the plain model (K1, K4)
+            _expect_launches(launches, name, (), ("dense_attn_bwd", "chamfer_bwd", "ffn_fwd",
+                                                  "ffn_bwd", "dense_attn_bhnd_fwd",
+                                                  "dense_attn_bhnd_bwd"))
+        else:
+            _expect_launches(launches, name, PARALLEL_PATH,
+                             [k for k in COUNTERS if k not in PARALLEL_PATH])
+        out[name] = launches
+    return out
+
+
+def phase_model_parallel(dev, card):
+    """Phase 14 in a one-rank NCCL group it opens and closes; returns the
+    launches of each path."""
+    os.environ.pop("MASTER_ADDR", None)
+    os.environ.pop("MASTER_PORT", None)
+    mesh_lib.init_multihost("nccl")
+    try:
+        paths = {}
+        for exp_type, params, batch in (
+                ("setvae", MODEL_PARAMS, BATCH),
+                ("setlrvae", dict(MODEL_PARAMS, **SETLRVAE_PARAMS), SETLRVAE_BATCH)):
+            for kind, launches in _model_parallel_of(exp_type, params, batch, dev, card).items():
+                paths[f"{kind}_{exp_type}"] = launches
+        paths.update(_model_parallel_trainer(dev, card))
+    finally:
+        torch.distributed.destroy_process_group()
+    return paths
+
+
 def _timed(fn, *args):
     """fn(*args), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2545,6 +2760,7 @@ def main():
     paths["image_path"] = _timed(phase_images, dev)
     paths.update(_timed(phase_surface, dev))
     paths.update(_timed(phase_parallel, dev, card))
+    paths.update(_timed(phase_model_parallel, dev, card))
     rows = (
         ("dense_attn_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:408", main_path, k1),
         ("dense_attn_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:433", main_path, k2),

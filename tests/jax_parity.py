@@ -205,14 +205,15 @@ def flex_step_parity(monkeypatch, kind, arch, mixed, n_samples, extra=None, n_mi
 
 
 def jax_sharded_step(phase, port):
-    """One train step of the JAX package's GSPMD strategy
-    phase["strategy"] ("fsdp": make_fsdp_train_step on a ('data',) mesh;
-    "tp_dp": make_tp_dp_train_step; "tp_fsdp": make_tp_fsdp_train_step;
-    both on phase["mesh"] = [n_data, n_model]) on conftest's virtual
-    devices, from `port`'s weights and statistics, on the global batch
-    phase["x"] with the noise phase["eps"] (patch_eps: every shard draws
-    its block of it). Returns {"metrics", "grads" and "params"
-    (state_dict-keyed tensors), "stats" (the batch_stats tree)}."""
+    """One train step of the JAX package's strategy phase["strategy"]
+    ("fsdp": make_fsdp_train_step on a ('data',) mesh; "tp_dp":
+    make_tp_dp_train_step; "tp_fsdp": make_tp_fsdp_train_step; both on
+    phase["mesh"] = [n_data, n_model]; "sp", "sp_ring", "pp", "ep": see
+    `_jax_model_parallel_step`) on conftest's virtual devices, from
+    `port`'s weights and statistics, on the global batch phase["x"] with
+    the noise phase["eps"] (patch_eps: every shard draws its block of
+    it). Returns {"metrics", "grads" and "params" (state_dict-keyed
+    tensors), "stats" (the batch_stats tree)}."""
     from vae_song_tpu.models import build_model as jax_build_model
     from vae_song_tpu.parallel import fsdp as jax_fsdp
     from vae_song_tpu.parallel import make_mesh
@@ -227,10 +228,12 @@ def jax_sharded_step(phase, port):
     state = jax_state.TrainState.create(
         jax.tree.map(jnp.array, variables["params"]),
         jax.tree.map(jnp.array, variables.get("batch_stats", {})), tx)
+    kind = phase["strategy"]
+    if kind in ("sp", "sp_ring", "pp", "ep"):
+        return _jax_model_parallel_step(phase, port, jmodel, variables)
     n_data, n_model = phase["mesh"]
     devices = jax.devices()[:n_data * n_model]
     mse = phase.get("min_shard_elems", jax_fsdp.DEFAULT_MIN_SHARD_ELEMS)
-    kind = phase["strategy"]
     mp = pytest.MonkeyPatch()
     patch_eps(mp, phase["eps"])
     try:
@@ -256,6 +259,71 @@ def jax_sharded_step(phase, port):
             "grads": weights.params_to_state_dict(to_np(state.opt_state[0]), keys),
             "params": weights.params_to_state_dict(to_np(state.params), keys),
             "stats": to_np(state.batch_stats)}
+
+
+def _jax_model_parallel_step(phase, port, jmodel, variables):
+    """The JAX step of sequence parallelism ("sp": make_sp_train_step on a
+    phase["mesh"] = [n_data, n_seq] mesh; "sp_ring": with ring=True),
+    pipeline parallelism ("pp": make_setvae_pp_train_step on [n_data,
+    n_stages], n_data 1 a ('stage',) mesh, phase["n_micro"]
+    microbatches, phase["grad_clip"] in the step) or expert parallelism
+    ("ep": make_setvae_ep_train_step on [n_experts]), its tx the port's
+    Adam after grads_capture. Every shard's eps draw is patched to
+    phase["eps"]'s first row block of the shard's size (patch_eps), as
+    every port rank of the strategy takes the same block."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from vae_song_tpu.parallel import ep as jax_ep
+    from vae_song_tpu.parallel import pp as jax_pp
+    from vae_song_tpu.parallel import pp_setvae as jax_pp_setvae
+    from vae_song_tpu.parallel import sp as jax_sp
+    from vae_song_tpu.train import state as jax_state
+    from vae_song_tpu_torch import weights
+
+    kind, shape = phase["strategy"], phase["mesh"]
+    devices = jax.devices()[:int(np.prod(shape))]
+    tx = optax.chain(grads_capture(), jax_state.make_optimizer(lr=phase["lr"]))
+    params = jax.tree.map(jnp.array, variables["params"])
+    eps_block = phase["eps"][:phase["eps"].shape[0] // shape[0]]
+    x, wu, key = jnp.asarray(phase["x"]), jnp.float32(phase["wu"]), jax.random.PRNGKey(0)
+    mp = pytest.MonkeyPatch()
+    patch_eps(mp, eps_block)
+    try:
+        if kind in ("sp", "sp_ring"):
+            mesh = jax_sp.make_sp_mesh(*shape, devices)
+            state = jax.device_put(jax_state.TrainState.create(params, {}, tx),
+                                   NamedSharding(mesh, P()))
+            step = jax_sp.make_sp_train_step(jmodel, tx, mesh, ring=kind == "sp_ring")
+            state, m = step(state, jax_sp.shard_points(x, mesh), wu, key)
+            grads, params = state.opt_state[0], state.params
+        elif kind == "ep":
+            mesh = jax_ep.make_ep_mesh(shape[0], devices)
+            base = jax_state.TrainState.create(params, {}, tx)
+            step = jax_ep.make_setvae_ep_train_step(jmodel, tx, mesh, base,
+                                                    grad_clip=phase.get("grad_clip"))
+            state = jax_ep.shard_setvae_ep_state(base, mesh)
+            state, m = step(state, jax.device_put(x, NamedSharding(mesh, P("expert"))), wu, key)
+            grads, params = state.opt_state[0], state.params
+        else:
+            n_data, n_stages = shape
+            n_layers = jmodel.num_encoder_layers
+            mesh = (jax_pp_setvae.make_dp_pp_mesh(n_data, n_stages, devices) if n_data > 1
+                    else jax_pp.make_pp_mesh(n_stages, devices))
+            pp0 = jax_pp_setvae.split_params(params, n_layers)
+            p_pp, o_pp = jax_pp_setvae.shard_pp_setvae_state(pp0, tx.init(pp0), mesh, tx)
+            step = jax_pp_setvae.make_setvae_pp_train_step(jmodel, tx, mesh, phase["n_micro"],
+                                                           grad_clip=phase.get("grad_clip"))
+            if n_data > 1:
+                x = jax.device_put(x, NamedSharding(mesh, P("data")))
+            p_pp, o_pp, m = step(p_pp, o_pp, x, wu, key)
+            grads = jax_pp_setvae.merge_params(o_pp[0], n_layers)
+            params = jax_pp_setvae.merge_params(p_pp, n_layers)
+    finally:
+        mp.undo()
+    keys = [k for k, _ in port.named_parameters()]
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": weights.params_to_state_dict(to_np(grads), keys),
+            "params": weights.params_to_state_dict(to_np(params), keys), "stats": {}}
 
 
 def port_spec_as_flax(name, spec, ndim):

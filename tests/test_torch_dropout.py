@@ -34,7 +34,9 @@ from vae_song_tpu_torch.ops.attention import MultiHeadAttention
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_train_step
 
-from jax_parity import grads_capture, patch_eps
+from jax_parity import grads_capture, one_thread, patch_eps  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B, N, LATENT, RATE = 4, 128, 16, 0.1
 MODEL_PARAMS = dict(latent_channel=LATENT, num_points=N, d_model=128, num_heads=2,

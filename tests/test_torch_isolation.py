@@ -38,7 +38,8 @@ SLICE_MODULES = {"vae_song_tpu_torch." + m for m in (
     "data.images", "data.native", "data.pipeline", "ops.fid", "ops.inception", "viz.pca",
     "cli.generate", "train.loop",
     "nn.moe", "parallel.ep", "serving", "serving.quant", "train.profiling", "cli.complexity",
-    "parallel.mesh", "parallel.fsdp", "parallel.tp", "parallel.optree", "nn.sync")}
+    "parallel.mesh", "parallel.fsdp", "parallel.tp", "parallel.optree", "nn.sync",
+    "parallel.sp", "parallel.pp", "parallel.pp_setvae", "parallel.dryrun", "nn.collectives")}
 
 
 def _run(args, cwd, env_extra=None):

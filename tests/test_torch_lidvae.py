@@ -37,7 +37,10 @@ from vae_song_tpu_torch.train import checkpoint
 from vae_song_tpu_torch.train.state import make_optimizer
 from vae_song_tpu_torch.train.steps import make_apply_fns, make_eval_step, make_train_step
 
-from jax_parity import grad_gap, grads_capture, max_rel, patch_eps, random_stats, rel_err, to_np
+from jax_parity import (grad_gap, grads_capture, max_rel, one_thread, patch_eps,  # noqa: F401
+                        random_stats, rel_err, to_np)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B = 16
 # (dataset, hidden_channels, icnn_channels): the MLP encoder on 1-D points,

@@ -1,9 +1,11 @@
 """The port trainer's strategy guards, with the JAX trainer's conditions
 and messages (JAX tests/test_trainer_tp_sp.py:107,115,139,
-tests/test_fsdp.py:143), the refusal of the strategies item 15b still
-holds, and FSDP on one process: `fsdp: true` without a launcher opens a
-one-rank gloo group, trains as the single-device run does, and closes
-the group. Nothing here starts another process."""
+tests/test_fsdp.py:143; loop.py:349-412, 440-467, 551-577 and the PP
+step's refusals, parallel/pp_setvae.py:199-217), and FSDP on one
+process: `fsdp: true` without a launcher opens a one-rank gloo group,
+trains as the single-device run does, and closes the group; the dry
+run's launcher (parallel/dryrun.py): NCCL ranks on the cards, gloo ranks
+only when asked for. Nothing here starts another process."""
 
 import numpy as np
 import pytest
@@ -43,6 +45,62 @@ def test_strategy_guards(tmp_path, option, match):
     with pytest.raises(ValueError, match=match):
         _train(tmp_path, **option)
     assert not list(tmp_path.iterdir()) and not dist.is_initialized()
+
+
+MOE = dict(SET, model_params=dict(SET["model_params"], moe_experts=2))
+DROPOUT = dict(SET, model_params=dict(SET["model_params"], attn_dropout=0.1))
+
+
+@pytest.mark.parametrize("spec,option,world,error,match", [
+    (MOE, {"expert_parallel": True, "data_parallel": True}, 2, ValueError,
+     "expert_parallel and data_parallel are exclusive"),
+    (SET, {"expert_parallel": True}, 1, ValueError, r"moe_experts >= 2; got 0"),
+    (MOE, {"expert_parallel": True}, 1, ValueError,
+     "expert_parallel needs moe_experts=2 devices; have 1"),
+    (MOE, {"expert_parallel": True, "batch_size": 15}, 2, ValueError,
+     "batch_size=15 must divide over 2 experts"),
+    (SET, {"sequence_parallel": 2}, 1, ValueError,
+     "sequence_parallel=2 needs that many devices; have 1"),
+    (SET, {"sequence_parallel": 2, "data_parallel": True}, 1, ValueError,
+     r"data_parallel x sequence_parallel=2 needs >= 4 devices; have 1"),
+    (SET, {"sequence_parallel": 3}, 3, ValueError,
+     r"num_points=16 must divide evenly over the 'seq' axis \(3 shards\)"),
+    (SET, {"sequence_parallel": 2, "data_parallel": True, "batch_size": 15}, 4, ValueError,
+     "batch_size=15 must divide over 2 data-parallel shards"),
+    (SET, {"pipeline_parallel": 2}, 1, ValueError,
+     "pipeline_parallel=2 needs that many devices; have 1"),
+    (SET, {"pipeline_parallel": 2, "data_parallel": True}, 2, ValueError,
+     r"data_parallel x pipeline_parallel=2 needs >= 4 devices; have 2"),
+    (SET, {"pipeline_parallel": 2, "data_parallel": True, "batch_size": 15}, 4, ValueError,
+     "batch_size=15 must divide over 2 data-parallel pipelines"),
+    (DROPOUT, {"pipeline_parallel": 2}, 2, NotImplementedError,
+     "attn_dropout=0.1 is not supported under pipeline parallelism"),
+    (MOE, {"pipeline_parallel": 2}, 2, NotImplementedError,
+     "moe_experts=2 is not supported under pipeline parallelism"),
+    (SET, {"pipeline_parallel": 4}, 4, ValueError,
+     "2 encoder layers do not divide over 4 stages"),
+], ids=["ep_with_dp", "ep_without_moe", "ep_too_few_ranks", "ep_batch", "sp_too_few_ranks",
+        "dp_sp_too_few_ranks", "sp_points", "dp_sp_batch", "pp_too_few_ranks",
+        "dp_pp_too_few_ranks", "dp_pp_batch", "pp_dropout", "pp_moe", "pp_layers"])
+def test_sequence_pipeline_expert_guards(tmp_path, monkeypatch, spec, option, world, error,
+                                         match):
+    """JAX's guards of its sequence-, pipeline- and expert-parallel branches,
+    with its messages; "devices" are the launch's ranks (WORLD_SIZE here).
+    Refused before anything is written or any process group opens."""
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(error, match=match):
+        _train(tmp_path, _model(spec), **option)
+    assert not list(tmp_path.iterdir()) and not dist.is_initialized()
+
+
+def test_sequence_parallel_rejects_non_set_models(tmp_path):
+    model = _model(dict(exp_type="lrvae", dataset="pinwheel", beta=0.01, alpha=0.01,
+                        model_params=dict(hchans=[8, 8], encoder_type="mlp",
+                                          decoder_type="mlp")))
+    with pytest.raises(ValueError, match="sequence_parallel shards the POINT axis"):
+        _train(tmp_path, model, sequence_parallel=2, dataset_name="pinwheel",
+               dataset_params={"num_samples": 64})
+    assert not dist.is_initialized()
 
 
 def test_tensor_parallel_rejects_non_attention_models(tmp_path):
@@ -108,3 +166,52 @@ def test_cpu_run_opens_a_gloo_group_where_a_card_is_visible(tmp_path, monkeypatc
     _, summary = _train(tmp_path, fsdp=True, epochs=1)
     assert backends == ["gloo"] and np.isfinite(summary["eval"]["loss"])
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("argv,cards,want", [
+    ([], 4, (4, "cuda")),
+    (["--ranks", "2"], 4, (2, "cuda")),
+    (["--device", "cpu"], 4, (4, "cpu")),
+    (["--device", "cpu", "--ranks", "2"], 0, (2, "cpu")),
+    ([], 0, None),
+    (["--ranks", "4"], 2, None),
+])
+def test_dryrun_launch_follows_the_device(monkeypatch, capsys, argv, cards, want):
+    """`python -m vae_song_tpu_torch.parallel.dryrun` starts one NCCL rank a
+    visible card by default, gloo ranks on the CPU only with `--device
+    cpu`, and refuses (exit code 2, naming `--device cpu`) where fewer
+    cards are visible than ranks asked for."""
+    from vae_song_tpu_torch.parallel import dryrun
+
+    launched = []
+
+    class Proc:
+        def __init__(self, cmd, env):
+            launched.append((cmd, env))
+
+        def wait(self):
+            return 0
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(dryrun.subprocess, "Popen", Proc)
+    code = dryrun.main(argv)
+    if want is None:
+        assert code == 2 and not launched and "--device cpu" in capsys.readouterr().err
+        return
+    n, device = want
+    assert code == 0 and len(launched) == n
+    for r, (cmd, env) in enumerate(launched):
+        assert cmd[cmd.index("--device") + 1] == device and cmd[cmd.index("--ranks") + 1] == str(n)
+        assert (env["RANK"], env["LOCAL_RANK"], env["WORLD_SIZE"]) == (str(r), str(r), str(n))
+
+
+def test_dryrun_rank_refuses_cuda_without_a_card(monkeypatch, capsys):
+    """A rank launched for the card (torchrun's environment, the default
+    device) that finds none refuses before opening a group."""
+    from vae_song_tpu_torch.parallel import dryrun
+
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert dryrun.main([]) == 2 and not dist.is_initialized()
+    assert "--device cpu" in capsys.readouterr().err

@@ -289,20 +289,6 @@ def test_warmup_is_declared_by_the_model():
     assert warm == {"LRVAE", "SetLRVAE"}
 
 
-def test_unported_set_options_raise(tmp_path):
-    """MoE layers build now (tests/test_torch_moe.py); what the set models'
-    training still refuses is expert parallelism, which names its
-    ROADMAP.md item before anything is written."""
-    from vae_song_tpu_torch.train.loop import train_and_test
-
-    model = build_model("setvae", "shapenet", dict(MODEL_PARAMS, moe_experts=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        train_and_test(model, expert_parallel=True, epochs=1, batch_size=8,
-                       dataset_name="shapenet", output_root=str(tmp_path), device="cpu",
-                       dataset_params={"fake": True, "num_points": N, "num_samples": 8})
-    assert not os.listdir(tmp_path)
-
-
 def test_seeded_init_follows_reference_bounds():
     """Same seed, same weights; init bounds as the JAX initializers
     (torch Linear default, MHA in-projection sqrt(1.5/fan_in), zero

@@ -36,7 +36,10 @@ from vae_song_tpu_torch.models.registry import build_model
 from vae_song_tpu_torch.ops import metrics
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
 from vae_song_tpu_torch.train import checkpoint, loggers, tfevents
-from vae_song_tpu_torch.train.loop import train_and_test
+
+from jax_parity import one_thread  # noqa: F401 (the fixture, used below)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, LATENT = 128, 16
@@ -110,25 +113,6 @@ def test_saved_params_load_into_jax_and_decode_the_same_clouds(tmp_path):
     with torch.inference_mode():
         got = port.eval().decode(torch.from_numpy(z)).numpy()
     np.testing.assert_allclose(got, want, atol=F32_RECON_ATOL, rtol=0)
-
-
-@pytest.mark.parametrize("option,item", [
-    ({"data_parallel": True, "sequence_parallel": 2}, "Queue 1 item 15"),
-    ({"sequence_parallel": 2, "sequence_parallel_ring": True}, "Queue 1 item 15"),
-    ({"data_parallel": True, "pipeline_parallel": 2}, "Queue 1 item 15"),
-    ({"expert_parallel": True}, "Queue 1 item 15"),
-    ({"pipeline_parallel": 2}, "Queue 1 item 15"),
-    ({"sequence_parallel": 2}, "Queue 1 item 15"),
-])
-def test_unported_trainer_options_name_their_roadmap_item(tmp_path, option, item):
-    model = build_model("setvae", "shapenet", MODEL_PARAMS)
-    kwargs = dict(epochs=1, batch_size=8, dataset_name="shapenet",
-                  dataset_params={"fake": True, "num_points": N, "num_samples": 8},
-                  output_root=str(tmp_path), device="cpu")
-    kwargs.update(option)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        train_and_test(model, **kwargs)
-    assert not os.listdir(tmp_path)
 
 
 def test_unported_dataset_raises():

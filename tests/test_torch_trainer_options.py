@@ -34,6 +34,8 @@ from vae_song_tpu_torch.train.steps import make_accum_train_step, make_train_ste
 
 from jax_parity import grads_capture, one_thread, patch_eps, to_np  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 B, N, LATENT, N_MICRO = 8, 128, 16, 2
 ATTN = dict(latent_channel=LATENT, num_points=N, d_model=128, num_heads=2,
             num_encoder_layers=1, num_decoder_layers=1, ff_dim=64)

@@ -15,6 +15,10 @@ from test_torch_trainer_options import (ALPHA, BETA, RUN_ATTN, RUN_DEEPSETS, _as
 from vae_song_tpu_torch.models.registry import build_model
 from vae_song_tpu_torch.train.loop import train_and_test
 
+from jax_parity import one_thread  # noqa: F401 (the fixture, used below)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 
 @pytest.mark.parametrize("mp,options", [
     (RUN_ATTN, {"checkpoint_every": 1}),

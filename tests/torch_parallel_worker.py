@@ -232,6 +232,34 @@ def _strategy_state(spec):
     return state, step, optree.make_gspmd_eval_step(model, mesh), mesh
 
 
+def _routed():
+    from vae_song_tpu_torch.models import setvae
+    from vae_song_tpu_torch.ops import attention
+
+    return ((attention, "dense_attention"), (attention, "dense_attention_fwd"),
+            (attention, "attention_plain"), (setvae, "fused_ffn"))
+
+
+def _count_routes() -> dict:
+    """Count the calls of the attention routes and the fused FFN (until
+    `_uncount_routes`); returns the live counts."""
+    routes = {}
+    for module, name in _routed():
+        fn, routes[name] = getattr(module, name), 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            routes[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(module, name, counted)
+    return routes
+
+
+def _uncount_routes() -> None:
+    for module, name in _routed():
+        setattr(module, name, getattr(module, name).__kwdefaults__["_fn"])
+
+
 def sharded(spec):
     """One train step of a weight-sharding strategy on the global batch x
     and its noise eps (each rank takes its slice), then the eval step:
@@ -240,22 +268,11 @@ def sharded(spec):
     local head counts and the attention routes taken."""
     import torch
 
-    from vae_song_tpu_torch.models import setvae
-    from vae_song_tpu_torch.ops import attention
     from vae_song_tpu_torch.parallel.mesh import shard_batch
 
     for k, v in spec.get("env", {}).items():
         os.environ[k] = v
-    routes = {}
-    for module, name in ((attention, "dense_attention"), (attention, "dense_attention_fwd"),
-                         (setvae, "fused_ffn")):
-        fn, routes[name] = getattr(module, name), 0
-
-        def counted(*a, _fn=fn, _name=name, **kw):
-            routes[_name] += 1
-            return _fn(*a, **kw)
-
-        setattr(module, name, counted)
+    routes = _count_routes()
     state, step, eval_step, mesh = _strategy_state(spec)
     model = state.model
     x, eps = torch.from_numpy(spec["x"]), torch.from_numpy(spec["eps"])
@@ -269,9 +286,7 @@ def sharded(spec):
                 for (n, _), mu in zip(model.named_parameters(), state.optimizer.adam.mu)}
     for k in spec.get("env", {}):
         del os.environ[k]
-    for module, name in ((attention, "dense_attention"), (attention, "dense_attention_fwd"),
-                         (setvae, "fused_ffn")):
-        setattr(module, name, getattr(module, name).__kwdefaults__["_fn"])
+    _uncount_routes()
     return {"metrics": _metrics_np(m), "eval": _metrics_np(ev), "grads": grads,
             "state": _state_np(model), "local": local, "mu_local": mu_local,
             "heads": _local_heads(model), "routes": routes}
@@ -304,6 +319,182 @@ def clip(spec):
         make_shardmap_clip(cfg)(grads)
         out[str(i)] = {n: _np(g) for n, g in zip(names, grads)}
     return {"clipped": out}
+
+
+def _sub_mesh(shape, names):
+    """A DeviceMesh over the first prod(shape) ranks of the group (every
+    rank builds it; the others are outside it: coordinate None)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = int(np.prod(shape))
+    return DeviceMesh("cpu", torch.arange(n).view(*shape), mesh_dim_names=names)
+
+
+def strategy(spec):
+    """One train step of sequence ("sp", "sp_ring"), pipeline ("pp") or
+    expert ("ep") parallelism on the first ranks of the group (spec
+    ["mesh"]: [n_data, n_inner]; [n_experts] for ep), x the global batch
+    and eps the global noise, each rank taking its block; then the eval
+    step where the strategy has one. Returns the metrics, this rank's
+    gradients (gathered whole; under PP only its stage's layers and the
+    replicated entries), the state after the update (under PP after
+    pp_sync, moments included) and the eval metrics; {} on ranks outside
+    the mesh."""
+    import torch
+
+    from vae_song_tpu_torch.parallel import ep, pp_setvae, sp
+    from vae_song_tpu_torch.parallel.mesh import shard_batch
+    from vae_song_tpu_torch.train.state import TrainState, make_optimizer
+
+    kind = spec["strategy"]
+    names = {"sp": ("data", "seq"), "sp_ring": ("data", "seq"), "pp": ("data", "stage"),
+             "ep": ("expert",)}[kind]
+    mesh = _sub_mesh(spec["mesh"], names)
+    if mesh.get_coordinate() is None:
+        return {}
+    rank_seed = mesh.get_rank() if spec.get("seed_by_rank") else 0
+    model = _model(dict(spec, seed=spec.get("seed", 0) + rank_seed))
+    opt = make_optimizer(model.parameters(), lr=spec["lr"], grad_clip=spec.get("grad_clip"))
+    state = TrainState(model, opt)
+    x, eps = torch.from_numpy(spec["x"]), torch.from_numpy(spec["eps"])
+    ev = None
+    routes = _count_routes()
+    if kind in ("sp", "sp_ring"):
+        from vae_song_tpu_torch.parallel.mesh import replicate_state
+
+        replicate_state(state, mesh)
+        ring = kind == "sp_ring"
+        xs, es = sp.shard_points(x, mesh), shard_batch(eps, mesh)
+        m = sp.make_sp_train_step(model, opt, mesh, ring)(xs, es, spec["wu"])
+        ev = sp.make_sp_eval_step(model, mesh, ring)(xs, es, spec["wu"])
+    elif kind == "pp":
+        pp_setvae.shard_pp_setvae_state(state, mesh)
+        step = pp_setvae.make_setvae_pp_train_step(model, opt, mesh, spec["n_micro"])
+        m = step(shard_batch(x, mesh), shard_batch(eps, mesh), spec["wu"])
+    else:
+        ep.shard_setvae_ep_state(state, mesh)
+        xs, es = (shard_batch(t, mesh, axis="expert") for t in (x, eps))
+        m = ep.make_setvae_ep_train_step(model, opt, mesh)(xs, es, spec["wu"])
+        ev = ep.make_setvae_ep_eval_step(model, mesh)(xs, es, spec["wu"])
+    _uncount_routes()
+    grads = {n: _np(p.grad) for n, p in model.named_parameters() if p.grad is not None}
+    if kind == "pp":
+        pp_setvae.pp_sync(state, mesh, with_opt=True)
+    out = {"metrics": _metrics_np(m), "grads": grads, "state": _state_np(model),
+           "routes": routes,
+           "mu": {n: _np(mu) for (n, _), mu in zip(model.named_parameters(), opt.adam.mu)},
+           "count": opt.count}
+    if ev is not None:
+        out["eval"] = _metrics_np(ev)
+    return out
+
+
+def sp_ops(spec):
+    """On the first spec["n"] ranks, each holding its point shard of q, k,
+    v [B, N, H, D] and of the output cotangent, and of the clouds pred,
+    gt [B, N, 3]: sequence_sharded_attention's and ring_attention's
+    output and q/k/v gradients, chamfer_sp's per-shard value and cloud
+    gradients, this rank's shards."""
+    import torch
+
+    from vae_song_tpu_torch.ops.attention import ring_attention, sequence_sharded_attention
+    from vae_song_tpu_torch.ops.chamfer import chamfer_sp
+
+    mesh = _sub_mesh((spec["n"],), ("seq",))
+    if mesh.get_coordinate() is None:
+        return {}
+    group, i, n = mesh.get_group("seq"), mesh.get_local_rank("seq"), spec["n"]
+
+    def local(name):
+        t = torch.from_numpy(spec[name])
+        size = t.shape[1] // n
+        return t.narrow(1, i * size, size).clone().requires_grad_()
+
+    out = {}
+    for name, fn in (("all_gather", sequence_sharded_attention), ("ring", ring_attention)):
+        q, k, v = local("q"), local("k"), local("v")
+        o = fn(q, k, v, spec["scale"], group)
+        o.backward(local("do").detach())
+        out[name] = {"out": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                     "dv": v.grad.numpy()}
+    pred, gt = local("pred"), local("gt")
+    c = chamfer_sp(pred, gt, group)
+    c.backward()
+    out["chamfer"] = {"value": float(c), "dpred": pred.grad.numpy(), "dgt": gt.grad.numpy()}
+    return out
+
+
+def residual_block(p, x):
+    """The generic pipeline tests' block: x + tanh(x @ w + b)."""
+    import torch
+
+    return x + torch.tanh(x @ p["w"] + p["b"])
+
+
+def pp_generic(spec):
+    """parallel/pp.py's generic GPipe on the first spec["n"] ranks: this
+    stage's slice of spec["w"], spec["b"] (stacked [L, ...]), one
+    make_pp_train_step step of the MSE loss at lr 0 (so the gradients
+    are read back unchanged), then the pipelined forward. Returns the
+    loss, the forward's output and this stage's gradients."""
+    import torch
+
+    from vae_song_tpu_torch.parallel import pp
+    from vae_song_tpu_torch.train.state import make_optimizer
+
+    mesh = _sub_mesh((spec["n"],), ("stage",))
+    if mesh.get_coordinate() is None:
+        return {}
+    stacked = {k: torch.from_numpy(spec[k]) for k in ("w", "b")}
+    local = pp.shard_pp_state(stacked, mesh)
+    opt = make_optimizer(list(local.values()), lr=0.0)
+    n_layers = spec["w"].shape[0]
+    step = pp.make_pp_train_step(residual_block, lambda y, t: ((y - t) ** 2).mean(), opt,
+                                 mesh, n_layers, spec["n_micro"])
+    x, t = torch.from_numpy(spec["x"]), torch.from_numpy(spec["t"])
+    loss = step(local, x, t)
+    with torch.no_grad():
+        y = pp.make_pp_apply(residual_block, mesh, n_layers, spec["n_micro"])(local, x)
+    return {"loss": float(loss), "y": y.numpy(),
+            "grads": {k: v.grad.numpy() for k, v in local.items()}}
+
+
+def ep_generic(spec):
+    """parallel/ep.py's standalone MoE on the first spec["n"] ranks:
+    init_moe(generator seeded spec["seed"]) split by shard_moe, this
+    rank's tokens of spec["x"] through make_ep_apply, then one
+    make_ep_train_step step (lr 0) of the MSE against spec["t"]. Returns
+    this rank's output, the loss and the gradients gathered whole."""
+    import torch
+
+    from vae_song_tpu_torch.parallel import ep
+    from vae_song_tpu_torch.parallel.mesh import shard_batch
+    from vae_song_tpu_torch.train.state import make_optimizer
+
+    mesh = _sub_mesh((spec["n"],), ("expert",))
+    if mesh.get_coordinate() is None:
+        return {}
+    d, h = spec["x"].shape[1], spec["hidden"]
+    params = ep.init_moe(d, h, spec["n"], torch.Generator().manual_seed(spec["seed"]))
+    params = ep.MoEParams(*(torch.nn.Parameter(t) for t in ep.shard_moe(params, mesh)))
+    x, t = (shard_batch(torch.from_numpy(spec[k]), mesh, axis="expert") for k in ("x", "t"))
+    with torch.no_grad():
+        y = ep.make_ep_apply(mesh, spec["cf"])(params, x)
+    opt = make_optimizer(list(params), lr=0.0)
+    ep.shard_moe_opt(opt, params, mesh)
+    loss = ep.make_ep_train_step(opt, mesh, params, spec["cf"])(x, t)
+    return {"y": y.numpy(), "loss": float(loss),
+            "grads": {f: _np(p.grad) for f, p in zip(ep.MoEParams._fields, params)}}
+
+
+def dryrun(spec):
+    """parallel/dryrun.py's dry run on the whole group: {phase: delta}."""
+    import torch.distributed as dist
+
+    from vae_song_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return {"deltas": dryrun_multichip(dist.get_world_size())}
 
 
 def trainer(spec):

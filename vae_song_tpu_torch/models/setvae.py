@@ -42,6 +42,17 @@ same dropout masks as the first pass (`_checkpointed`). Under remat the
 decoder's first layer forgoes the batch-constant self-attention shortcut,
 as JAX does.
 
+Inside nn.sync.sequence_sharded (sequence parallelism, parallel/sp.py;
+the JAX package's `seq_axis` clone, :90-104, :158-171) the clouds and
+activations hold this rank's slice of the points: the layers'
+self-attentions gather keys and values from the group (or take the
+ring), the encoder's max-pool gathers the [B, d_model] pooled vectors of
+every shard and takes their max (JAX :293-299), the decoder decodes this
+rank's contiguous slice of `query_embed` (:362-367), and the Chamfer
+loss is `chamfer_sp`'s per-shard value (:542-550). Inside
+nn.sync.expert_sharded the MoE FFNs run expert-parallel (nn/moe.py).
+Neither context changes a parameter or its name.
+
 Randomness is explicit: `forward(x, eps, dropout_rng)` takes the
 reparameterisation noise and the dropout mask source, and `decode(z)`
 the latent.
@@ -63,13 +74,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vae_song_tpu_torch.nn import collectives
 from vae_song_tpu_torch.nn.blocks import BatchNorm, Dense, Dropout, LayerNorm
-from vae_song_tpu_torch.nn.sync import full_tensor
+from vae_song_tpu_torch.nn.sync import full_tensor, seq_shard
 from vae_song_tpu_torch.nn.initializers import normal_scaled_
 from vae_song_tpu_torch.nn.moe import MoEFFN
 from vae_song_tpu_torch.ops import losses
 from vae_song_tpu_torch.ops.attention import MultiHeadAttention
-from vae_song_tpu_torch.ops.chamfer import best_chamfer
+from vae_song_tpu_torch.ops.chamfer import best_chamfer, chamfer_sp
 from vae_song_tpu_torch.ops.ffn import fused_ffn, fused_ffn_ok
 
 
@@ -170,7 +182,8 @@ class TransformerEncoderLayer(nn.Module):
                  compute_dtype=None, generator=None, moe_experts=0, moe_capacity_factor=1.25):
         super().__init__()
         cd = compute_dtype
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator,
+                                            self_attention=True)
         self.norm1 = LayerNorm(d_model, cd)
         _ffn(self, d_model, ff_dim, moe_experts, moe_capacity_factor, cd, generator)
         self.norm2 = LayerNorm(d_model, cd)
@@ -191,7 +204,8 @@ class TransformerDecoderLayer(nn.Module):
                  compute_dtype=None, generator=None, moe_experts=0, moe_capacity_factor=1.25):
         super().__init__()
         cd = compute_dtype
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator,
+                                            self_attention=True)
         self.norm1 = LayerNorm(d_model, cd)
         self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout_rate, cd, generator)
         self.norm2 = LayerNorm(d_model, cd)
@@ -237,6 +251,12 @@ class SetEncoderAttn(nn.Module):
             else:
                 x = layer(x, dropout_rng)
         s = x.amax(dim=1)
+        sp = seq_shard()
+        if sp is not None:
+            # the points are sharded: the pool spans every shard, through
+            # the gather's gradient (JAX :293-299; amax splits a tie's
+            # gradient evenly, as JAX's max does)
+            s = collectives.all_gather(s, sp.group, stack=True).amax(dim=0)
         return self.fc_mu(s), self.fc_logvar(s)
 
 
@@ -267,8 +287,14 @@ class SetDecoderAttn(nn.Module):
     def forward(self, z, dropout_rng=None):
         b = z.shape[0]
         memory = self.memory(z)[:, None, :]          # [B, 1, d_model]
-        n, d = self.query_embed.shape
-        x = self.query_embed[None]                   # [1, N, d_model]
+        queries = self.query_embed
+        n, d = queries.shape
+        sp = seq_shard()
+        if sp is not None:
+            # this shard decodes its contiguous slice of the queries (JAX :362-367)
+            n //= sp.size
+            queries = queries.narrow(0, sp.index * n, n)
+        x = queries[None]                            # [1, N, d_model]
         for i, layer in enumerate(self.layers):
             if i == 0 and self.dropout_rate == 0.0 and not self.remat:
                 x = layer.self_attn_block(x).expand(b, n, d)
@@ -390,9 +416,16 @@ class SetVAE(nn.Module):
         z = self._sample(mu, log_var, eps)
         return self.decode(z, dropout_rng), mu, log_var, z, None
 
+    @staticmethod
+    def _chamfer(recon, x):
+        """The per-shard Chamfer value under sequence parallelism (JAX
+        :542-550), else `best_chamfer`."""
+        sp = seq_shard()
+        return best_chamfer(recon, x) if sp is None else chamfer_sp(recon, x, sp.group)
+
     def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):
         """(total, recon, reg, lr) with reg the unscaled KL."""
-        loss_recon = best_chamfer(recon, x)
+        loss_recon = self._chamfer(recon, x)
         loss_reg = losses.kl_divergence(mu, log_var)
         total = loss_recon + self.beta * loss_reg
         return total, loss_recon, loss_reg, torch.zeros((), device=x.device)
@@ -418,7 +451,7 @@ class SetLRVAE(SetVAE):
 
     def loss(self, x, recon, mu, log_var, z_input=None, z_recon=None, wu_alpha: float = 0.0):
         """(total, recon, beta * KL, alpha * warmup * latent-recon)."""
-        loss_recon = best_chamfer(recon, x)
+        loss_recon = self._chamfer(recon, x)
         loss_reg = losses.kl_divergence(mu, log_var)
         loss_lr = losses.latent_recon_loss(z_input, z_recon)
         total = loss_recon + self.beta * loss_reg + self.alpha * wu_alpha * loss_lr

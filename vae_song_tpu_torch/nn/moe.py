@@ -8,12 +8,18 @@ are): router [D, E], w1 [E, D, H], b1 [E, H], w2 [E, H, D], b2 [E, D].
 They stay float32; under `compute_dtype` the tokens and every parameter
 are cast to it, as the JAX module casts them. The capacity C =
 ceil(B * N / E * capacity_factor) counts every token of the call.
+
+Inside nn.sync.expert_sharded (the JAX module's `ep_axis`, :51-75) the
+same parameters run expert-parallel: the expert stacks are DTensors split
+one expert a rank (parallel/ep.py:shard_setvae_ep_state), and the call
+takes `moe_ffn_ep` on this rank's tokens and expert slice.
 """
 
 import torch
 from torch import nn
 
-from vae_song_tpu_torch.parallel.ep import MoEParams, init_moe, moe_ffn_dense
+from vae_song_tpu_torch.nn.sync import expert_group, local_tensor
+from vae_song_tpu_torch.parallel.ep import MoEParams, init_moe, moe_ffn_dense, moe_ffn_ep
 
 
 class MoEFFN(nn.Module):
@@ -29,13 +35,18 @@ class MoEFFN(nn.Module):
             setattr(self, name, nn.Parameter(value))
 
     def params(self) -> MoEParams:
-        """The parameters, cast to the compute dtype."""
-        return MoEParams(*(getattr(self, f) if self.dtype is None
-                           else getattr(self, f).to(self.dtype) for f in MoEParams._fields))
+        """The parameters (this rank's slices of split ones), cast to the
+        compute dtype."""
+        ps = (local_tensor(getattr(self, f)) for f in MoEParams._fields)
+        return MoEParams(*(p if self.dtype is None else p.to(self.dtype) for p in ps))
 
     def forward(self, x):
         if self.dtype is not None:
             x = x.to(self.dtype)
         b, n, d = x.shape
-        return moe_ffn_dense(self.params(), x.reshape(b * n, d),
-                             self.capacity_factor).view(b, n, d)
+        group = expert_group()
+        if group is not None:
+            out = moe_ffn_ep(self.params(), x.reshape(b * n, d), group, self.capacity_factor)
+        else:
+            out = moe_ffn_dense(self.params(), x.reshape(b * n, d), self.capacity_factor)
+        return out.view(b, n, d)

@@ -1,9 +1,21 @@
 """torch-style multi-head attention (port of
-vae_song_tpu/ops/attention.py:MultiHeadAttention, the JAX :311 path
-without sequence parallelism).
+vae_song_tpu/ops/attention.py:MultiHeadAttention, :311) and the
+sequence-parallel attention (:175 sequence_sharded_attention, :192
+ring_attention).
 
 Separate query/key/value/out projections with torch
 nn.MultiheadAttention's init, scale 1/sqrt(head_dim). Path selection:
+
+  S. a self-attention module (`self_attention=True`, the layers' own)
+     inside nn.sync.sequence_sharded (the JAX package's `seq_axis`,
+     :390-407): the point axis is sharded over the context's group, so
+     the keys and values come from every rank, by all-gather
+     (`sequence_sharded_attention`) or round the ring (`ring_attention`).
+     Training dropout is refused there; no kernel runs (JAX :424 takes
+     its kernels only without `seq_axis`), and the kv-length-1 shortcut
+     below is off, as one point a shard must still reach the others.
+     The route follows the context and never the shape: on one rank the
+     shard is the whole cloud, which route 2 would otherwise take.
 
   0. training with dropout_rate > 0 (JAX :407-423): materialised
      scores, as torch's MultiheadAttention drops attention WEIGHTS:
@@ -58,8 +70,9 @@ import os
 import torch
 from torch import nn
 
+from vae_song_tpu_torch.nn import collectives
 from vae_song_tpu_torch.nn.blocks import Dense, Dropout
-from vae_song_tpu_torch.nn.sync import is_dtensor
+from vae_song_tpu_torch.nn.sync import is_dtensor, seq_shard
 from vae_song_tpu_torch.nn.initializers import mha_in_proj_bound
 from vae_song_tpu_torch.ops.denseattn import (dense_attention, dense_attention_fwd, dense_ok,
                                               packed_ok)
@@ -78,6 +91,95 @@ def attention_plain(q, k, v, scale: float, drop=None):
         weights = drop(weights)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(torch.bfloat16).float(), vc)
     return out.to(q.dtype)
+
+
+def sequence_sharded_attention(q, k, v, scale: float, group):
+    """Self-attention over a point axis sharded over `group` (JAX
+    :175, the all-gather variant): this rank's queries [B, N/p, H, D]
+    against the keys and values gathered from every rank [B, N, H, D],
+    by `attention_plain` (bf16 q, k, v and weights, f32 scores and
+    softmax). The gather's backward sums the key and value cotangents of
+    every rank into their owner's slice."""
+    k_full = collectives.all_gather(k, group, dim=1)
+    v_full = collectives.all_gather(v, group, dim=1)
+    return attention_plain(q, k_full, v_full, scale)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _ring_fold(qc, m, l, acc, k, v, scale):
+    """One key/value chunk folded into the online softmax (JAX :220-233):
+    f32 scores of bf16 operands, the running row max, natural exp, the
+    accumulator rescaled by exp(m_old - m_new)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qc, _bf16(k)).mul_(scale)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)                       # exp(-inf) = 0 at the first chunk
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", _bf16(p), _bf16(v))
+    return m_new, l_new, acc * alpha.transpose(1, 2)[..., None] + pv
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring: k/v chunks rotate one rank on a hop and fold into the
+    online softmax; the last chunk folds without a rotation after it
+    (JAX :250-256). Saves this rank's q, k, v, the output and the row
+    log-sum-exp; the backward runs the ring again, recomputing each
+    hop's [N/p, N/p] block, while the chunks' key and value gradients
+    travel with them and arrive at their owner after the last hop. The
+    [N/p, N] scores never exist."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, group):
+        n = torch.distributed.get_world_size(group)
+        b, nq, h, _ = q.shape
+        qc = _bf16(q)
+        m = q.new_full((b, h, nq), -math.inf, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        kc, vc = k, v
+        for _ in range(n - 1):
+            m, l, acc = _ring_fold(qc, m, l, acc, kc, vc, scale)
+            kc, vc = collectives.rotate([kc, vc], group)
+        m, l, acc = _ring_fold(qc, m, l, acc, kc, vc, scale)
+        out = acc / l.transpose(1, 2)[..., None]
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        ctx.scale, ctx.group, ctx.n = scale, group, n
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, n = ctx.scale, ctx.n
+        qc, do = _bf16(q), do.float()
+        delta = (do * out).sum(dim=-1).transpose(1, 2)   # [B, H, Nq]
+        dq = torch.zeros_like(out)
+        kc, vc = k, v
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        for hop in range(n):
+            kb, vb = _bf16(kc), _bf16(vc)
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kb).mul_(scale)
+            p = torch.exp(s - lse[..., None])
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do)
+            ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vb) - delta[..., None])
+            dq += torch.einsum("bhqk,bkhd->bqhd", ds, kb) * scale
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+            if hop < n - 1:
+                kc, vc, dk, dv = collectives.rotate([kc, vc, dk, dv], ctx.group)
+            elif n > 1:
+                # the chunks' gradients take the last hop home
+                dk, dv = collectives.rotate([dk, dv], ctx.group)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def ring_attention(q, k, v, scale: float, group):
+    """Self-attention over a point axis sharded over `group`, the ring
+    variant (JAX :192): exact up to the order of the f32 sums, with
+    O(N/p) key/value memory a rank. Output in q's dtype."""
+    return _RingAttention.apply(q, k, v, scale, group)
 
 
 def _dense_attn_on() -> bool:
@@ -101,11 +203,13 @@ def _fused_qkv_on() -> bool:
 class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, self_attention: bool = False):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
+        # a layer's self-attention: the module sequence parallelism shards
+        self.self_attention = self_attention
         bound = mha_in_proj_bound(d_model)
 
         def in_proj():
@@ -129,7 +233,8 @@ class MultiHeadAttention(nn.Module):
         b, n_q = inputs_q.shape[0], inputs_q.shape[1]
         n_kv = inputs_kv.shape[1]
         train_dropout = self.dropout_rate > 0.0 and self.training
-        if n_kv == 1 and not train_dropout:
+        sp = seq_shard() if self.self_attention else None
+        if n_kv == 1 and sp is None and not train_dropout:
             # softmax over one key is 1: out-project the value once per
             # cloud and broadcast it over the queries
             return self.out(self.value(inputs_kv)).expand(b, n_q, self.d_model)
@@ -154,7 +259,15 @@ class MultiHeadAttention(nn.Module):
             v = self.value(inputs_kv).view(b, n_kv, h, d)
         scale = 1.0 / math.sqrt(d)
         dense_on = _dense_attn_on()
-        if train_dropout:
+        if sp is not None:
+            if train_dropout:
+                raise NotImplementedError(
+                    "attention-weight dropout is not supported under "
+                    "sequence parallelism (seq_axis)"
+                )
+            sp_attn = ring_attention if sp.ring else sequence_sharded_attention
+            out = sp_attn(q, k, v, scale, sp.group)
+        elif train_dropout:
             out = attention_plain(q, k, v, scale, lambda w: self.drop(w, dropout_rng))
         elif dense_on and _packed_attn_on() and packed_ok(n_q, n_kv, h, d):
             out, _ = dense_attention_fwd(q, k, v, scale)

@@ -31,6 +31,9 @@ mean over points each way, sum the two means, mean over batch.
     `chamfer_bwd`, scaled by the incoming gradient and cast to the
     clouds' dtype (`_chamfer_bwd`).
 
+`chamfer_sp` is the sequence-parallel value of one shard of the points
+(the plain minima; no kernel, as in JAX).
+
 `best_chamfer` takes `chamfer_distance_packed` for CUDA clouds that pass
 `packed_chamfer_ok` -- the JAX package's shape gate, not a fallback: a
 batch in blocks of 8, both clouds in multiples of 128 points, at most
@@ -41,6 +44,7 @@ MAX_PACKED_N (larger clouds do not fit the packed key's 11 index bits)
 import torch
 
 from vae_song_tpu_torch import _kernels
+from vae_song_tpu_torch.nn.collectives import all_gather
 
 _DENSE_LIMIT = 1024  # below this many points, build the full matrix
 MAX_PACKED_N = 2048  # 11 index bits
@@ -79,6 +83,29 @@ def chamfer_distance(points_pred, points_gt, tile: int = 512):
         min_p2g = _min_dists_tiled(pred, gt, tile)
         min_g2p = _min_dists_tiled(gt, pred, tile)
     return (min_p2g.mean(dim=1) + min_g2p.mean(dim=1)).mean()
+
+
+def chamfer_sp(pred_local, gt_local, group, tile: int = 512):
+    """Sequence-parallel Chamfer (JAX chamfer.py:370): the point axes of
+    both clouds sharded over `group`. Each rank gathers the opposite
+    cloud and takes the minima of its own points only, by the plain
+    path (`_sq_dists`, or tiled past _DENSE_LIMIT points); returns the
+    PER-SHARD value
+
+        mean_{local pred} min_gt d^2 + mean_{local gt} min_pred d^2,
+
+    batch-averaged, whose mean over the shards is the full Chamfer. The
+    gathers' backward brings every rank's gradient for a point home."""
+    pred, gt = pred_local.float(), gt_local.float()
+    pred_full = all_gather(pred, group, dim=1)
+    gt_full = all_gather(gt, group, dim=1)
+
+    def local_min(query, ref):
+        if max(query.shape[1], ref.shape[1]) <= _DENSE_LIMIT:
+            return _sq_dists(query, ref).amin(dim=2)
+        return _min_dists_tiled(query, ref, tile)
+
+    return (local_min(pred, gt_full).mean(dim=1) + local_min(gt, pred_full).mean(dim=1)).mean()
 
 
 def _packed_keys_plain(query, ref):

@@ -85,9 +85,12 @@ def make_mesh(n_data: int | None = None, n_model: int = 1):
     return init_device_mesh(device_type(), (n_data, n_model), mesh_dim_names=("data", "model"))
 
 
-def data_coordinate(mesh) -> tuple[int, int]:
-    """(this rank's index on 'data', the size of 'data')."""
-    return mesh.get_local_rank("data"), mesh.size(mesh.mesh_dim_names.index("data"))
+def data_coordinate(mesh, axis: str = "data") -> tuple[int, int]:
+    """(this rank's index on `axis`, the size of `axis`); (0, 1) for a mesh
+    without that dimension (the batch is not split)."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        return 0, 1
+    return mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
 
 
 @torch.no_grad()
@@ -107,14 +110,16 @@ def replicate_state(state: TrainState, mesh) -> TrainState:
     return state
 
 
-def shard_batch(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+def shard_batch(x: torch.Tensor, mesh, dim: int = 0, axis: str = "data") -> torch.Tensor:
     """This rank's contiguous slice, along `dim`, of the global batch `x`
     (the same tensor on every rank): slice i of n for the rank at index i
-    on 'data', in the global order. The batch must divide by n."""
-    i, n = data_coordinate(mesh)
+    on the mesh dimension `axis` ('data'; 'expert' under expert
+    parallelism), in the global order; `x` whole without that dimension.
+    The batch must divide by n."""
+    i, n = data_coordinate(mesh, axis)
     b = x.shape[dim]
     if b % n:
-        raise ValueError(f"a batch of {b} does not divide over {n} 'data' ranks")
+        raise ValueError(f"a batch of {b} does not divide over {n} '{axis}' ranks")
     return x.narrow(dim, i * (b // n), b // n)
 
 

@@ -109,10 +109,12 @@ def sharded_global_pnorm(grads, p: float) -> torch.Tensor:
     return sum(parts) ** (1.0 / p)
 
 
-def make_shardmap_clip(grad_clip: dict | None):
+def make_shardmap_clip(grad_clip: dict | None, norm_fn=None):
     """The in-place gradient clip of `grad_clip` (train/state.py:make_clip)
     over gradients of which some are sharded (JAX make_shardmap_clip): the
-    true global norm (`sharded_global_pnorm`), optax's scale
+    true global norm (`norm_fn(grads, p)`, by default
+    `sharded_global_pnorm`, which reads the split from DTensor
+    placements), optax's scale
     max_norm / max(norm, max_norm) for p = 2 (no change below max_norm),
     torch's min(1, max_norm / (norm + 1e-6)) for other p, the
     element-wise value clip on each rank's slice. None when clipping is
@@ -138,7 +140,7 @@ def make_shardmap_clip(grad_clip: dict | None):
     def clip(grads):
         if not grads:
             return
-        norm = sharded_global_pnorm(grads, norm_type)
+        norm = (norm_fn or sharded_global_pnorm)(grads, norm_type)
         if norm_type == 2.0:
             if norm < max_norm:
                 return

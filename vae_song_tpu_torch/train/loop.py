@@ -49,14 +49,15 @@ on the host every step), so a run with attn_dropout > 0 depends on the
 device: the card's and the CPU's streams differ. Per-epoch seeding
 makes a resumed run replay the continuous one. The JAX package's
 multistep and scanned dispatch paths are TPU machinery and have no
-counterpart. The batch- and weight-sharding strategies (`data_parallel`,
-`fsdp`, `tensor_parallel` and fsdp x tensor_parallel, parallel/) run one
-process per device (torchrun; without it a one-process group): every
-rank iterates the same global batches and noise and takes its slice of
-them; only rank 0 writes the result tree; checkpoints and the last
-epoch's export are gathered whole into the single-device format, so they
-load under any strategy. Sequence, pipeline and expert parallelism raise
-naming ROADMAP.md Queue 1 item 15b. With `profile_dir` the training steps of epoch 1
+counterpart. The parallel strategies (`data_parallel`, `fsdp`,
+`tensor_parallel`, `sequence_parallel`, `pipeline_parallel`,
+`expert_parallel` and their compositions, parallel/) run one process per
+device (torchrun; without it a one-process group): every rank iterates
+the same global batches and noise and takes its block of them; only rank
+0 writes the result tree; checkpoints and the last epoch's export are
+gathered whole into the single-device format (under pipeline parallelism
+after every layer and its Adam moments reached every rank), so they load
+under any strategy. With `profile_dir` the training steps of epoch 1
 (epoch 0 holds the first calls) run under torch.profiler
 (train/profiling.py:trace), which writes their trace there.
 """
@@ -83,7 +84,7 @@ from vae_song_tpu_torch.nn.sync import full_tensor
 from vae_song_tpu_torch.ops import fid as fid_lib
 from vae_song_tpu_torch.ops import metrics as metrics_lib
 from vae_song_tpu_torch.ops.warmup import warmup_alpha
-from vae_song_tpu_torch.parallel.mesh import data_coordinate, init_multihost, shard_batch
+from vae_song_tpu_torch.parallel.mesh import data_coordinate, init_multihost
 from vae_song_tpu_torch.train import checkpoint as ckpt_lib
 from vae_song_tpu_torch.train import loggers
 from vae_song_tpu_torch.train.profiling import trace
@@ -146,8 +147,7 @@ def _check_strategies(model, *, data_parallel, pipeline_parallel, expert_paralle
                       tensor_parallel, sequence_parallel, sequence_parallel_ring, fsdp,
                       grad_accum):
     """The JAX trainer's strategy guards (its :210-255), with its
-    conditions and messages, then the refusal of the strategies that are
-    not ported (sequence, pipeline and expert parallelism)."""
+    conditions and messages."""
     if not isinstance(model, (SetVAE, FlexibleVAE, LIDVAE)):
         raise TypeError(
             f"train_and_test trains the set models, the FlexibleVAE family and LIDVAE; "
@@ -181,12 +181,6 @@ def _check_strategies(model, *, data_parallel, pipeline_parallel, expert_paralle
             f"parallelism; it requires sequence_parallel >= 2 (got "
             f"{sequence_parallel})"
         )
-    unported = [k for k in active if k != "tensor_parallel"]
-    if unported:
-        raise NotImplementedError(
-            f"{unported[0]} is not ported to the PyTorch trainer yet; see ROADMAP.md "
-            "Queue 1 item 15b (parallel/)"
-        )
 
 
 def _world_size() -> int:
@@ -196,11 +190,96 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", 1))
 
 
-def _mesh_shape(model, *, data_parallel, tensor_parallel, fsdp, batch_size):
-    """(n_data, n_model) of the strategy asked for, after the JAX
-    trainer's checks of its TP (:479-520), FSDP (:593-602) and DP
-    branches; the launch must hold exactly that many ranks."""
+def _launch_check(world: int, n: int) -> None:
+    if world != n:
+        raise ValueError(
+            f"the mesh holds {n} ranks but {world} processes were "
+            f"launched; launch it with torchrun --nproc_per_node {n}"
+        )
+
+
+def _mesh_shape(model, *, data_parallel, tensor_parallel, fsdp, batch_size,
+                pipeline_parallel=0, expert_parallel=False, sequence_parallel=0):
+    """The mesh of the strategy asked for, after the JAX trainer's checks of
+    its PP (:349-412), EP (:440-467), TP (:479-520), SP (:551-577), FSDP
+    (:593-602) and DP branches: (n_data, n_inner), the inner dimension
+    'stage', 'expert', 'model' or 'seq' (1 for DP and FSDP); the launch
+    must hold exactly that many ranks."""
     world = _world_size()
+    if pipeline_parallel and pipeline_parallel > 1:
+        from vae_song_tpu_torch.parallel.pp_setvae import _check_pp_model
+
+        if world < pipeline_parallel:
+            raise ValueError(
+                f"pipeline_parallel={pipeline_parallel} needs that many "
+                f"devices; have {world}"
+            )
+        n_data = world // pipeline_parallel if data_parallel else 1
+        if data_parallel and n_data < 2:
+            raise ValueError(
+                f"data_parallel x pipeline_parallel={pipeline_parallel} "
+                f"needs >= {2 * pipeline_parallel} devices; have {world}"
+            )
+        if batch_size % n_data != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must divide over {n_data} "
+                "data-parallel pipelines"
+            )
+        _check_pp_model(model)
+        n_layers = len(model.encoder.layers)
+        if n_layers % pipeline_parallel != 0:
+            raise ValueError(
+                f"{n_layers} encoder layers do not divide over {pipeline_parallel} stages"
+            )
+        _launch_check(world, n_data * pipeline_parallel)
+        return n_data, pipeline_parallel
+    if expert_parallel:
+        n_exp = int(getattr(model, "moe_experts", 0))
+        if data_parallel:
+            raise ValueError("expert_parallel and data_parallel are exclusive")
+        if n_exp < 2:
+            raise ValueError(
+                "expert_parallel needs a MoE set model (model_params key "
+                f"moe_experts >= 2; got {n_exp})"
+            )
+        if world < n_exp:
+            raise ValueError(
+                f"expert_parallel needs moe_experts={n_exp} devices; "
+                f"have {world}"
+            )
+        if batch_size % n_exp != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must divide over {n_exp} experts"
+            )
+        _launch_check(world, n_exp)
+        return 1, n_exp
+    if sequence_parallel and sequence_parallel > 1:
+        from vae_song_tpu_torch.parallel.sp import _validate
+
+        if getattr(model, "data_type", None) != "set":
+            raise ValueError(
+                "sequence_parallel shards the POINT axis of the attention "
+                f"set models (parallel/sp.py); got {type(model).__name__}"
+            )
+        n_data = world // sequence_parallel if data_parallel else 1
+        if data_parallel and n_data < 2:
+            raise ValueError(
+                f"data_parallel x sequence_parallel={sequence_parallel} "
+                f"needs >= {2 * sequence_parallel} devices; have {world}"
+            )
+        if world < n_data * sequence_parallel:
+            raise ValueError(
+                f"sequence_parallel={sequence_parallel} needs that many "
+                f"devices; have {world}"
+            )
+        if batch_size % n_data != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must divide over {n_data} "
+                "data-parallel shards"
+            )
+        _validate(model, sequence_parallel)
+        _launch_check(world, n_data * sequence_parallel)
+        return n_data, sequence_parallel
     if tensor_parallel and tensor_parallel > 1:
         if getattr(model, "data_type", None) != "set" or not isinstance(
                 getattr(model, "encoder", None), SetEncoderAttn):
@@ -233,23 +312,80 @@ def _mesh_shape(model, *, data_parallel, tensor_parallel, fsdp, batch_size):
     if batch_size % shape[0] != 0:
         kind = "fsdp batch" if fsdp and shape[1] == 1 else "data-parallel"
         raise ValueError(f"batch_size={batch_size} must divide over {shape[0]} {kind} shards")
-    if world != shape[0] * shape[1]:
-        raise ValueError(
-            f"the mesh holds {shape[0] * shape[1]} ranks but {world} processes were "
-            f"launched; launch it with torchrun --nproc_per_node {shape[0] * shape[1]}"
-        )
+    _launch_check(world, shape[0] * shape[1])
     return shape
 
 
-def _setup_strategy(state, shape, *, data_parallel, tensor_parallel, fsdp):
-    """(state, train step, eval step, mesh) of the strategy asked for on a
-    mesh of `shape`, the state sharded as it says."""
+class _Strategy:
+    """What the trainer runs under a strategy: the train and eval steps,
+    the mesh, how a global batch is cut for each (`shard_train`,
+    `shard_eval`: (tensor, dim) -> this rank's block), the mesh
+    dimension whose ranks draw their own dropout masks, and `sync`
+    (state, with_opt) -> state, which makes the model whole on every
+    rank before the eval, a checkpoint or the exports (pipeline
+    parallelism), else None."""
+
+    def __init__(self, state, train_step, eval_step, mesh, batch_axis="data",
+                 shard_train=None, shard_eval=None, sync=None):
+        from vae_song_tpu_torch.parallel.mesh import shard_batch
+
+        def by_batch(t, dim=0):
+            return shard_batch(t, mesh, dim, batch_axis)
+
+        self.state, self.train_step, self.eval_step, self.mesh = state, train_step, eval_step, mesh
+        self.batch_axis, self.sync = batch_axis, sync
+        self.shard_train = shard_train or by_batch
+        self.shard_eval = shard_eval or by_batch
+
+
+def _setup_strategy(state, shape, *, data_parallel, tensor_parallel, fsdp, batch_size,
+                    pipeline_parallel=0, expert_parallel=False, sequence_parallel=0,
+                    sequence_parallel_ring=False):
+    """The _Strategy asked for on a mesh of `shape`, the state sharded as
+    it says."""
     from vae_song_tpu_torch.parallel import fsdp as fsdp_lib
     from vae_song_tpu_torch.parallel import mesh as mesh_lib
     from vae_song_tpu_torch.parallel import optree
     from vae_song_tpu_torch.parallel import tp as tp_lib
 
     model = state.model
+    if pipeline_parallel and pipeline_parallel > 1:
+        from vae_song_tpu_torch.parallel import pp, pp_setvae
+
+        mesh = pp_setvae.make_dp_pp_mesh(*shape) if shape[0] > 1 else pp.make_pp_mesh(shape[1])
+        state = pp_setvae.shard_pp_setvae_state(state, mesh)
+        n_micro = pp_setvae.default_n_micro(batch_size // shape[0], pipeline_parallel)
+        step = pp_setvae.make_setvae_pp_train_step(model, state.optimizer, mesh, n_micro)
+
+        def sync(st, with_opt=False):
+            return pp_setvae.pp_sync(st, mesh, with_opt)
+
+        # every rank evaluates the whole batch on the whole model (JAX :437)
+        return _Strategy(state, lambda x, eps, wu, rng=None: step(x, eps, wu),
+                         make_eval_step(model), mesh, sync=sync,
+                         shard_eval=lambda t, dim=0: t)
+    if expert_parallel:
+        from vae_song_tpu_torch.parallel import ep
+
+        mesh = ep.make_ep_mesh(shape[1])
+        state = ep.shard_setvae_ep_state(state, mesh)
+        return _Strategy(state, ep.make_setvae_ep_train_step(model, state.optimizer, mesh),
+                         ep.make_setvae_ep_eval_step(model, mesh), mesh,
+                         batch_axis=ep.EXPERT_AXIS)
+    if sequence_parallel and sequence_parallel > 1:
+        from vae_song_tpu_torch.parallel import sp
+
+        mesh = sp.make_sp_mesh(*shape)
+        mesh_lib.replicate_state(state, mesh)
+
+        def points(t, dim=0):
+            # the clouds by row and point shard, the noise by row
+            return sp.shard_points(t, mesh) if t.dim() == 3 else mesh_lib.shard_batch(t, mesh, dim)
+
+        return _Strategy(state, sp.make_sp_train_step(model, state.optimizer, mesh,
+                                                      sequence_parallel_ring),
+                         sp.make_sp_eval_step(model, mesh, sequence_parallel_ring), mesh,
+                         shard_train=points, shard_eval=points)
     mesh = mesh_lib.make_mesh(*shape)
     if tensor_parallel and tensor_parallel > 1:
         tp_lib.check_flash_partitionable(model, mesh)
@@ -265,9 +401,9 @@ def _setup_strategy(state, shape, *, data_parallel, tensor_parallel, fsdp):
         step = fsdp_lib.make_fsdp_train_step(model, state.optimizer, mesh, state.fsdp_params)
     else:
         mesh_lib.replicate_state(state, mesh)
-        return (state, mesh_lib.make_dp_train_step(model, state.optimizer, mesh),
-                mesh_lib.make_dp_eval_step(model, mesh), mesh)
-    return state, step, optree.make_gspmd_eval_step(model, mesh), mesh
+        return _Strategy(state, mesh_lib.make_dp_train_step(model, state.optimizer, mesh),
+                         mesh_lib.make_dp_eval_step(model, mesh), mesh)
+    return _Strategy(state, step, optree.make_gspmd_eval_step(model, mesh), mesh)
 
 
 def _device_name(device: torch.device) -> str:
@@ -356,8 +492,8 @@ def train_and_test(
 
     The strategies (JAX's guards hold: one of pipeline, expert, tensor and
     sequence parallelism at a time; fsdp composes only with
-    tensor_parallel; grad_accum with none; the launch holds exactly the
-    mesh's ranks):
+    tensor_parallel, data_parallel with all but expert_parallel;
+    grad_accum with none; the launch holds exactly the mesh's ranks):
     data_parallel: DistributedDataParallel over every rank, the JAX DP
     step's per-shard semantics (parallel/mesh.py); on one device it warns
     and trains single-device.
@@ -365,26 +501,44 @@ def train_and_test(
     step's semantics on the global batch (parallel/fsdp.py).
     tensor_parallel: >= 2 splits the attention set models' heads and FFN
     columns over that many ranks (parallel/tp.py); with data_parallel or
-    fsdp on a (ranks // tensor_parallel) x tensor_parallel mesh."""
+    fsdp on a (ranks // tensor_parallel) x tensor_parallel mesh.
+    sequence_parallel: >= 2 shards the attention set models' points over
+    that many ranks (parallel/sp.py), by all-gather attention or with
+    sequence_parallel_ring the ring; with data_parallel on a (ranks //
+    sequence_parallel) x sequence_parallel mesh.
+    pipeline_parallel: >= 2 runs the attention set models' encoder layers
+    as that many GPipe stages (parallel/pp_setvae.py), the smallest
+    multiple of the stages dividing a pipeline's batch as its
+    microbatches (else 1); with data_parallel one pipeline a 'data' row;
+    the eval runs on the whole model on every rank.
+    expert_parallel: the MoE set models (moe_experts >= 2) with one expert
+    a rank (parallel/ep.py), the batch split over the experts' ranks.
+    Pipeline and expert parallelism clip in their steps (the true global
+    norm over the split gradients); the optimizer keeps its clip
+    setting."""
     _check_strategies(
         model, data_parallel=data_parallel, pipeline_parallel=pipeline_parallel,
         expert_parallel=expert_parallel, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, sequence_parallel_ring=sequence_parallel_ring,
         fsdp=fsdp, grad_accum=grad_accum,
     )
-    if data_parallel and not fsdp and not (tensor_parallel and tensor_parallel > 1) \
+    if data_parallel and not fsdp and not any(
+            (k or 0) > 1 for k in (tensor_parallel, pipeline_parallel, sequence_parallel)) \
             and _world_size() == 1:
         # training single-device while the caller believes it measured DP
         # would be worse than a loud downgrade (JAX :322-332)
         print("WARNING: data_parallel requested but only 1 device is "
               "visible; training single-device", flush=True)
         data_parallel = False
-    sharded = data_parallel or fsdp or bool(tensor_parallel and tensor_parallel > 1)
+    strategies = dict(pipeline_parallel=pipeline_parallel, expert_parallel=expert_parallel,
+                      sequence_parallel=sequence_parallel)
+    sharded = (data_parallel or fsdp or expert_parallel or any(
+        (k or 0) > 1 for k in (tensor_parallel, pipeline_parallel, sequence_parallel)))
     owns_group = sharded and not dist.is_initialized()
     if sharded:
         mesh_shape = _mesh_shape(model, data_parallel=data_parallel,
                                  tensor_parallel=tensor_parallel, fsdp=fsdp,
-                                 batch_size=batch_size)
+                                 batch_size=batch_size, **strategies)
         # before the model moves: on the card each rank takes its own device;
         # the backend follows the device asked for, not the cards visible
         init_multihost("nccl" if torch.device(device).type == "cuda" else "gloo")
@@ -445,15 +599,19 @@ def train_and_test(
     train_step = make_accum_train_step(model, optimizer, max(1, grad_accum or 1))
     eval_step = make_eval_step(model)
     latent = model.latent_channel
-    mesh, plain = None, model
+    mesh, plain, strategy = None, model, None
     if sharded:
-        # FSDP and TP split the parameters: the last epoch's exports, plots
-        # and the final metrics run on a whole copy, gathered from them
-        if fsdp or (tensor_parallel and tensor_parallel > 1):
+        # FSDP, TP and EP split the parameters: the last epoch's exports,
+        # plots and the final metrics run on a whole copy, gathered from them
+        if fsdp or expert_parallel or (tensor_parallel and tensor_parallel > 1):
             plain = copy.deepcopy(model)
-        setup = _setup_strategy(state, mesh_shape, data_parallel=data_parallel,
-                                tensor_parallel=tensor_parallel, fsdp=fsdp)
-        state, train_step, eval_step, mesh = setup
+        strategy = _setup_strategy(state, mesh_shape, data_parallel=data_parallel,
+                                   tensor_parallel=tensor_parallel, fsdp=fsdp,
+                                   batch_size=batch_size,
+                                   sequence_parallel_ring=sequence_parallel_ring,
+                                   **strategies)
+        state, train_step, eval_step, mesh = (strategy.state, strategy.train_step,
+                                              strategy.eval_step, strategy.mesh)
     encode_fn, decode_fn, forward_fn = make_apply_fns(plain)
 
     def gather_plain():
@@ -463,7 +621,10 @@ def train_and_test(
         return plain
 
     def shard(t, dim=0):
-        return t if mesh is None else shard_batch(t, mesh, dim)
+        return t if strategy is None else strategy.shard_train(t, dim)
+
+    def shard_eval(t, dim=0):
+        return t if strategy is None else strategy.shard_eval(t, dim)
 
     def eps_of(b, gen, samples=n_samples):
         """Noise of one batch of b: [b, latent] for the set models,
@@ -494,7 +655,8 @@ def train_and_test(
         ep_np_rng = np.random.default_rng([seed, epoch])
         noise = _generator(seed, epoch, _TRAIN)
         # each 'data' rank draws its own masks (JAX folds the rank into its key)
-        drop_stream = (_DROPOUT,) if mesh is None else (_DROPOUT, data_coordinate(mesh)[0])
+        drop_stream = ((_DROPOUT,) if mesh is None
+                       else (_DROPOUT, data_coordinate(mesh, strategy.batch_axis)[0]))
         dropout_rng = _generator(seed, epoch, *drop_stream, device=device) if is_set else None
         augment_rng = _generator(seed, epoch, _AUGMENT) if augment is not None else None
         ms = []
@@ -514,13 +676,19 @@ def train_and_test(
         # kl_adaptive warmup reads the LAST batch's unscaled KL (model.py:62, 614)
         last_kl = float(ms[-1]["raw_kl"]) if has_warmup else 0.0
         last_epoch = epoch == epochs - 1
+        if strategy is not None and strategy.sync is not None:
+            # pipeline parallelism: every layer from its stage to every rank
+            # before the eval, and the Adam moments too where a checkpoint
+            # follows or the run ends (JAX :905-916)
+            state = strategy.sync(state, last_epoch or bool(
+                checkpoint_every and (epoch + 1) % checkpoint_every == 0))
 
         noise = _generator(seed, epoch, _EVAL)
         ev_ms, last_eval_batch = [], None
         for x, y in iterate_batches(test_ds, batch_size, rng=ep_np_rng,
                                     shuffle=data_type == "1d", device=device):
             eps = eps_of(x.shape[0], noise, 1)
-            ev_ms.append(eval_step(shard(x), shard(eps, eps.dim() - 2), wu_alpha))
+            ev_ms.append(eval_step(shard_eval(x), shard_eval(eps, eps.dim() - 2), wu_alpha))
             last_eval_batch = (x, y)
         eval_means = _means(ev_ms)
         writer.add_scalar("loss/test", eval_means["loss"], epoch)
