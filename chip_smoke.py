@@ -29,7 +29,12 @@ non-zero exit code:
      (forward, and forward + backward) and, forward only (PyTorch has no
      backward for it), cuBLASLt's bias + ReLU epilogue
      (`torch._addmm_activation`, then `addmm` and the residual add) are
-     timed as references.
+     timed as references. The f32 attention cases (B = 4, and the f32
+     path's B = 64 on both routes: split-TF32 kernels at D = 64 and 128)
+     also print the kernel's and the plain version's distance from a
+     float64 version, the split-TF32 bound (3 x operations at 495 TFLOP/s)
+     beside the FMA bound (operations at 67), and SDPA's f32 times with
+     the backend it picks and with EFFICIENT_ATTENTION forced.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -39,7 +44,9 @@ non-zero exit code:
      epochs into a temporary directory; every loss term finite, the
      artifacts written, and the K1, K2, K4 and K5 launch counters must
      all rise. Then ms/step of `make_train_step` for SetVAE (B = 64) and
-     SetLRVAE (its config's B = 16) on the host clock.
+     SetLRVAE (its config's B = 16) on the host clock, and for SetVAE at
+     B = 64 with `mixed_precision: false` (the f32 path), whose K1, K2, K4
+     and K5 counters must rise.
   4c. the two further paths at full width: (1) the shipped SetVAE config
      with `num_heads: 2` (head width 128, the BHND route): one fake-data
      epoch of `train_and_test`, then the eval step's ms/batch and the
@@ -283,12 +290,16 @@ LR = 1e-2           # train_and_test's lr, the reference's Adam(lr=1e-2)
 SEED = 0
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# bf16 tensor cores, float32 outside the tensor cores (no TF32 is used),
+# bf16 tensor cores, float32 outside the tensor cores, TF32 tensor cores,
 # HBM3 bandwidth. A kernel's bound is the larger of its operations over
 # the peak of their type and its bytes (each input read once, each output
-# written once) over the bandwidth.
+# written once) over the bandwidth. The f32 attention kernels at D = 64
+# and 128 compute in split TF32 (three TF32 products a product,
+# csrc/mma_tf32.cuh), so their f32 rows also print the split-TF32 bound,
+# 3 x operations / PEAK_TF32, beside the FMA bound, operations / PEAK_F32.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 # Bounds of kernel against plain version on the same inputs.
@@ -300,7 +311,14 @@ PEAK_BYTES = 3.35e12
 # wider heads only lengthen the f32 sums.
 K1_BF16_O_TOL = 2.0 ** -6
 K1_BF16_LSE_TOL = 1e-3
-# f32 attention: same math, summation order only.
+# f32 attention: same math; at D = 64 and 128 the kernels take every
+# product in split TF32 (f32-accurate: three TF32 products, each 8-deep
+# step into a fresh accumulator), elsewhere f32 FMAs; the sums run in
+# another order than the plain version's. One-pass TF32 lands 16-270x
+# outside these f32 bounds (tests/test_torch_denseattn_f32split.py), so
+# they tell the two apart. Measured (H100, B = 64, N = 2048, D = 64):
+# the kernel's O 6.2e-6 from a float64 version, the plain version's
+# 1.1e-5; kernel against plain 1.20e-5 at max|O| 4.8.
 K1_F32_TOL = 1e-5
 # The BHND route's f32 O, measured at D = 128 (H100): 4.05e-5 at max|O|
 # 4.35 (9.3e-6 relative) against the plain version. The base-2 scores
@@ -343,8 +361,11 @@ REF_BN_TOL = 1e-4
 # bf16: the tensor cores and the plain f32 einsum sum S and dP in other
 # orders, so a rounded exp2 argument or dP can land one bf16 ulp apart;
 # dq/dk/dv round to bf16 at the end (measured: one output ulp, 0.031 at
-# max|d| ~ 10); bound 2^-6 of max|d|. f32: summation order only
-# (measured 1.2e-5 at max|d| ~ 16); bound 1e-5 of max|d|. Both routes.
+# max|d| ~ 10); bound 2^-6 of max|d|. f32: split-TF32 products at D = 64
+# and 128 (see K1_F32_TOL), summation order; measured (H100, B = 64, N =
+# 2048) 4.6e-5 (D = 64) and 5.4e-5 (D = 128) at max|d| ~ 10, the kernel
+# within 2.0e-5 of a float64 version and the plain version within 4.9e-5;
+# bound 1e-5 of max|d|. Both routes.
 K2_BF16_TOL = 2.0 ** -6
 K2_F32_TOL = 1e-5
 # f32 heads wider than 256, backward: S2 and dP^T are sums of D products,
@@ -379,14 +400,18 @@ K6_F32_TOL = 1e-5
 # K2, K4 and K5.
 NPTS = MODEL_PARAMS["num_points"]
 MICRO_BATCH = BATCH // TRAINER_OPTIONS["grad_accum"]
+# The f32 cases: B = 4 (the parent's times compare directly), the f32
+# path's B = 64 (`mixed_precision: false`), and N = 192 at B = 64.
 K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat16),
             (MICRO_BATCH, NPTS, 4, 64, torch.bfloat16),
-            (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32))
+            (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32),
+            (BATCH, NPTS, 4, 64, torch.float32), (BATCH, 192, 4, 64, torch.float32))
 # K4 and K5 at the main path's batch, then at phase 8's microbatch
 CHAMFER_BATCHES = (BATCH, MICRO_BATCH)
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
-            (4, NPTS, 2, 128, torch.float32),
+            (4, NPTS, 2, 128, torch.float32), (BATCH, NPTS, 2, 128, torch.float32),
+            (BATCH, 192, 2, 128, torch.float32),
             # heads wider than 256 (d_model 320 or 512 with one head)
             (8, NPTS, 1, 320, torch.bfloat16), (8, NPTS, 1, 512, torch.bfloat16),
             (1, NPTS, 1, 512, torch.float32))
@@ -520,6 +545,85 @@ def _sdpa_ms(q, k, v, do, scale):
     return fwd, bwd, both
 
 
+def _attn_fwd_f64(q, k, v, scale):
+    """The attention forward of f32 q, k, v computed in float64 (qc
+    rounded to f32, as the function states; every later step in float64):
+    (O [B, N, H, D], LSE2 [B, H, N]) in float64."""
+    qc = (q.float() * (scale * denseattn.LOG2E)).double()
+    outs, lses = [], []
+    for s0 in range(0, q.shape[0], 16):
+        sl = slice(s0, s0 + 16)
+        s = torch.einsum("bqhd,bkhd->bhqk", qc[sl], k[sl].double())
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v[sl].double())
+        outs.append(o / l.permute(0, 2, 1)[..., None])
+        lses.append(m[..., 0] + torch.log2(l))
+    return torch.cat(outs), torch.cat(lses)
+
+
+def _attn_bwd_f64(q, k, v, o, lse, do, scale):
+    """The attention backward of f32 inputs (O and LSE2 those given)
+    computed in float64, qc rounded to f32: (dq, dk, dv) in float64."""
+    qc = (q.float() * (scale * denseattn.LOG2E)).double()
+    delta = (do.double() * o.double()).sum(dim=-1).permute(0, 2, 1)
+    dqs, dks, dvs = [], [], []
+    for s0 in range(0, q.shape[0], 16):
+        sl = slice(s0, s0 + 16)
+        kd, vd, dod = k[sl].double(), v[sl].double(), do[sl].double()
+        p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qc[sl], kd) - lse[sl].double()[..., None])
+        dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+        ds = p * (dp - delta[sl][..., None])
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, dod))
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qc[sl]) * denseattn.LN2)
+    return torch.cat(dqs), torch.cat(dks), torch.cat(dvs)
+
+
+_SDPA_BACKENDS = {b.value: b.name for b in (
+    torch.nn.attention.SDPBackend.MATH, torch.nn.attention.SDPBackend.FLASH_ATTENTION,
+    torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION,
+    torch.nn.attention.SDPBackend.CUDNN_ATTENTION)}
+
+
+def _sdpa_f32(q, k, v, do, scale):
+    """SDPA's f32 yardstick: the backend PyTorch picks for these inputs
+    (torch._fused_sdp_choice on the contiguous [B, H, N, D] copies), and
+    forward and backward ms with the memory-efficient backend forced
+    (sdpa_kernel(EFFICIENT_ATTENTION)), whose f32 GEMMs are split TF32."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    picked = _SDPA_BACKENDS.get(int(torch._fused_sdp_choice(qt, kt, vt, scale=scale)), "other")
+    with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
+        fwd, bwd, _ = _sdpa_ms(q, k, v, do, scale)
+    return picked, fwd, bwd
+
+
+def _print_f32_attention(name, shape, q, k, v, do, scale, kernel_f, kernel_b, plain_f, plain_b,
+                         ms, sdpa):
+    """For an f32 case: the kernel's and the plain version's distance from
+    the float64 version, the split-TF32 and FMA bounds beside the kernel's
+    times, and SDPA's f32 backend and times (the default pick's from
+    _sdpa_ms, the forced memory-efficient backend's)."""
+    b, n, h, d = shape
+    o64, lse64 = _attn_fwd_f64(q, k, v, scale)
+    grads64 = _attn_bwd_f64(q, k, v, kernel_f[0], kernel_f[1], do, scale)
+    dist = lambda xs, ys: ", ".join(f"{_max_err(x, y):.3e}" for x, y in zip(xs, ys))
+    ops_f, ops_b = 4.0 * b * h * n * n * d, 10.0 * b * h * n * n * d
+    picked, eff_f, eff_b = _sdpa_f32(q, k, v, do, scale)
+    tag = f"{name} B={b} N={n} H={h} D={d} float32"
+    print(f"{tag} vs float64: fwd O, LSE kernel {dist(kernel_f, (o64, lse64))}, plain "
+          f"{dist(plain_f, (o64, lse64))} (max|O| {float(o64.abs().max()):.3f}, max|LSE| "
+          f"{float(lse64.abs().max()):.3f}); bwd dq, dk, dv kernel {dist(kernel_b, grads64)}, "
+          f"plain {dist(plain_b, grads64)} (max|d| "
+          f"{', '.join(f'{float(g.abs().max()):.3f}' for g in grads64)})")
+    print(f"{tag} bounds: fwd split-TF32 {3 * ops_f / PEAK_TF32 * 1e3:.4f} ms, FMA "
+          f"{ops_f / PEAK_F32 * 1e3:.4f} ms (kernel {ms[0]:.4f}); bwd split-TF32 "
+          f"{3 * ops_b / PEAK_TF32 * 1e3:.4f} ms, FMA {ops_b / PEAK_F32 * 1e3:.4f} ms (kernel "
+          f"{ms[1]:.4f}); sdpa f32 picks {picked}: fwd {sdpa[0]:.4f} ms, bwd {sdpa[1]:.4f} ms; "
+          f"EFFICIENT_ATTENTION forced: fwd {eff_f:.4f} ms, bwd {eff_b:.4f} ms")
+
+
 def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
     """One attention route's forward (`fwd`, K1 or K3f) and backward
     (`bwd`, K2 or K3b) against their plain versions at each (B, N, H, D,
@@ -557,6 +661,9 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
         plain_b = _sync_ms(
             lambda: denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale), 3, 1)
         lib_f, lib_b, lib_fb = _sdpa_ms(q, k, v, do, scale)
+        if dtype == torch.float32:
+            _print_f32_attention(name, (b, n, h, d), q, k, v, do, scale, (o, lse), got,
+                                 (o_ref, lse_ref), want, (ms_f, ms_b), (lib_f, lib_b))
         es = q.element_size()
         rows = b * n * h * d
         bound_f = _bound(4.0 * b * h * n * n * d, 4 * es * rows + 4 * b * h * n, dtype)
@@ -944,6 +1051,12 @@ def phase_train(dev):
                      [k for k in COUNTERS if k not in PACKED_PATH])
     _time_train_step("setvae", MODEL_PARAMS, BATCH, dev)
     _time_train_step("setlrvae", dict(MODEL_PARAMS, **SETLRVAE_PARAMS), SETLRVAE_BATCH, dev)
+    # the f32 path (`mixed_precision: false`): every self-attention on the
+    # split-TF32 K1 and K2
+    _reset_launches()
+    _time_train_step("setvae", dict(MODEL_PARAMS, mixed_precision=False), BATCH, dev, "f32")
+    _expect_launches(_read_launches(), "the f32 SetVAE train step", PACKED_PATH,
+                     [k for k in COUNTERS if k not in PACKED_PATH])
     return launches
 
 

@@ -1,0 +1,91 @@
+"""Checks and times the f32 attention kernels (K1/K2 on the packed route,
+K3f/K3b on the BHND route) of one checkout of this repository on one
+CUDA card, by this checkout's chip_smoke.py, so that two checkouts run in
+one call compare by one method:
+
+    python scripts/ab_attn_f32.py [ROOT]
+
+ROOT (default: this checkout) is put first on sys.path, so its
+`vae_song_tpu_torch` is the one imported and its kernels build into
+ROOT/build/cuda. The checks are chip_smoke.py's: phase 1 (the card's name
+and power limit), phase 2 (the build, with ptxas's register and spill
+lines) and phase 3's `check_attention` on its f32 cases at D <= 128 (B = 4,
+the f32 path's B = 64, and N = 192 at B = 64): each against its plain
+version at chip_smoke.py's bounds and bitwise from run to run (a failure
+raises), against a float64 version, timed beside the split-TF32 and FMA
+bounds, the plain version and SDPA's f32 call. Then, for each route's
+f32 case at B = 64, N = 2048, the device time a call of each of the
+forward's and the backward's kernels takes (torch.profiler, 10 calls).
+"""
+
+import collections
+import importlib.util
+import math
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location("chip_smoke_checks",
+                                               os.path.join(HERE, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+
+def _f32(cases):
+    return tuple(c for c in cases if c[4] == torch.float32 and c[3] <= 128)
+
+
+def _kernel_ms(fn, calls=10):
+    """Device ms a call of each CUDA kernel fn() launches, by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name] += e.time_range.elapsed_us()
+    return {name: t / 1e3 / calls for name, t in us.items()}
+
+
+def _breakdown(dev, gen, name, fwd, bwd, cases):
+    b, n, h, d, dtype = next(c for c in cases if c[0] == smoke.BATCH and c[1] == smoke.NPTS)
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = smoke._attn_inputs(b, n, h, d, dtype, gen, dev)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev)
+    o, lse = fwd(q, k, v, scale)
+    for part, fn in (("fwd", lambda: fwd(q, k, v, scale)),
+                     ("bwd", lambda: bwd(q, k, v, o, lse, do, scale))):
+        times = _kernel_ms(fn)
+        print(f"{name} B={b} N={n} H={h} D={d} float32 {part} device ms a call: "
+              + "; ".join(f"{k_[:90]} {t:.4f}" for k_, t in sorted(times.items()))
+              + f"; total {sum(times.values()):.4f}")
+
+
+def main():
+    print(f"root {ROOT}")
+    smoke.phase_environment()
+    dev = torch.device("cuda", 0)
+    smoke._timed(smoke.phase_build)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    da = smoke.denseattn
+    routes = (("dense_attn (packed route)", da.dense_attention_fwd, da.dense_attention_bwd,
+               smoke.K1_CASES, smoke.K1_F32_TOL),
+              ("dense_attn (BHND route)", da.dense_attention_bhnd, da.dense_attention_bwd_bhnd,
+               smoke.K3_CASES, smoke.K3_F32_O_TOL))
+    for name, fwd, bwd, cases, tol in routes:
+        smoke._timed(smoke.check_attention, dev, gen, name, fwd, bwd, _f32(cases), tol)
+    for name, fwd, bwd, cases, _ in routes:
+        _breakdown(dev, gen, name, fwd, bwd, _f32(cases))
+
+
+if __name__ == "__main__":
+    main()

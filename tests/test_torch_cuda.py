@@ -58,7 +58,8 @@ def test_dense_attention_kernel_matches_plain(dev, b, n, h, dtype, strided):
     assert denseattn.dense_attention_fwd.launches == before + 1
     o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, 0.125)
     # bf16: P rounded against the running max (kernel) or the final max
-    # (plain), see chip_smoke.py; f32: summation order only
+    # (plain), see chip_smoke.py; f32: split-TF32 products (f32-accurate)
+    # summed in another order
     o_tol, l_tol = (2.0 ** -6, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     assert (o.float() - o_ref.float()).abs().max() <= o_tol * max(1.0, o_ref.float().abs().max())
     assert (lse - lse_ref).abs().max() <= l_tol * max(1.0, lse_ref.abs().max())
@@ -101,7 +102,7 @@ def test_dense_attention_bwd_kernel_matches_plain(dev, b, n, h, dtype, strided):
     assert denseattn.dense_attention_bwd.launches == before + 1
     want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
     # bf16: a rounded exp2 argument or dP one bf16 ulp apart (see
-    # chip_smoke.py); f32: summation order only
+    # chip_smoke.py); f32: split-TF32 products summed in another order
     tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape

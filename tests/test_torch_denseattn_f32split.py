@@ -1,0 +1,268 @@
+"""The arithmetic of the port's f32 attention kernels at D = 64 and 128
+(csrc/mma_tf32.cuh, dense_attn_fwd.cu, dense_attn_bwd.cu: split TF32 on
+the tensor cores) emulated in numpy and held, before the card runs it, to
+the JAX package's f32 Pallas kernels in interpret mode and to a float64
+version, within the f32 bounds chip_smoke.py states; and a one-pass TF32
+emulation of the same kernels, which must miss those bounds.
+
+The emulation follows the kernels' order of work: the forward walks tiles
+of T = 2048 / D keys with the exact running max; the dK/dV kernel walks
+tiles of T queries and the dQ kernel tiles of T keys. A product of two
+tiles is a sequence of m16n8k8 steps, 8 terms of the contraction a step;
+in split TF32 each f32 operand x is big = rna(x), small = rna(x - big)
+(rna: to TF32, nearest, ties away from zero; the hardware reads only the
+top 19 bits of an operand, which rna leaves set) and each step is three
+products, small big, big small, big big, into a fresh accumulator, whose
+sum is then added to the running f32 sum (to nearest). One product is
+modelled as its exact sum (TF32 products are exact in float64) added to
+the step's accumulator and rounded toward zero to f32: the tensor cores'
+rounding, which the card showed when the products were chained on the
+running sum (csrc/mma_tf32.cuh). Their alignment of the terms inside one
+product (a few bits past f32) is not modelled; chip_smoke.py phase 3
+holds the card to the same bounds. The row sums and delta are f32 sums
+in numpy's order, not the kernels'.
+"""
+
+import ast
+import functools
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from jax_parity import one_thread  # noqa: F401  (the fixture, used below)
+from vae_song_tpu.ops import denseattn as jax_denseattn
+
+SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "chip_smoke.py")
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _smoke_constant(name):
+    """The literal value chip_smoke.py assigns to its constant `name`."""
+    with open(SMOKE) as f:
+        for node in ast.parse(f.read()).body:
+            if isinstance(node, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id == name for t in node.targets):
+                return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+# chip_smoke.py's bounds of the card's f32 kernels against their plain
+# versions: O within K1_F32_TOL (packed route) or K3_F32_O_TOL (BHND
+# route) of max(1, max|O|), LSE2 within K1_F32_TOL of max(1, max|LSE2|),
+# each gradient within K2_F32_TOL of its max|d|.
+K1_F32_TOL = _smoke_constant("K1_F32_TOL")
+K3_F32_O_TOL = _smoke_constant("K3_F32_O_TOL")
+K2_F32_TOL = _smoke_constant("K2_F32_TOL")
+
+# route: (B, N, H, D, bound on O); the packed route's 64-wide heads in a
+# pair, the BHND route's one head of 128
+ROUTES = {"packed": (2, 128, 2, 64, K1_F32_TOL), "bhnd": (2, 128, 1, 128, K3_F32_O_TOL)}
+
+
+def _rna(x):
+    """x (f32) rounded to TF32, to nearest with ties away from zero, as f32
+    with the low 13 bits clear: the kernels' tf32_rna, cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _rz(x):
+    """float64 to f32, rounded toward zero."""
+    r = x.astype(np.float32)
+    up = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[up] = np.nextafter(r[up], np.float32(0))
+    return r
+
+
+def _mma(c, a, b, split):
+    """c + a @ b the kernels' way: c [..., M, N] f32, a [..., M, K], b
+    [..., K, N] f32, K a multiple of 8. In split TF32 (`split`) three
+    products a step of 8 (small big, big small, big big), else one of the
+    rna-rounded operands (one-pass TF32), into a fresh accumulator (each
+    product's exact sum added to it, rounded toward zero), which is then
+    added to c in f32."""
+    if split:
+        ab, bb = _rna(a), _rna(b)
+        pairs = ((_rna(a - ab), bb), (ab, _rna(b - bb)), (ab, bb))
+    else:
+        pairs = ((_rna(a), _rna(b)),)
+    c = np.asarray(c, np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        d = np.zeros(c.shape, np.float32)
+        for x, y in pairs:
+            step = x[..., k0:k0 + 8].astype(np.float64) @ y[..., k0:k0 + 8, :].astype(np.float64)
+            d = _rz(d.astype(np.float64) + step)
+        c = c + d
+    return c
+
+
+def _qc(q, scale):
+    # qscale is rounded to f32 (the C entry point's float), then one f32 multiply
+    return q * np.float32(scale * LOG2E)
+
+
+def _fwd(q, k, v, scale, split):
+    """The forward kernel on [BH, N, D] f32: (O, LSE2 [BH, N])."""
+    bh, n, d = q.shape
+    t = 2048 // d
+    qc = _qc(q, scale)
+    acc = np.zeros((bh, n, d), np.float32)
+    m = np.full((bh, n), -np.inf, np.float32)
+    l = np.zeros((bh, n), np.float32)
+    for t0 in range(0, n, t):
+        s = _mma(np.zeros((bh, n, t), np.float32), qc, k[:, t0:t0 + t].transpose(0, 2, 1), split)
+        mn = np.maximum(m, s.max(axis=-1))
+        alpha = np.exp2(m - mn)
+        p = np.exp2(s - mn[..., None])
+        l = l * alpha + p.sum(axis=-1, dtype=np.float32)
+        acc = _mma(acc * alpha[..., None], p, v[:, t0:t0 + t], split)
+        m = mn
+    return acc / l[..., None], m + np.log2(l)
+
+
+def _bwd(q, k, v, o, lse, do, scale, split):
+    """The backward kernels on [BH, N, D] f32: (dq, dk, dv)."""
+    bh, n, d = q.shape
+    t = 2048 // d
+    qc = _qc(q, scale)
+    delta = (do * o).sum(axis=-1, dtype=np.float32)
+    zeros = lambda *shape: np.zeros(shape, np.float32)
+    dk, dv, dq = zeros(bh, n, d), zeros(bh, n, d), zeros(bh, n, d)
+    for t0 in range(0, n, t):   # dK/dV: key rows against a tile of queries
+        qt, dot = qc[:, t0:t0 + t], do[:, t0:t0 + t]
+        pt = np.exp2(_mma(zeros(bh, n, t), k, qt.transpose(0, 2, 1), split)
+                     - lse[:, None, t0:t0 + t])
+        dpt = _mma(zeros(bh, n, t), v, dot.transpose(0, 2, 1), split)
+        dst = pt * (dpt - delta[:, None, t0:t0 + t])
+        dv = _mma(dv, pt, dot, split)
+        dk = _mma(dk, dst, qt, split)
+    for t0 in range(0, n, t):   # dQ: query rows against a tile of keys
+        kt, vt = k[:, t0:t0 + t], v[:, t0:t0 + t]
+        p = np.exp2(_mma(zeros(bh, n, t), qc, kt.transpose(0, 2, 1), split) - lse[..., None])
+        dp = _mma(zeros(bh, n, t), do, vt.transpose(0, 2, 1), split)
+        dq = _mma(dq, p * (dp - delta[..., None]), kt, split)
+    return dq * np.float32(scale), dk * np.float32(LN2), dv
+
+
+def _fwd64(q, k, v, scale):
+    """The same function in float64 from the f32 qc."""
+    qc, k, v = _qc(q, scale).astype(np.float64), k.astype(np.float64), v.astype(np.float64)
+    s = qc @ k.transpose(0, 2, 1)
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp2(s - m)
+    l = p.sum(axis=-1)
+    return (p @ v) / l[..., None], m[..., 0] + np.log2(l)
+
+
+def _bwd64(q, k, v, o, lse, do, scale):
+    """The backward in float64 from the same f32 inputs (O and LSE2 those
+    given), qc rounded to f32."""
+    qc = _qc(q, scale).astype(np.float64)
+    k, v, o, do, lse = (a.astype(np.float64) for a in (k, v, o, do, lse))
+    p = np.exp2(qc @ k.transpose(0, 2, 1) - lse[..., None])
+    ds = p * (do @ v.transpose(0, 2, 1) - (do * o).sum(axis=-1)[..., None])
+    return ds @ k * scale, ds.transpose(0, 2, 1) @ qc * LN2, p.transpose(0, 2, 1) @ do
+
+
+def _to_bh(a, b, n, h, d):
+    """[B, N, H * D] or [B, N, H, D] -> [B H, N, D]."""
+    return np.ascontiguousarray(
+        np.asarray(a, np.float32).reshape(b, n, h, d).transpose(0, 2, 1, 3).reshape(b * h, n, d))
+
+
+def _jax(route, q, k, v, do, scale):
+    """The JAX package's f32 kernels of `route` (interpret mode) on
+    [B, N, H, D] inputs: O, LSE2, (dq, dk, dv), all [B H, N(, D)]."""
+    b, n, h, d = q.shape
+    if route == "packed":
+        q2, k2, v2, do2 = (jnp.asarray(a.reshape(b, n, h * d)) for a in (q, k, v, do))
+        o, lse_a, lse_b = jax_denseattn._call_fwd_packed(q2, k2, v2, scale, True)
+        grads = jax_denseattn._call_bwd_packed(q2, k2, v2, do2, o, lse_a, lse_b, scale, True)
+        lse = jnp.stack([lse_a[..., 0], lse_b[..., 0]], axis=2).reshape(b, h, n)
+    else:
+        bhnd = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))
+        qb, kb, vb, dob = (bhnd(a) for a in (q, k, v, do))
+        o, lse4 = jax_denseattn._call_fwd(qb, kb, vb, scale, True)
+        grads = jax_denseattn._call_bwd(qb, kb, vb, dob, o, lse4, scale, True)
+        lse = lse4[..., 0]
+        o, grads = o.transpose(0, 2, 1, 3), [g.transpose(0, 2, 1, 3) for g in grads]
+    bh = lambda a: _to_bh(a, b, n, h, d)
+    return bh(o), np.asarray(lse, np.float32).reshape(b * h, n), [bh(g) for g in grads]
+
+
+@functools.lru_cache(maxsize=None)
+def _case(route):
+    """Inputs from a numpy seed and every side's results for `route`."""
+    b, n, h, d, _ = ROUTES[route]
+    rng = np.random.default_rng(15 + d)
+    # q, k scaled by 2: a peaked softmax, as in a trained model
+    q, k, v, do = ((rng.normal(size=(b, n, h, d)) * s).astype(np.float32)
+                   for s in (2.0, 2.0, 1.0, 1.0))
+    scale = 1.0 / np.sqrt(d)
+    qh, kh, vh, doh = (_to_bh(a, b, n, h, d) for a in (q, k, v, do))
+    out = {"jax": _jax(route, q, k, v, do, scale)}
+    o64, lse64 = _fwd64(qh, kh, vh, scale)
+    for name, split in (("split", True), ("one_pass", False)):
+        o, lse = _fwd(qh, kh, vh, scale, split)
+        grads = _bwd(qh, kh, vh, o, lse, doh, scale, split)
+        out[name] = (o, lse, grads)
+        out[name + "64"] = (o64, lse64, _bwd64(qh, kh, vh, o, lse, doh, scale))
+    return out
+
+
+def _misses(got, ref, o_tol):
+    """Each quantity's error over its bound: O, LSE2, dq, dk, dv."""
+    (o, lse, grads), (o_ref, lse_ref, g_ref) = got, ref
+    ratios = [np.abs(o - o_ref).max() / (o_tol * max(1.0, np.abs(o_ref).max())),
+              np.abs(lse - lse_ref).max() / (K1_F32_TOL * max(1.0, np.abs(lse_ref).max()))]
+    ratios += [np.abs(g - w).max() / (K2_F32_TOL * np.abs(w).max()) for g, w in zip(grads, g_ref)]
+    return np.array(ratios)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_split_tf32_matches_jax_interpret(route, one_thread):
+    out = _case(route)
+    ratios = _misses(out["split"], out["jax"], ROUTES[route][4])
+    assert (ratios <= 1.0).all(), ratios
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_split_tf32_matches_float64(route, one_thread):
+    out = _case(route)
+    ratios = _misses(out["split"], out["split64"], ROUTES[route][4])
+    assert (ratios <= 1.0).all(), ratios
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_one_pass_tf32_misses_the_bounds(route, one_thread):
+    # one TF32 product keeps about 2^-11 of each term: O, LSE2 and every
+    # gradient land one to two orders of magnitude outside the bounds that
+    # split TF32 meets, so the bounds tell the two apart
+    out = _case(route)
+    for ref in ("jax", "one_pass64"):
+        ratios = _misses(out["one_pass"], out[ref], ROUTES[route][4])
+        assert (ratios > 10.0).all(), (ref, ratios)
+
+
+def test_rna_rounds_to_nearest_ties_away():
+    rng = np.random.default_rng(3)
+    wide = rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, 4096)
+    x = np.concatenate([wide.astype(np.float32), np.float32([0.0, -0.0, 1.0, 3.4e38])])
+    # ties: half a TF32 ulp past a TF32 value, both signs
+    base = _rna(rng.normal(size=64).astype(np.float32))
+    ties = (base.view(np.uint32) | np.uint32(0x1000)).view(np.float32)
+    x = np.concatenate([x, ties])
+    got = _rna(x).astype(np.float64)
+    xd = x.astype(np.float64)
+    # the two TF32 neighbours of x, from its exponent: ulp = 2^(e - 10)
+    ulp = np.ldexp(1.0, np.frexp(np.abs(xd))[1] - 11)
+    lo = np.floor(np.abs(xd) / ulp) * ulp
+    hi = lo + ulp
+    want = np.where(np.abs(xd) - lo >= hi - np.abs(xd), hi, lo) * np.sign(xd)
+    ok = np.isfinite(want) & (np.abs(xd) < 3e38)
+    np.testing.assert_array_equal(got[ok], want[ok])
+    assert (got[len(x) - 64:] == want[len(x) - 64:]).all() and (np.abs(got[-64:]) > np.abs(base)).all()

@@ -17,10 +17,14 @@ D % 64 == 0 that `dense_ok` accepts; each route counts its own launches.
 In bf16 at D = 64 and 128 (every configured path) the forward is one
 wgmma kernel fed by TMA (csrc/dense_attn_fwd.cu), and the backward a
 preprocess pass that writes delta and qc into scratch that `_launch_bwd`
-allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu); D = 192
-and 256 and f32 run the first port's kernels; D above 256 runs
-column-chunk kernels that stream the head through shared memory in
-64-column panels.
+allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu). In f32
+(`mixed_precision: false`) at D = 64 and 128 the forward and the
+backward's dK/dV and dQ kernels compute every product in split TF32 on
+the tensor cores (csrc/mma_tf32.cuh: three TF32 mma.sync products a
+product, f32-accurate, in place of the f32 FMA units' 67 TFLOP/s); the
+backward's preprocess writes delta only. D = 192 and 256 run the first
+port's kernels in both dtypes; D above 256 runs column-chunk kernels
+that stream the head through shared memory in 64-column panels.
 
 The forward computes, per (batch, head):
 
