@@ -30,11 +30,18 @@ non-zero exit code:
      backward for it), cuBLASLt's bias + ReLU epilogue
      (`torch._addmm_activation`, then `addmm` and the residual add) are
      timed as references. The f32 attention cases (B = 4, and the f32
-     path's B = 64 on both routes: split-TF32 kernels at D = 64 and 128)
-     also print the kernel's and the plain version's distance from a
-     float64 version, the split-TF32 bound (3 x operations at 495 TFLOP/s)
-     beside the FMA bound (operations at 67), and SDPA's f32 times with
-     the backend it picks and with EFFICIENT_ATTENTION forced.
+     path's B = 64 on both routes at D = 64 and 128; on the BHND route the
+     kernels for heads of 192 and wider at the f32 num_heads 1 path's
+     shape, B = 64, D = 256, at N = 192, at two heads of 192, and at one
+     head of 512 with B = 1 and 8; all split TF32) hold their gradients
+     to a float64 version of the function (the plain version's own f32
+     sums stray past the bound at D = 256), and their O and gradients
+     must lie no farther from float64 than the plain version's; they
+     also print the kernel's and the plain version's distance from the
+     float64 version, the split-TF32 bound (3 x operations at 495
+     TFLOP/s, the f32 rows' bound_ms) beside the FMA bound (operations at
+     67), and SDPA's f32 times with the backend it picks and with
+     EFFICIENT_ATTENTION forced.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -53,7 +60,13 @@ non-zero exit code:
      train step's ms/step; the K3f and K3b counters must rise and K1 and
      K2 must not launch. (2) the shipped SetVAE and SetLRVAE configs with
      VST_FUSED_FFN=1 (set and unset here): the train step's ms/step and
-     the eval step's ms/batch; the K6f and K6b counters must rise.
+     the eval step's ms/batch; the K6f and K6b counters must rise. (3)
+     the shipped SetVAE config with `num_heads: 1` and `mixed_precision:
+     false` (one f32 head of 256): one fake-data epoch of
+     `train_and_test`, then the train step's ms/step; K3f and K3b must
+     launch, every launch on the kernels for f32 heads of 192 and wider
+     (their own counters), K4 and K5 too, and K1, K2 and the FFN kernels
+     must not.
   4d. routes: the shipped SetVAE eval step at full width once under each
      of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
      VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
@@ -64,8 +77,8 @@ non-zero exit code:
   5. reference: the same weights on the CPU (plain versions of the
      kernels) against the card on 2 clouds, in f32 and in bf16: the eval
      step, the decode, and one train step (loss terms, gradients and the
-     updated parameters), for the shipped SetVAE config and for both
-     configurations of phase 4c.
+     updated parameters), for the shipped SetVAE config and for the
+     configurations of phase 4c (the f32 num_heads 1 one in f32 only).
   6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
      false` (the MLP encoder and decoder with BatchNorm at the config's
      encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
@@ -170,8 +183,10 @@ non-zero exit code:
 
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
-K6b), the numbers phase 3 measured and the bound it computed, and under
-`paths` its launches on each path of phases 6-14 (zero on phases 9-11).
+K6b, and for the f32 kernels for heads of 192 and wider, the rows
+`dense_attn_tf32_wide_fwd` and `_bwd`, at their B = 64, D = 256 case),
+the numbers phase 3 measured and the bound it computed, and under `paths`
+its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
 """
 
@@ -265,6 +280,10 @@ SETLRVAE_BATCH = 16
 # JAX package's opt-in switch for the fused FFN.
 HEADS2_OVERRIDE = {"num_heads": 2}
 FUSED_FFN_ENV = {"VST_FUSED_FFN": "1"}
+# The f32 path with one head of 256 (d_model 256): the BHND route's f32
+# kernels for heads of 192 and wider (csrc/dense_attn_tf32_wide.cu), held
+# to the file by the same test.
+HEADS1_F32_OVERRIDE = {"num_heads": 1, "mixed_precision": False}
 # Phases 6-8's configurations: the shipped SetVAE config with one override
 # each (held to the file by the same test): the DeepSets encoder and decoder
 # at the config's encoder_hidden / decoder_hidden widths, and attention
@@ -293,10 +312,10 @@ SEED = 0
 # bf16 tensor cores, float32 outside the tensor cores, TF32 tensor cores,
 # HBM3 bandwidth. A kernel's bound is the larger of its operations over
 # the peak of their type and its bytes (each input read once, each output
-# written once) over the bandwidth. The f32 attention kernels at D = 64
-# and 128 compute in split TF32 (three TF32 products a product,
-# csrc/mma_tf32.cuh), so their f32 rows also print the split-TF32 bound,
-# 3 x operations / PEAK_TF32, beside the FMA bound, operations / PEAK_F32.
+# written once) over the bandwidth. The f32 attention kernels compute in
+# split TF32 (three TF32 products a product, csrc/mma_tf32.cuh), so their
+# bound is the split-TF32 one, 3 x operations / PEAK_TF32; their f32 rows
+# also print the FMA bound, operations / PEAK_F32, beside it.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
@@ -311,14 +330,14 @@ PEAK_BYTES = 3.35e12
 # wider heads only lengthen the f32 sums.
 K1_BF16_O_TOL = 2.0 ** -6
 K1_BF16_LSE_TOL = 1e-3
-# f32 attention: same math; at D = 64 and 128 the kernels take every
-# product in split TF32 (f32-accurate: three TF32 products, each 8-deep
-# step into a fresh accumulator), elsewhere f32 FMAs; the sums run in
-# another order than the plain version's. One-pass TF32 lands 16-270x
-# outside these f32 bounds (tests/test_torch_denseattn_f32split.py), so
-# they tell the two apart. Measured (H100, B = 64, N = 2048, D = 64):
-# the kernel's O 6.2e-6 from a float64 version, the plain version's
-# 1.1e-5; kernel against plain 1.20e-5 at max|O| 4.8.
+# f32 attention: same math; the kernels take every product in split TF32
+# (f32-accurate: three TF32 products, each 8-deep step into a fresh
+# accumulator); the sums run in another order than the plain version's.
+# One-pass TF32 lands 11-270x outside these f32 bounds
+# (tests/test_torch_denseattn_f32split.py), so they tell the two apart.
+# Measured (H100, B = 64, N = 2048, D = 64): the kernel's O 6.2e-6 from a
+# float64 version, the plain version's 1.1e-5; kernel against plain
+# 1.20e-5 at max|O| 4.8.
 K1_F32_TOL = 1e-5
 # The BHND route's f32 O, measured at D = 128 (H100): 4.05e-5 at max|O|
 # 4.35 (9.3e-6 relative) against the plain version. The base-2 scores
@@ -357,22 +376,25 @@ REF_BF16_MOVED_SHARE = 5e-2
 # same f32 batch statistics summed in other orders (the DeepSets step);
 # bound 1e-4 of max(1, max|stat|).
 REF_BN_TOL = 1e-4
-# Attention backward, kernel against plain version on the same inputs.
-# bf16: the tensor cores and the plain f32 einsum sum S and dP in other
+# Attention backward. bf16, kernel against plain version on the same
+# inputs: the tensor cores and the plain f32 einsum sum S and dP in other
 # orders, so a rounded exp2 argument or dP can land one bf16 ulp apart;
 # dq/dk/dv round to bf16 at the end (measured: one output ulp, 0.031 at
-# max|d| ~ 10); bound 2^-6 of max|d|. f32: split-TF32 products at D = 64
-# and 128 (see K1_F32_TOL), summation order; measured (H100, B = 64, N =
-# 2048) 4.6e-5 (D = 64) and 5.4e-5 (D = 128) at max|d| ~ 10, the kernel
-# within 2.0e-5 of a float64 version and the plain version within 4.9e-5;
-# bound 1e-5 of max|d|. Both routes.
+# max|d| ~ 10); bound 2^-6 of max|d|. f32, kernel against a float64
+# version of the function (_attn_bwd_f64): split-TF32 products (see
+# K1_F32_TOL), summation order; measured (H100, B = 64, N = 2048) the
+# kernel within 2.1e-5 at max|d| ~ 10 at D = 64 to 256, the plain f32
+# version within 5.4e-5 at D <= 128 but 7.9e-5 at max|dK| 8.6 at D = 256
+# (its f32 sums over 256 columns and 2048 rows), so kernel against plain
+# strays past this bound there on the plain version's account; bound
+# 1e-5 of max|d|. Both routes.
 K2_BF16_TOL = 2.0 ** -6
 K2_F32_TOL = 1e-5
-# f32 heads wider than 256, backward: S2 and dP^T are sums of D products,
-# which the kernel adds in column order and the plain version in blocked
-# order; at D = 512 a few ulps on |S2| ~ 36 (ulp 3.8e-6) come through the
-# exp2 into P and dS (measured, H100: 1.25e-5 of max|dV| at B = 1, N = 256,
-# against 1e-5): bound 3e-5 of max|d|, K3_F32_O_TOL's reasoning for O.
+# f32 heads wider than 256, backward: S2 and dP^T are sums of D products;
+# at D = 512 a few ulps on |S2| ~ 36 (ulp 3.8e-6) come through the exp2
+# into P and dS (measured, H100, an f32 FMA kernel against the plain
+# version: 1.25e-5 of max|dV| at B = 1, N = 256, against 1e-5): bound
+# 3e-5 of max|d|, K3_F32_O_TOL's reasoning for O.
 K3_F32_WIDE_TOL = 3e-5
 # Chamfer backward: the same f32 terms; the plain version's index_add
 # adds with atomics in another order on the card (measured 3.6e-12 at
@@ -408,13 +430,20 @@ K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat1
             (BATCH, NPTS, 4, 64, torch.float32), (BATCH, 192, 4, 64, torch.float32))
 # K4 and K5 at the main path's batch, then at phase 8's microbatch
 CHAMFER_BATCHES = (BATCH, MICRO_BATCH)
+# The f32 kernels for heads of 192 and wider at the shape of the f32
+# num_heads 1 path (phase 4c): the JSON line's rows for them report it.
+TF32_WIDE_CASE = (BATCH, NPTS, 1, 256, torch.float32)
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
             (4, NPTS, 2, 128, torch.float32), (BATCH, NPTS, 2, 128, torch.float32),
             (BATCH, 192, 2, 128, torch.float32),
+            # f32 heads of 192 and wider: the num_heads 1 path's shape, an
+            # odd number of 64-row tiles, two heads of 192
+            TF32_WIDE_CASE, (BATCH, 192, 1, 256, torch.float32),
+            (BATCH, NPTS, 2, 192, torch.float32),
             # heads wider than 256 (d_model 320 or 512 with one head)
             (8, NPTS, 1, 320, torch.bfloat16), (8, NPTS, 1, 512, torch.bfloat16),
-            (1, NPTS, 1, 512, torch.float32))
+            (1, NPTS, 1, 512, torch.float32), (8, NPTS, 1, 512, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
 # the shipped widths, wider models' widths, then a smaller M in f32
 K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (16 * 2048, 384, 1536, torch.bfloat16),
@@ -481,10 +510,11 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def _bound(flops: float, nbytes: float, dtype) -> dict:
-    """{"bound_ms", "bound_by"} for `flops` operations of `dtype` and
-    `nbytes` of device-memory traffic."""
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+def _bound(flops: float, nbytes: float, dtype, peak=None) -> dict:
+    """{"bound_ms", "bound_by"} for `flops` operations of `dtype` (at
+    `peak` operations a second, if given) and `nbytes` of device-memory
+    traffic."""
+    peak = peak or (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     if t_ops >= t_bytes:
         return {"bound_ms": t_ops, "bound_by": "operations"}
@@ -599,24 +629,19 @@ def _sdpa_f32(q, k, v, do, scale):
     return picked, fwd, bwd
 
 
-def _print_f32_attention(name, shape, q, k, v, do, scale, kernel_f, kernel_b, plain_f, plain_b,
-                         ms, sdpa):
+def _print_f32_attention(name, shape, q, k, v, do, scale, f64, kernel, plain, ms, sdpa):
     """For an f32 case: the kernel's and the plain version's distance from
-    the float64 version, the split-TF32 and FMA bounds beside the kernel's
-    times, and SDPA's f32 backend and times (the default pick's from
-    _sdpa_ms, the forced memory-efficient backend's)."""
+    the float64 version `f64` (each an (O, LSE, dq, dk, dv) tuple), the
+    split-TF32 and FMA bounds beside the kernel's times, and SDPA's f32
+    backend and times (the default pick's from _sdpa_ms, the forced
+    memory-efficient backend's)."""
     b, n, h, d = shape
-    o64, lse64 = _attn_fwd_f64(q, k, v, scale)
-    grads64 = _attn_bwd_f64(q, k, v, kernel_f[0], kernel_f[1], do, scale)
-    dist = lambda xs, ys: ", ".join(f"{_max_err(x, y):.3e}" for x, y in zip(xs, ys))
+    dist = lambda xs: ", ".join(f"{_max_err(x, y):.3e}" for x, y in zip(xs, f64))
     ops_f, ops_b = 4.0 * b * h * n * n * d, 10.0 * b * h * n * n * d
     picked, eff_f, eff_b = _sdpa_f32(q, k, v, do, scale)
     tag = f"{name} B={b} N={n} H={h} D={d} float32"
-    print(f"{tag} vs float64: fwd O, LSE kernel {dist(kernel_f, (o64, lse64))}, plain "
-          f"{dist(plain_f, (o64, lse64))} (max|O| {float(o64.abs().max()):.3f}, max|LSE| "
-          f"{float(lse64.abs().max()):.3f}); bwd dq, dk, dv kernel {dist(kernel_b, grads64)}, "
-          f"plain {dist(plain_b, grads64)} (max|d| "
-          f"{', '.join(f'{float(g.abs().max()):.3f}' for g in grads64)})")
+    print(f"{tag} vs float64: O, LSE, dq, dk, dv kernel {dist(kernel)}, plain {dist(plain)} "
+          f"(max| | {', '.join(f'{float(t.abs().max()):.3f}' for t in f64)})")
     print(f"{tag} bounds: fwd split-TF32 {3 * ops_f / PEAK_TF32 * 1e3:.4f} ms, FMA "
           f"{ops_f / PEAK_F32 * 1e3:.4f} ms (kernel {ms[0]:.4f}); bwd split-TF32 "
           f"{3 * ops_b / PEAK_TF32 * 1e3:.4f} ms, FMA {ops_b / PEAK_F32 * 1e3:.4f} ms (kernel "
@@ -624,12 +649,21 @@ def _print_f32_attention(name, shape, q, k, v, do, scale, kernel_f, kernel_b, pl
           f"EFFICIENT_ATTENTION forced: fwd {eff_f:.4f} ms, bwd {eff_b:.4f} ms")
 
 
-def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
+def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide_case=None, iters=10):
     """One attention route's forward (`fwd`, K1 or K3f) and backward
-    (`bwd`, K2 or K3b) against their plain versions at each (B, N, H, D,
-    dtype) of `cases`, O in f32 to `f32_o_tol`; returns the JSON fields
-    of both for cases[0]."""
-    res_f, res_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    (`bwd`, K2 or K3b) at each (B, N, H, D, dtype) of `cases`, each timed
+    over runs of `iters` calls: O and LSE against the plain version (O in
+    f32 to `f32_o_tol`); the gradients against the plain version in bf16
+    and against a float64 version in f32, where the plain version's own
+    f32 sums over wide heads and long rows stray past the bound (K2_F32_TOL);
+    in f32 the kernel's O and gradients must also lie no farther from the
+    float64 version than the plain version's. Returns the JSON fields of
+    both for cases[0]; with `wide_case` (one of `cases`), also those of the
+    f32 kernels for heads of 192 and wider: wide_case's times and the
+    largest error over the cases that run them. f32 bounds are split
+    TF32's (3 x operations at PEAK_TF32)."""
+    res = [{"max_abs_err": 0.0}, {"max_abs_err": 0.0}]
+    wide = [{"max_abs_err": 0.0}, {"max_abs_err": 0.0}]
     for i, (b, n, h, d, dtype) in enumerate(cases):
         scale = 1.0 / math.sqrt(d)
         q, k, v = _attn_inputs(b, n, h, d, dtype, gen, dev)
@@ -649,33 +683,48 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
             tol_o = K1_BF16_O_TOL * max(1.0, float(o_ref.float().abs().max()))
             tol_l = K1_BF16_LSE_TOL * max(1.0, float(lse_ref.abs().max()))
             tol_b = K2_BF16_TOL
+            oracle = want
         else:
             tol_o = f32_o_tol * max(1.0, float(o_ref.abs().max()))
             tol_l = K1_F32_TOL * max(1.0, float(lse_ref.abs().max()))
             tol_b = K2_F32_TOL if d <= 256 else K3_F32_WIDE_TOL
-        errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
-        bounds = [tol_b * float(w_.float().abs().max()) for w_ in want]
-        ms_f = _sync_ms(lambda: fwd(q, k, v, scale), 10)
-        ms_b = _sync_ms(lambda: bwd(q, k, v, o, lse, do, scale), 10)
+            f64 = (*_attn_fwd_f64(q, k, v, scale), *_attn_bwd_f64(q, k, v, o, lse, do, scale))
+            oracle = f64[2:]
+        errs = [_max_err(g_, w_) for g_, w_ in zip(got, oracle)]
+        bounds = [tol_b * float(w_.float().abs().max()) for w_ in oracle]
+        ms_f = _sync_ms(lambda: fwd(q, k, v, scale), iters)
+        ms_b = _sync_ms(lambda: bwd(q, k, v, o, lse, do, scale), iters)
         plain_f = _sync_ms(lambda: denseattn.dense_attention_fwd_plain(q, k, v, scale), 3, 1)
         plain_b = _sync_ms(
             lambda: denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale), 3, 1)
         lib_f, lib_b, lib_fb = _sdpa_ms(q, k, v, do, scale)
+        closer = True
         if dtype == torch.float32:
-            _print_f32_attention(name, (b, n, h, d), q, k, v, do, scale, (o, lse), got,
-                                 (o_ref, lse_ref), want, (ms_f, ms_b), (lib_f, lib_b))
+            kernel, plain = (o, lse, *got), (o_ref, lse_ref, *want)
+            _print_f32_attention(name, (b, n, h, d), q, k, v, do, scale, f64, kernel, plain,
+                                 (ms_f, ms_b), (lib_f, lib_b))
+            # O and the gradients (LSE ~ 30-40 lands on a few ulps either way)
+            closer = all(_max_err(x, y) <= _max_err(z, y)
+                         for j, (x, z, y) in enumerate(zip(kernel, plain, f64)) if j != 1)
         es = q.element_size()
-        rows = b * n * h * d
-        bound_f = _bound(4.0 * b * h * n * n * d, 4 * es * rows + 4 * b * h * n, dtype)
-        bound_b = _bound(10.0 * b * h * n * n * d, 8 * es * rows + 4 * b * h * n, dtype)
+        elems = b * n * h * d
+        # f32: three TF32 products a product (split TF32)
+        mul, peak = (1, None) if dtype == torch.bfloat16 else (3, PEAK_TF32)
+        bound_f = _bound(mul * 4.0 * b * h * n * n * d, 4 * es * elems + 4 * b * h * n, dtype,
+                         peak)
+        bound_b = _bound(mul * 10.0 * b * h * n * n * d, 8 * es * elems + 4 * b * h * n, dtype,
+                         peak)
         tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
+        against = "the plain version" if dtype == torch.bfloat16 else "float64"
         print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
               f"(bound {tol_l:.3e}); repeat bitwise equal {repeat_f}; kernel {ms_f:.4f} ms "
               f"({4.0 * b * h * n * n * d / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, "
               f"bound {bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}), "
               f"sdpa {lib_f:.4f} ms")
-        print(f"{tag} bwd: max|d dq,dk,dv| "
+        print(f"{tag} bwd: max|d dq,dk,dv| from {against} "
               + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
+              + ("" if oracle is want else "; from the plain version "
+                 + ", ".join(f"{_max_err(g_, w_):.3e}" for g_, w_ in zip(got, want)))
               + f"; repeat bitwise equal {repeat}; kernel {ms_b:.4f} ms "
               f"({10.0 * b * h * n * n * d / ms_b / 1e9:.1f} TFLOP/s at 10 B H N^2 D, "
               f"{14.0 * b * h * n * n * d / ms_b / 1e9:.1f} at the 14 B H N^2 D executed), "
@@ -685,17 +734,23 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol):
         if not (err_o <= tol_o and err_l <= tol_l):
             raise AssertionError(f"{name} forward disagrees with its plain version: {tag}")
         if not all(e <= t for e, t in zip(errs, bounds)):
-            raise AssertionError(f"{name} backward disagrees with its plain version: {tag}")
+            raise AssertionError(f"{name} backward disagrees with {against}: {tag}")
+        if not closer:
+            raise AssertionError(f"{name} lies farther from float64 than its plain version: {tag}")
         if not repeat_f:
             raise AssertionError(f"{name} forward differs from run to run: {tag}")
         if not repeat:
             raise AssertionError(f"{name} backward differs from run to run: {tag}")
-        res_f["max_abs_err"] = max(res_f["max_abs_err"], err_o, err_l)
-        res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
-        if i == 0:
-            res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=lib_f, **bound_f)
-            res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=lib_b, **bound_b)
-    return res_f, res_b
+        picks = [(res, i == 0)]
+        if wide_case is not None and denseattn.tf32_wide(dtype, d):
+            picks.append((wide, (b, n, h, d, dtype) == wide_case))
+        for (res_f, res_b), timed in picks:
+            res_f["max_abs_err"] = max(res_f["max_abs_err"], err_o, err_l)
+            res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
+            if timed:
+                res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=lib_f, **bound_f)
+                res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=lib_b, **bound_b)
+    return (*res, *wide) if wide_case is not None else tuple(res)
 
 
 def _chamfer_bytes(b, n, m):
@@ -876,6 +931,9 @@ COUNTERS = {
     "dense_attn_bwd": denseattn.dense_attention_bwd,
     "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
     "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
+    # f32 heads of 192 and wider, also counted on their route's wrapper
+    "dense_attn_tf32_wide_fwd": denseattn.tf32_wide_fwd,
+    "dense_attn_tf32_wide_bwd": denseattn.tf32_wide_bwd,
     "chamfer_nn_packed": chamfer.chamfer_nn_packed,
     "chamfer_bwd": chamfer.chamfer_bwd,
     "ffn_fwd": ffn.fused_ffn_fwd,
@@ -1076,6 +1134,28 @@ def phase_heads2(dev):
     return launches
 
 
+TF32_WIDE_PATH = ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "dense_attn_tf32_wide_fwd",
+                  "dense_attn_tf32_wide_bwd", "chamfer_nn_packed", "chamfer_bwd")
+
+
+def phase_heads1_f32(dev):
+    """SetVAE with num_heads 1 under mixed_precision: false (one head of
+    256, f32): the BHND route's f32 kernels for heads of 192 and wider."""
+    params = dict(MODEL_PARAMS, **HEADS1_F32_OVERRIDE)
+    tag = f"f32 num_heads {params['num_heads']}"
+    _reset_launches()
+    _train_and_test(params, 1, dev)
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    launches = _read_launches()
+    _expect_launches(launches, "the f32 num_heads 1 path", TF32_WIDE_PATH,
+                     _others(TF32_WIDE_PATH))
+    # every BHND launch of this path is a head of 256 in f32
+    if (launches["dense_attn_tf32_wide_fwd"], launches["dense_attn_tf32_wide_bwd"]) != (
+            launches["dense_attn_bhnd_fwd"], launches["dense_attn_bhnd_bwd"]):
+        raise AssertionError(f"the f32 num_heads 1 path ran other BHND kernels: {launches}")
+    return launches
+
+
 def phase_fused_ffn(dev):
     """The shipped SetVAE and SetLRVAE configs with VST_FUSED_FFN=1."""
     tag = "bf16 " + " ".join(f"{k}={v}" for k, v in FUSED_FFN_ENV.items())
@@ -1211,16 +1291,18 @@ def _compare_train_step(dev, tag, x, eps, params, loss_rtol, grad_rtol, moved_sh
         raise AssertionError(f"card and CPU train steps disagree ({tag})")
 
 
-def _reference(dev, name, params):
+def _reference(dev, name, params, precisions=(False, True)):
     """Card (kernels) vs CPU (plain versions) on the same weights, 2
-    clouds, f32 and bf16."""
+    clouds, in f32 and bf16 (`precisions`: the mixed_precision values)."""
     n, latent = params["num_points"], params["latent_channel"]
     x, _ = fake_point_clouds(2, n, seed=SEED + 2)
     rng = np.random.default_rng(SEED + 3)
     eps = rng.standard_normal((2, latent)).astype(np.float32)
     z = rng.standard_normal((2, latent)).astype(np.float32)
-    for mixed, loss_rtol, recon_atol in ((False, REF_F32_LOSS_RTOL, REF_F32_RECON_ATOL),
-                                         (True, REF_BF16_LOSS_RTOL, REF_BF16_RECON_ATOL)):
+    bounds = {False: (REF_F32_LOSS_RTOL, REF_F32_RECON_ATOL),
+              True: (REF_BF16_LOSS_RTOL, REF_BF16_RECON_ATOL)}
+    for mixed in precisions:
+        loss_rtol, recon_atol = bounds[mixed]
         mp = dict(params, mixed_precision=mixed)
         outs = {}
         for where in ("cpu", dev):
@@ -1253,6 +1335,11 @@ def phase_reference(dev):
     configurations of phase 4c."""
     _reference(dev, "shipped", MODEL_PARAMS)
     _reference(dev, "num_heads 2", dict(MODEL_PARAMS, **HEADS2_OVERRIDE))
+    # the f32 num_heads 1 configuration, in f32 only (its own precision)
+    launches = denseattn.tf32_wide_bwd.launches
+    _reference(dev, "num_heads 1", dict(MODEL_PARAMS, **HEADS1_F32_OVERRIDE), (False,))
+    if denseattn.tf32_wide_bwd.launches == launches:
+        raise AssertionError("the f32 num_heads 1 reference did not run the wide f32 kernels")
     with mock.patch.dict(os.environ, FUSED_FFN_ENV):
         launches = ffn.fused_ffn_fwd.launches
         _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
@@ -2853,15 +2940,16 @@ def main():
     k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
                     denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
                     K1_F32_TOL)
-    k3f, k3b = _timed(check_attention, dev, gen, "dense_attn (BHND route)",
-                      denseattn.dense_attention_bhnd, denseattn.dense_attention_bwd_bhnd,
-                      K3_CASES, K3_F32_O_TOL)
+    k3f, k3b, k3f_wide, k3b_wide = _timed(
+        check_attention, dev, gen, "dense_attn (BHND route)", denseattn.dense_attention_bhnd,
+        denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL, TF32_WIDE_CASE)
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
     k6f, k6b = _timed(check_ffn, dev, gen)
     _timed(phase_eval_generation, dev)
     main_path = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
+    heads1_f32 = _timed(phase_heads1_f32, dev)
     fused = _timed(phase_fused_ffn, dev)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
@@ -2881,6 +2969,10 @@ def main():
          k3f),
         ("dense_attn_bhnd_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152", heads2,
          k3b),
+        ("dense_attn_tf32_wide_fwd", "dense_attn_tf32_wide.cu",
+         "vae_song_tpu/ops/denseattn.py:124", heads1_f32, k3f_wide),
+        ("dense_attn_tf32_wide_bwd", "dense_attn_tf32_wide.cu",
+         "vae_song_tpu/ops/denseattn.py:152", heads1_f32, k3b_wide),
         ("chamfer_nn_packed", "chamfer_fwd.cu", "vae_song_tpu/ops/chamfer.py:103", main_path, k4),
         ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
         ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),

@@ -9,13 +9,19 @@ ROOT (default: this checkout) is put first on sys.path, so its
 `vae_song_tpu_torch` is the one imported and its kernels build into
 ROOT/build/cuda. The checks are chip_smoke.py's: phase 1 (the card's name
 and power limit), phase 2 (the build, with ptxas's register and spill
-lines) and phase 3's `check_attention` on its f32 cases at D <= 128 (B = 4,
-the f32 path's B = 64, and N = 192 at B = 64): each against its plain
-version at chip_smoke.py's bounds and bitwise from run to run (a failure
-raises), against a float64 version, timed beside the split-TF32 and FMA
-bounds, the plain version and SDPA's f32 call. Then, for each route's
-f32 case at B = 64, N = 2048, the device time a call of each of the
-forward's and the backward's kernels takes (torch.profiler, 10 calls).
+lines) and phase 3's `check_attention` on every f32 case of both routes:
+D = 64 and 128 (B = 4, the f32 path's B = 64, and N = 192 at B = 64; runs
+of 10 calls) and the heads of 192 and wider (runs of 3 calls, so that the
+FMA kernels of a checkout from before the split-TF32 ones stay short):
+each at chip_smoke.py's bounds (O against the plain version, the
+gradients against a float64 version), no farther from float64 than the
+plain version and bitwise from run to run (a case that fails prints why,
+and the next case runs), timed beside the split-TF32 and FMA bounds, the
+plain version and SDPA's f32 call.
+Then the device time a call of each of the forward's and the backward's
+kernels takes (torch.profiler, 10 calls; 3 above D = 128) at B = 64, N =
+2048 on each route (D = 64, H = 4 and D = 128, H = 2), and at one head of
+256 (B = 64) and of 512 (B = 8 and B = 1).
 """
 
 import collections
@@ -23,6 +29,7 @@ import importlib.util
 import math
 import os
 import sys
+import types
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
@@ -31,14 +38,27 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
+from vae_song_tpu_torch.ops import denseattn  # noqa: E402
+
+# A checkout from before the split-TF32 kernels for heads of 192 and wider
+# has no launch counters for them, which chip_smoke.py's COUNTERS name:
+# give it idle ones, which nothing here reads.
+for _name in ("tf32_wide_fwd", "tf32_wide_bwd"):
+    if not hasattr(denseattn, _name):
+        setattr(denseattn, _name, types.SimpleNamespace(launches=0))
+
 _spec = importlib.util.spec_from_file_location("chip_smoke_checks",
                                                os.path.join(HERE, "chip_smoke.py"))
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
+# the per-kernel breakdown's BHND shapes beside each route's B = 64 case
+WIDE_BREAKDOWN = ((smoke.BATCH, smoke.NPTS, 1, 256), (8, smoke.NPTS, 1, 512),
+                  (1, smoke.NPTS, 1, 512))
 
-def _f32(cases):
-    return tuple(c for c in cases if c[4] == torch.float32 and c[3] <= 128)
+
+def _f32(cases, wide):
+    return tuple(c for c in cases if c[4] == torch.float32 and (c[3] >= 192) == wide)
 
 
 def _kernel_ms(fn, calls=10):
@@ -56,15 +76,15 @@ def _kernel_ms(fn, calls=10):
     return {name: t / 1e3 / calls for name, t in us.items()}
 
 
-def _breakdown(dev, gen, name, fwd, bwd, cases):
-    b, n, h, d, dtype = next(c for c in cases if c[0] == smoke.BATCH and c[1] == smoke.NPTS)
+def _breakdown(dev, gen, name, fwd, bwd, shape):
+    b, n, h, d = shape
     scale = 1.0 / math.sqrt(d)
-    q, k, v = smoke._attn_inputs(b, n, h, d, dtype, gen, dev)
+    q, k, v = smoke._attn_inputs(b, n, h, d, torch.float32, gen, dev)
     do = torch.randn(b, n, h, d, generator=gen, device=dev)
     o, lse = fwd(q, k, v, scale)
     for part, fn in (("fwd", lambda: fwd(q, k, v, scale)),
                      ("bwd", lambda: bwd(q, k, v, o, lse, do, scale))):
-        times = _kernel_ms(fn)
+        times = _kernel_ms(fn, 10 if d <= 128 else 3)
         print(f"{name} B={b} N={n} H={h} D={d} float32 {part} device ms a call: "
               + "; ".join(f"{k_[:90]} {t:.4f}" for k_, t in sorted(times.items()))
               + f"; total {sum(times.values()):.4f}")
@@ -82,9 +102,19 @@ def main():
               ("dense_attn (BHND route)", da.dense_attention_bhnd, da.dense_attention_bwd_bhnd,
                smoke.K3_CASES, smoke.K3_F32_O_TOL))
     for name, fwd, bwd, cases, tol in routes:
-        smoke._timed(smoke.check_attention, dev, gen, name, fwd, bwd, _f32(cases), tol)
+        for wide, iters in ((False, 10), (True, 3)):
+            for case in _f32(cases, wide):
+                try:
+                    smoke.check_attention(dev, gen, name, fwd, bwd, (case,), tol, iters=iters)
+                except AssertionError as e:
+                    print(f"FAILED: {e}")
     for name, fwd, bwd, cases, _ in routes:
-        _breakdown(dev, gen, name, fwd, bwd, _f32(cases))
+        shape = next(c[:4] for c in _f32(cases, False)
+                     if c[0] == smoke.BATCH and c[1] == smoke.NPTS)
+        _breakdown(dev, gen, name, fwd, bwd, shape)
+    for shape in WIDE_BREAKDOWN:
+        _breakdown(dev, gen, routes[1][0], da.dense_attention_bhnd, da.dense_attention_bwd_bhnd,
+                   shape)
 
 
 if __name__ == "__main__":

@@ -301,6 +301,17 @@ def test_train_step_with_wide_heads_runs_the_bhnd_kernels(dev):
     assert _train_step_launches(dev, num_heads=1) == [0, 0, 4, 4, 1, 1, 0, 0]
 
 
+def test_f32_train_step_with_one_wide_head_runs_the_wide_kernels(dev):
+    """One f32 head of 256 (num_heads 1 at d_model 256, mixed_precision
+    false): K3f and K3b, every launch on the kernels for heads of 192 and
+    wider (csrc/dense_attn_tf32_wide.cu)."""
+    start = (denseattn.tf32_wide_fwd.launches, denseattn.tf32_wide_bwd.launches)
+    assert _train_step_launches(dev, num_heads=1, d_model=256,
+                                mixed_precision=False) == [0, 0, 4, 4, 1, 1, 0, 0]
+    assert (denseattn.tf32_wide_fwd.launches - start[0],
+            denseattn.tf32_wide_bwd.launches - start[1]) == (4, 4)
+
+
 def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     """VST_FUSED_FFN=1 at ff_dim 128 (rows 8 x 256 = 2048): K6f and K6b
     for the 2 encoder and 2 decoder FFNs."""
@@ -341,9 +352,16 @@ def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
     (1, 128, 1, 320, torch.bfloat16, False), (2, 192, 1, 320, torch.bfloat16, True),
     (2, 128, 2, 512, torch.bfloat16, True), (1, 256, 1, 384, torch.bfloat16, False),
     (1, 128, 1, 320, torch.float32, True), (1, 192, 2, 512, torch.float32, False),
+    # f32 from D = 192 (csrc/dense_attn_tf32_wide.cu): 3 and 7 warps a row
+    # group, two and four row groups a block (B H N / 32 and / 64 at least
+    # twice the card's SM count), the widest whole head (512) and the first
+    # widths in column groups (576: 320 + 256 columns; 1088: 384 + 384 + 320)
+    (1, 128, 3, 192, torch.float32, True), (2, 128, 1, 448, torch.float32, False),
+    (136, 128, 2, 192, torch.float32, True), (72, 256, 2, 256, torch.float32, False),
+    (2, 192, 1, 576, torch.float32, True), (1, 128, 1, 1088, torch.float32, False),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
-    """K3f and K3b at head widths 64 to 512 and an odd
+    """K3f and K3b at head widths 64 to 1088 and an odd
     head count, on views of one packed projection or on contiguous
     tensors, against their plain versions (bounds as chip_smoke.py's:
     bf16 2^-6 of max(1, max|O|) and of max|d|, LSE 1e-3; f32 3e-5 on O,

@@ -1,14 +1,22 @@
-"""The arithmetic of the port's f32 attention kernels at D = 64 and 128
-(csrc/mma_tf32.cuh, dense_attn_fwd.cu, dense_attn_bwd.cu: split TF32 on
-the tensor cores) emulated in numpy and held, before the card runs it, to
-the JAX package's f32 Pallas kernels in interpret mode and to a float64
-version, within the f32 bounds chip_smoke.py states; and a one-pass TF32
-emulation of the same kernels, which must miss those bounds.
+"""The arithmetic of the port's f32 attention kernels (csrc/mma_tf32.cuh;
+dense_attn_fwd.cu and dense_attn_bwd.cu at D = 64 and 128,
+dense_attn_tf32_wide.cu from D = 192 up: split TF32 on the tensor cores)
+emulated in numpy and held, before the card runs it, to the JAX package's
+f32 Pallas kernels in interpret mode and to a float64 version, within the
+f32 bounds chip_smoke.py states; and a one-pass TF32 emulation of the same
+kernels, which must miss those bounds.
 
 The emulation follows the kernels' order of work: the forward walks tiles
-of T = 2048 / D keys with the exact running max; the dK/dV kernel walks
-tiles of T queries and the dQ kernel tiles of T keys. A product of two
-tiles is a sequence of m16n8k8 steps, 8 terms of the contraction a step;
+of T keys (2048 / D at D = 64 and 128, 16 from D = 192) with the exact
+running max; the dK/dV kernel walks tiles of T queries and the dQ kernel
+tiles of T keys. The scores (S, S^T, dP, dP^T) of a tile are summed over
+the head by the warps of a row group, each over its own columns, and the
+partial sums are added in warp order (_score_parts): the forward at D = 64
+and 128 sums the whole head in one warp, the backward there in two halves;
+from D = 192 each warp takes 64 columns, and above D = 512 the head is
+walked in panels of 64 wg columns, warp w taking columns 64 (p wg + w) ..
+of panel p. A product of two tiles is a sequence of m16n8k8 steps, 8 terms
+of the contraction a step;
 in split TF32 each f32 operand x is big = rna(x), small = rna(x - big)
 (rna: to TF32, nearest, ties away from zero; the hardware reads only the
 top 19 bits of an operand, which rna leaves set) and each step is three
@@ -58,9 +66,43 @@ K1_F32_TOL = _smoke_constant("K1_F32_TOL")
 K3_F32_O_TOL = _smoke_constant("K3_F32_O_TOL")
 K2_F32_TOL = _smoke_constant("K2_F32_TOL")
 
+# Above D = 256 chip_smoke.py holds the gradients to K3_F32_WIDE_TOL.
+K3_F32_WIDE_TOL = _smoke_constant("K3_F32_WIDE_TOL")
+
 # route: (B, N, H, D, bound on O); the packed route's 64-wide heads in a
-# pair, the BHND route's one head of 128
-ROUTES = {"packed": (2, 128, 2, 64, K1_F32_TOL), "bhnd": (2, 128, 1, 128, K3_F32_O_TOL)}
+# pair, the BHND route's one head of 128, and the wide kernels' widths: 192
+# and 256 (3 and 4 warps a row group, the f32 `num_heads: 1` SetVAE step's
+# 256), 512 (8, the widest whole head) and 576 (two column groups of 5
+# warps: 320 and 256 columns)
+ROUTES = {"packed": (2, 128, 2, 64, K1_F32_TOL), "bhnd": (2, 128, 1, 128, K3_F32_O_TOL),
+          "bhnd192": (2, 128, 1, 192, K3_F32_O_TOL), "bhnd256": (1, 192, 1, 256, K3_F32_O_TOL),
+          "bhnd512": (1, 128, 1, 512, K3_F32_O_TOL), "bhnd576": (1, 128, 1, 576, K3_F32_O_TOL)}
+
+
+def _grad_tol(d):
+    """chip_smoke.py's bound on the f32 gradients at head width d."""
+    return K2_F32_TOL if d <= 256 else K3_F32_WIDE_TOL
+
+
+def _tile(d):
+    """Rows of the other side a kernel walks at a time at head width d."""
+    return 2048 // d if d <= 128 else 16
+
+
+def _score_parts(d, backward):
+    """The head columns each warp of a row group sums a tile's scores over,
+    in its order of steps; the partial sums are added in this order.
+    D = 64 and 128: the forward's one warp, the backward's pair of halves.
+    From D = 192 (dense_attn_tf32_wide.cu): C = D / 64 chunks of 64
+    columns in ng = ceil(C / 8) panels of wg = ceil(C / ng) chunks; warp w
+    sums chunk p wg + w of each panel p in turn."""
+    if d <= 128:
+        return [np.arange(d)] if not backward else [np.arange(d // 2), np.arange(d // 2, d)]
+    c = d // 64
+    ng = -(-c // 8)
+    wg = -(-c // ng)
+    return [np.concatenate([np.arange(64 * (p * wg + w), 64 * (p * wg + w + 1))
+                            for p in range(ng) if p * wg + w < c]) for w in range(wg)]
 
 
 def _rna(x):
@@ -105,16 +147,28 @@ def _qc(q, scale):
     return q * np.float32(scale * LOG2E)
 
 
+def _scores(a, bt, split, parts):
+    """a @ bt^T ([..., M, D] by [..., T, D]) summed the kernels' way: one
+    partial sum a warp over its columns (`parts`), from zero, then the
+    partial sums added in warp order in f32."""
+    s = None
+    for cols in parts:
+        part = _mma(np.zeros(a.shape[:-1] + bt.shape[-2:-1], np.float32), a[..., cols],
+                    bt[..., cols].swapaxes(-1, -2), split)
+        s = part if s is None else s + part
+    return s
+
+
 def _fwd(q, k, v, scale, split):
     """The forward kernel on [BH, N, D] f32: (O, LSE2 [BH, N])."""
     bh, n, d = q.shape
-    t = 2048 // d
+    t, parts = _tile(d), _score_parts(d, False)
     qc = _qc(q, scale)
     acc = np.zeros((bh, n, d), np.float32)
     m = np.full((bh, n), -np.inf, np.float32)
     l = np.zeros((bh, n), np.float32)
     for t0 in range(0, n, t):
-        s = _mma(np.zeros((bh, n, t), np.float32), qc, k[:, t0:t0 + t].transpose(0, 2, 1), split)
+        s = _scores(qc, k[:, t0:t0 + t], split, parts)
         mn = np.maximum(m, s.max(axis=-1))
         alpha = np.exp2(m - mn)
         p = np.exp2(s - mn[..., None])
@@ -127,23 +181,22 @@ def _fwd(q, k, v, scale, split):
 def _bwd(q, k, v, o, lse, do, scale, split):
     """The backward kernels on [BH, N, D] f32: (dq, dk, dv)."""
     bh, n, d = q.shape
-    t = 2048 // d
+    t, parts = _tile(d), _score_parts(d, True)
     qc = _qc(q, scale)
     delta = (do * o).sum(axis=-1, dtype=np.float32)
     zeros = lambda *shape: np.zeros(shape, np.float32)
     dk, dv, dq = zeros(bh, n, d), zeros(bh, n, d), zeros(bh, n, d)
     for t0 in range(0, n, t):   # dK/dV: key rows against a tile of queries
         qt, dot = qc[:, t0:t0 + t], do[:, t0:t0 + t]
-        pt = np.exp2(_mma(zeros(bh, n, t), k, qt.transpose(0, 2, 1), split)
-                     - lse[:, None, t0:t0 + t])
-        dpt = _mma(zeros(bh, n, t), v, dot.transpose(0, 2, 1), split)
+        pt = np.exp2(_scores(k, qt, split, parts) - lse[:, None, t0:t0 + t])
+        dpt = _scores(v, dot, split, parts)
         dst = pt * (dpt - delta[:, None, t0:t0 + t])
         dv = _mma(dv, pt, dot, split)
         dk = _mma(dk, dst, qt, split)
     for t0 in range(0, n, t):   # dQ: query rows against a tile of keys
         kt, vt = k[:, t0:t0 + t], v[:, t0:t0 + t]
-        p = np.exp2(_mma(zeros(bh, n, t), qc, kt.transpose(0, 2, 1), split) - lse[..., None])
-        dp = _mma(zeros(bh, n, t), do, vt.transpose(0, 2, 1), split)
+        p = np.exp2(_scores(qc, kt, split, parts) - lse[..., None])
+        dp = _scores(do, vt, split, parts)
         dq = _mma(dq, p * (dp - delta[..., None]), kt, split)
     return dq * np.float32(scale), dk * np.float32(LN2), dv
 
@@ -217,9 +270,10 @@ def _case(route):
 def _misses(got, ref, o_tol):
     """Each quantity's error over its bound: O, LSE2, dq, dk, dv."""
     (o, lse, grads), (o_ref, lse_ref, g_ref) = got, ref
+    g_tol = _grad_tol(o.shape[-1])
     ratios = [np.abs(o - o_ref).max() / (o_tol * max(1.0, np.abs(o_ref).max())),
               np.abs(lse - lse_ref).max() / (K1_F32_TOL * max(1.0, np.abs(lse_ref).max()))]
-    ratios += [np.abs(g - w).max() / (K2_F32_TOL * np.abs(w).max()) for g, w in zip(grads, g_ref)]
+    ratios += [np.abs(g - w).max() / (g_tol * np.abs(w).max()) for g, w in zip(grads, g_ref)]
     return np.array(ratios)
 
 

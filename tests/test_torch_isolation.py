@@ -101,9 +101,11 @@ def test_chip_smoke_model_params_are_the_shipped_config():
 def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch):
     """Phase 4c's configurations are the shipped files plus one stated
     change each and nothing else: the SetVAE config with `num_heads: 2`
-    (a key the file sets, to a value that takes the BHND route), and the
-    SetVAE and SetLRVAE configs as they are, under the VST_FUSED_FFN
-    switch that the port reads."""
+    (a key the file sets, to a value that takes the BHND route), with
+    `num_heads: 1` and `mixed_precision: false` (keys the file sets: one
+    f32 head of 256, the BHND route's kernels for heads of 192 and wider),
+    and the SetVAE and SetLRVAE configs as they are, under the
+    VST_FUSED_FFN switch that the port reads."""
     from vae_song_tpu_torch.models import setvae
     from vae_song_tpu_torch.ops import denseattn
 
@@ -115,6 +117,14 @@ def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch)
     n, d = heads2["num_points"], heads2["d_model"] // heads2["num_heads"]
     assert denseattn.dense_ok(n, n, d) and not denseattn.packed_ok(n, n, heads2["num_heads"], d)
     assert "params = dict(MODEL_PARAMS, **HEADS2_OVERRIDE)" in _smoke_function("phase_heads2")
+    override = _smoke_literal("HEADS1_F32_OVERRIDE")
+    assert override == {"num_heads": 1, "mixed_precision": False} and set(override) <= set(mp)
+    heads1 = dict(mp, **override)
+    n, d = heads1["num_points"], heads1["d_model"] // heads1["num_heads"]
+    assert d >= 192 and denseattn.dense_ok(n, n, d)
+    assert not denseattn.packed_ok(n, n, heads1["num_heads"], d)
+    assert "params = dict(MODEL_PARAMS, **HEADS1_F32_OVERRIDE)" in _smoke_function(
+        "phase_heads1_f32")
 
     env = _smoke_literal("FUSED_FFN_ENV")
     assert env == {"VST_FUSED_FFN": "1"}

@@ -1,5 +1,6 @@
 // Dense attention backward for Hopper (sm_90a), [B, N, H, D] layout read
-// through strides, head width D a compile-time 64, 128, 192 or 256.
+// through strides, any head width D % 64 == 0 (f32 from D = 192 up: the
+// dK/dV and dQ kernels of dense_attn_tf32_wide.cu, launched from here).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_bwd_kernel_packed (K2, called
 // through _call_bwd_packed) and vae_song_tpu/ops/denseattn.py:_bwd_kernel
@@ -85,9 +86,10 @@
 // so a thread holds D / 2 accumulator columns of dK and dV (64 registers
 // at D = 128, where a warp holding all D spilled). Each 8-deep step of a
 // product goes into a fresh accumulator added to the running sum in f32,
-// as in the forward. No atomics: the same bits on every run. f32 at D =
-// 192 and 256 keeps the first port's FMA kernels: one thread per key row
-// (dK/dV) or query row (dQ), 64 output columns a block.
+// as in the forward. No atomics: the same bits on every run. f32 from D =
+// 192 up: the preprocess at any width, then dense_attn_tf32_wide.cu's
+// split-TF32 kernels, the head's columns split across the warps of a row
+// group (64 each), S and dP computed once per pair of tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -95,6 +97,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "dense_attn_tf32_wide.cuh"
 #include "mma_tf32.cuh"
 #include "sm90.cuh"
 
@@ -1137,154 +1140,7 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ---- f32, D = 192 and 256: plain FMA kernels -----------------------------
-
-constexpr int kF32Rows = 64;   // rows per block, one per thread
-constexpr int kF32Tile = 16;   // rows of the other side per shared tile
-
-// Two [64][D + 1] per-thread row tiles (stride D + 1 avoids bank
-// conflicts), two [16][D] tiles of the other side, two [16] vectors.
-template <int D>
-constexpr size_t bwd_f32_smem() {
-  return (2 * kF32Rows * (D + 1) + 2 * kF32Tile * D + 2 * kF32Tile) * sizeof(float);
-}
-
-// Grid (N / 64 * D / 64, H, B), 64 threads; thread i owns key row k0 + i,
-// columns c0 .. c0 + 63.
-template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ d_o,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H, int N,
-                         Strides s, Strides os, float qscale) {
-  constexpr int P = D + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* kr = fsm;                       // [64][D + 1]
-  float* vr = kr + kF32Rows * P;         // [64][D + 1]
-  float* qs = vr + kF32Rows * P;         // [16][D]
-  float* dos = qs + kF32Tile * D;        // [16][D]
-  float* ls = dos + kF32Tile * D;
-  float* dls = ls + kF32Tile;
-
-  constexpr int kChunks = D / kCols;
-  const int c0 = (blockIdx.x % kChunks) * kCols;
-  const int kb = (blockIdx.x / kChunks) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int key = kb + tid;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-  for (int i = tid; i < kF32Rows * D; i += kF32Rows) {
-    const int r = i / D, c = i % D;
-    kr[r * P + c] = k[head + (long long)(kb + r) * s.n + c];
-    vr[r * P + c] = v[head + (long long)(kb + r) * s.n + c];
-  }
-  const float* myk = kr + tid * P;
-  const float* myv = vr + tid * P;
-  float adk[kCols], adv[kCols];
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) adk[d] = adv[d] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kF32Tile) {
-    __syncthreads();
-    for (int i = tid; i < kF32Tile * D; i += kF32Rows) {
-      const int r = i / D, c = i % D;
-      qs[i] = q[head + (long long)(q0 + r) * s.n + c] * qscale;
-      dos[i] = d_o[ohead + (long long)(q0 + r) * os.n + c];
-    }
-    if (tid < kF32Tile) {
-      ls[tid] = lrow[q0 + tid];
-      dls[tid] = drow[q0 + tid];
-    }
-    __syncthreads();
-    for (int j = 0; j < kF32Tile; ++j) {
-      float sc = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        sc = fmaf(myk[d], qs[j * D + d], sc);
-        dp = fmaf(myv[d], dos[j * D + d], dp);
-      }
-      const float p = exp2f(sc - ls[j]);
-      const float ds = p * (dp - dls[j]);
-#pragma unroll
-      for (int d = 0; d < kCols; ++d) {
-        adv[d] = fmaf(p, dos[j * D + c0 + d], adv[d]);
-        adk[d] = fmaf(ds, qs[j * D + c0 + d], adk[d]);
-      }
-    }
-  }
-  const long long out = ohead + (long long)key * os.n + c0;
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) {
-    dk[out + d] = adk[d] * kLn2;
-    dv[out + d] = adv[d];
-  }
-}
-
-// Grid (N / 64 * D / 64, H, B), 64 threads; thread i owns query row
-// q0 + i, columns c0 .. c0 + 63.
-template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ d_o,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq, int H, int N, Strides s, Strides os,
-                       float qscale, float scale) {
-  constexpr int P = D + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* qr = fsm;                       // [64][D + 1]
-  float* dr = qr + kF32Rows * P;         // [64][D + 1]
-  float* ks = dr + kF32Rows * P;         // [16][D]
-  float* vs = ks + kF32Tile * D;         // [16][D]
-
-  constexpr int kChunks = D / kCols;
-  const int c0 = (blockIdx.x % kChunks) * kCols;
-  const int qb = (blockIdx.x / kChunks) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int row = qb + tid;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  for (int i = tid; i < kF32Rows * D; i += kF32Rows) {
-    const int r = i / D, c = i % D;
-    qr[r * P + c] = q[head + (long long)(qb + r) * s.n + c] * qscale;
-    dr[r * P + c] = d_o[ohead + (long long)(qb + r) * os.n + c];
-  }
-  const float* myq = qr + tid * P;
-  const float* myd = dr + tid * P;
-  const long long hrow = ((long long)b * H + h) * N;
-  const float l = lse[hrow + row], dl = delta[hrow + row];
-  float acc[kCols];
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kF32Tile) {
-    __syncthreads();
-    for (int i = tid; i < kF32Tile * D; i += kF32Rows) {
-      const int r = i / D, c = i % D;
-      ks[i] = k[head + (long long)(k0 + r) * s.n + c];
-      vs[i] = v[head + (long long)(k0 + r) * s.n + c];
-    }
-    __syncthreads();
-    for (int j = 0; j < kF32Tile; ++j) {
-      float sc = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        sc = fmaf(myq[d], ks[j * D + d], sc);
-        dp = fmaf(myd[d], vs[j * D + d], dp);
-      }
-      const float ds = exp2f(sc - l) * (dp - dl);
-#pragma unroll
-      for (int d = 0; d < kCols; ++d) acc[d] = fmaf(ds, ks[j * D + c0 + d], acc[d]);
-    }
-  }
-  const long long out = ohead + (long long)row * os.n + c0;
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) dq[out + d] = acc[d] * scale;
-}
-
-// ---- D > 256, any D % 64 == 0: column-chunk kernels --------------------------
+// ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
 
 constexpr int kPanelCols = 64;          // columns of each row tile staged at a time
 constexpr int kLdp = kPanelCols + 8;
@@ -1532,171 +1388,6 @@ attn_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ qc,
   }
 }
 
-constexpr size_t kBwdWideF32Smem =
-    (2 * kF32Rows * (kPanelCols + 1) + 2 * kF32Tile * kPanelCols + 2 * kF32Tile * kCols +
-     2 * kF32Tile) * sizeof(float);
-
-// f32 at D > 256: the FMA dK/dV kernel with D a runtime multiple of 64,
-// the scores and dP^T summed over the head in 64-column panels (the same
-// order). Grid (N / 64 * D / 64, H, B), 64 threads; thread i owns key row
-// k0 + i, columns c0 .. c0 + 63.
-__global__ void __launch_bounds__(kF32Rows)
-attn_bwd_dkdv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ d_o,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv, int H, int N,
-                              int D, Strides s, Strides os, float qscale) {
-  constexpr int PL = kPanelCols + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* kr = fsm;                          // k panel [64][65]
-  float* vr = kr + kF32Rows * PL;           // v panel [64][65]
-  float* qs = vr + kF32Rows * PL;           // q panel [16][64], prescaled
-  float* dos = qs + kF32Tile * kPanelCols;  // dO panel [16][64]
-  float* qcs = dos + kF32Tile * kPanelCols; // q chunk [16][64], prescaled
-  float* dcs = qcs + kF32Tile * kCols;      // dO chunk [16][64]
-  float* ls = dcs + kF32Tile * kCols;
-  float* dls = ls + kF32Tile;
-
-  const int nchunk = D / kCols, c0 = (blockIdx.x % nchunk) * kCols;
-  const int kb = (blockIdx.x / nchunk) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int key = kb + tid;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-  const float* myk = kr + tid * PL;
-  const float* myv = vr + tid * PL;
-  float adk[kCols], adv[kCols];
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) adk[d] = adv[d] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kF32Tile) {
-    float sc[kF32Tile], dp[kF32Tile];
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) sc[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
-      __syncthreads();
-      for (int i = tid; i < kF32Rows * kPanelCols; i += kF32Rows) {
-        const int r = i / kPanelCols, c = i % kPanelCols;
-        kr[r * PL + c] = k[head + (long long)(kb + r) * s.n + d0 + c];
-        vr[r * PL + c] = v[head + (long long)(kb + r) * s.n + d0 + c];
-      }
-      for (int i = tid; i < kF32Tile * kPanelCols; i += kF32Rows) {
-        const int r = i / kPanelCols, c = i % kPanelCols;
-        qs[i] = q[head + (long long)(q0 + r) * s.n + d0 + c] * qscale;
-        dos[i] = d_o[ohead + (long long)(q0 + r) * os.n + d0 + c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
-#pragma unroll 16
-        for (int d = 0; d < kPanelCols; ++d) {
-          sc[j] = fmaf(myk[d], qs[j * kPanelCols + d], sc[j]);
-          dp[j] = fmaf(myv[d], dos[j * kPanelCols + d], dp[j]);
-        }
-      }
-    }
-    for (int i = tid; i < kF32Tile * kCols; i += kF32Rows) {
-      const int r = i / kCols, c = i % kCols;
-      qcs[i] = q[head + (long long)(q0 + r) * s.n + c0 + c] * qscale;
-      dcs[i] = d_o[ohead + (long long)(q0 + r) * os.n + c0 + c];
-    }
-    if (tid < kF32Tile) {
-      ls[tid] = lrow[q0 + tid];
-      dls[tid] = drow[q0 + tid];
-    }
-    __syncthreads();
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float p = exp2f(sc[j] - ls[j]);
-      const float ds = p * (dp[j] - dls[j]);
-#pragma unroll
-      for (int d = 0; d < kCols; ++d) {
-        adv[d] = fmaf(p, dcs[j * kCols + d], adv[d]);
-        adk[d] = fmaf(ds, qcs[j * kCols + d], adk[d]);
-      }
-    }
-  }
-  const long long out = ohead + (long long)key * os.n + c0;
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) {
-    dk[out + d] = adk[d] * kLn2;
-    dv[out + d] = adv[d];
-  }
-}
-
-// The f32 dQ counterpart: grid (N / 64 * D / 64, H, B), 64 threads; thread
-// i owns query row q0 + i, columns c0 .. c0 + 63.
-__global__ void __launch_bounds__(kF32Rows)
-attn_bwd_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ d_o,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            float* __restrict__ dq, int H, int N, int D, Strides s, Strides os,
-                            float qscale, float scale) {
-  constexpr int PL = kPanelCols + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* qr = fsm;                          // q panel [64][65], prescaled
-  float* dr = qr + kF32Rows * PL;           // dO panel [64][65]
-  float* ks = dr + kF32Rows * PL;           // k panel [16][64]
-  float* vs = ks + kF32Tile * kPanelCols;   // v panel [16][64]
-  float* kcs = vs + kF32Tile * kPanelCols;  // k chunk [16][64]
-
-  const int nchunk = D / kCols, c0 = (blockIdx.x % nchunk) * kCols;
-  const int qb = (blockIdx.x / nchunk) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int row = qb + tid;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* myq = qr + tid * PL;
-  const float* myd = dr + tid * PL;
-  const long long hrow = ((long long)b * H + h) * N;
-  const float l = lse[hrow + row], dl = delta[hrow + row];
-  float acc[kCols];
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kF32Tile) {
-    float sc[kF32Tile], dp[kF32Tile];
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) sc[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
-      __syncthreads();
-      for (int i = tid; i < kF32Rows * kPanelCols; i += kF32Rows) {
-        const int r = i / kPanelCols, c = i % kPanelCols;
-        qr[r * PL + c] = q[head + (long long)(qb + r) * s.n + d0 + c] * qscale;
-        dr[r * PL + c] = d_o[ohead + (long long)(qb + r) * os.n + d0 + c];
-      }
-      for (int i = tid; i < kF32Tile * kPanelCols; i += kF32Rows) {
-        const int r = i / kPanelCols, c = i % kPanelCols;
-        ks[i] = k[head + (long long)(k0 + r) * s.n + d0 + c];
-        vs[i] = v[head + (long long)(k0 + r) * s.n + d0 + c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
-#pragma unroll 16
-        for (int d = 0; d < kPanelCols; ++d) {
-          sc[j] = fmaf(myq[d], ks[j * kPanelCols + d], sc[j]);
-          dp[j] = fmaf(myd[d], vs[j * kPanelCols + d], dp[j]);
-        }
-      }
-    }
-    for (int i = tid; i < kF32Tile * kCols; i += kF32Rows) {
-      const int r = i / kCols, c = i % kCols;
-      kcs[i] = k[head + (long long)(k0 + r) * s.n + c0 + c];
-    }
-    __syncthreads();
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float ds = exp2f(sc[j] - l) * (dp[j] - dl);
-#pragma unroll
-      for (int d = 0; d < kCols; ++d) acc[d] = fmaf(ds, kcs[j * kCols + d], acc[d]);
-    }
-  }
-  const long long out = ohead + (long long)row * os.n + c0;
-#pragma unroll
-  for (int d = 0; d < kCols; ++d) dq[out + d] = acc[d] * scale;
-}
-
 template <typename T, int D>
 void launch_preprocess(const void* q, const void* o, const void* d_o, void* qc, float* delta,
                        int B, int H, int N, Strides s, Strides os, float qscale,
@@ -1794,30 +1485,6 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// f32 at D = 192 or 256: preprocess (delta), then the FMA kernels, which
-// prescale q themselves (no qc scratch).
-template <int D>
-cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
-                           const void* d_o, const float* lse, float* delta, void* /*qc*/,
-                           void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
-                           Strides os, float qscale, float scale, cudaStream_t st) {
-  const dim3 grid(N / kF32Rows * (D / kCols), H, B);
-  constexpr size_t smem = bwd_f32_smem<D>();
-  cudaError_t err;
-  if ((err = vst::allow_smem(attn_bwd_dkdv_f32_kernel<D>, smem)) != cudaSuccess) return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
-  launch_preprocess<float, D>(q, o, d_o, nullptr, delta, B, H, N, s, os, qscale, st);
-  attn_bwd_dkdv_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, N, s, os, qscale);
-  attn_bwd_dq_f32_kernel<D><<<grid, kF32Rows, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dq), H, N, s, os, qscale,
-      scale);
-  return cudaGetLastError();
-}
-
 template <int CW>
 cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
                                  const float* lse, const float* delta, const void* qc, void* dq,
@@ -1838,36 +1505,33 @@ cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
   return cudaGetLastError();
 }
 
-// D > 256: preprocess (delta, and qc for bf16), then the column-chunk
-// kernels (bf16 in 128-column chunks where D allows, else 64; f32 in
-// 64-column chunks).
-cudaError_t launch_bwd_wide(int is_bf16, const void* q, const void* k, const void* v,
-                            const void* o, const void* d_o, const float* lse, float* delta,
-                            void* qc, void* dq, void* dk, void* dv, int B, int H, int N, int D,
-                            Strides s, Strides os, float qscale, float scale, cudaStream_t st) {
-  cudaError_t err;
-  if (is_bf16) {
-    launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
-    return D % 128 == 0
-               ? launch_bwd_wide_bf16<128>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s,
-                                           os, scale, st)
-               : launch_bwd_wide_bf16<64>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s,
-                                          os, scale, st);
-  }
+// bf16 at D > 256: preprocess (delta and qc), then the column-chunk
+// kernels, in 128-column chunks where D allows, else 64.
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
+                            const void* d_o, const float* lse, float* delta, void* qc, void* dq,
+                            void* dk, void* dv, int B, int H, int N, int D, Strides s,
+                            Strides os, float qscale, float scale, cudaStream_t st) {
+  launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
+  return D % 128 == 0
+             ? launch_bwd_wide_bf16<128>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s, os,
+                                         scale, st)
+             : launch_bwd_wide_bf16<64>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s, os,
+                                        scale, st);
+}
+
+// f32 from D = 192 up: preprocess (delta), then the split-TF32 dK/dV and
+// dQ kernels of dense_attn_tf32_wide.cu, which prescale q themselves (no
+// qc scratch).
+cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, const void* o,
+                                 const void* d_o, const float* lse, float* delta, void* dq,
+                                 void* dk, void* dv, int B, int H, int N, int D, Strides s,
+                                 Strides os, float qscale, float scale, cudaStream_t st) {
   launch_preprocess_wide<float>(q, o, d_o, nullptr, delta, B, H, N, D, s, os, qscale, st);
-  const dim3 grid(N / kF32Rows * (D / kCols), H, B);
-  if ((err = vst::allow_smem(attn_bwd_dkdv_wide_f32_kernel, kBwdWideF32Smem)) != cudaSuccess)
-    return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_wide_f32_kernel, kBwdWideF32Smem)) != cudaSuccess)
-    return err;
-  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-              *vf = static_cast<const float*>(v), *dof = static_cast<const float*>(d_o);
-  attn_bwd_dkdv_wide_f32_kernel<<<grid, kF32Rows, kBwdWideF32Smem, st>>>(
-      qf, kf, vf, dof, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, N, D, s,
-      os, qscale);
-  attn_bwd_dq_wide_f32_kernel<<<grid, kF32Rows, kBwdWideF32Smem, st>>>(
-      qf, kf, vf, dof, lse, delta, static_cast<float*>(dq), H, N, D, s, os, qscale, scale);
-  return cudaGetLastError();
+  return vst::launch_attn_bwd_tf32_wide(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), B, H, N, D, s.b, s.n, s.h, os.b, os.n,
+      os.h, qscale, scale, st);
 }
 
 }  // namespace
@@ -1901,17 +1565,20 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
     case 128:
       err = is_bf16 ? launch_bwd_wgmma<128>(VST_BWD_ARGS) : launch_bwd_tf32<128>(VST_BWD_ARGS);
       break;
-    case 192:
-      err = is_bf16 ? launch_bwd_mma<192>(VST_BWD_ARGS) : launch_bwd_f32<192>(VST_BWD_ARGS);
-      break;
-    case 256:
-      err = is_bf16 ? launch_bwd_mma<256>(VST_BWD_ARGS) : launch_bwd_f32<256>(VST_BWD_ARGS);
-      break;
     default:
-      err = D > 256 && D % 64 == 0
-                ? launch_bwd_wide(is_bf16, q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D,
-                                  s, os, qscale, scale, st)
-                : cudaErrorInvalidValue;
+      if (D % 64 != 0 || D < 192) {
+        err = cudaErrorInvalidValue;
+      } else if (!is_bf16) {
+        err = launch_bwd_tf32_wide(q, k, v, o, d_o, l, dl, dq, dk, dv, B, H, N, D, s, os, qscale,
+                                   scale, st);
+      } else if (D == 192) {
+        err = launch_bwd_mma<192>(VST_BWD_ARGS);
+      } else if (D == 256) {
+        err = launch_bwd_mma<256>(VST_BWD_ARGS);
+      } else {
+        err = launch_bwd_wide(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
+                              scale, st);
+      }
   }
 #undef VST_BWD_ARGS
   return static_cast<int>(err);

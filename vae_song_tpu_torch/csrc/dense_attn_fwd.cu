@@ -1,5 +1,6 @@
 // Dense attention forward for Hopper (sm_90a), [B, N, H, D] layout read
-// through strides, head width D a compile-time 64, 128, 192 or 256.
+// through strides, any head width D % 64 == 0 (f32 from D = 192 up:
+// dense_attn_tf32_wide.cu, launched from the dispatch below).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_fwd_kernel_packed (K1, called
 // through _call_fwd_packed: 64-wide heads in pairs) and
@@ -96,9 +97,9 @@
 // distance from float64). P is formed in the accumulator layout, with
 // the exact running max, and is the A operand of P V as it stands (the
 // permuted contraction of mma_tf32.cuh: no shuffle, no shared-memory
-// round trip). No atomics: the same bits on every run. f32 at D = 192
-// and 256 keeps the first port's FMA kernel: one thread a query row, 64
-// columns of O a block, the scores recomputed for each column chunk.
+// round trip). No atomics: the same bits on every run. f32 from D = 192
+// up: the split-TF32 kernel of dense_attn_tf32_wide.cu, the head's
+// columns split across the warps of a row group, S computed once a tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -106,6 +107,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "dense_attn_tf32_wide.cuh"
 #include "mma_tf32.cuh"
 #include "sm90.cuh"
 
@@ -666,101 +668,7 @@ dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// ---- f32, D = 192 and 256: plain FMA kernel ------------------------------------
-
-constexpr int kF32Rows = 64;   // query rows per block, one per thread
-constexpr int kF32Keys = 32;   // keys per shared-memory tile
-constexpr int kF32Cols = 64;   // columns of O per block
-
-template <int D>
-constexpr size_t fwd_f32_smem() {
-  return (kF32Rows * (D + 1) + kF32Keys * D + kF32Keys * kF32Cols) * sizeof(float);
-}
-
-// Grid (N / 64 * D / 64, H, B), 64 threads; thread i owns query row
-// q0 + i and columns c0 .. c0 + 63 of O (block x = 64-row tile * D / 64 +
-// column chunk). The q rows sit in shared memory with a stride of D + 1
-// floats, so the threads' row reads fall on distinct banks.
-template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-dense_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int H, int N,
-                          long long sb, long long sn, long long sh,
-                          long long ob, long long on, long long oh,
-                          float qscale) {
-  constexpr int QLD = D + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                              // [64][D + 1]
-  float* ks = qs + kF32Rows * QLD;              // [32][D]
-  float* vs = ks + kF32Keys * D;                // [32][64], this chunk's columns
-
-  constexpr int kChunks = D / kF32Cols;
-  const int chunk = blockIdx.x % kChunks, c0 = chunk * kF32Cols;
-  const int q0 = (blockIdx.x / kChunks) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int row = q0 + tid;
-  const long long head = (long long)b * sb + (long long)h * sh;
-
-  for (int i = tid; i < kF32Rows * D; i += kF32Rows) {
-    const int r = i / D, c = i % D;
-    qs[r * QLD + c] = q[head + (long long)(q0 + r) * sn + c] * qscale;
-  }
-  const float* qr = qs + tid * QLD;
-  float acc[kF32Cols];
-#pragma unroll
-  for (int d = 0; d < kF32Cols; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kF32Keys) {
-    __syncthreads();
-    for (int i = tid; i < kF32Keys * D / 4; i += kF32Rows) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      *reinterpret_cast<float4*>(&ks[r * D + c]) =
-          *reinterpret_cast<const float4*>(k + head + (long long)(k0 + r) * sn + c);
-    }
-    for (int i = tid; i < kF32Keys * kF32Cols / 4; i += kF32Rows) {
-      const int r = i / (kF32Cols / 4), c = (i % (kF32Cols / 4)) * 4;
-      *reinterpret_cast<float4*>(&vs[r * kF32Cols + c]) =
-          *reinterpret_cast<const float4*>(v + head + (long long)(k0 + r) * sn + c0 + c);
-    }
-    __syncthreads();
-
-    float s[kF32Keys];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      float x = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) x = fmaf(qr[d], ks[j * D + d], x);
-      s[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    const float mn = fmaxf(m, tmax);
-    const float alpha = exp2f(m - mn);
-    m = mn;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < kF32Cols; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float p = exp2f(s[j] - mn);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < kF32Cols; ++d) acc[d] = fmaf(p, vs[j * kF32Cols + d], acc[d]);
-    }
-  }
-
-  float* op = o + (long long)b * ob + (long long)row * on + (long long)h * oh + c0;
-#pragma unroll
-  for (int d = 0; d < kF32Cols; d += 4)
-    *reinterpret_cast<float4*>(op + d) =
-        make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
-  if (chunk == 0) lse[((long long)b * H + h) * N + row] = m + log2f(l);
-}
-
-// ---- D > 256, any D % 64 == 0: column-chunk kernels --------------------------
+// ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
 
 constexpr int kWidePanel = 64;     // columns of q and k staged at a time
 constexpr int kLdp = kWidePanel + 8;
@@ -899,106 +807,13 @@ dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-constexpr size_t kFwdWideF32Smem =
-    (kF32Rows * (kWidePanel + 1) + kF32Keys * kWidePanel + kF32Keys * kF32Cols) * sizeof(float);
-
-// f32 at D > 256: the FMA kernel above with D a runtime multiple of 64 and
-// the scores summed over the head in 64-column panels of q (prescaled)
-// and k staged through shared memory, in the same order. Grid
-// (N / 64 * D / 64, H, B), 64 threads; thread i owns query row q0 + i and
-// columns c0 .. c0 + 63 of O.
-__global__ void __launch_bounds__(kF32Rows)
-dense_attn_fwd_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, float* __restrict__ o,
-                               float* __restrict__ lse, int H, int N, int D, long long sb,
-                               long long sn, long long sh, long long ob, long long on,
-                               long long oh, float qscale) {
-  constexpr int QLD = kWidePanel + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                              // q panel [64][65]
-  float* ks = qs + kF32Rows * QLD;              // k panel [32][64]
-  float* vs = ks + kF32Keys * kWidePanel;       // [32][64], this chunk's columns
-
-  const int nchunk = D / kF32Cols, chunk = blockIdx.x % nchunk, c0 = chunk * kF32Cols;
-  const int q0 = (blockIdx.x / nchunk) * kF32Rows;
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int row = q0 + tid;
-  const long long head = (long long)b * sb + (long long)h * sh;
-  const float* qr = qs + tid * QLD;
-  float acc[kF32Cols];
-#pragma unroll
-  for (int d = 0; d < kF32Cols; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kF32Keys) {
-    float s[kF32Keys];
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) s[j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWidePanel) {
-      __syncthreads();
-      for (int i = tid; i < kF32Rows * kWidePanel; i += kF32Rows) {
-        const int r = i / kWidePanel, c = i % kWidePanel;
-        qs[r * QLD + c] = q[head + (long long)(q0 + r) * sn + d0 + c] * qscale;
-      }
-      for (int i = tid; i < kF32Keys * kWidePanel; i += kF32Rows) {
-        const int r = i / kWidePanel, c = i % kWidePanel;
-        ks[i] = k[head + (long long)(k0 + r) * sn + d0 + c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kF32Keys; ++j) {
-#pragma unroll 16
-        for (int d = 0; d < kWidePanel; ++d) s[j] = fmaf(qr[d], ks[j * kWidePanel + d], s[j]);
-      }
-    }
-    for (int i = tid; i < kF32Keys * kF32Cols; i += kF32Rows) {
-      const int r = i / kF32Cols, c = i % kF32Cols;
-      vs[i] = v[head + (long long)(k0 + r) * sn + c0 + c];
-    }
-    __syncthreads();
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) tmax = fmaxf(tmax, s[j]);
-    const float mn = fmaxf(m, tmax);
-    const float alpha = exp2f(m - mn);
-    m = mn;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < kF32Cols; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float p = exp2f(s[j] - mn);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < kF32Cols; ++d) acc[d] = fmaf(p, vs[j * kF32Cols + d], acc[d]);
-    }
-  }
-
-  float* op = o + (long long)b * ob + (long long)row * on + (long long)h * oh + c0;
-#pragma unroll
-  for (int d = 0; d < kF32Cols; d += 4)
-    *reinterpret_cast<float4*>(op + d) =
-        make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
-  if (chunk == 0) lse[((long long)b * H + h) * N + row] = m + log2f(l);
-}
-
-// D > 256: the column-chunk kernels (bf16 in 128-column chunks where D
-// allows, else 64; f32 in 64-column chunks).
-cudaError_t launch_fwd_wide(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                            void* lse, int B, int H, int N, int D, long long sb, long long sn,
-                            long long sh, long long ob, long long on, long long oh,
-                            float qscale, cudaStream_t st) {
+// bf16 at D > 256: the column-chunk kernels, in 128-column chunks where D
+// allows, else 64.
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int B, int H, int N, int D, long long sb, long long sn, long long sh,
+                            long long ob, long long on, long long oh, float qscale,
+                            cudaStream_t st) {
   cudaError_t err;
-  if (!is_bf16) {
-    if ((err = vst::allow_smem(dense_attn_fwd_wide_f32_kernel, kFwdWideF32Smem)) != cudaSuccess)
-      return err;
-    dense_attn_fwd_wide_f32_kernel<<<dim3(N / kF32Rows * (D / kF32Cols), H, B), kF32Rows,
-                                     kFwdWideF32Smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), H, N,
-        D, sb, sn, sh, ob, on, oh, qscale);
-    return cudaGetLastError();
-  }
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
              *vb = static_cast<const bf16*>(v);
   if (D % 128 == 0) {
@@ -1087,22 +902,6 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
-// f32 at D = 192 or 256: the FMA kernel.
-template <int D>
-cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int B, int H, int N, long long sb, long long sn, long long sh,
-                           long long ob, long long on, long long oh, float qscale,
-                           cudaStream_t st) {
-  constexpr size_t smem = fwd_f32_smem<D>();
-  const cudaError_t err = vst::allow_smem(dense_attn_fwd_f32_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dense_attn_fwd_f32_kernel<D><<<dim3(N / kF32Rows * (D / kF32Cols), H, B), kF32Rows, smem,
-                                 st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
@@ -1118,6 +917,7 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define VST_FWD_ARGS q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st
+#define VST_FWD_ARGS_WIDE q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh, qscale, st
   switch (D) {
     case 64:
       err = is_bf16 ? launch_fwd_wgmma<64>(VST_FWD_ARGS) : launch_fwd_tf32<64>(VST_FWD_ARGS);
@@ -1125,19 +925,24 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
     case 128:
       err = is_bf16 ? launch_fwd_wgmma<128>(VST_FWD_ARGS) : launch_fwd_tf32<128>(VST_FWD_ARGS);
       break;
-    case 192:
-      err = is_bf16 ? launch_fwd_mma<192>(VST_FWD_ARGS) : launch_fwd_f32<192>(VST_FWD_ARGS);
-      break;
-    case 256:
-      err = is_bf16 ? launch_fwd_mma<256>(VST_FWD_ARGS) : launch_fwd_f32<256>(VST_FWD_ARGS);
-      break;
     default:
-      err = D > 256 && D % 64 == 0
-                ? launch_fwd_wide(is_bf16, q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh,
-                                  qscale, st)
-                : cudaErrorInvalidValue;
+      if (D % 64 != 0 || D < 192) {
+        err = cudaErrorInvalidValue;
+      } else if (!is_bf16) {
+        err = vst::launch_attn_fwd_tf32_wide(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), B, H,
+            N, D, sb, sn, sh, ob, on, oh, qscale, st);
+      } else if (D == 192) {
+        err = launch_fwd_mma<192>(VST_FWD_ARGS);
+      } else if (D == 256) {
+        err = launch_fwd_mma<256>(VST_FWD_ARGS);
+      } else {
+        err = launch_fwd_wide(VST_FWD_ARGS_WIDE);
+      }
   }
 #undef VST_FWD_ARGS
+#undef VST_FWD_ARGS_WIDE
   return static_cast<int>(err);
 }
 

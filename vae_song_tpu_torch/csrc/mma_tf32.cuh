@@ -1,5 +1,6 @@
 // Split-TF32 helpers shared by the f32 attention forward
-// (dense_attn_fwd.cu) and backward (dense_attn_bwd.cu) at D = 64 and 128.
+// (dense_attn_fwd.cu) and backward (dense_attn_bwd.cu) at D = 64 and 128,
+// and by their kernels for heads of 192 and wider (dense_attn_tf32_wide.cu).
 //
 // The tensor cores take f32 data only as TF32 (10 mantissa bits). An f32
 // operand x is carried as two TF32 values, big = rna(x) and small =
@@ -139,6 +140,34 @@ __device__ __forceinline__ void mma_b_rows(float c[4], const SplitA& a, const fl
   uint32_t bb0, bb1, bs0, bs1;
   split_tf32(p[0] * mul, bb0, bs0);
   split_tf32(p[LD] * mul, bb1, bs1);
+  mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
+}
+
+// The same three reads with the row stride `ld` a runtime value (the
+// kernels for heads of 192 and wider, dense_attn_tf32_wide.cu, whose
+// tiles are D + 4 or a column panel + 4 floats wide; ld = 4 (mod 32)
+// keeps every read free of bank conflicts).
+__device__ __forceinline__ SplitA a_from_smem(const float* tile, int ld, int r0, int c0, int g,
+                                              int t) {
+  const float* p = tile + (r0 + g) * ld + c0 + t;
+  return split_a(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+}
+
+__device__ __forceinline__ void mma_b_rows_t(float c[4], const SplitA& a, const float* tile,
+                                             int ld, int n0, int k0, int g, int t, float mul) {
+  const float* p = tile + (n0 + g) * ld + k0 + t;
+  uint32_t bb0, bb1, bs0, bs1;
+  split_tf32(p[0] * mul, bb0, bs0);
+  split_tf32(p[4] * mul, bb1, bs1);
+  mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
+}
+
+__device__ __forceinline__ void mma_b_rows(float c[4], const SplitA& a, const float* tile, int ld,
+                                           int k0, int n0, int g, int t, float mul) {
+  const float* p = tile + (k0 + 2 * t) * ld + n0 + g;
+  uint32_t bb0, bb1, bs0, bs1;
+  split_tf32(p[0] * mul, bb0, bs0);
+  split_tf32(p[ld] * mul, bb1, bs1);
   mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
 }
 

@@ -22,9 +22,13 @@ allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu). In f32
 backward's dK/dV and dQ kernels compute every product in split TF32 on
 the tensor cores (csrc/mma_tf32.cuh: three TF32 mma.sync products a
 product, f32-accurate, in place of the f32 FMA units' 67 TFLOP/s); the
-backward's preprocess writes delta only. D = 192 and 256 run the first
-port's kernels in both dtypes; D above 256 runs column-chunk kernels
-that stream the head through shared memory in 64-column panels.
+backward's preprocess writes delta only. f32 heads of 192 and wider take
+the split-TF32 kernels of csrc/dense_attn_tf32_wide.cu, which split the
+head's columns across the warps of a row group (counted apart in
+`tf32_wide_fwd.launches` and `tf32_wide_bwd.launches` as well).
+bf16 at D = 192 and 256 runs the first port's mma.sync kernels, above 256
+column-chunk kernels that stream the head through shared memory in
+64-column panels.
 
 The forward computes, per (batch, head):
 
@@ -61,6 +65,8 @@ forward and backward are the kernels on CUDA tensors (the plain versions
 on CPU tensors). It saves q, k, v, O and LSE only when a gradient will be
 asked for.
 """
+
+import types
 
 import torch
 
@@ -221,6 +227,19 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     return dq, dk, dv
 
 
+# Launches of the f32 kernels for heads of 192 and wider
+# (csrc/dense_attn_tf32_wide.cu), which either route's wrapper may take;
+# each is also counted on its route's wrapper.
+tf32_wide_fwd = types.SimpleNamespace(launches=0)
+tf32_wide_bwd = types.SimpleNamespace(launches=0)
+
+
+def tf32_wide(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    csrc/dense_attn_tf32_wide.cu: the dispatch's rule, f32 and D >= 192."""
+    return dtype == torch.float32 and d >= 192
+
+
 def _forward(q, k, v, scale, counter):
     """The kernel on a CUDA tensor (one more launch on `counter`), the
     plain version on a CPU tensor."""
@@ -229,6 +248,8 @@ def _forward(q, k, v, scale, counter):
         return dense_attention_fwd_plain(q, k, v, scale)
     out = _launch_fwd(q, k, v, scale)
     counter.launches += 1
+    if tf32_wide(q.dtype, q.shape[-1]):
+        tf32_wide_fwd.launches += 1
     return out
 
 
@@ -238,6 +259,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
         return dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
     out = _launch_bwd(q, k, v, o, lse, do, scale)
     counter.launches += 1
+    if tf32_wide(q.dtype, q.shape[-1]):
+        tf32_wide_bwd.launches += 1
     return out
 
 
