@@ -41,7 +41,10 @@ non-zero exit code:
      float64 version, the split-TF32 bound (3 x operations at 495
      TFLOP/s, the f32 rows' bound_ms) beside the FMA bound (operations at
      67), and SDPA's f32 times with the backend it picks and with
-     EFFICIENT_ATTENTION forced.
+     EFFICIENT_ATTENTION forced. The bf16 heads of 192 and 256 (the
+     wgmma kernels of the bf16 num_heads 1 path) run at that path's
+     shape, B = 64, D = 256, at two heads of 192, at N = 192 (an odd
+     number of 64-row tiles) and at the decoder's B = 1.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -66,7 +69,12 @@ non-zero exit code:
      `train_and_test`, then the train step's ms/step; K3f and K3b must
      launch, every launch on the kernels for f32 heads of 192 and wider
      (their own counters), K4 and K5 too, and K1, K2 and the FFN kernels
-     must not.
+     must not. (4) the shipped SetVAE config with `num_heads: 1` (one
+     bf16 head of 256): one fake-data epoch of `train_and_test`, then the
+     eval step's ms/batch and the train step's ms/step; K3f and K3b must
+     launch, every launch on the bf16 wgmma kernels for heads of 192 and
+     256 (their own counters), K4 and K5 too, and K1, K2, the FFN kernels
+     and the f32 kernels for wide heads must not.
   4d. routes: the shipped SetVAE eval step at full width once under each
      of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
      VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
@@ -78,7 +86,8 @@ non-zero exit code:
      kernels) against the card on 2 clouds, in f32 and in bf16: the eval
      step, the decode, and one train step (loss terms, gradients and the
      updated parameters), for the shipped SetVAE config and for the
-     configurations of phase 4c (the f32 num_heads 1 one in f32 only).
+     configurations of phase 4c (num_heads 1 in both, each precision
+     running its own kernels for wide heads).
   6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
      false` (the MLP encoder and decoder with BatchNorm at the config's
      encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
@@ -184,7 +193,10 @@ non-zero exit code:
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b, and for the f32 kernels for heads of 192 and wider, the rows
-`dense_attn_tf32_wide_fwd` and `_bwd`, at their B = 64, D = 256 case),
+`dense_attn_tf32_wide_fwd` and `_bwd`, and the bf16 wgmma kernels for
+heads of 192 and 256, the rows `dense_attn_wgmma_wide_fwd` and `_bwd`,
+each at its num_heads 1 path's B = 64, D = 256 case, launches from 4c (3)
+and 4c (4)),
 the numbers phase 3 measured and the bound it computed, and under `paths`
 its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
@@ -284,6 +296,9 @@ FUSED_FFN_ENV = {"VST_FUSED_FFN": "1"}
 # kernels for heads of 192 and wider (csrc/dense_attn_tf32_wide.cu), held
 # to the file by the same test.
 HEADS1_F32_OVERRIDE = {"num_heads": 1, "mixed_precision": False}
+# The same head of 256 in bf16: the BHND route's wgmma kernels for heads
+# of 192 and 256, held to the file by the same test.
+HEADS1_BF16_OVERRIDE = {"num_heads": 1}
 # Phases 6-8's configurations: the shipped SetVAE config with one override
 # each (held to the file by the same test): the DeepSets encoder and decoder
 # at the config's encoder_hidden / decoder_hidden widths, and attention
@@ -433,8 +448,15 @@ CHAMFER_BATCHES = (BATCH, MICRO_BATCH)
 # The f32 kernels for heads of 192 and wider at the shape of the f32
 # num_heads 1 path (phase 4c): the JSON line's rows for them report it.
 TF32_WIDE_CASE = (BATCH, NPTS, 1, 256, torch.float32)
-K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), (BATCH, NPTS, 1, 256, torch.bfloat16),
+# The bf16 wgmma kernels for heads of 192 and 256 at the shape of the bf16
+# num_heads 1 path (phase 4c): the JSON line's rows for them report it.
+WGMMA_WIDE_CASE = (BATCH, NPTS, 1, 256, torch.bfloat16)
+K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
+            # bf16 heads of 192 and 256: two heads of 192, an odd number of
+            # 64-row tiles, the decoder's batch-constant layer
+            (BATCH, NPTS, 2, 192, torch.bfloat16), (BATCH, 192, 1, 256, torch.bfloat16),
+            (1, NPTS, 1, 256, torch.bfloat16),
             (4, NPTS, 2, 128, torch.float32), (BATCH, NPTS, 2, 128, torch.float32),
             (BATCH, 192, 2, 128, torch.float32),
             # f32 heads of 192 and wider: the num_heads 1 path's shape, an
@@ -649,7 +671,7 @@ def _print_f32_attention(name, shape, q, k, v, do, scale, f64, kernel, plain, ms
           f"EFFICIENT_ATTENTION forced: fwd {eff_f:.4f} ms, bwd {eff_b:.4f} ms")
 
 
-def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide_case=None, iters=10):
+def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide=(), iters=10):
     """One attention route's forward (`fwd`, K1 or K3f) and backward
     (`bwd`, K2 or K3b) at each (B, N, H, D, dtype) of `cases`, each timed
     over runs of `iters` calls: O and LSE against the plain version (O in
@@ -658,12 +680,13 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide_case=None, 
     f32 sums over wide heads and long rows stray past the bound (K2_F32_TOL);
     in f32 the kernel's O and gradients must also lie no farther from the
     float64 version than the plain version's. Returns the JSON fields of
-    both for cases[0]; with `wide_case` (one of `cases`), also those of the
-    f32 kernels for heads of 192 and wider: wide_case's times and the
-    largest error over the cases that run them. f32 bounds are split
+    both for cases[0]; then, for each (rule, case) of `wide` (a kernel
+    pair for wide heads: `rule(dtype, d)` says whether a case runs it,
+    `case` is one of `cases`), those of that pair: the case's times and
+    the largest error over the cases that run it. f32 bounds are split
     TF32's (3 x operations at PEAK_TF32)."""
     res = [{"max_abs_err": 0.0}, {"max_abs_err": 0.0}]
-    wide = [{"max_abs_err": 0.0}, {"max_abs_err": 0.0}]
+    wide_res = [[{"max_abs_err": 0.0}, {"max_abs_err": 0.0}] for _ in wide]
     for i, (b, n, h, d, dtype) in enumerate(cases):
         scale = 1.0 / math.sqrt(d)
         q, k, v = _attn_inputs(b, n, h, d, dtype, gen, dev)
@@ -742,15 +765,15 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide_case=None, 
         if not repeat:
             raise AssertionError(f"{name} backward differs from run to run: {tag}")
         picks = [(res, i == 0)]
-        if wide_case is not None and denseattn.tf32_wide(dtype, d):
-            picks.append((wide, (b, n, h, d, dtype) == wide_case))
+        picks += [(pair, (b, n, h, d, dtype) == case)
+                  for pair, (rule, case) in zip(wide_res, wide) if rule(dtype, d)]
         for (res_f, res_b), timed in picks:
             res_f["max_abs_err"] = max(res_f["max_abs_err"], err_o, err_l)
             res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
             if timed:
                 res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=lib_f, **bound_f)
                 res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=lib_b, **bound_b)
-    return (*res, *wide) if wide_case is not None else tuple(res)
+    return (*res, *(x for pair in wide_res for x in pair))
 
 
 def _chamfer_bytes(b, n, m):
@@ -931,9 +954,12 @@ COUNTERS = {
     "dense_attn_bwd": denseattn.dense_attention_bwd,
     "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
     "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
-    # f32 heads of 192 and wider, also counted on their route's wrapper
+    # f32 heads of 192 and wider, and bf16 heads of 192 and 256, also
+    # counted on their route's wrapper
     "dense_attn_tf32_wide_fwd": denseattn.tf32_wide_fwd,
     "dense_attn_tf32_wide_bwd": denseattn.tf32_wide_bwd,
+    "dense_attn_wgmma_wide_fwd": denseattn.wgmma_wide_fwd,
+    "dense_attn_wgmma_wide_bwd": denseattn.wgmma_wide_bwd,
     "chamfer_nn_packed": chamfer.chamfer_nn_packed,
     "chamfer_bwd": chamfer.chamfer_bwd,
     "ffn_fwd": ffn.fused_ffn_fwd,
@@ -1147,12 +1173,34 @@ def phase_heads1_f32(dev):
     _train_and_test(params, 1, dev)
     _time_train_step("setvae", params, BATCH, dev, tag)
     launches = _read_launches()
-    _expect_launches(launches, "the f32 num_heads 1 path", TF32_WIDE_PATH,
-                     _others(TF32_WIDE_PATH))
-    # every BHND launch of this path is a head of 256 in f32
-    if (launches["dense_attn_tf32_wide_fwd"], launches["dense_attn_tf32_wide_bwd"]) != (
-            launches["dense_attn_bhnd_fwd"], launches["dense_attn_bhnd_bwd"]):
-        raise AssertionError(f"the f32 num_heads 1 path ran other BHND kernels: {launches}")
+    _expect_wide_path(launches, "the f32 num_heads 1 path", TF32_WIDE_PATH)
+    return launches
+
+
+def _expect_wide_path(launches, path, ran):
+    """Raise unless every kernel of `ran` launched, no other did, and
+    every BHND launch was one of the wide kernels of `ran` (ran[2:4])."""
+    _expect_launches(launches, path, ran, _others(ran))
+    if (launches[ran[2]], launches[ran[3]]) != (launches["dense_attn_bhnd_fwd"],
+                                                launches["dense_attn_bhnd_bwd"]):
+        raise AssertionError(f"{path} ran other BHND kernels: {launches}")
+
+
+WGMMA_WIDE_PATH = ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "dense_attn_wgmma_wide_fwd",
+                   "dense_attn_wgmma_wide_bwd", "chamfer_nn_packed", "chamfer_bwd")
+
+
+def phase_heads1_bf16(dev):
+    """SetVAE with num_heads 1 (one bf16 head of 256): the BHND route's
+    wgmma kernels for heads of 192 and 256."""
+    params = dict(MODEL_PARAMS, **HEADS1_BF16_OVERRIDE)
+    tag = f"bf16 num_heads {params['num_heads']}"
+    _reset_launches()
+    _train_and_test(params, 1, dev)
+    _time_eval_step("setvae", params, BATCH, dev, tag)
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    launches = _read_launches()
+    _expect_wide_path(launches, "the bf16 num_heads 1 path", WGMMA_WIDE_PATH)
     return launches
 
 
@@ -1335,11 +1383,14 @@ def phase_reference(dev):
     configurations of phase 4c."""
     _reference(dev, "shipped", MODEL_PARAMS)
     _reference(dev, "num_heads 2", dict(MODEL_PARAMS, **HEADS2_OVERRIDE))
-    # the f32 num_heads 1 configuration, in f32 only (its own precision)
-    launches = denseattn.tf32_wide_bwd.launches
-    _reference(dev, "num_heads 1", dict(MODEL_PARAMS, **HEADS1_F32_OVERRIDE), (False,))
-    if denseattn.tf32_wide_bwd.launches == launches:
+    # num_heads 1 (one head of 256) in both precisions, each on its own
+    # kernels for wide heads (_reference sets mixed_precision)
+    launches = (denseattn.tf32_wide_bwd.launches, denseattn.wgmma_wide_bwd.launches)
+    _reference(dev, "num_heads 1", dict(MODEL_PARAMS, **HEADS1_BF16_OVERRIDE))
+    if denseattn.tf32_wide_bwd.launches == launches[0]:
         raise AssertionError("the f32 num_heads 1 reference did not run the wide f32 kernels")
+    if denseattn.wgmma_wide_bwd.launches == launches[1]:
+        raise AssertionError("the bf16 num_heads 1 reference did not run the wide bf16 kernels")
     with mock.patch.dict(os.environ, FUSED_FFN_ENV):
         launches = ffn.fused_ffn_fwd.launches
         _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
@@ -2940,9 +2991,10 @@ def main():
     k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
                     denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
                     K1_F32_TOL)
-    k3f, k3b, k3f_wide, k3b_wide = _timed(
+    k3f, k3b, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma = _timed(
         check_attention, dev, gen, "dense_attn (BHND route)", denseattn.dense_attention_bhnd,
-        denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL, TF32_WIDE_CASE)
+        denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL,
+        ((denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE)))
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
     k6f, k6b = _timed(check_ffn, dev, gen)
@@ -2950,6 +3002,7 @@ def main():
     main_path = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
     heads1_f32 = _timed(phase_heads1_f32, dev)
+    heads1_bf16 = _timed(phase_heads1_bf16, dev)
     fused = _timed(phase_fused_ffn, dev)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
@@ -2973,6 +3026,10 @@ def main():
          "vae_song_tpu/ops/denseattn.py:124", heads1_f32, k3f_wide),
         ("dense_attn_tf32_wide_bwd", "dense_attn_tf32_wide.cu",
          "vae_song_tpu/ops/denseattn.py:152", heads1_f32, k3b_wide),
+        ("dense_attn_wgmma_wide_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:124",
+         heads1_bf16, k3f_wgmma),
+        ("dense_attn_wgmma_wide_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152",
+         heads1_bf16, k3b_wgmma),
         ("chamfer_nn_packed", "chamfer_fwd.cu", "vae_song_tpu/ops/chamfer.py:103", main_path, k4),
         ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
         ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),

@@ -1,0 +1,191 @@
+"""Checks and times the bf16 attention kernels for heads of 192 and 256
+(K3f/K3b on the BHND route) of one checkout of this repository on one
+CUDA card, by this checkout's chip_smoke.py, so that two checkouts run in
+one call compare by one method:
+
+    python scripts/ab_attn_bf16.py [ROOT]
+
+ROOT (default: this checkout) is put first on sys.path, so its
+`vae_song_tpu_torch` is the one imported and its kernels build into
+ROOT/build/cuda. The checks are chip_smoke.py's: phase 1 (the card's name
+and power limit), phase 2 (the build, with ptxas's register and spill
+lines) and phase 3's `check_attention` on every bf16 case of the BHND
+route at D = 192 and 256 (the bf16 num_heads 1 path's B = 64, D = 256,
+two heads of 192, N = 192 and B = 1; runs of 10 calls): each at
+chip_smoke.py's bounds against the plain version and bitwise from run to
+run (a case that fails prints why, and the next case runs), timed beside
+the bound, the plain version and SDPA's bf16 call. Then the device time a
+call of each of the forward's and the backward's kernels takes
+(torch.profiler, 10 calls) at B = 64, N = 2048 with one head of 256 and
+with two of 192, and at B = 1 with one head of 256.
+
+With --dup (ROOT must be this checkout) it also times, at those three
+shapes, the backward whose dK/dV kernel has both warpgroups compute S^T
+and dP^T over the whole head (scripts/ab_attn_bwd_dup.cu, 18 B H N^2 D)
+against the package's, whose warpgroups split them (14 B H N^2 D), in
+turns (package, variant, variant, package; chip_smoke.py's `_sync_ms`,
+runs of 10 calls), after checking that the two give the same bits.
+"""
+
+import collections
+import ctypes
+import hashlib
+import importlib.util
+import math
+import os
+import subprocess
+import sys
+import types
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGS = [a for a in sys.argv[1:] if a != "--dup"]
+ROOT = os.path.abspath(ARGS[0] if ARGS else HERE)
+DUP = "--dup" in sys.argv[1:]
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+
+from vae_song_tpu_torch import _kernels  # noqa: E402
+from vae_song_tpu_torch.ops import denseattn  # noqa: E402
+
+# A checkout from before the wgmma kernels for bf16 heads of 192 and 256
+# has no launch counters for them, which chip_smoke.py's COUNTERS name:
+# give it idle ones, which nothing here reads.
+for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd"):
+    if not hasattr(denseattn, _name):
+        setattr(denseattn, _name, types.SimpleNamespace(launches=0))
+
+_spec = importlib.util.spec_from_file_location("chip_smoke_checks",
+                                               os.path.join(HERE, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+BREAKDOWN = ((smoke.BATCH, smoke.NPTS, 1, 256), (smoke.BATCH, smoke.NPTS, 2, 192),
+             (1, smoke.NPTS, 1, 256))
+
+
+def _kernel_ms(fn, calls=10):
+    """Device ms a call of each CUDA kernel fn() launches, by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name] += e.time_range.elapsed_us()
+    return {name: t / 1e3 / calls for name, t in us.items()}
+
+
+def _breakdown(dev, gen, shape):
+    b, n, h, d = shape
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = smoke._attn_inputs(b, n, h, d, torch.bfloat16, gen, dev)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = denseattn.dense_attention_bhnd(q, k, v, scale)
+    for part, fn in (("fwd", lambda: denseattn.dense_attention_bhnd(q, k, v, scale)),
+                     ("bwd", lambda: denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do,
+                                                                        scale))):
+        times = _kernel_ms(fn)
+        print(f"BHND B={b} N={n} H={h} D={d} bfloat16 {part} device ms a call: "
+              + "; ".join(f"{k_[:90]} {t:.4f}" for k_, t in sorted(times.items()))
+              + f"; total {sum(times.values()):.4f}")
+
+
+def _dup_library():
+    """Compile scripts/ab_attn_bwd_dup.cu (with the package's flags) into
+    build/ab_attn_bwd_dup/ unless built for these sources, print ptxas's
+    lines for its dK/dV kernel, and load it."""
+    src = os.path.join(HERE, "scripts", "ab_attn_bwd_dup.cu")
+    h = hashlib.sha256(open(src, "rb").read())
+    for dep in sorted(_kernels.CSRC.iterdir()):
+        h.update(dep.read_bytes())
+    out = os.path.join(ROOT, "build", "ab_attn_bwd_dup")
+    so = os.path.join(out, f"ab_attn_bwd_dup_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(out, exist_ok=True)
+        # the included source calls the f32 kernels for wide heads: link them too
+        wide = str(_kernels.CSRC / "dense_attn_tf32_wide.cu")
+        built = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", so, src, wide],
+                               capture_output=True, text=True, check=False)
+        lines = (built.stdout + built.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "dkdv_dup_kernel" in line:
+                print("  ptxas:", " | ".join(x.strip() for x in lines[i:i + 3]))
+        if built.returncode != 0:
+            raise SystemExit("nvcc failed for scripts/ab_attn_bwd_dup.cu:\n" + "\n".join(lines))
+    lib = ctypes.CDLL(so)
+    lib.vst_ab_attn_bwd_dup.argtypes = _kernels._SIGNATURES["vst_dense_attn_bwd"]
+    lib.vst_ab_attn_bwd_dup.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_dup(lib, q, k, v, o, lse, do, scale):
+    """denseattn._launch_bwd with the variant's entry point."""
+    b, n, h, d = q.shape
+    o, do, lse = o.contiguous(), do.contiguous(), lse.float().contiguous()
+    dq, dk, dv = (torch.empty_like(o) for _ in range(3))
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    qc = torch.empty_like(o)
+    sb, sn, sh, _ = q.stride()
+    ob, on, oh, _ = o.stride()
+    err = lib.vst_ab_attn_bwd_dup(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), qc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh, float(scale * denseattn.LOG2E),
+        float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vst_ab_attn_bwd_dup: CUDA error {err}")
+    return dq, dk, dv
+
+
+def _dup_arm(dev, gen, lib, shape):
+    b, n, h, d = shape
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = smoke._attn_inputs(b, n, h, d, torch.bfloat16, gen, dev)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = denseattn.dense_attention_bhnd(q, k, v, scale)
+    arms = {"split": lambda: denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale),
+            "dup": lambda: _bwd_dup(lib, q, k, v, o, lse, do, scale)}
+    same = all(torch.equal(a, b_) for a, b_ in zip(arms["split"](), arms["dup"]()))
+    ms = {name: [] for name in arms}
+    for name in ("split", "dup", "dup", "split"):
+        ms[name].append(smoke._sync_ms(arms[name], 10))
+    print(f"BHND B={b} N={n} H={h} D={d} bfloat16 bwd, split scores (14 B H N^2 D) "
+          f"{', '.join(f'{t:.4f}' for t in ms['split'])} ms, both warpgroups computing the "
+          f"scores (18 B H N^2 D) {', '.join(f'{t:.4f}' for t in ms['dup'])} ms; "
+          f"bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"the two backward variants differ at {shape}")
+
+
+def main():
+    print(f"root {ROOT}")
+    smoke.phase_environment()
+    dev = torch.device("cuda", 0)
+    smoke._timed(smoke.phase_build)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    for case in smoke.K3_CASES:
+        if case[4] == torch.bfloat16 and case[3] in (192, 256):
+            try:
+                smoke.check_attention(dev, gen, "dense_attn (BHND route)",
+                                      denseattn.dense_attention_bhnd,
+                                      denseattn.dense_attention_bwd_bhnd, (case,),
+                                      smoke.K3_F32_O_TOL)
+            except AssertionError as e:
+                print(f"FAILED: {e}")
+    for shape in BREAKDOWN:
+        _breakdown(dev, gen, shape)
+    if DUP:
+        if ROOT != HERE:
+            raise SystemExit("--dup times this checkout's kernels only")
+        lib = _dup_library()
+        for shape in BREAKDOWN:
+            _dup_arm(dev, gen, lib, shape)
+
+
+if __name__ == "__main__":
+    main()

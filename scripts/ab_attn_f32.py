@@ -40,10 +40,11 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from vae_song_tpu_torch.ops import denseattn  # noqa: E402
 
-# A checkout from before the split-TF32 kernels for heads of 192 and wider
-# has no launch counters for them, which chip_smoke.py's COUNTERS name:
-# give it idle ones, which nothing here reads.
-for _name in ("tf32_wide_fwd", "tf32_wide_bwd"):
+# A checkout from before the split-TF32 kernels for heads of 192 and wider,
+# or before the bf16 wgmma kernels for heads of 192 and 256, has no launch
+# counters for them, which chip_smoke.py's COUNTERS name: give it idle
+# ones, which nothing here reads.
+for _name in ("tf32_wide_fwd", "tf32_wide_bwd", "wgmma_wide_fwd", "wgmma_wide_bwd"):
     if not hasattr(denseattn, _name):
         setattr(denseattn, _name, types.SimpleNamespace(launches=0))
 

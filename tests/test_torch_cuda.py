@@ -312,6 +312,15 @@ def test_f32_train_step_with_one_wide_head_runs_the_wide_kernels(dev):
             denseattn.tf32_wide_bwd.launches - start[1]) == (4, 4)
 
 
+def test_bf16_train_step_with_one_wide_head_runs_the_wgmma_wide_kernels(dev):
+    """One bf16 head of 256 (num_heads 1 at d_model 256): K3f and K3b,
+    every launch on the wgmma kernels for heads of 192 and 256."""
+    start = (denseattn.wgmma_wide_fwd.launches, denseattn.wgmma_wide_bwd.launches)
+    assert _train_step_launches(dev, num_heads=1, d_model=256) == [0, 0, 4, 4, 1, 1, 0, 0]
+    assert (denseattn.wgmma_wide_fwd.launches - start[0],
+            denseattn.wgmma_wide_bwd.launches - start[1]) == (4, 4)
+
+
 def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     """VST_FUSED_FFN=1 at ff_dim 128 (rows 8 x 256 = 2048): K6f and K6b
     for the 2 encoder and 2 decoder FFNs."""
@@ -359,6 +368,12 @@ def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
     (1, 128, 3, 192, torch.float32, True), (2, 128, 1, 448, torch.float32, False),
     (136, 128, 2, 192, torch.float32, True), (72, 256, 2, 256, torch.float32, False),
     (2, 192, 1, 576, torch.float32, True), (1, 128, 1, 1088, torch.float32, False),
+    # bf16 at D = 192 and 256 (the wgmma kernels whose backward splits the
+    # scores between its warpgroups): N = 192, an odd number of 64-row
+    # tiles, on views and on contiguous tensors; and two 64-row warpgroups
+    # a forward block (B H N / 128 at least the card's SM count)
+    (2, 192, 2, 192, torch.bfloat16, True), (3, 192, 1, 256, torch.bfloat16, False),
+    (136, 128, 2, 192, torch.bfloat16, False), (72, 256, 1, 256, torch.bfloat16, True),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
     """K3f and K3b at head widths 64 to 1088 and an odd

@@ -31,10 +31,11 @@ F32_TOL = 1e-5
 BF16_O_TOL, BF16_LSE_TOL, BF16_GRAD_TOL = 2.0 ** -6, 1e-3, 2.0 ** -4
 
 # (B, N, H, D): the widths the route takes at the shipped d_model 256
-# (2 heads of 128, 1 of 256), an odd count of 64-wide heads, and heads
-# wider than 256 (an odd and an even number of 64-column panels)
-CASES = [(2, 128, 2, 128), (1, 256, 1, 256), (2, 128, 3, 64), (1, 128, 1, 320),
-         (1, 128, 2, 512)]
+# (2 heads of 128, 1 of 256), an odd count of 64-wide heads, two heads of
+# 192, and heads wider than 256 (an odd and an even number of 64-column
+# panels)
+CASES = [(2, 128, 2, 128), (1, 256, 1, 256), (2, 128, 3, 64), (1, 128, 2, 192),
+         (1, 128, 1, 320), (1, 128, 2, 512)]
 
 
 def _inputs(b, n, h, d, seed):

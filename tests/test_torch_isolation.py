@@ -104,8 +104,11 @@ def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch)
     (a key the file sets, to a value that takes the BHND route), with
     `num_heads: 1` and `mixed_precision: false` (keys the file sets: one
     f32 head of 256, the BHND route's kernels for heads of 192 and wider),
-    and the SetVAE and SetLRVAE configs as they are, under the
+    with `num_heads: 1` alone (one bf16 head of 256, the wgmma kernels for
+    heads of 192 and 256), and the SetVAE and SetLRVAE configs as they are, under the
     VST_FUSED_FFN switch that the port reads."""
+    import torch
+
     from vae_song_tpu_torch.models import setvae
     from vae_song_tpu_torch.ops import denseattn
 
@@ -125,6 +128,13 @@ def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch)
     assert not denseattn.packed_ok(n, n, heads1["num_heads"], d)
     assert "params = dict(MODEL_PARAMS, **HEADS1_F32_OVERRIDE)" in _smoke_function(
         "phase_heads1_f32")
+    override = _smoke_literal("HEADS1_BF16_OVERRIDE")
+    assert override == {"num_heads": 1} and set(override) <= set(mp)
+    heads1 = dict(mp, **override)
+    d = heads1["d_model"] // heads1["num_heads"]
+    assert heads1["mixed_precision"] and denseattn.wgmma_wide(torch.bfloat16, d)
+    assert "params = dict(MODEL_PARAMS, **HEADS1_BF16_OVERRIDE)" in _smoke_function(
+        "phase_heads1_bf16")
 
     env = _smoke_literal("FUSED_FFN_ENV")
     assert env == {"VST_FUSED_FFN": "1"}

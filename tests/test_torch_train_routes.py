@@ -1,5 +1,6 @@
 """The port's train step on its two further routes against JAX's kernels in
-interpret mode: the BHND attention (K3f / K3b) and the fused FFN (K6f / K6b).
+interpret mode: the BHND attention (K3f / K3b; f32 at one head of 128,
+bf16 at one head of 256) and the fused FFN (K6f / K6b).
 The helpers and bounds are tests/test_torch_train.py's (its docstring
 says how the JAX side runs); the cases sit in files of their own so that
 pytest-xdist's --dist loadfile spreads them over its workers."""
@@ -7,10 +8,12 @@ pytest-xdist's --dist loadfile spreads them over its workers."""
 import functools
 
 import numpy as np
+import torch
 
 import vae_song_tpu.models.setvae as jax_setvae
-from test_torch_train import (KERNEL_BOUNDS, STEPS, _assert_within, _count_calls,
-                              _patch_jax_kernels, _train_diffs)
+from jax_parity import one_thread  # noqa: F401  (the fixture, used below)
+from test_torch_train import (CPU_BF16_BOUNDS, KERNEL_BOUNDS, STEPS, _assert_within,
+                              _count_calls, _patch_jax_kernels, _train_diffs)
 from vae_song_tpu.ops import attention as jax_attention
 from vae_song_tpu.ops import denseattn as jax_denseattn
 from vae_song_tpu.ops import ffn as jax_ffn
@@ -53,3 +56,26 @@ def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
     _assert_within(_train_diffs(monkeypatch, "setvae", False, {"ff_dim": 128}), KERNEL_BOUNDS)
     # per train step: 2 encoder and 2 decoder layers
     assert len(port_calls) == 4 * STEPS and jax_calls
+
+
+def test_bf16_train_step_one_wide_head_matches_jax_kernels_interpret(monkeypatch, one_thread):
+    """One bf16 head of 256 (num_heads 1 at d_model 256, mixed_precision),
+    the bf16 `num_heads: 1` SetVAE step's head: the port's BHND route (the
+    K3f / K3b plain versions, which the wgmma kernels for heads of 192 and
+    256 are held to on the card) against the JAX BHND kernels in interpret
+    mode, bf16 on both sides: P and the GEMM outputs round at other
+    points, as against JAX's CPU path, so CPU_BF16_BOUNDS hold it.
+    Measured (one torch thread) 3.3e-4, 2.9e-2, 3.2e-2, 0.29, 3.8e-2,
+    0.52."""
+    _patch_jax_kernels(monkeypatch)
+    monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
+    jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")
+    monkeypatch.setattr(jax_denseattn, "dense_attention",
+                        functools.partial(jax_denseattn.dense_attention, interpret=True))
+    heads, attend = [], torch_attention.dense_attention
+    monkeypatch.setattr(torch_attention, "dense_attention",
+                        lambda q, *a, **k: heads.append((q.shape[-1], q.dtype)) or attend(q, *a,
+                                                                                         **k))
+    _assert_within(_train_diffs(monkeypatch, "setvae", True, {"num_heads": 1, "d_model": 256}),
+                   CPU_BF16_BOUNDS)
+    assert jax_calls and heads and set(heads) == {(256, torch.bfloat16)}

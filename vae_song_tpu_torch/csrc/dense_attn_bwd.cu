@@ -61,11 +61,34 @@
 // so an N that is an odd multiple of 64 runs its last block with one
 // warpgroup on zero rows whose results are not stored.
 //
-// bf16 at D = 192 and 256 (no configured path): the mma.sync kernels of
-// the first port, synchronous single-buffered loads, 64-row tiles, 64
-// output columns a block with D / 64 column chunks in the grid, each
-// recomputing S and dP over the whole head width, reading the same qc
-// scratch.
+// bf16 at D = 192 and 256 (`num_heads: 1` at d_model 256): the same
+// warp specialisation, TMA ring and register-A products, with the scores
+// split between the consumer warpgroups. A thread cannot hold dK and dV
+// of 64 rows at full width (2 x D / 2 = 256 registers at D = 256), nor
+// does shared memory take 128 resident rows of qc and dO beside a ring
+// (128 KB at D = 256). So a block owns 64 rows (keys, or queries), held
+// in shared memory, and both warpgroups work on all 64: warpgroup 0
+// computes S (S^T in the dK/dV kernel) and P, warpgroup 1 dP (dP^T) and
+// rounds it to bf16; each writes its 64 x 64 tile of bf16 pairs (16 words
+// a thread, in the A-fragment layout, which is the same in both
+// warpgroups) to an exchange buffer in shared memory, they meet at a
+// named barrier and each reads the other's, so both hold P and round(dP)
+// and form the same dS. The head's columns of the outputs are split:
+// warpgroup 0 accumulates dK and dV (or dQ) on panels [0, ceil(P / 2)),
+// warpgroup 1 on the rest (at D = 256 2 x 2 x 32 registers a thread for
+// dK and dV). Each product is computed once per tile pair: 14 B H N^2 D
+// of tensor-core work, as at D = 64 and 128, against the 18 of both
+// warpgroups computing S and dP over the whole head. Two exchange buffers
+// alternate, so one barrier a tile orders both the writes and the reads.
+// The ring holds 2 stages at D = 256, 3 at D = 192 (226-227 KB of shared
+// memory a block with the exchange's 32 KB). N is a multiple of 64, so
+// every tile is whole. The preprocess and its qc scratch are the D = 64
+// and 128 path's.
+//
+// bf16 above 256 (heads of 320 and wider): mma.sync column-chunk kernels,
+// 64-row tiles staged synchronously, CW = 128 (or 64) output columns a
+// block, each chunk recomputing S and dP over the head in 64-column
+// panels.
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: split-TF32
 // mma.sync kernels (mma_tf32.cuh) of the same three-pass shape, the f32
@@ -230,12 +253,15 @@ using vst::zero_acc;
 // results once; on bf16 operands that is what the f32 operation followed
 // by a rounding to bf16 gives (the f32 difference of two bf16 values is
 // exact, or within 2^-16 of the larger one; their product is exact).
-__device__ __forceinline__ uint32_t ds_pair(uint32_t p, float dp0, float dp1, uint32_t dd) {
-  const uint32_t dpr = vst::pack_bf16(dp0, dp1);
+// ds_packed takes dP already rounded and packed (dpr).
+__device__ __forceinline__ uint32_t ds_packed(uint32_t p, uint32_t dpr, uint32_t dd) {
   const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&p),
                                    __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&dpr),
                                            *reinterpret_cast<const __nv_bfloat162*>(&dd)));
   return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t ds_pair(uint32_t p, float dp0, float dp1, uint32_t dd) {
+  return ds_packed(p, vst::pack_bf16(dp0, dp1), dd);
 }
 
 // The resident tile's barrier (one arrival: the producer's) and the
@@ -253,13 +279,14 @@ __device__ __forceinline__ void init_barriers(uint32_t res_bar, uint32_t full0, 
   __syncthreads();
 }
 
-// acc (64 x 64) = A (64 rows of the resident panels at a) B^T (64 rows of
-// the stage's panels at b), contracting over D: K-major both.
-template <int P>
+// acc (64 x 64) = A (64 rows of the resident panels at a, kResPanel bytes
+// apart) B^T (64 rows of the stage's panels at b), contracting over D:
+// K-major both.
+template <int P, uint32_t kResPanel = kPanel128>
 __device__ __forceinline__ void wgmma_rows(float (&acc)[8][4], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4 * P; ++kk)
-    vst::wgmma_ss_n64_t<0, 0>(acc, vst::desc_kmajor(a + (kk / 4) * kPanel128, kk % 4),
+    vst::wgmma_ss_n64_t<0, 0>(acc, vst::desc_kmajor(a + (kk / 4) * kResPanel, kk % 4),
                       vst::desc_kmajor(b + (kk / 4) * kPanel64, kk % 4), kk > 0);
 }
 
@@ -320,23 +347,26 @@ __device__ __forceinline__ void store_rows(const float (&c)[P][8][4], bf16* out,
   }
 }
 
-// Producer of both wgmma kernels (one thread): the block's resident
-// 128-row tiles of ra and rb, then for each of the n streamed 64-row
+// Producer of the wgmma kernels (one thread): the block's resident
+// kResRows-row tiles of ra and rb, then for each of the n streamed 64-row
 // tiles, once the consumers have released its stage, the tiles of sa and
-// sb (and, where lse is given, the tile rows' LSE2 and delta). Its last
-// kStages waits let the consumers release every stage before it leaves.
-template <int P, int kStages, uint32_t kStageBytes, uint32_t kTileTx>
+// sb (and, where lse is given, the tile rows' LSE2 and delta, at vec0 +
+// s vec_stride for stage s). Its last kStages waits let the consumers
+// release every stage before it leaves.
+template <int P, int kResRows, int kStages, uint32_t kStageBytes, uint32_t kTileTx>
 __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap* rb,
                                         const CUtensorMap* sa, const CUtensorMap* sb,
                                         const float* lse, const float* delta, uint32_t res,
-                                        uint32_t stage0, uint32_t res_bar, uint32_t full0,
-                                        uint32_t empty0, int r0, int n, int h, int b) {
-  vst::mbar_arrive_expect_tx(res_bar, 2 * P * kPanel128);
+                                        uint32_t stage0, uint32_t vec0, uint32_t vec_stride,
+                                        uint32_t res_bar, uint32_t full0, uint32_t empty0,
+                                        int r0, int n, int h, int b) {
+  constexpr uint32_t res_panel = kResRows * vst::kPanelRowBytes;
+  vst::mbar_arrive_expect_tx(res_bar, 2 * P * res_panel);
   for (int p = 0; p < P; ++p)
-    for (int half = 0; half < 2; ++half) {
-      const uint32_t at = p * kPanel128 + half * kPanel64;
+    for (int half = 0; half < kResRows / 64; ++half) {
+      const uint32_t at = p * res_panel + half * kPanel64;
       vst::tma_load_4d(res + at, ra, res_bar, 64 * p, h, r0 + 64 * half, b);
-      vst::tma_load_4d(res + P * kPanel128 + at, rb, res_bar, 64 * p, h, r0 + 64 * half, b);
+      vst::tma_load_4d(res + P * res_panel + at, rb, res_bar, 64 * p, h, r0 + 64 * half, b);
     }
   for (int it = 0; it < n + kStages; ++it) {
     const int s = it % kStages;
@@ -349,8 +379,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap
       vst::tma_load_4d(st + (P + p) * kPanel64, sb, full, 64 * p, h, it * kStepRows, b);
     }
     if (lse != nullptr) {
-      vst::bulk_load(st + 2 * P * kPanel64, lse + it * kStepRows, 256, full);
-      vst::bulk_load(st + 2 * P * kPanel64 + 256, delta + it * kStepRows, 256, full);
+      const uint32_t vec = vec0 + s * vec_stride;
+      vst::bulk_load(vec, lse + it * kStepRows, 256, full);
+      vst::bulk_load(vec + 256, delta + it * kStepRows, 256, full);
     }
   }
 }
@@ -384,10 +415,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
   if (wg == 2) {   // producer
     vst::regs_dealloc<24>();
     if (threadIdx.x == 256)
-      produce<P, kStages, L::stage_bytes, L::tile_tx>(&mk, &mv, &mqc, &mdo, lse + vrow,
-                                                      delta + vrow, base + L::res_a,
-                                                      base + L::stage0, res_bar, full0, empty0,
-                                                      k0, nq, h, b);
+      produce<P, kBlockRows, kStages, L::stage_bytes, L::tile_tx>(
+          &mk, &mv, &mqc, &mdo, lse + vrow, delta + vrow, base + L::res_a, base + L::stage0,
+          base + L::stage0 + L::vec, L::stage_bytes, res_bar, full0, empty0, k0, nq, h, b);
     return;
   }
 
@@ -485,9 +515,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
   if (wg == 2) {   // producer
     vst::regs_dealloc<24>();
     if (threadIdx.x == 256)
-      produce<P, kStages, L::stage_bytes, L::tile_tx>(&mqc, &mdo, &mk, &mv, nullptr, nullptr,
-                                                      base + L::res_a, base + L::stage0,
-                                                      res_bar, full0, empty0, q0, nk, h, b);
+      produce<P, kBlockRows, kStages, L::stage_bytes, L::tile_tx>(
+          &mqc, &mdo, &mk, &mv, nullptr, nullptr, base + L::res_a, base + L::stage0, 0, 0,
+          res_bar, full0, empty0, q0, nk, h, b);
     return;
   }
 
@@ -548,313 +578,318 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
   store_rows<P>(acc, dq, head, r0, N, os.n, t, scale);
 }
 
-// ---- bf16, D = 192 and 256: mma.sync kernels ------------------------------
+// ---- bf16, D = 192 and 256: wgmma kernels with the scores split ----------
 
-constexpr int kBlock = 64;     // rows per tile (4 warps x 16)
-constexpr int kCols = 64;      // output columns per block
-constexpr int kThreads = 128;
-constexpr int kLdt = kBlock + 8;   // padded row of a transposed tile
+// Shared memory of the two split kernels, byte offsets from a 1024-byte
+// aligned base: the resident 64-row tiles (P panels each), the ring's
+// stages (two 64-row tiles of P panels), the exchange (two buffers of
+// two 8 KB slots: slot 2 i + w is warpgroup w's in buffer i), the ring's
+// LSE2 and delta rows (dK/dV kernel) and the mbarriers (resident, full[],
+// empty[]).
+template <int D, bool kRowVectors>
+struct SplitSmem {
+  static constexpr int P = D / 64;
+  static constexpr int kStages = D == 192 ? 3 : 2;
+  static constexpr uint32_t res_a = 0;
+  static constexpr uint32_t res_b = P * kPanel64;
+  static constexpr uint32_t stage0 = 2 * P * kPanel64;
+  static constexpr uint32_t stage_bytes = 2 * P * kPanel64;
+  static constexpr uint32_t xch = stage0 + kStages * stage_bytes;
+  static constexpr int kSlotWords = 16 * 128;                      // 16 words a thread
+  static constexpr uint32_t vec0 = xch + 4 * kSlotWords * 4;
+  static constexpr uint32_t bars = vec0 + (kRowVectors ? kStages * 512 : 0);
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;   // + alignment
+  static constexpr uint32_t tile_tx = 2 * P * kPanel64 + (kRowVectors ? 512 : 0);
+  static_assert(bytes <= 232448, "more shared memory than a block can have");
+};
 
-// Shared tiles, in bf16 elements: four [64][D + 8] row tiles and two
-// [64][72] transposed column-chunk tiles, then LSE2 and delta.
-template <int D>
-constexpr size_t bwd_bf16_smem() {
-  return (4 * kBlock * (D + 8) + 2 * kCols * kLdt) * sizeof(__nv_bfloat16) +
-         2 * kBlock * sizeof(float);
+// A 64 x 64 tile of bf16 pairs in the A-fragment layout (16 words a
+// thread) into and out of an exchange slot: word j of thread tid at
+// j * 128 + tid, so a warp's accesses are 32 consecutive words.
+__device__ __forceinline__ void put_frags(uint32_t* slot, const uint32_t (&x)[4][4], int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) slot[(4 * i + j) * 128 + tid] = x[i][j];
+}
+__device__ __forceinline__ void get_frags(const uint32_t* slot, uint32_t (&x)[4][4], int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][j] = slot[(4 * i + j) * 128 + tid];
 }
 
-// Grid (N / 64 * D / 64, H, B), 128 threads; block x = 64-key tile * D / 64
-// + column chunk. Warp w owns keys k0 + 16w .. + 15, columns c0 .. c0 + 63.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ qc,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ d_o,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int N,
-                          Strides s, Strides os) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;
-  using Row = __nv_bfloat16[LD];
-  using Col = __nv_bfloat16[kLdt];
-  extern __shared__ __align__(16) unsigned char smem[];
-  Row* qs = reinterpret_cast<Row*>(smem);                          // qc [q][d]
-  Row* dos = qs + kBlock;                                          // dO [q][d]
-  Row* kts = dos + kBlock;                                         // K [key][d]
-  Row* vts = dos + 2 * kBlock;                                     // V [key][d]
-  Col* qt = reinterpret_cast<Col*>(dos + 3 * kBlock);              // qc^T [c][q]
-  Col* dot = qt + kCols;                                           // dO^T [c][q]
-  float* ls = reinterpret_cast<float*>(dot + kCols);
-  float* dls = ls + kBlock;
-
-  constexpr int kChunks = D / kCols;
-  const int c0 = (blockIdx.x % kChunks) * kCols;
-  const int k0 = (blockIdx.x / kChunks) * kBlock;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-
-  // K and V rows of this block
-  for (int i = tid; i < kBlock * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const long long off = head + (long long)(k0 + r) * s.n + c;
-    *reinterpret_cast<uint4*>(&kts[r][c]) = *reinterpret_cast<const uint4*>(k + off);
-    *reinterpret_cast<uint4*>(&vts[r][c]) = *reinterpret_cast<const uint4*>(v + off);
-  }
-
-  float adk[kCols / 8][4], adv[kCols / 8][4];
+// dP (or dP^T) of the accumulator rounded to bf16 pairs in the A layout.
+__device__ __forceinline__ void round_pairs(const float (&x)[8][4], uint32_t (&out)[4][4]) {
 #pragma unroll
-  for (int i = 0; i < kCols / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous tiles
-    for (int i = tid; i < kBlock * D / 8; i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const long long off = ohead + (long long)(q0 + r) * os.n + c;   // qc has O's strides
-      const uint4 raw = *reinterpret_cast<const uint4*>(qc + off);
-      const uint4 graw = *reinterpret_cast<const uint4*>(d_o + off);
-      *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
-      *reinterpret_cast<uint4*>(&dos[r][c]) = graw;
-      if (c >= c0 && c < c0 + kCols) {
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&graw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          qt[c - c0 + j][r] = e[j];
-          dot[c - c0 + j][r] = ge[j];
-        }
-      }
-    }
-    if (tid < kBlock) {
-      ls[tid] = lrow[q0 + tid];
-      dls[tid] = drow[q0 + tid];
-    }
-    __syncthreads();
-
-    // S^T = K qc^T (16 keys x 64 queries), then P^T
-    float p[kBlock / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t a[4];
-      load_a_chunk<LD>(kts, warp * 16, kk, g, t, a);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        const __nv_bfloat16* br = &qs[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(p[nt], a, ld_u32(br), ld_u32(br + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const float l0 = ls[nt * 8 + 2 * t], l1 = ls[nt * 8 + 2 * t + 1];
-      p[nt][0] = exp2_bf16(p[nt][0] - l0);
-      p[nt][1] = exp2_bf16(p[nt][1] - l1);
-      p[nt][2] = exp2_bf16(p[nt][2] - l0);
-      p[nt][3] = exp2_bf16(p[nt][3] - l1);
-    }
-
-    // dV += P^T dO
-#pragma unroll
-    for (int kc = 0; kc < kBlock / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(p, kc, pa);
-#pragma unroll
-      for (int dt = 0; dt < kCols / 8; ++dt) {
-        const __nv_bfloat16* br = &dot[dt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(adv[dt], pa, ld_u32(br), ld_u32(br + 8));
-      }
-    }
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta)
-    float ds[kBlock / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t a[4];
-      load_a_chunk<LD>(vts, warp * 16, kk, g, t, a);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        const __nv_bfloat16* br = &dos[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(ds[nt], a, ld_u32(br), ld_u32(br + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const float d0 = dls[nt * 8 + 2 * t], d1 = dls[nt * 8 + 2 * t + 1];
-      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
-      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d1));
-      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d0));
-      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
-    }
-
-    // dK += dS^T qc
-#pragma unroll
-    for (int kc = 0; kc < kBlock / 16; ++kc) {
-      uint32_t sa[4];
-      acc_to_a(ds, kc, sa);
-#pragma unroll
-      for (int dt = 0; dt < kCols / 8; ++dt) {
-        const __nv_bfloat16* br = &qt[dt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(adk[dt], sa, ld_u32(br), ld_u32(br + 8));
-      }
-    }
-  }
-
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
-#pragma unroll
-  for (int dt = 0; dt < kCols / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + o0 + c) = pack_bf16(adk[dt][0] * kLn2, adk[dt][1] * kLn2);
-    *reinterpret_cast<uint32_t*>(dk + o1 + c) = pack_bf16(adk[dt][2] * kLn2, adk[dt][3] * kLn2);
-    *reinterpret_cast<uint32_t*>(dv + o0 + c) = pack_bf16(adv[dt][0], adv[dt][1]);
-    *reinterpret_cast<uint32_t*>(dv + o1 + c) = pack_bf16(adv[dt][2], adv[dt][3]);
+  for (int j = 0; j < 8; ++j) {
+    out[j >> 1][(j & 1) * 2] = vst::pack_bf16(x[j][0], x[j][1]);
+    out[j >> 1][(j & 1) * 2 + 1] = vst::pack_bf16(x[j][2], x[j][3]);
   }
 }
 
-// ---- bf16: dQ -------------------------------------------------------------
+// Warpgroup W's output panels of the head: [0, ceil(P / 2)) for W = 0,
+// the rest for W = 1.
+template <int P, int W>
+struct SplitPanels {
+  static constexpr int first = W == 0 ? 0 : (P + 1) / 2;
+  static constexpr int count = W == 0 ? (P + 1) / 2 : P - (P + 1) / 2;
+};
 
-// Grid (N / 64 * D / 64, H, B), 128 threads; block x = 64-query tile *
-// D / 64 + column chunk. Warp w owns queries q0 + 16w .. + 15, columns
-// c0 .. c0 + 63.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ qc,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ d_o,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int N,
-                        Strides s, Strides os, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;
-  using Row = __nv_bfloat16[LD];
-  using Col = __nv_bfloat16[kLdt];
-  extern __shared__ __align__(16) unsigned char smem[];
-  Row* ks = reinterpret_cast<Row*>(smem);                          // K [key][d]
-  Row* vs = ks + kBlock;                                           // V [key][d]
-  Row* qas = vs + kBlock;                                          // qc [q][d]
-  Row* das = vs + 2 * kBlock;                                      // dO [q][d]
-  Col* kt = reinterpret_cast<Col*>(vs + 3 * kBlock);               // K^T [c][key]
-
-  constexpr int kChunks = D / kCols;
-  const int c0 = (blockIdx.x % kChunks) * kCols;
-  const int q0 = (blockIdx.x / kChunks) * kBlock;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// Consumer warpgroup W of the split dK/dV kernel, for the block's keys
+// k0 .. k0 + 63 (resident K and V). Per query tile: W = 0 computes S^T =
+// K qc^T and P^T, hands P^T over and, while the exchange waits, issues dV
+// += P^T dO on its panels; W = 1 computes dP^T = V dO^T, rounds and hands
+// it over; both form dS^T = P^T (dP^T - delta) and add dK += dS^T qc on
+// their panels.
+template <int D, int W>
+__device__ __forceinline__ void dkdv_split_consumer(uint32_t base, unsigned char* gbase, int nq,
+                                                    int k0, int N, long long head, long long sn,
+                                                    bf16* __restrict__ dk,
+                                                    bf16* __restrict__ dv) {
+  using L = SplitSmem<D, true>;
+  using C = SplitPanels<L::P, W>;
+  constexpr int P = L::P, kStages = L::kStages, PW = C::count;
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
+  uint32_t* xch = reinterpret_cast<uint32_t*>(gbase + L::xch);
+  float adk[PW][8][4], adv[PW][8][4];
+#pragma unroll
+  for (int p = 0; p < PW; ++p) {
+    zero_acc(adk[p]);
+    zero_acc(adv[p]);
+  }
+  vst::mbar_wait(res_bar, 0);
 
-  // qc and dO rows of this block
-  for (int i = tid; i < kBlock * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const long long off = ohead + (long long)(q0 + r) * os.n + c;   // qc has O's strides
-    *reinterpret_cast<uint4*>(&qas[r][c]) = *reinterpret_cast<const uint4*>(qc + off);
-    *reinterpret_cast<uint4*>(&das[r][c]) = *reinterpret_cast<const uint4*>(d_o + off);
+  for (int it = 0; it < nq; ++it) {
+    const int s = it % kStages;
+    vst::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t qs = base + L::stage0 + s * L::stage_bytes, dos = qs + P * kPanel64;
+    const float* ls = reinterpret_cast<const float*>(gbase + L::vec0 + s * 512);
+    const float* dls = ls + kStepRows;
+    uint32_t* mine = xch + (2 * (it & 1) + W) * L::kSlotWords;
+    const uint32_t* theirs = xch + (2 * (it & 1) + 1 - W) * L::kSlotWords;
+
+    // S^T = K qc^T (W = 0) or dP^T = V dO^T (W = 1): 64 keys x 64 queries
+    float x[8][4];
+    zero_acc(x);
+    vst::fence_acc(x);
+    vst::wgmma_fence();
+    wgmma_rows<P, kPanel64>(x, base + (W == 0 ? L::res_a : L::res_b), W == 0 ? qs : dos);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    vst::fence_acc(x);
+
+    uint32_t pa[4][4], dpr[4][4];
+    if constexpr (W == 0) {
+      // P^T (columns are queries), handed over; dV += P^T dO meanwhile
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float l0 = ls[8 * j + 2 * t], l1 = ls[8 * j + 2 * t + 1];
+        pa[j >> 1][(j & 1) * 2] = p_pair(x[j][0] - l0, x[j][1] - l1);
+        pa[j >> 1][(j & 1) * 2 + 1] = p_pair(x[j][2] - l0, x[j][3] - l1);
+      }
+      put_frags(mine, pa, tid);
+      fence_all<PW>(adv);
+      vst::wgmma_fence();
+      wgmma_frags_tile<PW>(adv, pa, dos + C::first * kPanel64);
+      vst::wgmma_commit();
+      vst::named_sync(1, 256);
+      get_frags(theirs, dpr, tid);
+    } else {
+      round_pairs(x, dpr);
+      put_frags(mine, dpr, tid);
+      vst::named_sync(1, 256);
+      get_frags(theirs, pa, tid);
+      fence_all<PW>(adv);
+      vst::wgmma_fence();
+      wgmma_frags_tile<PW>(adv, pa, dos + C::first * kPanel64);
+      vst::wgmma_commit();
+    }
+
+    // dS^T = P^T (dP^T - delta), then dK += dS^T qc
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t dd = vst::pack_bf16(dls[8 * j + 2 * t], dls[8 * j + 2 * t + 1]);
+      const int i = j >> 1, c = (j & 1) * 2;
+      sa[i][c] = ds_packed(pa[i][c], dpr[i][c], dd);
+      sa[i][c + 1] = ds_packed(pa[i][c + 1], dpr[i][c + 1], dd);
+    }
+    fence_all<PW>(adk);
+    vst::wgmma_fence();
+    wgmma_frags_tile<PW>(adk, sa, qs + C::first * kPanel64);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    fence_all<PW>(adk);
+    fence_all<PW>(adv);
+    release_stage(empty0 + 8 * s, lane);
   }
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long hrow = ((long long)b * H + h) * N;
-  const float l0 = lse[hrow + r0], l1 = lse[hrow + r1];
-  const float d0 = delta[hrow + r0], d1 = delta[hrow + r1];
+  const int r = k0 + 16 * warp + g;
+  store_rows<PW>(adk, dk + 64 * C::first, head, r, N, sn, t, kLn2);
+  store_rows<PW>(adv, dv + 64 * C::first, head, r, N, sn, t, 1.f);
+}
 
-  float acc[kCols / 8][4];
-#pragma unroll
-  for (int i = 0; i < kCols / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+// Grid (N / 64, H, B), 384 threads: consumer warpgroups 0 and 1 on the
+// block's 64 keys k0 .. (dkdv_split_consumer), producer warpgroup 2.
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mqc,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
+                           Strides os) {
+  using L = SplitSmem<D, true>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int k0 = blockIdx.x * kStepRows, h = blockIdx.y, b = blockIdx.z;
+  const int nq = N / kStepRows;
+  init_barriers(res_bar, full0, empty0, kStages);
+  const int wg = threadIdx.x / 128;
 
-  for (int k0 = 0; k0 < N; k0 += kBlock) {
-    __syncthreads();
-    for (int i = tid; i < kBlock * D / 8; i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const long long off = head + (long long)(k0 + r) * s.n + c;
-      const uint4 kraw = *reinterpret_cast<const uint4*>(k + off);
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kraw;
-      *reinterpret_cast<uint4*>(&vs[r][c]) = *reinterpret_cast<const uint4*>(v + off);
-      if (c >= c0 && c < c0 + kCols) {
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&kraw);
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      const long long vrow = ((long long)b * H + h) * N;
+      produce<L::P, kStepRows, kStages, L::stage_bytes, L::tile_tx>(
+          &mk, &mv, &mqc, &mdo, lse + vrow, delta + vrow, base + L::res_a, base + L::stage0,
+          base + L::vec0, 512, res_bar, full0, empty0, k0, nq, h, b);
+    }
+    return;
+  }
+  vst::regs_alloc<240>();
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  if (wg == 0)
+    dkdv_split_consumer<D, 0>(base, gbase, nq, k0, N, head, os.n, dk, dv);
+  else
+    dkdv_split_consumer<D, 1>(base, gbase, nq, k0, N, head, os.n, dk, dv);
+}
+
+// Consumer warpgroup W of the split dQ kernel, for the block's queries
+// q0 .. q0 + 63 (resident qc and dO). Per key tile: W = 0 computes S =
+// qc K^T and P, W = 1 dP = dO V^T rounded; they swap the two, both form
+// dS = P (dP - delta) and add dQ += dS K on their panels.
+template <int D, int W>
+__device__ __forceinline__ void dq_split_consumer(uint32_t base, unsigned char* gbase, int nk,
+                                                  int q0, int N, long long vrow, long long head,
+                                                  long long sn, const float* __restrict__ lse,
+                                                  const float* __restrict__ delta,
+                                                  bf16* __restrict__ dq, float scale) {
+  using L = SplitSmem<D, false>;
+  using C = SplitPanels<L::P, W>;
+  constexpr int P = L::P, kStages = L::kStages, PW = C::count;
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* xch = reinterpret_cast<uint32_t*>(gbase + L::xch);
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;   // < N: N is a multiple of 64
+  const float l0 = lse[vrow + r0], l1 = lse[vrow + r1];
+  const float d0 = delta[vrow + r0], d1 = delta[vrow + r1];
+  const uint32_t dd0 = vst::pack_bf16(d0, d0), dd1 = vst::pack_bf16(d1, d1);
+  float acc[PW][8][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) kt[c - c0 + j][r] = e[j];
+  for (int p = 0; p < PW; ++p) zero_acc(acc[p]);
+  vst::mbar_wait(res_bar, 0);
+
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    vst::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t ks = base + L::stage0 + s * L::stage_bytes, vs = ks + P * kPanel64;
+    uint32_t* mine = xch + (2 * (it & 1) + W) * L::kSlotWords;
+    const uint32_t* theirs = xch + (2 * (it & 1) + 1 - W) * L::kSlotWords;
+
+    // S = qc K^T (W = 0) or dP = dO V^T (W = 1): 64 queries x 64 keys
+    float x[8][4];
+    zero_acc(x);
+    vst::fence_acc(x);
+    vst::wgmma_fence();
+    wgmma_rows<P, kPanel64>(x, base + (W == 0 ? L::res_a : L::res_b), W == 0 ? ks : vs);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    vst::fence_acc(x);
+
+    uint32_t pa[4][4], dpr[4][4];
+    if constexpr (W == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pa[j >> 1][(j & 1) * 2] = p_pair(x[j][0] - l0, x[j][1] - l0);
+        pa[j >> 1][(j & 1) * 2 + 1] = p_pair(x[j][2] - l1, x[j][3] - l1);
       }
-    }
-    __syncthreads();
-
-    // S = qc K^T (16 queries x 64 keys), then P
-    float p[kBlock / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t a[4];
-      load_a_chunk<LD>(qas, warp * 16, kk, g, t, a);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        const __nv_bfloat16* br = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(p[nt], a, ld_u32(br), ld_u32(br + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      p[nt][0] = exp2_bf16(p[nt][0] - l0);
-      p[nt][1] = exp2_bf16(p[nt][1] - l0);
-      p[nt][2] = exp2_bf16(p[nt][2] - l1);
-      p[nt][3] = exp2_bf16(p[nt][3] - l1);
+      put_frags(mine, pa, tid);
+      vst::named_sync(1, 256);
+      get_frags(theirs, dpr, tid);
+    } else {
+      round_pairs(x, dpr);
+      put_frags(mine, dpr, tid);
+      vst::named_sync(1, 256);
+      get_frags(theirs, pa, tid);
     }
 
-    // dP = dO V^T, then dS = P (dP - delta)
-    float ds[kBlock / 8][4];
+    // dS = P (dP - delta), then dQ += dS K
+    uint32_t sa[4][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t a[4];
-      load_a_chunk<LD>(das, warp * 16, kk, g, t, a);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        const __nv_bfloat16* br = &vs[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(ds[nt], a, ld_u32(br), ld_u32(br + 8));
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int i = j >> 1, c = (j & 1) * 2;
+      sa[i][c] = ds_packed(pa[i][c], dpr[i][c], dd0);
+      sa[i][c + 1] = ds_packed(pa[i][c + 1], dpr[i][c + 1], dd1);
     }
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
-      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d0));
-      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d1));
-      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kc = 0; kc < kBlock / 16; ++kc) {
-      uint32_t sa[4];
-      acc_to_a(ds, kc, sa);
-#pragma unroll
-      for (int dt = 0; dt < kCols / 8; ++dt) {
-        const __nv_bfloat16* br = &kt[dt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(acc[dt], sa, ld_u32(br), ld_u32(br + 8));
-      }
-    }
+    fence_all<PW>(acc);
+    vst::wgmma_fence();
+    wgmma_frags_tile<PW>(acc, sa, ks + C::first * kPanel64);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    fence_all<PW>(acc);
+    release_stage(empty0 + 8 * s, lane);
   }
 
-  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
-#pragma unroll
-  for (int dt = 0; dt < kCols / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dq + o0 + c) = pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(dq + o1 + c) = pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
+  store_rows<PW>(acc, dq + 64 * C::first, head, r0, N, sn, t, scale);
+}
+
+// Grid (N / 64, H, B), 384 threads: consumer warpgroups 0 and 1 on the
+// block's 64 queries q0 .. (dq_split_consumer), producer warpgroup 2.
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap mqc,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int N, Strides os, float scale) {
+  using L = SplitSmem<D, false>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
+  const int q0 = blockIdx.x * kStepRows, h = blockIdx.y, b = blockIdx.z;
+  const int nk = N / kStepRows;
+  init_barriers(res_bar, full0, empty0, kStages);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256)
+      produce<L::P, kStepRows, kStages, L::stage_bytes, L::tile_tx>(
+          &mqc, &mdo, &mk, &mv, nullptr, nullptr, base + L::res_a, base + L::stage0, 0, 0,
+          res_bar, full0, empty0, q0, nk, h, b);
+    return;
   }
+  vst::regs_alloc<240>();
+  const long long vrow = ((long long)b * H + h) * N;
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  if (wg == 0)
+    dq_split_consumer<D, 0>(base, gbase, nk, q0, N, vrow, head, os.n, lse, delta, dq, scale);
+  else
+    dq_split_consumer<D, 1>(base, gbase, nk, q0, N, vrow, head, os.n, lse, delta, dq, scale);
 }
 
 // ---- f32, D = 64 and 128: split-TF32 mma.sync kernels --------------------
@@ -1142,6 +1177,9 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 // ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
 
+constexpr int kBlock = 64;         // rows per tile (4 warps x 16)
+constexpr int kThreads = 128;
+constexpr int kLdt = kBlock + 8;   // padded row of a transposed tile
 constexpr int kPanelCols = 64;          // columns of each row tile staged at a time
 constexpr int kLdp = kPanelCols + 8;
 
@@ -1217,10 +1255,11 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[CW / 8][4], const float (
 }
 
 // Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-key tile *
-// D / CW + column chunk. The mma.sync dK/dV kernel above with D a runtime
-// multiple of 64: S^T and dP^T are summed over the head in 64-column
-// panels of K, qc, V and dO staged through shared memory (the same order
-// of sums), and the block computes CW columns of dK and dV.
+// D / CW + column chunk. An mma.sync kernel (m16n8k16; warp w owns keys
+// k0 + 16 w .. + 15) with D a runtime multiple of 64: S^T and dP^T are
+// summed over the head in 64-column panels of K, qc, V and dO staged
+// through shared memory, 64 queries a tile, and the block computes CW
+// columns of dK and dV from transposed qc and dO chunks.
 template <int CW>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ qc,
@@ -1410,55 +1449,51 @@ void launch_preprocess_wide(const void* q, const void* o, const void* d_o, void*
       static_cast<T*>(qc), delta, H, N, D, rows, s, os, qscale);
 }
 
-// bf16 at D = 64 or 128: preprocess (delta and qc), then the wgmma dK/dV
-// and dQ kernels over tensor maps of qc, dO (O's strides) and k, v.
-template <int D>
-cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
-                             const void* d_o, const float* lse, float* delta, void* qc,
-                             void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
-                             Strides os, float qscale, float scale, cudaStream_t st) {
+// bf16: preprocess (delta and qc), then the dK/dV and dQ kernels `dkdv`
+// and `dq_kernel` (dynamic shared memory smem_dkdv and smem_dq, `rows`
+// rows a block) over tensor maps of qc, dO (O's strides) and k, v.
+template <int D, typename DkdvKernel, typename DqKernel>
+cudaError_t launch_bwd_tma(DkdvKernel dkdv, size_t smem_dkdv, DqKernel dq_kernel, size_t smem_dq,
+                           int rows, const void* q, const void* k, const void* v, const void* o,
+                           const void* d_o, const float* lse, float* delta, void* qc, void* dq,
+                           void* dk, void* dv, int B, int H, int N, Strides s, Strides os,
+                           float qscale, float scale, cudaStream_t st) {
   CUtensorMap mqc, mdo, mk, mv;
   if (!vst::bhnd_tensor_map(&mqc, qc, B, N, H, D, os.b, os.n, os.h) ||
       !vst::bhnd_tensor_map(&mdo, d_o, B, N, H, D, os.b, os.n, os.h) ||
       !vst::bhnd_tensor_map(&mk, k, B, N, H, D, s.b, s.n, s.h) ||
       !vst::bhnd_tensor_map(&mv, v, B, N, H, D, s.b, s.n, s.h))
     return cudaErrorInvalidValue;
-  constexpr size_t smem_dkdv = WgmmaSmem<D, true>::bytes;
-  constexpr size_t smem_dq = WgmmaSmem<D, false>::bytes;
   cudaError_t err;
-  if ((err = vst::allow_smem(attn_bwd_dkdv_wgmma_kernel<D>, smem_dkdv)) != cudaSuccess) return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_wgmma_kernel<D>, smem_dq)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(dkdv, smem_dkdv)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(dq_kernel, smem_dq)) != cudaSuccess) return err;
   launch_preprocess<bf16, D>(q, o, d_o, qc, delta, B, H, N, s, os, qscale, st);
-  const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
-  attn_bwd_dkdv_wgmma_kernel<D><<<grid, kWgmmaThreads, smem_dkdv, st>>>(
-      mk, mv, mqc, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, os);
-  attn_bwd_dq_wgmma_kernel<D><<<grid, kWgmmaThreads, smem_dq, st>>>(
-      mqc, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), H, N, os, scale);
+  const dim3 grid((N + rows - 1) / rows, H, B);
+  dkdv<<<grid, kWgmmaThreads, smem_dkdv, st>>>(mk, mv, mqc, mdo, lse, delta,
+                                               static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                               H, N, os);
+  dq_kernel<<<grid, kWgmmaThreads, smem_dq, st>>>(mqc, mdo, mk, mv, lse, delta,
+                                                  static_cast<bf16*>(dq), H, N, os, scale);
   return cudaGetLastError();
 }
 
-// bf16 at D = 192 or 256: preprocess (delta and qc), then the mma.sync
-// kernels.
+// bf16 at D = 64 to 256: the wgmma kernels, 128-row blocks at D = 64 and
+// 128, 64-row blocks with the scores split at D = 192 and 256.
 template <int D>
-cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
-                           const void* d_o, const float* lse, float* delta, void* qc, void* dq,
-                           void* dk, void* dv, int B, int H, int N, Strides s, Strides os,
-                           float qscale, float scale, cudaStream_t st) {
-  const dim3 grid(N / kBlock * (D / kCols), H, B);
-  constexpr size_t smem = bwd_bf16_smem<D>();
-  cudaError_t err;
-  if ((err = vst::allow_smem(attn_bwd_dkdv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-  launch_preprocess<bf16, D>(q, o, d_o, qc, delta, B, H, N, s, os, qscale, st);
-  const bf16* qcb = static_cast<const bf16*>(qc);
-  attn_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-      qcb, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, N, s, os);
-  attn_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-      qcb, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dq), H, N, s, os, scale);
-  return cudaGetLastError();
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                             const void* d_o, const float* lse, float* delta, void* qc,
+                             void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
+                             Strides os, float qscale, float scale, cudaStream_t st) {
+  if constexpr (D <= 128)
+    return launch_bwd_tma<D>(attn_bwd_dkdv_wgmma_kernel<D>, WgmmaSmem<D, true>::bytes,
+                             attn_bwd_dq_wgmma_kernel<D>, WgmmaSmem<D, false>::bytes, kBlockRows,
+                             q, k, v, o, d_o, lse, delta, qc, dq, dk, dv, B, H, N, s, os, qscale,
+                             scale, st);
+  else
+    return launch_bwd_tma<D>(attn_bwd_dkdv_split_kernel<D>, SplitSmem<D, true>::bytes,
+                             attn_bwd_dq_split_kernel<D>, SplitSmem<D, false>::bytes, kStepRows,
+                             q, k, v, o, d_o, lse, delta, qc, dq, dk, dv, B, H, N, s, os, qscale,
+                             scale, st);
 }
 
 // f32 at D = 64 or 128: preprocess (delta), then the split-TF32 dK/dV
@@ -1572,9 +1607,9 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
         err = launch_bwd_tf32_wide(q, k, v, o, d_o, l, dl, dq, dk, dv, B, H, N, D, s, os, qscale,
                                    scale, st);
       } else if (D == 192) {
-        err = launch_bwd_mma<192>(VST_BWD_ARGS);
+        err = launch_bwd_wgmma<192>(VST_BWD_ARGS);
       } else if (D == 256) {
-        err = launch_bwd_mma<256>(VST_BWD_ARGS);
+        err = launch_bwd_wgmma<256>(VST_BWD_ARGS);
       } else {
         err = launch_bwd_wide(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
                               scale, st);

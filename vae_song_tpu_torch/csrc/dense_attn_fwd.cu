@@ -26,35 +26,39 @@
 // other instructions, issued while no product of that warpgroup is in
 // flight.
 //
-// bf16 at D = 64 and 128 (every configured path): a warp-specialised
+// bf16 at D = 64 to 256 (every configured path): a warp-specialised
 // wgmma kernel (sm90.cuh). A block owns 64 NC query rows of one (b, h):
 // NC consumer warpgroups of 64 rows and a producer warpgroup, one thread
 // of which issues the TMA loads. Q is loaded once; K and V stream in
-// 128-key tiles through a ring of stages (4 at D = 64, 3 at D = 128:
-// 230 KB of shared memory) with full barriers for K and V apart and one
+// tiles of KT keys through a ring of stages (KT = 128 at D = 64 and 128,
+// 4 and 3 stages, 230 KB of shared memory; KT = 64 at D = 192 and 256, 3
+// and 2 stages, 193 KB) with full barriers for K and V apart and one
 // empty barrier a stage. Every tile is 128-byte-swizzled panels of 64
 // columns, written by 4-D TMA boxes over the strided views (dims D, H,
 // N, B). Each consumer warpgroup rewrites its Q rows in place as qc
 // (prescaled, rounded two values per conversion), fences the writes for
 // the async proxy and meets at a barrier; then S = qc K^T is a wgmma with
-// both operands in shared memory (m64n128, K-major). P is computed in the
-// accumulator layout, which is also the A layout of the next product,
-// by p_pair (mma_bf16.cuh: two values per conversion, the function the
-// backward uses); the row max and sum are taken over the four threads of
-// a row. O += P V is a register-A wgmma with V read MN-major through its
-// descriptor: no transposed copy. O is held at full width (D / 2 f32
-// registers a thread) and rescaled by exp2(m_old - m_new) in the softmax,
-// after the previous product's wait. P V of tile j and S of tile j + 1
-// go out back to back as one burst, and the two warpgroups take turns
-// (a ping-pong on named barriers): one's softmax runs while the other's
-// burst keeps the tensor cores busy. A software pipeline that keeps a
-// product in flight across the softmax made ptxas serialise the wgmmas
-// (C7511), as it did in the backward. The epilogue stores O times 1 / l
-// (one division a row; within an f32 ulp of O / l before the rounding to
-// bf16) as bf16x2, and LSE2 per row.
+// both operands in shared memory (m64n128 or m64n64, K-major). P is
+// computed in the accumulator layout, which is also the A layout of the
+// next product, by p_pair (mma_bf16.cuh: two values per conversion, the
+// function the backward uses); the row max and sum are taken over the
+// four threads of a row. O += P V is a register-A wgmma with V read
+// MN-major through its descriptor: no transposed copy (one m64n64 product
+// a 64-column panel of the head from D = 192). O is held at full width
+// (D / 2 f32 registers a thread: 128 at D = 256, which is why the key
+// tile halves there: a 128-key S tile and its P would add 96 registers
+// and pass the 240 a consumer thread gets) and rescaled by
+// exp2(m_old - m_new) in the softmax, after the previous product's wait.
+// P V of tile j and S of tile j + 1 go out back to back as one burst,
+// and the two warpgroups take turns (a ping-pong on named barriers): one's
+// softmax runs while the other's burst keeps the tensor cores busy. A
+// software pipeline that keeps a product in flight across the softmax
+// made ptxas serialise the wgmmas (C7511), as it did in the backward. The
+// epilogue stores O times 1 / l (one division a row; within an f32 ulp of
+// O / l before the rounding to bf16) as bf16x2, and LSE2 per row.
 //
-// Keys past N: N is a multiple of 64, so the last 128-key tile may hold
-// 64 rows past N, which TMA fills with zeros. A zero key would give
+// Keys past N: N is a multiple of 64, so at KT = 128 the last tile may
+// hold 64 rows past N, which TMA fills with zeros. A zero key would give
 // S2 = 0 and enter the softmax, so those scores are set to -inf (P = 0).
 // Query rows past N are computed on zeros and not stored.
 //
@@ -62,18 +66,16 @@
 // to the consumers: setmaxnreg 24 / 240) unless B H N / 128 blocks would
 // leave SMs idle; then NC = 1 (256 threads, 64-row blocks), so the
 // decoder's batch-constant layer at B = 1 (B H N / 128 = 64 at the
-// shipped config) still spreads over 128 SMs.
+// shipped config, 16 with one head) still spreads over more SMs.
 //
-// bf16 at D = 192 and 256 (no configured path): the mma.sync kernel of
-// the first port: 64-row blocks, synchronous single-buffered loads, V
-// transposed into shared memory, Q fragments reloaded from shared memory
-// per 16-wide chunk, one rounding a conversion (exp2_bf16). The row max
-// is the exact running max in both kernels (never a norm bound: a bound
+// The row max is the exact running max (never a norm bound: a bound
 // underflowed whole rows to 0/0 under training transients,
 // denseattn.py:88-96); exp2(s - m) has a 1.0 entry per tile at the max,
 // so the row sum is >= 1 and log2 is safe. Because the softmax is online,
-// P is rounded to bf16 against the running max rather than the final row
-// max: the values differ from the TPU kernel within bf16 rounding.
+// P is rounded to bf16 against the running max of the KT-key tiles rather
+// than the final row max: the values differ from the TPU kernel within
+// bf16 rounding (tests/test_torch_denseattn_bf16wide.py models the 64-key
+// order and holds it to the TPU kernel).
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: a split-TF32
 // mma.sync kernel (mma_tf32.cuh), the f32 path of the same two TPU
@@ -131,26 +133,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---- bf16, D = 64 and 128: warp-specialised wgmma kernel -------------------
+// ---- bf16, D = 64 to 256: warp-specialised wgmma kernel --------------------
 
-constexpr int kKeyTile = 128;                                  // keys a ring stage
 constexpr uint32_t kPanel64 = 64 * vst::kPanelRowBytes;        // 64-row panel
-constexpr uint32_t kPanel128 = 128 * vst::kPanelRowBytes;      // 128-row panel
 
 // Shared memory, byte offsets from a 1024-byte aligned base: the Q tile
 // (P panels of 64 NC rows, rewritten in place as qc), the ring's stages
-// (a K tile, then a V tile, each P panels of 128 rows), then the
+// (a K tile, then a V tile, each P panels of KT rows), then the
 // mbarriers (Q, full K[], full V[], empty[]).
 template <int D, int NC>
 struct FwdSmem {
   static constexpr int P = D / 64;
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int KT = D <= 128 ? 128 : 64;                 // keys a ring stage
+  static constexpr int kStages = D == 64 ? 4 : D == 256 ? 2 : 3;
+  static constexpr uint32_t kv_panel = KT * vst::kPanelRowBytes;
   static constexpr uint32_t q_panel = NC * kPanel64;
   static constexpr uint32_t stage0 = P * q_panel;
-  static constexpr uint32_t kv_bytes = P * kPanel128;            // one K or V tile
+  static constexpr uint32_t kv_bytes = P * kv_panel;             // one K or V tile
   static constexpr uint32_t stage_bytes = 2 * kv_bytes;
   static constexpr uint32_t bars = stage0 + kStages * stage_bytes;
   static constexpr size_t bytes = bars + 8 * (1 + 3 * kStages) + 1024;   // + alignment
+  static_assert(bytes <= 232448, "more shared memory than a block can have");
 };
 
 // Named barriers 1 .. NC order the consumer warpgroups' products (the
@@ -158,52 +161,72 @@ struct FwdSmem {
 using vst::named_arrive;
 using vst::named_sync;
 
-// Issue S2 = qc K^T (64 queries x 128 keys; qc at qw in P panels q_panel
+// Issue S2 = qc K^T (64 queries x KT keys; qc at qw in P panels q_panel
 // apart, the K tile at kt) as one commit group.
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&sc)[16][4], uint32_t qw, uint32_t q_panel,
-                                             uint32_t kt) {
+template <int D, int KT>
+__device__ __forceinline__ void issue_scores(float (&sc)[KT / 8][4], uint32_t qw,
+                                             uint32_t q_panel, uint32_t kt) {
+  constexpr uint32_t kv_panel = KT * vst::kPanelRowBytes;
   vst::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    vst::wgmma_ss_n128_t<0, 0>(sc, vst::desc_kmajor(qw + (kk / 4) * q_panel, kk % 4),
-                       vst::desc_kmajor(kt + (kk / 4) * kPanel128, kk % 4), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = vst::desc_kmajor(qw + (kk / 4) * q_panel, kk % 4);
+    const uint64_t db = vst::desc_kmajor(kt + (kk / 4) * kv_panel, kk % 4);
+    if constexpr (KT == 128)
+      vst::wgmma_ss_n128_t<0, 0>(sc, da, db, kk > 0);
+    else
+      vst::wgmma_ss_n64_t<0, 0>(sc, da, db, kk > 0);
+  }
   vst::wgmma_commit();
 }
 
 // Issue O += P V (V at vt read MN-major: the contraction runs along its
-// rows) as one commit group.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[8][4],
+// rows) as one commit group; from D = 192 one m64n64 product a 64-column
+// panel of O.
+template <int D, int KT>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[KT / 16][4],
                                          uint32_t vt) {
+  constexpr uint32_t kv_panel = KT * vst::kPanelRowBytes;
   vst::fence_acc(acc);
   vst::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 8; ++kc) {
-    if constexpr (D == 64)
-      vst::wgmma_rs_n64_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
-    else
-      vst::wgmma_rs_n128_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kPanel128));
+  for (int kc = 0; kc < KT / 16; ++kc) {
+    if constexpr (D == 64) {
+      vst::wgmma_rs_n64_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kv_panel));
+    } else if constexpr (D == 128) {
+      vst::wgmma_rs_n128_t<1>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kv_panel));
+    } else {
+      vst::wgmma_rs_n64_t<1, 0>(acc, pa[kc], vst::desc_mnmajor(vt, kc, kv_panel));
+      vst::wgmma_rs_n64_t<1, 8>(acc, pa[kc], vst::desc_mnmajor(vt + kv_panel, kc, kv_panel));
+      vst::wgmma_rs_n64_t<1, 16>(acc, pa[kc],
+                                 vst::desc_mnmajor(vt + 2 * kv_panel, kc, kv_panel));
+      if constexpr (D == 256)
+        vst::wgmma_rs_n64_t<1, 24>(acc, pa[kc],
+                                   vst::desc_mnmajor(vt + 3 * kv_panel, kc, kv_panel));
+    }
   }
   vst::wgmma_commit();
 }
 
 // The online softmax of one tile of scores, rows r and r + 8 of the
-// thread: the new running max (m0, m1; keys from 64 on masked when
-// `ragged_tile`), the row sums l0, l1 (this thread's share) and the
+// thread: the new running max (m0, m1; at KT = 128 keys from 64 on masked
+// when `ragged_tile`), the row sums l0, l1 (this thread's share) and the
 // accumulator rescaled by exp2(m_old - m_new), and P into A fragments
 // (k-step kc covers keys 16 kc .. + 15).
-template <int D>
-__device__ __forceinline__ void softmax_tile(float (&sc)[16][4], bool ragged_tile, float& m0,
-                                             float& m1, float& l0, float& l1,
-                                             float (&acc)[D / 8][4], uint32_t (&pa)[8][4]) {
-  if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
+template <int D, int KT>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged_tile,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float (&acc)[D / 8][4],
+                                             uint32_t (&pa)[KT / 16][4]) {
+  if constexpr (KT == 128) {
+    if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
 #pragma unroll
-    for (int j = 8; j < 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
+      for (int j = 8; j < 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
+    }
   }
   float n0 = m0, n1 = m1;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KT / 8; ++j) {
     n0 = fmaxf(n0, fmaxf(sc[j][0], sc[j][1]));
     n1 = fmaxf(n1, fmaxf(sc[j][2], sc[j][3]));
   }
@@ -215,7 +238,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[16][4], bool ragged_til
   m1 = n1;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KT / 8; ++j) {
     const uint32_t x = vst::p_pair(sc[j][0] - n0, sc[j][1] - n0);
     const uint32_t y = vst::p_pair(sc[j][2] - n1, sc[j][3] - n1);
     pa[j >> 1][(j & 1) * 2] = x;
@@ -246,7 +269,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                             float* __restrict__ lse, int H, int N, long long ob, long long on,
                             long long oh, float qscale) {
   using L = FwdSmem<D, NC>;
-  constexpr int P = L::P, kStages = L::kStages;
+  constexpr int P = L::P, KT = L::KT, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = vst::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -254,7 +277,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   const uint32_t q_bar = base + L::bars, full_k0 = q_bar + 8;
   const uint32_t full_v0 = full_k0 + 8 * kStages, empty0 = full_v0 + 8 * kStages;
   const int q0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z;
-  const int nk = (N + kKeyTile - 1) / kKeyTile;
+  const int nk = (N + KT - 1) / KT;
   if (threadIdx.x == 0) {
     vst::mbar_init(q_bar, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -286,14 +309,14 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
         const uint32_t st = kt_of(it);
         vst::mbar_arrive_expect_tx(k_full(it), L::kv_bytes);
         for (int p = 0; p < P; ++p)
-          for (int half = 0; half < 2; ++half)
-            vst::tma_load_4d(st + p * kPanel128 + half * kPanel64, &mk, k_full(it), 64 * p, h,
-                             it * kKeyTile + 64 * half, b);
+          for (int half = 0; half < KT / 64; ++half)
+            vst::tma_load_4d(st + p * L::kv_panel + half * kPanel64, &mk, k_full(it), 64 * p, h,
+                             it * KT + 64 * half, b);
         vst::mbar_arrive_expect_tx(v_full(it), L::kv_bytes);
         for (int p = 0; p < P; ++p)
-          for (int half = 0; half < 2; ++half)
-            vst::tma_load_4d(st + L::kv_bytes + p * kPanel128 + half * kPanel64, &mv,
-                             v_full(it), 64 * p, h, it * kKeyTile + 64 * half, b);
+          for (int half = 0; half < KT / 64; ++half)
+            vst::tma_load_4d(st + L::kv_bytes + p * L::kv_panel + half * kPanel64, &mv,
+                             v_full(it), 64 * p, h, it * KT + 64 * half, b);
       }
     }
     return;
@@ -332,7 +355,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r and r + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-  const bool ragged = (N % kKeyTile) != 0;
+  const bool ragged = (N % KT) != 0;
 
   // P V of tile it and S of tile it + 1 go out back to back, so no product
   // is in flight during a softmax. With two warpgroups the pairs take
@@ -342,20 +365,20 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   if constexpr (kPingpong) {
     if (wg == 1) named_arrive(1, 256);   // warpgroup 0 goes first
   }
-  float sc[16][4];
+  float sc[KT / 8][4];
   vst::mbar_wait(k_full(0), 0);
-  issue_scores<D>(sc, qw, L::q_panel, kt_of(0));
+  issue_scores<D, KT>(sc, qw, L::q_panel, kt_of(0));
   vst::wgmma_wait<0>();
   vst::fence_acc(sc);
   for (int it = 0; it < nk; ++it) {
-    uint32_t pa[8][4];
-    softmax_tile<D>(sc, ragged && it == nk - 1, m0, m1, l0, l1, acc, pa);
+    uint32_t pa[KT / 16][4];
+    softmax_tile<D, KT>(sc, ragged && it == nk - 1, m0, m1, l0, l1, acc, pa);
     if constexpr (kPingpong) named_sync(1 + wg, 256);
     vst::mbar_wait(v_full(it), parity(it));
-    issue_pv<D>(acc, pa, kt_of(it) + L::kv_bytes);
+    issue_pv<D, KT>(acc, pa, kt_of(it) + L::kv_bytes);
     if (it + 1 < nk) {
       vst::mbar_wait(k_full(it + 1), parity(it + 1));
-      issue_scores<D>(sc, qw, L::q_panel, kt_of(it + 1));
+      issue_scores<D, KT>(sc, qw, L::q_panel, kt_of(it + 1));
     }
     if constexpr (kPingpong) named_arrive(2 - wg, 256);
     vst::wgmma_wait<0>();
@@ -383,158 +406,6 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t) =
           pack_bf16(acc[j][2 * half] * inv, acc[j][2 * half + 1] * inv);
     if (t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
-  }
-}
-
-// ---- bf16, D = 192 and 256: mma.sync kernel ----------------------------------
-
-constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
-constexpr int kBlockK = 64;       // keys per shared-memory tile
-constexpr int kThreads = 128;
-
-// Rows padded by 8 bf16 (16 bytes): the 8 row groups of a fragment load
-// land on distinct banks.
-template <int D>
-constexpr size_t fwd_bf16_smem() {
-  return ((kBlockQ + kBlockK) * (D + 8) + D * (kBlockK + 8)) * sizeof(__nv_bfloat16);
-}
-
-// Grid (N / 64, H, B), 128 threads. Warp w owns query rows 16w..16w+15 of
-// the block's tile; in the m16n8k16 fragment layouts lane = 4 g + t holds
-// rows g and g + 8, columns 2t, 2t + 1 (+ 8).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dense_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int H, int N,
-                           long long sb, long long sn, long long sh,
-                           long long ob, long long on, long long oh,
-                           float qscale) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;           // 16-wide chunks of the head
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto qs = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
-  auto ks = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem + kBlockQ * LD * 2);
-  auto vt = reinterpret_cast<__nv_bfloat16 (*)[kBlockK + 8]>(   // V^T tile
-      smem + (kBlockQ + kBlockK) * LD * 2);
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * sb + (long long)h * sh;
-
-  // Stage the query tile, prescaled by scale * log2e and rounded back to
-  // bf16 (denseattn.py:131, :414).
-  for (int i = tid; i < kBlockQ * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(q + head + (long long)(q0 + r) * sn + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
-    *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
-  }
-  __syncthreads();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < N; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockK * D / 8; i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const long long off = head + (long long)(k0 + r) * sn + c;
-      *reinterpret_cast<uint4*>(&ks[r][c]) = *reinterpret_cast<const uint4*>(k + off);
-      uint4 raw = *reinterpret_cast<const uint4*>(v + off);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[c + j][r] = e[j];
-    }
-    __syncthreads();
-
-    // S2 = qc k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t a[4];
-      load_a_chunk<LD>(qs, warp * 16, kk, g, t, a);
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(s[nt], a, ld_u32(kr), ld_u32(kr + 8));
-      }
-    }
-
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      t0 = fmaxf(t0, fmaxf(s[nt][0], s[nt][1]));
-      t1 = fmaxf(t1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(t0));
-    const float n1 = fmaxf(m1, quad_max(t1));
-    const float a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
-    const float a1 = exp2f(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = exp2_bf16(s[nt][0] - n0);
-      s[nt][1] = exp2_bf16(s[nt][1] - n0);
-      s[nt][2] = exp2_bf16(s[nt][2] - n1);
-      s[nt][3] = exp2_bf16(s[nt][3] - n1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
-    }
-
-    // O += P v: the accumulator layout of two S n-tiles is the A layout
-    // of one 16-key chunk of P.
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(s, kc, pa);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = &vt[dt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(acc[dt], pa, ld_u32(vr), ld_u32(vr + 8));
-      }
-    }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* o0 = o + (long long)b * ob + (long long)r0 * on + (long long)h * oh;
-  __nv_bfloat16* o1 = o + (long long)b * ob + (long long)r1 * on + (long long)h * oh;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o0 + dt * 8 + 2 * t) = pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    *reinterpret_cast<uint32_t*>(o1 + dt * 8 + 2 * t) = pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (t == 0) {
-    float* lrow = lse + ((long long)b * H + h) * N;
-    lrow[r0] = m0 + log2f(l0);
-    lrow[r1] = m1 + log2f(l1);
   }
 }
 
@@ -670,6 +541,9 @@ dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict_
 
 // ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
 
+constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
+constexpr int kBlockK = 64;       // keys per shared-memory tile
+constexpr int kThreads = 128;
 constexpr int kWidePanel = 64;     // columns of q and k staged at a time
 constexpr int kLdp = kWidePanel + 8;
 
@@ -681,11 +555,12 @@ constexpr size_t fwd_wide_bf16_smem() {
 }
 
 // Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-query tile *
-// D / CW + column chunk. The mma.sync kernel above with D a runtime
-// multiple of 64: S is accumulated over the head in 64-column panels of
-// qc and k staged through shared memory (the same order of sums), and the
-// block computes CW columns of O, so no width is too wide for shared
-// memory; each column chunk recomputes the scores. Chunk 0 writes LSE2.
+// D / CW + column chunk. An mma.sync kernel (m16n8k16; warp w owns query
+// rows 16 w .. + 15) with D a runtime multiple of 64: S is accumulated
+// over the head in 64-column panels of qc and k staged through shared
+// memory, 64 keys a tile, and the block computes CW columns of O from a
+// transposed V chunk, so no width is too wide for shared memory; each
+// column chunk recomputes the scores. Chunk 0 writes LSE2.
 template <int CW>
 __global__ void __launch_bounds__(kThreads)
 dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -850,7 +725,7 @@ cudaError_t launch_fwd_wgmma_nc(const CUtensorMap& mq, const CUtensorMap& mk,
   return cudaGetLastError();
 }
 
-// bf16 at D = 64 or 128: the wgmma kernel over tensor maps of q, k, v,
+// bf16 at D = 64 to 256: the wgmma kernel over tensor maps of q, k, v,
 // with two consumer warpgroups a block unless that gives fewer blocks
 // than the card has SMs.
 template <int D>
@@ -870,21 +745,6 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   if ((long long)B * H * ((N + 127) / 128) < sms)
     return launch_fwd_wgmma_nc<D, 1>(mq, mk, mv, o, lse, B, H, N, ob, on, oh, qscale, st);
   return launch_fwd_wgmma_nc<D, 2>(mq, mk, mv, o, lse, B, H, N, ob, on, oh, qscale, st);
-}
-
-// bf16 at D = 192 or 256: the mma.sync kernel.
-template <int D>
-cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int B, int H, int N, long long sb, long long sn, long long sh,
-                           long long ob, long long on, long long oh, float qscale,
-                           cudaStream_t st) {
-  constexpr size_t smem = fwd_bf16_smem<D>();
-  const cudaError_t err = vst::allow_smem(dense_attn_fwd_bf16_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dense_attn_fwd_bf16_kernel<D><<<dim3(N / kBlockQ, H, B), kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
-  return cudaGetLastError();
 }
 
 // f32 at D = 64 or 128: the split-TF32 kernel.
@@ -934,9 +794,9 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
             static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), B, H,
             N, D, sb, sn, sh, ob, on, oh, qscale, st);
       } else if (D == 192) {
-        err = launch_fwd_mma<192>(VST_FWD_ARGS);
+        err = launch_fwd_wgmma<192>(VST_FWD_ARGS);
       } else if (D == 256) {
-        err = launch_fwd_mma<256>(VST_FWD_ARGS);
+        err = launch_fwd_wgmma<256>(VST_FWD_ARGS);
       } else {
         err = launch_fwd_wide(VST_FWD_ARGS_WIDE);
       }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
 // reallocation. Used by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu) at head widths 64 and 128, and by the
+// backward (dense_attn_bwd.cu) at head widths 64 to 256, and by the
 // fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
@@ -233,13 +233,11 @@ __device__ __forceinline__ void fence_acc(float (&c)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(c[i][j])::"memory");
 }
 
-#define VST_ACC32(c)                                                                         \
-  "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]), "+f"(c[1][0]), "+f"(c[1][1]),  \
-      "+f"(c[1][2]), "+f"(c[1][3]), "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]),             \
-      "+f"(c[2][3]), "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),             \
-      "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]), "+f"(c[5][0]),             \
-      "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]), "+f"(c[6][0]), "+f"(c[6][1]),             \
-      "+f"(c[6][2]), "+f"(c[6][3]), "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+#define VST_C4(c, j) "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+// the 8 rows o .. o + 7 of c (32 registers)
+#define VST_ACC32(c, o)                                                                    \
+  VST_C4(c, o), VST_C4(c, o + 1), VST_C4(c, o + 2), VST_C4(c, o + 3), VST_C4(c, o + 4),  \
+      VST_C4(c, o + 5), VST_C4(c, o + 6), VST_C4(c, o + 7)
 
 #define VST_D32                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
@@ -260,24 +258,25 @@ __device__ __forceinline__ void wgmma_ss_n64_t(float (&c)[8][4], uint64_t da, ui
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : VST_ACC32(c)
+      : VST_ACC32(c, 0)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// c (64 x 64 f32) += A (64 x 16 bf16 in registers) B (16 x 64 in shared
-// memory).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64_t(float (&c)[8][4], const uint32_t (&a)[4],
+// c (64 x 64 f32: rows O .. O + 7 of c, each 8 columns in mma.sync's C
+// layout per warp) += A (64 x 16 bf16 in registers) B (16 x 64 in shared
+// memory). O > 0 puts a 64-column panel of a wider accumulator in c.
+template <int TB, int O = 0, int R>
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&c)[R][4], const uint32_t (&a)[4],
                                                uint64_t db) {
+  static_assert(O % 8 == 0 && O + 8 <= R, "a 64-column panel of c");
   asm volatile(
       "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VST_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-      : VST_ACC32(c)
+      : VST_ACC32(c, O)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 
-#define VST_C4(c, j) "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
 #define VST_ACC64(c)                                                                        \
   VST_C4(c, 0), VST_C4(c, 1), VST_C4(c, 2), VST_C4(c, 3), VST_C4(c, 4), VST_C4(c, 5),       \
       VST_C4(c, 6), VST_C4(c, 7), VST_C4(c, 8), VST_C4(c, 9), VST_C4(c, 10), VST_C4(c, 11), \

@@ -14,10 +14,17 @@ Two routes share one kernel pair:
 The JAX kernels of both routes compute the same function with the same
 roundings, so the port launches one kernel for both, at every head width
 D % 64 == 0 that `dense_ok` accepts; each route counts its own launches.
-In bf16 at D = 64 and 128 (every configured path) the forward is one
+In bf16 at D = 64 to 256 (every configured path) the forward is one
 wgmma kernel fed by TMA (csrc/dense_attn_fwd.cu), and the backward a
 preprocess pass that writes delta and qc into scratch that `_launch_bwd`
-allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu). In f32
+allocates, then a wgmma kernel pair (csrc/dense_attn_bwd.cu). At D = 192
+and 256 (`num_heads: 1` at d_model 256) the forward walks 64-key tiles,
+so that O at full width fits a thread's registers, and the backward's
+two consumer warpgroups split the scores (one computes S and P, the
+other dP, and they swap them through shared memory) and the head's
+columns of dK, dV and dQ: each product once per tile pair, 14 B H N^2 D
+against the bound's 10 (counted apart in `wgmma_wide_fwd.launches` and
+`wgmma_wide_bwd.launches` as well). In f32
 (`mixed_precision: false`) at D = 64 and 128 the forward and the
 backward's dK/dV and dQ kernels compute every product in split TF32 on
 the tensor cores (csrc/mma_tf32.cuh: three TF32 mma.sync products a
@@ -26,9 +33,8 @@ backward's preprocess writes delta only. f32 heads of 192 and wider take
 the split-TF32 kernels of csrc/dense_attn_tf32_wide.cu, which split the
 head's columns across the warps of a row group (counted apart in
 `tf32_wide_fwd.launches` and `tf32_wide_bwd.launches` as well).
-bf16 at D = 192 and 256 runs the first port's mma.sync kernels, above 256
-column-chunk kernels that stream the head through shared memory in
-64-column panels.
+bf16 above 256 runs mma.sync column-chunk kernels that stream the head
+through shared memory in 64-column panels.
 
 The forward computes, per (batch, head):
 
@@ -240,6 +246,20 @@ def tf32_wide(dtype, d: int) -> bool:
     return dtype == torch.float32 and d >= 192
 
 
+# Launches of the bf16 wgmma kernels for heads of 192 and 256 (the 64-key
+# forward and the backward whose warpgroups split the scores), which
+# either route's wrapper may take; each is also counted on its route's
+# wrapper.
+wgmma_wide_fwd = types.SimpleNamespace(launches=0)
+wgmma_wide_bwd = types.SimpleNamespace(launches=0)
+
+
+def wgmma_wide(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    the bf16 wgmma kernels for heads of 192 and 256: the dispatch's rule."""
+    return dtype == torch.bfloat16 and d in (192, 256)
+
+
 def _forward(q, k, v, scale, counter):
     """The kernel on a CUDA tensor (one more launch on `counter`), the
     plain version on a CPU tensor."""
@@ -250,6 +270,8 @@ def _forward(q, k, v, scale, counter):
     counter.launches += 1
     if tf32_wide(q.dtype, q.shape[-1]):
         tf32_wide_fwd.launches += 1
+    if wgmma_wide(q.dtype, q.shape[-1]):
+        wgmma_wide_fwd.launches += 1
     return out
 
 
@@ -261,6 +283,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
     counter.launches += 1
     if tf32_wide(q.dtype, q.shape[-1]):
         tf32_wide_bwd.launches += 1
+    if wgmma_wide(q.dtype, q.shape[-1]):
+        wgmma_wide_bwd.launches += 1
     return out
 
 
