@@ -44,7 +44,11 @@ non-zero exit code:
      EFFICIENT_ATTENTION forced. The bf16 heads of 192 and 256 (the
      wgmma kernels of the bf16 num_heads 1 path) run at that path's
      shape, B = 64, D = 256, at two heads of 192, at N = 192 (an odd
-     number of 64-row tiles) and at the decoder's B = 1.
+     number of 64-row tiles) and at the decoder's B = 1. The bf16 heads
+     of 320 to 512 (the wgmma kernels of the bf16 d_model 512, num_heads 1
+     path) run at that path's shape, B = 64, D = 512, at its decoder's
+     B = 1, and at B = 8 with heads of 320 and 512; wider bf16 heads (the
+     mma.sync column-chunk kernels) at B = 8 with a head of 576.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -74,7 +78,11 @@ non-zero exit code:
      eval step's ms/batch and the train step's ms/step; K3f and K3b must
      launch, every launch on the bf16 wgmma kernels for heads of 192 and
      256 (their own counters), K4 and K5 too, and K1, K2, the FFN kernels
-     and the f32 kernels for wide heads must not.
+     and the f32 kernels for wide heads must not. (5) the shipped SetVAE
+     config with `d_model: 512, num_heads: 1` (one bf16 head of 512): the
+     same as (4), every K3f and K3b launch on the bf16 wgmma kernels for
+     heads of 320 to 512 (their own counters), K4 and K5 too, and no
+     other kernel.
   4d. routes: the shipped SetVAE eval step at full width once under each
      of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
      VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
@@ -87,7 +95,8 @@ non-zero exit code:
      step, the decode, and one train step (loss terms, gradients and the
      updated parameters), for the shipped SetVAE config and for the
      configurations of phase 4c (num_heads 1 in both, each precision
-     running its own kernels for wide heads).
+     running its own kernels for wide heads; d_model 512 with one head in
+     bf16, on the kernels for heads of 320 to 512).
   6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
      false` (the MLP encoder and decoder with BatchNorm at the config's
      encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
@@ -193,10 +202,12 @@ non-zero exit code:
 The kernels' JSON line reports, for each kernel, its launches on the
 path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
 K6b, and for the f32 kernels for heads of 192 and wider, the rows
-`dense_attn_tf32_wide_fwd` and `_bwd`, and the bf16 wgmma kernels for
+`dense_attn_tf32_wide_fwd` and `_bwd`, the bf16 wgmma kernels for
 heads of 192 and 256, the rows `dense_attn_wgmma_wide_fwd` and `_bwd`,
 each at its num_heads 1 path's B = 64, D = 256 case, launches from 4c (3)
-and 4c (4)),
+and 4c (4), and the bf16 wgmma kernels for heads of 320 to 512, the rows
+`dense_attn_wgmma_wider_fwd` and `_bwd`, at the d_model 512 path's B = 64,
+D = 512 case, launches from 4c (5)),
 the numbers phase 3 measured and the bound it computed, and under `paths`
 its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
@@ -299,6 +310,9 @@ HEADS1_F32_OVERRIDE = {"num_heads": 1, "mixed_precision": False}
 # The same head of 256 in bf16: the BHND route's wgmma kernels for heads
 # of 192 and 256, held to the file by the same test.
 HEADS1_BF16_OVERRIDE = {"num_heads": 1}
+# the same config at d_model 512 with one head: one bf16 head of 512,
+# the BHND route's kernels for heads of 320 to 512 (phase 4c (5))
+HEADS1_WIDER_OVERRIDE = {"d_model": 512, "num_heads": 1}
 # Phases 6-8's configurations: the shipped SetVAE config with one override
 # each (held to the file by the same test): the DeepSets encoder and decoder
 # at the config's encoder_hidden / decoder_hidden widths, and attention
@@ -451,6 +465,10 @@ TF32_WIDE_CASE = (BATCH, NPTS, 1, 256, torch.float32)
 # The bf16 wgmma kernels for heads of 192 and 256 at the shape of the bf16
 # num_heads 1 path (phase 4c): the JSON line's rows for them report it.
 WGMMA_WIDE_CASE = (BATCH, NPTS, 1, 256, torch.bfloat16)
+# The bf16 wgmma kernels for heads of 320 to 512 at the shape of the bf16
+# d_model 512, num_heads 1 path (phase 4c): the JSON line's rows for them
+# report it.
+WGMMA_WIDER_CASE = (BATCH, NPTS, 1, 512, torch.bfloat16)
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
             # bf16 heads of 192 and 256: two heads of 192, an odd number of
@@ -463,8 +481,13 @@ K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             # odd number of 64-row tiles, two heads of 192
             TF32_WIDE_CASE, (BATCH, 192, 1, 256, torch.float32),
             (BATCH, NPTS, 2, 192, torch.float32),
-            # heads wider than 256 (d_model 320 or 512 with one head)
+            # bf16 heads of 320 to 512: the d_model 512, num_heads 1 path's
+            # shape, its decoder's batch-constant layer, B = 8 at 320 and 512
+            WGMMA_WIDER_CASE, (1, NPTS, 1, 512, torch.bfloat16),
             (8, NPTS, 1, 320, torch.bfloat16), (8, NPTS, 1, 512, torch.bfloat16),
+            # bf16 above 512: the mma.sync column-chunk kernels
+            (8, NPTS, 1, 576, torch.bfloat16),
+            # f32 heads of 512
             (1, NPTS, 1, 512, torch.float32), (8, NPTS, 1, 512, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
 # the shipped widths, wider models' widths, then a smaller M in f32
@@ -954,12 +977,14 @@ COUNTERS = {
     "dense_attn_bwd": denseattn.dense_attention_bwd,
     "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
     "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
-    # f32 heads of 192 and wider, and bf16 heads of 192 and 256, also
-    # counted on their route's wrapper
+    # f32 heads of 192 and wider, and bf16 heads of 192 and 256 and of
+    # 320 to 512, also counted on their route's wrapper
     "dense_attn_tf32_wide_fwd": denseattn.tf32_wide_fwd,
     "dense_attn_tf32_wide_bwd": denseattn.tf32_wide_bwd,
     "dense_attn_wgmma_wide_fwd": denseattn.wgmma_wide_fwd,
     "dense_attn_wgmma_wide_bwd": denseattn.wgmma_wide_bwd,
+    "dense_attn_wgmma_wider_fwd": denseattn.wgmma_wider_fwd,
+    "dense_attn_wgmma_wider_bwd": denseattn.wgmma_wider_bwd,
     "chamfer_nn_packed": chamfer.chamfer_nn_packed,
     "chamfer_bwd": chamfer.chamfer_bwd,
     "ffn_fwd": ffn.fused_ffn_fwd,
@@ -1204,6 +1229,24 @@ def phase_heads1_bf16(dev):
     return launches
 
 
+WGMMA_WIDER_PATH = ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "dense_attn_wgmma_wider_fwd",
+                    "dense_attn_wgmma_wider_bwd", "chamfer_nn_packed", "chamfer_bwd")
+
+
+def phase_heads1_wider(dev):
+    """SetVAE with d_model 512 and num_heads 1 (one bf16 head of 512): the
+    BHND route's wgmma kernels for heads of 320 to 512."""
+    params = dict(MODEL_PARAMS, **HEADS1_WIDER_OVERRIDE)
+    tag = f"bf16 d_model {params['d_model']} num_heads {params['num_heads']}"
+    _reset_launches()
+    _train_and_test(params, 1, dev)
+    _time_eval_step("setvae", params, BATCH, dev, tag)
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    launches = _read_launches()
+    _expect_wide_path(launches, "the bf16 d_model 512 num_heads 1 path", WGMMA_WIDER_PATH)
+    return launches
+
+
 def phase_fused_ffn(dev):
     """The shipped SetVAE and SetLRVAE configs with VST_FUSED_FFN=1."""
     tag = "bf16 " + " ".join(f"{k}={v}" for k, v in FUSED_FFN_ENV.items())
@@ -1379,7 +1422,7 @@ def _reference(dev, name, params, precisions=(False, True)):
 
 
 def phase_reference(dev):
-    """The reference check for the shipped SetVAE config and for both
+    """The reference check for the shipped SetVAE config and for the
     configurations of phase 4c."""
     _reference(dev, "shipped", MODEL_PARAMS)
     _reference(dev, "num_heads 2", dict(MODEL_PARAMS, **HEADS2_OVERRIDE))
@@ -1391,6 +1434,14 @@ def phase_reference(dev):
         raise AssertionError("the f32 num_heads 1 reference did not run the wide f32 kernels")
     if denseattn.wgmma_wide_bwd.launches == launches[1]:
         raise AssertionError("the bf16 num_heads 1 reference did not run the wide bf16 kernels")
+    # d_model 512 with one head, bf16 (its path's precision): the kernels
+    # for heads of 320 to 512
+    launches = denseattn.wgmma_wider_bwd.launches
+    _reference(dev, "d_model 512 num_heads 1", dict(MODEL_PARAMS, **HEADS1_WIDER_OVERRIDE),
+               precisions=(True,))
+    if denseattn.wgmma_wider_bwd.launches == launches:
+        raise AssertionError("the bf16 d_model 512 num_heads 1 reference did not run the "
+                             "kernels for heads of 320 to 512")
     with mock.patch.dict(os.environ, FUSED_FFN_ENV):
         launches = ffn.fused_ffn_fwd.launches
         _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
@@ -2991,10 +3042,11 @@ def main():
     k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
                     denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
                     K1_F32_TOL)
-    k3f, k3b, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma = _timed(
+    k3f, k3b, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma, k3f_wider, k3b_wider = _timed(
         check_attention, dev, gen, "dense_attn (BHND route)", denseattn.dense_attention_bhnd,
         denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL,
-        ((denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE)))
+        ((denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE),
+         (denseattn.wgmma_wider, WGMMA_WIDER_CASE)))
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
     k6f, k6b = _timed(check_ffn, dev, gen)
@@ -3003,6 +3055,7 @@ def main():
     heads2 = _timed(phase_heads2, dev)
     heads1_f32 = _timed(phase_heads1_f32, dev)
     heads1_bf16 = _timed(phase_heads1_bf16, dev)
+    heads1_wider = _timed(phase_heads1_wider, dev)
     fused = _timed(phase_fused_ffn, dev)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
@@ -3030,6 +3083,10 @@ def main():
          heads1_bf16, k3f_wgmma),
         ("dense_attn_wgmma_wide_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152",
          heads1_bf16, k3b_wgmma),
+        ("dense_attn_wgmma_wider_fwd", "dense_attn_fwd.cu", "vae_song_tpu/ops/denseattn.py:124",
+         heads1_wider, k3f_wider),
+        ("dense_attn_wgmma_wider_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152",
+         heads1_wider, k3b_wider),
         ("chamfer_nn_packed", "chamfer_fwd.cu", "vae_song_tpu/ops/chamfer.py:103", main_path, k4),
         ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
         ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),

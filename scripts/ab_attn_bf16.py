@@ -3,7 +3,7 @@
 CUDA card, by this checkout's chip_smoke.py, so that two checkouts run in
 one call compare by one method:
 
-    python scripts/ab_attn_bf16.py [ROOT]
+    python scripts/ab_attn_bf16.py [ROOT] [--wider]
 
 ROOT (default: this checkout) is put first on sys.path, so its
 `vae_song_tpu_torch` is the one imported and its kernels build into
@@ -18,6 +18,12 @@ the bound, the plain version and SDPA's bf16 call. Then the device time a
 call of each of the forward's and the backward's kernels takes
 (torch.profiler, 10 calls) at B = 64, N = 2048 with one head of 256 and
 with two of 192, and at B = 1 with one head of 256.
+
+With --wider the same for the bf16 heads of 320 to 512 instead: phase
+3's cases at those widths (the d_model 512, num_heads 1 path's B = 64,
+D = 512, its decoder's B = 1, B = 8 at D = 320 and 512), then the device
+time of each kernel at those four shapes. To hold a change against its
+parent, run both checkouts in one call, parent, change, change, parent.
 
 With --dup (ROOT must be this checkout) it also times, at those three
 shapes, the backward whose dK/dV kernel has both warpgroups compute S^T
@@ -38,9 +44,11 @@ import sys
 import types
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARGS = [a for a in sys.argv[1:] if a != "--dup"]
+FLAGS = ("--dup", "--wider")
+ARGS = [a for a in sys.argv[1:] if a not in FLAGS]
 ROOT = os.path.abspath(ARGS[0] if ARGS else HERE)
 DUP = "--dup" in sys.argv[1:]
+WIDER = "--wider" in sys.argv[1:]
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -52,7 +60,7 @@ from vae_song_tpu_torch.ops import denseattn  # noqa: E402
 # A checkout from before the wgmma kernels for bf16 heads of 192 and 256
 # has no launch counters for them, which chip_smoke.py's COUNTERS name:
 # give it idle ones, which nothing here reads.
-for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd"):
+for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd", "wgmma_wider_fwd", "wgmma_wider_bwd"):
     if not hasattr(denseattn, _name):
         setattr(denseattn, _name, types.SimpleNamespace(launches=0))
 
@@ -63,6 +71,10 @@ _spec.loader.exec_module(smoke)
 
 BREAKDOWN = ((smoke.BATCH, smoke.NPTS, 1, 256), (smoke.BATCH, smoke.NPTS, 2, 192),
              (1, smoke.NPTS, 1, 256))
+# --wider: the heads of 320 to 512 (the d_model 512, num_heads 1 path's
+# B = 64 and its decoder's B = 1 at 512, B = 8 at 320 and 512)
+WIDER_BREAKDOWN = ((8, smoke.NPTS, 1, 320), (8, smoke.NPTS, 1, 512),
+                   (smoke.BATCH, smoke.NPTS, 1, 512), (1, smoke.NPTS, 1, 512))
 
 
 def _kernel_ms(fn, calls=10):
@@ -168,8 +180,9 @@ def main():
     dev = torch.device("cuda", 0)
     smoke._timed(smoke.phase_build)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    widths = (lambda d: 256 < d <= 512) if WIDER else (lambda d: d in (192, 256))
     for case in smoke.K3_CASES:
-        if case[4] == torch.bfloat16 and case[3] in (192, 256):
+        if case[4] == torch.bfloat16 and widths(case[3]):
             try:
                 smoke.check_attention(dev, gen, "dense_attn (BHND route)",
                                       denseattn.dense_attention_bhnd,
@@ -177,7 +190,7 @@ def main():
                                       smoke.K3_F32_O_TOL)
             except AssertionError as e:
                 print(f"FAILED: {e}")
-    for shape in BREAKDOWN:
+    for shape in WIDER_BREAKDOWN if WIDER else BREAKDOWN:
         _breakdown(dev, gen, shape)
     if DUP:
         if ROOT != HERE:

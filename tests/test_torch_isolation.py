@@ -150,6 +150,30 @@ def test_chip_smoke_new_paths_are_shipped_configs_with_one_override(monkeypatch)
     assert "_time_train_step('setlrvae', lr_params, SETLRVAE_BATCH, dev, tag)" in fused
 
 
+def test_chip_smoke_wider_head_path_is_shipped_config_with_one_override():
+    """Phase 4c (5) runs the shipped SetVAE config with `d_model: 512,
+    num_heads: 1` (keys the file sets) and nothing else changed: one bf16
+    head of 512, which the dense gate takes and the dispatch sends to the
+    wgmma kernels for heads of 320 to 512; phase 5 holds the same config
+    on the card to the CPU."""
+    import torch
+
+    from vae_song_tpu_torch.ops import denseattn
+
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    mp = config["model_params"]
+    override = _smoke_literal("HEADS1_WIDER_OVERRIDE")
+    assert override == {"d_model": 512, "num_heads": 1} and set(override) <= set(mp)
+    wider = dict(mp, **override)
+    n, d = wider["num_points"], wider["d_model"] // wider["num_heads"]
+    assert wider["mixed_precision"] and denseattn.dense_ok(n, n, d)
+    assert not denseattn.packed_ok(n, n, wider["num_heads"], d)
+    assert denseattn.wgmma_wider(torch.bfloat16, d) and not denseattn.wgmma_wide(torch.bfloat16, d)
+    assert "params = dict(MODEL_PARAMS, **HEADS1_WIDER_OVERRIDE)" in _smoke_function(
+        "phase_heads1_wider")
+    assert "dict(MODEL_PARAMS, **HEADS1_WIDER_OVERRIDE)" in _smoke_function("phase_reference")
+
+
 def test_chip_smoke_slice_paths_are_shipped_configs_with_one_override():
     """Phases 6-8 run the shipped SetVAE config with one stated change
     each: `use_attention: false` (the DeepSets models at the file's own

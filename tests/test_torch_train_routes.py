@@ -1,6 +1,6 @@
 """The port's train step on its two further routes against JAX's kernels in
 interpret mode: the BHND attention (K3f / K3b; f32 at one head of 128,
-bf16 at one head of 256) and the fused FFN (K6f / K6b).
+bf16 at one head of 256 and of 320) and the fused FFN (K6f / K6b).
 The helpers and bounds are tests/test_torch_train.py's (its docstring
 says how the JAX side runs); the cases sit in files of their own so that
 pytest-xdist's --dist loadfile spreads them over its workers."""
@@ -8,6 +8,7 @@ pytest-xdist's --dist loadfile spreads them over its workers."""
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import vae_song_tpu.models.setvae as jax_setvae
@@ -58,15 +59,19 @@ def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
     assert len(port_calls) == 4 * STEPS and jax_calls
 
 
-def test_bf16_train_step_one_wide_head_matches_jax_kernels_interpret(monkeypatch, one_thread):
-    """One bf16 head of 256 (num_heads 1 at d_model 256, mixed_precision),
-    the bf16 `num_heads: 1` SetVAE step's head: the port's BHND route (the
-    K3f / K3b plain versions, which the wgmma kernels for heads of 192 and
-    256 are held to on the card) against the JAX BHND kernels in interpret
-    mode, bf16 on both sides: P and the GEMM outputs round at other
-    points, as against JAX's CPU path, so CPU_BF16_BOUNDS hold it.
-    Measured (one torch thread) 3.3e-4, 2.9e-2, 3.2e-2, 0.29, 3.8e-2,
-    0.52."""
+@pytest.mark.parametrize("d_model", [256, 320])
+def test_bf16_train_step_one_wide_head_matches_jax_kernels_interpret(monkeypatch, one_thread,
+                                                                      d_model):
+    """One bf16 head of d_model (num_heads 1, mixed_precision): at 256 the
+    bf16 `num_heads: 1` SetVAE step's head, whose kernels on the card are
+    the wgmma kernels for heads of 192 and 256; at 320 a head that the
+    wgmma kernels for heads of 320 to 512 take. The port's BHND route (the
+    K3f / K3b plain versions, which those kernels are held to on the card)
+    against the JAX BHND kernels in interpret mode, bf16 on both sides: P
+    and the GEMM outputs round at other points, as against JAX's CPU path,
+    so CPU_BF16_BOUNDS hold it. Measured (one torch thread) at 256 3.3e-4,
+    2.9e-2, 3.2e-2, 0.29, 3.8e-2, 0.52; at 320 9.8e-4, 3.5e-2, 3.4e-2,
+    0.30, 3.8e-2, 0.51."""
     _patch_jax_kernels(monkeypatch)
     monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
     jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")
@@ -76,6 +81,6 @@ def test_bf16_train_step_one_wide_head_matches_jax_kernels_interpret(monkeypatch
     monkeypatch.setattr(torch_attention, "dense_attention",
                         lambda q, *a, **k: heads.append((q.shape[-1], q.dtype)) or attend(q, *a,
                                                                                          **k))
-    _assert_within(_train_diffs(monkeypatch, "setvae", True, {"num_heads": 1, "d_model": 256}),
-                   CPU_BF16_BOUNDS)
-    assert jax_calls and heads and set(heads) == {(256, torch.bfloat16)}
+    _assert_within(_train_diffs(monkeypatch, "setvae", True,
+                                {"num_heads": 1, "d_model": d_model}), CPU_BF16_BOUNDS)
+    assert jax_calls and heads and set(heads) == {(d_model, torch.bfloat16)}

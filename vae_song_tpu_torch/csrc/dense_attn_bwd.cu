@@ -85,10 +85,33 @@
 // every tile is whole. The preprocess and its qc scratch are the D = 64
 // and 128 path's.
 //
-// bf16 above 256 (heads of 320 and wider): mma.sync column-chunk kernels,
-// 64-row tiles staged synchronously, CW = 128 (or 64) output columns a
-// block, each chunk recomputing S and dP over the head in 64-column
-// panels.
+// bf16 at D = 320 to 512 (`num_heads: 1` at d_model 320 to 512): the same
+// split of the scores between the warpgroups, with the head in column
+// groups. A block owns 64 rows; its resident tiles (K and V, or qc and
+// dO) take 16 P KB of shared memory, P = D / 64 panels (128 KB at 512), so
+// the other side streams through rings of 64 x 64 panel stages, one ring
+// a consumer warpgroup, filled by one producer thread each (as many as
+// fit: dK/dV 4 stages at D = 512 to 7 at 320, 211 KB a block; dQ 5 to 8,
+// 225 KB). A score chain (S^T or dP^T over the head, panel by
+// panel) gives each stage back once the product after it has completed,
+// so it holds two stages at any D. dK/dV: ceil(P / 4) column groups of at
+// most four panels, each block one group, each group recomputing S^T
+// (warpgroup 0, with P^T) and dP^T (warpgroup 1, rounded) over the whole
+// head; the two swap their bf16 tiles through two 8 KB slots at named
+// barriers, form the same dS^T and accumulate dK and dV on at most two
+// panels each (128 registers); per query tile the ring brings the P
+// score panels (qc, or dO), then dO and qc on the warpgroup's panels,
+// and a two-stage side ring the tile's LSE2 and delta rows. Its producer
+// keeps 40 registers (two rings a thread), its consumers 232. dQ: the
+// whole head's dQ split between the warpgroups (at most four panels,
+// 128 registers), the ring bringing the P score panels (K, or V), then K
+// on the warpgroup's panels. Executed at D = 320 to 512 (two groups): 12
+// B H N^2 D in dK/dV and 6 in dQ, 18 against the bound's 10; no atomics.
+//
+// bf16 above 512: mma.sync column-chunk kernels, 64-row tiles staged
+// synchronously, CW = 128 (or 64) output columns a block, each chunk
+// recomputing S and dP over the head in 64-column panels; their shared
+// memory does not grow with D, which the resident tiles above do.
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: split-TF32
 // mma.sync kernels (mma_tf32.cuh) of the same three-pass shape, the f32
@@ -892,6 +915,451 @@ attn_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap mqc,
     dq_split_consumer<D, 1>(base, gbase, nk, q0, N, vrow, head, os.n, lse, delta, dq, scale);
 }
 
+// ---- bf16, D = 320 to 512: wgmma kernels, scores split, column groups ----
+
+// The dK/dV kernel's column groups: ng = ceil(P / 4) groups of the head's
+// P = D / 64 panels, group g on panels [first(g), first(g + 1)); within a
+// group of G panels warpgroup 0 (which also takes P's exponentials)
+// accumulates dK and dV on the first floor(G / 2), warpgroup 1 on the
+// rest: at most 2 panels, 128 accumulator registers a thread. The dQ
+// kernel splits the whole head the same way (at most 4 panels, 128
+// registers).
+__host__ __device__ constexpr int wider_groups(int P) { return (P + 3) / 4; }
+__host__ __device__ constexpr int wider_group_first(int P, int g) {
+  return g * P / wider_groups(P);
+}
+
+// Shared memory of the two kernels at P panels (P known at run time),
+// byte offsets from a 1024-byte aligned base: the block's resident 64-row
+// tiles (K and V, or qc and dO; P panels each), the exchange (two 8 KB
+// slots of bf16 pairs in the A layout, slot w warpgroup w's), in the
+// dK/dV kernel each warpgroup's two stages of its query tile's LSE2 and
+// delta rows (512 bytes), each warpgroup's ring of 64 x 64 panel stages
+// (as many as fit, at most kMaxStages), then the mbarriers (resident,
+// then for each warpgroup full[stages], empty[stages] and, dK/dV, the
+// row vectors' full[2] and empty[2]).
+struct WiderBwdSmem {
+  static constexpr int kMaxStages = 8;
+  static constexpr uint32_t kSlot = 16 * 128 * 4;
+  uint32_t res_b, xch, vec, ring0, bars;
+  int stages, wbars;   // wbars: one warpgroup's barriers
+  size_t bytes;
+  __host__ __device__ WiderBwdSmem(int P, bool row_vectors) {
+    res_b = P * kPanel64;
+    xch = 2 * P * kPanel64;
+    vec = xch + 2 * kSlot;
+    ring0 = vec + (row_vectors ? 2 * 2 * 512 : 0);
+    const int vbars = row_vectors ? 4 : 0;
+    const uint32_t fixed = ring0 + 8 * (1 + 2 * (2 * kMaxStages + vbars)) + 1024;
+    stages = (232448 - static_cast<int>(fixed)) / static_cast<int>(2 * kPanel64);
+    if (stages > kMaxStages) stages = kMaxStages;
+    wbars = 2 * stages + vbars;
+    bars = ring0 + 2 * stages * kPanel64;
+    bytes = bars + 8 * (1 + 2 * wbars) + 1024;   // + alignment
+  }
+};
+
+// The least ring a wider kernel runs with: a score chain holds two
+// stages, the dK/dV kernel's products four.
+constexpr int kWiderMinStages = 4;
+
+// x (64 x 64) = A B^T over the head, panel by panel: A's P panels resident
+// at a, B's the ring's next P items, both K-major. One commit group a
+// panel, issued once its stage has landed; each item is released once the
+// group after it has completed, so the chain holds at most two stages
+// whatever P is.
+__device__ __forceinline__ void score_chain(float (&x)[8][4], uint32_t a, int P,
+                                            vst::RingConsumer& ring) {
+  for (int i = 0; i < P; ++i) {
+    const uint32_t bt = ring.next(), ap = a + i * kPanel64;
+    vst::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      vst::wgmma_ss_n64_t<0, 0>(x, vst::desc_kmajor(ap, j), vst::desc_kmajor(bt, j),
+                                (i | j) != 0);
+    vst::wgmma_commit();
+    if (i > 0) {
+      vst::wgmma_wait<1>();
+      ring.release(1);
+    }
+  }
+  vst::wgmma_wait<0>();
+  ring.release(1);
+  vst::fence_acc(x);
+}
+
+// out[p] += A (64 x 64 bf16 in registers) B_p for p < PO, B_p the ring's
+// next PO items (contracting over their rows: MN-major), one commit group
+// issued once all PO stages have landed.
+template <int PO>
+__device__ __forceinline__ void frags_panels(float (&out)[PO][8][4], const uint32_t (&a)[4][4],
+                                             vst::RingConsumer& ring) {
+  const int b0 = ring.wait(PO);
+  fence_all<PO>(out);
+  vst::wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < PO; ++p)
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      vst::wgmma_rs_n64_t<1>(out[p], a[kc], vst::desc_mnmajor(ring.at(b0, p), kc, kPanel64));
+  vst::wgmma_commit();
+}
+
+// The exchange: this warpgroup's tile of bf16 pairs into its slot, the
+// other's out of its slot. Barrier 2: the other warpgroup has read this
+// slot's previous tile; barrier 1: both slots are written.
+__device__ __forceinline__ void swap_frags(uint32_t* mine, const uint32_t* theirs,
+                                          const uint32_t (&give)[4][4], uint32_t (&take)[4][4],
+                                          int tid) {
+  vst::named_sync(2, 256);
+  put_frags(mine, give, tid);
+  vst::named_sync(1, 256);
+  get_frags(theirs, take, tid);
+}
+
+// Consumer warpgroup W of the dK/dV kernel for heads of 320 to 512, for
+// the block's keys k0 .. k0 + 63 (K and V resident) and PO output panels
+// from `of` of its column group. Per query tile: W = 0 sums S^T = K qc^T
+// over the head and forms P^T, W = 1 dP^T = V dO^T and rounds it (each a
+// score chain over the ring's next P items: qc, or dO); W = 0 issues dV
+// += P^T dO (the ring's next PO items: dO on its panels) before the
+// exchange, W = 1 after it; both form dS^T = P^T (dP^T - delta) and issue
+// dK += dS^T qc (the next PO items: qc on its panels). The dO stages go
+// back as soon as dV has completed, while dK runs.
+template <int W, int PO>
+__device__ __forceinline__ void dkdv_wider_consumer(uint32_t base, unsigned char* gbase,
+                                                    const WiderBwdSmem& L, int P, int nq, int k0,
+                                                    int of, int N, long long head, long long sn,
+                                                    uint32_t res_bar, uint32_t wb,
+                                                    bf16* __restrict__ dk,
+                                                    bf16* __restrict__ dv) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* xch = reinterpret_cast<uint32_t*>(gbase + L.xch);
+  uint32_t* mine = xch + W * (L.kSlot / 4);
+  const uint32_t* theirs = xch + (1 - W) * (L.kSlot / 4);
+  vst::RingConsumer ring{base + L.ring0 + W * L.stages * kPanel64, kPanel64, wb,
+                         wb + 8 * L.stages, L.stages, lane};
+  const uint32_t vfull0 = wb + 16 * L.stages, vempty0 = vfull0 + 16;
+  const float* vecs = reinterpret_cast<const float*>(gbase + L.vec + W * 1024);
+  vst::RingCursor vc;
+  float adk[PO][8][4], adv[PO][8][4];
+#pragma unroll
+  for (int p = 0; p < PO; ++p) {
+    zero_acc(adk[p]);
+    zero_acc(adv[p]);
+  }
+  vst::mbar_wait(res_bar, 0);
+
+  for (int it = 0; it < nq; ++it) {
+    vst::mbar_wait(vfull0 + 8 * vc.stage, vc.phase);
+    const float* ls = vecs + vc.stage * 128;
+    const float* dls = ls + kStepRows;
+
+    // S^T (W = 0) or dP^T (W = 1): 64 keys x 64 queries
+    float x[8][4];
+    score_chain(x, base + (W == 0 ? 0 : L.res_b), P, ring);
+    uint32_t pa[4][4], dpr[4][4];
+    if constexpr (W == 0) {
+      // P^T (columns are queries); dV += P^T dO while the exchange waits
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float l0 = ls[8 * j + 2 * t], l1 = ls[8 * j + 2 * t + 1];
+        pa[j >> 1][(j & 1) * 2] = p_pair(x[j][0] - l0, x[j][1] - l1);
+        pa[j >> 1][(j & 1) * 2 + 1] = p_pair(x[j][2] - l0, x[j][3] - l1);
+      }
+      frags_panels<PO>(adv, pa, ring);
+      swap_frags(mine, theirs, pa, dpr, tid);
+    } else {
+      round_pairs(x, dpr);
+      swap_frags(mine, theirs, dpr, pa, tid);
+      frags_panels<PO>(adv, pa, ring);
+    }
+
+    // dS^T = P^T (dP^T - delta), then dK += dS^T qc
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t dd = vst::pack_bf16(dls[8 * j + 2 * t], dls[8 * j + 2 * t + 1]);
+      const int i = j >> 1, c = (j & 1) * 2;
+      sa[i][c] = ds_packed(pa[i][c], dpr[i][c], dd);
+      sa[i][c + 1] = ds_packed(pa[i][c + 1], dpr[i][c + 1], dd);
+    }
+    frags_panels<PO>(adk, sa, ring);
+    vst::wgmma_wait<1>();
+    ring.release(PO);   // dO, read by dV
+    vst::wgmma_wait<0>();
+    fence_all<PO>(adk);
+    fence_all<PO>(adv);
+    ring.release(PO);   // qc, read by dK
+    release_stage(vempty0 + 8 * vc.stage, lane);
+    vc.advance(2);
+  }
+
+  const int r = k0 + 16 * warp + g;
+  store_rows<PO>(adk, dk + 64 * of, head, r, N, sn, t, kLn2);
+  store_rows<PO>(adv, dv + 64 * of, head, r, N, sn, t, 1.f);
+}
+
+// Grid (N / 64 * ng, H, B), 384 threads; block x = 64-key tile * ng +
+// column group. Consumer warpgroups 0 and 1 on the block's keys
+// (dkdv_wider_consumer); producer warpgroup 2, whose threads 256 and 288
+// feed warpgroup 0's and 1's rings: for each query tile its LSE2 and
+// delta rows, the P panels of qc (warpgroup 0) or dO (1) for the score
+// chain, then the warpgroup's output panels of dO and of qc. Thread 256
+// also loads K and V.
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dkdv_wider_kernel(const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mqc,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int P,
+                           Strides os) {
+  const WiderBwdSmem L(P, true);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L.bars;
+  auto wbars = [&](int w) { return res_bar + 8 + w * 8 * L.wbars; };
+  const int ng = wider_groups(P), grp = blockIdx.x % ng;
+  const int k0 = (blockIdx.x / ng) * kStepRows, h = blockIdx.y, b = blockIdx.z;
+  const int nq = N / kStepRows;
+  const int gf = wider_group_first(P, grp), gn = wider_group_first(P, grp + 1) - gf;
+  const int po0 = gn / 2;
+  if (threadIdx.x == 0) {
+    vst::mbar_init(res_bar, 1);
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t wb = wbars(w);
+      vst::ring_init(wb, wb + 8 * L.stages, L.stages, 4);
+      vst::ring_init(wb + 16 * L.stages, wb + 16 * L.stages + 16, 2, 4);
+    }
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer: 40 registers (two rings a thread), the consumers 232
+    vst::regs_dealloc<40>();
+    const int lt = threadIdx.x - 256;
+    if (lt == 0 || lt == 32) {
+      const int w = lt / 32;
+      const uint32_t full0 = wbars(w), empty0 = full0 + 8 * L.stages;
+      const uint32_t vfull0 = full0 + 16 * L.stages, vempty0 = vfull0 + 16;
+      const uint32_t slots = base + L.ring0 + w * L.stages * kPanel64;
+      const uint32_t vecs = base + L.vec + w * 1024;
+      const long long vrow = ((long long)b * H + h) * N;
+      if (w == 0) {
+        vst::mbar_arrive_expect_tx(res_bar, 2 * P * kPanel64);
+        for (int p = 0; p < P; ++p) {
+          vst::tma_load_4d(base + p * kPanel64, &mk, res_bar, 64 * p, h, k0, b);
+          vst::tma_load_4d(base + L.res_b + p * kPanel64, &mv, res_bar, 64 * p, h, k0, b);
+        }
+      }
+      vst::RingCursor c, vc;
+      auto push = [&](const CUtensorMap* map, int p, int row) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        vst::tma_load_4d(slots + c.stage * kPanel64, map, full0 + 8 * c.stage, 64 * p, h, row,
+                         b);
+        c.advance(L.stages);
+      };
+      const int of = w ? gf + po0 : gf, no = w ? gn - po0 : po0;
+      for (int it = 0; it < nq; ++it) {
+        const int row = it * kStepRows;
+        vst::mbar_wait(vempty0 + 8 * vc.stage, vc.phase ^ 1);
+        const uint32_t vfull = vfull0 + 8 * vc.stage, vec = vecs + 512 * vc.stage;
+        vst::mbar_arrive_expect_tx(vfull, 512);
+        vst::bulk_load(vec, lse + vrow + row, 256, vfull);
+        vst::bulk_load(vec + 256, delta + vrow + row, 256, vfull);
+        vc.advance(2);
+        for (int p = 0; p < P; ++p) push(w == 0 ? &mqc : &mdo, p, row);
+        for (int p = of; p < of + no; ++p) push(&mdo, p, row);
+        for (int p = of; p < of + no; ++p) push(&mqc, p, row);
+      }
+      // let the consumer release every stage before leaving
+      for (int s = 0; s < L.stages; ++s) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(L.stages);
+      }
+      for (int s = 0; s < 2; ++s) {
+        vst::mbar_wait(vempty0 + 8 * vc.stage, vc.phase ^ 1);
+        vc.advance(2);
+      }
+    }
+    return;
+  }
+  vst::regs_alloc<232>();
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  const int of = wg ? gf + po0 : gf;
+#define VST_DKDV_ARGS base, gbase, L, P, nq, k0, of, N, head, os.n, res_bar, wbars(wg), dk, dv
+  if (wg == 0) {
+    if (po0 == 2)
+      dkdv_wider_consumer<0, 2>(VST_DKDV_ARGS);
+    else
+      dkdv_wider_consumer<0, 1>(VST_DKDV_ARGS);
+  } else {
+    if (gn - po0 == 2)
+      dkdv_wider_consumer<1, 2>(VST_DKDV_ARGS);
+    else
+      dkdv_wider_consumer<1, 1>(VST_DKDV_ARGS);
+  }
+#undef VST_DKDV_ARGS
+}
+
+// Consumer warpgroup W of the dQ kernel for heads of 320 to 512, for the
+// block's queries q0 .. q0 + 63 (qc and dO resident) and PO output panels
+// from `of`. Per key tile: W = 0 sums S = qc K^T over the head and forms
+// P, W = 1 dP = dO V^T and rounds it (score chains over the ring's next P
+// items: K, or V); they swap the two, both form dS = P (dP - delta) and
+// add dQ += dS K on their panels (the ring's next PO items: K).
+template <int W, int PO>
+__device__ __forceinline__ void dq_wider_consumer(uint32_t base, unsigned char* gbase,
+                                                  const WiderBwdSmem& L, int P, int nk, int q0,
+                                                  int of, int N, long long vrow, long long head,
+                                                  long long sn, uint32_t res_bar, uint32_t wb,
+                                                  const float* __restrict__ lse,
+                                                  const float* __restrict__ delta,
+                                                  bf16* __restrict__ dq, float scale) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* xch = reinterpret_cast<uint32_t*>(gbase + L.xch);
+  uint32_t* mine = xch + W * (L.kSlot / 4);
+  const uint32_t* theirs = xch + (1 - W) * (L.kSlot / 4);
+  vst::RingConsumer ring{base + L.ring0 + W * L.stages * kPanel64, kPanel64, wb,
+                         wb + 8 * L.stages, L.stages, lane};
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;   // < N: N is a multiple of 64
+  const float l0 = lse[vrow + r0], l1 = lse[vrow + r1];
+  const float d0 = delta[vrow + r0], d1 = delta[vrow + r1];
+  const uint32_t dd0 = vst::pack_bf16(d0, d0), dd1 = vst::pack_bf16(d1, d1);
+  float acc[PO][8][4];
+#pragma unroll
+  for (int p = 0; p < PO; ++p) zero_acc(acc[p]);
+  vst::mbar_wait(res_bar, 0);
+
+  for (int it = 0; it < nk; ++it) {
+    // S (W = 0) or dP (W = 1): 64 queries x 64 keys
+    float x[8][4];
+    score_chain(x, base + (W == 0 ? 0 : L.res_b), P, ring);
+    uint32_t pa[4][4], dpr[4][4];
+    if constexpr (W == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pa[j >> 1][(j & 1) * 2] = p_pair(x[j][0] - l0, x[j][1] - l0);
+        pa[j >> 1][(j & 1) * 2 + 1] = p_pair(x[j][2] - l1, x[j][3] - l1);
+      }
+      swap_frags(mine, theirs, pa, dpr, tid);
+    } else {
+      round_pairs(x, dpr);
+      swap_frags(mine, theirs, dpr, pa, tid);
+    }
+
+    // dS = P (dP - delta), then dQ += dS K
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = j >> 1, c = (j & 1) * 2;
+      sa[i][c] = ds_packed(pa[i][c], dpr[i][c], dd0);
+      sa[i][c + 1] = ds_packed(pa[i][c + 1], dpr[i][c + 1], dd1);
+    }
+    frags_panels<PO>(acc, sa, ring);
+    vst::wgmma_wait<0>();
+    fence_all<PO>(acc);
+    ring.release(PO);
+  }
+
+  store_rows<PO>(acc, dq + 64 * of, head, r0, N, sn, t, scale);
+}
+
+// Grid (N / 64, H, B), 384 threads: consumer warpgroups 0 and 1 on the
+// block's 64 queries (dq_wider_consumer), producer warpgroup 2, whose
+// threads 256 and 288 feed warpgroup 0's and 1's rings: for each key tile
+// the P panels of K (warpgroup 0) or V (1) for the score chain, then the
+// K panels of the warpgroup's output share. Thread 256 also loads qc and
+// dO.
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dq_wider_kernel(const __grid_constant__ CUtensorMap mqc,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int N, int P, Strides os, float scale) {
+  const WiderBwdSmem L(P, false);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L.bars;
+  auto wbars = [&](int w) { return res_bar + 8 + w * 8 * L.wbars; };
+  const int q0 = blockIdx.x * kStepRows, h = blockIdx.y, b = blockIdx.z;
+  const int nk = N / kStepRows;
+  const int po0 = P / 2;   // warpgroup 0's output panels [0, po0), 1's [po0, P)
+  if (threadIdx.x == 0) {
+    vst::mbar_init(res_bar, 1);
+    for (int w = 0; w < 2; ++w) vst::ring_init(wbars(w), wbars(w) + 8 * L.stages, L.stages, 4);
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    const int lt = threadIdx.x - 256;
+    if (lt == 0 || lt == 32) {
+      const int w = lt / 32;
+      const uint32_t full0 = wbars(w), empty0 = full0 + 8 * L.stages;
+      const uint32_t slots = base + L.ring0 + w * L.stages * kPanel64;
+      if (w == 0) {
+        vst::mbar_arrive_expect_tx(res_bar, 2 * P * kPanel64);
+        for (int p = 0; p < P; ++p) {
+          vst::tma_load_4d(base + p * kPanel64, &mqc, res_bar, 64 * p, h, q0, b);
+          vst::tma_load_4d(base + L.res_b + p * kPanel64, &mdo, res_bar, 64 * p, h, q0, b);
+        }
+      }
+      vst::RingCursor c;
+      auto push = [&](const CUtensorMap* map, int p, int row) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        vst::tma_load_4d(slots + c.stage * kPanel64, map, full0 + 8 * c.stage, 64 * p, h, row,
+                         b);
+        c.advance(L.stages);
+      };
+      const int of = w ? po0 : 0, no = w ? P - po0 : po0;
+      for (int it = 0; it < nk; ++it) {
+        const int row = it * kStepRows;
+        for (int p = 0; p < P; ++p) push(w == 0 ? &mk : &mv, p, row);
+        for (int p = of; p < of + no; ++p) push(&mk, p, row);
+      }
+      // let the consumer release every stage before leaving
+      for (int s = 0; s < L.stages; ++s) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(L.stages);
+      }
+    }
+    return;
+  }
+  vst::regs_alloc<240>();
+  const long long vrow = ((long long)b * H + h) * N;
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+#define VST_DQ_ARGS(of) base, gbase, L, P, nk, q0, of, N, vrow, head, os.n, res_bar, wbars(wg), \
+                        lse, delta, dq, scale
+  if (wg == 0) {
+    if (po0 == 2)
+      dq_wider_consumer<0, 2>(VST_DQ_ARGS(0));
+    else if (po0 == 3)
+      dq_wider_consumer<0, 3>(VST_DQ_ARGS(0));
+    else
+      dq_wider_consumer<0, 4>(VST_DQ_ARGS(0));
+  } else {
+    if (P - po0 == 3)
+      dq_wider_consumer<1, 3>(VST_DQ_ARGS(po0));
+    else
+      dq_wider_consumer<1, 4>(VST_DQ_ARGS(po0));
+  }
+#undef VST_DQ_ARGS
+}
+
 // ---- f32, D = 64 and 128: split-TF32 mma.sync kernels --------------------
 
 // Shared memory of both kernels: the block's own 64 rows of two tensors
@@ -1175,7 +1643,7 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
+// ---- bf16, D > 512, any D % 64 == 0: column-chunk kernels --------------------
 
 constexpr int kBlock = 64;         // rows per tile (4 warps x 16)
 constexpr int kThreads = 128;
@@ -1540,7 +2008,7 @@ cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
   return cudaGetLastError();
 }
 
-// bf16 at D > 256: preprocess (delta and qc), then the column-chunk
+// bf16 at D > 512: preprocess (delta and qc), then the column-chunk
 // kernels, in 128-column chunks where D allows, else 64.
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
                             const void* d_o, const float* lse, float* delta, void* qc, void* dq,
@@ -1552,6 +2020,36 @@ cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const v
                                          scale, st)
              : launch_bwd_wide_bf16<64>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s, os,
                                         scale, st);
+}
+
+// bf16 at D = 320 to 512: preprocess (delta and qc), then the wgmma
+// dK/dV kernel (ng column groups) and dQ kernel over tensor maps of qc,
+// dO (O's strides) and k, v.
+cudaError_t launch_bwd_wider(const void* q, const void* k, const void* v, const void* o,
+                             const void* d_o, const float* lse, float* delta, void* qc, void* dq,
+                             void* dk, void* dv, int B, int H, int N, int D, Strides s,
+                             Strides os, float qscale, float scale, cudaStream_t st) {
+  const int P = D / 64;
+  const WiderBwdSmem ldkdv(P, true), ldq(P, false);
+  if (ldkdv.stages < kWiderMinStages || ldq.stages < kWiderMinStages)
+    return cudaErrorInvalidValue;
+  CUtensorMap mqc, mdo, mk, mv;
+  if (!vst::bhnd_tensor_map(&mqc, qc, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mdo, d_o, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, s.b, s.n, s.h) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, s.b, s.n, s.h))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dkdv_wider_kernel, ldkdv.bytes)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_wider_kernel, ldq.bytes)) != cudaSuccess) return err;
+  launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
+  attn_bwd_dkdv_wider_kernel<<<dim3(N / kStepRows * wider_groups(P), H, B), kWgmmaThreads,
+                               ldkdv.bytes, st>>>(mk, mv, mqc, mdo, lse, delta,
+                                                  static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                  H, N, P, os);
+  attn_bwd_dq_wider_kernel<<<dim3(N / kStepRows, H, B), kWgmmaThreads, ldq.bytes, st>>>(
+      mqc, mdo, mk, mv, lse, delta, static_cast<bf16*>(dq), H, N, P, os, scale);
+  return cudaGetLastError();
 }
 
 // f32 from D = 192 up: preprocess (delta), then the split-TF32 dK/dV and
@@ -1610,6 +2108,9 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
         err = launch_bwd_wgmma<192>(VST_BWD_ARGS);
       } else if (D == 256) {
         err = launch_bwd_wgmma<256>(VST_BWD_ARGS);
+      } else if (D <= 512) {
+        err = launch_bwd_wider(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
+                               scale, st);
       } else {
         err = launch_bwd_wide(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
                               scale, st);

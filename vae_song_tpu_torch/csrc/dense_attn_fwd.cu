@@ -77,6 +77,33 @@
 // bf16 rounding (tests/test_torch_denseattn_bf16wide.py models the 64-key
 // order and holds it to the TPU kernel).
 //
+// bf16 at D = 320 to 512 (`num_heads: 1` at d_model 320 to 512): O at
+// full width would take D / 2 = 256 f32 registers a thread at D = 512,
+// and one 64-key K or V tile 64 KB beside the 64 KB Q tile. So a block
+// owns 64 query rows, shared by two consumer warpgroups, and the head's P
+// = D / 64 panels are split twice: warpgroup 0 sums the scores over panels
+// [0, ceil(P / 2)) and accumulates O on [0, floor(P / 2)), warpgroup 1 the
+// rest, so each issues P panel products a key tile and holds at most four
+// panels of O (128 registers). The two partial score tiles (64 x 64 f32)
+// are swapped through two 16 KB slots of shared memory at a named barrier
+// and added: f32 addition commutes, so both warpgroups hold the same S
+// bits and run the same online softmax (twice, small beside the
+// products). Each warpgroup has a ring of its own of 64 x 64 panel stages
+// (8 or 9, as many as fit: 217-225 KB of shared memory a block with Q and
+// the exchange) that one producer thread fills: for each key tile the K
+// panels of its score share, then the V panels of its output share. qc is
+// prescaled once, in place in the resident Q. Every product is made once:
+// 4 B H N^2 D. P V of tile j and the partial scores of tile j + 1 go out
+// as one burst once all their stages have landed; the last tile is peeled
+// off, so that no wgmma issue sits under a branch (a conditional burst
+// made ptxas serialise the wgmmas, advisory C7520). What bounds it beside
+// the tensor cores: each 64-row block reads the head's whole K and V (4
+// MB at N = 2048, D = 512) through L2, 64 operations a byte read. Grid N /
+// 64 x H x B: B = 1, N = 2048 runs 32 blocks on the 132 SMs. Wider bf16
+// heads take the mma.sync column-chunk kernel (64-row tiles staged
+// synchronously, each chunk of 128 or 64 output columns recomputing the
+// scores), whose design fits shared memory at every width.
+//
 // f32 inputs (mixed_precision: false) at D = 64 and 128: a split-TF32
 // mma.sync kernel (mma_tf32.cuh), the f32 path of the same two TPU
 // kernels (their "parity path", cd = f32: denseattn.py:82-85). What
@@ -107,6 +134,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "dense_attn_tf32_wide.cuh"
@@ -210,14 +239,13 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t 
 
 // The online softmax of one tile of scores, rows r and r + 8 of the
 // thread: the new running max (m0, m1; at KT = 128 keys from 64 on masked
-// when `ragged_tile`), the row sums l0, l1 (this thread's share) and the
-// accumulator rescaled by exp2(m_old - m_new), and P into A fragments
-// (k-step kc covers keys 16 kc .. + 15).
-template <int D, int KT>
-__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged_tile,
-                                             float& m0, float& m1, float& l0, float& l1,
-                                             float (&acc)[D / 8][4],
-                                             uint32_t (&pa)[KT / 16][4]) {
+// when `ragged_tile`), the row sums l0, l1 (this thread's share) rescaled
+// by exp2(m_old - m_new), returned in a0, a1 for the accumulator, and P
+// into A fragments (k-step kc covers keys 16 kc .. + 15).
+template <int KT>
+__device__ __forceinline__ void softmax_p(float (&sc)[KT / 8][4], bool ragged_tile, float& m0,
+                                          float& m1, float& l0, float& l1, float& a0, float& a1,
+                                          uint32_t (&pa)[KT / 16][4]) {
   if constexpr (KT == 128) {
     if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
 #pragma unroll
@@ -232,8 +260,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged
   }
   n0 = quad_max(n0);
   n1 = quad_max(n1);
-  const float a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
-  const float a1 = exp2f(m1 - n1);
+  a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
+  a1 = exp2f(m1 - n1);
   m0 = n0;
   m1 = n1;
   float ps0 = 0.f, ps1 = 0.f;
@@ -248,6 +276,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged
   }
   l0 = l0 * a0 + ps0;
   l1 = l1 * a1 + ps1;
+}
+
+// softmax_p, then the accumulator rescaled by exp2(m_old - m_new).
+template <int D, int KT>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged_tile,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float (&acc)[D / 8][4],
+                                             uint32_t (&pa)[KT / 16][4]) {
+  float a0, a1;
+  softmax_p<KT>(sc, ragged_tile, m0, m1, l0, l1, a0, a1, pa);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     acc[j][0] *= a0;
@@ -409,6 +447,281 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ---- bf16, D = 320 to 512: wgmma kernel with the scores split ------------
+
+// The head's P = D / 64 panels are split between the two consumer
+// warpgroups twice: warpgroup 0 sums the scores over panels [0, s0) and
+// accumulates O on [0, o0), warpgroup 1 the scores over [s0, P) and O on
+// [o0, P), with s0 = ceil(P / 2) and o0 = floor(P / 2), so each issues P
+// panels of products a key tile.
+__host__ __device__ constexpr int wider_score_split(int P) { return (P + 1) / 2; }
+__host__ __device__ constexpr int wider_out_split(int P) { return P / 2; }
+
+// Shared memory at P panels (P known at run time), byte offsets from a
+// 1024-byte aligned base: the block's 64 rows of Q (P panels, rewritten
+// in place as qc), the exchange (two 16 KB slots of partial scores, slot
+// w warpgroup w's), each warpgroup's ring of 64 x 64 panel stages (as
+// many as fit, at most kMaxStages), then the mbarriers (Q, then for each
+// warpgroup full[stages] and empty[stages]).
+struct WiderFwdSmem {
+  static constexpr int kMaxStages = 12;
+  static constexpr uint32_t kSlot = 64 * 64 * 4;
+  uint32_t xch, ring0, bars;
+  int stages;
+  size_t bytes;
+  __host__ __device__ explicit WiderFwdSmem(int P) {
+    xch = P * kPanel64;
+    ring0 = xch + 2 * kSlot;
+    const uint32_t fixed = ring0 + 8 * (1 + 4 * kMaxStages) + 1024;
+    stages = (232448 - static_cast<int>(fixed)) / static_cast<int>(2 * kPanel64);
+    if (stages > kMaxStages) stages = kMaxStages;
+    bars = ring0 + 2 * stages * kPanel64;
+    bytes = bars + 8 * (1 + 4 * stages) + 1024;   // + alignment
+  }
+};
+
+// Consumer warpgroup w of the forward for heads of 320 to 512, on PS
+// score panels from sf and PO output panels from of (32 PO accumulator
+// registers a thread). Per key tile the warpgroup sums its partial scores
+// over its score panels (qc resident, the K panels the ring's items),
+// writes them to its exchange slot and adds the other warpgroup's: f32
+// addition commutes, so both hold the same S bits and run the same online
+// softmax; then O += P V on its own panels (V the ring's next PO items).
+// P V of tile it and the partial scores of tile it + 1 go out as one
+// burst, once every stage they read has landed (no wait, and no branch,
+// between the wgmma issues); a stage is released once the burst that read
+// it has completed.
+template <int PS, int PO>
+__device__ __forceinline__ void fwd_wider_consumer(uint32_t base, unsigned char* gbase,
+                                                   const WiderFwdSmem& L, int nk, int w, int sf,
+                                                   int of, uint32_t q_bar, uint32_t full0,
+                                                   uint32_t empty0, bf16* __restrict__ o,
+                                                   float* __restrict__ lse, int H, int N, int q0,
+                                                   int h, int b, long long ob, long long on,
+                                                   long long oh, float qscale) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 16 * warp + g;   // the thread's first row of the 64
+
+  // qc = round_bf16(q * qscale) in place on this warpgroup's score panels
+  // (the fragments of its threads cover each panel's 64 rows once), fenced
+  // for the async proxy; the warpgroup meets at a barrier.
+  vst::mbar_wait(q_bar, 0);
+#pragma unroll
+  for (int i = 0; i < PS; ++i) {
+    unsigned char* panel = gbase + (sf + i) * kPanel64;
+    auto prescale = [&](int row, int col) {
+      uint32_t* at = reinterpret_cast<uint32_t*>(panel + vst::swizzled(row, col));
+      *at = pack_bf16(vst::bf16_lo(*at) * qscale, vst::bf16_hi(*at) * qscale);
+    };
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      prescale(r, c);
+      prescale(r + 8, c);
+      prescale(r, c + 8);
+      prescale(r + 8, c + 8);
+    }
+  }
+  vst::fence_proxy_async();
+  named_sync(3 + w, 128);
+
+  float* xch = reinterpret_cast<float*>(gbase + L.xch);
+  float* mine = xch + w * (L.kSlot / 4);
+  const float* theirs = xch + (1 - w) * (L.kSlot / 4);
+  vst::RingConsumer ring{base + L.ring0 + w * L.stages * kPanel64, kPanel64, full0, empty0,
+                         L.stages, lane};
+  const uint32_t qw = base + sf * kPanel64;
+  // the partial scores: x = qc[:, score panels] K[:, score panels]^T
+  // (K the ring's PS items from stage k0)
+  auto issue_scores = [&](float (&x)[8][4], int k0) {
+#pragma unroll
+    for (int i = 0; i < PS; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        vst::wgmma_ss_n64_t<0, 0>(x, vst::desc_kmajor(qw + i * kPanel64, j),
+                                  vst::desc_kmajor(ring.at(k0, i), j), (i | j) != 0);
+    vst::wgmma_commit();
+  };
+  // S = x0 + x1: each thread's 32 values, word (4 j + e) at 128 (4 j + e)
+  // + tid, so a warp's accesses are 32 consecutive words. Barrier 2: the
+  // other warpgroup has read this slot's previous tile; barrier 1: both
+  // slots are written.
+  auto exchange = [&](float (&x)[8][4]) {
+    named_sync(2, 256);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 128 + tid] = x[j][e];
+    named_sync(1, 256);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] += theirs[(4 * j + e) * 128 + tid];
+  };
+
+  float acc[PO][8][4];
+#pragma unroll
+  for (int p = 0; p < PO; ++p) vst::zero_acc(acc[p]);
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r and r + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+  float x[8][4];
+  int k0 = ring.wait(PS);   // the first stage of the K items a burst reads
+  vst::wgmma_fence();
+  issue_scores(x, k0);
+  vst::wgmma_wait<0>();
+  vst::fence_acc(x);
+  ring.release(PS);
+  exchange(x);
+  // one key tile: the softmax, then P V and, where another tile follows
+  // (`more`, a constant in each of the two calls below), its partial
+  // scores in the same burst; no wgmma issue sits under a branch
+  auto tile = [&](auto more) {
+    uint32_t pa[4][4];
+    float a0, a1;
+    softmax_p<64>(x, false, m0, m1, l0, l1, a0, a1, pa);
+#pragma unroll
+    for (int p = 0; p < PO; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[p][j][0] *= a0;
+        acc[p][j][1] *= a0;
+        acc[p][j][2] *= a1;
+        acc[p][j][3] *= a1;
+      }
+    const int v0 = ring.wait(PO);
+    if constexpr (decltype(more)::value) k0 = ring.wait(PS);
+#pragma unroll
+    for (int p = 0; p < PO; ++p) vst::fence_acc(acc[p]);
+    vst::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < PO; ++p)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        vst::wgmma_rs_n64_t<1>(acc[p], pa[kc], vst::desc_mnmajor(ring.at(v0, p), kc, kPanel64));
+    vst::wgmma_commit();
+    if constexpr (decltype(more)::value) issue_scores(x, k0);
+    vst::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < PO; ++p) vst::fence_acc(acc[p]);
+    vst::fence_acc(x);
+    if constexpr (decltype(more)::value) {
+      ring.release(PO + PS);
+      exchange(x);
+    } else {
+      ring.release(PO);
+    }
+  };
+  for (int it = 0; it + 1 < nk; ++it) tile(std::true_type{});
+  tile(std::false_type{});
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  float* lrow = lse + ((long long)b * H + h) * N;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r + 8 * half;
+    const float l = half ? l1 : l0, inv = 1.f / l;
+    bf16* dst = o + (long long)b * ob + (long long)row * on + (long long)h * oh + 64 * of;
+#pragma unroll
+    for (int p = 0; p < PO; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 64 * p + 8 * j + 2 * t) =
+            pack_bf16(acc[p][j][2 * half] * inv, acc[p][j][2 * half + 1] * inv);
+    if (w == 0 && t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
+  }
+}
+
+// Grid (N / 64, H, B), 384 threads: consumer warpgroups 0 and 1 on the
+// block's 64 queries q0 .. (fwd_wider_consumer), producer warpgroup 2,
+// whose threads 256 and 288 feed warpgroup 0's and 1's rings: for each
+// key tile the K panels of the warpgroup's score share, then the V panels
+// of its output share. Thread 256 also loads Q. Every ring holds at
+// least P stages, a tile's items (launch_fwd_wider checks it).
+__global__ void __launch_bounds__(384, 1)
+dense_attn_fwd_wider_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                            float* __restrict__ lse, int H, int N, int P, long long ob,
+                            long long on, long long oh, float qscale) {
+  const WiderFwdSmem L(P);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_bar = base + L.bars;
+  auto full_of = [&](int w) { return q_bar + 8 + w * 16 * L.stages; };
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int nk = N / 64;
+  if (threadIdx.x == 0) {
+    vst::mbar_init(q_bar, 1);
+    for (int w = 0; w < 2; ++w)
+      vst::ring_init(full_of(w), full_of(w) + 8 * L.stages, L.stages, 4);
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int s0 = wider_score_split(P), o0 = wider_out_split(P);
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    const int lt = threadIdx.x - 256;
+    if (lt == 0 || lt == 32) {
+      const int w = lt / 32;
+      const uint32_t full0 = full_of(w), empty0 = full0 + 8 * L.stages;
+      const uint32_t slots = base + L.ring0 + w * L.stages * kPanel64;
+      if (w == 0) {
+        vst::mbar_arrive_expect_tx(q_bar, P * kPanel64);
+        for (int p = 0; p < P; ++p)
+          vst::tma_load_4d(base + p * kPanel64, &mq, q_bar, 64 * p, h, q0, b);
+      }
+      vst::RingCursor c;
+      auto push = [&](const CUtensorMap* map, int p, int row) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        vst::tma_load_4d(slots + c.stage * kPanel64, map, full0 + 8 * c.stage, 64 * p, h, row,
+                         b);
+        c.advance(L.stages);
+      };
+      const int sf = w ? s0 : 0, sn = w ? P - s0 : s0;
+      const int of = w ? o0 : 0, on_ = w ? P - o0 : o0;
+      for (int it = 0; it < nk; ++it) {
+        for (int p = sf; p < sf + sn; ++p) push(&mk, p, 64 * it);
+        for (int p = of; p < of + on_; ++p) push(&mv, p, 64 * it);
+      }
+      // let the consumer release every stage before leaving
+      for (int s = 0; s < L.stages; ++s) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(L.stages);
+      }
+    }
+    return;
+  }
+
+  // consumers: (score panels, output panels) (3, 2) and (2, 3) at D =
+  // 320, (3, 3) at 384, (4, 3) and (3, 4) at 448, (4, 4) at 512
+  vst::regs_alloc<240>();
+  const uint32_t full0 = full_of(wg), empty0 = full0 + 8 * L.stages;
+  const int ps = wg ? P - s0 : s0, po = wg ? P - o0 : o0;
+#define VST_WIDER(PS, PO)                                                                   \
+  fwd_wider_consumer<PS, PO>(base, gbase, L, nk, wg, wg ? s0 : 0, wg ? o0 : 0, q_bar, full0, \
+                             empty0, o, lse, H, N, q0, h, b, ob, on, oh, qscale)
+  if (ps == 3 && po == 2)
+    VST_WIDER(3, 2);
+  else if (ps == 2)
+    VST_WIDER(2, 3);
+  else if (ps == 3 && po == 3)
+    VST_WIDER(3, 3);
+  else if (ps == 4 && po == 3)
+    VST_WIDER(4, 3);
+  else if (ps == 3)
+    VST_WIDER(3, 4);
+  else
+    VST_WIDER(4, 4);
+#undef VST_WIDER
+}
+
 // ---- f32, D = 64 and 128: split-TF32 mma.sync kernel -------------------------
 
 // Shared memory: the block's 64 qc rows, then two stages of a K tile and
@@ -539,7 +852,7 @@ dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// ---- bf16, D > 256, any D % 64 == 0: column-chunk kernels --------------------
+// ---- bf16, D > 512, any D % 64 == 0: column-chunk kernels --------------------
 
 constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
 constexpr int kBlockK = 64;       // keys per shared-memory tile
@@ -682,7 +995,7 @@ dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// bf16 at D > 256: the column-chunk kernels, in 128-column chunks where D
+// bf16 at D > 512: the column-chunk kernels, in 128-column chunks where D
 // allows, else 64.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int H, int N, int D, long long sb, long long sn, long long sh,
@@ -708,6 +1021,27 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o
                                                 static_cast<float*>(lse), H, N, D, sb, sn, sh,
                                                 ob, on, oh, qscale);
   }
+  return cudaGetLastError();
+}
+
+// bf16 at D = 320 to 512: the wgmma kernel with the scores split, over
+// tensor maps of q, k, v.
+cudaError_t launch_fwd_wider(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int B, int H, int N, int D, long long sb, long long sn, long long sh,
+                             long long ob, long long on, long long oh, float qscale,
+                             cudaStream_t st) {
+  const int P = D / 64;
+  const WiderFwdSmem L(P);
+  if (L.stages < P) return cudaErrorInvalidValue;   // a key tile's items must fit a ring
+  CUtensorMap mq, mk, mv;
+  if (!vst::bhnd_tensor_map(&mq, q, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, sb, sn, sh))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_wider_kernel, L.bytes);
+  if (err != cudaSuccess) return err;
+  dense_attn_fwd_wider_kernel<<<dim3(N / 64, H, B), 384, L.bytes, st>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, N, P, ob, on, oh, qscale);
   return cudaGetLastError();
 }
 
@@ -797,6 +1131,8 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
         err = launch_fwd_wgmma<192>(VST_FWD_ARGS);
       } else if (D == 256) {
         err = launch_fwd_wgmma<256>(VST_FWD_ARGS);
+      } else if (D <= 512) {
+        err = launch_fwd_wider(VST_FWD_ARGS_WIDE);
       } else {
         err = launch_fwd_wide(VST_FWD_ARGS_WIDE);
       }

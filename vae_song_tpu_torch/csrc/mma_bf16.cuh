@@ -1,7 +1,7 @@
 // bf16 helpers shared by the attention forward (dense_attn_fwd.cu) and
 // backward (dense_attn_bwd.cu), whose P is computed by one code path in
 // both directions: p_pair in the wgmma kernels (D = 64 to 256),
-// exp2_bf16 in the mma.sync kernels (D > 256), the same
+// exp2_bf16 in the mma.sync kernels (D > 512), the same
 // roundings; and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu). allow_smem,
 // at the end, is the one grant of dynamic shared memory every kernel uses.
 //

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
 // reallocation. Used by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu) at head widths 64 to 256, and by the
+// backward (dense_attn_bwd.cu) at head widths 64 to 512, and by the
 // fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
@@ -92,11 +92,71 @@ __device__ __forceinline__ void ring_wait_free(uint32_t empty, int it, int stage
   mbar_wait(empty + 8 * (it % stages), ((it / stages) & 1) ^ 1);
 }
 
-// One consumer warp's release of a ring stage.
+// One consumer warp's release of a ring stage: lane 0's arrival,
+// predicated rather than branched (between a warpgroup's wgmma issues a
+// divergent path makes ptxas serialise them, advisory C7520).
 __device__ __forceinline__ void release_stage(uint32_t empty, int lane) {
   __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(empty),
+      "r"(lane)
+      : "memory");
 }
+
+// The position of the next item in a ring whose stage count is known only
+// at run time: its stage, and the parity of that stage's current phase.
+// A producer and its consumers walk the same sequence of items, each with
+// a cursor of its own (a consumer may keep one for its waits and one for
+// its releases).
+struct RingCursor {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// One consumer warpgroup's side of such a ring: `stages` stages of
+// `stage_bytes` at `slots`, their full and empty barriers 8 bytes apart
+// from full0 and empty0 (the empty ones counting one arrival a warp).
+// next() waits for the next item and returns its stage's address;
+// wait(n) waits for the next n <= stages items and returns the first one's
+// stage, at(first, i) the address of the i-th from there (one register for
+// a run of items, where an array of addresses costs one each);
+// release(n) gives back the stages of the oldest n items not yet released.
+struct RingConsumer {
+  uint32_t slots, stage_bytes, full0, empty0;
+  int stages, lane;
+  RingCursor pop, rel;
+  __device__ __forceinline__ uint32_t next() {
+    mbar_wait(full0 + 8 * pop.stage, pop.phase);
+    const uint32_t at = slots + pop.stage * stage_bytes;
+    pop.advance(stages);
+    return at;
+  }
+  __device__ __forceinline__ int wait(int n) {
+    const int first = pop.stage;
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(full0 + 8 * pop.stage, pop.phase);
+      pop.advance(stages);
+    }
+    return first;
+  }
+  __device__ __forceinline__ uint32_t at(int first, int i) const {
+    const int s = first + i;
+    return slots + (s >= stages ? s - stages : s) * stage_bytes;
+  }
+  __device__ __forceinline__ void release(int n) {
+    for (int i = 0; i < n; ++i) {
+      release_stage(empty0 + 8 * rel.stage, lane);
+      rel.advance(stages);
+    }
+  }
+};
 
 // ---- TMA --------------------------------------------------------------------
 

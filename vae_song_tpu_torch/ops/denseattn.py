@@ -33,8 +33,19 @@ backward's preprocess writes delta only. f32 heads of 192 and wider take
 the split-TF32 kernels of csrc/dense_attn_tf32_wide.cu, which split the
 head's columns across the warps of a row group (counted apart in
 `tf32_wide_fwd.launches` and `tf32_wide_bwd.launches` as well).
-bf16 above 256 runs mma.sync column-chunk kernels that stream the head
-through shared memory in 64-column panels.
+bf16 heads of 320 to 512 (`num_heads: 1` at d_model 320 to 512) take
+wgmma kernels fed by TMA through rings of 64-column panels: the
+forward's two consumer warpgroups each sum the scores over half the
+head's panels and swap the partial sums through shared memory (f32
+addition commutes, so both hold the same S), then each accumulates O on
+its half of the columns, every product once (4 B H N^2 D); the backward's
+dK/dV kernel splits the scores as at 192 and 256 (one warpgroup S and P,
+the other dP) in column groups of at most 256, each recomputing S and dP
+over the head, and its dQ kernel takes the whole head: 18 B H N^2 D at
+D = 512 (counted apart in `wgmma_wider_fwd.launches` and
+`wgmma_wider_bwd.launches` as well). Wider bf16 heads run mma.sync
+column-chunk kernels that stream the head through shared memory in
+64-column panels.
 
 The forward computes, per (batch, head):
 
@@ -260,6 +271,21 @@ def wgmma_wide(dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d in (192, 256)
 
 
+# Launches of the bf16 wgmma kernels for heads of 320 to 512 (the forward
+# and backward whose warpgroups split the scores and the head's columns),
+# which either route's wrapper may take; each is also counted on its
+# route's wrapper.
+wgmma_wider_fwd = types.SimpleNamespace(launches=0)
+wgmma_wider_bwd = types.SimpleNamespace(launches=0)
+
+
+def wgmma_wider(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    the bf16 wgmma kernels for heads of 320 to 512: the dispatch's rule
+    (wider bf16 heads take the mma.sync column-chunk kernels)."""
+    return dtype == torch.bfloat16 and 256 < d <= 512
+
+
 def _forward(q, k, v, scale, counter):
     """The kernel on a CUDA tensor (one more launch on `counter`), the
     plain version on a CPU tensor."""
@@ -272,6 +298,8 @@ def _forward(q, k, v, scale, counter):
         tf32_wide_fwd.launches += 1
     if wgmma_wide(q.dtype, q.shape[-1]):
         wgmma_wide_fwd.launches += 1
+    if wgmma_wider(q.dtype, q.shape[-1]):
+        wgmma_wider_fwd.launches += 1
     return out
 
 
@@ -285,6 +313,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
         tf32_wide_bwd.launches += 1
     if wgmma_wide(q.dtype, q.shape[-1]):
         wgmma_wide_bwd.launches += 1
+    if wgmma_wider(q.dtype, q.shape[-1]):
+        wgmma_wider_bwd.launches += 1
     return out
 
 
