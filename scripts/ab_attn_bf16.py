@@ -3,7 +3,7 @@
 CUDA card, by this checkout's chip_smoke.py, so that two checkouts run in
 one call compare by one method:
 
-    python scripts/ab_attn_bf16.py [ROOT] [--wider]
+    python scripts/ab_attn_bf16.py [ROOT] [--wider | --cluster [--dq-cluster]]
 
 ROOT (default: this checkout) is put first on sys.path, so its
 `vae_song_tpu_torch` is the one imported and its kernels build into
@@ -25,6 +25,19 @@ D = 512, its decoder's B = 1, B = 8 at D = 320 and 512), then the device
 time of each kernel at those four shapes. To hold a change against its
 parent, run both checkouts in one call, parent, change, change, parent.
 
+With --cluster the same for the bf16 heads of 576 to 2048 (the cluster
+kernels; in a checkout from before them, the mma.sync column-chunk
+kernels): phase 3's cases at those widths (the d_model 768, num_heads 1
+path's B = 64, D = 768, its decoder's B = 1, N = 192, B = 8 at D = 576
+and 1024, B = 2 at D = 1600), then the device time of each kernel at B =
+8 with D = 576 and 1024 and at B = 64 and B = 1 with D = 768. With
+--dq-cluster as well (ROOT must be this checkout) it then times, at those
+four shapes, the backward whose dQ kernel recomputes S and dP over the
+cluster and sums them there (scripts/ab_attn_dq_cluster.cu, 14 B H N^2 D)
+against the package's, whose dQ kernel reads the dK/dV kernel's dS^T (10
+B H N^2 D), in turns (package, variant, variant, package), after
+checking that the two give the same bits, and each one's device time.
+
 With --dup (ROOT must be this checkout) it also times, at those three
 shapes, the backward whose dK/dV kernel has both warpgroups compute S^T
 and dP^T over the whole head (scripts/ab_attn_bwd_dup.cu, 18 B H N^2 D)
@@ -44,11 +57,13 @@ import sys
 import types
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGS = ("--dup", "--wider")
+FLAGS = ("--dup", "--wider", "--cluster", "--dq-cluster")
 ARGS = [a for a in sys.argv[1:] if a not in FLAGS]
 ROOT = os.path.abspath(ARGS[0] if ARGS else HERE)
 DUP = "--dup" in sys.argv[1:]
 WIDER = "--wider" in sys.argv[1:]
+CLUSTER = "--cluster" in sys.argv[1:]
+DQ_CLUSTER = "--dq-cluster" in sys.argv[1:]
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -57,10 +72,11 @@ from torch.autograd import DeviceType  # noqa: E402
 from vae_song_tpu_torch import _kernels  # noqa: E402
 from vae_song_tpu_torch.ops import denseattn  # noqa: E402
 
-# A checkout from before the wgmma kernels for bf16 heads of 192 and 256
+# A checkout from before the wgmma kernels for bf16 heads of 192 and wider
 # has no launch counters for them, which chip_smoke.py's COUNTERS name:
 # give it idle ones, which nothing here reads.
-for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd", "wgmma_wider_fwd", "wgmma_wider_bwd"):
+for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd", "wgmma_wider_fwd", "wgmma_wider_bwd",
+              "wgmma_cluster_fwd", "wgmma_cluster_bwd"):
     if not hasattr(denseattn, _name):
         setattr(denseattn, _name, types.SimpleNamespace(launches=0))
 
@@ -75,6 +91,10 @@ BREAKDOWN = ((smoke.BATCH, smoke.NPTS, 1, 256), (smoke.BATCH, smoke.NPTS, 2, 192
 # B = 64 and its decoder's B = 1 at 512, B = 8 at 320 and 512)
 WIDER_BREAKDOWN = ((8, smoke.NPTS, 1, 320), (8, smoke.NPTS, 1, 512),
                    (smoke.BATCH, smoke.NPTS, 1, 512), (1, smoke.NPTS, 1, 512))
+# --cluster: the heads of 576 to 2048 (B = 8 at 576 and 1024, the d_model
+# 768, num_heads 1 path's B = 64 and its decoder's B = 1 at 768)
+CLUSTER_BREAKDOWN = ((8, smoke.NPTS, 1, 576), (8, smoke.NPTS, 1, 1024),
+                     (smoke.BATCH, smoke.NPTS, 1, 768), (1, smoke.NPTS, 1, 768))
 
 
 def _kernel_ms(fn, calls=10):
@@ -107,16 +127,18 @@ def _breakdown(dev, gen, shape):
               + f"; total {sum(times.values()):.4f}")
 
 
-def _dup_library():
-    """Compile scripts/ab_attn_bwd_dup.cu (with the package's flags) into
-    build/ab_attn_bwd_dup/ unless built for these sources, print ptxas's
-    lines for its dK/dV kernel, and load it."""
-    src = os.path.join(HERE, "scripts", "ab_attn_bwd_dup.cu")
+def _variant_library(name="ab_attn_bwd_dup", kernel="dkdv_dup_kernel",
+                     entry="vst_ab_attn_bwd_dup"):
+    """Compile scripts/<name>.cu (with the package's flags) into
+    build/<name>/ unless built for these sources, print ptxas's lines for
+    its kernels named `kernel`, and load it; its entry point takes
+    vst_dense_attn_bwd's arguments."""
+    src = os.path.join(HERE, "scripts", f"{name}.cu")
     h = hashlib.sha256(open(src, "rb").read())
     for dep in sorted(_kernels.CSRC.iterdir()):
         h.update(dep.read_bytes())
-    out = os.path.join(ROOT, "build", "ab_attn_bwd_dup")
-    so = os.path.join(out, f"ab_attn_bwd_dup_{h.hexdigest()[:16]}.so")
+    out = os.path.join(ROOT, "build", name)
+    so = os.path.join(out, f"{name}_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(out, exist_ok=True)
         # the included source calls the f32 kernels for wide heads: link them too
@@ -125,51 +147,65 @@ def _dup_library():
                                capture_output=True, text=True, check=False)
         lines = (built.stdout + built.stderr).splitlines()
         for i, line in enumerate(lines):
-            if "dkdv_dup_kernel" in line:
+            if kernel in line and "Compiling" in line:
                 print("  ptxas:", " | ".join(x.strip() for x in lines[i:i + 3]))
         if built.returncode != 0:
-            raise SystemExit("nvcc failed for scripts/ab_attn_bwd_dup.cu:\n" + "\n".join(lines))
+            raise SystemExit(f"nvcc failed for scripts/{name}.cu:\n" + "\n".join(lines))
     lib = ctypes.CDLL(so)
-    lib.vst_ab_attn_bwd_dup.argtypes = _kernels._SIGNATURES["vst_dense_attn_bwd"]
-    lib.vst_ab_attn_bwd_dup.restype = ctypes.c_int
-    return lib
+    sig = _kernels._SIGNATURES["vst_dense_attn_bwd"]
+    fn = getattr(lib, entry)
+    # the dup variant takes the entry point's arguments before its dS^T
+    # scratch (argument 9) was added
+    fn.argtypes = sig[:9] + sig[10:] if name == "ab_attn_bwd_dup" else sig
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _bwd_dup(lib, q, k, v, o, lse, do, scale):
-    """denseattn._launch_bwd with the variant's entry point."""
+def _bwd_variant(fn, q, k, v, o, lse, do, scale):
+    """denseattn._launch_bwd with a variant's entry point `fn`."""
     b, n, h, d = q.shape
     o, do, lse = o.contiguous(), do.contiguous(), lse.float().contiguous()
     dq, dk, dv = (torch.empty_like(o) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     qc = torch.empty_like(o)
+    ds = ([] if fn.__name__ == "vst_ab_attn_bwd_dup"
+          else [torch.empty((b * h, n, n), dtype=torch.bfloat16, device=q.device).data_ptr()])
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
-    err = lib.vst_ab_attn_bwd_dup(
-        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), qc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh, float(scale * denseattn.LOG2E),
-        float(scale), torch.cuda.current_stream().cuda_stream)
+    err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), qc.data_ptr(), *ds, dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh, float(scale * denseattn.LOG2E),
+             float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"vst_ab_attn_bwd_dup: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
     return dq, dk, dv
 
 
-def _dup_arm(dev, gen, lib, shape):
+def _variant_arm(dev, gen, fn, shape, names, device=False):
+    """The package's backward (names[0]) against the variant `fn`
+    (names[1]) at `shape`: bitwise equal, then in turns (package, variant,
+    variant, package), runs of 10 calls; with `device`, each one's device
+    time a call by kernel too."""
     b, n, h, d = shape
     scale = 1.0 / math.sqrt(d)
     q, k, v = smoke._attn_inputs(b, n, h, d, torch.bfloat16, gen, dev)
     do = torch.randn(b, n, h, d, generator=gen, device=dev).to(torch.bfloat16)
     o, lse = denseattn.dense_attention_bhnd(q, k, v, scale)
-    arms = {"split": lambda: denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale),
-            "dup": lambda: _bwd_dup(lib, q, k, v, o, lse, do, scale)}
-    same = all(torch.equal(a, b_) for a, b_ in zip(arms["split"](), arms["dup"]()))
+    arms = {names[0]: lambda: denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale),
+            names[1]: lambda: _bwd_variant(fn, q, k, v, o, lse, do, scale)}
+    same = all(torch.equal(a, b_) for a, b_ in zip(arms[names[0]](), arms[names[1]]()))
     ms = {name: [] for name in arms}
-    for name in ("split", "dup", "dup", "split"):
+    for name in (names[0], names[1], names[1], names[0]):
         ms[name].append(smoke._sync_ms(arms[name], 10))
-    print(f"BHND B={b} N={n} H={h} D={d} bfloat16 bwd, split scores (14 B H N^2 D) "
-          f"{', '.join(f'{t:.4f}' for t in ms['split'])} ms, both warpgroups computing the "
-          f"scores (18 B H N^2 D) {', '.join(f'{t:.4f}' for t in ms['dup'])} ms; "
-          f"bitwise equal {same}")
+    print(f"BHND B={b} N={n} H={h} D={d} bfloat16 bwd, "
+          + ", ".join(f"{name} {', '.join(f'{t:.4f}' for t in ms[name])} ms" for name in names)
+          + f"; bitwise equal {same}")
+    if device:
+        for name in names:
+            times = _kernel_ms(arms[name])
+            print(f"  {name} device ms a call: "
+                  + "; ".join(f"{k_[:90]} {t:.4f}" for k_, t in sorted(times.items()))
+                  + f"; total {sum(times.values()):.4f}")
     if not same:
         raise AssertionError(f"the two backward variants differ at {shape}")
 
@@ -180,7 +216,8 @@ def main():
     dev = torch.device("cuda", 0)
     smoke._timed(smoke.phase_build)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
-    widths = (lambda d: 256 < d <= 512) if WIDER else (lambda d: d in (192, 256))
+    widths = ((lambda d: 512 < d <= 2048) if CLUSTER else (lambda d: 256 < d <= 512) if WIDER
+              else (lambda d: d in (192, 256)))
     for case in smoke.K3_CASES:
         if case[4] == torch.bfloat16 and widths(case[3]):
             try:
@@ -190,14 +227,23 @@ def main():
                                       smoke.K3_F32_O_TOL)
             except AssertionError as e:
                 print(f"FAILED: {e}")
-    for shape in WIDER_BREAKDOWN if WIDER else BREAKDOWN:
+    for shape in CLUSTER_BREAKDOWN if CLUSTER else WIDER_BREAKDOWN if WIDER else BREAKDOWN:
         _breakdown(dev, gen, shape)
-    if DUP:
+    if DUP or DQ_CLUSTER:
         if ROOT != HERE:
-            raise SystemExit("--dup times this checkout's kernels only")
-        lib = _dup_library()
+            raise SystemExit("--dup and --dq-cluster time this checkout's kernels only")
+    if DUP:
+        fn = _variant_library()
         for shape in BREAKDOWN:
-            _dup_arm(dev, gen, lib, shape)
+            _variant_arm(dev, gen, fn, shape, ("split scores (14 B H N^2 D)",
+                                               "both warpgroups computing the scores "
+                                               "(18 B H N^2 D)"))
+    if DQ_CLUSTER:
+        fn = _variant_library("ab_attn_dq_cluster", "cluster_kernel",
+                              "vst_ab_attn_bwd_dq_cluster")
+        for shape in CLUSTER_BREAKDOWN:
+            _variant_arm(dev, gen, fn, shape, ("dQ from dS^T (10 B H N^2 D)",
+                                               "dQ on the cluster (14 B H N^2 D)"), device=True)
 
 
 if __name__ == "__main__":

@@ -124,6 +124,7 @@ def _route(monkeypatch, d_model, num_heads, n=128):
     (256, 2, 128, "bhnd"),       # 128-wide heads: K3f / K3b
     (256, 1, 128, "bhnd"),       # one 256-wide head
     (192, 3, 128, "bhnd"),       # an odd count of 64-wide heads
+    (768, 1, 128, "bhnd"),       # one 768-wide head: the cluster kernels
     (256, 4, 100, "plain"),      # a length neither dense kernel takes
 ])
 def test_attention_routes_as_jax(monkeypatch, d_model, num_heads, n, want):

@@ -59,19 +59,20 @@ def test_train_step_fused_ffn_matches_jax_kernels_interpret(monkeypatch):
     assert len(port_calls) == 4 * STEPS and jax_calls
 
 
-@pytest.mark.parametrize("d_model", [256, 320])
+@pytest.mark.parametrize("d_model", [256, 320, 576])
 def test_bf16_train_step_one_wide_head_matches_jax_kernels_interpret(monkeypatch, one_thread,
                                                                       d_model):
     """One bf16 head of d_model (num_heads 1, mixed_precision): at 256 the
     bf16 `num_heads: 1` SetVAE step's head, whose kernels on the card are
     the wgmma kernels for heads of 192 and 256; at 320 a head that the
-    wgmma kernels for heads of 320 to 512 take. The port's BHND route (the
+    wgmma kernels for heads of 320 to 512 take; at 576 one that the cluster
+    kernels for heads of 576 to 2048 take. The port's BHND route (the
     K3f / K3b plain versions, which those kernels are held to on the card)
     against the JAX BHND kernels in interpret mode, bf16 on both sides: P
     and the GEMM outputs round at other points, as against JAX's CPU path,
     so CPU_BF16_BOUNDS hold it. Measured (one torch thread) at 256 3.3e-4,
     2.9e-2, 3.2e-2, 0.29, 3.8e-2, 0.52; at 320 9.8e-4, 3.5e-2, 3.4e-2,
-    0.30, 3.8e-2, 0.51."""
+    0.30, 3.8e-2, 0.51; at 576 5.3e-4, 0.17, 5.9e-2, 0.34, 3.8e-2, 0.73."""
     _patch_jax_kernels(monkeypatch)
     monkeypatch.setattr(jax_attention, "_dense_default_ok", jax_denseattn.dense_ok)
     jax_calls = _count_calls(monkeypatch, jax_denseattn, "dense_attention")

@@ -41,12 +41,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "vst_dense_attn_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _P),
-    "vst_dense_attn_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "vst_dense_attn_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _F, _P),
     "vst_chamfer_nn_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "vst_chamfer_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "vst_ffn_fwd": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "vst_ffn_bwd": (_I, *(_P,) * 16, _L, _I, _I, _I, _P),
+    "vst_dense_attn_cluster_fit": (_I, _P, _P),
 }
 
 _lock = threading.Lock()

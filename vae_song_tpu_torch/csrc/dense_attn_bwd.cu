@@ -108,7 +108,27 @@
 // on the warpgroup's panels. Executed at D = 320 to 512 (two groups): 12
 // B H N^2 D in dK/dV and 6 in dQ, 18 against the bound's 10; no atomics.
 //
-// bf16 above 512: mma.sync column-chunk kernels, 64-row tiles staged
+// bf16 at D = 576 to 2048 (`num_heads: 1` at d_model 576 to 2048): the
+// resident tiles of 16 P KB no longer fit beside the rings, and a thread
+// cannot hold dK and dV on more than 2 panels each. So the dK/dV kernel
+// runs on a thread-block cluster of C CTAs (3, 4 or 8: the forward's
+// split, 2 to 4 panels a CTA) that share 64 keys: CTA r holds K and V on
+// its panels, and its warpgroups run dkdv_wider_consumer there (S^T and
+// P^T in one, dP^T in the other), each partial score tile summed over the
+// cluster in f32 in rank order (vst::ClusterSum, through distributed
+// shared memory) between its chain and the swap, so every CTA forms the
+// same P^T and dS^T and accumulates dK and dV on its own panels. The
+// dK/dV kernel also hands dS^T to the dQ kernel through a bf16 scratch
+// [B H, N, N] (each CTA of a cluster storing every C-th query tile), and
+// the dQ kernel is then a product, dQ = scale dS K, 128 queries and 3 or
+// 4 panels a block, with no cluster and no recomputed S or dP: 10 B H N^2
+// D in all, against the 14 of a dQ kernel that recomputes S and dP over
+// its own cluster (scripts/ab_attn_dq_cluster.cu, the A/B arm of
+// scripts/ab_attn_bf16.py --cluster --dq-cluster), whose two more cluster
+// sums a tile cost more than the scratch's write and read. The scratch
+// takes 2 B H N^2 bytes (512 MiB at B = 64, H = 1, N = 2048).
+//
+// bf16 above 2048: mma.sync column-chunk kernels, 64-row tiles staged
 // synchronously, CW = 128 (or 64) output columns a block, each chunk
 // recomputing S and dP over the head in 64-column panels; their shared
 // memory does not grow with D, which the resident tiles above do.
@@ -963,14 +983,17 @@ struct WiderBwdSmem {
 // stages, the dK/dV kernel's products four.
 constexpr int kWiderMinStages = 4;
 
+
+
 // x (64 x 64) = A B^T over the head, panel by panel: A's P panels resident
 // at a, B's the ring's next P items, both K-major. One commit group a
 // panel, issued once its stage has landed; each item is released once the
 // group after it has completed, so the chain holds at most two stages
-// whatever P is.
+// whatever P is. PS > 0: P = PS, unrolled.
+template <int PS = 0>
 __device__ __forceinline__ void score_chain(float (&x)[8][4], uint32_t a, int P,
                                             vst::RingConsumer& ring) {
-  for (int i = 0; i < P; ++i) {
+  auto panel = [&](int i) {
     const uint32_t bt = ring.next(), ap = a + i * kPanel64;
     vst::wgmma_fence();
 #pragma unroll
@@ -982,6 +1005,12 @@ __device__ __forceinline__ void score_chain(float (&x)[8][4], uint32_t a, int P,
       vst::wgmma_wait<1>();
       ring.release(1);
     }
+  };
+  if constexpr (PS > 0) {
+#pragma unroll
+    for (int i = 0; i < PS; ++i) panel(i);
+  } else {
+    for (int i = 0; i < P; ++i) panel(i);
   }
   vst::wgmma_wait<0>();
   ring.release(1);
@@ -1026,13 +1055,48 @@ __device__ __forceinline__ void swap_frags(uint32_t* mine, const uint32_t* their
 // exchange, W = 1 after it; both form dS^T = P^T (dP^T - delta) and issue
 // dK += dS^T qc (the next PO items: qc on its panels). The dO stages go
 // back as soon as dV has completed, while dK runs.
-template <int W, int PO>
+// The dK/dV kernel's hand-over of dS^T to the dQ kernel: none, or (with a
+// cluster) into a bf16 scratch [B H, N keys, N queries] at `dst` (the
+// block's first key row), warpgroup 1 of CTA `rank` storing the query
+// tiles it with it % ctas == rank (every CTA of the cluster holds the same
+// dS^T bits). In the A-fragment layout thread (warp, g, t) holds rows 16
+// warp + g and + 8, columns 16 i + 2 t, + 1, + 8, + 9 of chunk i.
+struct NoDsOut {
+  __device__ __forceinline__ void operator()(const uint32_t (&)[4][4], int) const {}
+};
+struct DsOut {
+  bf16* dst;
+  int n, rank, ctas;
+  __device__ __forceinline__ void operator()(const uint32_t (&sa)[4][4], int it) const {
+    if (it % ctas != rank) return;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    bf16* row0 = dst + (long long)(16 * warp + g) * n + 64 * it + 2 * t;
+    bf16* row1 = row0 + 8LL * n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<uint32_t*>(row0 + 16 * i) = sa[i][0];
+      *reinterpret_cast<uint32_t*>(row1 + 16 * i) = sa[i][1];
+      *reinterpret_cast<uint32_t*>(row0 + 16 * i + 8) = sa[i][2];
+      *reinterpret_cast<uint32_t*>(row1 + 16 * i + 8) = sa[i][3];
+    }
+  }
+};
+
+// With a cluster (Smem ClusterBwdSmem, Sum a vst::ClusterSum, Ds a
+// DsOut), P = PS is the CTA's panels, known at compile time (a score
+// chain of a run-time length before the cluster sum's branches made ptxas
+// serialise the wgmmas, advisory C7518), the warpgroup's score tile is
+// summed over the cluster's CTAs between its chain and the exchange, and
+// warpgroup 1 hands dS^T over to the dQ kernel.
+template <int W, int PO, int PS = 0, class Smem = WiderBwdSmem, class Sum = vst::NoClusterSum,
+          class Ds = NoDsOut>
 __device__ __forceinline__ void dkdv_wider_consumer(uint32_t base, unsigned char* gbase,
-                                                    const WiderBwdSmem& L, int P, int nq, int k0,
+                                                    const Smem& L, int P, int nq, int k0,
                                                     int of, int N, long long head, long long sn,
                                                     uint32_t res_bar, uint32_t wb,
                                                     bf16* __restrict__ dk,
-                                                    bf16* __restrict__ dv) {
+                                                    bf16* __restrict__ dv, Sum sum = {},
+                                                    Ds ds_out = {}) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   uint32_t* xch = reinterpret_cast<uint32_t*>(gbase + L.xch);
@@ -1058,7 +1122,8 @@ __device__ __forceinline__ void dkdv_wider_consumer(uint32_t base, unsigned char
 
     // S^T (W = 0) or dP^T (W = 1): 64 keys x 64 queries
     float x[8][4];
-    score_chain(x, base + (W == 0 ? 0 : L.res_b), P, ring);
+    score_chain<PS>(x, base + (W == 0 ? 0 : L.res_b), P, ring);
+    sum(x, tid);
     uint32_t pa[4][4], dpr[4][4];
     if constexpr (W == 0) {
       // P^T (columns are queries); dV += P^T dO while the exchange waits
@@ -1086,6 +1151,7 @@ __device__ __forceinline__ void dkdv_wider_consumer(uint32_t base, unsigned char
       sa[i][c + 1] = ds_packed(pa[i][c + 1], dpr[i][c + 1], dd);
     }
     frags_panels<PO>(adk, sa, ring);
+    if constexpr (W == 1) ds_out(sa, it);
     vst::wgmma_wait<1>();
     ring.release(PO);   // dO, read by dV
     vst::wgmma_wait<0>();
@@ -1358,6 +1424,278 @@ attn_bwd_dq_wider_kernel(const __grid_constant__ CUtensorMap mqc,
       dq_wider_consumer<1, 4>(VST_DQ_ARGS(po0));
   }
 #undef VST_DQ_ARGS
+}
+
+// ---- bf16, D = 576 to 2048: wgmma kernels over a cluster that splits the head
+
+using vst::cluster_ctas;
+using vst::cluster_first;
+
+// Shared memory of the cluster dK/dV kernel, byte offsets from a
+// 1024-byte aligned base: the resident 64-row tiles of K and V on the
+// CTA's panels (4 panel slots each), the exchange of bf16 tiles between
+// the warpgroups (WiderBwdSmem's), each warpgroup's two stages of LSE2
+// and delta rows, each warpgroup's cluster-sum buffers (csum_bytes(C)),
+// each warpgroup's ring of 64 x 64 panel stages, then the mbarriers
+// (resident, then for each warpgroup full[stages], empty[stages], the row
+// vectors' full[2] and empty[2], then the cluster sum's red and gat).
+struct ClusterBwdSmem {
+  static constexpr int kMaxStages = 8;
+  static constexpr uint32_t kSlot = WiderBwdSmem::kSlot;
+  uint32_t res_b, xch, vec, csum, ring0, bars;
+  int stages, wbars;   // wbars: one warpgroup's barriers
+  size_t bytes;
+  __host__ __device__ explicit ClusterBwdSmem(int C) {
+    res_b = 4 * kPanel64;
+    xch = 8 * kPanel64;
+    vec = xch + 2 * kSlot;
+    csum = vec + 2 * 2 * 512;
+    ring0 = csum + 2 * vst::csum_bytes(C);
+    const int vbars = 4 + 2;
+    const uint32_t fixed = ring0 + 8 * (1 + 2 * (2 * kMaxStages + vbars)) + 1024;
+    stages = (232448 - static_cast<int>(fixed)) / static_cast<int>(2 * kPanel64);
+    if (stages > kMaxStages) stages = kMaxStages;
+    wbars = 2 * stages + vbars;
+    bars = ring0 + 2 * stages * kPanel64;
+    bytes = bars + 8 * (1 + 2 * wbars) + 1024;   // + alignment
+  }
+};
+
+// Warpgroup w's cluster sum in a cluster kernel: its buffers, and its red
+// and gat barriers, the last two of its wbars.
+template <int C>
+__device__ __forceinline__ vst::ClusterSum<C> bwd_cluster_sum(const ClusterBwdSmem& L,
+                                                              uint32_t base, uint32_t wb, int w,
+                                                              int rank) {
+  const uint32_t buf = base + L.csum + w * vst::csum_bytes(C);
+  const uint32_t xb = wb + 8 * (L.wbars - 2);
+  return vst::ClusterSum<C>{buf, buf + vst::csum_gat(C), xb, xb + 8, rank, 0};
+}
+
+// Grid (C N / 64, H, B) in clusters of C = cluster_ctas(P) along x, 384
+// threads; block x = 64-key tile * C + cluster rank. The cluster's CTAs
+// share the tile's 64 keys and split the head: CTA r holds K and V on
+// its PR panels and computes dK and dV there. Consumer warpgroups 0 and
+// 1 (dkdv_wider_consumer on the CTA's panels, each score tile summed over
+// the cluster: S^T by the warpgroups 0, dP^T by the warpgroups 1, so
+// every CTA forms the same P^T and dS^T), warpgroup 0 on dK and dV's first
+// floor(PR / 2) panels, 1 on the rest; producer warpgroup 2, whose threads
+// 256 and 288 feed warpgroup 0's and 1's rings: for each query tile its
+// LSE2 and delta rows, the PR panels of qc (warpgroup 0) or dO (1) for
+// the score chain, then the warpgroup's output panels of dO and of qc.
+template <int C>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dkdv_cluster_kernel(const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv,
+                             const __grid_constant__ CUtensorMap mqc,
+                             const __grid_constant__ CUtensorMap mdo,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             bf16* __restrict__ ds, int H, int N, int P, Strides os) {
+  const ClusterBwdSmem L(C);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t res_bar = base + L.bars;
+  auto wbars = [&](int w) { return res_bar + 8 + w * 8 * L.wbars; };
+  const int rank = vst::cluster_rank();
+  const int k0 = (blockIdx.x / C) * kStepRows, h = blockIdx.y, b = blockIdx.z;
+  const int pf = cluster_first(P, rank), pr = cluster_first(P, rank + 1) - pf;
+  const int po0 = pr / 2;
+  const int nq = N / kStepRows;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    vst::mbar_init(res_bar, 1);
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t wb = wbars(w);
+      vst::ring_init(wb, wb + 8 * L.stages, L.stages, 4);
+      vst::ring_init(wb + 16 * L.stages, wb + 16 * L.stages + 16, 2, 4);
+      vst::mbar_init(wb + 8 * (L.wbars - 2), 4);
+      vst::mbar_init(wb + 8 * (L.wbars - 1), 4);
+    }
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  vst::ClusterSum<C> sum = bwd_cluster_sum<C>(L, base, wbars(wg < 2 ? wg : 0), wg, rank);
+  if (wg < 2) sum.arm(threadIdx.x & 127);
+  vst::cluster_sync();   // every CTA's barriers are ready before any remote store
+
+  if (wg == 2) {   // producer: 40 registers (two rings a thread), the consumers 232
+    vst::regs_dealloc<40>();
+    const int lt = threadIdx.x - 256;
+    if (lt == 0 || lt == 32) {
+      const int w = lt / 32;
+      const uint32_t full0 = wbars(w), empty0 = full0 + 8 * L.stages;
+      const uint32_t vfull0 = full0 + 16 * L.stages, vempty0 = vfull0 + 16;
+      const uint32_t slots = base + L.ring0 + w * L.stages * kPanel64;
+      const uint32_t vecs = base + L.vec + w * 1024;
+      const long long vrow = ((long long)b * H + h) * N;
+      if (w == 0) {
+        vst::mbar_arrive_expect_tx(res_bar, 2 * pr * kPanel64);
+        for (int i = 0; i < pr; ++i) {
+          vst::tma_load_4d(base + i * kPanel64, &mk, res_bar, 64 * (pf + i), h, k0, b);
+          vst::tma_load_4d(base + L.res_b + i * kPanel64, &mv, res_bar, 64 * (pf + i), h, k0, b);
+        }
+      }
+      vst::RingCursor c, vc;
+      auto push = [&](const CUtensorMap* map, int p, int row) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        vst::tma_load_4d(slots + c.stage * kPanel64, map, full0 + 8 * c.stage, 64 * p, h, row,
+                         b);
+        c.advance(L.stages);
+      };
+      const int of = w ? pf + po0 : pf, no = w ? pr - po0 : po0;
+      for (int it = 0; it < nq; ++it) {
+        const int row = it * kStepRows;
+        vst::mbar_wait(vempty0 + 8 * vc.stage, vc.phase ^ 1);
+        const uint32_t vfull = vfull0 + 8 * vc.stage, vec = vecs + 512 * vc.stage;
+        vst::mbar_arrive_expect_tx(vfull, 512);
+        vst::bulk_load(vec, lse + vrow + row, 256, vfull);
+        vst::bulk_load(vec + 256, delta + vrow + row, 256, vfull);
+        vc.advance(2);
+        for (int i = 0; i < pr; ++i) push(w == 0 ? &mqc : &mdo, pf + i, row);
+        for (int p = of; p < of + no; ++p) push(&mdo, p, row);
+        for (int p = of; p < of + no; ++p) push(&mqc, p, row);
+      }
+      // let the consumer release every stage before leaving
+      for (int s = 0; s < L.stages; ++s) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(L.stages);
+      }
+      for (int s = 0; s < 2; ++s) {
+        vst::mbar_wait(vempty0 + 8 * vc.stage, vc.phase ^ 1);
+        vc.advance(2);
+      }
+    }
+    return;
+  }
+  vst::regs_alloc<232>();
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  const int of = wg ? pf + po0 : pf;
+  const DsOut ds_out{ds + ((long long)b * H + h) * N * N + (long long)k0 * N, N, rank, C};
+#define VST_DKDV_ARGS \
+  base, gbase, L, pr, nq, k0, of, N, head, os.n, res_bar, wbars(wg), dk, dv, sum, ds_out
+  // (warpgroup, output panels, score panels): (0, 1, 2), (0, 1, 3), (0, 2,
+  // 4), (1, 1, 2), (1, 2, 3), (1, 2, 4)
+  if (wg == 0) {
+    if (pr == 2)
+      dkdv_wider_consumer<0, 1, 2>(VST_DKDV_ARGS);
+    else if (pr == 3)
+      dkdv_wider_consumer<0, 1, 3>(VST_DKDV_ARGS);
+    else
+      dkdv_wider_consumer<0, 2, 4>(VST_DKDV_ARGS);
+  } else {
+    if (pr == 2)
+      dkdv_wider_consumer<1, 1, 2>(VST_DKDV_ARGS);
+    else if (pr == 3)
+      dkdv_wider_consumer<1, 2, 3>(VST_DKDV_ARGS);
+    else
+      dkdv_wider_consumer<1, 2, 4>(VST_DKDV_ARGS);
+  }
+#undef VST_DKDV_ARGS
+  vst::cluster_sync();   // no CTA leaves while another may still store into it
+}
+
+// The dQ kernel for heads of 576 to 2048: dQ = scale dS K, dS^T read from
+// the cluster dK/dV kernel's scratch. A block owns 128 queries (64 a
+// consumer warpgroup) and a group of 3 or 4 of the head's panels (ceil(P /
+// 4) groups, group g from panel g P / groups); per 64-key tile the ring
+// brings each warpgroup's 64 x 64 tile of dS^T (keys by queries: wgmma's
+// A read MN-major) and the group's K panels (B, MN-major), which both
+// warpgroups read. 2 B H N^2 D operations, no exchange: S and dP are not
+// recomputed.
+__host__ __device__ constexpr int dq_ds_groups(int P) { return (P + 3) / 4; }
+__host__ __device__ constexpr int dq_ds_first(int P, int g) { return g * P / dq_ds_groups(P); }
+constexpr int kDqDsStages = 12;
+constexpr size_t kDqDsSmem = kDqDsStages * kPanel64 + 8 * 2 * kDqDsStages + 1024;
+
+template <int CN>
+__device__ __forceinline__ void dq_ds_consumer(uint32_t base, int w, int nk, int q0, int cf,
+                                               int N, long long head, long long sn,
+                                               uint32_t full0, uint32_t empty0,
+                                               bf16* __restrict__ dq, float scale) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  vst::RingConsumer ring{base, kPanel64, full0, empty0, kDqDsStages, lane};
+  float acc[CN][8][4];
+#pragma unroll
+  for (int p = 0; p < CN; ++p) zero_acc(acc[p]);
+  for (int it = 0; it < nk; ++it) {
+    const int s0 = ring.wait(2 + CN);   // dS^T of warpgroups 0 and 1, then the K panels
+    const uint32_t a = ring.at(s0, w);
+    fence_all<CN>(acc);
+    vst::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < CN; ++p)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        vst::wgmma_ss_n64_t<1, 1>(acc[p], vst::desc_mnmajor(a, kc, kPanel64),
+                                  vst::desc_mnmajor(ring.at(s0, 2 + p), kc, kPanel64), 1);
+    vst::wgmma_commit();
+    vst::wgmma_wait<0>();
+    fence_all<CN>(acc);
+    ring.release(2 + CN);
+  }
+  store_rows<CN>(acc, dq + 64 * cf, head, q0 + 64 * w + 16 * warp + g, N, sn, t, scale);
+}
+
+// Grid (ceil(N / 128) groups, H, B), 384 threads; block x = 128-query
+// block * groups + panel group. Consumer warpgroups 0 and 1 on queries q0
+// .. + 63 and q0 + 64 .. + 127 (dq_ds_consumer), producer warpgroup 2, one
+// thread of which fills the ring.
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dq_ds_kernel(const __grid_constant__ CUtensorMap mds,
+                      const __grid_constant__ CUtensorMap mk, bf16* __restrict__ dq, int H,
+                      int N, int P, Strides os, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + kDqDsStages * kPanel64, empty0 = full0 + 8 * kDqDsStages;
+  const int ng = dq_ds_groups(P), grp = blockIdx.x % ng;
+  const int q0 = (blockIdx.x / ng) * 128, h = blockIdx.y, b = blockIdx.z;
+  const int cf = dq_ds_first(P, grp), cn = dq_ds_first(P, grp + 1) - cf;
+  const int nk = N / 64;
+  if (threadIdx.x == 0) {
+    vst::ring_init(full0, empty0, kDqDsStages, 8);
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      vst::RingCursor c;
+      auto push = [&](const CUtensorMap* map, int c0, int c1, int c2, int c3, bool panel4d) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        const uint32_t dst = base + c.stage * kPanel64;
+        if (panel4d)
+          vst::tma_load_4d(dst, map, full0 + 8 * c.stage, c0, c1, c2, c3);
+        else
+          vst::tma_load_2d(dst, map, full0 + 8 * c.stage, c0, c1);
+        c.advance(kDqDsStages);
+      };
+      const int row = (b * H + h) * N;   // the head's first row of dS^T
+      for (int it = 0; it < nk; ++it) {
+        push(&mds, q0, row + 64 * it, 0, 0, false);
+        push(&mds, q0 + 64, row + 64 * it, 0, 0, false);
+        for (int i = 0; i < cn; ++i) push(&mk, 64 * (cf + i), h, 64 * it, b, true);
+      }
+      for (int s = 0; s < kDqDsStages; ++s) {   // let the consumers release every stage
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(kDqDsStages);
+      }
+    }
+    return;
+  }
+  vst::regs_alloc<240>();
+  const long long head = (long long)b * os.b + (long long)h * os.h;
+  if (cn == 3)
+    dq_ds_consumer<3>(base, wg, nk, q0, cf, N, head, os.n, full0, empty0, dq, scale);
+  else
+    dq_ds_consumer<4>(base, wg, nk, q0, cf, N, head, os.n, full0, empty0, dq, scale);
 }
 
 // ---- f32, D = 64 and 128: split-TF32 mma.sync kernels --------------------
@@ -1643,7 +1981,7 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ---- bf16, D > 512, any D % 64 == 0: column-chunk kernels --------------------
+// ---- bf16, D > 2048, any D % 64 == 0: column-chunk kernels -------------------
 
 constexpr int kBlock = 64;         // rows per tile (4 warps x 16)
 constexpr int kThreads = 128;
@@ -2008,7 +2346,7 @@ cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
   return cudaGetLastError();
 }
 
-// bf16 at D > 512: preprocess (delta and qc), then the column-chunk
+// bf16 at D > 2048: preprocess (delta and qc), then the column-chunk
 // kernels, in 128-column chunks where D allows, else 64.
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
                             const void* d_o, const float* lse, float* delta, void* qc, void* dq,
@@ -2052,6 +2390,61 @@ cudaError_t launch_bwd_wider(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+// bf16 at D = 576 to 2048: preprocess (delta and qc), then the cluster
+// dK/dV and dQ kernels (clusters of C) over tensor maps of qc, dO (O's
+// strides) and k, v.
+template <int C>
+cudaError_t launch_bwd_cluster_c(const void* q, const void* k, const void* v, const void* o,
+                                 const void* d_o, const float* lse, float* delta, void* qc,
+                                 void* ds, void* dq, void* dk, void* dv, int B, int H, int N,
+                                 int D, Strides s, Strides os, float qscale, float scale,
+                                 cudaStream_t st) {
+  const ClusterBwdSmem L(C);
+  if (L.stages < kWiderMinStages) return cudaErrorInvalidValue;
+  CUtensorMap mqc, mdo, mk, mv, mds;
+  if (!vst::bhnd_tensor_map(&mqc, qc, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mdo, d_o, B, N, H, D, os.b, os.n, os.h) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, s.b, s.n, s.h) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, s.b, s.n, s.h) ||
+      !vst::matrix_tensor_map(&mds, ds, (long long)B * H * N, N))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dkdv_cluster_kernel<C>, L.bytes)) != cudaSuccess) return err;
+  if ((err = vst::allow_smem(attn_bwd_dq_ds_kernel, kDqDsSmem)) != cudaSuccess) return err;
+  launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
+  const int P = D / 64;
+  if ((err = vst::launch_cluster(attn_bwd_dkdv_cluster_kernel<C>, dim3(C * (N / kStepRows), H, B),
+                                 kWgmmaThreads, L.bytes, C, st, mk, mv, mqc, mdo, lse,
+                                 static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                                 static_cast<bf16*>(dv), static_cast<bf16*>(ds), H, N, P, os)) !=
+      cudaSuccess)
+    return err;
+  attn_bwd_dq_ds_kernel<<<dim3((N + 127) / 128 * dq_ds_groups(P), H, B), kWgmmaThreads,
+                          kDqDsSmem, st>>>(mds, mk, static_cast<bf16*>(dq), H, N, P, os, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_cluster(const void* q, const void* k, const void* v, const void* o,
+                               const void* d_o, const float* lse, float* delta, void* qc,
+                               void* ds, void* dq, void* dk, void* dv, int B, int H, int N,
+                               int D, Strides s, Strides os, float qscale, float scale,
+                               cudaStream_t st) {
+  const int P = D / 64;
+  if (P < 9 || P > 32 || ds == nullptr) return cudaErrorInvalidValue;
+#define VST_BWD_CLUSTER(C)                                                                    \
+  launch_bwd_cluster_c<C>(q, k, v, o, d_o, lse, delta, qc, ds, dq, dk, dv, B, H, N, D, s, os, \
+                          qscale, scale, st)
+  switch (cluster_ctas(P)) {
+    case 3:
+      return VST_BWD_CLUSTER(3);
+    case 4:
+      return VST_BWD_CLUSTER(4);
+    default:
+      return VST_BWD_CLUSTER(8);
+  }
+#undef VST_BWD_CLUSTER
+}
+
 // f32 from D = 192 up: preprocess (delta), then the split-TF32 dK/dV and
 // dQ kernels of dense_attn_tf32_wide.cu, which prescale q themselves (no
 // qc scratch).
@@ -2073,14 +2466,17 @@ cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, co
 // aligned rows; o, dO, dq, dk, dv: [B, N, H, D] with strides (ob, on, oh,
 // 1); lse and delta (scratch): [B, H, N] f32, contiguous; qc (scratch,
 // bf16 only; unused and may be null for f32): [B, N, H, D] with O's
-// strides. N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue otherwise).
+// strides; ds (scratch, bf16 with 576 <= D <= 2048 only, else unused and
+// may be null): [B H, N, N] bf16, contiguous, dS^T from the dK/dV kernel
+// to the dQ kernel. N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue
+// otherwise).
 // The caller checks all of it.
 // Launches preprocess, dK/dV and dQ in order on `stream`; returns
 // cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
                                   const void* v, const void* o, const void* d_o,
-                                  const void* lse, void* delta, void* qc, void* dq, void* dk,
-                                  void* dv, int B, int H, int N, int D, long long sb,
+                                  const void* lse, void* delta, void* qc, void* ds, void* dq,
+                                  void* dk, void* dv, int B, int H, int N, int D, long long sb,
                                   long long sn, long long sh, long long ob,
                                   long long on, long long oh, float qscale,
                                   float scale, void* stream) {
@@ -2111,6 +2507,9 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
       } else if (D <= 512) {
         err = launch_bwd_wider(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
                                scale, st);
+      } else if (D <= 2048) {
+        err = launch_bwd_cluster(q, k, v, o, d_o, l, dl, qc, ds, dq, dk, dv, B, H, N, D, s, os,
+                                 qscale, scale, st);
       } else {
         err = launch_bwd_wide(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
                               scale, st);
@@ -2118,4 +2517,22 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
   }
 #undef VST_BWD_ARGS
   return static_cast<int>(err);
+}
+
+template <int C>
+cudaError_t bwd_cluster_fit(int* fit) {
+  const ClusterBwdSmem L(C);
+  const cudaError_t err = vst::allow_smem(attn_bwd_dkdv_cluster_kernel<C>, L.bytes);
+  return err != cudaSuccess
+             ? err
+             : vst::cluster_fit(attn_bwd_dkdv_cluster_kernel<C>, C, kWgmmaThreads, L.bytes, fit);
+}
+
+// The dK/dV cluster kernel's cudaOccupancyMaxActiveClusters at a head of D
+// (576 to 2048; called by dense_attn_fwd.cu's vst_dense_attn_cluster_fit).
+int vst_attn_bwd_cluster_fit(int D, int* fit) {
+  const int C = cluster_ctas(D / 64);
+  return static_cast<int>(C == 3   ? bwd_cluster_fit<3>(fit)
+                          : C == 4 ? bwd_cluster_fit<4>(fit)
+                                   : bwd_cluster_fit<8>(fit));
 }

@@ -99,10 +99,33 @@
 // made ptxas serialise the wgmmas, advisory C7520). What bounds it beside
 // the tensor cores: each 64-row block reads the head's whole K and V (4
 // MB at N = 2048, D = 512) through L2, 64 operations a byte read. Grid N /
-// 64 x H x B: B = 1, N = 2048 runs 32 blocks on the 132 SMs. Wider bf16
-// heads take the mma.sync column-chunk kernel (64-row tiles staged
-// synchronously, each chunk of 128 or 64 output columns recomputing the
-// scores), whose design fits shared memory at every width.
+// 64 x H x B: B = 1, N = 2048 runs 32 blocks on the 132 SMs.
+//
+// bf16 at D = 576 to 2048 (`num_heads: 1` at d_model 576 to 2048): one
+// block can no longer hold a 64-row block's qc beside rings of K and V
+// panels (8 P KB of Q alone), nor a thread O's columns. So a thread-block
+// cluster of C CTAs (3 up to P = 12 panels, 4 up to 16, 8 above) shares a
+// block of 128 queries and splits the head's panels, 2 to 4 a CTA
+// (cluster_first). Each CTA holds qc on its panels and streams K and V on
+// them through one ring of 64 x 64 panel stages that both consumer
+// warpgroups read (a warpgroup a 64-row half of the block, O on the CTA's
+// panels: at most 128 registers); per key tile each warpgroup sums its
+// partial scores over the CTA's panels (a chain of one commit group a
+// panel, each stage given back once the group after it completes), then
+// the cluster sums each 64 x 64 partial tile over its CTAs
+// (vst::ClusterSum: a reduce-scatter and an all-gather through
+// distributed shared memory, st.async into the other CTAs, 21-28 KB a
+// warpgroup a tile; the partials added in f32 in rank order, so every CTA
+// holds the same S bits and runs the same online softmax), then O += P V
+// on the CTA's panels and the next tile's chain go out back to back. CTA
+// 0 writes LSE2. Every product is made once: 4 B H N^2 D. What bounds it
+// beside the tensor cores: the cluster sums' traffic through the SMs'
+// network (about 43 KB a CTA a key tile) and their two waits a tile, in
+// which the warpgroup issues no product. The kernel is compiled for each
+// C (the sum's loops unroll). Wider bf16 heads take the mma.sync
+// column-chunk kernel (64-row tiles staged synchronously, each chunk of
+// 128 or 64 output columns recomputing the scores), whose design fits
+// shared memory at every width.
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: a split-TF32
 // mma.sync kernel (mma_tf32.cuh), the f32 path of the same two TPU
@@ -722,6 +745,254 @@ dense_attn_fwd_wider_kernel(const __grid_constant__ CUtensorMap mq,
 #undef VST_WIDER
 }
 
+// ---- bf16, D = 576 to 2048: wgmma kernel over a cluster that splits the head
+
+using vst::cluster_ctas;
+using vst::cluster_first;
+
+// Shared memory of the cluster forward, byte offsets from a 1024-byte
+// aligned base: Q (each warpgroup's 64 rows on the CTA's panels, 4 panel
+// slots each), each warpgroup's cluster-sum buffers (csum_bytes(C)), the
+// ring of 64 x 64 panel stages both warpgroups read (as many as fit, at
+// most kMaxStages), then the mbarriers (Q, full[stages], empty[stages],
+// each warpgroup's red and gat).
+struct ClusterFwdSmem {
+  static constexpr int kMaxStages = 10;
+  uint32_t csum, ring0, bars;
+  int stages;
+  size_t bytes;
+  __host__ __device__ explicit ClusterFwdSmem(int C) {
+    csum = 2 * 4 * kPanel64;
+    ring0 = csum + 2 * vst::csum_bytes(C);
+    const uint32_t fixed = ring0 + 8 * (1 + 2 * kMaxStages + 4) + 1024;
+    stages = (232448 - static_cast<int>(fixed)) / static_cast<int>(kPanel64);
+    if (stages > kMaxStages) stages = kMaxStages;
+    bars = ring0 + stages * kPanel64;
+    bytes = bars + 8 * (1 + 2 * stages + 4) + 1024;   // + alignment
+  }
+};
+
+// The least ring the cluster forward runs with: a tile's PR V panels held
+// while the next tile's score chain takes two more.
+constexpr int kClusterFwdMinStages = 4 + 2;
+
+// Consumer warpgroup w of the cluster forward: queries q0 + 64 w .. + 63
+// on the CTA's PR panels (from panel pf of the head). Per key tile the
+// warpgroup sums its partial scores over its panels (qc resident, K the
+// ring's next PR items, a chain of one commit group a panel), and the
+// cluster sums the partial tiles of its CTAs' warpgroups w (`csum`: every
+// CTA then holds the same S bits and runs the same online softmax); then
+// O += P V on its panels (V the ring's next PR items, one commit group),
+// and the next tile's score chain right behind it. Both warpgroups read
+// every item of the ring.
+template <int PR, int C>
+__device__ __forceinline__ void fwd_cluster_consumer(uint32_t base, unsigned char* gbase,
+                                                     const ClusterFwdSmem& L, int nk, int w,
+                                                     int pf, uint32_t q_bar, uint32_t full0,
+                                                     uint32_t empty0, vst::ClusterSum<C>& csum,
+                                                     bf16* __restrict__ o, float* __restrict__ lse,
+                                                     int H, int N, int q0, int h, int b,
+                                                     long long ob, long long on, long long oh,
+                                                     float qscale) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 16 * warp + g;   // the thread's first row of its 64
+  const uint32_t qw = base + w * 4 * kPanel64;
+
+  // qc = round_bf16(q * qscale) in place on the warpgroup's panels,
+  // fenced for the async proxy; the warpgroup meets at a barrier
+  vst::mbar_wait(q_bar, 0);
+#pragma unroll
+  for (int i = 0; i < PR; ++i) {
+    unsigned char* panel = gbase + (w * 4 + i) * kPanel64;
+    auto prescale = [&](int row, int col) {
+      uint32_t* at = reinterpret_cast<uint32_t*>(panel + vst::swizzled(row, col));
+      *at = pack_bf16(vst::bf16_lo(*at) * qscale, vst::bf16_hi(*at) * qscale);
+    };
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      prescale(r, c);
+      prescale(r + 8, c);
+      prescale(r, c + 8);
+      prescale(r + 8, c + 8);
+    }
+  }
+  vst::fence_proxy_async();
+  named_sync(1 + w, 128);
+
+  vst::RingConsumer ring{base + L.ring0, kPanel64, full0, empty0, L.stages, lane};
+  // x = qc K^T over the CTA's panels: one commit group a panel, each K
+  // stage given back once the group after it has completed; `held` more
+  // stages (the V panels of a P V group issued just before) go back after
+  // the first group
+  auto chain = [&](float (&x)[8][4], int held) {
+#pragma unroll
+    for (int i = 0; i < PR; ++i) {
+      const uint32_t kt = ring.next();
+      vst::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        vst::wgmma_ss_n64_t<0, 0>(x, vst::desc_kmajor(qw + i * kPanel64, j),
+                                  vst::desc_kmajor(kt, j), (i | j) != 0);
+      vst::wgmma_commit();
+      vst::wgmma_wait<1>();
+      ring.release(i == 0 ? held : 1);
+    }
+    vst::wgmma_wait<0>();
+    ring.release(1);
+    vst::fence_acc(x);
+  };
+
+  float acc[PR][8][4];
+#pragma unroll
+  for (int p = 0; p < PR; ++p) vst::zero_acc(acc[p]);
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r and r + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+  float x[8][4];
+  chain(x, 0);
+  csum(x, tid);
+  // one key tile: the softmax, then P V and, where another tile follows
+  // (`more`, a constant in each of the two calls below), its score chain
+  auto tile = [&](auto more) {
+    uint32_t pa[4][4];
+    float a0, a1;
+    softmax_p<64>(x, false, m0, m1, l0, l1, a0, a1, pa);
+#pragma unroll
+    for (int p = 0; p < PR; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[p][j][0] *= a0;
+        acc[p][j][1] *= a0;
+        acc[p][j][2] *= a1;
+        acc[p][j][3] *= a1;
+      }
+    const int v0 = ring.wait(PR);
+#pragma unroll
+    for (int p = 0; p < PR; ++p) vst::fence_acc(acc[p]);
+    vst::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < PR; ++p)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        vst::wgmma_rs_n64_t<1>(acc[p], pa[kc], vst::desc_mnmajor(ring.at(v0, p), kc, kPanel64));
+    vst::wgmma_commit();
+    if constexpr (decltype(more)::value) {
+      chain(x, PR);
+#pragma unroll
+      for (int p = 0; p < PR; ++p) vst::fence_acc(acc[p]);
+      csum(x, tid);
+    } else {
+      vst::wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < PR; ++p) vst::fence_acc(acc[p]);
+      ring.release(PR);
+    }
+  };
+  for (int it = 0; it + 1 < nk; ++it) tile(std::true_type{});
+  tile(std::false_type{});
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  float* lrow = lse + ((long long)b * H + h) * N;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 64 * w + r + 8 * half;
+    if (row >= N) continue;
+    const float l = half ? l1 : l0, inv = 1.f / l;
+    bf16* dst = o + (long long)b * ob + (long long)row * on + (long long)h * oh + 64 * pf;
+#pragma unroll
+    for (int p = 0; p < PR; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 64 * p + 8 * j + 2 * t) =
+            pack_bf16(acc[p][j][2 * half] * inv, acc[p][j][2 * half + 1] * inv);
+    if (csum.me == 0 && t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
+  }
+}
+
+// Grid (C N / 128 rounded up, H, B) in clusters of C = cluster_ctas(P)
+// along x, 384 threads: block x = 128-query block * C + cluster rank.
+// One kernel for each C (3, 4, 8).
+// Consumer warpgroups 0 and 1 on queries q0 .. + 63 and q0 + 64 .. + 127
+// (fwd_cluster_consumer); producer warpgroup 2, one thread of which loads
+// both warpgroups' Q panels, then for each key tile the K panels of the
+// CTA, then its V panels, into the ring both consumers read.
+template <int C>
+__global__ void __launch_bounds__(384, 1)
+dense_attn_fwd_cluster_kernel(const __grid_constant__ CUtensorMap mq,
+                              const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                              float* __restrict__ lse, int H, int N, int P, long long ob,
+                              long long on, long long oh, float qscale) {
+  const ClusterFwdSmem L(C);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_bar = base + L.bars, full0 = q_bar + 8, empty0 = full0 + 8 * L.stages;
+  const uint32_t xbar0 = empty0 + 8 * L.stages;   // warpgroup w: red at + 16 w, gat + 8
+  const int rank = vst::cluster_rank();
+  const int q0 = (blockIdx.x / C) * 128, h = blockIdx.y, b = blockIdx.z;
+  const int pf = cluster_first(P, rank), pr = cluster_first(P, rank + 1) - pf;
+  const int nk = N / 64;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    vst::mbar_init(q_bar, 1);
+    vst::ring_init(full0, empty0, L.stages, 8);
+    for (int i = 0; i < 4; ++i) vst::mbar_init(xbar0 + 8 * i, 4);
+    vst::mbar_fence_init();
+  }
+  __syncthreads();
+  vst::ClusterSum<C> csum{base + L.csum + wg * vst::csum_bytes(C),
+                       base + L.csum + wg * vst::csum_bytes(C) + vst::csum_gat(C),
+                          xbar0 + 16 * wg, xbar0 + 16 * wg + 8, rank, 0};
+  if (wg < 2) csum.arm(threadIdx.x & 127);
+  vst::cluster_sync();   // every CTA's barriers are ready before any remote store
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      vst::mbar_arrive_expect_tx(q_bar, 2 * pr * kPanel64);
+      for (int w = 0; w < 2; ++w)
+        for (int i = 0; i < pr; ++i)
+          vst::tma_load_4d(base + (w * 4 + i) * kPanel64, &mq, q_bar, 64 * (pf + i), h,
+                           q0 + 64 * w, b);
+      vst::RingCursor c;
+      auto push = [&](const CUtensorMap* map, int p, int row) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        vst::mbar_arrive_expect_tx(full0 + 8 * c.stage, kPanel64);
+        vst::tma_load_4d(base + L.ring0 + c.stage * kPanel64, map, full0 + 8 * c.stage, 64 * p,
+                         h, row, b);
+        c.advance(L.stages);
+      };
+      for (int it = 0; it < nk; ++it) {
+        for (int i = 0; i < pr; ++i) push(&mk, pf + i, 64 * it);
+        for (int i = 0; i < pr; ++i) push(&mv, pf + i, 64 * it);
+      }
+      // let the consumers release every stage before leaving
+      for (int s = 0; s < L.stages; ++s) {
+        vst::mbar_wait(empty0 + 8 * c.stage, c.phase ^ 1);
+        c.advance(L.stages);
+      }
+    }
+    return;
+  }
+
+  vst::regs_alloc<240>();
+#define VST_CLUSTER(PR)                                                                       \
+  fwd_cluster_consumer<PR, C>(base, gbase, L, nk, wg, pf, q_bar, full0, empty0, csum, o, lse, H, \
+                           N, q0, h, b, ob, on, oh, qscale)
+  if (pr == 2)
+    VST_CLUSTER(2);
+  else if (pr == 3)
+    VST_CLUSTER(3);
+  else
+    VST_CLUSTER(4);
+#undef VST_CLUSTER
+  vst::cluster_sync();   // no CTA leaves while another may still store into it
+}
+
 // ---- f32, D = 64 and 128: split-TF32 mma.sync kernel -------------------------
 
 // Shared memory: the block's 64 qc rows, then two stages of a K tile and
@@ -852,7 +1123,7 @@ dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// ---- bf16, D > 512, any D % 64 == 0: column-chunk kernels --------------------
+// ---- bf16, D > 2048, any D % 64 == 0: column-chunk kernels -------------------
 
 constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
 constexpr int kBlockK = 64;       // keys per shared-memory tile
@@ -995,7 +1266,7 @@ dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// bf16 at D > 512: the column-chunk kernels, in 128-column chunks where D
+// bf16 at D > 2048: the column-chunk kernels, in 128-column chunks where D
 // allows, else 64.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int H, int N, int D, long long sb, long long sn, long long sh,
@@ -1043,6 +1314,46 @@ cudaError_t launch_fwd_wider(const void* q, const void* k, const void* v, void* 
   dense_attn_fwd_wider_kernel<<<dim3(N / 64, H, B), 384, L.bytes, st>>>(
       mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, N, P, ob, on, oh, qscale);
   return cudaGetLastError();
+}
+
+// bf16 at D = 576 to 2048: the cluster kernel over tensor maps of q, k, v.
+template <int C>
+cudaError_t launch_fwd_cluster_c(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 int B, int H, int N, int D, long long sb, long long sn,
+                                 long long sh, long long ob, long long on, long long oh,
+                                 float qscale, cudaStream_t st) {
+  const ClusterFwdSmem L(C);
+  if (L.stages < kClusterFwdMinStages) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!vst::bhnd_tensor_map(&mq, q, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, sb, sn, sh) ||
+      !vst::bhnd_tensor_map(&mv, v, B, N, H, D, sb, sn, sh))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_cluster_kernel<C>, L.bytes);
+  if (err != cudaSuccess) return err;
+  return vst::launch_cluster(dense_attn_fwd_cluster_kernel<C>,
+                             dim3(C * ((N + 127) / 128), H, B), 384, L.bytes, C, st, mq, mk, mv,
+                             static_cast<bf16*>(o), static_cast<float*>(lse), H, N, D / 64, ob,
+                             on, oh, qscale);
+}
+
+cudaError_t launch_fwd_cluster(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int B, int H, int N, int D, long long sb, long long sn,
+                               long long sh, long long ob, long long on, long long oh,
+                               float qscale, cudaStream_t st) {
+  const int P = D / 64;
+  if (P < 9 || P > 32) return cudaErrorInvalidValue;
+  switch (cluster_ctas(P)) {
+    case 3:
+      return launch_fwd_cluster_c<3>(q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh, qscale,
+                                     st);
+    case 4:
+      return launch_fwd_cluster_c<4>(q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh, qscale,
+                                     st);
+    default:
+      return launch_fwd_cluster_c<8>(q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh, qscale,
+                                     st);
+  }
 }
 
 template <int D, int NC>
@@ -1133,6 +1444,8 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
         err = launch_fwd_wgmma<256>(VST_FWD_ARGS);
       } else if (D <= 512) {
         err = launch_fwd_wider(VST_FWD_ARGS_WIDE);
+      } else if (D <= 2048) {
+        err = launch_fwd_cluster(VST_FWD_ARGS_WIDE);
       } else {
         err = launch_fwd_wide(VST_FWD_ARGS_WIDE);
       }
@@ -1140,6 +1453,33 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
 #undef VST_FWD_ARGS
 #undef VST_FWD_ARGS_WIDE
   return static_cast<int>(err);
+}
+
+// How many clusters of the bf16 cluster kernels for a head of D (576 to
+// 2048) the card holds at once, by cudaOccupancyMaxActiveClusters: the
+// forward's into fit[0], the backward's dK/dV kernel's (dense_attn_bwd.cu)
+// into fit[1]. The cluster size is cluster_ctas(D / 64).
+int vst_attn_bwd_cluster_fit(int D, int* fit);
+
+template <int C>
+cudaError_t fwd_cluster_fit(int* fit) {
+  const ClusterFwdSmem L(C);
+  const cudaError_t err = vst::allow_smem(dense_attn_fwd_cluster_kernel<C>, L.bytes);
+  return err != cudaSuccess ? err
+                            : vst::cluster_fit(dense_attn_fwd_cluster_kernel<C>, C, 384, L.bytes,
+                                               fit);
+}
+
+extern "C" int vst_dense_attn_cluster_fit(int D, void* fit, void* /*stream*/) {
+  const int P = D / 64;
+  int* out = static_cast<int*>(fit);
+  if (D % 64 != 0 || P < 9 || P > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int C = cluster_ctas(P);
+  const cudaError_t err = C == 3   ? fwd_cluster_fit<3>(&out[0])
+                          : C == 4 ? fwd_cluster_fit<4>(&out[0])
+                                   : fwd_cluster_fit<8>(&out[0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return vst_attn_bwd_cluster_fit(D, &out[1]);
 }
 
 extern "C" const char* vst_cuda_error_string(int err) {

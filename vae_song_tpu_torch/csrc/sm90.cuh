@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
-// reallocation. Used by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu) at head widths 64 to 512, and by the
-// fused FFN (ffn_fwd.cu, ffn_bwd.cu).
+// reallocation, thread-block clusters and the sum of a tile over a
+// cluster. Used by the attention forward (dense_attn_fwd.cu) and backward
+// (dense_attn_bwd.cu) at head widths 64 to 2048, and by the fused FFN
+// (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel
@@ -56,17 +57,30 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
 // Wait until the phase of parity `parity` has completed. A wait of more
 // than 2^32 clock cycles (about 2 s; a real one takes microseconds) is a
 // deadlock: trap, so that the launch fails instead of hanging the card.
+// kCluster: with acquire at cluster scope, so that what other CTAs of the
+// cluster stored into this CTA's shared memory before completing the
+// phase is seen after it.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   long long start = 0;
   while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
     if (done) return;
     if (start == 0) {
       start = clock64();
@@ -158,6 +172,46 @@ struct RingConsumer {
   }
 };
 
+// ---- thread-block clusters --------------------------------------------------
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of the cluster that has not exited meets here: the
+// shared-memory writes (and barrier initialisations) before it are seen
+// by every CTA of the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address in CTA `rank` of the cluster of this CTA's shared-memory
+// address `addr` (both shared::cluster addresses).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another CTA's shared memory at cluster address `addr`,
+// completing 16 bytes of transactions on its mbarrier `bar` (a cluster
+// address).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, const float (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void ld_shared_v4(uint32_t addr, float (&v)[4]) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 
 // One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
@@ -225,6 +279,121 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// ---- the split of a head over a cluster -------------------------------------
+
+// The head's P = D / 64 panels (9 to 32) split over a cluster of C CTAs,
+// as the attention forward and backward split it: 3 up to P = 12, 4 up to
+// 16, 8 above (the sizes whose cluster sums fit shared memory beside the
+// rings); CTA r owns panels [first(r), first(r + 1)), first(r) = r P / C,
+// 2 to 4 of them.
+__host__ __device__ constexpr int cluster_ctas(int P) { return P <= 12 ? 3 : P <= 16 ? 4 : 8; }
+__host__ __device__ constexpr int cluster_first(int P, int r) { return r * P / cluster_ctas(P); }
+
+// ---- the sum of a 64 x 64 f32 tile over a cluster -----------------------------
+//
+// The same warpgroup of each of a cluster's R CTAs (R = 3, 4 or 8) holds a
+// tile of partial sums in the accumulator layout (32 words a thread, in
+// eight blocks x[j] of 4); afterwards every thread of every CTA holds the
+// total, ((x_0 + x_1) + x_2) + ... + x_{R-1}, added in f32 in rank order,
+// the same bits everywhere. A reduce-scatter, then an all-gather: block j
+// of every thread belongs to rank j % R, which receives it from the other
+// ranks (into its `red` buffer), adds the R values in rank order and sends
+// the sum to every other rank (into their `gat` buffers). Each buffer has
+// a slot for each of the R - 1 other ranks, Mb = ceil(8 / R) blocks of
+// 128 threads x 16 bytes: block (slot, mb) of thread tid at ((slot Mb +
+// mb) 128 + tid) 16 bytes, so a warp's accesses are 512 consecutive bytes
+// and what one rank sends another in one step is contiguous. Each buffer
+// has an mbarrier that counts the bytes arriving (each thread stores its
+// blocks into the other CTAs with st.async, which completes them there),
+// armed each phase by lane 0 of each of its warpgroup's warps with the
+// bytes its warp's threads receive. One buffer of each suffices: a rank
+// writes the next tile's blocks into another's buffer only after that
+// rank has sent it everything it read from it for this tile.
+
+__host__ __device__ constexpr int csum_blocks(int R) { return (8 + R - 1) / R; }
+
+// The bytes of one of a warpgroup's two buffers (gat follows red), and of
+// both.
+__host__ __device__ constexpr uint32_t csum_gat(int R) {
+  return (R - 1) * csum_blocks(R) * 128 * 16;
+}
+__host__ __device__ constexpr uint32_t csum_bytes(int R) { return 2 * csum_gat(R); }
+
+template <int R>
+struct ClusterSum {
+  uint32_t red, gat;            // the buffers (this CTA's shared memory)
+  uint32_t red_bar, gat_bar;    // their mbarriers (4 arrivals a phase)
+  int me;                       // this CTA's rank
+  uint32_t phase;
+
+  // The bytes one warp's threads receive in one phase: in red, R - 1
+  // values of each block this rank owns; in gat, each block it does not.
+  __device__ __forceinline__ int owned() const { return (8 - me + R - 1) / R; }
+  __device__ __forceinline__ uint32_t red_tx() const { return 32u * 16u * (R - 1) * owned(); }
+  __device__ __forceinline__ uint32_t gat_tx() const { return 32u * 16u * (8 - owned()); }
+  __device__ __forceinline__ static bool arms(int tid) { return (tid & 31) == 0; }
+  // The arming of both barriers for the first phase.
+  __device__ __forceinline__ void arm(int tid) const {
+    if (arms(tid)) {
+      mbar_arrive_expect_tx(red_bar, red_tx());
+      mbar_arrive_expect_tx(gat_bar, gat_tx());
+    }
+  }
+
+  __device__ __forceinline__ void operator()(float (&x)[8][4], int tid) {
+    constexpr int Mb = csum_blocks(R);
+    auto at = [&](uint32_t buf, int slot, int mb) {
+      return buf + ((slot * Mb + mb) * 128 + tid) * 16;
+    };
+    auto slot_of = [](int r, int in) { return r - (r > in ? 1 : 0); };   // r's slot at rank `in`
+    // 1. every block to its owner, into the slot of this rank (j % R and
+    // j / R are constants once the loops unroll)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = j % R;
+      if (o == me) continue;
+      st_async_v4(map_rank(at(red, slot_of(me, o), j / R), o), x[j], map_rank(red_bar, o));
+    }
+    // 2. this rank's blocks: the R values in rank order, sent to the others
+    mbar_wait<true>(red_bar, phase);
+    if (arms(tid)) mbar_arrive_expect_tx(red_bar, red_tx());   // the next phase
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j % R != me) continue;
+      float s[4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v[4];
+        if (r == me) {
+          v[0] = x[j][0], v[1] = x[j][1], v[2] = x[j][2], v[3] = x[j][3];
+        } else {
+          ld_shared_v4(at(red, slot_of(r, me), j / R), v);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] = r == 0 ? v[e] : s[e] + v[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = s[e];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r != me)
+          st_async_v4(map_rank(at(gat, slot_of(me, r), j / R), r), s, map_rank(gat_bar, r));
+    }
+    // 3. the other blocks, from their owners
+    mbar_wait<true>(gat_bar, phase);
+    if (arms(tid)) mbar_arrive_expect_tx(gat_bar, gat_tx());   // the next phase
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j % R != me) ld_shared_v4(at(gat, slot_of(j % R, me), j / R), x[j]);
+    phase ^= 1;
+  }
+};
+
+// In place of a ClusterSum where one CTA holds the whole head.
+struct NoClusterSum {
+  __device__ __forceinline__ void operator()(float (&)[8][4], int) {}
+};
 
 // ---- register reallocation between warpgroups ------------------------------
 
@@ -436,6 +605,47 @@ inline bool matrix_tensor_map(CUtensorMap* map, const void* base, long long rows
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- cluster launches (host) ----------------------------------------------------
+
+// A launch configuration in clusters of `ctas` blocks along x (grid.x a
+// multiple of it).
+struct ClusterConfig {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterConfig(dim3 grid, int threads, size_t smem, int ctas, cudaStream_t st) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterConfig(const ClusterConfig&) = delete;   // cfg points into attr
+};
+
+// Launch `kernel` on `grid` in clusters of `ctas` blocks; returns the
+// launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                           int ctas, cudaStream_t st, Args&&... args) {
+  const ClusterConfig c(grid, threads, smem, ctas, st);
+  const cudaError_t err = cudaLaunchKernelEx(&c.cfg, kernel, static_cast<Args&&>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of `kernel` in clusters of `ctas`
+// blocks of `threads` threads and `smem` bytes of shared memory (already
+// granted) into *fit.
+template <typename... Params>
+cudaError_t cluster_fit(void (*kernel)(Params...), int ctas, int threads, size_t smem, int* fit) {
+  const ClusterConfig c(dim3(ctas * 64, 1, 1), threads, smem, ctas, nullptr);
+  return cudaOccupancyMaxActiveClusters(fit, kernel, &c.cfg);
 }
 
 }  // namespace vst

@@ -43,9 +43,20 @@ dK/dV kernel splits the scores as at 192 and 256 (one warpgroup S and P,
 the other dP) in column groups of at most 256, each recomputing S and dP
 over the head, and its dQ kernel takes the whole head: 18 B H N^2 D at
 D = 512 (counted apart in `wgmma_wider_fwd.launches` and
-`wgmma_wider_bwd.launches` as well). Wider bf16 heads run mma.sync
-column-chunk kernels that stream the head through shared memory in
-64-column panels.
+`wgmma_wider_bwd.launches` as well). bf16 heads of 576 to 2048
+(`num_heads: 1` at d_model 576 to 2048) take wgmma kernels run by a
+thread-block cluster of 3, 4 or 8 CTAs that splits the head: CTA r
+holds 2 to 4 of its 64-column panels, computes the partial scores over
+them, and the cluster sums each score tile over its CTAs through
+distributed shared memory in one fixed order (rank order), so every CTA
+holds the same scores and the same softmax; each CTA then accumulates O
+(or dK and dV) on its own panels. The dK/dV kernel hands dS^T to the dQ
+kernel through a bf16 scratch of [B H, N, N] that `_launch_bwd`
+allocates, so every product is made once: 4 B H N^2 D forward, 10 B H
+N^2 D backward (counted apart in `wgmma_cluster_fwd.launches` and
+`wgmma_cluster_bwd.launches` as well).
+Wider bf16 heads run mma.sync column-chunk kernels that stream the head
+through shared memory in 64-column panels.
 
 The forward computes, per (batch, head):
 
@@ -83,6 +94,7 @@ on CPU tensors). It saves q, k, v, O and LSE only when a gradient will be
 asked for.
 """
 
+import ctypes
 import types
 
 import torch
@@ -229,15 +241,19 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     dq, dk, dv = (torch.empty_like(o) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     # the bf16 kernels read qc from a scratch in O's layout, written by
-    # their preprocess pass
+    # their preprocess pass; the cluster kernels for heads of 576 to 2048
+    # hand dS^T from the dK/dV kernel to the dQ kernel through a scratch
+    # of [B H, N, N] bf16 (512 MiB at B = 64, H = 1, N = 2048)
     qc = torch.empty_like(o) if q.dtype == torch.bfloat16 else None
+    ds = (torch.empty((b * h, n, n), dtype=torch.bfloat16, device=q.device)
+          if wgmma_cluster(q.dtype, d) else None)
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     _kernels.launch(
         "vst_dense_attn_bwd", q.device,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        None if qc is None else qc.data_ptr(),
+        None if qc is None else qc.data_ptr(), None if ds is None else ds.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
         float(scale * LOG2E), float(scale),
     )
@@ -281,9 +297,50 @@ wgmma_wider_bwd = types.SimpleNamespace(launches=0)
 
 def wgmma_wider(dtype, d: int) -> bool:
     """Whether the kernels take operands of `dtype` with heads of `d` to
-    the bf16 wgmma kernels for heads of 320 to 512: the dispatch's rule
-    (wider bf16 heads take the mma.sync column-chunk kernels)."""
+    the bf16 wgmma kernels for heads of 320 to 512: the dispatch's rule."""
     return dtype == torch.bfloat16 and 256 < d <= 512
+
+
+# Launches of the bf16 cluster kernels for heads of 576 to 2048 (a
+# thread-block cluster splits the head's columns and sums the scores over
+# its CTAs), which either route's wrapper may take; each is also counted
+# on its route's wrapper.
+wgmma_cluster_fwd = types.SimpleNamespace(launches=0)
+wgmma_cluster_bwd = types.SimpleNamespace(launches=0)
+MAX_CLUSTER_HEAD = 2048
+
+
+def wgmma_cluster(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    the bf16 cluster kernels for heads of 576 to 2048: the dispatch's rule
+    (wider bf16 heads take the mma.sync column-chunk kernels)."""
+    return dtype == torch.bfloat16 and 512 < d <= MAX_CLUSTER_HEAD
+
+
+def cluster_ctas(d: int) -> int:
+    """The cluster kernels' cluster size at a head of `d` (P = d / 64
+    panels, 9 to 32): 3 CTAs up to P = 12, 4 up to 16, 8 above, each CTA
+    on 2 to 4 of the head's 64-column panels (csrc/sm90.cuh:
+    cluster_ctas)."""
+    p = d // 64
+    return 3 if p <= 12 else 4 if p <= 16 else 8
+
+
+def cluster_panels(d: int):
+    """The panels [first, last) of the head that each CTA of the cluster
+    holds (csrc/sm90.cuh: cluster_first), by rank."""
+    p, c = d // 64, cluster_ctas(d)
+    first = [r * p // c for r in range(c + 1)]
+    return list(zip(first, first[1:]))
+
+
+def cluster_fit(d: int, device) -> dict:
+    """How many clusters of each cluster kernel at a head of `d` the card
+    holds at once (cudaOccupancyMaxActiveClusters): keys fwd, dkdv."""
+    fit = (ctypes.c_int * 2)()
+    _kernels.launch("vst_dense_attn_cluster_fit", torch.device(device), d,
+                    ctypes.addressof(fit))
+    return dict(zip(("fwd", "dkdv"), fit))
 
 
 def _forward(q, k, v, scale, counter):
@@ -300,6 +357,8 @@ def _forward(q, k, v, scale, counter):
         wgmma_wide_fwd.launches += 1
     if wgmma_wider(q.dtype, q.shape[-1]):
         wgmma_wider_fwd.launches += 1
+    if wgmma_cluster(q.dtype, q.shape[-1]):
+        wgmma_cluster_fwd.launches += 1
     return out
 
 
@@ -315,6 +374,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
         wgmma_wide_bwd.launches += 1
     if wgmma_wider(q.dtype, q.shape[-1]):
         wgmma_wider_bwd.launches += 1
+    if wgmma_cluster(q.dtype, q.shape[-1]):
+        wgmma_cluster_bwd.launches += 1
     return out
 
 
