@@ -22,7 +22,7 @@ non-zero exit code:
      on random clouds and on skewed ones, also bitwise equal to its plain
      version run on the CPU), the fused FFN forward (K6f) and backward
      (K6b), each also at the widths its route takes past the shipped
-     config (heads of 192 to 2112, FFN widths of 384 and 512); K1, K2,
+     config (heads of 192 to 4096, FFN widths of 384 and 512); K1, K2,
      K4 and K5 also at phase 8's microbatch of 32 clouds. No kernel
      uses floating-point atomics: a second call on the same inputs must
      give the same bits. Beside the fused FFN the unfused Dense -> ReLU -> Dense
@@ -55,8 +55,12 @@ non-zero exit code:
      B = 2 with a head of 1600 (8, uneven); before them phase 3 prints, for
      each cluster size, how many clusters of each cluster kernel the card
      holds at once (cudaOccupancyMaxActiveClusters) and fails if one does
-     not fit. Wider bf16 heads (the mma.sync column-chunk kernels) run at B
-     = 1 with a head of 2112.
+     not fit. The bf16 heads wider than 2048 (the wgmma/TMA kernels over
+     written-out scores of the bf16 d_model 2304, num_heads 1 path) run at
+     that path's shape, B = 64, D = 2304, at its decoder's B = 1, at N =
+     192 with B = 8 and D = 2112 (an odd panel count, D % 128 != 0, an odd
+     number of 64-row tiles), at B = 8 with D = 2112, at B = 2 with two
+     heads of 2176, and at B = 1, N = 1024 with a head of 4096.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -93,7 +97,12 @@ non-zero exit code:
      other kernel. (6) the shipped SetVAE config with `d_model: 768,
      num_heads: 1` (one bf16 head of 768): the same, every K3f and K3b
      launch on the cluster kernels for heads of 576 to 2048 (their own
-     counters), K4 and K5 too, and no other kernel.
+     counters), K4 and K5 too, and no other kernel. (7) the shipped
+     SetVAE config with `d_model: 2304, num_heads: 1` (one bf16 head of
+     2304): the same, every K3f and K3b launch on the kernels over
+     written-out scores for heads wider than 2048 (their own counters), K4
+     and K5 too, and no other kernel; then the peak device memory of its
+     steps.
   4d. routes: the shipped SetVAE eval step at full width once under each
      of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
      VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
@@ -108,7 +117,8 @@ non-zero exit code:
      configurations of phase 4c (num_heads 1 in both, each precision
      running its own kernels for wide heads; d_model 512 with one head in
      bf16, on the kernels for heads of 320 to 512; d_model 768 with one
-     head in bf16, on the cluster kernels).
+     head in bf16, on the cluster kernels; d_model 2304 with one head in
+     bf16, on the kernels over written-out scores).
   6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
      false` (the MLP encoder and decoder with BatchNorm at the config's
      encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
@@ -221,7 +231,10 @@ and 4c (4), and the bf16 wgmma kernels for heads of 320 to 512, the rows
 `dense_attn_wgmma_wider_fwd` and `_bwd`, at the d_model 512 path's B = 64,
 D = 512 case, launches from 4c (5), and the bf16 cluster kernels for
 heads of 576 to 2048, the rows `dense_attn_wgmma_cluster_fwd` and `_bwd`,
-at the d_model 768 path's B = 64, D = 768 case, launches from 4c (6)),
+at the d_model 768 path's B = 64, D = 768 case, launches from 4c (6),
+and the bf16 kernels over written-out scores for heads wider than 2048,
+the rows `dense_attn_wgmma_scores_fwd` and `_bwd`, at the d_model 2304
+path's B = 64, D = 2304 case, launches from 4c (7)),
 the numbers phase 3 measured and the bound it computed, and under `paths`
 its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
@@ -330,6 +343,10 @@ HEADS1_WIDER_OVERRIDE = {"d_model": 512, "num_heads": 1}
 # the same config at d_model 768 with one head: one bf16 head of 768,
 # the BHND route's cluster kernels for heads of 576 to 2048 (phase 4c (6))
 HEADS1_CLUSTER_OVERRIDE = {"d_model": 768, "num_heads": 1}
+# the same config at d_model 2304 with one head: one bf16 head of 2304 (36
+# panels of 64), the BHND route's kernels over written-out scores for
+# heads wider than 2048 (phase 4c (7))
+HEADS1_SCORES_OVERRIDE = {"d_model": 2304, "num_heads": 1}
 # Phases 6-8's configurations: the shipped SetVAE config with one override
 # each (held to the file by the same test): the DeepSets encoder and decoder
 # at the config's encoder_hidden / decoder_hidden widths, and attention
@@ -490,6 +507,10 @@ WGMMA_WIDER_CASE = (BATCH, NPTS, 1, 512, torch.bfloat16)
 # bf16 d_model 768, num_heads 1 path (phase 4c): the JSON line's rows for
 # them report it.
 WGMMA_CLUSTER_CASE = (BATCH, NPTS, 1, 768, torch.bfloat16)
+# The bf16 kernels over written-out scores for heads wider than 2048 at the
+# shape of the bf16 d_model 2304, num_heads 1 path (phase 4c): the JSON
+# line's rows for them report it.
+WGMMA_SCORES_CASE = (BATCH, NPTS, 1, 2304, torch.bfloat16)
 K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             (BATCH, NPTS, 3, 64, torch.bfloat16), (BATCH, 192, 2, 128, torch.bfloat16),
             # bf16 heads of 192 and 256: two heads of 192, an odd number of
@@ -513,8 +534,15 @@ K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             WGMMA_CLUSTER_CASE, (1, NPTS, 1, 768, torch.bfloat16),
             (8, 192, 1, 768, torch.bfloat16), (8, NPTS, 1, 576, torch.bfloat16),
             (8, NPTS, 1, 1024, torch.bfloat16), (2, NPTS, 1, 1600, torch.bfloat16),
-            # bf16 above 2048: the mma.sync column-chunk kernels
-            (1, 256, 1, 2112, torch.bfloat16),
+            # bf16 above 2048, the kernels over written-out scores: the
+            # d_model 2304, num_heads 1 path's shape, its decoder's
+            # batch-constant layer, an odd panel count (33: the last
+            # 128-column tile half past D) with an odd number of 64-row
+            # tiles, the same width at the full length, two heads, and a
+            # head of 4096 (no width limit)
+            WGMMA_SCORES_CASE, (1, NPTS, 1, 2304, torch.bfloat16),
+            (8, 192, 1, 2112, torch.bfloat16), (8, NPTS, 1, 2112, torch.bfloat16),
+            (2, NPTS, 2, 2176, torch.bfloat16), (1, 1024, 1, 4096, torch.bfloat16),
             # f32 heads of 512
             (1, NPTS, 1, 512, torch.float32), (8, NPTS, 1, 512, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
@@ -790,8 +818,10 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide=(), iters=1
                          peak)
         tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
         against = "the plain version" if dtype == torch.bfloat16 else "float64"
-        # the cluster kernels' dQ reads the dK/dV kernel's dS^T: S and dP once
-        executed = 10.0 if denseattn.wgmma_cluster(dtype, d) else 14.0
+        # the cluster kernels' dQ reads the dK/dV kernel's dS^T, and the
+        # kernels above 2048 write P^T and dS^T out: S and dP once
+        once = denseattn.wgmma_cluster(dtype, d) or denseattn.wgmma_scores(dtype, d)
+        executed = 10.0 if once else 14.0
         print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
               f"(bound {tol_l:.3e}); repeat bitwise equal {repeat_f}; kernel {ms_f:.4f} ms "
               f"({4.0 * b * h * n * n * d / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, "
@@ -1009,7 +1039,8 @@ COUNTERS = {
     "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
     "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
     # f32 heads of 192 and wider, and bf16 heads of 192 and 256, of 320
-    # to 512 and of 576 to 2048, also counted on their route's wrapper
+    # to 512, of 576 to 2048 and wider, also counted on their route's
+    # wrapper
     "dense_attn_tf32_wide_fwd": denseattn.tf32_wide_fwd,
     "dense_attn_tf32_wide_bwd": denseattn.tf32_wide_bwd,
     "dense_attn_wgmma_wide_fwd": denseattn.wgmma_wide_fwd,
@@ -1018,6 +1049,8 @@ COUNTERS = {
     "dense_attn_wgmma_wider_bwd": denseattn.wgmma_wider_bwd,
     "dense_attn_wgmma_cluster_fwd": denseattn.wgmma_cluster_fwd,
     "dense_attn_wgmma_cluster_bwd": denseattn.wgmma_cluster_bwd,
+    "dense_attn_wgmma_scores_fwd": denseattn.wgmma_scores_fwd,
+    "dense_attn_wgmma_scores_bwd": denseattn.wgmma_scores_bwd,
     "chamfer_nn_packed": chamfer.chamfer_nn_packed,
     "chamfer_bwd": chamfer.chamfer_bwd,
     "ffn_fwd": ffn.fused_ffn_fwd,
@@ -1299,6 +1332,31 @@ def phase_heads1_cluster(dev):
     return launches
 
 
+WGMMA_SCORES_PATH = ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd",
+                     "dense_attn_wgmma_scores_fwd", "dense_attn_wgmma_scores_bwd",
+                     "chamfer_nn_packed", "chamfer_bwd")
+
+
+def phase_heads1_scores(dev):
+    """SetVAE with d_model 2304 and num_heads 1 (one bf16 head of 2304):
+    the BHND route's kernels over written-out scores for heads wider than
+    2048; then the peak device memory of the phase's steps."""
+    params = dict(MODEL_PARAMS, **HEADS1_SCORES_OVERRIDE)
+    tag = f"bf16 d_model {params['d_model']} num_heads {params['num_heads']}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    _train_and_test(params, 1, dev)
+    _time_eval_step("setvae", params, BATCH, dev, tag)
+    _time_train_step("setvae", params, BATCH, dev, tag)
+    launches = _read_launches()
+    print(f"{tag}: peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (B={BATCH})")
+    _expect_wide_path(launches, "the bf16 d_model 2304 num_heads 1 path", WGMMA_SCORES_PATH)
+    return launches
+
+
 def check_cluster_fit(dev):
     """How many clusters of each cluster kernel the card holds at once, at
     one head width for each cluster size (3, 4 and 8 CTAs); raises if a
@@ -1516,6 +1574,13 @@ def phase_reference(dev):
     if denseattn.wgmma_cluster_bwd.launches == launches:
         raise AssertionError("the bf16 d_model 768 num_heads 1 reference did not run the "
                              "cluster kernels for heads of 576 to 2048")
+    # d_model 2304 with one head, bf16: the kernels over written-out scores
+    launches = denseattn.wgmma_scores_bwd.launches
+    _reference(dev, "d_model 2304 num_heads 1", dict(MODEL_PARAMS, **HEADS1_SCORES_OVERRIDE),
+               precisions=(True,))
+    if denseattn.wgmma_scores_bwd.launches == launches:
+        raise AssertionError("the bf16 d_model 2304 num_heads 1 reference did not run the "
+                             "kernels over written-out scores for heads wider than 2048")
     with mock.patch.dict(os.environ, FUSED_FFN_ENV):
         launches = ffn.fused_ffn_fwd.launches
         _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
@@ -3118,12 +3183,13 @@ def main():
                     K1_F32_TOL)
     _timed(check_cluster_fit, dev)
     (k3f, k3b, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma, k3f_wider, k3b_wider, k3f_cluster,
-     k3b_cluster) = _timed(
+     k3b_cluster, k3f_scores, k3b_scores) = _timed(
         check_attention, dev, gen, "dense_attn (BHND route)", denseattn.dense_attention_bhnd,
         denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL,
         ((denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE),
          (denseattn.wgmma_wider, WGMMA_WIDER_CASE),
-         (denseattn.wgmma_cluster, WGMMA_CLUSTER_CASE)))
+         (denseattn.wgmma_cluster, WGMMA_CLUSTER_CASE),
+         (denseattn.wgmma_scores, WGMMA_SCORES_CASE)))
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
     k6f, k6b = _timed(check_ffn, dev, gen)
@@ -3134,6 +3200,7 @@ def main():
     heads1_bf16 = _timed(phase_heads1_bf16, dev)
     heads1_wider = _timed(phase_heads1_wider, dev)
     heads1_cluster = _timed(phase_heads1_cluster, dev)
+    heads1_scores = _timed(phase_heads1_scores, dev)
     fused = _timed(phase_fused_ffn, dev)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
@@ -3169,6 +3236,10 @@ def main():
          heads1_cluster, k3f_cluster),
         ("dense_attn_wgmma_cluster_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152",
          heads1_cluster, k3b_cluster),
+        ("dense_attn_wgmma_scores_fwd", "dense_attn_scores.cu",
+         "vae_song_tpu/ops/denseattn.py:124", heads1_scores, k3f_scores),
+        ("dense_attn_wgmma_scores_bwd", "dense_attn_scores.cu",
+         "vae_song_tpu/ops/denseattn.py:152", heads1_scores, k3b_scores),
         ("chamfer_nn_packed", "chamfer_fwd.cu", "vae_song_tpu/ops/chamfer.py:103", main_path, k4),
         ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
         ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),

@@ -3,7 +3,8 @@
 CUDA card, by this checkout's chip_smoke.py, so that two checkouts run in
 one call compare by one method:
 
-    python scripts/ab_attn_bf16.py [ROOT] [--wider | --cluster [--dq-cluster]]
+    python scripts/ab_attn_bf16.py [ROOT] [--wider | --cluster [--dq-cluster] | --scores]
+    python scripts/ab_attn_bf16.py --scores-narrow
 
 ROOT (default: this checkout) is put first on sys.path, so its
 `vae_song_tpu_torch` is the one imported and its kernels build into
@@ -38,6 +39,22 @@ against the package's, whose dQ kernel reads the dK/dV kernel's dS^T (10
 B H N^2 D), in turns (package, variant, variant, package), after
 checking that the two give the same bits, and each one's device time.
 
+With --scores the same for the bf16 heads wider than 2048 (the kernels
+over written-out scores; in a checkout from before them, the mma.sync
+column-chunk kernels): phase 3's cases at those widths (the d_model 2304,
+num_heads 1 path's B = 64, D = 2304, its decoder's B = 1, N = 192 and B
+= 8 at D = 2112, B = 2 with two heads of 2176, B = 1 at D = 4096) and B
+= 8 at D = 2304, then the device time of each kernel at B = 8 with D =
+2112 and 2304 and at B = 64 with D = 2304.
+
+With --scores-narrow (this checkout only, alone) it checks and times, at
+B = 8 and 64 with heads of 1024 and 2048, the kernels over written-out
+scores (entry points of scripts/ab_attn_scores.cu, which run them at any
+width) beside the package's cluster kernels there, in turns (package,
+variant, variant, package; runs of 10 calls), each held to the plain
+version at chip_smoke.py's bf16 bounds (the two designs round P against
+different maxima, so their bits differ).
+
 With --dup (ROOT must be this checkout) it also times, at those three
 shapes, the backward whose dK/dV kernel has both warpgroups compute S^T
 and dP^T over the whole head (scripts/ab_attn_bwd_dup.cu, 18 B H N^2 D)
@@ -57,13 +74,15 @@ import sys
 import types
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGS = ("--dup", "--wider", "--cluster", "--dq-cluster")
+FLAGS = ("--dup", "--wider", "--cluster", "--dq-cluster", "--scores", "--scores-narrow")
 ARGS = [a for a in sys.argv[1:] if a not in FLAGS]
 ROOT = os.path.abspath(ARGS[0] if ARGS else HERE)
 DUP = "--dup" in sys.argv[1:]
 WIDER = "--wider" in sys.argv[1:]
 CLUSTER = "--cluster" in sys.argv[1:]
 DQ_CLUSTER = "--dq-cluster" in sys.argv[1:]
+SCORES = "--scores" in sys.argv[1:]
+SCORES_NARROW = "--scores-narrow" in sys.argv[1:]
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -76,9 +95,13 @@ from vae_song_tpu_torch.ops import denseattn  # noqa: E402
 # has no launch counters for them, which chip_smoke.py's COUNTERS name:
 # give it idle ones, which nothing here reads.
 for _name in ("wgmma_wide_fwd", "wgmma_wide_bwd", "wgmma_wider_fwd", "wgmma_wider_bwd",
-              "wgmma_cluster_fwd", "wgmma_cluster_bwd"):
+              "wgmma_cluster_fwd", "wgmma_cluster_bwd", "wgmma_scores_fwd", "wgmma_scores_bwd"):
     if not hasattr(denseattn, _name):
         setattr(denseattn, _name, types.SimpleNamespace(launches=0))
+# ... nor, from before the kernels over written-out scores, their rule,
+# which chip_smoke.py's label of the operations executed reads
+if not hasattr(denseattn, "wgmma_scores"):
+    denseattn.wgmma_scores = lambda dtype, d: False
 
 _spec = importlib.util.spec_from_file_location("chip_smoke_checks",
                                                os.path.join(HERE, "chip_smoke.py"))
@@ -95,6 +118,14 @@ WIDER_BREAKDOWN = ((8, smoke.NPTS, 1, 320), (8, smoke.NPTS, 1, 512),
 # 768, num_heads 1 path's B = 64 and its decoder's B = 1 at 768)
 CLUSTER_BREAKDOWN = ((8, smoke.NPTS, 1, 576), (8, smoke.NPTS, 1, 1024),
                      (smoke.BATCH, smoke.NPTS, 1, 768), (1, smoke.NPTS, 1, 768))
+# --scores: the heads wider than 2048 (B = 8 at 2112 and 2304, the d_model
+# 2304, num_heads 1 path's B = 64)
+SCORES_BREAKDOWN = ((8, smoke.NPTS, 1, 2112), (8, smoke.NPTS, 1, 2304),
+                    (smoke.BATCH, smoke.NPTS, 1, 2304))
+# --scores-narrow: the kernels over written-out scores beside the cluster
+# kernels at heads the package sends to the cluster
+NARROW_SHAPES = ((8, smoke.NPTS, 1, 1024), (8, smoke.NPTS, 1, 2048),
+                 (smoke.BATCH, smoke.NPTS, 1, 1024), (smoke.BATCH, smoke.NPTS, 1, 2048))
 
 
 def _kernel_ms(fn, calls=10):
@@ -128,11 +159,11 @@ def _breakdown(dev, gen, shape):
 
 
 def _variant_library(name="ab_attn_bwd_dup", kernel="dkdv_dup_kernel",
-                     entry="vst_ab_attn_bwd_dup"):
+                     entry="vst_ab_attn_bwd_dup", like="vst_dense_attn_bwd"):
     """Compile scripts/<name>.cu (with the package's flags) into
     build/<name>/ unless built for these sources, print ptxas's lines for
-    its kernels named `kernel`, and load it; its entry point takes
-    vst_dense_attn_bwd's arguments."""
+    its kernels named `kernel`, and load it; its entry point `entry` takes
+    the arguments of the package's entry point `like`."""
     src = os.path.join(HERE, "scripts", f"{name}.cu")
     h = hashlib.sha256(open(src, "rb").read())
     for dep in sorted(_kernels.CSRC.iterdir()):
@@ -141,10 +172,12 @@ def _variant_library(name="ab_attn_bwd_dup", kernel="dkdv_dup_kernel",
     so = os.path.join(out, f"{name}_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(out, exist_ok=True)
-        # the included source calls the f32 kernels for wide heads: link them too
-        wide = str(_kernels.CSRC / "dense_attn_tf32_wide.cu")
-        built = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", so, src, wide],
-                               capture_output=True, text=True, check=False)
+        # the included source calls the f32 kernels for wide heads and the
+        # bf16 kernels above 2048: link them too
+        deps = [str(_kernels.CSRC / f) for f in ("dense_attn_tf32_wide.cu",
+                                                 "dense_attn_scores.cu")]
+        built = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", so, src,
+                                *deps], capture_output=True, text=True, check=False)
         lines = (built.stdout + built.stderr).splitlines()
         for i, line in enumerate(lines):
             if kernel in line and "Compiling" in line:
@@ -152,7 +185,7 @@ def _variant_library(name="ab_attn_bwd_dup", kernel="dkdv_dup_kernel",
         if built.returncode != 0:
             raise SystemExit(f"nvcc failed for scripts/{name}.cu:\n" + "\n".join(lines))
     lib = ctypes.CDLL(so)
-    sig = _kernels._SIGNATURES["vst_dense_attn_bwd"]
+    sig = _kernels._SIGNATURES[like]
     fn = getattr(lib, entry)
     # the dup variant takes the entry point's arguments before its dS^T
     # scratch (argument 9) was added
@@ -168,8 +201,12 @@ def _bwd_variant(fn, q, k, v, o, lse, do, scale):
     dq, dk, dv = (torch.empty_like(o) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     qc = torch.empty_like(o)
+    # dS^T scratch: none for the dup variant, P^T and dS^T for the kernels
+    # over written-out scores
+    tiles = 2 if fn.__name__ == "vst_ab_attn_scores_bwd" else 1
     ds = ([] if fn.__name__ == "vst_ab_attn_bwd_dup"
-          else [torch.empty((b * h, n, n), dtype=torch.bfloat16, device=q.device).data_ptr()])
+          else [torch.empty((tiles * b * h, n, n), dtype=torch.bfloat16,
+                            device=q.device).data_ptr()])
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -179,6 +216,65 @@ def _bwd_variant(fn, q, k, v, o, lse, do, scale):
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
     return dq, dk, dv
+
+
+def _fwd_variant(fn, q, k, v, scale):
+    """denseattn._launch_fwd with the entry point `fn` of the kernels over
+    written-out scores."""
+    b, n, h, d = q.shape
+    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(denseattn.scores_fwd_scratch_bytes(b, h, n, d), dtype=torch.uint8,
+                          device=q.device)
+    sb, sn, sh, _ = q.stride()
+    ob, on, oh, _ = o.stride()
+    err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+             scratch.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
+             float(scale * denseattn.LOG2E), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return o, lse
+
+
+def _scores_narrow_arm(dev, gen, fwd_fn, bwd_fn, shape):
+    """The package's cluster kernels against the kernels over written-out
+    scores at `shape`: each held to the plain version at chip_smoke.py's
+    bf16 bounds, then forward and backward timed in turns (package,
+    variant, variant, package), runs of 10 calls."""
+    b, n, h, d = shape
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = smoke._attn_inputs(b, n, h, d, torch.bfloat16, gen, dev)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = denseattn.dense_attention_bhnd(q, k, v, scale)
+    names = ("cluster kernels", "kernels over written-out scores")
+    fwd = {names[0]: lambda: denseattn.dense_attention_bhnd(q, k, v, scale),
+           names[1]: lambda: _fwd_variant(fwd_fn, q, k, v, scale)}
+    bwd = {names[0]: lambda: denseattn.dense_attention_bwd_bhnd(q, k, v, o, lse, do, scale),
+           names[1]: lambda: _bwd_variant(bwd_fn, q, k, v, o, lse, do, scale)}
+    o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, scale)
+    want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    ok = True
+    for name in names:
+        got_o, got_lse = fwd[name]()
+        grads = bwd[name]()
+        ratios = [smoke._max_err(got_o, o_ref)
+                  / (smoke.K1_BF16_O_TOL * max(1.0, float(o_ref.float().abs().max()))),
+                  smoke._max_err(got_lse, lse_ref)
+                  / (smoke.K1_BF16_LSE_TOL * max(1.0, float(lse_ref.abs().max())))]
+        ratios += [smoke._max_err(g_, w_) / (smoke.K2_BF16_TOL * float(w_.float().abs().max()))
+                   for g_, w_ in zip(grads, want)]
+        ok = ok and max(ratios) <= 1.0
+        print(f"BHND B={b} N={n} H={h} D={d} bfloat16 {name}: error over bound O, LSE, dq, dk, "
+              f"dv {', '.join(f'{r:.3f}' for r in ratios)}")
+    for part, arms in (("fwd", fwd), ("bwd", bwd)):
+        ms = {name: [] for name in names}
+        for name in (names[0], names[1], names[1], names[0]):
+            ms[name].append(smoke._sync_ms(arms[name], 10))
+        print(f"BHND B={b} N={n} H={h} D={d} bfloat16 {part}, "
+              + ", ".join(f"{name} {', '.join(f'{t:.4f}' for t in ms[name])} ms"
+                          for name in names))
+    if not ok:
+        raise AssertionError(f"a design misses the plain version's bounds at {shape}")
 
 
 def _variant_arm(dev, gen, fn, shape, names, device=False):
@@ -216,9 +312,19 @@ def main():
     dev = torch.device("cuda", 0)
     smoke._timed(smoke.phase_build)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
-    widths = ((lambda d: 512 < d <= 2048) if CLUSTER else (lambda d: 256 < d <= 512) if WIDER
-              else (lambda d: d in (192, 256)))
-    for case in smoke.K3_CASES:
+    if SCORES_NARROW:
+        if ROOT != HERE:
+            raise SystemExit("--scores-narrow times this checkout's kernels only")
+        fwd_fn, bwd_fn = (_variant_library("ab_attn_scores", "attn_scores_kernel",
+                                           f"vst_ab_attn_scores_{part}", f"vst_dense_attn_{part}")
+                          for part in ("fwd", "bwd"))
+        for shape in NARROW_SHAPES:
+            _scores_narrow_arm(dev, gen, fwd_fn, bwd_fn, shape)
+        return
+    widths = ((lambda d: d > 2048) if SCORES else (lambda d: 512 < d <= 2048) if CLUSTER
+              else (lambda d: 256 < d <= 512) if WIDER else (lambda d: d in (192, 256)))
+    extra = ((8, smoke.NPTS, 1, 2304, torch.bfloat16),) if SCORES else ()
+    for case in smoke.K3_CASES + extra:
         if case[4] == torch.bfloat16 and widths(case[3]):
             try:
                 smoke.check_attention(dev, gen, "dense_attn (BHND route)",
@@ -227,7 +333,8 @@ def main():
                                       smoke.K3_F32_O_TOL)
             except AssertionError as e:
                 print(f"FAILED: {e}")
-    for shape in CLUSTER_BREAKDOWN if CLUSTER else WIDER_BREAKDOWN if WIDER else BREAKDOWN:
+    for shape in (SCORES_BREAKDOWN if SCORES else CLUSTER_BREAKDOWN if CLUSTER
+                  else WIDER_BREAKDOWN if WIDER else BREAKDOWN):
         _breakdown(dev, gen, shape)
     if DUP or DQ_CLUSTER:
         if ROOT != HERE:

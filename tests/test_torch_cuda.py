@@ -339,6 +339,16 @@ def test_bf16_train_step_with_one_head_of_768_runs_the_cluster_kernels(dev):
             denseattn.wgmma_cluster_bwd.launches - start[1]) == (4, 4)
 
 
+def test_bf16_train_step_with_one_head_of_2304_runs_the_scores_kernels(dev):
+    """One bf16 head of 2304 (num_heads 1 at d_model 2304): K3f and K3b,
+    every launch on the kernels over written-out scores for heads wider
+    than 2048."""
+    start = (denseattn.wgmma_scores_fwd.launches, denseattn.wgmma_scores_bwd.launches)
+    assert _train_step_launches(dev, num_heads=1, d_model=2304) == [0, 0, 4, 4, 1, 1, 0, 0]
+    assert (denseattn.wgmma_scores_fwd.launches - start[0],
+            denseattn.wgmma_scores_bwd.launches - start[1]) == (4, 4)
+
+
 def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     """VST_FUSED_FFN=1 at ff_dim 128 (rows 8 x 256 = 2048): K6f and K6b
     for the 2 encoder and 2 decoder FFNs."""
@@ -380,12 +390,16 @@ def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
     # and B = 1 at the shipped length (the decoder's batch-constant layer
     # of d_model 512, num_heads 1); from 576 to 2048 the cluster kernels
     # (576: 3 CTAs on 3 panels each; 1088: 8 CTAs on 2 or 3), above 2048
-    # the mma.sync column-chunk kernels (2112: 64-column chunks)
+    # the kernels over written-out scores (2112: a last 128-column tile
+    # half past D; N = 192: the last 128-row tile half past N, on views
+    # and on contiguous tensors; two heads of 2304; 4096, no width limit)
     (1, 128, 1, 320, torch.bfloat16, False), (2, 192, 1, 320, torch.bfloat16, True),
     (2, 128, 2, 512, torch.bfloat16, True), (1, 256, 1, 384, torch.bfloat16, False),
     (2, 192, 1, 448, torch.bfloat16, True), (1, 2048, 1, 512, torch.bfloat16, False),
     (2, 192, 1, 576, torch.bfloat16, True), (1, 128, 1, 1088, torch.bfloat16, False),
-    (1, 128, 1, 2112, torch.bfloat16, False),
+    (1, 128, 1, 2112, torch.bfloat16, False), (2, 192, 1, 2176, torch.bfloat16, True),
+    (3, 192, 1, 2112, torch.bfloat16, False), (1, 256, 2, 2304, torch.bfloat16, True),
+    (1, 128, 1, 4096, torch.bfloat16, False),
     (1, 128, 1, 320, torch.float32, True), (1, 192, 2, 512, torch.float32, False),
     # f32 from D = 192 (csrc/dense_attn_tf32_wide.cu): 3 and 7 warps a row
     # group, two and four row groups a block (B H N / 32 and / 64 at least
@@ -402,7 +416,7 @@ def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
     (136, 128, 2, 192, torch.bfloat16, False), (72, 256, 1, 256, torch.bfloat16, True),
 ])
 def test_bhnd_kernels_match_plain(dev, b, n, h, d, dtype, strided):
-    """K3f and K3b at head widths 64 to 2112 (bf16; f32 to 1088) and an odd
+    """K3f and K3b at head widths 64 to 4096 (bf16; f32 to 1088) and an odd
     head count, on views of one packed projection or on contiguous
     tensors, against their plain versions (bounds as chip_smoke.py's:
     bf16 2^-6 of max(1, max|O|) and of max|d|, LSE 1e-3; f32 3e-5 on O,

@@ -6,6 +6,7 @@ numpy inputs; and the route MultiHeadAttention takes for each head
 shape."""
 
 import functools
+import unittest.mock
 
 import jax
 import jax.numpy as jnp
@@ -125,6 +126,7 @@ def _route(monkeypatch, d_model, num_heads, n=128):
     (256, 1, 128, "bhnd"),       # one 256-wide head
     (192, 3, 128, "bhnd"),       # an odd count of 64-wide heads
     (768, 1, 128, "bhnd"),       # one 768-wide head: the cluster kernels
+    (2112, 1, 128, "bhnd"),      # one 2112-wide head: the kernels over written-out scores
     (256, 4, 100, "plain"),      # a length neither dense kernel takes
 ])
 def test_attention_routes_as_jax(monkeypatch, d_model, num_heads, n, want):
@@ -158,6 +160,44 @@ def test_head_width_above_kernels_raises(monkeypatch):
     q = torch.zeros(1, 128, 1, 96)
     with pytest.raises(ValueError, match="multiple of 64"):
         denseattn.dense_attention(q, q, q, 0.1)
+
+
+def test_head_of_2112_layer_matches_jax():
+    """A head wider than 2048 (the route of the kernels over written-out
+    scores on the card) through the whole layer: MultiHeadAttention(2112,
+    1)'s output and the gradients of <out, ct> in x and in every weight
+    match the JAX layer running its BHND kernels in interpret mode on the
+    same weights (f32, summation order only: F32_TOL of max|ref|)."""
+    d = 2112
+    assert denseattn.dense_ok(128, 128, d) and denseattn.wgmma_scores(torch.bfloat16, d)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(1, 128, d)).astype(np.float32)
+    ct = rng.normal(size=(1, 128, d)).astype(np.float32)
+    mha = jax_attention.MultiHeadAttention(num_heads=1, d_model=d)
+    params = mha.init(jax.random.PRNGKey(1), x, x)["params"]
+    with unittest.mock.patch.object(jax, "default_backend", lambda: "tpu"), \
+            unittest.mock.patch.object(
+                jax_denseattn, "dense_attention",
+                functools.partial(jax_denseattn.dense_attention, interpret=True)):
+        loss = lambda p, xx: jnp.sum(mha.apply({"params": p}, xx, xx) * ct)
+        want = np.asarray(mha.apply({"params": params}, x, x))
+        gp, gx = jax.grad(loss, argnums=(0, 1))(params, x)
+    port = attention.MultiHeadAttention(d, 1)
+    port.load_state_dict({
+        f"{proj}.{leaf}": torch.tensor(
+            np.asarray(params[proj]["kernel"]).T if leaf == "weight"
+            else np.asarray(params[proj]["bias"]))
+        for proj in ("query", "key", "value", "out") for leaf in ("weight", "bias")})
+    tx = torch.from_numpy(x).requires_grad_()
+    out = port(tx, tx)
+    (out * torch.from_numpy(ct)).sum().backward()
+    close = lambda got, ref: np.abs(got - ref).max() <= F32_TOL * max(1.0, np.abs(ref).max())
+    assert close(out.detach().numpy(), want)
+    assert close(tx.grad.numpy(), np.asarray(gx))
+    for proj in ("query", "key", "value", "out"):
+        layer = getattr(port, proj)
+        assert close(layer.weight.grad.numpy().T, np.asarray(gp[proj]["kernel"])), proj
+        assert close(layer.bias.grad.numpy(), np.asarray(gp[proj]["bias"])), proj
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -199,6 +199,31 @@ def test_chip_smoke_cluster_head_path_is_shipped_config_with_one_override():
     assert "dict(MODEL_PARAMS, **HEADS1_CLUSTER_OVERRIDE)" in _smoke_function("phase_reference")
 
 
+def test_chip_smoke_scores_head_path_is_shipped_config_with_one_override():
+    """Phase 4c (7) runs the shipped SetVAE config with `d_model: 2304,
+    num_heads: 1` (keys the file sets) and nothing else changed: one bf16
+    head of 2304, which the dense gate takes and the dispatch sends to the
+    kernels over written-out scores for heads wider than 2048; phase 5
+    holds the same config on the card to the CPU."""
+    import torch
+
+    from vae_song_tpu_torch.ops import denseattn
+
+    config = load_config(os.path.join(ROOT, "configs", "config_shapenet_setvae.yaml"))
+    mp = config["model_params"]
+    override = _smoke_literal("HEADS1_SCORES_OVERRIDE")
+    assert override == {"d_model": 2304, "num_heads": 1} and set(override) <= set(mp)
+    scores = dict(mp, **override)
+    n, d = scores["num_points"], scores["d_model"] // scores["num_heads"]
+    assert scores["mixed_precision"] and denseattn.dense_ok(n, n, d)
+    assert not denseattn.packed_ok(n, n, scores["num_heads"], d)
+    assert denseattn.wgmma_scores(torch.bfloat16, d)
+    assert not denseattn.wgmma_cluster(torch.bfloat16, d)
+    assert "params = dict(MODEL_PARAMS, **HEADS1_SCORES_OVERRIDE)" in _smoke_function(
+        "phase_heads1_scores")
+    assert "dict(MODEL_PARAMS, **HEADS1_SCORES_OVERRIDE)" in _smoke_function("phase_reference")
+
+
 def test_chip_smoke_slice_paths_are_shipped_configs_with_one_override():
     """Phases 6-8 run the shipped SetVAE config with one stated change
     each: `use_attention: false` (the DeepSets models at the file's own

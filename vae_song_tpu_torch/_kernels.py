@@ -39,7 +39,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # argtypes of every C entry point: pointers and the stream as c_void_p,
 # so ctypes never narrows them to 32 bits
 _SIGNATURES = {
-    "vst_dense_attn_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "vst_dense_attn_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _P),
     "vst_dense_attn_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _F, _F, _P),

@@ -1,6 +1,7 @@
 // Dense attention backward for Hopper (sm_90a), [B, N, H, D] layout read
 // through strides, any head width D % 64 == 0 (f32 from D = 192 up: the
-// dK/dV and dQ kernels of dense_attn_tf32_wide.cu, launched from here).
+// dK/dV and dQ kernels of dense_attn_tf32_wide.cu; bf16 above 2048: the
+// kernels of dense_attn_scores.cu; both launched from here).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_bwd_kernel_packed (K2, called
 // through _call_bwd_packed) and vae_song_tpu/ops/denseattn.py:_bwd_kernel
@@ -128,10 +129,14 @@
 // sums a tile cost more than the scratch's write and read. The scratch
 // takes 2 B H N^2 bytes (512 MiB at B = 64, H = 1, N = 2048).
 //
-// bf16 above 2048: mma.sync column-chunk kernels, 64-row tiles staged
-// synchronously, CW = 128 (or 64) output columns a block, each chunk
-// recomputing S and dP over the head in 64-column panels; their shared
-// memory does not grow with D, which the resident tiles above do.
+// bf16 above 2048: the preprocess, then dense_attn_scores.cu's kernels,
+// which write the scores out (the dense gate caps N at 2048, so there one
+// head's [N, N] scores are smaller than its q [N, D], and the resident
+// tiles above no longer fit): one kernel computes S^T and dP^T for the
+// same 128 x 128 tile and writes P^T and dS^T to two bf16 scratches [B H,
+// N, N], two product kernels compute dV = P^T dO and dK = ln2 dS^T qc,
+// and the cluster route's dQ kernel dQ = scale dS K from dS^T: 10 B H N^2
+// D, each product made once.
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: split-TF32
 // mma.sync kernels (mma_tf32.cuh) of the same three-pass shape, the f32
@@ -163,6 +168,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "dense_attn_scores.cuh"
 #include "dense_attn_tf32_wide.cuh"
 #include "mma_tf32.cuh"
 #include "sm90.cuh"
@@ -170,11 +176,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using vst::acc_to_a;
-using vst::exp2_bf16;
-using vst::ld_u32;
-using vst::load_a_chunk;
-using vst::mma_16816;
 using vst::pack_bf16;
 using vst::p_pair;
 using vst::round_bf16;
@@ -289,23 +290,10 @@ using vst::zero_acc;
 
 // The elementwise passes work on pairs of neighbouring columns, packed as
 // bf16x2 in the layout of a wgmma A fragment: P by vst::p_pair (shared
-// with the forward), dS by ds_pair.
-
-// dS = round(P * round(round(dP) - delta)) for two columns, with P and
-// delta packed bf16x2. The bf16x2 subtract and multiply round their exact
-// results once; on bf16 operands that is what the f32 operation followed
-// by a rounding to bf16 gives (the f32 difference of two bf16 values is
-// exact, or within 2^-16 of the larger one; their product is exact).
-// ds_packed takes dP already rounded and packed (dpr).
-__device__ __forceinline__ uint32_t ds_packed(uint32_t p, uint32_t dpr, uint32_t dd) {
-  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&p),
-                                   __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&dpr),
-                                           *reinterpret_cast<const __nv_bfloat162*>(&dd)));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-__device__ __forceinline__ uint32_t ds_pair(uint32_t p, float dp0, float dp1, uint32_t dd) {
-  return ds_packed(p, vst::pack_bf16(dp0, dp1), dd);
-}
+// with the forward), dS by vst::ds_pair (shared with the kernels of
+// dense_attn_scores.cu).
+using vst::ds_packed;
+using vst::ds_pair;
 
 // The resident tile's barrier (one arrival: the producer's) and the
 // ring's full (one arrival) and empty (one per consumer warp) barriers.
@@ -1981,257 +1969,7 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ---- bf16, D > 2048, any D % 64 == 0: column-chunk kernels -------------------
-
-constexpr int kBlock = 64;         // rows per tile (4 warps x 16)
-constexpr int kThreads = 128;
-constexpr int kLdt = kBlock + 8;   // padded row of a transposed tile
-constexpr int kPanelCols = 64;          // columns of each row tile staged at a time
-constexpr int kLdp = kPanelCols + 8;
-
-// bf16: one 64-column panel of each of four 64-row tiles, two transposed
-// CW-column chunk tiles, then LSE2 and delta.
-template <int CW>
-constexpr size_t bwd_wide_bf16_smem() {
-  return (4 * kBlock * kLdp + 2 * CW * kLdt) * sizeof(__nv_bfloat16) +
-         2 * kBlock * sizeof(float);
-}
-
-// Stage panel d0 of rows r0 .. r0 + 63 of a (strides: head offset, row
-// stride) into a [64][kLdp] tile.
-__device__ __forceinline__ void stage_panel(__nv_bfloat16 (*dst)[kLdp],
-                                            const __nv_bfloat16* src, long long head,
-                                            long long sn, int r0, int d0, int tid) {
-  for (int i = tid; i < kBlock * kPanelCols / 8; i += kThreads) {
-    const int r = i / (kPanelCols / 8), c = (i % (kPanelCols / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c]) =
-        *reinterpret_cast<const uint4*>(src + head + (long long)(r0 + r) * sn + d0 + c);
-  }
-}
-
-// Stage columns c0 .. c0 + CW - 1 of rows r0 .. r0 + 63 transposed into a
-// [CW][kLdt] tile.
-template <int CW>
-__device__ __forceinline__ void stage_chunk_t(__nv_bfloat16 (*dst)[kLdt],
-                                              const __nv_bfloat16* src, long long head,
-                                              long long sn, int r0, int c0, int tid) {
-  for (int i = tid; i < kBlock * CW / 8; i += kThreads) {
-    const int r = i / (CW / 8), c = (i % (CW / 8)) * 8;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(src + head + (long long)(r0 + r) * sn + c0 + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[c + j][r] = e[j];
-  }
-}
-
-// acc[16 rows x 64 columns] (+)= rows 16 w .. of a (64 x 64) times b^T
-// (64 x 64), both [64][kLdp] tiles: one 64-deep step of S or dP.
-__device__ __forceinline__ void mma_panel(float (&acc)[kBlock / 8][4],
-                                          const __nv_bfloat16 (*a)[kLdp],
-                                          const __nv_bfloat16 (*b)[kLdp], int warp, int g,
-                                          int t) {
-#pragma unroll
-  for (int kk = 0; kk < kPanelCols / 16; ++kk) {
-    uint32_t fa[4];
-    load_a_chunk<kLdp>(a, warp * 16, kk, g, t, fa);
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const __nv_bfloat16* br = &b[nt * 8 + g][kk * 16 + 2 * t];
-      mma_16816(acc[nt], fa, ld_u32(br), ld_u32(br + 8));
-    }
-  }
-}
-
-// acc[16 x CW] += A (16 x 64, the accumulator-layout block x) B, with B^T
-// the [CW][kLdt] tile bt.
-template <int CW>
-__device__ __forceinline__ void mma_chunk(float (&acc)[CW / 8][4], const float (&x)[kBlock / 8][4],
-                                          const __nv_bfloat16 (*bt)[kLdt], int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < kBlock / 16; ++kc) {
-    uint32_t pa[4];
-    acc_to_a(x, kc, pa);
-#pragma unroll
-    for (int dt = 0; dt < CW / 8; ++dt) {
-      const __nv_bfloat16* br = &bt[dt * 8 + g][kc * 16 + 2 * t];
-      mma_16816(acc[dt], pa, ld_u32(br), ld_u32(br + 8));
-    }
-  }
-}
-
-// Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-key tile *
-// D / CW + column chunk. An mma.sync kernel (m16n8k16; warp w owns keys
-// k0 + 16 w .. + 15) with D a runtime multiple of 64: S^T and dP^T are
-// summed over the head in 64-column panels of K, qc, V and dO staged
-// through shared memory, 64 queries a tile, and the block computes CW
-// columns of dK and dV from transposed qc and dO chunks.
-template <int CW>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ qc,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ d_o, const float* __restrict__ lse,
-                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int N, int D, Strides s,
-                          Strides os) {
-  using Pan = __nv_bfloat16[kLdp];
-  using Col = __nv_bfloat16[kLdt];
-  extern __shared__ __align__(16) unsigned char smem[];
-  Pan* kp = reinterpret_cast<Pan*>(smem);
-  Pan* vp = kp + kBlock;
-  Pan* qp = kp + 2 * kBlock;
-  Pan* dp = kp + 3 * kBlock;
-  Col* qt = reinterpret_cast<Col*>(kp + 4 * kBlock);   // qc^T chunk [c][q]
-  Col* dot = qt + CW;                                   // dO^T chunk [c][q]
-  float* ls = reinterpret_cast<float*>(dot + CW);
-  float* dls = ls + kBlock;
-
-  const int nchunk = D / CW, c0 = (blockIdx.x % nchunk) * CW;
-  const int k0 = (blockIdx.x / nchunk) * kBlock;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-
-  float adk[CW / 8][4], adv[CW / 8][4];
-#pragma unroll
-  for (int i = 0; i < CW / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kBlock) {
-    // S^T = K qc^T and dP^T = V dO^T (16 keys x 64 queries a warp)
-    float p[kBlock / 8][4], ds[kBlock / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[nt][j] = ds[nt][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kPanelCols) {
-      __syncthreads();   // every warp is done with the previous tiles
-      stage_panel(kp, k, head, s.n, k0, d0, tid);
-      stage_panel(vp, v, head, s.n, k0, d0, tid);
-      stage_panel(qp, qc, ohead, os.n, q0, d0, tid);   // qc has O's strides
-      stage_panel(dp, d_o, ohead, os.n, q0, d0, tid);
-      __syncthreads();
-      mma_panel(p, kp, qp, warp, g, t);
-      mma_panel(ds, vp, dp, warp, g, t);
-    }
-    stage_chunk_t<CW>(qt, qc, ohead, os.n, q0, c0, tid);
-    stage_chunk_t<CW>(dot, d_o, ohead, os.n, q0, c0, tid);
-    if (tid < kBlock) {
-      ls[tid] = lrow[q0 + tid];
-      dls[tid] = drow[q0 + tid];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const float l0 = ls[nt * 8 + 2 * t], l1 = ls[nt * 8 + 2 * t + 1];
-      const float d0 = dls[nt * 8 + 2 * t], d1 = dls[nt * 8 + 2 * t + 1];
-      p[nt][0] = exp2_bf16(p[nt][0] - l0);
-      p[nt][1] = exp2_bf16(p[nt][1] - l1);
-      p[nt][2] = exp2_bf16(p[nt][2] - l0);
-      p[nt][3] = exp2_bf16(p[nt][3] - l1);
-      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
-      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d1));
-      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d0));
-      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
-    }
-    mma_chunk<CW>(adv, p, dot, g, t);    // dV += P^T dO
-    mma_chunk<CW>(adk, ds, qt, g, t);    // dK += dS^T qc
-  }
-
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
-#pragma unroll
-  for (int dt = 0; dt < CW / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + o0 + c) = pack_bf16(adk[dt][0] * kLn2, adk[dt][1] * kLn2);
-    *reinterpret_cast<uint32_t*>(dk + o1 + c) = pack_bf16(adk[dt][2] * kLn2, adk[dt][3] * kLn2);
-    *reinterpret_cast<uint32_t*>(dv + o0 + c) = pack_bf16(adv[dt][0], adv[dt][1]);
-    *reinterpret_cast<uint32_t*>(dv + o1 + c) = pack_bf16(adv[dt][2], adv[dt][3]);
-  }
-}
-
-// Grid (N / 64 * D / CW, H, B), 128 threads; the dQ counterpart: S and dP
-// over the head in 64-column panels, CW columns of dQ a block.
-template <int CW>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ qc,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ d_o, const float* __restrict__ lse,
-                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
-                        int N, int D, Strides s, Strides os, float scale) {
-  using Pan = __nv_bfloat16[kLdp];
-  using Col = __nv_bfloat16[kLdt];
-  extern __shared__ __align__(16) unsigned char smem[];
-  Pan* qp = reinterpret_cast<Pan*>(smem);
-  Pan* dp = qp + kBlock;
-  Pan* kp = qp + 2 * kBlock;
-  Pan* vp = qp + 3 * kBlock;
-  Col* kt = reinterpret_cast<Col*>(qp + 4 * kBlock);   // K^T chunk [c][key]
-
-  const int nchunk = D / CW, c0 = (blockIdx.x % nchunk) * CW;
-  const int q0 = (blockIdx.x / nchunk) * kBlock;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long hrow = ((long long)b * H + h) * N;
-  const float l0 = lse[hrow + r0], l1 = lse[hrow + r1];
-  const float d0 = delta[hrow + r0], d1 = delta[hrow + r1];
-
-  float acc[CW / 8][4];
-#pragma unroll
-  for (int i = 0; i < CW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kBlock) {
-    // S = qc K^T and dP = dO V^T (16 queries x 64 keys a warp)
-    float p[kBlock / 8][4], ds[kBlock / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[nt][j] = ds[nt][j] = 0.f;
-    for (int e0 = 0; e0 < D; e0 += kPanelCols) {
-      __syncthreads();
-      stage_panel(qp, qc, ohead, os.n, q0, e0, tid);   // qc has O's strides
-      stage_panel(dp, d_o, ohead, os.n, q0, e0, tid);
-      stage_panel(kp, k, head, s.n, k0, e0, tid);
-      stage_panel(vp, v, head, s.n, k0, e0, tid);
-      __syncthreads();
-      mma_panel(p, qp, kp, warp, g, t);
-      mma_panel(ds, dp, vp, warp, g, t);
-    }
-    stage_chunk_t<CW>(kt, k, head, s.n, k0, c0, tid);
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      p[nt][0] = exp2_bf16(p[nt][0] - l0);
-      p[nt][1] = exp2_bf16(p[nt][1] - l0);
-      p[nt][2] = exp2_bf16(p[nt][2] - l1);
-      p[nt][3] = exp2_bf16(p[nt][3] - l1);
-      ds[nt][0] = round_bf16(p[nt][0] * round_bf16(round_bf16(ds[nt][0]) - d0));
-      ds[nt][1] = round_bf16(p[nt][1] * round_bf16(round_bf16(ds[nt][1]) - d0));
-      ds[nt][2] = round_bf16(p[nt][2] * round_bf16(round_bf16(ds[nt][2]) - d1));
-      ds[nt][3] = round_bf16(p[nt][3] * round_bf16(round_bf16(ds[nt][3]) - d1));
-    }
-    mma_chunk<CW>(acc, ds, kt, g, t);    // dQ += dS K
-  }
-
-  const long long o0 = ohead + (long long)r0 * os.n + c0, o1 = ohead + (long long)r1 * os.n + c0;
-#pragma unroll
-  for (int dt = 0; dt < CW / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dq + o0 + c) = pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(dq + o1 + c) = pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
-}
+// ---- launchers ----------------------------------------------------------------
 
 template <typename T, int D>
 void launch_preprocess(const void* q, const void* o, const void* d_o, void* qc, float* delta,
@@ -2326,40 +2064,6 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-template <int CW>
-cudaError_t launch_bwd_wide_bf16(const void* k, const void* v, const void* d_o,
-                                 const float* lse, const float* delta, const void* qc, void* dq,
-                                 void* dk, void* dv, int B, int H, int N, int D, Strides s,
-                                 Strides os, float scale, cudaStream_t st) {
-  const dim3 grid(N / kBlock * (D / CW), H, B);
-  constexpr size_t smem = bwd_wide_bf16_smem<CW>();
-  cudaError_t err;
-  if ((err = vst::allow_smem(attn_bwd_dkdv_wide_kernel<CW>, smem)) != cudaSuccess) return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_wide_kernel<CW>, smem)) != cudaSuccess) return err;
-  const bf16 *qcb = static_cast<const bf16*>(qc), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v), *dob = static_cast<const bf16*>(d_o);
-  attn_bwd_dkdv_wide_kernel<CW><<<grid, kThreads, smem, st>>>(
-      qcb, kb, vb, dob, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, D, s,
-      os);
-  attn_bwd_dq_wide_kernel<CW><<<grid, kThreads, smem, st>>>(
-      qcb, kb, vb, dob, lse, delta, static_cast<bf16*>(dq), H, N, D, s, os, scale);
-  return cudaGetLastError();
-}
-
-// bf16 at D > 2048: preprocess (delta and qc), then the column-chunk
-// kernels, in 128-column chunks where D allows, else 64.
-cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
-                            const void* d_o, const float* lse, float* delta, void* qc, void* dq,
-                            void* dk, void* dv, int B, int H, int N, int D, Strides s,
-                            Strides os, float qscale, float scale, cudaStream_t st) {
-  launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
-  return D % 128 == 0
-             ? launch_bwd_wide_bf16<128>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s, os,
-                                         scale, st)
-             : launch_bwd_wide_bf16<64>(k, v, d_o, lse, delta, qc, dq, dk, dv, B, H, N, D, s, os,
-                                        scale, st);
-}
-
 // bf16 at D = 320 to 512: preprocess (delta and qc), then the wgmma
 // dK/dV kernel (ng column groups) and dQ kernel over tensor maps of qc,
 // dO (O's strides) and k, v.
@@ -2445,6 +2149,35 @@ cudaError_t launch_bwd_cluster(const void* q, const void* k, const void* v, cons
 #undef VST_BWD_CLUSTER
 }
 
+// bf16 above D = 2048: preprocess (delta and qc), then dense_attn_scores.cu's
+// kernels (S^T and dP^T into P^T and dS^T, then dV and dK), then the dQ
+// kernel over dS^T. ds holds the two scratches, P^T then dS^T.
+cudaError_t launch_bwd_scores(const void* q, const void* k, const void* v, const void* o,
+                              const void* d_o, const float* lse, float* delta, void* qc,
+                              void* ds, void* dq, void* dk, void* dv, int B, int H, int N, int D,
+                              Strides s, Strides os, float qscale, float scale, cudaStream_t st) {
+  if (ds == nullptr || (long long)B * H * N >= (1ll << 31)) return cudaErrorInvalidValue;
+  bf16* pt = static_cast<bf16*>(ds);
+  bf16* dst = pt + (long long)B * H * N * N;
+  CUtensorMap mds, mk;
+  if (!vst::matrix_tensor_map(&mds, dst, (long long)B * H * N, N) ||
+      !vst::bhnd_tensor_map(&mk, k, B, N, H, D, s.b, s.n, s.h))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = vst::allow_smem(attn_bwd_dq_ds_kernel, kDqDsSmem)) != cudaSuccess) return err;
+  launch_preprocess_wide<bf16>(q, o, d_o, qc, delta, B, H, N, D, s, os, qscale, st);
+  if ((err = vst::launch_attn_bwd_scores(
+           static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(qc),
+           static_cast<const bf16*>(d_o), lse, delta, pt, dst, static_cast<bf16*>(dk),
+           static_cast<bf16*>(dv), B, H, N, D, s.b, s.n, s.h, os.b, os.n, os.h, st)) !=
+      cudaSuccess)
+    return err;
+  const int P = D / 64;
+  attn_bwd_dq_ds_kernel<<<dim3((N + 127) / 128 * dq_ds_groups(P), H, B), kWgmmaThreads,
+                          kDqDsSmem, st>>>(mds, mk, static_cast<bf16*>(dq), H, N, P, os, scale);
+  return cudaGetLastError();
+}
+
 // f32 from D = 192 up: preprocess (delta), then the split-TF32 dK/dV and
 // dQ kernels of dense_attn_tf32_wide.cu, which prescale q themselves (no
 // qc scratch).
@@ -2466,10 +2199,10 @@ cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, co
 // aligned rows; o, dO, dq, dk, dv: [B, N, H, D] with strides (ob, on, oh,
 // 1); lse and delta (scratch): [B, H, N] f32, contiguous; qc (scratch,
 // bf16 only; unused and may be null for f32): [B, N, H, D] with O's
-// strides; ds (scratch, bf16 with 576 <= D <= 2048 only, else unused and
-// may be null): [B H, N, N] bf16, contiguous, dS^T from the dK/dV kernel
-// to the dQ kernel. N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue
-// otherwise).
+// strides; ds (scratch, bf16 from D = 576 only, else unused and may be
+// null): [B H, N, N] bf16, contiguous, dS^T from the dK/dV kernel to the
+// dQ kernel, and above D = 2048 two of them, P^T then dS^T. N % 64 == 0,
+// D % 64 == 0 (cudaErrorInvalidValue otherwise).
 // The caller checks all of it.
 // Launches preprocess, dK/dV and dQ in order on `stream`; returns
 // cudaGetLastError() after the launches.
@@ -2511,8 +2244,8 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
         err = launch_bwd_cluster(q, k, v, o, d_o, l, dl, qc, ds, dq, dk, dv, B, H, N, D, s, os,
                                  qscale, scale, st);
       } else {
-        err = launch_bwd_wide(q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, D, s, os, qscale,
-                              scale, st);
+        err = launch_bwd_scores(q, k, v, o, d_o, l, dl, qc, ds, dq, dk, dv, B, H, N, D, s, os,
+                                qscale, scale, st);
       }
   }
 #undef VST_BWD_ARGS

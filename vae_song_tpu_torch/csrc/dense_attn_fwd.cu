@@ -1,6 +1,7 @@
 // Dense attention forward for Hopper (sm_90a), [B, N, H, D] layout read
 // through strides, any head width D % 64 == 0 (f32 from D = 192 up:
-// dense_attn_tf32_wide.cu, launched from the dispatch below).
+// dense_attn_tf32_wide.cu, bf16 above 2048: dense_attn_scores.cu, both
+// launched from the dispatch below).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_fwd_kernel_packed (K1, called
 // through _call_fwd_packed: 64-wide heads in pairs) and
@@ -122,10 +123,11 @@
 // beside the tensor cores: the cluster sums' traffic through the SMs'
 // network (about 43 KB a CTA a key tile) and their two waits a tile, in
 // which the warpgroup issues no product. The kernel is compiled for each
-// C (the sum's loops unroll). Wider bf16 heads take the mma.sync
-// column-chunk kernel (64-row tiles staged synchronously, each chunk of
-// 128 or 64 output columns recomputing the scores), whose design fits
-// shared memory at every width.
+// C (the sum's loops unroll). Wider bf16 heads take the kernels of
+// dense_attn_scores.cu, which write the scores out: the dense gate caps N
+// at 2048, so there a head's [N, N] scores are smaller than its q [N, D],
+// and the forward is S2 = qc k^T into an f32 scratch, a row pass and O =
+// P V, each a product made once (4 B H N^2 D).
 //
 // f32 inputs (mixed_precision: false) at D = 64 and 128: a split-TF32
 // mma.sync kernel (mma_tf32.cuh), the f32 path of the same two TPU
@@ -161,6 +163,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "dense_attn_scores.cuh"
 #include "dense_attn_tf32_wide.cuh"
 #include "mma_tf32.cuh"
 #include "sm90.cuh"
@@ -168,11 +171,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using vst::acc_to_a;
-using vst::exp2_bf16;
-using vst::ld_u32;
-using vst::load_a_chunk;
-using vst::mma_16816;
 using vst::pack_bf16;
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -1123,178 +1121,6 @@ dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// ---- bf16, D > 2048, any D % 64 == 0: column-chunk kernels -------------------
-
-constexpr int kBlockQ = 64;       // query rows per block (4 warps x 16 rows)
-constexpr int kBlockK = 64;       // keys per shared-memory tile
-constexpr int kThreads = 128;
-constexpr int kWidePanel = 64;     // columns of q and k staged at a time
-constexpr int kLdp = kWidePanel + 8;
-
-// bf16: shared tiles of one 64-column panel of qc and of k, and the
-// chunk's V^T, rows padded by 8 elements.
-template <int CW>
-constexpr size_t fwd_wide_bf16_smem() {
-  return (2 * kBlockQ * kLdp + CW * (kBlockK + 8)) * sizeof(__nv_bfloat16);
-}
-
-// Grid (N / 64 * D / CW, H, B), 128 threads; block x = 64-query tile *
-// D / CW + column chunk. An mma.sync kernel (m16n8k16; warp w owns query
-// rows 16 w .. + 15) with D a runtime multiple of 64: S is accumulated
-// over the head in 64-column panels of qc and k staged through shared
-// memory, 64 keys a tile, and the block computes CW columns of O from a
-// transposed V chunk, so no width is too wide for shared memory; each
-// column chunk recomputes the scores. Chunk 0 writes LSE2.
-template <int CW>
-__global__ void __launch_bounds__(kThreads)
-dense_attn_fwd_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
-                                int N, int D, long long sb, long long sn, long long sh,
-                                long long ob, long long on, long long oh, float qscale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto qs = reinterpret_cast<__nv_bfloat16 (*)[kLdp]>(smem);
-  auto ks = qs + kBlockQ;
-  auto vt = reinterpret_cast<__nv_bfloat16 (*)[kBlockK + 8]>(ks + kBlockK);   // V^T chunk
-
-  const int nchunk = D / CW, chunk = blockIdx.x % nchunk, c0 = chunk * CW;
-  const int q0 = (blockIdx.x / nchunk) * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * sb + (long long)h * sh;
-
-  float acc[CW / 8][4];
-#pragma unroll
-  for (int i = 0; i < CW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kBlockK) {
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWidePanel) {
-      __syncthreads();   // every warp is done with the previous panels
-      for (int i = tid; i < kBlockQ * kWidePanel / 8; i += kThreads) {
-        const int r = i / (kWidePanel / 8), c = (i % (kWidePanel / 8)) * 8;
-        uint4 raw = *reinterpret_cast<const uint4*>(q + head + (long long)(q0 + r) * sn + d0 + c);
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
-        *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
-        *reinterpret_cast<uint4*>(&ks[r][c]) =
-            *reinterpret_cast<const uint4*>(k + head + (long long)(k0 + r) * sn + d0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWidePanel / 16; ++kk) {
-        uint32_t a[4];
-        load_a_chunk<kLdp>(qs, warp * 16, kk, g, t, a);
-#pragma unroll
-        for (int nt = 0; nt < kBlockK / 8; ++nt) {
-          const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-          mma_16816(s[nt], a, ld_u32(kr), ld_u32(kr + 8));
-        }
-      }
-    }
-    // V^T of this chunk's columns
-    for (int i = tid; i < kBlockK * CW / 8; i += kThreads) {
-      const int r = i / (CW / 8), c = (i % (CW / 8)) * 8;
-      uint4 raw = *reinterpret_cast<const uint4*>(v + head + (long long)(k0 + r) * sn + c0 + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[c + j][r] = e[j];
-    }
-
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      t0 = fmaxf(t0, fmaxf(s[nt][0], s[nt][1]));
-      t1 = fmaxf(t1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
-    const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);   // 0 on the first tile
-    m0 = n0;
-    m1 = n1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = exp2_bf16(s[nt][0] - n0);
-      s[nt][1] = exp2_bf16(s[nt][1] - n0);
-      s[nt][2] = exp2_bf16(s[nt][2] - n1);
-      s[nt][3] = exp2_bf16(s[nt][3] - n1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-#pragma unroll
-    for (int dt = 0; dt < CW / 8; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
-    }
-    __syncthreads();   // V^T is complete
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(s, kc, pa);
-#pragma unroll
-      for (int dt = 0; dt < CW / 8; ++dt) {
-        const __nv_bfloat16* vr = &vt[dt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(acc[dt], pa, ld_u32(vr), ld_u32(vr + 8));
-      }
-    }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* o0 = o + (long long)b * ob + (long long)r0 * on + (long long)h * oh + c0;
-  __nv_bfloat16* o1 = o + (long long)b * ob + (long long)r1 * on + (long long)h * oh + c0;
-#pragma unroll
-  for (int dt = 0; dt < CW / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o0 + dt * 8 + 2 * t) = pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    *reinterpret_cast<uint32_t*>(o1 + dt * 8 + 2 * t) = pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (chunk == 0 && t == 0) {
-    float* lrow = lse + ((long long)b * H + h) * N;
-    lrow[r0] = m0 + log2f(l0);
-    lrow[r1] = m1 + log2f(l1);
-  }
-}
-
-// bf16 at D > 2048: the column-chunk kernels, in 128-column chunks where D
-// allows, else 64.
-cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int B, int H, int N, int D, long long sb, long long sn, long long sh,
-                            long long ob, long long on, long long oh, float qscale,
-                            cudaStream_t st) {
-  cudaError_t err;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  if (D % 128 == 0) {
-    constexpr size_t smem = fwd_wide_bf16_smem<128>();
-    if ((err = vst::allow_smem(dense_attn_fwd_wide_bf16_kernel<128>, smem)) != cudaSuccess)
-      return err;
-    dense_attn_fwd_wide_bf16_kernel<128><<<dim3(N / kBlockQ * (D / 128), H, B), kThreads, smem,
-                                           st>>>(qb, kb, vb, static_cast<bf16*>(o),
-                                                 static_cast<float*>(lse), H, N, D, sb, sn, sh,
-                                                 ob, on, oh, qscale);
-  } else {
-    constexpr size_t smem = fwd_wide_bf16_smem<64>();
-    if ((err = vst::allow_smem(dense_attn_fwd_wide_bf16_kernel<64>, smem)) != cudaSuccess)
-      return err;
-    dense_attn_fwd_wide_bf16_kernel<64><<<dim3(N / kBlockQ * (D / 64), H, B), kThreads, smem,
-                                          st>>>(qb, kb, vb, static_cast<bf16*>(o),
-                                                static_cast<float*>(lse), H, N, D, sb, sn, sh,
-                                                ob, on, oh, qscale);
-  }
-  return cudaGetLastError();
-}
-
 // bf16 at D = 320 to 512: the wgmma kernel with the scores split, over
 // tensor maps of q, k, v.
 cudaError_t launch_fwd_wider(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1411,11 +1237,13 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o: [B, N, H, D] with strides (ob, on, oh, 1); lse:
-// [B, H, N] f32, contiguous. N % 64 == 0, D % 64 == 0
+// [B, H, N] f32, contiguous; scratch (bf16 with D > 2048 only, else
+// unused and may be null): attn_scores_fwd_scratch(B, H, N, D) bytes,
+// 16-byte aligned (dense_attn_scores.cuh). N % 64 == 0, D % 64 == 0
 // (cudaErrorInvalidValue otherwise). The caller checks all of it.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
-                                  const void* v, void* o, void* lse, int B,
+                                  const void* v, void* o, void* lse, void* scratch, int B,
                                   int H, int N, int D, long long sb, long long sn,
                                   long long sh, long long ob, long long on,
                                   long long oh, float qscale, void* stream) {
@@ -1447,7 +1275,10 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
       } else if (D <= 2048) {
         err = launch_fwd_cluster(VST_FWD_ARGS_WIDE);
       } else {
-        err = launch_fwd_wide(VST_FWD_ARGS_WIDE);
+        err = vst::launch_attn_fwd_scores(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+            scratch, B, H, N, D, sb, sn, sh, ob, on, oh, qscale, st);
       }
   }
 #undef VST_FWD_ARGS

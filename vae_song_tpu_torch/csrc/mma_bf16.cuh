@@ -1,18 +1,17 @@
-// bf16 helpers shared by the attention forward (dense_attn_fwd.cu) and
-// backward (dense_attn_bwd.cu), whose P is computed by one code path in
-// both directions: p_pair in the wgmma kernels (D = 64 to 256),
-// exp2_bf16 in the mma.sync kernels (D > 512), the same
-// roundings; and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu). allow_smem,
-// at the end, is the one grant of dynamic shared memory every kernel uses.
+// bf16 helpers shared by the attention forward (dense_attn_fwd.cu), its
+// backward (dense_attn_bwd.cu) and the kernels for heads wider than 2048
+// (dense_attn_scores.cu), whose P and dS are computed by one code path in
+// every direction (p_pair, ds_pair: the same roundings), and by the fused
+// FFN (ffn_fwd.cu, ffn_bwd.cu). allow_smem, at the end, is the one grant
+// of dynamic shared memory every kernel uses.
 //
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) fragment layouts, lane =
-// 4 g + t:
-//   A (16x16, row): a0 = A[g][2t..2t+1],  a1 = A[g+8][2t..2t+1],
-//                   a2 = A[g][2t+8..],    a3 = A[g+8][2t+8..]
-//   B (16x8, col):  b0 = B[2t..2t+1][g],  b1 = B[2t+8..2t+9][g]
-//   C (16x8):       c0, c1 = C[g][2t, 2t+1],  c2, c3 = C[g+8][2t, 2t+1]
-// So the accumulator of two neighbouring 8-column n-tiles is the A
-// operand of one 16-deep product, without going through shared memory.
+// A warp's share of a wgmma accumulator has mma.sync m16n8k16's C layout
+// (lane = 4 g + t): c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1] of
+// each 8-column n-tile; a register A operand has its A layout, a0 =
+// A[g][2t..2t+1], a1 = A[g+8][2t..2t+1], a2 = A[g][2t+8..], a3 =
+// A[g+8][2t+8..]. So two neighbouring n-tiles of an accumulator, packed
+// as bf16 pairs, are the A operand of one 16-deep product, without going
+// through shared memory.
 
 #pragma once
 
@@ -40,22 +39,6 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// P = exp2 of the bf16-rounded base-2 logit, rounded to bf16: the
-// roundings of the TPU kernel's bf16 softmax pass (denseattn.py:422, 468).
-__device__ __forceinline__ float exp2_bf16(float s_minus_m) {
-  return round_bf16(exp2f(round_bf16(s_minus_m)));
-}
-
 // The two bf16 values of a packed pair (pack_bf16's lo, hi) as f32.
 __device__ __forceinline__ float bf16_lo(uint32_t pair) { return __uint_as_float(pair << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t pair) {
@@ -73,9 +56,11 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// exp2_bf16 of two neighbouring columns (below 2^-126 flushed to 0, see
-// ex2_ftz), packed as bf16x2 in the layout of a wgmma A fragment
-// (acc_to_a's): each rounding to bf16 is one conversion for two values.
+// P of two neighbouring columns: exp2 of the bf16-rounded base-2 logit,
+// rounded to bf16, the roundings of the TPU kernel's bf16 softmax pass
+// (denseattn.py:422, 468), below 2^-126 flushed to 0 (see ex2_ftz);
+// packed as bf16x2 in the layout of a wgmma A fragment (the header's):
+// each rounding to bf16 is one conversion for two values.
 // Conversions issue at a fraction of the FMA rate; one value per
 // conversion set the time of the first attention kernels.
 __device__ __forceinline__ uint32_t p_pair(float x0, float x1) {
@@ -83,24 +68,20 @@ __device__ __forceinline__ uint32_t p_pair(float x0, float x1) {
   return pack_bf16(ex2_ftz(bf16_lo(a)), ex2_ftz(bf16_hi(a)));
 }
 
-// A fragment of one 16-deep chunk kc of a 16 x 64 accumulator block
-// (8 n-tiles of 8 columns): columns 16 kc .. 16 kc + 15.
-__device__ __forceinline__ void acc_to_a(const float c[][4], int kc, uint32_t a[4]) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+// dS = round(P * round(round(dP) - delta)) for two columns, with P and
+// delta packed bf16x2. The bf16x2 subtract and multiply round their exact
+// results once; on bf16 operands that is what the f32 operation followed
+// by a rounding to bf16 gives (the f32 difference of two bf16 values is
+// exact, or within 2^-16 of the larger one; their product is exact).
+// ds_packed takes dP already rounded and packed (dpr).
+__device__ __forceinline__ uint32_t ds_packed(uint32_t p, uint32_t dpr, uint32_t dd) {
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&p),
+                                   __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&dpr),
+                                           *reinterpret_cast<const __nv_bfloat162*>(&dd)));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
-
-// A fragment of rows r0 .. r0 + 15, columns 16 kk .. 16 kk + 15, of a
-// [rows][LD] bf16 shared tile.
-template <int LD>
-__device__ __forceinline__ void load_a_chunk(const __nv_bfloat16 (*tile)[LD], int r0, int kk,
-                                             int g, int t, uint32_t a[4]) {
-  a[0] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t]);
-  a[1] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t]);
-  a[2] = ld_u32(&tile[r0 + g][kk * 16 + 2 * t + 8]);
-  a[3] = ld_u32(&tile[r0 + g + 8][kk * 16 + 2 * t + 8]);
+__device__ __forceinline__ uint32_t ds_pair(uint32_t p, float dp0, float dp1, uint32_t dd) {
+  return ds_packed(p, pack_bf16(dp0, dp1), dd);
 }
 
 // Dynamic shared memory above the 48 KB a launch gets by default must be

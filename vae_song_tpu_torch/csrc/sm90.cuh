@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, wgmma with shared-memory descriptors, register
 // reallocation, thread-block clusters and the sum of a tile over a
-// cluster. Used by the attention forward (dense_attn_fwd.cu) and backward
-// (dense_attn_bwd.cu) at head widths 64 to 2048, and by the fused FFN
-// (ffn_fwd.cu, ffn_bwd.cu).
+// cluster. Used by the bf16 attention forward (dense_attn_fwd.cu) and
+// backward (dense_attn_bwd.cu) at head widths 64 to 2048, by the bf16
+// attention kernels for wider heads (dense_attn_scores.cu), and by the
+// fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel

@@ -55,8 +55,23 @@ kernel through a bf16 scratch of [B H, N, N] that `_launch_bwd`
 allocates, so every product is made once: 4 B H N^2 D forward, 10 B H
 N^2 D backward (counted apart in `wgmma_cluster_fwd.launches` and
 `wgmma_cluster_bwd.launches` as well).
-Wider bf16 heads run mma.sync column-chunk kernels that stream the head
-through shared memory in 64-column panels.
+bf16 heads wider than 2048 (`num_heads: 1` at d_model 2112 and up) take
+the wgmma/TMA kernels of csrc/dense_attn_scores.cu, which write the
+scores out: the dense gate caps N at 2048, so there D > N and one head's
+[N, N] scores are smaller than its q [N, D], while a block can hold
+neither a tile of q nor a row block's output at that width. The forward
+is qc, then S2 = qc k^T into an f32 scratch, a row pass (the exact row
+max, P into a bf16 scratch, 1 / l and LSE2) and O = P V, each product a
+grid of 128 x 128 tiles fed by TMA through a ring of 64-deep stages; the
+backward writes P^T and dS^T into bf16 scratches from one kernel that
+computes S^T and dP^T for the same tile, then dV = P^T dO, dK = ln2 dS^T
+qc and dQ = scale dS K (the cluster route's dQ kernel) are products of
+their own: 4 B H N^2 D forward, 10 B H N^2 D backward, each product made
+once. `_launch_fwd` allocates the forward's scratch
+(`scores_fwd_scratch_bytes`: 2.2 GB at B = 64, N = 2048, D = 2304),
+`_launch_bwd` the backward's two [B H, N, N] bf16 scratches (1 GiB);
+counted apart in `wgmma_scores_fwd.launches` and
+`wgmma_scores_bwd.launches` as well.
 
 The forward computes, per (batch, head):
 
@@ -76,9 +91,11 @@ reshapes to [B, N, H*D] for free) and LSE2 as [B, H, N]; the JAX packed
 kernel's `lse_a` / `lse_b` [B, H/2, N, 1] are heads 2j and 2j + 1 of it,
 its BHND kernel's [B, H, N, 1] is it.
 
-The kernel keeps an online softmax (running exact max), so under bf16 it
-rounds P against the running max where the plain version and the TPU
-kernels use the final row max: the two agree within bf16 rounding.
+The kernels up to D = 2048 keep an online softmax (running exact max), so
+under bf16 they round P against the running max where the plain version
+and the TPU kernels use the final row max: the two agree within bf16
+rounding. The kernels for wider heads take the whole-row max, as the
+plain version does.
 
 The backward recomputes P from LSE2 and follows the TPU kernels'
 roundings (cd = bf16 for bf16 inputs, f32 for f32 inputs):
@@ -179,18 +196,29 @@ def _check_kernel_operands(q, k, v):
         )
 
 
+def scores_fwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the forward scratch of the kernels for bf16 heads wider
+    than 2048 (csrc/dense_attn_scores.cuh: attn_scores_fwd_scratch): S2
+    f32 and P bf16 [B H, N, N], qc bf16 [B, N, H, D], 1 / l f32 [B H, N]."""
+    bhn = b * h * n
+    return 6 * bhn * n + 2 * bhn * d + 4 * bhn
+
+
 def _launch_fwd(q, k, v, scale):
     _check_kernel_operands(q, k, v)
     b, n, h, d = q.shape
     sb, sn, sh, _ = q.stride()
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    # the kernels for bf16 heads wider than 2048 write the scores out
+    scratch = (torch.empty(scores_fwd_scratch_bytes(b, h, n, d), dtype=torch.uint8,
+                           device=q.device) if wgmma_scores(q.dtype, d) else None)
     ob, on, oh, _ = o.stride()
     _kernels.launch(
         "vst_dense_attn_fwd", q.device,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, n, d, sb, sn, sh, ob, on, oh,
-        float(scale * LOG2E),
+        o.data_ptr(), lse.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        b, h, n, d, sb, sn, sh, ob, on, oh, float(scale * LOG2E),
     )
     return o, lse
 
@@ -243,10 +271,12 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     # the bf16 kernels read qc from a scratch in O's layout, written by
     # their preprocess pass; the cluster kernels for heads of 576 to 2048
     # hand dS^T from the dK/dV kernel to the dQ kernel through a scratch
-    # of [B H, N, N] bf16 (512 MiB at B = 64, H = 1, N = 2048)
+    # of [B H, N, N] bf16 (512 MiB at B = 64, H = 1, N = 2048), and the
+    # kernels for wider heads write P^T and dS^T into two such scratches
     qc = torch.empty_like(o) if q.dtype == torch.bfloat16 else None
-    ds = (torch.empty((b * h, n, n), dtype=torch.bfloat16, device=q.device)
-          if wgmma_cluster(q.dtype, d) else None)
+    tiles = 2 if wgmma_scores(q.dtype, d) else 1 if wgmma_cluster(q.dtype, d) else 0
+    ds = (torch.empty((tiles * b * h, n, n), dtype=torch.bfloat16, device=q.device)
+          if tiles else None)
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     _kernels.launch(
@@ -313,8 +343,23 @@ MAX_CLUSTER_HEAD = 2048
 def wgmma_cluster(dtype, d: int) -> bool:
     """Whether the kernels take operands of `dtype` with heads of `d` to
     the bf16 cluster kernels for heads of 576 to 2048: the dispatch's rule
-    (wider bf16 heads take the mma.sync column-chunk kernels)."""
+    (wider bf16 heads: `wgmma_scores`)."""
     return dtype == torch.bfloat16 and 512 < d <= MAX_CLUSTER_HEAD
+
+
+# Launches of the bf16 kernels for heads wider than 2048 (wgmma/TMA
+# products over written-out scores, csrc/dense_attn_scores.cu), which
+# either route's wrapper may take; each is also counted on its route's
+# wrapper.
+wgmma_scores_fwd = types.SimpleNamespace(launches=0)
+wgmma_scores_bwd = types.SimpleNamespace(launches=0)
+
+
+def wgmma_scores(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    the bf16 kernels over written-out scores for heads wider than 2048:
+    the dispatch's rule."""
+    return dtype == torch.bfloat16 and d > MAX_CLUSTER_HEAD
 
 
 def cluster_ctas(d: int) -> int:
@@ -359,6 +404,8 @@ def _forward(q, k, v, scale, counter):
         wgmma_wider_fwd.launches += 1
     if wgmma_cluster(q.dtype, q.shape[-1]):
         wgmma_cluster_fwd.launches += 1
+    if wgmma_scores(q.dtype, q.shape[-1]):
+        wgmma_scores_fwd.launches += 1
     return out
 
 
@@ -376,6 +423,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
         wgmma_wider_bwd.launches += 1
     if wgmma_cluster(q.dtype, q.shape[-1]):
         wgmma_cluster_bwd.launches += 1
+    if wgmma_scores(q.dtype, q.shape[-1]):
+        wgmma_scores_bwd.launches += 1
     return out
 
 
