@@ -22,7 +22,11 @@ non-zero exit code:
      on random clouds and on skewed ones, also bitwise equal to its plain
      version run on the CPU), the fused FFN forward (K6f) and backward
      (K6b), each also at the widths its route takes past the shipped
-     config (heads of 192 to 4096, FFN widths of 384 and 512); K1, K2,
+     config (heads of 192 to 4096, FFN widths of 384 and 512; the f32 FFN,
+     split TF32, also on inputs whose products need the split, at the f32
+     VST_FUSED_FFN=1 path's M = 131072 and at D = 384, F = 1536, held to
+     a float64 version and no farther from it than the plain version,
+     beside the split-TF32 and FMA bounds); K1, K2,
      K4 and K5 also at phase 8's microbatch of 32 clouds. No kernel
      uses floating-point atomics: a second call on the same inputs must
      give the same bits. Beside the fused FFN the unfused Dense -> ReLU -> Dense
@@ -102,7 +106,12 @@ non-zero exit code:
      2304): the same, every K3f and K3b launch on the kernels over
      written-out scores for heads wider than 2048 (their own counters), K4
      and K5 too, and no other kernel; then the peak device memory of its
-     steps.
+     steps. (8) the shipped SetVAE config with `mixed_precision: false` and
+     VST_FUSED_FFN=1: one fake-data epoch of `train_and_test`, the train
+     step's ms/step beside the same call's f32 step without the fused FFN
+     (4b), and the eval step's ms/batch; K1, K2, K4, K5, K6f and K6b must
+     launch, every K6f and K6b launch on the split-TF32 kernels (their own
+     counters), and no other kernel.
   4d. routes: the shipped SetVAE eval step at full width once under each
      of the JAX package's attention switches (VST_DISABLE_DENSE_ATTN=1,
      VST_DENSE_ATTN_PACKED=0, VST_FUSED_QKV=1), the launch counters
@@ -118,7 +127,8 @@ non-zero exit code:
      running its own kernels for wide heads; d_model 512 with one head in
      bf16, on the kernels for heads of 320 to 512; d_model 768 with one
      head in bf16, on the cluster kernels; d_model 2304 with one head in
-     bf16, on the kernels over written-out scores).
+     bf16, on the kernels over written-out scores; VST_FUSED_FFN=1 in both,
+     f32 on the split-TF32 FFN kernels).
   6. the DeepSets SetVAE: the shipped SetVAE config with `use_attention:
      false` (the MLP encoder and decoder with BatchNorm at the config's
      encoder_hidden / decoder_hidden widths, B = 64, N = 2048, f32): the
@@ -234,7 +244,9 @@ heads of 576 to 2048, the rows `dense_attn_wgmma_cluster_fwd` and `_bwd`,
 at the d_model 768 path's B = 64, D = 768 case, launches from 4c (6),
 and the bf16 kernels over written-out scores for heads wider than 2048,
 the rows `dense_attn_wgmma_scores_fwd` and `_bwd`, at the d_model 2304
-path's B = 64, D = 2304 case, launches from 4c (7)),
+path's B = 64, D = 2304 case, launches from 4c (7), and the f32
+split-TF32 FFN kernels, the rows `ffn_tf32_fwd` and `_bwd`, at the f32
+path's M = 131072 case, launches from 4c (8)),
 the numbers phase 3 measured and the bound it computed, and under `paths`
 its launches on each path of phases 6-14 (zero on phases 9-11).
 The last two lines are that JSON line and the result line.
@@ -473,7 +485,13 @@ K5_TOL = 1e-6
 # column of dW1). What is left is the order of the later f32 sums before
 # each output's one rounding: bf16 2^-6 of max|out| (two output ulps),
 # f32 1e-5 of max|out|, as for the attention kernels. Measured (H100):
-# 0, bitwise, in both dtypes.
+# 0, bitwise, in both dtypes (f32 on the split-TF32 kernels too).
+# The f32 cases of K6_F32_CASES take x, W1 and b1 on the grid (the same
+# mask everywhere) but dy, W2 and b2 at full f32 mantissa, so that every
+# other product needs the small half of the split (one-pass TF32 misses
+# K6_F32_TOL there 18-37x, tests/test_torch_ffn_f32split.py); they are held
+# to a float64 version of the function and must lie no farther from it
+# than the plain version.
 K6_BF16_TOL = 2.0 ** -6
 K6_F32_TOL = 1e-5
 
@@ -549,6 +567,11 @@ K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
 # the shipped widths, wider models' widths, then a smaller M in f32
 K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (16 * 2048, 384, 1536, torch.bfloat16),
             (16 * 2048, 512, 2048, torch.bfloat16), (8192, 256, 512, torch.float32))
+# f32 on the inputs that need the split (M, D, F), held to float64: the
+# shape of the f32 VST_FUSED_FFN=1 path (phase 4c (8)), whose numbers the
+# JSON line's ffn_tf32_* rows report, and a wider model's widths
+K6_F32_PATH_CASE = (BATCH * NPTS, 256, 512)
+K6_F32_CASES = (K6_F32_PATH_CASE, (8192, 384, 1536))
 # Phase 4d: the JAX package's attention switches, each with the attention
 # kernels it must launch on the shipped config's eval step and those it
 # must not
@@ -956,34 +979,66 @@ def check_chamfer_bwd(dev, gen):
     return res
 
 
-def _ffn_inputs(m, d, f, dtype, gen, dev):
+def _ffn_inputs(m, d, f, dtype, gen, dev, mixed=False):
     """x, dy, w1 [F, D], b1, w2 [D, F], b2 on the grid K6_*_TOL explains:
-    every value a small integer times a power of two."""
+    every value a small integer times a power of two; with `mixed` dy, w2
+    and b2 at full f32 mantissa instead."""
     grid = lambda shape, sd, step: (
         torch.randn(shape, generator=gen, device=dev) * sd / step).round().clamp(-64, 64) * step
-    x, dy = grid((m, d), 1.0, 1 / 8), grid((m, d), 1.0, 1 / 8)
-    w1, w2 = grid((f, d), d ** -0.5, 1 / 256), grid((d, f), f ** -0.5, 1 / 256)
-    b1, b2 = grid((f,), 0.05, 1 / 2048), grid((d,), 0.05, 1 / 2048)
+    full = lambda shape, sd, step: torch.randn(shape, generator=gen, device=dev) * sd
+    other = full if mixed else grid
+    x, dy = grid((m, d), 1.0, 1 / 8), other((m, d), 1.0, 1 / 8)
+    w1, w2 = grid((f, d), d ** -0.5, 1 / 256), other((d, f), f ** -0.5, 1 / 256)
+    b1, b2 = grid((f,), 0.05, 1 / 2048), other((d,), 0.05, 1 / 2048)
     return [t.to(dtype) for t in (x, dy, w1, b1, w2, b2)]
 
 
+def _ffn_f64(x, dy, w1, b1, w2, b2):
+    """The fused FFN's y and five gradients (dx, dw1, db1, dw2, db2) in
+    float64, the port's layout."""
+    x, dy, w1, b1, w2, b2 = (t.double() for t in (x, dy, w1, b1, w2, b2))
+    h = torch.relu(x @ w1.t() + b1)
+    dh = (dy @ w2) * (h > 0)
+    return (h @ w2.t() + b2 + x, dh @ w1 + dy, dh.t() @ x, dh.sum(0), dy.t() @ h, dy.sum(0))
+
+
 def check_ffn(dev, gen):
-    """The fused FFN forward (K6f) and backward (K6b) against their plain
-    versions at each case of K6_CASES, with the unfused Dense -> ReLU ->
-    Dense composition timed beside them as a reference (there is no one
-    PyTorch call for the fused function: library_ms is null)."""
+    """The fused FFN forward (K6f) and backward (K6b) at each case of
+    K6_CASES against their plain versions, and in f32 at each case of
+    K6_F32_CASES against a float64 version (and no farther from it than
+    the plain version), with the unfused Dense -> ReLU -> Dense
+    composition timed beside them as a reference (there is no one PyTorch
+    call for the fused function: library_ms is null). f32 bounds are split
+    TF32's (3 x operations at PEAK_TF32), the FMA bound printed beside.
+    Returns the JSON fields of K6_CASES[0] and of K6_F32_PATH_CASE (f32
+    max_abs_err: the largest over the f32 cases)."""
     res_f, res_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
-    for i, (m, d, f, dtype) in enumerate(K6_CASES):
-        x, dy, w1, b1, w2, b2 = _ffn_inputs(m, d, f, dtype, gen, dev)
+    f32_f, f32_b = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    cases = [(c, False) for c in K6_CASES] + [((*c, torch.float32), True) for c in K6_F32_CASES]
+    for i, ((m, d, f, dtype), mixed) in enumerate(cases):
+        x, dy, w1, b1, w2, b2 = _ffn_inputs(m, d, f, dtype, gen, dev, mixed)
         y = ffn.fused_ffn_fwd(x, w1, b1, w2, b2)
         got = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
         torch.cuda.synchronize()
         y_ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
         want = ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2)
         tol = K6_BF16_TOL if dtype == torch.bfloat16 else K6_F32_TOL
-        err_y, tol_y = _max_err(y, y_ref), tol * float(y_ref.float().abs().max())
-        errs = [_max_err(g_, w_) for g_, w_ in zip(got, want)]
-        bounds = [tol * float(w_.float().abs().max()) for w_ in want]
+        tag = f"fused_ffn M={m} D={d} F={f} {str(dtype)[6:]}" + (" mixed" if mixed else "")
+        closer = True
+        if mixed:
+            oracle_y, *oracle = _ffn_f64(x, dy, w1, b1, w2, b2)
+            kernel = [_max_err(y, oracle_y)] + [_max_err(g_, w_) for g_, w_ in zip(got, oracle)]
+            plain = [_max_err(y_ref, oracle_y)] + [_max_err(p_, w_) for p_, w_ in zip(want, oracle)]
+            closer = all(k <= p for k, p in zip(kernel, plain))
+            print(f"{tag} vs float64: y, dx, dw1, db1, dw2, db2 kernel "
+                  + ", ".join(f"{e:.3e}" for e in kernel) + ", plain "
+                  + ", ".join(f"{e:.3e}" for e in plain) + " (max| | "
+                  + ", ".join(f"{float(t.abs().max()):.3f}" for t in (oracle_y, *oracle)) + ")")
+        else:
+            oracle_y, oracle = y_ref, want
+        err_y, tol_y = _max_err(y, oracle_y), tol * float(oracle_y.float().abs().max())
+        errs = [_max_err(g_, w_) for g_, w_ in zip(got, oracle)]
+        bounds = [tol * float(w_.float().abs().max()) for w_ in oracle]
         ms_f = _sync_ms(lambda: ffn.fused_ffn_fwd(x, w1, b1, w2, b2), 10)
         ms_b = _sync_ms(lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2), 10)
         plain_f = _sync_ms(lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2), 3, 1)
@@ -1001,35 +1056,51 @@ def check_ffn(dev, gen):
         ref_fb = _sync_ms(lambda: torch.autograd.grad(unfused(*leaves), leaves, dy), 10)
         es = x.element_size()
         wbytes = es * (2 * d * f + f + d)
-        bound_f = _bound(4.0 * m * d * f, es * 2 * m * d + wbytes, dtype)
-        bound_b = _bound(10.0 * m * d * f, es * 3 * m * d + 2 * wbytes, dtype)
-        tag = f"fused_ffn M={m} D={d} F={f} {str(dtype)[6:]}"
-        print(f"{tag} fwd: max|dy| {err_y:.3e} (bound {tol_y:.3e}); kernel {ms_f:.4f} ms "
-              f"({4.0 * m * d * f / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, bound "
-              f"{bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}); unfused Dense-ReLU-Dense "
-              f"reference {ref_f:.4f} ms, cuBLASLt bias+ReLU epilogue reference {epi_f:.4f} ms")
-        print(f"{tag} bwd: max|d dx,dw1,db1,dw2,db2| "
+        ops_f, ops_b = 4.0 * m * d * f, 10.0 * m * d * f
+        # f32: three TF32 products a product (split TF32)
+        mul, peak = (1, None) if dtype == torch.bfloat16 else (3, PEAK_TF32)
+        bound_f = _bound(mul * ops_f, es * 2 * m * d + wbytes, dtype, peak)
+        bound_b = _bound(mul * ops_b, es * 3 * m * d + 2 * wbytes, dtype, peak)
+        fma = ("" if dtype == torch.bfloat16 else
+               f" (split TF32; FMA bound {ops_f / PEAK_F32 * 1e3:.4f} ms)")
+        fma_b = ("" if dtype == torch.bfloat16 else
+                 f" (split TF32; FMA bound {ops_b / PEAK_F32 * 1e3:.4f} ms)")
+        against = "float64" if mixed else "the plain version"
+        print(f"{tag} fwd: max|dy| from {against} {err_y:.3e} (bound {tol_y:.3e}); kernel "
+              f"{ms_f:.4f} ms ({ops_f / ms_f / 1e9:.1f} TFLOP/s), plain {plain_f:.4f} ms, bound "
+              f"{bound_f['bound_ms']:.4f} ms ({bound_f['bound_by']}){fma}; unfused "
+              f"Dense-ReLU-Dense reference {ref_f:.4f} ms, cuBLASLt bias+ReLU epilogue "
+              f"reference {epi_f:.4f} ms")
+        print(f"{tag} bwd: max|d dx,dw1,db1,dw2,db2| from {against} "
               + ", ".join(f"{e:.3e} (bound {t:.3e})" for e, t in zip(errs, bounds))
-              + f"; kernel {ms_b:.4f} ms ({10.0 * m * d * f / ms_b / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_b:.4f} ms, bound {bound_b['bound_ms']:.4f} ms ({bound_b['bound_by']}); "
-              f"unfused reference forward + backward {ref_fb:.4f} ms; K6f + K6b "
+              + f"; kernel {ms_b:.4f} ms ({ops_b / ms_b / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_b:.4f} ms, bound {bound_b['bound_ms']:.4f} ms ({bound_b['bound_by']})"
+              f"{fma_b}; unfused reference forward + backward {ref_fb:.4f} ms; K6f + K6b "
               f"{ms_f + ms_b:.4f} ms")
         if not err_y <= tol_y:
-            raise AssertionError(f"fused_ffn forward disagrees with its plain version: {tag}")
+            raise AssertionError(f"fused_ffn forward disagrees with {against}: {tag}")
         if not all(e <= t for e, t in zip(errs, bounds)):
-            raise AssertionError(f"fused_ffn backward disagrees with its plain version: {tag}")
+            raise AssertionError(f"fused_ffn backward disagrees with {against}: {tag}")
+        if not closer:
+            raise AssertionError(f"fused_ffn lies farther from float64 than its plain version: "
+                                 f"{tag}")
         if not torch.equal(ffn.fused_ffn_fwd(x, w1, b1, w2, b2), y):
             raise AssertionError(f"fused_ffn forward differs from run to run: {tag}")
         again = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
         if not all(torch.equal(a, g_) for a, g_ in zip(again, got)):
             raise AssertionError(f"fused_ffn backward differs from run to run: {tag}")
         print(f"{tag}: forward and backward repeat bitwise equal True")
-        res_f["max_abs_err"] = max(res_f["max_abs_err"], err_y)
-        res_b["max_abs_err"] = max(res_b["max_abs_err"], *errs)
-        if i == 0:
-            res_f.update(ms=ms_f, plain_ms=plain_f, library_ms=None, **bound_f)
-            res_b.update(ms=ms_b, plain_ms=plain_b, library_ms=None, **bound_b)
-    return res_f, res_b
+        picks = [(res_f, res_b, i == 0)]
+        if dtype == torch.float32:
+            picks.append((f32_f, f32_b, mixed and (m, d, f) == K6_F32_PATH_CASE))
+        for out_f, out_b, timed in picks:
+            out_f["max_abs_err"] = max(out_f["max_abs_err"], err_y)
+            out_b["max_abs_err"] = max(out_b["max_abs_err"], *errs)
+            if timed:
+                out_f.update(ms=ms_f, plain_ms=plain_f, library_ms=None, **bound_f)
+                out_b.update(ms=ms_b, plain_ms=plain_b, library_ms=None, **bound_b)
+        del x, dy, w1, b1, w2, b2, y, got, y_ref, want, leaves, oracle_y, oracle
+    return res_f, res_b, f32_f, f32_b
 
 
 # the launch counter of every kernel, by the name the JSON line gives it
@@ -1055,6 +1126,9 @@ COUNTERS = {
     "chamfer_bwd": chamfer.chamfer_bwd,
     "ffn_fwd": ffn.fused_ffn_fwd,
     "ffn_bwd": ffn.fused_ffn_bwd,
+    # the f32 (split-TF32) FFN kernels, also counted on ffn_fwd / ffn_bwd
+    "ffn_tf32_fwd": ffn.tf32_fwd,
+    "ffn_tf32_bwd": ffn.tf32_bwd,
 }
 
 
@@ -1218,7 +1292,8 @@ PACKED_PATH = ("dense_attn_fwd", "dense_attn_bwd", "chamfer_nn_packed", "chamfer
 
 
 def phase_train(dev):
-    """The main path: train_and_test, then the train step's ms/step."""
+    """The main path: train_and_test, then the train step's ms/step.
+    Returns the main path's launches and the f32 step's ms/step."""
     _reset_launches()
     _train_and_test(MODEL_PARAMS, TRAIN_EPOCHS, dev)
     launches = _read_launches()
@@ -1229,10 +1304,11 @@ def phase_train(dev):
     # the f32 path (`mixed_precision: false`): every self-attention on the
     # split-TF32 K1 and K2
     _reset_launches()
-    _time_train_step("setvae", dict(MODEL_PARAMS, mixed_precision=False), BATCH, dev, "f32")
+    f32_ms = _time_train_step("setvae", dict(MODEL_PARAMS, mixed_precision=False), BATCH, dev,
+                              "f32")
     _expect_launches(_read_launches(), "the f32 SetVAE train step", PACKED_PATH,
                      [k for k in COUNTERS if k not in PACKED_PATH])
-    return launches
+    return launches, f32_ms
 
 
 def phase_heads2(dev):
@@ -1384,7 +1460,35 @@ def phase_fused_ffn(dev):
         _time_eval_step("setlrvae", lr_params, SETLRVAE_BATCH, dev, tag)
         launches = _read_launches()
     _expect_launches(launches, "the VST_FUSED_FFN=1 path", PACKED_PATH + ("ffn_fwd", "ffn_bwd"),
-                     ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd"))
+                     ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "ffn_tf32_fwd",
+                      "ffn_tf32_bwd"))
+    return launches
+
+
+FUSED_FFN_F32_PATH = PACKED_PATH + ("ffn_fwd", "ffn_bwd", "ffn_tf32_fwd", "ffn_tf32_bwd")
+
+
+def phase_fused_ffn_f32(dev, unfused_ms):
+    """The shipped SetVAE config under mixed_precision: false with
+    VST_FUSED_FFN=1 (phase 4c (8)): one fake-data epoch of train_and_test,
+    the train step's ms/step beside the same call's f32 step without the
+    fused FFN (`unfused_ms`, phase 4b), and the eval step's ms/batch;
+    every FFN launch on the split-TF32 kernels."""
+    params = dict(MODEL_PARAMS, mixed_precision=False)
+    tag = "f32 " + " ".join(f"{k}={v}" for k, v in FUSED_FFN_ENV.items())
+    with mock.patch.dict(os.environ, FUSED_FFN_ENV):
+        _reset_launches()
+        _train_and_test(params, 1, dev)
+        ms = _time_train_step("setvae", params, BATCH, dev, tag)
+        _time_eval_step("setvae", params, BATCH, dev, tag)
+        launches = _read_launches()
+    print(f"f32 SetVAE B={BATCH} train step: with the fused FFN {ms:.3f} ms/step, without it "
+          f"(phase 4b, same call) {unfused_ms:.3f} ms/step")
+    _expect_launches(launches, "the f32 VST_FUSED_FFN=1 path", FUSED_FFN_F32_PATH,
+                     _others(FUSED_FFN_F32_PATH))
+    if (launches["ffn_tf32_fwd"], launches["ffn_tf32_bwd"]) != (launches["ffn_fwd"],
+                                                                launches["ffn_bwd"]):
+        raise AssertionError(f"the f32 VST_FUSED_FFN=1 path ran other FFN kernels: {launches}")
     return launches
 
 
@@ -1582,10 +1686,13 @@ def phase_reference(dev):
         raise AssertionError("the bf16 d_model 2304 num_heads 1 reference did not run the "
                              "kernels over written-out scores for heads wider than 2048")
     with mock.patch.dict(os.environ, FUSED_FFN_ENV):
-        launches = ffn.fused_ffn_fwd.launches
+        launches = (ffn.fused_ffn_fwd.launches, ffn.tf32_bwd.launches)
         _reference(dev, "VST_FUSED_FFN=1", MODEL_PARAMS)
-        if ffn.fused_ffn_fwd.launches == launches:
+        if ffn.fused_ffn_fwd.launches == launches[0]:
             raise AssertionError("the VST_FUSED_FFN=1 reference did not run the fused FFN")
+        if ffn.tf32_bwd.launches == launches[1]:
+            raise AssertionError("the f32 VST_FUSED_FFN=1 reference did not run the split-TF32 "
+                                 "FFN kernels")
 
 
 CHAMFER_PATH = ("chamfer_nn_packed", "chamfer_bwd")
@@ -3192,9 +3299,9 @@ def main():
          (denseattn.wgmma_scores, WGMMA_SCORES_CASE)))
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
-    k6f, k6b = _timed(check_ffn, dev, gen)
+    k6f, k6b, k6f_tf32, k6b_tf32 = _timed(check_ffn, dev, gen)
     _timed(phase_eval_generation, dev)
-    main_path = _timed(phase_train, dev)
+    main_path, f32_ms = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
     heads1_f32 = _timed(phase_heads1_f32, dev)
     heads1_bf16 = _timed(phase_heads1_bf16, dev)
@@ -3202,6 +3309,7 @@ def main():
     heads1_cluster = _timed(phase_heads1_cluster, dev)
     heads1_scores = _timed(phase_heads1_scores, dev)
     fused = _timed(phase_fused_ffn, dev)
+    fused_f32 = _timed(phase_fused_ffn_f32, dev, f32_ms)
     _timed(phase_routes, dev)
     _timed(phase_reference, dev)
     paths = {"deepsets": _timed(phase_deepsets, dev)}
@@ -3244,6 +3352,8 @@ def main():
         ("chamfer_bwd", "chamfer_bwd.cu", "vae_song_tpu/ops/chamfer.py:161", main_path, k5),
         ("ffn_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused, k6f),
         ("ffn_bwd", "ffn_bwd.cu", "vae_song_tpu/ops/ffn.py:104", fused, k6b),
+        ("ffn_tf32_fwd", "ffn_fwd.cu", "vae_song_tpu/ops/ffn.py:86", fused_f32, k6f_tf32),
+        ("ffn_tf32_bwd", "ffn_bwd.cu", "vae_song_tpu/ops/ffn.py:104", fused_f32, k6b_tf32),
     )
     kernels = [dict(name=name, route="cuda", source=f"vae_song_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches[name], **numbers,

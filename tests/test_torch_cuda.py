@@ -356,6 +356,16 @@ def test_train_step_with_fused_ffn_runs_its_kernels(dev, monkeypatch):
     assert _train_step_launches(dev, ff_dim=128) == [4, 4, 0, 0, 1, 1, 4, 4]
 
 
+def test_f32_train_step_with_fused_ffn_runs_the_split_tf32_kernels(dev, monkeypatch):
+    """The same in f32 (mixed_precision: false): every K6f and K6b launch
+    on the split-TF32 kernels, counted on their own counters too."""
+    monkeypatch.setenv("VST_FUSED_FFN", "1")
+    start = (ffn.tf32_fwd.launches, ffn.tf32_bwd.launches)
+    assert _train_step_launches(dev, ff_dim=128, mixed_precision=False) == [4, 4, 0, 0, 1, 1, 4,
+                                                                            4]
+    assert (ffn.tf32_fwd.launches - start[0], ffn.tf32_bwd.launches - start[1]) == (4, 4)
+
+
 @pytest.mark.parametrize("env,want", [
     # the plain attention for every shape: no attention kernel
     ({"VST_DISABLE_DENSE_ATTN": "1"}, [0, 0, 0, 0, 1, 1, 0, 0]),
@@ -463,6 +473,19 @@ def _grid(shape, sd, step, gen, dev):
     return (torch.randn(shape, generator=gen, device=dev) * sd / step).round().clamp(-64, 64) * step
 
 
+# f32 cases on inputs whose products need the split TF32 of the f32
+# kernels (dy, W2 and b2 at full f32 mantissa; x, W1 and b1 on the grid, so
+# that every side takes the same ReLU mask), held to a float64 version
+F32_MIXED = {(4096, 256, 512), (2048, 384, 1536)}
+
+
+def _ffn_f64(x, dy, w1, b1, w2, b2):
+    x, dy, w1, b1, w2, b2 = (t.double() for t in (x, dy, w1, b1, w2, b2))
+    h = torch.relu(x @ w1.t() + b1)
+    dh = (dy @ w2) * (h > 0)
+    return h @ w2.t() + b2 + x, (dh @ w1 + dy, dh.t() @ x, dh.sum(0), dy.t() @ h, dy.sum(0))
+
+
 @pytest.mark.parametrize("m,d,f,dtype", [
     (4096, 256, 512, torch.bfloat16), (1024, 128, 256, torch.bfloat16),
     (2048, 256, 512, torch.float32), (1024, 128, 128, torch.float32),
@@ -471,16 +494,22 @@ def _grid(shape, sd, step, gen, dev):
     (2048, 384, 512, torch.bfloat16), (1024, 512, 256, torch.bfloat16),
     (1024, 128, 128, torch.bfloat16), (1024, 2048, 256, torch.bfloat16),
     (1024, 384, 128, torch.float32), (1024, 512, 256, torch.float32),
+    # F32_MIXED
+    (4096, 256, 512, torch.float32), (2048, 384, 1536, torch.float32),
 ])
 def test_fused_ffn_kernels_match_plain(dev, m, d, f, dtype):
     """K6f and K6b against their plain versions on inputs on the grid of
-    chip_smoke.py's K6 bounds (bf16 2^-6, f32 1e-5 of max|ref|), and the
-    backward the same from run to run."""
+    chip_smoke.py's K6 bounds (bf16 2^-6, f32 1e-5 of max|ref|), in f32 at
+    the shapes of F32_MIXED against a float64 version on inputs that need
+    the split, and the backward the same from run to run."""
     gen = torch.Generator(device=dev).manual_seed(m + d + f)
-    x, dy = _grid((m, d), 1.0, 1 / 8, gen, dev), _grid((m, d), 1.0, 1 / 8, gen, dev)
+    mixed = dtype == torch.float32 and (m, d, f) in F32_MIXED
+    other = ((lambda shape, sd, step: torch.randn(shape, generator=gen, device=dev) * sd)
+             if mixed else (lambda shape, sd, step: _grid(shape, sd, step, gen, dev)))
+    x, dy = _grid((m, d), 1.0, 1 / 8, gen, dev), other((m, d), 1.0, 1 / 8)
     w1 = _grid((f, d), d ** -0.5, 1 / 256, gen, dev)
-    w2 = _grid((d, f), f ** -0.5, 1 / 256, gen, dev)
-    b1, b2 = _grid((f,), 0.05, 1 / 2048, gen, dev), _grid((d,), 0.05, 1 / 2048, gen, dev)
+    w2 = other((d, f), f ** -0.5, 1 / 256)
+    b1, b2 = _grid((f,), 0.05, 1 / 2048, gen, dev), other((d,), 0.05, 1 / 2048)
     x, dy, w1, b1, w2, b2 = (t.to(dtype) for t in (x, dy, w1, b1, w2, b2))
     before = (ffn.fused_ffn_fwd.launches, ffn.fused_ffn_bwd.launches)
     y = ffn.fused_ffn_fwd(x, w1, b1, w2, b2)
@@ -489,11 +518,15 @@ def test_fused_ffn_kernels_match_plain(dev, m, d, f, dtype):
     assert (ffn.fused_ffn_fwd.launches, ffn.fused_ffn_bwd.launches) == (before[0] + 1,
                                                                         before[1] + 1)
     tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
-    y_ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
-    assert (y.float() - y_ref.float()).abs().max() <= tol * y_ref.float().abs().max()
-    for g, w in zip(got, ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2)):
+    if mixed:
+        y_ref, want = _ffn_f64(x, dy, w1, b1, w2, b2)
+    else:
+        y_ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+        want = ffn.fused_ffn_bwd_plain(x, dy, w1, b1, w2)
+    assert (y.double() - y_ref.double()).abs().max() <= tol * y_ref.double().abs().max()
+    for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
-        assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+        assert (g.double() - w.double()).abs().max() <= tol * w.double().abs().max()
     again = ffn.fused_ffn_bwd(x, dy, w1, b1, w2)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 

@@ -223,8 +223,11 @@ def test_layer_with_fused_ffn_matches_jax(fused_on, kind, mixed):
 @pytest.mark.parametrize("m,d,f,dtype,sms,want", [
     # the shipped shape: 16 output tiles of 128 x 128 (dW1 and dW2), 8 splits
     (131072, 256, 512, torch.bfloat16, 132, 8),
-    # 64 f32 tiles of 64 x 64, eight small blocks an SM: 16 splits
-    (8192, 256, 512, torch.float32, 132, 16),
+    # 16 f32 tiles of 128 x 128 (the split-TF32 kernel), one block an SM:
+    # 8 splits
+    (8192, 256, 512, torch.float32, 132, 8),
+    # the f32 path's M: splits of at most 2048 rows
+    (131072, 256, 512, torch.float32, 132, 64),
     # more tiles than the card has SMs: one split
     (1024, 2048, 2048, torch.bfloat16, 132, 1),
     # few rows: never a split without a 64-row step

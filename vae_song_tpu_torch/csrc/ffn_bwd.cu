@@ -58,17 +58,34 @@
 //   x or h; 64 rows a ring stage) read MN-major through the descriptors,
 //   no transposing copy.
 //
-// f32 inputs (mixed_precision: false) take plain FMA kernels of the same
-// three-pass shape, no TF32: pass 1 in 64-row blocks and 256-column
-// chunks of dx (128 where 256 does not divide D), 16 hidden units a step,
-// x and dy staged once up to D = 256 and in 64-column panels above it, so
-// any D fits.
+// f32 inputs (mixed_precision: false): split-TF32 mma.sync kernels of the
+// same three-pass shape (ffn_fwd.cu's arithmetic and what bounds it: the
+// tensor cores at 3 x 10 M D F TF32 operations, 1.04 ms at M = 131072,
+// D = 256, F = 512; below them the issue of each product step's adds,
+// splits and shared-memory reads). Pass 1: blocks of 64 rows and XC
+// columns of dx (all of D up to 256, x and dy resident; else 128- or
+// 256-column chunks, x and dy streamed in 128-column panels), 8 warps in
+// pairs over a 16-row tile. For each 16-unit hidden chunk the h warp
+// computes h32 = relu(x W1[c]^T + b1) through the forward's h_panel (the
+// same steps in the same order: the forward's h32 bit for bit) while the
+// dh warp computes dy W2[:, c] (W2 read row by row); the h warp hands the
+// ReLU mask bits over, the dh warp the masked dh32 back, and both add dh
+// W1[c] to their halves of dx (dh as A fragments). Column chunk 0 writes h
+// and dh for pass 2 and takes the db1 and db2 partials from what the
+// block holds: the dh warps' column sums of dh32 from their registers,
+// dy's columns from shared memory. Pass 2: 128 x 128 output tiles, 8 warps
+// of 32 x 64, both operands read down their rows from a 4-stage cp.async
+// ring of 32 rows (a_from_kn), each B fragment split once for two row
+// tiles; a split sums at most 2048 rows (ops/ffn.py:wgrad_splits), which
+// keeps dW1 and dW2 closer to float64 than the plain version at M =
+// 131072.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "ffn_tf32.cuh"
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -527,168 +544,341 @@ ffn_sum_parts_kernel(const float* __restrict__ parts, int S, long long count,
   out[i] = from_f<T>(total);
 }
 
-// ---- f32: plain FMA kernels -------------------------------------------------
+// ---- f32: split-TF32 mma.sync kernels ------------------------------------------
 
-constexpr int kF32Rows = 64;      // rows a block
-constexpr int kF32Threads = 256;
-constexpr int kF32F = 16;         // hidden units a step
-constexpr int kF32Panel = 64;     // columns of x, dy and the weights staged at a time
-constexpr int kF32Resident = 256; // up to this D the block's x and dy rows stay staged
-constexpr int kTile = 64;         // output tile edge of the f32 pass 2
+using vst::ffn32::kHC;
+using vst::ffn32::kHT;
+using vst::ffn32::kW2LD;
 
-// Row stride of the staged x and dy, in floats: all of D when they stay,
-// else a panel; odd, so that the threads' row reads fall on distinct banks.
-inline int f32_x_stride(int D) { return (D <= kF32Resident ? D : kF32Panel) + 1; }
+constexpr int kRowsTiles = 4;                  // f32 pass 1: row tiles of 16 a block
+constexpr int kRowsBM = 16 * kRowsTiles;       // rows a block
+constexpr int kRowsThreads = 2 * kRowsTiles * 32;
+static_assert(kRowsBM == kPartRows, "one row of db1 / db2 partials a block");
 
-inline size_t f32_rows_smem(int D, int XC) {
-  return (2 * kF32Rows * f32_x_stride(D) + 2 * kF32F * kF32Panel + kF32Rows * (kF32F + 1) +
-          kF32F * XC) * sizeof(float);
+// Pass 1's shared memory in floats: x's and dy's resident rows [64][D + 4]
+// each (D <= 256); two stages of the ring, each a W1 panel [16][kp + 4]
+// and a W2 panel [kp][kHC + 8] (then x's and dy's panels [64][kp + 4]
+// where they stream); where they stream, two stages of W1[c, x0 .. x0 +
+// XC] ([16][XC + 4]); the exchange of the h and dh warps (the mask bits,
+// [4][32], and dh, [4][32][8]) and the db1 column sums [4][16].
+struct Tf32RowsLayout {
+  int xres, kp, P, ld, s_floats, c_floats;
+  int s0, c0, xmask, xdh, red;
+  size_t bytes;
+};
+
+inline Tf32RowsLayout tf32_rows_layout(int D, int XC) {
+  Tf32RowsLayout L{};
+  L.xres = D <= vst::ffn32::kResident;
+  L.kp = L.xres ? D : vst::ffn32::kKP;
+  L.P = D / L.kp;
+  L.ld = vst::ffn32::panel_ld(L.kp);
+  L.s_floats = kHC * L.ld + L.kp * kW2LD + (L.xres ? 0 : 2 * kRowsBM * L.ld);
+  L.c_floats = L.xres ? 0 : kHC * (XC + 4);
+  L.s0 = L.xres ? 2 * kRowsBM * L.ld : 0;
+  L.c0 = L.s0 + 2 * L.s_floats;
+  L.xmask = L.c0 + 2 * L.c_floats;
+  L.xdh = L.xmask + kRowsTiles * 32;
+  L.red = L.xdh + kRowsTiles * 32 * 4 * kHT;
+  L.bytes = static_cast<size_t>(L.red + kRowsTiles * kHC) * sizeof(float);
+  return L;
 }
 
-// Grid (M / 64, D / XC), 256 threads; the f32 counterpart of pass 1. For
-// the hidden step thread i computes row i % 64, units i / 64 + 4 j,
-// summing over D in order; for dx it owns row i % 64, columns
-// x0 + (i / 64) XC / 4 .. + XC / 4 - 1. Up to D = 256 the block's x and
-// dy rows are staged once, above it one 64-column panel at a time. Column chunk 0 also writes h, dh and the db1 partials; every
-// chunk writes its columns' db2 partials.
+// Grid (M / 64, D / XC), 256 threads. Warp w works on the rows 16 (w % 4)
+// .. + 15 of the block's 64 and on half s = w / 4 of the block's XC
+// columns of dx; for each hidden chunk c of 16 units the h warps (s = 0)
+// compute h32 = relu(x W1[c]^T + b1) through the forward's h_panel while
+// the dh warps (s = 1) compute dy W2[:, c] over the same staged panels.
+// Then the h warps hand their ReLU mask bits to the dh warps, which mask
+// dh32 and hand it back, each lane to the same lane of its partner (the
+// accumulator layouts match, so nothing is rearranged), and both warps add
+// dh W1[c, their columns] to dx (dh as A fragments in a_from_acc's order).
+// The cp.async ring's items, one __syncthreads each as in the forward:
+// for each chunk the P panels of W1[c] and W2[:, c] (with x's and dy's
+// where they stream) and, where they stream, W1[c, x0 .. x0 + XC]; with x
+// and dy resident (D <= 256, then XC = D) the W1 panel is read K-major for
+// h and row by row for dx. Column chunk 0 also writes h and dh for pass 2,
+// the db1 partials (the dh warps' column sums of dh32 added in warp
+// order) and the db2 partials (dy's staged columns summed in row order).
 template <int XC>
-__global__ void __launch_bounds__(kF32Threads)
-ffn_bwd_rows_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                        const float* __restrict__ w1, const float* __restrict__ b1,
-                        const float* __restrict__ w2, float* __restrict__ dx,
-                        float* __restrict__ hbuf, float* __restrict__ dhbuf,
-                        float* __restrict__ pb1, float* __restrict__ pb2, int D, int F) {
-  constexpr int HP = kF32F + 1, CW = XC / 4;
-  const bool xres = D <= kF32Resident;
-  const int XP = xres ? D + 1 : kF32Panel + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* xs = fsm;                          // x [64][D + 1] or a panel [64][65]
-  float* dys = xs + kF32Rows * XP;          // dy, the same
-  float* w1s = dys + kF32Rows * XP;         // W1[c, d0..] [16][64]
-  float* w2c = w1s + kF32F * kF32Panel;     // W2[d0.., c]^T [16][64]
-  float* dhs = w2c + kF32F * kF32Panel;     // dh32 [64][17]
-  float* w1x = dhs + kF32Rows * HP;         // W1[c, x0..] [16][XC]
-
-  const long long r0 = (long long)blockIdx.x * kF32Rows;
+__global__ void __launch_bounds__(kRowsThreads, 1)
+ffn_bwd_rows_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                         const float* __restrict__ w1, const float* __restrict__ b1,
+                         const float* __restrict__ w2, float* __restrict__ dx,
+                         float* __restrict__ hbuf, float* __restrict__ dhbuf,
+                         float* __restrict__ pb1, float* __restrict__ pb2, int D, int F,
+                         Tf32RowsLayout L) {
+  constexpr int HX = XC / 2, NX = HX / 8;
+  extern __shared__ __align__(16) float tsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, tile = warp % kRowsTiles, s = warp / kRowsTiles;
+  const int rw = 16 * tile;
+  const long long r0 = (long long)blockIdx.x * kRowsBM, row = r0 + rw + g;   // and row + 8
   const int x0 = blockIdx.y * XC;
   const bool first = blockIdx.y == 0;
-  const int tid = threadIdx.x, row = tid % kF32Rows, grp = tid / kF32Rows;
-  for (int c = tid; c < XC; c += kF32Threads) {
-    float s = 0.f;
-    for (int r = 0; r < kF32Rows; ++r) s += dy[(r0 + r) * D + x0 + c];
-    pb2[(long long)blockIdx.x * D + x0 + c] = s;
+  const int P = L.P, kp = L.kp, ld = L.ld;
+  const int per = P + (L.xres ? 0 : 1), n = (F / kHC) * per;
+  const float* xrow = tsm;
+  const float* dyrow = tsm + kRowsBM * ld;
+  uint32_t* xmask = reinterpret_cast<uint32_t*>(tsm + L.xmask) + tile * 32 + lane;
+  float4* xdh = reinterpret_cast<float4*>(tsm + L.xdh) + (tile * 32 + lane) * kHT;
+  float* red = tsm + L.red;
+
+  auto issue = [&](int i) {
+    const int c = i / per, q = i - c * per;
+    if (q < P) {
+      float* st = tsm + L.s0 + ((c * P + q) & 1) * L.s_floats;
+      float* w2s = st + kHC * ld;
+      vst::ffn32::cp_tile(st, ld, w1 + (long long)c * kHC * D + q * kp, D, kHC, kp, tid,
+                          kRowsThreads);
+      vst::ffn32::cp_tile(w2s, kW2LD, w2 + (long long)q * kp * F + c * kHC, F, kp, kHC, tid,
+                          kRowsThreads);
+      if (!L.xres) {
+        float* xs = w2s + kp * kW2LD;
+        vst::ffn32::cp_tile(xs, ld, x + r0 * D + q * kp, D, kRowsBM, kp, tid, kRowsThreads);
+        vst::ffn32::cp_tile(xs + kRowsBM * ld, ld, dy + r0 * D + q * kp, D, kRowsBM, kp, tid,
+                            kRowsThreads);
+      }
+    } else {
+      vst::ffn32::cp_tile(tsm + L.c0 + (c & 1) * L.c_floats, XC + 4,
+                          w1 + (long long)c * kHC * D + x0, D, kHC, XC, tid, kRowsThreads);
+    }
+  };
+  if (L.xres) {
+    vst::ffn32::cp_tile(tsm, ld, x + r0 * D, D, kRowsBM, D, tid, kRowsThreads);
+    vst::ffn32::cp_tile(tsm + kRowsBM * ld, ld, dy + r0 * D, D, kRowsBM, D, tid, kRowsThreads);
   }
-  const float* xr = xs + row * XP;
-  const float* dyr = dys + row * XP;
+  issue(0);
+  vst::cp_async_commit();
 
-  float acc[CW];
+  float dxacc[NX][4];
 #pragma unroll
-  for (int i = 0; i < CW; ++i) acc[i] = 0.f;
+  for (int j = 0; j < NX; ++j) dxacc[j][0] = dxacc[j][1] = dxacc[j][2] = dxacc[j][3] = 0.f;
+  float acc[kHT][4];   // h32 (s = 0) or dy W2[:, c] (s = 1), then dh32 in both
 
-  for (int c0 = 0; c0 < F; c0 += kF32F) {
-    float s[kF32F / 4], ds[kF32F / 4];
+  // dx[:, this warp's half] += dh W1[c, ..], W1's rows from a [16][ldw] tile
+  auto dx_product = [&](const float* w1t, int ldw) {
 #pragma unroll
-    for (int jj = 0; jj < kF32F / 4; ++jj) s[jj] = ds[jj] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kF32Panel) {
-      const int xc = xres ? d0 : 0;   // the panel's first column in xs, dys
-      __syncthreads();
-      if (!xres || c0 == 0)
-        for (int i = tid; i < kF32Rows * kF32Panel; i += kF32Threads) {
-          const long long off = (r0 + i / kF32Panel) * D + d0 + i % kF32Panel;
-          xs[(i / kF32Panel) * XP + xc + i % kF32Panel] = x[off];
-          dys[(i / kF32Panel) * XP + xc + i % kF32Panel] = dy[off];
-        }
-      for (int i = tid; i < kF32F * kF32Panel; i += kF32Threads) {
-        const int j = i / kF32Panel, d = i % kF32Panel;
-        w1s[i] = w1[(long long)(c0 + j) * D + d0 + d];
-        w2c[i] = w2[(long long)(d0 + d) * F + c0 + j];
-      }
-      __syncthreads();
+    for (int kc = 0; kc < kHT; ++kc) {
+      const vst::SplitA fa = vst::a_from_acc(acc[kc]);
 #pragma unroll
-      for (int jj = 0; jj < kF32F / 4; ++jj) {
-        const float* wr = w1s + (grp + 4 * jj) * kF32Panel;
-        const float* vr = w2c + (grp + 4 * jj) * kF32Panel;
-#pragma unroll 16
-        for (int d = 0; d < kF32Panel; ++d) {
-          s[jj] = fmaf(xr[xc + d], wr[d], s[jj]);
-          ds[jj] = fmaf(dyr[xc + d], vr[d], ds[jj]);
-        }
-      }
+      for (int j = 0; j < NX; ++j)
+        vst::mma_b_rows(dxacc[j], fa, w1t, ldw, 8 * kc, s * HX + 8 * j, g, t, 1.f);
     }
-#pragma unroll
-    for (int jj = 0; jj < kF32F / 4; ++jj) {
-      const int j = grp + 4 * jj;
-      const float h = fmaxf(s[jj] + b1[c0 + j], 0.f);
-      const float d = h > 0.f ? ds[jj] : 0.f;
-      dhs[row * HP + j] = d;
-      if (first) {
-        hbuf[(r0 + row) * F + c0 + j] = h;
-        dhbuf[(r0 + row) * F + c0 + j] = d;
-      }
-    }
-    for (int i = tid; i < kF32F * XC; i += kF32Threads)
-      w1x[i] = w1[(long long)(c0 + i / XC) * D + x0 + i % XC];
+  };
+
+  for (int i = 0; i < n; ++i) {
+    vst::cp_async_wait<0>();
     __syncthreads();
-    if (first && tid < kF32F) {
-      float sum = 0.f;
-      for (int r = 0; r < kF32Rows; ++r) sum += dhs[r * HP + tid];
-      pb1[(long long)blockIdx.x * F + c0 + tid] = sum;
+    if (i + 1 < n) {
+      issue(i + 1);
+      vst::cp_async_commit();
     }
+    const int c = i / per, p = i - c * per;
+    if (p == P) {
+      dx_product(tsm + L.c0 + (c & 1) * L.c_floats, XC + 4);
+      continue;
+    }
+    const float* st = tsm + L.s0 + ((c * P + p) & 1) * L.s_floats;
+    const float* w2s = st + kHC * ld;
+    const float* xs = L.xres ? xrow : w2s + kp * kW2LD;
+    const float* dys = xs + kRowsBM * ld;
+    if (p == 0) {
 #pragma unroll
-    for (int j = 0; j < kF32F; ++j) {
-      const float dv = dhs[row * HP + j];
+      for (int j = 0; j < kHT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    if (s == 0) {
+      vst::ffn32::h_panel(acc, xs, st, ld, rw, kp, g, t);
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < kp / 8; ++kk) {
+        const vst::SplitA a = vst::a_from_smem(dys, ld, rw, 8 * kk, g, t);
 #pragma unroll
-      for (int i = 0; i < CW; ++i) acc[i] = fmaf(dv, w1x[j * XC + grp * CW + i], acc[i]);
+        for (int j = 0; j < kHT; ++j) vst::mma_b_kn(acc[j], a, w2s, kW2LD, 8 * kk, 8 * j, g, t);
+      }
+    }
+    if (c == 0 && first)   // db2 partials: dy's staged columns over the 64 rows,
+                           // rows r = k (mod 8) summed in order, then the 8 pairwise
+      for (int col = tid; col < kp; col += kRowsThreads) {
+        float sum[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          sum[k] = dys[k * ld + col];
+#pragma unroll
+          for (int r = k + 8; r < kRowsBM; r += 8) sum[k] += dys[r * ld + col];
+        }
+        pb2[blockIdx.x * (long long)D + p * kp + col] =
+            ((sum[0] + sum[1]) + (sum[2] + sum[3])) + ((sum[4] + sum[5]) + (sum[6] + sum[7]));
+      }
+    if (p < P - 1) continue;
+
+    // the exchange: the mask bits to the dh warps, dh32 back
+    if (s == 0) {
+      // h32 = relu(acc + b1): bit 4 kc + e for value e of n-tile kc
+      uint32_t mask = 0;
+#pragma unroll
+      for (int kc = 0; kc < kHT; ++kc) {
+        const int col = c * kHC + 8 * kc + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+        const float h0 = fmaxf(acc[kc][0] + bb.x, 0.f), h1 = fmaxf(acc[kc][1] + bb.y, 0.f);
+        const float h2 = fmaxf(acc[kc][2] + bb.x, 0.f), h3 = fmaxf(acc[kc][3] + bb.y, 0.f);
+        mask |= (uint32_t(h0 > 0.f) | uint32_t(h1 > 0.f) << 1 | uint32_t(h2 > 0.f) << 2 |
+                 uint32_t(h3 > 0.f) << 3) << (4 * kc);
+        if (first) {
+          *reinterpret_cast<float2*>(hbuf + row * F + col) = make_float2(h0, h1);
+          *reinterpret_cast<float2*>(hbuf + (row + 8) * F + col) = make_float2(h2, h3);
+        }
+      }
+      *xmask = mask;
+    }
+    __syncthreads();
+    if (s == 1) {
+      const uint32_t mask = *xmask;
+#pragma unroll
+      for (int kc = 0; kc < kHT; ++kc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!((mask >> (4 * kc + e)) & 1u)) acc[kc][e] = 0.f;
+        xdh[kc] = make_float4(acc[kc][0], acc[kc][1], acc[kc][2], acc[kc][3]);
+        if (first) {
+          const int col = c * kHC + 8 * kc + 2 * t;
+          *reinterpret_cast<float2*>(dhbuf + row * F + col) = make_float2(acc[kc][0], acc[kc][1]);
+          *reinterpret_cast<float2*>(dhbuf + (row + 8) * F + col) =
+              make_float2(acc[kc][2], acc[kc][3]);
+          float s0 = acc[kc][0] + acc[kc][2], s1 = acc[kc][1] + acc[kc][3];
+          warp_colsum(s0, s1);
+          if (g == 0) {
+            red[tile * kHC + 8 * kc + 2 * t] = s0;
+            red[tile * kHC + 8 * kc + 2 * t + 1] = s1;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (s == 0) {
+#pragma unroll
+      for (int kc = 0; kc < kHT; ++kc) {
+        const float4 v = xdh[kc];
+        acc[kc][0] = v.x;
+        acc[kc][1] = v.y;
+        acc[kc][2] = v.z;
+        acc[kc][3] = v.w;
+      }
+    }
+    if (first && tid < kHC)
+      pb1[blockIdx.x * (long long)F + c * kHC + tid] =
+          ((red[tid] + red[kHC + tid]) + red[2 * kHC + tid]) + red[3 * kHC + tid];
+    if (L.xres) dx_product(st, ld);
+  }
+
+  // dx = dh W1^T + dy
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int col = x0 + s * HX + 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long off = (row + 8 * half) * D + col;
+      const float2 gv = L.xres
+                            ? *reinterpret_cast<const float2*>(dyrow + (rw + g + 8 * half) * ld + col)
+                            : *reinterpret_cast<const float2*>(dy + off);
+      *reinterpret_cast<float2*>(dx + off) =
+          make_float2(dxacc[j][2 * half] + gv.x, dxacc[j][2 * half + 1] + gv.y);
     }
   }
-  const long long off = (r0 + row) * D + x0 + grp * CW;
-#pragma unroll
-  for (int i = 0; i < CW; ++i) dx[off + i] = acc[i] + dy[off + i];
 }
 
-// The f32 counterpart of pass 2: C [Ma, Nb] = A^T B over the split's rows,
-// A [M, Ma] and B [M, Nb] row-major, into ws[split][Ma][Nb]. Grid (Ma / 64
-// * Nb / 64, splits), 256 threads, each a 4 x 4 block of the 64 x 64
-// tile, 16 rows of A and B staged at a time.
-__global__ void __launch_bounds__(kF32Threads)
-ffn_wgrad_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                     float* __restrict__ ws, long long M, int Ma, int Nb,
-                     long long rows_per_split) {
-  __shared__ __align__(16) float as[16][kTile];
-  __shared__ __align__(16) float bs[16][kTile];
-  const int ntn = Nb / kTile;
-  const int m0 = (blockIdx.x / ntn) * kTile, n0 = (blockIdx.x % ntn) * kTile;
+// Pass 2 in f32: C [Ma, Nb] = A^T B over the split's rows, A [M, Ma] and
+// B [M, Nb] row-major, into ws[split][Ma][Nb].
+struct WgradJob32 {
+  const float* a;
+  const float* b;
+  float* ws;
+  int Ma, Nb;
+};
+
+constexpr int kWgTile = 128;              // output tile edge
+constexpr int kWgRows = 32;               // rows of A and B a ring stage
+constexpr int kWgStages = 4;
+constexpr int kWgLD = kWgTile + 8;        // 8 (mod 32): a_from_kn, the B reads
+constexpr int kWgThreads = 256;
+constexpr size_t kWgSmem = static_cast<size_t>(kWgStages) * 2 * kWgRows * kWgLD * sizeof(float);
+
+// Grid (tiles of job 0 + tiles of job 1, splits), 256 threads. Block x
+// names a 128 x 128 output tile, block y the split of the rows [y
+// rows_per_split, + rows_per_split); warp w owns output rows
+// 32 (w / 2) .. + 31 and columns 64 (w % 2) .. + 63 (2 x 8 accumulator
+// tiles). A and B stream through a 4-stage cp.async ring of 32 rows each,
+// both read down their rows (a_from_kn, B row by row): no transposing
+// copy. Each B fragment is split once for the warp's two row tiles.
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_wgrad_tf32_kernel(WgradJob32 job0, WgradJob32 job1, long long M, long long rows_per_split) {
+  extern __shared__ __align__(16) float tsm[];
+  const int tiles0 = (job0.Ma / kWgTile) * (job0.Nb / kWgTile);
+  const bool second = blockIdx.x >= tiles0;
+  const WgradJob32 job = second ? job1 : job0;
+  const int tile = second ? blockIdx.x - tiles0 : blockIdx.x;
+  const int ntn = job.Nb / kWgTile;
+  const int i0 = (tile / ntn) * kWgTile, j0 = (tile % ntn) * kWgTile;
   const long long rbeg = (long long)blockIdx.y * rows_per_split;
   const long long rend = min(M, rbeg + rows_per_split);
-  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+  const int n = rend > rbeg ? static_cast<int>((rend - rbeg) / kWgRows) : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wi = (warp >> 1) * 32, wj = (warp & 1) * 64;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long rb = rbeg; rb < rend; rb += 16) {
-    __syncthreads();
-    for (int i = tid; i < 16 * kTile; i += kF32Threads) {
-      const int r = i / kTile, c = i % kTile;
-      as[r][c] = A[(rb + r) * Ma + m0 + c];
-      bs[r][c] = B[(rb + r) * Nb + n0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(as[r][tm * 4 + i], bs[r][tn * 4 + j], acc[i][j]);
+  auto issue = [&](int it) {
+    float* st = tsm + (it % kWgStages) * 2 * kWgRows * kWgLD;
+    const long long m0 = rbeg + (long long)it * kWgRows;
+    vst::ffn32::cp_tile(st, kWgLD, job.a + m0 * job.Ma + i0, job.Ma, kWgRows, kWgTile, tid,
+                        kWgThreads);
+    vst::ffn32::cp_tile(st + kWgRows * kWgLD, kWgLD, job.b + m0 * job.Nb + j0, job.Nb, kWgRows,
+                        kWgTile, tid, kWgThreads);
+  };
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n) issue(s);
+    vst::cp_async_commit();
   }
-  float* out = ws + (long long)blockIdx.y * Ma * Nb;
+
+  float acc[2][8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(long long)(m0 + tm * 4 + i) * Nb + n0 + tn * 4 + j] = acc[i][j];
+    for (int j = 0; j < 8; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    vst::cp_async_wait<kWgStages - 2>();
+    __syncthreads();
+    if (it + kWgStages - 1 < n) issue(it + kWgStages - 1);
+    vst::cp_async_commit();
+    const float* as = tsm + (it % kWgStages) * 2 * kWgRows * kWgLD;
+    const float* bs = as + kWgRows * kWgLD;
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 8; ++kk) {
+      vst::SplitA fa[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) fa[mi] = vst::a_from_kn(as, kWgLD, 8 * kk, wi + 16 * mi, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* p = bs + (8 * kk + t) * kWgLD + wj + 8 * j + g;
+        uint32_t bb0, bb1, bs0, bs1;
+        vst::split_tf32(p[0], bb0, bs0);
+        vst::split_tf32(p[4 * kWgLD], bb1, bs1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) vst::mma_3xtf32(acc[mi][j], fa[mi], bb0, bb1, bs0, bs1);
+      }
+    }
+  }
+
+  float* out = job.ws + (long long)blockIdx.y * job.Ma * job.Nb;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long i = i0 + wi + 16 * mi + g;
+      const int col = j0 + wj + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(out + i * job.Nb + col) = make_float2(acc[mi][j][0], acc[mi][j][1]);
+      *reinterpret_cast<float2*>(out + (i + 8) * job.Nb + col) =
+          make_float2(acc[mi][j][2], acc[mi][j][3]);
+    }
 }
 
 template <typename T>
@@ -759,33 +949,35 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* w1, const
 }
 
 template <int XC>
-cudaError_t launch_rows_f32(const float* x, const float* dy, const float* w1, const float* b1,
-                            const float* w2, void* dx, float* hbuf, float* dhbuf, float* pb1,
-                            float* pb2, long long M, int D, int F, cudaStream_t st) {
-  const size_t smem = f32_rows_smem(D, XC);
-  const cudaError_t err = vst::allow_smem(ffn_bwd_rows_f32_kernel<XC>, smem);
+cudaError_t launch_rows_tf32(const float* x, const float* dy, const float* w1, const float* b1,
+                             const float* w2, void* dx, float* hbuf, float* dhbuf, float* pb1,
+                             float* pb2, long long M, int D, int F, cudaStream_t st) {
+  const Tf32RowsLayout L = tf32_rows_layout(D, XC);
+  const cudaError_t err = vst::allow_smem(ffn_bwd_rows_tf32_kernel<XC>, L.bytes);
   if (err != cudaSuccess) return err;
-  ffn_bwd_rows_f32_kernel<XC><<<dim3(static_cast<unsigned>(M / kF32Rows), D / XC), kF32Threads,
-                                smem, st>>>(x, dy, w1, b1, w2, static_cast<float*>(dx), hbuf,
-                                            dhbuf, pb1, pb2, D, F);
+  ffn_bwd_rows_tf32_kernel<XC><<<dim3(static_cast<unsigned>(M / kRowsBM), D / XC),
+                                 kRowsThreads, L.bytes, st>>>(
+      x, dy, w1, b1, w2, static_cast<float*>(dx), hbuf, dhbuf, pb1, pb2, D, F, L);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_f32(const float* x, const float* dy, const float* w1, const float* b1,
-                           const float* w2, void* dx, void* dw1, void* db1, void* dw2, void* db2,
-                           float* hbuf, float* dhbuf, float* pb1, float* pb2, float* pw1,
-                           float* pw2, long long M, int D, int F, int S, cudaStream_t st) {
+cudaError_t launch_bwd_tf32(const float* x, const float* dy, const float* w1, const float* b1,
+                            const float* w2, void* dx, void* dw1, void* db1, void* dw2,
+                            void* db2, float* hbuf, float* dhbuf, float* pb1, float* pb2,
+                            float* pw1, float* pw2, long long M, int D, int F, int S,
+                            cudaStream_t st) {
   cudaError_t err = D % 256 == 0
-                        ? launch_rows_f32<256>(x, dy, w1, b1, w2, dx, hbuf, dhbuf, pb1, pb2, M, D,
-                                               F, st)
-                        : launch_rows_f32<128>(x, dy, w1, b1, w2, dx, hbuf, dhbuf, pb1, pb2, M, D,
-                                               F, st);
+                        ? launch_rows_tf32<256>(x, dy, w1, b1, w2, dx, hbuf, dhbuf, pb1, pb2, M,
+                                                D, F, st)
+                        : launch_rows_tf32<128>(x, dy, w1, b1, w2, dx, hbuf, dhbuf, pb1, pb2, M,
+                                                D, F, st);
   if (err != cudaSuccess) return err;
-  const long long per_split = ((M / kTile + S - 1) / S) * kTile;
-  ffn_wgrad_f32_kernel<<<dim3(F / kTile * (D / kTile), S), kF32Threads, 0, st>>>(dhbuf, x, pw1,
-                                                                                 M, F, D, per_split);
-  ffn_wgrad_f32_kernel<<<dim3(D / kTile * (F / kTile), S), kF32Threads, 0, st>>>(dy, hbuf, pw2,
-                                                                                 M, D, F, per_split);
+  // dW1 [F, D] = dh^T x,  dW2 [D, F] = dy^T h
+  if ((err = vst::allow_smem(ffn_wgrad_tf32_kernel, kWgSmem)) != cudaSuccess) return err;
+  const long long per_split = ((M / kPartRows + S - 1) / S) * kPartRows;
+  const int tiles = 2 * (F / kWgTile) * (D / kWgTile);
+  ffn_wgrad_tf32_kernel<<<dim3(tiles, S), kWgThreads, kWgSmem, st>>>(
+      WgradJob32{dhbuf, x, pw1, F, D}, WgradJob32{dy, hbuf, pw2, D, F}, M, per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return sum_all<float>(pb1, pb2, pw1, pw2, dw1, db1, dw2, db2, M, D, F, S, st);
 }
@@ -812,7 +1004,7 @@ extern "C" int vst_ffn_bwd(int is_bf16, const void* x, const void* dy, const voi
   const cudaError_t err =
       is_bf16 ? launch_bwd_bf16(x, dy, w1, b1, w2, dx, dw1, db1, dw2, db2, hbuf, dhbuf, p1, p2,
                                 q1, q2, M, D, F, S, st)
-              : launch_bwd_f32(static_cast<const float*>(x), static_cast<const float*>(dy),
+              : launch_bwd_tf32(static_cast<const float*>(x), static_cast<const float*>(dy),
                                static_cast<const float*>(w1), static_cast<const float*>(b1),
                                static_cast<const float*>(w2), dx, dw1, db1, dw2, db2,
                                static_cast<float*>(hbuf), static_cast<float*>(dhbuf), p1, p2, q1,

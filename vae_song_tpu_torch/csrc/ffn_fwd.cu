@@ -41,16 +41,40 @@
 // resident, y is written over it in shared memory and leaves by TMA
 // stores of whole boxes.
 //
-// f32 inputs (mixed_precision: false) take a plain FMA kernel, no TF32:
-// 64-row blocks and 256-column chunks of y (128 where 256 does not divide
-// D), 16 hidden units a step, x staged once up to D = 256 and in 64-column
-// panels above it, so any D fits.
+// f32 inputs (mixed_precision: false): a split-TF32 mma.sync kernel
+// (mma_tf32.cuh; TF32 wgmma reads only K-major operands, mma.sync any
+// layout). Each f32 operand is split into big and small TF32 halves and
+// each 8-deep step is three m16n8k8 products into a fresh accumulator
+// (chained on a running sum, the tensor cores' rounding toward zero would
+// bias it). At M = 131072, D = 256, F = 512 that is 3 x 6.9e10 TF32
+// operations, 0.417 ms at 495 TFLOP/s (0.026 ms at M = 8192), against 1.03
+// ms for 6.9e10 on the FMA units: the tensor cores bound it, but below
+// them the instruction issue does: each product step (3 mma) also takes 4
+// adds into the running sum, the splits of its operands (4 integer and
+// float operations an element) and their shared-memory reads, about 7
+// issue slots a product step in this kernel, and mma.sync does not reach
+// wgmma's rate. The design spends what issue it can on the products: a
+// block of 64 rows, 8 warps in pairs over a 16-row tile; for each 32-unit
+// hidden chunk the pair splits h = relu(x W1[c]^T + b1) (16 units each, x
+// read once a chunk from the block's resident rows, W1 read K-major), the
+// two swap their halves of h through shared memory lane for lane (the
+// accumulator layouts match) and each adds h W2[c]^T to its half of y's
+// columns, h as the A fragments (a_from_acc's order, W2 read as float2
+// pairs). The chunk's four steps are added into the first one's fresh
+// accumulator before the one add to y; where a warp's y half is 64
+// columns (YC = 128) the chunks go to two running sums, even and odd,
+// added at the end (F / 64 adds deep each: closer to float64 than the
+// plain version at F = 1536). W1 and W2 chunks come through two cp.async
+// stages each, one __syncthreads an item; x stays resident up to D = 256
+// and streams with the W1 panels (128 columns) above it. Only x, the
+// weights and y touch device memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "ffn_tf32.cuh"
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -301,104 +325,196 @@ cudaError_t launch_fwd_wgmma(const void* x, const void* w1, const void* b1, cons
   return cudaGetLastError();
 }
 
-// ---- f32: plain FMA kernel -----------------------------------------------------
+// ---- f32: split-TF32 mma.sync kernel --------------------------------------------
 
-constexpr int kF32Rows = 64;      // rows a block
-constexpr int kF32Threads = 256;
-constexpr int kF32F = 16;         // hidden units a step
-constexpr int kF32Panel = 64;     // columns of x and W1 staged at a time
-constexpr int kF32Resident = 256; // up to this D the block's x rows stay staged
+using vst::ffn32::kHT;
 
-// Row stride of the staged x, in floats: all of D when it stays, else a
-// panel; odd, so that the threads' row reads fall on distinct banks.
-inline int f32_x_stride(int D) { return (D <= kF32Resident ? D : kF32Panel) + 1; }
+constexpr int kF32Chunk = 32;              // hidden units a chunk
+constexpr int kF32Tiles = 4;               // row tiles of 16 a block
+constexpr int kF32BM = 16 * kF32Tiles;     // rows a block
+constexpr int kF32Threads = 2 * kF32Tiles * 32;
+constexpr int kF32W2LD = kF32Chunk + 8;    // W2 chunk row stride: 8 (mod 32)
 
-inline size_t f32_smem(int D, int YC) {
-  return (kF32Rows * f32_x_stride(D) + kF32F * kF32Panel + kF32Rows * (kF32F + 1) + kF32F * YC) *
-         sizeof(float);
+// Shared memory in floats: x's resident rows [64][D + 4] (D <= 256); two
+// stages of ring A (the chunk's rows of a W1 panel [32][kp + 4], then x's
+// panel [64][kp + 4] where x streams) and two of ring B (the W2 chunk
+// [YC][40]); the exchange of h, [4 row tiles][2 warps][32 lanes][8].
+struct Tf32FwdLayout {
+  int xres, kp, P, ld, a_floats, b_floats;
+  int a0, b0, xh;
+  size_t bytes;
+};
+
+inline Tf32FwdLayout tf32_fwd_layout(int D, int YC) {
+  Tf32FwdLayout L{};
+  L.xres = D <= vst::ffn32::kResident;
+  L.kp = L.xres ? D : vst::ffn32::kKP;
+  L.P = D / L.kp;
+  L.ld = vst::ffn32::panel_ld(L.kp);
+  L.a_floats = (kF32Chunk + (L.xres ? 0 : kF32BM)) * L.ld;
+  L.b_floats = YC * kF32W2LD;
+  L.a0 = L.xres ? kF32BM * L.ld : 0;
+  L.b0 = L.a0 + 2 * L.a_floats;
+  L.xh = L.b0 + 2 * L.b_floats;
+  L.bytes = static_cast<size_t>(L.xh + kF32Tiles * 2 * 32 * 4 * kHT) * sizeof(float);
+  return L;
 }
 
-// Grid (M / 64, D / YC), 256 threads. For the h step thread i computes
-// row i % 64, hidden units i / 64 + 4 j, summing over D in order; for y it
-// owns row i % 64, columns y0 + (i / 64) YC / 4 .. + YC / 4 - 1. Up to
-// D = 256 the block's x rows are staged once, above it one 64-column panel
-// at a time.
+// Grid (M / 64, D / YC), 256 threads. Warp w works on rows 16 (w % 4) ..
+// + 15 of the block's 64 and, s = w / 4, on hidden units 16 s .. + 15 of
+// each 32-unit chunk c (h32 = relu(x W1[c]^T + b1) through the backward's
+// h_panel) and on columns s YC / 2 .. + YC / 2 - 1 of y. After h the two
+// warps of a row tile swap their halves of it through shared memory, each
+// lane with the same lane of its partner (the accumulator layouts match),
+// and each adds h W2[c, its columns]^T to y, h as A fragments in
+// a_from_acc's order, the chunk's four 8-unit steps in order. The items of
+// the cp.async ring, in order: for each chunk the P panels of W1[c] (with
+// x's panel where x streams), then the chunk W2[y0 .. y0 + YC, c]. One
+// __syncthreads an item: each iteration waits for its own copies, meets
+// the block (every warp is then done with the item before, whose stage the
+// next item's copies overwrite, and with the h it read) and issues the
+// next item's copies, which overlap this item's products.
 template <int YC>
-__global__ void __launch_bounds__(kF32Threads)
-ffn_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                   const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, float* __restrict__ y, int D, int F) {
-  constexpr int HP = kF32F + 1, CW = YC / 4;
-  const bool xres = D <= kF32Resident;
-  const int XP = xres ? D + 1 : kF32Panel + 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* xs = fsm;                          // x [64][D + 1] or a panel [64][65]
-  float* w1s = xs + kF32Rows * XP;          // W1[:, c] panel^T [16][64]
-  float* hs = w1s + kF32F * kF32Panel;      // h [64][17]
-  float* w2s = hs + kF32Rows * HP;          // W2[c, y0..]^T [16][YC]
-
-  const long long r0 = (long long)blockIdx.x * kF32Rows;
+__global__ void __launch_bounds__(kF32Threads, 1)
+ffn_fwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ b2, float* __restrict__ y, int D, int F,
+                    Tf32FwdLayout L) {
+  constexpr int HY = YC / 2, NT = HY / 8;
+  extern __shared__ __align__(16) float tsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, tile = warp % kF32Tiles, s = warp / kF32Tiles;
+  const int rw = 16 * tile;
+  const long long r0 = (long long)blockIdx.x * kF32BM;
   const int y0 = blockIdx.y * YC;
-  const int tid = threadIdx.x, row = tid % kF32Rows, grp = tid / kF32Rows;
-  const float* xr = xs + row * XP;
+  const int P = L.P, kp = L.kp, ld = L.ld, per = P + 1, n = (F / kF32Chunk) * per;
+  // h of the row tile: [2 warps][32 lanes][kHT float4]
+  float4* xh = reinterpret_cast<float4*>(tsm + L.xh) + tile * 2 * 32 * kHT;
 
-  float acc[CW];
-#pragma unroll
-  for (int i = 0; i < CW; ++i) acc[i] = 0.f;
+  auto issue = [&](int i) {
+    const int c = i / per, q = i - c * per;
+    if (q < P) {
+      float* st = tsm + L.a0 + ((c * P + q) & 1) * L.a_floats;
+      vst::ffn32::cp_tile(st, ld, w1 + (long long)c * kF32Chunk * D + q * kp, D, kF32Chunk, kp,
+                          tid, kF32Threads);
+      if (!L.xres)
+        vst::ffn32::cp_tile(st + kF32Chunk * ld, ld, x + r0 * D + q * kp, D, kF32BM, kp, tid,
+                            kF32Threads);
+    } else {
+      vst::ffn32::cp_tile(tsm + L.b0 + (c & 1) * L.b_floats, kF32W2LD,
+                          w2 + (long long)y0 * F + c * kF32Chunk, F, YC, kF32Chunk, tid,
+                          kF32Threads);
+    }
+  };
+  if (L.xres) vst::ffn32::cp_tile(tsm, ld, x + r0 * D, D, kF32BM, D, tid, kF32Threads);
+  issue(0);
+  vst::cp_async_commit();
 
-  for (int c0 = 0; c0 < F; c0 += kF32F) {
-    float s[kF32F / 4];
+  // y's running sums: where a warp holds 64 columns (YC = 128), one over
+  // the even and one over the odd chunks, added at the end (each F / 64
+  // adds deep); at 128 columns (YC = 256) the second set of accumulators
+  // does not fit the 255 registers, and yodd stays 0
+  constexpr bool kTwoSums = YC == 128;
+  float yeven[NT][4], yodd[NT][4];
 #pragma unroll
-    for (int jj = 0; jj < kF32F / 4; ++jj) s[jj] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kF32Panel) {
-      const int xc = xres ? d0 : 0;   // the panel's first column in xs
-      __syncthreads();
-      if (!xres || c0 == 0)
-        for (int i = tid; i < kF32Rows * kF32Panel; i += kF32Threads)
-          xs[(i / kF32Panel) * XP + xc + i % kF32Panel] =
-              x[(r0 + i / kF32Panel) * D + d0 + i % kF32Panel];
-      for (int i = tid; i < kF32F * kF32Panel; i += kF32Threads)
-        w1s[i] = w1[(long long)(c0 + i / kF32Panel) * D + d0 + i % kF32Panel];
-      __syncthreads();
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int jj = 0; jj < kF32F / 4; ++jj) {
-        const float* wr = w1s + (grp + 4 * jj) * kF32Panel;
-#pragma unroll 16
-        for (int d = 0; d < kF32Panel; ++d) s[jj] = fmaf(xr[xc + d], wr[d], s[jj]);
+    for (int e = 0; e < 4; ++e) yeven[j][e] = yodd[j][e] = 0.f;
+  float hacc[kHT][4];
+
+  // ya[:, this warp's half] += h W2[c, ..]^T over the chunk's 32 units
+  // from the B stage st: the four steps' fresh accumulators added in
+  // order into the first, then that to ya
+  auto y_chunk = [&](float (&ya)[NT][4], const float* st, const vst::SplitA (&fa)[4]) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float sum[4], d[4];
+      vst::mma_b_nk_pair_fresh(sum, fa[0], st, kF32W2LD, 8 * j, 0, g, t);
+#pragma unroll
+      for (int kc = 1; kc < kF32Chunk / 8; ++kc) {
+        vst::mma_b_nk_pair_fresh(d, fa[kc], st, kF32W2LD, 8 * j, 8 * kc, g, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[e] += d[e];
       }
-    }
 #pragma unroll
-    for (int jj = 0; jj < kF32F / 4; ++jj) {
-      const int j = grp + 4 * jj;
-      hs[row * HP + j] = fmaxf(s[jj] + b1[c0 + j], 0.f);
+      for (int e = 0; e < 4; ++e) ya[j][e] += sum[e];
     }
-    for (int i = tid; i < kF32F * YC; i += kF32Threads)
-      w2s[i] = w2[(long long)(y0 + i % YC) * F + c0 + i / YC];
+  };
+
+  for (int i = 0; i < n; ++i) {
+    vst::cp_async_wait<0>();
     __syncthreads();
+    if (i + 1 < n) {
+      issue(i + 1);
+      vst::cp_async_commit();
+    }
+    const int c = i / per, q = i - c * per;
+    if (q < P) {
+      if (q == 0) {
 #pragma unroll
-    for (int j = 0; j < kF32F; ++j) {
-      const float hv = hs[row * HP + j];
+        for (int j = 0; j < kHT; ++j) hacc[j][0] = hacc[j][1] = hacc[j][2] = hacc[j][3] = 0.f;
+      }
+      const float* st = tsm + L.a0 + ((c * P + q) & 1) * L.a_floats;
+      vst::ffn32::h_panel(hacc, L.xres ? tsm : st + kF32Chunk * ld, st + 16 * s * ld, ld, rw,
+                             kp, g, t);
+      if (q == P - 1) {   // h = relu(h + b1) to the exchange
 #pragma unroll
-      for (int i = 0; i < CW; ++i) acc[i] = fmaf(hv, w2s[j * YC + grp * CW + i], acc[i]);
+        for (int kc = 0; kc < kHT; ++kc) {
+          const float2 bb =
+              *reinterpret_cast<const float2*>(b1 + c * kF32Chunk + 16 * s + 8 * kc + 2 * t);
+          xh[(s * 32 + lane) * kHT + kc] = make_float4(
+              fmaxf(hacc[kc][0] + bb.x, 0.f), fmaxf(hacc[kc][1] + bb.y, 0.f),
+              fmaxf(hacc[kc][2] + bb.x, 0.f), fmaxf(hacc[kc][3] + bb.y, 0.f));
+        }
+      }
+    } else {
+      // y += h W2[c, ..]^T, into the running sum of c's parity where there
+      // are two
+      const float* st = tsm + L.b0 + (c & 1) * L.b_floats + s * HY * kF32W2LD;
+      vst::SplitA fa[kF32Chunk / 8];
+#pragma unroll
+      for (int kc = 0; kc < kF32Chunk / 8; ++kc) {
+        const float4 h = xh[((kc / kHT) * 32 + lane) * kHT + kc % kHT];
+        fa[kc] = vst::split_a(h.x, h.z, h.y, h.w);
+      }
+      if (kTwoSums && (c & 1))
+        y_chunk(yodd, st, fa);
+      else
+        y_chunk(yeven, st, fa);
     }
   }
-  const long long off = (r0 + row) * D + y0 + grp * CW;
+
+  // y = (h W2 + b2) + x
 #pragma unroll
-  for (int i = 0; i < CW; ++i) y[off + i] = (acc[i] + b2[y0 + grp * CW + i]) + x[off + i];
+  for (int j = 0; j < NT; ++j) {
+    const int col = y0 + s * HY + 8 * j + 2 * t;
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rw + g + 8 * half;
+      const long long off = (r0 + r) * D + col;
+      const float2 xv = L.xres ? *reinterpret_cast<const float2*>(tsm + r * ld + col)
+                               : *reinterpret_cast<const float2*>(x + off);
+      const float y0v = kTwoSums ? yeven[j][2 * half] + yodd[j][2 * half] : yeven[j][2 * half];
+      const float y1v =
+          kTwoSums ? yeven[j][2 * half + 1] + yodd[j][2 * half + 1] : yeven[j][2 * half + 1];
+      *reinterpret_cast<float2*>(y + off) = make_float2((y0v + bb.x) + xv.x, (y1v + bb.y) + xv.y);
+    }
+  }
 }
 
 template <int YC>
-cudaError_t launch_fwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* y, long long M, int D, int F,
-                           cudaStream_t st) {
-  const size_t smem = f32_smem(D, YC);
-  const cudaError_t err = vst::allow_smem(ffn_fwd_f32_kernel<YC>, smem);
+cudaError_t launch_fwd_tf32(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* y, long long M, int D, int F,
+                            cudaStream_t st) {
+  const Tf32FwdLayout L = tf32_fwd_layout(D, YC);
+  const cudaError_t err = vst::allow_smem(ffn_fwd_tf32_kernel<YC>, L.bytes);
   if (err != cudaSuccess) return err;
-  ffn_fwd_f32_kernel<YC><<<dim3(static_cast<unsigned>(M / kF32Rows), D / YC), kF32Threads, smem,
-                           st>>>(
+  ffn_fwd_tf32_kernel<YC><<<dim3(static_cast<unsigned>(M / kF32BM), D / YC), kF32Threads,
+                            L.bytes, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(y), D, F);
+      static_cast<const float*>(b2), static_cast<float*>(y), D, F, L);
   return cudaGetLastError();
 }
 
@@ -416,8 +532,8 @@ extern "C" int vst_ffn_fwd(int is_bf16, const void* x, const void* w1, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!is_bf16)
-    err = D % 256 == 0 ? launch_fwd_f32<256>(x, w1, b1, w2, b2, y, M, D, F, st)
-                       : launch_fwd_f32<128>(x, w1, b1, w2, b2, y, M, D, F, st);
+    err = D % 256 == 0 ? launch_fwd_tf32<256>(x, w1, b1, w2, b2, y, M, D, F, st)
+                       : launch_fwd_tf32<128>(x, w1, b1, w2, b2, y, M, D, F, st);
   else if (D % 256 == 0)
     err = launch_fwd_wgmma<256>(x, w1, b1, w2, b2, y, M, D, F, st);
   else

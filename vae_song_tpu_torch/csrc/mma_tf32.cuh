@@ -1,6 +1,7 @@
 // Split-TF32 helpers shared by the f32 attention forward
 // (dense_attn_fwd.cu) and backward (dense_attn_bwd.cu) at D = 64 and 128,
-// and by their kernels for heads of 192 and wider (dense_attn_tf32_wide.cu).
+// by their kernels for heads of 192 and wider (dense_attn_tf32_wide.cu),
+// and by the fused FFN's f32 kernels (ffn_fwd.cu, ffn_bwd.cu).
 //
 // The tensor cores take f32 data only as TF32 (10 mantissa bits). An f32
 // operand x is carried as two TF32 values, big = rna(x) and small =
@@ -100,13 +101,20 @@ __device__ __forceinline__ SplitA a_from_acc(const float c[4]) {
 // float64 version, four to six times the plain f32 version's distance,
 // past the bounds chip_smoke.py holds the kernels to). On one step it is
 // at most an ulp of that step's sum, and the running sum rounds to
-// nearest.
-__device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, uint32_t bb0,
-                                           uint32_t bb1, uint32_t bs0, uint32_t bs1) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
+// nearest. mma_3xtf32_fresh leaves the step's fresh accumulator in d, for
+// a caller that adds a few steps together before the running sum.
+__device__ __forceinline__ void mma_3xtf32_fresh(float d[4], const SplitA& a, uint32_t bb0,
+                                                 uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  d[0] = d[1] = d[2] = d[3] = 0.f;
   mma_1688(d, a.small, bb0, bb1);
   mma_1688(d, a.big, bs0, bs1);
   mma_1688(d, a.big, bb0, bb1);
+}
+
+__device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, uint32_t bb0,
+                                           uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  float d[4];
+  mma_3xtf32_fresh(d, a, bb0, bb1, bs0, bs1);
   c[0] += d[0];
   c[1] += d[1];
   c[2] += d[2];
@@ -169,6 +177,49 @@ __device__ __forceinline__ void mma_b_rows(float c[4], const SplitA& a, const fl
   split_tf32(p[0] * mul, bb0, bs0);
   split_tf32(p[ld] * mul, bb1, bs1);
   mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
+}
+
+// The reads of the fused FFN's f32 kernels (ffn_fwd.cu, ffn_bwd.cu), whose
+// operands lie in shared memory in every layout:
+//
+// D += A B with B the rows k0 .. k0 + 7 of a [rows][ld] shared tile,
+// columns n0 .. n0 + 7, in the standard order (B row t = tile row k0 + t):
+// the A operand read by a_from_smem. ld = 8 (mod 16) keeps both reads free
+// of bank conflicts.
+__device__ __forceinline__ void mma_b_kn(float c[4], const SplitA& a, const float* tile, int ld,
+                                         int k0, int n0, int g, int t) {
+  const float* p = tile + (k0 + t) * ld + n0 + g;
+  uint32_t bb0, bb1, bs0, bs1;
+  split_tf32(p[0], bb0, bs0);
+  split_tf32(p[4 * ld], bb1, bs1);
+  mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
+}
+
+// D += A B with B^T the rows n0 .. n0 + 7 of a [rows][ld] shared tile,
+// columns k0 .. k0 + 7, in the permuted contraction order of a_from_acc
+// (B row t = tile column k0 + 2t, row t + 4 = column k0 + 2t + 1: one
+// 8-byte read a lane). ld = 8 (mod 32) keeps it free of bank conflicts.
+// (mma_b_nk_pair_fresh: the step's fresh accumulator itself, for a caller
+// that adds several steps before the running sum.)
+__device__ __forceinline__ void mma_b_nk_pair_fresh(float d[4], const SplitA& a,
+                                                    const float* tile, int ld, int n0, int k0,
+                                                    int g, int t) {
+  const float2 v = *reinterpret_cast<const float2*>(tile + (n0 + g) * ld + k0 + 2 * t);
+  uint32_t bb0, bb1, bs0, bs1;
+  split_tf32(v.x, bb0, bs0);
+  split_tf32(v.y, bb1, bs1);
+  mma_3xtf32_fresh(d, a, bb0, bb1, bs0, bs1);
+}
+
+// The A fragment (rows i0 .. i0 + 15 of A, contraction k0 .. k0 + 7) of
+// A = T^T, T a [rows][ld] shared tile read down its rows k0 .. k0 + 7 at
+// columns i0 .. i0 + 15: a product over the rows of two row-major tiles,
+// as the weight gradients X^T dH are. ld = 8 (mod 32) keeps it free of
+// bank conflicts.
+__device__ __forceinline__ SplitA a_from_kn(const float* tile, int ld, int k0, int i0, int g,
+                                            int t) {
+  const float* p = tile + (k0 + t) * ld + i0 + g;
+  return split_a(p[0], p[8], p[4 * ld], p[4 * ld + 8]);
 }
 
 // 16-byte asynchronous copy global -> shared (cp.async.cg: L2 only), its

@@ -31,17 +31,32 @@ K6f and whose backward is K6b on CUDA tensors (the plain versions on CPU
 tensors). The kernels take every shape the gate `fused_ffn_ok` accepts
 (rows, width and hidden width multiples of 128): a block recomputes h per
 128- or 256-wide column chunk of y and dx where D is wider than 256.
+bf16 runs wgmma/TMA kernels; f32 (`mixed_precision: false`) split-TF32
+mma.sync kernels (csrc/mma_tf32.cuh: every product three TF32 products, 8
+terms a step into a fresh accumulator), whose launches are also counted on
+`tf32_fwd` and `tf32_bwd`.
 """
+
+import types
 
 import torch
 
 from vae_song_tpu_torch import _kernels
 
 # the backward's weight-gradient pass, by dtype: its output tile edge and
-# the blocks one streaming multiprocessor holds at once (the bf16 wgmma
-# kernel takes a whole SM; the f32 FMA kernel's blocks are small)
-WGRAD_TILE = {torch.bfloat16: 128, torch.float32: 64}
-WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 8}
+# the blocks one streaming multiprocessor holds at once (both kernels take
+# 128 x 128 tiles and a whole SM: the bf16 wgmma kernel's 197 KB and the
+# f32 split-TF32 kernel's 4-stage ring of 136 KB); in f32 also the most
+# rows a split sums in sequence (16384 a split, at the f32 path's M =
+# 131072, left dW1 and dW2 farther from float64 than the plain version's)
+WGRAD_TILE = {torch.bfloat16: 128, torch.float32: 128}
+WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 1}
+WGRAD_SPLIT_ROWS = {torch.bfloat16: None, torch.float32: 2048}
+
+# Launches of the f32 kernels (split TF32), also counted on fused_ffn_fwd
+# and fused_ffn_bwd.
+tf32_fwd = types.SimpleNamespace(launches=0)
+tf32_bwd = types.SimpleNamespace(launches=0)
 
 
 def fused_ffn_ok(m: int, d: int, f: int) -> bool:
@@ -123,10 +138,14 @@ def _launch_fwd(x2, w1, b1, w2, b2):
 def wgrad_splits(m: int, d: int, f: int, dtype, sms: int) -> int:
     """Splits of the M rows in the backward's weight-gradient pass: enough
     blocks over the output tiles of dW1 and dW2 to fill the card's `sms`
-    streaming multiprocessors once, each split at least one 64-row step."""
+    streaming multiprocessors once, and in f32 enough that none sums more
+    than WGRAD_SPLIT_ROWS rows; each split at least one 64-row step."""
     tile = WGRAD_TILE[dtype]
     tiles = 2 * (f // tile) * (d // tile)
-    return max(1, min(m // 64, sms * WGRAD_BLOCKS_PER_SM[dtype] // tiles))
+    splits = sms * WGRAD_BLOCKS_PER_SM[dtype] // tiles
+    if WGRAD_SPLIT_ROWS[dtype]:
+        splits = max(splits, -(-m // WGRAD_SPLIT_ROWS[dtype]))
+    return max(1, min(m // 64, splits))
 
 
 def _launch_bwd(x2, dy, w1, b1, w2):
@@ -156,19 +175,23 @@ def _launch_bwd(x2, dy, w1, b1, w2):
 def fused_ffn_fwd(x2, w1, b1, w2, b2):
     """y = x2 + relu(x2 W1 + b1) W2 + b2 on [M, D] rows, not
     differentiable. CUDA tensors launch the Hopper kernel (one more on
-    `fused_ffn_fwd.launches`); CPU tensors take the plain version."""
+    `fused_ffn_fwd.launches`, and in f32 on `tf32_fwd.launches`); CPU
+    tensors take the plain version."""
     _check(x2, w1, b1, w2, b2)
     if x2.device.type == "cpu":
         return fused_ffn_plain(x2, w1, b1, w2, b2)
     y = _launch_fwd(x2, w1, b1, w2, b2)
     fused_ffn_fwd.launches += 1
+    if x2.dtype == torch.float32:
+        tf32_fwd.launches += 1
     return y
 
 
 def fused_ffn_bwd(x2, dy, w1, b1, w2):
     """(dx, dw1, db1, dw2, db2) of the fused FFN for the output cotangent
     dy. CUDA tensors launch the Hopper kernels (one more on
-    `fused_ffn_bwd.launches`); CPU tensors take the plain version."""
+    `fused_ffn_bwd.launches`, and in f32 on `tf32_bwd.launches`); CPU
+    tensors take the plain version."""
     _check(x2, w1, b1, w2)
     if dy.shape != x2.shape or dy.dtype != x2.dtype or dy.device != x2.device:
         raise ValueError(f"dy must be x's {x2.dtype} {list(x2.shape)} on {x2.device}, got "
@@ -177,6 +200,8 @@ def fused_ffn_bwd(x2, dy, w1, b1, w2):
         return fused_ffn_bwd_plain(x2, dy, w1, b1, w2)
     out = _launch_bwd(x2, dy.contiguous(), w1, b1, w2)
     fused_ffn_bwd.launches += 1
+    if x2.dtype == torch.float32:
+        tf32_bwd.launches += 1
     return out
 
 
