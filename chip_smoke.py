@@ -8,7 +8,8 @@ non-zero exit code:
 
   1. environment: a CUDA card is required; prints its name and power
      limit (nvidia-smi) and turns TF32 off.
-  2. build: compiles the kernels from vae_song_tpu_torch/csrc with nvcc.
+  2. build: compiles the kernels from vae_song_tpu_torch/csrc with nvcc,
+     while the nvcc jobs of phase 3b's arms library run beside them.
   3. kernels: each kernel against its plain PyTorch version on the card
      at the shapes its path gives it, with the stated bounds, the median
      time of both (runs of back-to-back calls; for the Chamfer kernels,
@@ -65,6 +66,24 @@ non-zero exit code:
      192 with B = 8 and D = 2112 (an odd panel count, D % 128 != 0, an odd
      number of 64-row tiles), at B = 8 with D = 2112, at B = 2 with two
      heads of 2176, and at B = 1, N = 1024 with a head of 4096.
+  3b. the attention A/B arms (scripts/ab_attn_arms.py): the compile-time
+     arms of K1 and K2's wgmma kernels that port the TPU ablation kernels
+     of scripts/ab_attn_ablate*.py and ab_attn_bwd.py, built from
+     scripts/ab_attn_arms.cu into build/ab_attn_arms/ (ptxas's lines for
+     their kernels printed). At the main path's shape (B = 64, N = 2048,
+     4 heads of 64, bf16) and at B = 1: each exact arm (K2's row-constant
+     folds dfuse, lfuse, bfuse, fused-e16, fused-e32; K1's bf16max) against
+     its plain version at phase 3's bf16 bounds, bitwise from run to run
+     and unequal to the package's kernel somewhere; the outputs a strip
+     keeps (K2's nodp and nodsmul dV, nodq dK and dV, nodk dQ and dV; K1's
+     nopv LSE2) and K1 at NC = 1 and 2 bitwise equal to the package's
+     kernels (K2's noexp and K1's noexp, nomax and sonly keep no output
+     and are timed only); every arm timed beside the package's
+     kernel, its plain version, its bound and SDPA. Then, the counts set
+     to 0 just before, every arm in the SetVAE B = 64 step (each K2 arm
+     put in place of the backward's launcher for 3 train steps, each K1
+     arm of the forward's for 3 eval steps, a fresh model each; exact arms
+     must give finite loss terms): each arm must launch.
   4. eval and generation: the shipped ShapeNet SetVAE config at full
      width (B = 64 clouds of N = 2048 points, bf16), random weights from
      a seed: the eval step on 4 batches after a warm-up, then generation
@@ -248,18 +267,26 @@ path's B = 64, D = 2304 case, launches from 4c (7), and the f32
 split-TF32 FFN kernels, the rows `ffn_tf32_fwd` and `_bwd`, at the f32
 path's M = 131072 case, launches from 4c (8)),
 the numbers phase 3 measured and the bound it computed, and under `paths`
-its launches on each path of phases 6-14 (zero on phases 9-11).
+its launches on each path of phases 6-14 (zero on phases 9-11); then a
+row for each family of phase 3b's arms (one a TPU script function,
+`replaces` its file:line): launches from phase 3b's SetVAE steps, the
+numbers of the family's first arm at B = 64 (a strip's max_abs_err that of
+its kept outputs against the package's kernel, null for an arm that keeps
+none, the family's the largest of its arms'; the bound that of the
+function it computes) and under `arms` each arm's.
 The last two lines are that JSON line and the result line.
 """
 
 import contextlib
 import copy
 import gc
+import importlib.util
 import json
 import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from unittest import mock
@@ -405,6 +432,14 @@ PEAK_BYTES = 3.35e12
 # wider heads only lengthen the f32 sums.
 K1_BF16_O_TOL = 2.0 ** -6
 K1_BF16_LSE_TOL = 1e-3
+# K1's bf16max arm (phase 3b) rounds the scores themselves to bf16 before
+# the max, so where the kernel's f32 S2 and the plain version's (summed in
+# other orders) round to neighbouring bf16 values, an exponent moves by one
+# bf16 ulp of |S2|, at most 2^-7 |S2|, and LSE2 (>= max S2) with it:
+# bound 2^-7 of max(1, max|LSE2|). Measured (H100, B = 64): 0.104 at
+# max|LSE2| 39, where K1_BF16_LSE_TOL gives 0.039. Its O is held to
+# K1_BF16_O_TOL.
+K1_BF16MAX_LSE_TOL = 2.0 ** -7
 # f32 attention: same math; the kernels take every product in split TF32
 # (f32-accurate: three TF32 products, each 8-deep step into a fresh
 # accumulator); the sums run in another order than the plain version's.
@@ -1101,6 +1136,66 @@ def check_ffn(dev, gen):
                 out_b.update(ms=ms_b, plain_ms=plain_b, library_ms=None, **bound_b)
         del x, dy, w1, b1, w2, b2, y, got, y_ref, want, leaves, oracle_y, oracle
     return res_f, res_b, f32_f, f32_b
+
+
+_ARMS = None
+
+
+def _arms_module():
+    """scripts/ab_attn_arms.py of this checkout, loaded once: the attention
+    A/B arms, their library's build, plain versions and checks."""
+    global _ARMS
+    if _ARMS is None:
+        spec = importlib.util.spec_from_file_location(
+            "ab_attn_arms", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                         "ab_attn_arms.py"))
+        _ARMS = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_ARMS)
+    return _ARMS
+
+
+def phase_attention_arms(dev, gen, build):
+    """Phase 3b (the module docstring): `build` is the arms library's
+    build handle from before phase 2. Returns the kernels line's rows of
+    the arm families."""
+    arms = _arms_module()
+    t0 = time.perf_counter()
+    arms.library(build)
+    print(f"arms build: {time.perf_counter() - t0:.2f} s more, waited for at phase 3b -> "
+          f"{arms.library_path().name}")
+    for line in arms.ptxas_lines():
+        print("  ptxas:", line)
+    smoke = sys.modules[__name__]
+    res = {b: arms.check_arms(smoke, dev, gen, b) for b in (BATCH, 1)}
+    arms.reset_launches()
+    arms.drive_path(smoke, dev)
+    counts = {"bwd": dict(arms.bwd_launches), "fwd": dict(arms.fwd_launches)}
+    print(f"the arms' launches in the SetVAE step: {counts}")
+    idle = [f"{part} {arm}" for part, c in counts.items() for arm, n in c.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"arms not launched in the SetVAE step: {idle}")
+
+    def max_err(part, members):   # None where no output was compared
+        errs = [r[(part, m)]["max_abs_err"] for r in res.values() for m in members]
+        errs = [e for e in errs if e is not None]
+        return max(errs) if errs else None
+
+    rows = []
+    for name, replaces, part, members in arms.FAMILIES:
+        first = res[BATCH][(part, members[0])]
+        rows.append(dict(
+            name=name, route="cuda", source="scripts/ab_attn_arms.cu", replaces=replaces,
+            launches=sum(counts[part][m] for m in members),
+            max_abs_err=max_err(part, members),
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+            package_ms=res[BATCH][(part, "full")]["ms"],
+            arms={m: {"ms": res[BATCH][(part, m)]["ms"], "b1_ms": res[1][(part, m)]["ms"],
+                      "plain_ms": res[BATCH][(part, m)]["plain_ms"],
+                      "bound_ms": res[BATCH][(part, m)]["bound_ms"],
+                      "max_abs_err": max_err(part, (m,)),
+                      "launches": counts[part][m]} for m in members}))
+    return rows
 
 
 # the launch counter of every kernel, by the name the JSON line gives it
@@ -3283,7 +3378,13 @@ def _timed(fn, *args):
 def main():
     card = phase_environment()
     dev = torch.device("cuda", 0)
-    _timed(phase_build)
+    # the arms library's nvcc jobs run beside phase 2's
+    arms_build = _arms_module().start_build()
+    try:
+        _timed(phase_build)
+    except BaseException:
+        _arms_module().stop_build(arms_build)
+        raise
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
                     denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
@@ -3300,6 +3401,7 @@ def main():
     k4 = _timed(check_chamfer, dev, gen)
     k5 = _timed(check_chamfer_bwd, dev, gen)
     k6f, k6b, k6f_tf32, k6b_tf32 = _timed(check_ffn, dev, gen)
+    arm_rows = _timed(phase_attention_arms, dev, gen, arms_build)
     _timed(phase_eval_generation, dev)
     main_path, f32_ms = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
@@ -3359,7 +3461,7 @@ def main():
                     replaces=replaces, launches=launches[name], **numbers,
                     paths={path: counts[name] for path, counts in paths.items()})
                for name, src, replaces, launches, numbers in rows]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + arm_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -267,23 +267,77 @@ constexpr int kConsumerWarps = 8;
 constexpr uint32_t kPanel64 = 64 * vst::kPanelRowBytes;    // 64-row panel
 constexpr uint32_t kPanel128 = 128 * vst::kPanelRowBytes;  // 128-row panel
 
+// Compile-time arms of the two kernels, for the A/B harness
+// scripts/ab_attn_arms.py: the ports of the TPU ablations of K2
+// (scripts/ab_attn_ablate.py, ab_attn_ablate8.py, ab_attn_bwd.py).
+// scripts/ab_attn_arms.cu instantiates them (D = 64); the package launches
+// kBwdFull only, for which every hook below compiles away.
+//   Exact arms fold a row constant into a score product: the constant
+//   comes as bf16 columns of a [B H N, 16] scratch (scripts/ab_attn_arms.cu's
+//   preprocess writes them, zeros past the columns used), and one more
+//   16-deep k-step of S (S^T) or dP (dP^T) multiplies them by a constant
+//   64 x 16 panel of ones in shared memory, so the subtraction lands in the
+//   f32 accumulator (depth 64 -> 80):
+//     kBwdDfuse     -bf16(delta): dS = bf16(P bf16(dP - bf16(delta)));
+//     kBwdLfuse     -hi, -lo of LSE2 (hi = bf16(LSE2), lo = bf16(LSE2 - hi)):
+//                   P = bf16(exp2(bf16(S - LSE2)));
+//     kBwdBfuse     both;
+//     kBwdFusedE16  both, delta unrounded as -hi, -lo too;
+//     kBwdFusedE32  as kBwdFusedE16, with P = bf16(exp2(S - LSE2)) in f32.
+//   Strips, timing only (the outputs a strip keeps are the package's bits):
+//     kBwdNoExp     P = bf16(S - LSE2), no exp2;
+//     kBwdNoDp      no dP product, dS = P (keeps dV);
+//     kBwdNoDsMul   dS = bf16(dP), no subtraction or product (keeps dV);
+//     kBwdNoDq      no dQ product (keeps dK, dV);
+//     kBwdNoDk      no dK product (keeps dV, dQ).
+//   kBwdRows64: the package's arithmetic in blocks of 64 resident rows (kRows
+//   64: one consumer warpgroup, 256 threads) in place of 128, twice the
+//   blocks, each streaming the other side whole (the package's bits).
+enum BwdArm : int {
+  kBwdFull = 0,
+  kBwdDfuse, kBwdLfuse, kBwdBfuse, kBwdFusedE16, kBwdFusedE32,
+  kBwdNoExp, kBwdNoDp, kBwdNoDsMul, kBwdNoDq, kBwdNoDk,
+  kBwdRows64,
+  kBwdArms
+};
+__host__ __device__ constexpr bool folds_lse(int arm) {
+  return arm >= kBwdLfuse && arm <= kBwdFusedE32;
+}
+__host__ __device__ constexpr bool folds_delta(int arm) {
+  return arm == kBwdDfuse || (arm >= kBwdBfuse && arm <= kBwdFusedE32);
+}
+__host__ __device__ constexpr bool folds(int arm) { return folds_lse(arm) || folds_delta(arm); }
+// The folded columns' tiles: 64 rows of 16 bf16 columns, 32-byte swizzled.
+constexpr uint32_t kAugRowBytes = 32;
+constexpr uint32_t kAugTile = 64 * kAugRowBytes;
+
 // Shared memory of the two wgmma kernels, byte offsets from a 1024-byte
 // aligned base: the resident 128-row tiles (P panels each), the ring's
 // stages (two 64-row tiles of P panels; in the dK/dV kernel then 64 LSE2
 // and 64 delta values), and the mbarriers (resident, full[], empty[]).
 // The ring holds 4 stages at D = 64, 3 at D = 128 (161 KB for dK/dV).
-template <int D, bool kRowVectors>
+// A fold arm adds the panel of ones after the resident tiles, and the
+// tiles of its folded columns (`aug` bytes for 64 rows of each): in the dQ
+// kernel the resident rows of each after the ones, in the dK/dV kernel
+// the streamed 64 rows in every stage, after its row vectors. kRows: the
+// resident rows (kBwdRows64: 64).
+template <int D, bool kRowVectors, int kArm = kBwdFull, int kRows = kBlockRows>
 struct WgmmaSmem {
   static constexpr int P = D / 64;
   static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t res_panel = kRows * vst::kPanelRowBytes;
+  static constexpr uint32_t aug = (folds_lse(kArm) + folds_delta(kArm)) * kAugTile;
   static constexpr uint32_t res_a = 0;
-  static constexpr uint32_t res_b = P * kPanel128;
-  static constexpr uint32_t stage0 = 2 * P * kPanel128;
+  static constexpr uint32_t res_b = P * res_panel;
+  static constexpr uint32_t ones = 2 * P * res_panel;
+  static constexpr uint32_t res_aug = ones + (folds(kArm) ? kAugTile : 0);
+  static constexpr uint32_t stage0 = res_aug + (kRowVectors ? 0 : kRows / 64 * aug);
   static constexpr uint32_t vec = 2 * P * kPanel64;                // in a stage
-  static constexpr uint32_t stage_bytes = vec + (kRowVectors ? 1024 : 0);
+  static constexpr uint32_t stage_aug = vec + (kRowVectors ? 1024 : 0);
+  static constexpr uint32_t stage_bytes = stage_aug + (kRowVectors ? aug : 0);
   static constexpr uint32_t bars = stage0 + kStages * stage_bytes;
   static constexpr size_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;   // + alignment
-  static constexpr uint32_t tile_tx = 2 * P * kPanel64 + (kRowVectors ? 512 : 0);
+  static constexpr uint32_t tile_tx = 2 * P * kPanel64 + (kRowVectors ? 512 + aug : 0);
 };
 
 using vst::zero_acc;
@@ -298,16 +352,27 @@ using vst::ds_pair;
 // The resident tile's barrier (one arrival: the producer's) and the
 // ring's full (one arrival) and empty (one per consumer warp) barriers.
 __device__ __forceinline__ void init_barriers(uint32_t res_bar, uint32_t full0, uint32_t empty0,
-                                              int stages) {
+                                              int stages, int consumer_warps = kConsumerWarps) {
   if (threadIdx.x == 0) {
     vst::mbar_init(res_bar, 1);
     for (int s = 0; s < stages; ++s) {
       vst::mbar_init(full0 + 8 * s, 1);
-      vst::mbar_init(empty0 + 8 * s, kConsumerWarps);
+      vst::mbar_init(empty0 + 8 * s, consumer_warps);
     }
     vst::mbar_fence_init();
   }
   __syncthreads();
+}
+
+// The fold arms' panel of ones (64 x 16 bf16, every entry 1, so its
+// swizzle does not matter), written by the consumer threads and fenced for
+// the async proxy before the block's first barrier.
+__device__ __forceinline__ void write_ones(unsigned char* at) {
+  if (threadIdx.x < 256) {
+    uint32_t* w = reinterpret_cast<uint32_t*>(at);
+    w[threadIdx.x] = w[threadIdx.x + 256] = 0x3F803F80u;
+    vst::fence_proxy_async();
+  }
 }
 
 // acc (64 x 64) = A (64 rows of the resident panels at a, kResPanel bytes
@@ -341,20 +406,78 @@ __device__ __forceinline__ void fence_all(float (&c)[P][8][4]) {
 }
 
 // Issue S = A B^T and dP = A' B'^T (A, A' resident at a, a2; B, B' the
-// stage's two tiles at b, b2) into sc and dp, one commit group each.
-template <int P>
+// stage's two tiles at b, b2) into sc and dp, one commit group each. A
+// fold arm adds to S the k-step over the 16-column tiles at fa, fb (LSE2's
+// columns and the ones, in the order of A and B), to dP the one at fa2,
+// fb2 (delta's); kBwdNoDp issues no dP.
+template <int P, int kArm = kBwdFull, uint32_t kResPanel = kPanel128>
 __device__ __forceinline__ void issue_scores(float (&sc)[8][4], float (&dp)[8][4], uint32_t a,
-                                             uint32_t a2, uint32_t b, uint32_t b2) {
+                                             uint32_t a2, uint32_t b, uint32_t b2,
+                                             uint32_t fa = 0, uint32_t fb = 0, uint32_t fa2 = 0,
+                                             uint32_t fb2 = 0) {
   zero_acc(sc);
   zero_acc(dp);
   vst::fence_acc(sc);
   vst::fence_acc(dp);
   vst::wgmma_fence();
-  wgmma_rows<P>(sc, a, b);
+  wgmma_rows<P, kResPanel>(sc, a, b);
+  if constexpr (folds_lse(kArm))
+    vst::wgmma_ss_n64_t<0, 0>(sc, vst::desc_kmajor_sw32(fa), vst::desc_kmajor_sw32(fb), 1);
   vst::wgmma_commit();
-  wgmma_rows<P>(dp, a2, b2);
-  vst::wgmma_commit();
+  if constexpr (kArm != kBwdNoDp) {
+    wgmma_rows<P, kResPanel>(dp, a2, b2);
+    if constexpr (folds_delta(kArm))
+      vst::wgmma_ss_n64_t<0, 0>(dp, vst::desc_kmajor_sw32(fa2), vst::desc_kmajor_sw32(fb2), 1);
+    vst::wgmma_commit();
+  }
 }
+
+// P of two neighbouring score columns x0, x1 whose row constants (LSE2)
+// are c0, c1, by arm: exp2 of the bf16-rounded difference (vst::p_pair);
+// where LSE2 is folded, of x itself, in f32 for kBwdFusedE32; no exp2 for
+// kBwdNoExp.
+template <int kArm>
+__device__ __forceinline__ uint32_t p_arm(float x0, float x1, float c0, float c1) {
+  if constexpr (kArm == kBwdFusedE32)
+    return pack_bf16(vst::ex2_ftz(x0), vst::ex2_ftz(x1));
+  else if constexpr (folds_lse(kArm))
+    return p_pair(x0, x1);
+  else if constexpr (kArm == kBwdNoExp)
+    return pack_bf16(x0 - c0, x1 - c1);
+  else
+    return p_pair(x0 - c0, x1 - c1);
+}
+
+// dS of two neighbouring columns from P (bf16 pair p), dP (d0, d1) and
+// the bf16 pair of delta dd, by arm: vst::ds_pair; where delta is folded,
+// bf16(P bf16(dP)) (one bf16x2 product); P for kBwdNoDp; bf16(dP) for
+// kBwdNoDsMul.
+template <int kArm>
+__device__ __forceinline__ uint32_t ds_arm(uint32_t p, float d0, float d1, uint32_t dd) {
+  if constexpr (folds_delta(kArm)) {
+    const uint32_t dpr = pack_bf16(d0, d1);
+    const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&p),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&dpr));
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else if constexpr (kArm == kBwdNoDp) {
+    return p;
+  } else if constexpr (kArm == kBwdNoDsMul) {
+    return pack_bf16(d0, d1);
+  } else {
+    return ds_pair(p, d0, d1, dd);
+  }
+}
+
+// A strip that drops the product reading dS keeps dS computed: its words
+// are folded by xor into `keep`, which the kernel stores (into its
+// timing-only output) only if it equals an arbitrary constant.
+__device__ __forceinline__ void keep_frags(uint32_t& keep, const uint32_t (&x)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) keep ^= x[i][j];
+}
+constexpr uint32_t kKeepMagic = 0x2545F491u;
 
 using vst::release_stage;
 
@@ -383,22 +506,41 @@ __device__ __forceinline__ void store_rows(const float (&c)[P][8][4], bf16* out,
 // tiles, once the consumers have released its stage, the tiles of sa and
 // sb (and, where lse is given, the tile rows' LSE2 and delta, at vec0 +
 // s vec_stride for stage s). Its last kStages waits let the consumers
-// release every stage before it leaves.
-template <int P, int kResRows, int kStages, uint32_t kStageBytes, uint32_t kTileTx>
+// release every stage before it leaves. A fold arm's folded columns come
+// through the 2-D maps al (LSE2's) and ad (delta's), rows vrow + the
+// block's or tile's rows: kAugResident, the block's kResRows rows of each
+// with its resident tiles, at aug0; else each streamed tile's 64 rows of
+// each with its stage, at aug0 + s kStageBytes.
+template <int P, int kResRows, int kStages, uint32_t kStageBytes, uint32_t kTileTx,
+          int kArm = kBwdFull, bool kAugResident = false>
 __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap* rb,
                                         const CUtensorMap* sa, const CUtensorMap* sb,
                                         const float* lse, const float* delta, uint32_t res,
                                         uint32_t stage0, uint32_t vec0, uint32_t vec_stride,
                                         uint32_t res_bar, uint32_t full0, uint32_t empty0,
-                                        int r0, int n, int h, int b) {
+                                        int r0, int n, int h, int b,
+                                        const CUtensorMap* al = nullptr,
+                                        const CUtensorMap* ad = nullptr, uint32_t aug0 = 0,
+                                        int vrow = 0) {
   constexpr uint32_t res_panel = kResRows * vst::kPanelRowBytes;
-  vst::mbar_arrive_expect_tx(res_bar, 2 * P * res_panel);
+  constexpr int kAugL = folds_lse(kArm), kAugD = folds_delta(kArm);
+  constexpr uint32_t res_aug_tx = kAugResident ? (kAugL + kAugD) * kResRows * kAugRowBytes : 0;
+  vst::mbar_arrive_expect_tx(res_bar, 2 * P * res_panel + res_aug_tx);
   for (int p = 0; p < P; ++p)
     for (int half = 0; half < kResRows / 64; ++half) {
       const uint32_t at = p * res_panel + half * kPanel64;
       vst::tma_load_4d(res + at, ra, res_bar, 64 * p, h, r0 + 64 * half, b);
       vst::tma_load_4d(res + P * res_panel + at, rb, res_bar, 64 * p, h, r0 + 64 * half, b);
     }
+  if constexpr (kAugResident && folds(kArm)) {
+    for (int half = 0; half < kResRows / 64; ++half) {
+      if constexpr (kAugL)
+        vst::tma_load_2d(aug0 + half * kAugTile, al, res_bar, 0, vrow + r0 + 64 * half);
+      if constexpr (kAugD)
+        vst::tma_load_2d(aug0 + (kAugL * kResRows / 64 + half) * kAugTile, ad, res_bar, 0,
+                         vrow + r0 + 64 * half);
+    }
+  }
   for (int it = 0; it < n + kStages; ++it) {
     const int s = it % kStages;
     vst::mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
@@ -414,46 +556,57 @@ __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap
       vst::bulk_load(vec, lse + it * kStepRows, 256, full);
       vst::bulk_load(vec + 256, delta + it * kStepRows, 256, full);
     }
+    if constexpr (!kAugResident && folds(kArm)) {
+      const uint32_t at = aug0 + s * kStageBytes;
+      if constexpr (kAugL) vst::tma_load_2d(at, al, full, 0, vrow + it * kStepRows);
+      if constexpr (kAugD)
+        vst::tma_load_2d(at + kAugL * kAugTile, ad, full, 0, vrow + it * kStepRows);
+    }
   }
 }
 
-// Grid (ceil(N / 128), H, B), 384 threads. Warpgroup w < 2 owns keys
-// k0 + 64 w .. + 63; its warp i the 16 rows 16 i .. of those. Per query
-// tile: S^T and dP^T go out together; P^T is computed while dP^T runs,
-// dS^T while dV runs.
-template <int D>
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
-attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
-                           const __grid_constant__ CUtensorMap mv,
-                           const __grid_constant__ CUtensorMap mqc,
-                           const __grid_constant__ CUtensorMap mdo,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
-                           Strides os) {
-  using L = WgmmaSmem<D, true>;
-  constexpr int P = L::P, kStages = L::kStages;
+// The dK/dV kernel's block (kArm: an arm above, kRows its resident rows;
+// the package's kernel is kBwdFull with 128). Grid (ceil(N / kRows), H, B),
+// 384 threads (256 at kRows 64). Warpgroup w < kRows / 64 owns keys k0 + 64
+// w .. + 63; its warp i the 16 rows 16 i .. of those. Per query tile: S^T
+// and dP^T go out together; P^T is computed while dP^T runs, dS^T while dV
+// runs. aug_l, aug_d: a fold arm's maps of the folded columns (else
+// unused).
+template <int D, int kArm, int kRows = kBlockRows>
+__device__ __forceinline__ void dkdv_wgmma_block(const CUtensorMap* mk, const CUtensorMap* mv,
+                                                 const CUtensorMap* mqc, const CUtensorMap* mdo,
+                                                 const CUtensorMap* aug_l,
+                                                 const CUtensorMap* aug_d,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta,
+                                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                                 int H, int N, Strides os) {
+  using L = WgmmaSmem<D, true, kArm, kRows>;
+  constexpr int P = L::P, kStages = L::kStages, kWgs = kRows / 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = vst::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const unsigned char* gbase = smem_raw + (base - raw);
   const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
-  const int k0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int nq = N / kStepRows;
   const long long vrow = ((long long)b * H + h) * N;
-  init_barriers(res_bar, full0, empty0, kStages);
+  if constexpr (folds(kArm)) write_ones(smem_raw + (base - raw) + L::ones);
+  init_barriers(res_bar, full0, empty0, kStages, 4 * kWgs);
   const int wg = threadIdx.x / 128;
 
-  if (wg == 2) {   // producer
-    vst::regs_dealloc<24>();
-    if (threadIdx.x == 256)
-      produce<P, kBlockRows, kStages, L::stage_bytes, L::tile_tx>(
-          &mk, &mv, &mqc, &mdo, lse + vrow, delta + vrow, base + L::res_a, base + L::stage0,
-          base + L::stage0 + L::vec, L::stage_bytes, res_bar, full0, empty0, k0, nq, h, b);
+  if (wg == kWgs) {   // producer
+    if constexpr (kWgs == 2) vst::regs_dealloc<24>();
+    if (threadIdx.x == 128 * kWgs)
+      produce<P, kRows, kStages, L::stage_bytes, L::tile_tx, kArm>(
+          mk, mv, mqc, mdo, lse + vrow, delta + vrow, base + L::res_a, base + L::stage0,
+          base + L::stage0 + L::vec, L::stage_bytes, res_bar, full0, empty0, k0, nq, h, b,
+          aug_l, aug_d, base + L::stage0 + L::stage_aug, static_cast<int>(vrow));
     return;
   }
 
   // consumers
-  vst::regs_alloc<240>();
+  if constexpr (kWgs == 2) vst::regs_alloc<240>();
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t kw = base + L::res_a + wg * kPanel64;   // this warpgroup's 64 keys
@@ -464,6 +617,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
     zero_acc(adk[p]);
     zero_acc(adv[p]);
   }
+  uint32_t keep = 0;
   vst::mbar_wait(res_bar, 0);
 
   for (int it = 0; it < nq; ++it) {
@@ -472,11 +626,14 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
     const uint32_t qs = base + L::stage0 + s * L::stage_bytes, dos = qs + P * kPanel64;
     const float* ls = reinterpret_cast<const float*>(gbase + (qs - base) + L::vec);
     const float* dls = ls + kStepRows;
+    // a fold arm's columns of the tile's queries (LSE2's, then delta's)
+    const uint32_t fl = qs + L::stage_aug, fd = fl + (folds_lse(kArm) ? kAugTile : 0);
 
     // S^T = K qc^T and dP^T = V dO^T (64 keys x 64 queries each)
     float sc[8][4], dp[8][4];
-    issue_scores<P>(sc, dp, kw, vw, qs, dos);
-    vst::wgmma_wait<1>();
+    issue_scores<P, kArm, L::res_panel>(sc, dp, kw, vw, qs, dos, base + L::ones, fl,
+                                        base + L::ones, fd);
+    vst::wgmma_wait<kArm == kBwdNoDp ? 0 : 1>();
     vst::fence_acc(sc);
 
     // P^T (columns are queries), straight into A fragments
@@ -484,8 +641,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float l0 = ls[8 * j + 2 * t], l1 = ls[8 * j + 2 * t + 1];
-      pa[j >> 1][(j & 1) * 2] = p_pair(sc[j][0] - l0, sc[j][1] - l1);
-      pa[j >> 1][(j & 1) * 2 + 1] = p_pair(sc[j][2] - l0, sc[j][3] - l1);
+      pa[j >> 1][(j & 1) * 2] = p_arm<kArm>(sc[j][0], sc[j][1], l0, l1);
+      pa[j >> 1][(j & 1) * 2 + 1] = p_arm<kArm>(sc[j][2], sc[j][3], l0, l1);
     }
 
     // dV += P^T dO, while dP^T finishes
@@ -501,15 +658,20 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t dd = vst::pack_bf16(dls[8 * j + 2 * t], dls[8 * j + 2 * t + 1]);
-      sa[j >> 1][(j & 1) * 2] = ds_pair(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd);
-      sa[j >> 1][(j & 1) * 2 + 1] = ds_pair(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd);
+      sa[j >> 1][(j & 1) * 2] = ds_arm<kArm>(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd);
+      sa[j >> 1][(j & 1) * 2 + 1] =
+          ds_arm<kArm>(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd);
     }
 
     // dK += dS^T qc
-    fence_all<P>(adk);
-    vst::wgmma_fence();
-    wgmma_frags_tile<P>(adk, sa, qs);
-    vst::wgmma_commit();
+    if constexpr (kArm != kBwdNoDk) {
+      fence_all<P>(adk);
+      vst::wgmma_fence();
+      wgmma_frags_tile<P>(adk, sa, qs);
+      vst::wgmma_commit();
+    } else {
+      keep_frags(keep, sa);
+    }
     vst::wgmma_wait<0>();
     fence_all<P>(adk);
     fence_all<P>(adv);
@@ -520,46 +682,71 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
   const int r = k0 + 64 * wg + 16 * warp + g;
   store_rows<P>(adk, dk, head, r, N, os.n, t, kLn2);
   store_rows<P>(adv, dv, head, r, N, os.n, t, 1.f);
+  if constexpr (kArm == kBwdNoDk) {
+    if (keep == kKeepMagic) dk[head] = __float2bfloat16_rn(1.f);
+  }
 }
 
-// Grid (ceil(N / 128), H, B), 384 threads. Warpgroup w < 2 owns queries
-// q0 + 64 w .. + 63; its warp i the 16 rows 16 i .. of those. Per key
-// tile: S and dP go out together; P is computed while dP runs.
 template <int D>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
-attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
-                         const __grid_constant__ CUtensorMap mdo,
-                         const __grid_constant__ CUtensorMap mk,
-                         const __grid_constant__ CUtensorMap mv,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int H, int N, Strides os, float scale) {
-  using L = WgmmaSmem<D, false>;
-  constexpr int P = L::P, kStages = L::kStages;
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mqc,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
+                           Strides os) {
+  dkdv_wgmma_block<D, kBwdFull>(&mk, &mv, &mqc, &mdo, nullptr, nullptr, lse, delta, dk, dv, H,
+                                N, os);
+}
+
+// The dQ kernel's block (kArm, kRows as for dkdv_wgmma_block). Grid
+// (ceil(N / kRows), H, B), 384 threads (256 at kRows 64). Warpgroup w <
+// kRows / 64 owns queries q0 + 64 w .. + 63; its warp i the 16 rows 16 i ..
+// of those. Per key tile: S and dP go out together; P is computed while dP
+// runs.
+template <int D, int kArm, int kRows = kBlockRows>
+__device__ __forceinline__ void dq_wgmma_block(const CUtensorMap* mqc, const CUtensorMap* mdo,
+                                               const CUtensorMap* mk, const CUtensorMap* mv,
+                                               const CUtensorMap* aug_l,
+                                               const CUtensorMap* aug_d,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               bf16* __restrict__ dq, int H, int N, Strides os,
+                                               float scale) {
+  using L = WgmmaSmem<D, false, kArm, kRows>;
+  constexpr int P = L::P, kStages = L::kStages, kWgs = kRows / 64;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (vst::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t raw = vst::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t res_bar = base + L::bars, full0 = res_bar + 8, empty0 = full0 + 8 * kStages;
-  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int nk = N / kStepRows;
-  init_barriers(res_bar, full0, empty0, kStages);
+  if constexpr (folds(kArm)) write_ones(smem_raw + (base - raw) + L::ones);
+  init_barriers(res_bar, full0, empty0, kStages, 4 * kWgs);
   const int wg = threadIdx.x / 128;
 
-  if (wg == 2) {   // producer
-    vst::regs_dealloc<24>();
-    if (threadIdx.x == 256)
-      produce<P, kBlockRows, kStages, L::stage_bytes, L::tile_tx>(
-          &mqc, &mdo, &mk, &mv, nullptr, nullptr, base + L::res_a, base + L::stage0, 0, 0,
-          res_bar, full0, empty0, q0, nk, h, b);
+  if (wg == kWgs) {   // producer
+    if constexpr (kWgs == 2) vst::regs_dealloc<24>();
+    if (threadIdx.x == 128 * kWgs)
+      produce<P, kRows, kStages, L::stage_bytes, L::tile_tx, kArm, true>(
+          mqc, mdo, mk, mv, nullptr, nullptr, base + L::res_a, base + L::stage0, 0, 0,
+          res_bar, full0, empty0, q0, nk, h, b, aug_l, aug_d, base + L::res_aug,
+          (b * H + h) * N);
     return;
   }
 
   // consumers
-  vst::regs_alloc<240>();
+  if constexpr (kWgs == 2) vst::regs_alloc<240>();
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t qw = base + L::res_a + wg * kPanel64;   // this warpgroup's 64 queries
   const uint32_t ow = base + L::res_b + wg * kPanel64;
   const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
   const long long vrow = ((long long)b * H + h) * N;
+  // a fold arm's columns of those queries (LSE2's, then delta's)
+  const uint32_t fl = base + L::res_aug + wg * kAugTile;
+  const uint32_t fd = fl + (folds_lse(kArm) ? kWgs * kAugTile : 0);
   // rows past N (zeros in shared memory) get LSE2 = delta = 0: finite,
   // and never stored
   const float l0 = r0 < N ? lse[vrow + r0] : 0.f, l1 = r1 < N ? lse[vrow + r1] : 0.f;
@@ -568,6 +755,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
   float acc[P][8][4];
 #pragma unroll
   for (int p = 0; p < P; ++p) zero_acc(acc[p]);
+  uint32_t keep = 0;
   vst::mbar_wait(res_bar, 0);
 
   for (int it = 0; it < nk; ++it) {
@@ -577,14 +765,15 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
 
     // S = qc K^T and dP = dO V^T (64 queries x 64 keys each)
     float sc[8][4], dp[8][4];
-    issue_scores<P>(sc, dp, qw, ow, ks, ks + P * kPanel64);
-    vst::wgmma_wait<1>();
+    issue_scores<P, kArm, L::res_panel>(sc, dp, qw, ow, ks, ks + P * kPanel64, fl,
+                                        base + L::ones, fd, base + L::ones);
+    vst::wgmma_wait<kArm == kBwdNoDp ? 0 : 1>();
     vst::fence_acc(sc);
     uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      pa[j >> 1][(j & 1) * 2] = p_pair(sc[j][0] - l0, sc[j][1] - l0);
-      pa[j >> 1][(j & 1) * 2 + 1] = p_pair(sc[j][2] - l1, sc[j][3] - l1);
+      pa[j >> 1][(j & 1) * 2] = p_arm<kArm>(sc[j][0], sc[j][1], l0, l0);
+      pa[j >> 1][(j & 1) * 2 + 1] = p_arm<kArm>(sc[j][2], sc[j][3], l1, l1);
     }
     vst::wgmma_wait<0>();
     vst::fence_acc(dp);
@@ -593,20 +782,40 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
     uint32_t sa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sa[j >> 1][(j & 1) * 2] = ds_pair(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd0);
-      sa[j >> 1][(j & 1) * 2 + 1] = ds_pair(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd1);
+      sa[j >> 1][(j & 1) * 2] = ds_arm<kArm>(pa[j >> 1][(j & 1) * 2], dp[j][0], dp[j][1], dd0);
+      sa[j >> 1][(j & 1) * 2 + 1] =
+          ds_arm<kArm>(pa[j >> 1][(j & 1) * 2 + 1], dp[j][2], dp[j][3], dd1);
     }
-    fence_all<P>(acc);
-    vst::wgmma_fence();
-    wgmma_frags_tile<P>(acc, sa, ks);
-    vst::wgmma_commit();
-    vst::wgmma_wait<0>();
-    fence_all<P>(acc);
+    if constexpr (kArm != kBwdNoDq) {
+      fence_all<P>(acc);
+      vst::wgmma_fence();
+      wgmma_frags_tile<P>(acc, sa, ks);
+      vst::wgmma_commit();
+      vst::wgmma_wait<0>();
+      fence_all<P>(acc);
+    } else {
+      keep_frags(keep, sa);
+    }
     release_stage(empty0 + 8 * s, lane);
   }
 
   const long long head = (long long)b * os.b + (long long)h * os.h;
   store_rows<P>(acc, dq, head, r0, N, os.n, t, scale);
+  if constexpr (kArm == kBwdNoDq) {
+    if (keep == kKeepMagic) dq[head] = __float2bfloat16_rn(1.f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mqc,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int N, Strides os, float scale) {
+  dq_wgmma_block<D, kBwdFull>(&mqc, &mdo, &mk, &mv, nullptr, nullptr, lse, delta, dq, H, N, os,
+                              scale);
 }
 
 // ---- bf16, D = 192 and 256: wgmma kernels with the scores split ----------

@@ -211,6 +211,27 @@ struct FwdSmem {
 using vst::named_arrive;
 using vst::named_sync;
 
+// Compile-time arms of the wgmma kernel below, for the A/B harness
+// scripts/ab_attn_arms.py: the ports of the TPU ablations of K1
+// (scripts/ab_attn_ablate5.py's bf16 max, ab_attn_ablate6.py's strips).
+// scripts/ab_attn_arms.cu instantiates them (D = 64); the package launches
+// kFwdFull only, for which every hook compiles away.
+//   kFwdBf16Max (exact): the scores rounded to bf16 before the row max,
+//     the max and the shift then taken on bf16 pairs two at a time
+//     (__hmax2, and __hsub2, which rounds the exact difference once:
+//     bf16(bf16(S2) - m)); rounding is monotone, so the running max of the
+//     rounded scores is the rounded running max; LSE2 = m + log2(l) with
+//     that bf16 m.
+//   Strips, timing only: kFwdNoExp P = bf16(S2 - m), no exp2; kFwdNoMax m =
+//     0, no row max and no rescale; kFwdNoPv no P V product (O = 0);
+//     kFwdSOnly the S2 product alone, each tile added into O's
+//     accumulator so that it is not dropped.
+enum FwdArm : int {
+  kFwdFull = 0,
+  kFwdBf16Max, kFwdNoExp, kFwdNoMax, kFwdNoPv, kFwdSOnly,
+  kFwdArms
+};
+
 // Issue S2 = qc K^T (64 queries x KT keys; qc at qw in P panels q_panel
 // apart, the K tile at kt) as one commit group.
 template <int D, int KT>
@@ -258,38 +279,37 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 8][4], const uint32_t 
   vst::wgmma_commit();
 }
 
-// The online softmax of one tile of scores, rows r and r + 8 of the
-// thread: the new running max (m0, m1; at KT = 128 keys from 64 on masked
-// when `ragged_tile`), the row sums l0, l1 (this thread's share) rescaled
-// by exp2(m_old - m_new), returned in a0, a1 for the accumulator, and P
-// into A fragments (k-step kc covers keys 16 kc .. + 15).
+// kFwdBf16Max's softmax_p: the scores rounded to bf16 pairs first, the
+// row max over the pairs, and P = exp2(bf16(s - m)) from one bf16x2
+// subtraction a pair.
 template <int KT>
-__device__ __forceinline__ void softmax_p(float (&sc)[KT / 8][4], bool ragged_tile, float& m0,
-                                          float& m1, float& l0, float& l1, float& a0, float& a1,
-                                          uint32_t (&pa)[KT / 16][4]) {
-  if constexpr (KT == 128) {
-    if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
-#pragma unroll
-      for (int j = 8; j < 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
-    }
-  }
-  float n0 = m0, n1 = m1;
+__device__ __forceinline__ void softmax_p_bf16max(const float (&sc)[KT / 8][4], float& m0,
+                                                  float& m1, float& l0, float& l1, float& a0,
+                                                  float& a1, uint32_t (&pa)[KT / 16][4]) {
+  auto bf2 = [](uint32_t x) { return *reinterpret_cast<const __nv_bfloat162*>(&x); };
+  auto u32 = [](__nv_bfloat162 x) { return *reinterpret_cast<const uint32_t*>(&x); };
+  uint32_t s0[KT / 8], s1[KT / 8];
+  __nv_bfloat162 x0 = __float2bfloat162_rn(m0), x1 = __float2bfloat162_rn(m1);
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
-    n0 = fmaxf(n0, fmaxf(sc[j][0], sc[j][1]));
-    n1 = fmaxf(n1, fmaxf(sc[j][2], sc[j][3]));
+    s0[j] = pack_bf16(sc[j][0], sc[j][1]);
+    s1[j] = pack_bf16(sc[j][2], sc[j][3]);
+    x0 = __hmax2(x0, bf2(s0[j]));
+    x1 = __hmax2(x1, bf2(s1[j]));
   }
-  n0 = quad_max(n0);
-  n1 = quad_max(n1);
+  const float n0 = quad_max(fmaxf(__low2float(x0), __high2float(x0)));
+  const float n1 = quad_max(fmaxf(__low2float(x1), __high2float(x1)));
   a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
   a1 = exp2f(m1 - n1);
   m0 = n0;
   m1 = n1;
+  const __nv_bfloat162 c0 = __float2bfloat162_rn(n0), c1 = __float2bfloat162_rn(n1);
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
-    const uint32_t x = vst::p_pair(sc[j][0] - n0, sc[j][1] - n0);
-    const uint32_t y = vst::p_pair(sc[j][2] - n1, sc[j][3] - n1);
+    const uint32_t d0 = u32(__hsub2(bf2(s0[j]), c0)), d1 = u32(__hsub2(bf2(s1[j]), c1));
+    const uint32_t x = pack_bf16(vst::ex2_ftz(vst::bf16_lo(d0)), vst::ex2_ftz(vst::bf16_hi(d0)));
+    const uint32_t y = pack_bf16(vst::ex2_ftz(vst::bf16_lo(d1)), vst::ex2_ftz(vst::bf16_hi(d1)));
     pa[j >> 1][(j & 1) * 2] = x;
     pa[j >> 1][(j & 1) * 2 + 1] = y;
     ps0 += vst::bf16_lo(x) + vst::bf16_hi(x);
@@ -299,14 +319,73 @@ __device__ __forceinline__ void softmax_p(float (&sc)[KT / 8][4], bool ragged_ti
   l1 = l1 * a1 + ps1;
 }
 
-// softmax_p, then the accumulator rescaled by exp2(m_old - m_new).
-template <int D, int KT>
+// The online softmax of one tile of scores, rows r and r + 8 of the
+// thread: the new running max (m0, m1; at KT = 128 keys from 64 on masked
+// when `ragged_tile`), the row sums l0, l1 (this thread's share) rescaled
+// by exp2(m_old - m_new), returned in a0, a1 for the accumulator, and P
+// into A fragments (k-step kc covers keys 16 kc .. + 15). kArm: an arm
+// above (the package's kernel: kFwdFull).
+template <int KT, int kArm = kFwdFull>
+__device__ __forceinline__ void softmax_p(float (&sc)[KT / 8][4], bool ragged_tile, float& m0,
+                                          float& m1, float& l0, float& l1, float& a0, float& a1,
+                                          uint32_t (&pa)[KT / 16][4]) {
+  if constexpr (KT == 128) {
+    if (ragged_tile) {   // keys N .. N + 63 are TMA's zeros
+#pragma unroll
+      for (int j = 8; j < 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
+    }
+  }
+  if constexpr (kArm == kFwdBf16Max) {
+    softmax_p_bf16max<KT>(sc, m0, m1, l0, l1, a0, a1, pa);
+    return;
+  }
+  float n0 = m0, n1 = m1;
+  if constexpr (kArm == kFwdNoMax) {
+    n0 = n1 = 0.f;
+    a0 = a1 = 1.f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      n0 = fmaxf(n0, fmaxf(sc[j][0], sc[j][1]));
+      n1 = fmaxf(n1, fmaxf(sc[j][2], sc[j][3]));
+    }
+    n0 = quad_max(n0);
+    n1 = quad_max(n1);
+    a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
+    a1 = exp2f(m1 - n1);
+  }
+  m0 = n0;
+  m1 = n1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    uint32_t x, y;
+    if constexpr (kArm == kFwdNoExp) {
+      x = pack_bf16(sc[j][0] - n0, sc[j][1] - n0);
+      y = pack_bf16(sc[j][2] - n1, sc[j][3] - n1);
+    } else {
+      x = vst::p_pair(sc[j][0] - n0, sc[j][1] - n0);
+      y = vst::p_pair(sc[j][2] - n1, sc[j][3] - n1);
+    }
+    pa[j >> 1][(j & 1) * 2] = x;
+    pa[j >> 1][(j & 1) * 2 + 1] = y;
+    ps0 += vst::bf16_lo(x) + vst::bf16_hi(x);
+    ps1 += vst::bf16_lo(y) + vst::bf16_hi(y);
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+}
+
+// softmax_p, then the accumulator rescaled by exp2(m_old - m_new) (not
+// for kFwdNoMax, whose shift stays 0).
+template <int D, int KT, int kArm = kFwdFull>
 __device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged_tile,
                                              float& m0, float& m1, float& l0, float& l1,
                                              float (&acc)[D / 8][4],
                                              uint32_t (&pa)[KT / 16][4]) {
   float a0, a1;
-  softmax_p<KT>(sc, ragged_tile, m0, m1, l0, l1, a0, a1, pa);
+  softmax_p<KT, kArm>(sc, ragged_tile, m0, m1, l0, l1, a0, a1, pa);
+  if constexpr (kArm == kFwdNoMax) return;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     acc[j][0] *= a0;
@@ -316,17 +395,17 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], bool ragged
   }
 }
 
-// Grid (ceil(N / (64 NC)), H, B), 128 (NC + 1) threads. Warpgroup w < NC
-// owns queries q0 + 64 w .. + 63, its warp i the 16 rows 16 i .. of those;
-// in the accumulator layout lane = 4 g + t holds rows g and g + 8,
-// columns 8 j + 2 t and 8 j + 2 t + 1 of each 8-column block j.
-template <int D, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), 1)
-dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
-                            const __grid_constant__ CUtensorMap mk,
-                            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
-                            float* __restrict__ lse, int H, int N, long long ob, long long on,
-                            long long oh, float qscale) {
+// The block of the wgmma kernel (kArm: an arm above; the package's kernel
+// is kFwdFull). Grid (ceil(N / (64 NC)), H, B), 128 (NC + 1) threads.
+// Warpgroup w < NC owns queries q0 + 64 w .. + 63, its warp i the 16 rows
+// 16 i .. of those; in the accumulator layout lane = 4 g + t holds rows g
+// and g + 8, columns 8 j + 2 t and 8 j + 2 t + 1 of each 8-column block j.
+template <int D, int NC, int kArm>
+__device__ __forceinline__ void fwd_wgmma_block(const CUtensorMap* mq, const CUtensorMap* mk,
+                                                const CUtensorMap* mv, bf16* __restrict__ o,
+                                                float* __restrict__ lse, int H, int N,
+                                                long long ob, long long on, long long oh,
+                                                float qscale) {
   using L = FwdSmem<D, NC>;
   constexpr int P = L::P, KT = L::KT, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -359,7 +438,7 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       vst::mbar_arrive_expect_tx(q_bar, P * L::q_panel);
       for (int p = 0; p < P; ++p)
         for (int half = 0; half < NC; ++half)
-          vst::tma_load_4d(base + p * L::q_panel + half * kPanel64, &mq, q_bar, 64 * p, h,
+          vst::tma_load_4d(base + p * L::q_panel + half * kPanel64, mq, q_bar, 64 * p, h,
                            q0 + 64 * half, b);
       // the last kStages waits let the consumers release every stage
       for (int it = 0; it < nk + kStages; ++it) {
@@ -369,12 +448,12 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
         vst::mbar_arrive_expect_tx(k_full(it), L::kv_bytes);
         for (int p = 0; p < P; ++p)
           for (int half = 0; half < KT / 64; ++half)
-            vst::tma_load_4d(st + p * L::kv_panel + half * kPanel64, &mk, k_full(it), 64 * p, h,
+            vst::tma_load_4d(st + p * L::kv_panel + half * kPanel64, mk, k_full(it), 64 * p, h,
                              it * KT + 64 * half, b);
         vst::mbar_arrive_expect_tx(v_full(it), L::kv_bytes);
         for (int p = 0; p < P; ++p)
           for (int half = 0; half < KT / 64; ++half)
-            vst::tma_load_4d(st + L::kv_bytes + p * L::kv_panel + half * kPanel64, &mv,
+            vst::tma_load_4d(st + L::kv_bytes + p * L::kv_panel + half * kPanel64, mv,
                              v_full(it), 64 * p, h, it * KT + 64 * half, b);
       }
     }
@@ -431,10 +510,18 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   vst::fence_acc(sc);
   for (int it = 0; it < nk; ++it) {
     uint32_t pa[KT / 16][4];
-    softmax_tile<D, KT>(sc, ragged && it == nk - 1, m0, m1, l0, l1, acc, pa);
+    if constexpr (kArm == kFwdSOnly) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j % (D / 8)][e] += sc[j][e];
+    } else {
+      softmax_tile<D, KT, kArm>(sc, ragged && it == nk - 1, m0, m1, l0, l1, acc, pa);
+    }
     if constexpr (kPingpong) named_sync(1 + wg, 256);
     vst::mbar_wait(v_full(it), parity(it));
-    issue_pv<D, KT>(acc, pa, kt_of(it) + L::kv_bytes);
+    if constexpr (kArm != kFwdSOnly && kArm != kFwdNoPv)
+      issue_pv<D, KT>(acc, pa, kt_of(it) + L::kv_bytes);
     if (it + 1 < nk) {
       vst::mbar_wait(k_full(it + 1), parity(it + 1));
       issue_scores<D, KT>(sc, qw, L::q_panel, kt_of(it + 1));
@@ -466,6 +553,16 @@ dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           pack_bf16(acc[j][2 * half] * inv, acc[j][2 * half + 1] * inv);
     if (t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
   }
+}
+
+template <int D, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+dense_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                            float* __restrict__ lse, int H, int N, long long ob, long long on,
+                            long long oh, float qscale) {
+  fwd_wgmma_block<D, NC, kFwdFull>(&mq, &mk, &mv, o, lse, H, N, ob, on, oh, qscale);
 }
 
 // ---- bf16, D = 320 to 512: wgmma kernel with the scores split ------------

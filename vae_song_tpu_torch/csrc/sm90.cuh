@@ -436,6 +436,16 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t panel, int j, uint32_t
   return wgmma_desc(panel + 16 * kPanelRowBytes * j, atom_stride);
 }
 
+// K-major operand of one 16-deep k-step in a tile of 16 bf16 columns (32
+// bytes a row) with the 32-byte swizzle, 8-row groups 256 bytes apart:
+// the layout a TMA box of {16 columns, rows} with
+// CU_TENSOR_MAP_SWIZZLE_32B writes (the attention backward's fold arms,
+// dense_attn_bwd.cu).
+__device__ __forceinline__ uint64_t desc_kmajor_sw32(uint32_t tile) {
+  return static_cast<uint64_t>((tile & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
