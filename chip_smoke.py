@@ -596,8 +596,10 @@ K3_CASES = ((BATCH, NPTS, 2, 128, torch.bfloat16), WGMMA_WIDE_CASE,
             WGMMA_SCORES_CASE, (1, NPTS, 1, 2304, torch.bfloat16),
             (8, 192, 1, 2112, torch.bfloat16), (8, NPTS, 1, 2112, torch.bfloat16),
             (2, NPTS, 2, 2176, torch.bfloat16), (1, 1024, 1, 4096, torch.bfloat16),
-            # f32 heads of 512
-            (1, NPTS, 1, 512, torch.float32), (8, NPTS, 1, 512, torch.float32))
+            # f32 heads of 512, and N = 192 with D = 320: tiles whose last 128
+            # rows and last 128 columns both end 64 past N and D
+            (1, NPTS, 1, 512, torch.float32), (8, NPTS, 1, 512, torch.float32),
+            (8, 192, 1, 320, torch.float32))
 # fused FFN shapes (M, D, F, dtype): the main path's M = B * N rows at
 # the shipped widths, wider models' widths, then a smaller M in f32
 K6_CASES = ((BATCH * 2048, 256, 512, torch.bfloat16), (16 * 2048, 384, 1536, torch.bfloat16),
@@ -877,8 +879,10 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide=(), iters=1
         tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
         against = "the plain version" if dtype == torch.bfloat16 else "float64"
         # the cluster kernels' dQ reads the dK/dV kernel's dS^T, and the
-        # kernels above 2048 write P^T and dS^T out: S and dP once
-        once = denseattn.wgmma_cluster(dtype, d) or denseattn.wgmma_scores(dtype, d)
+        # bf16 kernels above 2048 and the f32 ones from 192 write P^T and
+        # dS^T out: S and dP once
+        once = (denseattn.wgmma_cluster(dtype, d) or denseattn.wgmma_scores(dtype, d)
+                or denseattn.tf32_wide(dtype, d))
         executed = 10.0 if once else 14.0
         print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
               f"(bound {tol_l:.3e}); repeat bitwise equal {repeat_f}; kernel {ms_f:.4f} ms "
@@ -1719,6 +1723,7 @@ def _reference(dev, name, params, precisions=(False, True)):
     for mixed in precisions:
         loss_rtol, recon_atol = bounds[mixed]
         mp = dict(params, mixed_precision=mixed)
+        before = _read_launches()
         outs = {}
         for where in ("cpu", dev):
             model = _build("setvae", mp).to(where)
@@ -1743,6 +1748,11 @@ def _reference(dev, name, params, precisions=(False, True)):
         grad_rtol, moved_share = ((REF_F32_GRAD_RTOL, REF_F32_MOVED_SHARE) if not mixed
                                   else (REF_BF16_GRAD_RTOL, REF_BF16_MOVED_SHARE))
         _compare_train_step(dev, tag, x, eps, mp, loss_rtol, grad_rtol, moved_share)
+        # the kernels the card side launched (eval step, forward, decode, one
+        # train step): the only launches of the f32 kernels of paths no
+        # timed phase runs (K3f and K3b at two f32 heads of 128)
+        ran = {k: v - before[k] for k, v in _read_launches().items() if v != before[k]}
+        print(f"reference {tag} launches: {ran}")
 
 
 def phase_reference(dev):

@@ -411,10 +411,10 @@ def test_train_step_follows_the_attention_switches(dev, monkeypatch, env, want):
     (3, 192, 1, 2112, torch.bfloat16, False), (1, 256, 2, 2304, torch.bfloat16, True),
     (1, 128, 1, 4096, torch.bfloat16, False),
     (1, 128, 1, 320, torch.float32, True), (1, 192, 2, 512, torch.float32, False),
-    # f32 from D = 192 (csrc/dense_attn_tf32_wide.cu): 3 and 7 warps a row
-    # group, two and four row groups a block (B H N / 32 and / 64 at least
-    # twice the card's SM count), the widest whole head (512) and the first
-    # widths in column groups (576: 320 + 256 columns; 1088: 384 + 384 + 320)
+    # f32 from D = 192 (csrc/dense_attn_tf32_wide.cu, split-TF32 wgmma over
+    # written-out scores): a last 128-column tile half past D (192, 448,
+    # 576, 1088), three heads, more tiles than the persistent grid's blocks
+    # (B H = 272 and 144), and the widths up to 1088
     (1, 128, 3, 192, torch.float32, True), (2, 128, 1, 448, torch.float32, False),
     (136, 128, 2, 192, torch.float32, True), (72, 256, 2, 256, torch.float32, False),
     (2, 192, 1, 576, torch.float32, True), (1, 128, 1, 1088, torch.float32, False),

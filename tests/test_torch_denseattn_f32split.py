@@ -1,34 +1,42 @@
 """The arithmetic of the port's f32 attention kernels (csrc/mma_tf32.cuh;
-dense_attn_fwd.cu and dense_attn_bwd.cu at D = 64 and 128,
-dense_attn_tf32_wide.cu from D = 192 up: split TF32 on the tensor cores)
-emulated in numpy and held, before the card runs it, to the JAX package's
-f32 Pallas kernels in interpret mode and to a float64 version, within the
-f32 bounds chip_smoke.py states; and a one-pass TF32 emulation of the same
-kernels, which must miss those bounds.
+dense_attn_fwd.cu and dense_attn_bwd.cu at D = 64 and 128, mma.sync;
+dense_attn_tf32_wide.cu from D = 192 up, wgmma: split TF32 on the tensor
+cores) emulated in numpy and held, before the card runs it, to the JAX
+package's f32 Pallas kernels in interpret mode and to a float64 version,
+within the f32 bounds chip_smoke.py states; and a one-pass TF32 emulation
+of the same kernels, which must miss those bounds.
 
-The emulation follows the kernels' order of work: the forward walks tiles
-of T keys (2048 / D at D = 64 and 128, 16 from D = 192) with the exact
-running max; the dK/dV kernel walks tiles of T queries and the dQ kernel
-tiles of T keys. The scores (S, S^T, dP, dP^T) of a tile are summed over
-the head by the warps of a row group, each over its own columns, and the
-partial sums are added in warp order (_score_parts): the forward at D = 64
-and 128 sums the whole head in one warp, the backward there in two halves;
-from D = 192 each warp takes 64 columns, and above D = 512 the head is
-walked in panels of 64 wg columns, warp w taking columns 64 (p wg + w) ..
-of panel p. A product of two tiles is a sequence of m16n8k8 steps, 8 terms
-of the contraction a step;
+The emulation follows the kernels' order of work. At D = 64 and 128 the
+forward walks tiles of T = 2048 / D keys with the exact running max; the
+dK/dV kernel walks tiles of T queries and the dQ kernel tiles of T keys;
+the scores (S, S^T, dP, dP^T) of a tile are summed over the head by the
+warps of a row group, each over its own columns, and the partial sums are
+added in warp order (_score_parts): the forward's one warp sums the whole
+head, the backward's two the two halves. From D = 192 the scores are
+written out: S2 = qc K^T over the whole head, its exact row max, P =
+exp2(S2 - m), O = P V / l; backward S^T = K qc^T, dP^T = V dO^T, P^T and
+dS^T, then dV = P^T dO, dK = dS^T qc ln2, dQ = dS K scale, each product
+over its whole depth in the depth's order.
+A product is a sequence of 8-deep steps (m16n8k8 or m64nNk8);
 in split TF32 each f32 operand x is big = rna(x), small = rna(x - big)
 (rna: to TF32, nearest, ties away from zero; the hardware reads only the
 top 19 bits of an operand, which rna leaves set) and each step is three
 products, small big, big small, big big, into a fresh accumulator, whose
-sum is then added to the running f32 sum (to nearest). One product is
+sum is then added to the running f32 sum (to nearest). The fresh
+accumulator lasts one step at D = 64 and 128, and from D = 192 (_CHAIN)
+four steps of a score (32 of the head's columns: a wgmma panel) and eight
+of an output product (64 keys or queries). One product is
 modelled as its exact sum (TF32 products are exact in float64) added to
 the step's accumulator and rounded toward zero to f32: the tensor cores'
 rounding, which the card showed when the products were chained on the
 running sum (csrc/mma_tf32.cuh). Their alignment of the terms inside one
 product (a few bits past f32) is not modelled; chip_smoke.py phase 3
 holds the card to the same bounds. The row sums and delta are f32 sums
-in numpy's order, not the kernels'.
+in numpy's order, not the kernels'. At N = 2048, D = 256 (the f32
+`num_heads: 1` path) the same emulation lands at 0.39-0.53 of the bounds
+from float64; a fresh accumulator over 64 columns of a score would land
+at 0.71-0.86, and output products chained over their whole depth 2.4x
+outside them.
 """
 
 import ast
@@ -70,10 +78,10 @@ K2_F32_TOL = _smoke_constant("K2_F32_TOL")
 K3_F32_WIDE_TOL = _smoke_constant("K3_F32_WIDE_TOL")
 
 # route: (B, N, H, D, bound on O); the packed route's 64-wide heads in a
-# pair, the BHND route's one head of 128, and the wide kernels' widths: 192
-# and 256 (3 and 4 warps a row group, the f32 `num_heads: 1` SetVAE step's
-# 256), 512 (8, the widest whole head) and 576 (two column groups of 5
-# warps: 320 and 256 columns)
+# pair, the BHND route's one head of 128, and the wgmma kernels' widths from
+# 192: 192 and 256 (the f32 `num_heads: 1` SetVAE step's 256; N = 192, a
+# last 128-row tile half past N), 512 (phase 3's B = 8 and B = 1 width)
+# and 576 (a last 128-column tile half past D)
 ROUTES = {"packed": (2, 128, 2, 64, K1_F32_TOL), "bhnd": (2, 128, 1, 128, K3_F32_O_TOL),
           "bhnd192": (2, 128, 1, 192, K3_F32_O_TOL), "bhnd256": (1, 192, 1, 256, K3_F32_O_TOL),
           "bhnd512": (1, 128, 1, 512, K3_F32_O_TOL), "bhnd576": (1, 128, 1, 576, K3_F32_O_TOL)}
@@ -85,24 +93,21 @@ def _grad_tol(d):
 
 
 def _tile(d):
-    """Rows of the other side a kernel walks at a time at head width d."""
-    return 2048 // d if d <= 128 else 16
+    """Rows of the other side a kernel at D = 64 or 128 walks at a time."""
+    return 2048 // d
 
 
 def _score_parts(d, backward):
-    """The head columns each warp of a row group sums a tile's scores over,
-    in its order of steps; the partial sums are added in this order.
-    D = 64 and 128: the forward's one warp, the backward's pair of halves.
-    From D = 192 (dense_attn_tf32_wide.cu): C = D / 64 chunks of 64
-    columns in ng = ceil(C / 8) panels of wg = ceil(C / ng) chunks; warp w
-    sums chunk p wg + w of each panel p in turn."""
-    if d <= 128:
-        return [np.arange(d)] if not backward else [np.arange(d // 2), np.arange(d // 2, d)]
-    c = d // 64
-    ng = -(-c // 8)
-    wg = -(-c // ng)
-    return [np.concatenate([np.arange(64 * (p * wg + w), 64 * (p * wg + w + 1))
-                            for p in range(ng) if p * wg + w < c]) for w in range(wg)]
+    """The head columns each warp of a row group of the kernels at D = 64
+    and 128 sums a tile's scores over; the partial sums are added in this
+    order: the forward's one warp, the backward's pair of halves."""
+    return [np.arange(d)] if not backward else [np.arange(d // 2), np.arange(d // 2, d)]
+
+
+# 8-deep steps a fresh accumulator takes in the kernels from D = 192
+# (dense_attn_tf32_wide.cu): a score's 32-column wgmma panel, an output
+# product's two panels of 32 keys or queries.
+_CHAIN = {"score": 4, "product": 8}
 
 
 def _rna(x):
@@ -120,24 +125,26 @@ def _rz(x):
     return r
 
 
-def _mma(c, a, b, split):
+def _mma(c, a, b, split, chain=1):
     """c + a @ b the kernels' way: c [..., M, N] f32, a [..., M, K], b
-    [..., K, N] f32, K a multiple of 8. In split TF32 (`split`) three
-    products a step of 8 (small big, big small, big big), else one of the
-    rna-rounded operands (one-pass TF32), into a fresh accumulator (each
-    product's exact sum added to it, rounded toward zero), which is then
-    added to c in f32."""
+    [..., K, N] f32, K a multiple of 8 chain. In split TF32 (`split`)
+    three products a step of 8 (small big, big small, big big), else one
+    of the rna-rounded operands (one-pass TF32), into a fresh accumulator
+    (each product's exact sum added to it, rounded toward zero) that takes
+    `chain` steps and is then added to c in f32."""
     if split:
         ab, bb = _rna(a), _rna(b)
         pairs = ((_rna(a - ab), bb), (ab, _rna(b - bb)), (ab, bb))
     else:
         pairs = ((_rna(a), _rna(b)),)
     c = np.asarray(c, np.float32)
-    for k0 in range(0, a.shape[-1], 8):
+    for c0 in range(0, a.shape[-1], 8 * chain):
         d = np.zeros(c.shape, np.float32)
-        for x, y in pairs:
-            step = x[..., k0:k0 + 8].astype(np.float64) @ y[..., k0:k0 + 8, :].astype(np.float64)
-            d = _rz(d.astype(np.float64) + step)
+        for k0 in range(c0, c0 + 8 * chain, 8):
+            for x, y in pairs:
+                step = (x[..., k0:k0 + 8].astype(np.float64)
+                        @ y[..., k0:k0 + 8, :].astype(np.float64))
+                d = _rz(d.astype(np.float64) + step)
         c = c + d
     return c
 
@@ -159,9 +166,36 @@ def _scores(a, bt, split, parts):
     return s
 
 
+def _fwd_wide(q, k, v, scale, split):
+    """The forward kernels from D = 192 on [BH, N, D] f32: (O, LSE2)."""
+    qc = _qc(q, scale)
+    s = _mma(np.zeros(q.shape[:-1] + k.shape[-2:-1], np.float32), qc, k.swapaxes(-1, -2), split,
+             _CHAIN["score"])
+    m = s.max(axis=-1)
+    p = np.exp2(s - m[..., None])
+    l = p.sum(axis=-1, dtype=np.float32)
+    o = _mma(np.zeros(q.shape, np.float32), p, v, split, _CHAIN["product"])
+    return o / l[..., None], m + np.log2(l)
+
+
+def _bwd_wide(q, k, v, o, lse, do, scale, split):
+    """The backward kernels from D = 192 on [BH, N, D] f32: (dq, dk, dv)."""
+    qc = _qc(q, scale)
+    delta = (do * o).sum(axis=-1, dtype=np.float32)
+    scores = lambda a, b: _mma(np.zeros(a.shape[:-1] + b.shape[-2:-1], np.float32), a,
+                               b.swapaxes(-1, -2), split, _CHAIN["score"])
+    product = lambda a, b: _mma(np.zeros(b.shape, np.float32), a, b, split, _CHAIN["product"])
+    pt = np.exp2(scores(k, qc) - lse[:, None, :])   # keys by queries
+    dst = pt * (scores(v, do) - delta[:, None, :])
+    dq = product(np.ascontiguousarray(dst.swapaxes(-1, -2)), k)
+    return dq * np.float32(scale), product(dst, qc) * np.float32(LN2), product(pt, do)
+
+
 def _fwd(q, k, v, scale, split):
     """The forward kernel on [BH, N, D] f32: (O, LSE2 [BH, N])."""
     bh, n, d = q.shape
+    if d >= 192:
+        return _fwd_wide(q, k, v, scale, split)
     t, parts = _tile(d), _score_parts(d, False)
     qc = _qc(q, scale)
     acc = np.zeros((bh, n, d), np.float32)
@@ -181,6 +215,8 @@ def _fwd(q, k, v, scale, split):
 def _bwd(q, k, v, o, lse, do, scale, split):
     """The backward kernels on [BH, N, D] f32: (dq, dk, dv)."""
     bh, n, d = q.shape
+    if d >= 192:
+        return _bwd_wide(q, k, v, o, lse, do, scale, split)
     t, parts = _tile(d), _score_parts(d, True)
     qc = _qc(q, scale)
     delta = (do * o).sum(axis=-1, dtype=np.float32)
@@ -320,3 +356,23 @@ def test_rna_rounds_to_nearest_ties_away():
     ok = np.isfinite(want) & (np.abs(xd) < 3e38)
     np.testing.assert_array_equal(got[ok], want[ok])
     assert (got[len(x) - 64:] == want[len(x) - 64:]).all() and (np.abs(got[-64:]) > np.abs(base)).all()
+
+
+def test_tf32_wide_scratch_bytes_match_the_kernels():
+    """The scratches the wrapper allocates for the f32 kernels from D = 192
+    are the sizes the kernels carve up (csrc/dense_attn_tf32_wide.cuh):
+    forward S2 [B H, N, N], the 128-key tiles' row maxima [B H N, ceil(N /
+    128)], K and V^T in two halves each; backward P^T and dS^T [B H, N,
+    N], qc, dO, qc^T, dO^T and K^T in two halves each; all f32."""
+    from vae_song_tpu_torch.ops import denseattn
+    with open(os.path.join(os.path.dirname(SMOKE), "vae_song_tpu_torch", "csrc",
+                           "dense_attn_tf32_wide.cuh")) as f:
+        text = f.read()
+    assert "return 4 * bhn * N + 4 * bhn * ((N + 127) / 128) + 16 * bhn * D;" in text
+    assert "return 8 * bhn * N + 40 * bhn * D;" in text
+    for b, h, n, d in ((64, 1, 2048, 256), (2, 3, 192, 576), (8, 1, 2048, 512)):
+        bhn = b * h * n
+        assert denseattn.tf32_fwd_scratch_bytes(b, h, n, d) == 4 * (
+            bhn * n + bhn * -(-n // 128) + 2 * bhn * d + 2 * b * h * d * n)
+        assert denseattn.tf32_bwd_scratch_bytes(b, h, n, d) == 4 * (
+            2 * bhn * n + 2 * 2 * bhn * d + 3 * 2 * b * h * d * n)

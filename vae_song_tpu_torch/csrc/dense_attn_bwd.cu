@@ -1,7 +1,7 @@
 // Dense attention backward for Hopper (sm_90a), [B, N, H, D] layout read
 // through strides, any head width D % 64 == 0 (f32 from D = 192 up: the
-// dK/dV and dQ kernels of dense_attn_tf32_wide.cu; bf16 above 2048: the
-// kernels of dense_attn_scores.cu; both launched from here).
+// split-TF32 wgmma kernels of dense_attn_tf32_wide.cu; bf16 above 2048:
+// the kernels of dense_attn_scores.cu; both launched from here).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_bwd_kernel_packed (K2, called
 // through _call_bwd_packed) and vae_song_tpu/ops/denseattn.py:_bwd_kernel
@@ -159,8 +159,8 @@
 // product goes into a fresh accumulator added to the running sum in f32,
 // as in the forward. No atomics: the same bits on every run. f32 from D =
 // 192 up: the preprocess at any width, then dense_attn_tf32_wide.cu's
-// split-TF32 kernels, the head's columns split across the warps of a row
-// group (64 each), S and dP computed once per pair of tiles.
+// split-TF32 wgmma kernels over written-out P^T and dS^T (S and dP
+// computed once).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -2387,19 +2387,21 @@ cudaError_t launch_bwd_scores(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
-// f32 from D = 192 up: preprocess (delta), then the split-TF32 dK/dV and
-// dQ kernels of dense_attn_tf32_wide.cu, which prescale q themselves (no
-// qc scratch).
+// f32 from D = 192 up: preprocess (delta), then the split-TF32 wgmma
+// kernels of dense_attn_tf32_wide.cu over the scratch `ds` (their own
+// split qc: no qc scratch).
 cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, const void* o,
-                                 const void* d_o, const float* lse, float* delta, void* dq,
-                                 void* dk, void* dv, int B, int H, int N, int D, Strides s,
-                                 Strides os, float qscale, float scale, cudaStream_t st) {
+                                 const void* d_o, const float* lse, float* delta, void* ds,
+                                 void* dq, void* dk, void* dv, int B, int H, int N, int D,
+                                 Strides s, Strides os, float qscale, float scale,
+                                 cudaStream_t st) {
+  if (ds == nullptr) return cudaErrorInvalidValue;
   launch_preprocess_wide<float>(q, o, d_o, nullptr, delta, B, H, N, D, s, os, qscale, st);
   return vst::launch_attn_bwd_tf32_wide(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), B, H, N, D, s.b, s.n, s.h, os.b, os.n,
-      os.h, qscale, scale, st);
+      static_cast<float*>(dk), static_cast<float*>(dv), ds, B, H, N, D, s.b, s.n, s.h, os.b,
+      os.n, os.h, qscale, scale, st);
 }
 
 }  // namespace
@@ -2408,10 +2410,11 @@ cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, co
 // aligned rows; o, dO, dq, dk, dv: [B, N, H, D] with strides (ob, on, oh,
 // 1); lse and delta (scratch): [B, H, N] f32, contiguous; qc (scratch,
 // bf16 only; unused and may be null for f32): [B, N, H, D] with O's
-// strides; ds (scratch, bf16 from D = 576 only, else unused and may be
-// null): [B H, N, N] bf16, contiguous, dS^T from the dK/dV kernel to the
-// dQ kernel, and above D = 2048 two of them, P^T then dS^T. N % 64 == 0,
-// D % 64 == 0 (cudaErrorInvalidValue otherwise).
+// strides; ds (scratch, bf16 from D = 576: [B H, N, N] bf16, contiguous,
+// dS^T from the dK/dV kernel to the dQ kernel, and above D = 2048 two of
+// them, P^T then dS^T; f32 from D = 192: attn_tf32_bwd_scratch(B, H, N,
+// D) bytes, dense_attn_tf32_wide.cuh; else unused and may be null).
+// N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue otherwise).
 // The caller checks all of it.
 // Launches preprocess, dK/dV and dQ in order on `stream`; returns
 // cudaGetLastError() after the launches.
@@ -2440,8 +2443,8 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
       if (D % 64 != 0 || D < 192) {
         err = cudaErrorInvalidValue;
       } else if (!is_bf16) {
-        err = launch_bwd_tf32_wide(q, k, v, o, d_o, l, dl, dq, dk, dv, B, H, N, D, s, os, qscale,
-                                   scale, st);
+        err = launch_bwd_tf32_wide(q, k, v, o, d_o, l, dl, ds, dq, dk, dv, B, H, N, D, s, os,
+                                   qscale, scale, st);
       } else if (D == 192) {
         err = launch_bwd_wgmma<192>(VST_BWD_ARGS);
       } else if (D == 256) {

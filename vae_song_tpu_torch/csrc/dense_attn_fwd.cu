@@ -152,8 +152,8 @@
 // the exact running max, and is the A operand of P V as it stands (the
 // permuted contraction of mma_tf32.cuh: no shuffle, no shared-memory
 // round trip). No atomics: the same bits on every run. f32 from D = 192
-// up: the split-TF32 kernel of dense_attn_tf32_wide.cu, the head's
-// columns split across the warps of a row group, S computed once a tile.
+// up: the split-TF32 wgmma kernels of dense_attn_tf32_wide.cu over
+// written-out scores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1334,9 +1334,11 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o: [B, N, H, D] with strides (ob, on, oh, 1); lse:
-// [B, H, N] f32, contiguous; scratch (bf16 with D > 2048 only, else
-// unused and may be null): attn_scores_fwd_scratch(B, H, N, D) bytes,
-// 16-byte aligned (dense_attn_scores.cuh). N % 64 == 0, D % 64 == 0
+// [B, H, N] f32, contiguous; scratch (bf16 with D > 2048:
+// attn_scores_fwd_scratch(B, H, N, D) bytes, dense_attn_scores.cuh; f32
+// with D >= 192: attn_tf32_fwd_scratch(B, H, N, D) bytes,
+// dense_attn_tf32_wide.cuh; else unused and may be null), 16-byte
+// aligned. N % 64 == 0, D % 64 == 0
 // (cudaErrorInvalidValue otherwise). The caller checks all of it.
 // Returns cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
@@ -1361,8 +1363,8 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
       } else if (!is_bf16) {
         err = vst::launch_attn_fwd_tf32_wide(
             static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), B, H,
-            N, D, sb, sn, sh, ob, on, oh, qscale, st);
+            static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
+            scratch, B, H, N, D, sb, sn, sh, ob, on, oh, qscale, st);
       } else if (D == 192) {
         err = launch_fwd_wgmma<192>(VST_FWD_ARGS);
       } else if (D == 256) {

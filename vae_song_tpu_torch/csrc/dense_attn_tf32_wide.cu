@@ -1,6 +1,6 @@
 // f32 attention forward and backward for Hopper (sm_90a) at head widths
-// D % 64 == 0 from 192 up: split-TF32 mma.sync kernels (mma_tf32.cuh),
-// [B, N, H, D] tensors read through strides.
+// D % 64 == 0 from 192 up: split-TF32 wgmma/TMA products over written-out
+// scores, [B, N, H, D] tensors read through strides.
 //
 // Replaces: the f32 path (cd = f32, denseattn.py:82-85) of
 // vae_song_tpu/ops/denseattn.py:_fwd_kernel (K3f, through _call_fwd) and
@@ -8,56 +8,70 @@
 // `mixed_precision: false` with one head of 256 (d_model 256), or wider
 // models with one or two heads. The function and its roundings are those
 // of dense_attn_fwd.cu and dense_attn_bwd.cu in f32:
-//   qc = q * scale * log2e (one f32 multiply), S2 = qc k^T, m = exact row
-//   max, P = exp2(S2 - m), O = P v / rowsum(P), LSE2 = m + log2(rowsum(P));
+//   qc = q * scale * log2e (one f32 multiply), S2 = qc k^T, m = the exact
+//   whole-row max, P = exp2(S2 - m), O = P v / rowsum(P),
+//   LSE2 = m + log2(rowsum(P));
 //   backward: P = exp2(qc k^T - LSE2), dV = P^T dO, dP = dO v^T,
 //   dS = P (dP - delta), dQ = dS k scale, dK = dS^T qc ln2,
 // with delta = rowsum(dO O) from the backward's preprocess pass.
 //
-// What bounds them here: 4 B H N^2 D operations forward and 10 B H N^2 D
-// backward, 14 as executed (S and dP in both the dK/dV and the dQ kernel,
-// the price of no atomics). At the f32 path's B = 64, H = 1, N = 2048,
-// D = 256 that is 2.75e11 and 9.6e11: 1.67 and 5.83 ms as split TF32
-// (three TF32 products a product, 495 TFLOP/s) against 4.1 and 10.3 ms
-// on the FMA units (67 TFLOP/s). mma.sync runs 115-135 TFLOP/s of TF32
-// products on an H100 (the kernels at D = 64 and 128), which sets the
-// time, so the design spends nothing on products it does not need.
+// Split TF32. The tensor cores take f32 data only as TF32 (they read the
+// top 19 bits of an operand). Every operand x is carried as big = rna(x)
+// and small = rna(x - big) (mma_tf32.cuh: split_tf32), and each 8-deep
+// step of a product is three TF32 products, small big, big small, big big
+// (small small dropped): f32-accurate sums at a third of the TF32 rate.
+// The tensor cores round each product's sum toward zero, so a long chain
+// on one accumulator drifts (csrc/mma_tf32.cuh; ROADMAP Queue 3): every
+// product here starts a fresh accumulator each 32 columns of a score's
+// depth (12 wgmma) and each 64 keys or queries of an output's depth (24
+// wgmma), adds it to the running sum in f32 (to nearest), in the order of
+// the depth (tests/test_torch_denseattn_f32split.py emulates this order
+// and holds it to chip_smoke.py's f32 bounds: a score chain of 64 columns
+// comes within 15% of them at N = 2048, an output chain over the whole
+// depth misses them 2.4x).
 //
-// Design. The kernels at D = 64 and 128 give one warp 16 rows and all D
-// columns of O (or half of dK/dV and dQ); from D = 192 a thread would hold
-// D / 2 accumulators or more. So the head's columns are split across the
-// warps of a row group, 64 each (C = D / 64 warps): each warp sums the
-// scores (and dP) over its 64 columns, 8 split-TF32 steps, each into a
-// fresh accumulator added to the running sum in f32; the partial sums go
-// through shared memory and every warp adds them in the order 0, 1, ..,
-// C - 1, so all warps of the group hold the same S bits; each warp then
-// forms P (and dS) in registers, the A operand of the next product
-// (mma_tf32.cuh's permuted contraction), and accumulates its own 64
-// columns of O, dQ (32 registers a thread) or dK and dV (64) at every D.
-// S and dP are computed once per pair of tiles: 4 B H N^2 D products
-// forward, 14 backward. A block holds the most row groups of 16 rows
-// (forward 4, 2 or 1; backward 2 or 1) that keep at least two blocks an SM
-// in the grid, 512 threads (forward) or 256 (backward) and 227 KB of shared
-// memory; B = 1, N = 2048 runs 128 blocks of one row group on the 132 SMs.
-// The block's own rows (qc; K and V; qc and dO) stay in shared memory for
-// the whole head, the other side streams in tiles of 16 rows through two
-// cp.async stages; rows padded to D + 4 floats, so every fragment read is
-// free of bank conflicts. A tile costs one __syncthreads: each iteration
-// waits for its own copies, meets the block (every warp is then done with
-// the previous tile, its stage and the exchange slots) and only then
-// issues the next tile's copies. On an H100 (scripts/ab_attn_f32.py)
-// time followed warps an SM more than anything else: the backward kernels
-// take 160-220 registers, so 8 warps an SM; 32-row tiles, 8-row tiles
-// with two blocks an SM and a fully unrolled score loop landed within
-// 10%. The whole head is staged up to D = 512 (C = 8; the backward's
-// 214 KB).
-// Above, a block owns one group of wg <= 8 warps' output columns (ng =
-// ceil(C / 8) groups, wg = ceil(C / ng)) and sums S over the whole head in
-// ng panels of 64 wg columns, staged one after another: warp w takes
-// columns 64 (p wg + w) .. of panel p. Groups are 320 to 512 columns
-// wide, and S is computed ng = ceil(D / 512) times (at most D / 256).
-// No atomics, every sum in a fixed order: the same bits on every run.
+// What bounds it here: 4 B H N^2 D operations forward and 10 B H N^2 D
+// backward, each made once; at B = 64, H = 1, N = 2048, D = 256, 2.75e11
+// and 6.87e11, 1.67 and 4.17 ms as split TF32 (3 x operations at 495
+// TFLOP/s). The f32 scores (1 GiB at that shape) and the split operands
+// are written and read through device memory: about 3 GB forward and 7
+// GB backward, 0.9 and 2.1 ms at 3.35 TB/s, most of it overlapped by the
+// products.
+//
+// Design. TF32 wgmma has no transpose: both shared-memory operands are
+// read K-major. So every product is arranged as A (registers) times B
+// (shared memory, K-major): A is raw f32, brought by TMA into shared
+// memory and split by the consumers as they load it into registers, in
+// any layout (row-major, or transposed: dQ's dS read from dS^T); B is split
+// ahead, by a pre-pass, into big and small arrays laid out K-major
+// ([B H, N, D] for K, qc, dO; [B H, D, N] for V^T, qc^T, dO^T, K^T), so
+// that TMA lands both halves ready for the descriptors. The scores are
+// written out (as dense_attn_scores.cu does for bf16 wider than 2048), so
+// every product is made once:
+//   forward   split K and V^T; S2 = qc K^T (A = q, scaled as it is
+//             loaded) in 128 x 128 tiles, each tile's row max beside it;
+//             O = P V / l with P = exp2(S2 - m) formed from S2 as it is
+//             loaded (A), m the max of the tiles' maxima, l the row sum
+//             of P, LSE2 = m + log2(l);
+//   backward  preprocess (delta); split qc, dO (rows) and qc^T, dO^T, K^T;
+//             S^T = K qc^T and dP^T = V dO^T for a 128 x 64 tile (keys by
+//             queries), P^T and dS^T written out; dV = P^T dO, dK = dS^T qc
+//             ln2, dQ = dS K scale (A = dS^T read transposed).
+// A product kernel's block: 384 threads, consumer warpgroups 0 and 1 on
+// the tile's rows 0-63 and 64-127 (m64n128k8, or m64n64k8 for the
+// backward's scores), a producer warpgroup one thread of which issues the
+// TMA loads into a ring of 32-deep stages (A 16 KB raw, B 2 x 16 KB split:
+// 4 stages, 192 KB; the backward's scores 3 stages of 64 KB). Blocks are
+// persistent (one an SM, walking the tiles in order), so the ring runs on
+// across tiles. A stage is given back once its products have completed.
+// Ragged edges: N % 64 == 0 and D % 64 == 0, so a 128-row or 128-column
+// tile may end 64 past N or D: TMA fills rows past N (a head's own
+// dimension in every map) and past D with zeros, and the epilogues store
+// nothing there. Nothing grows with D or N in shared memory or registers:
+// every D % 64 == 0 from 192 up runs. No atomics, every sum in a fixed
+// order: the same bits on every run.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,578 +83,515 @@
 
 namespace {
 
-constexpr int kT = 16;                 // rows of a streamed tile
-constexpr int kNT = kT / 8;            // its 8-row blocks (n-tiles of S)
-constexpr int kCW = 64;                // head columns a warp owns
-constexpr int kMaxWarps = 8;           // warps a row group
-constexpr int kFwdThreads = 512;
-constexpr int kBwdThreads = 256;
-constexpr size_t kMaxSmem = 232448;    // 227 KB, the most a block may have
+constexpr int kThreads = 384;                        // consumers 0, 1; producer 2
+constexpr int kConsumerWarps = 8;
+constexpr int kTile = 128;                           // a block's rows, and columns of most tiles
+constexpr int kDepth = 32;                           // f32 columns of a panel: a stage's depth
+constexpr uint32_t kPanel128 = kTile * 128;          // 128 rows x 32 f32 (16 KB)
+constexpr uint32_t kPanel64 = 64 * 128;              // 64 rows x 32 f32 (8 KB)
+constexpr int kStages = 4;                           // the products and the forward's scores
+constexpr uint32_t kStageBytes = 3 * kPanel128;      // A, B big, B small
+constexpr int kBwdStages = 3;                        // the backward's scores
+constexpr uint32_t kBwdStageBytes = 2 * kPanel128 + 4 * kPanel64;   // K, V; qc, dO halves
+constexpr size_t kSmem = kStages * kStageBytes + 16 * kStages + 1024;
+constexpr size_t kBwdSmem = kBwdStages * kBwdStageBytes + 16 * kBwdStages + 1024;
+constexpr int kScoreQueries = 64;                    // queries of a backward scores tile
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+enum Product { kOut, kGrad, kGradT };   // O = P V / l; dV, dK; dQ (A read transposed)
+
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// ---- consumers: A fragments and the split-TF32 step ----------------------------
+
+// This thread's A values of one 32-deep panel: x[j] the m16n8k8 TF32 A
+// fragment of k-step j (0..3) of warp rows r - g .. r - g + 15: x[j][0] =
+// A[r][8 j + t], [1] = A[r + 8][8 j + t], [2] = A[r][8 j + t + 4], [3] =
+// A[r + 8][8 j + t + 4], r = the tile row of lane 4 g + t (r % 8 == g).
+// K-major panel: row r at 128 r bytes, its 16-byte chunk c at c ^ (r % 8)
+// (TMA's 128-byte swizzle). The 32 lanes of a read hit 32 banks.
+__device__ __forceinline__ void load_a(float (&x)[4][4], uint32_t panel, int r, int g, int t) {
+  const uint32_t row = panel + r * 128 + 4 * t;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t c0 = ((2 * j) ^ g) << 4, c1 = ((2 * j + 1) ^ g) << 4;
+    x[j][0] = lds(row + c0);
+    x[j][1] = lds(row + 1024 + c0);
+    x[j][2] = lds(row + c1);
+    x[j][3] = lds(row + 1024 + c1);
+  }
 }
 
-// Rows r0 .. r0 + rows - 1, columns c0 .. c0 + cols - 1 of one head of an
-// f32 [B, N, H, D] tensor (`head` its element offset, `stride` its row
-// stride, both multiples of 4) into a [rows][ld] shared tile, 16 bytes a
-// cp.async, by the block's nthr threads (not committed).
-__device__ __forceinline__ void cp_rows(float* tile, int ld, const float* src, long long head,
-                                        long long stride, int r0, int rows, int c0, int cols,
-                                        int tid, int nthr) {
-  const int per = cols >> 2;   // 16-byte copies a row; thread tid takes copies tid + i nthr
-  const int dr = nthr / per, dc = nthr - dr * per;
-  for (int r = tid / per, c = tid - r * per; r < rows;) {
-    vst::cp_async16(tile + r * ld + 4 * c, src + head + (long long)(r0 + r) * stride + c0 + 4 * c);
-    r += dr;
-    c += dc;
-    if (c >= per) {
-      c -= per;
-      ++r;
+// The same fragments from the transpose: the panel holds A^T as four
+// boxes of 32 depth rows x 32 tile rows (4 KB each, box i the tile rows
+// 32 i ..), element (m, k) of A at box m / 32, row k, column m % 32.
+__device__ __forceinline__ void load_a_t(float (&x)[4][4], uint32_t panel, int r, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = r + 8 * (e & 1), k = 8 * j + t + 4 * (e >> 1);
+      x[j][e] = lds(panel + (m >> 5) * 4096 + k * 128 + ((((m & 31) >> 2) ^ (k & 7)) << 4) +
+                    (m & 3) * 4);
     }
+}
+
+__device__ __forceinline__ void split_frags(const float (&x)[4][4], uint32_t (&big)[4][4],
+                                            uint32_t (&small)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) vst::split_tf32(x[j][e], big[j][e], small[j][e]);
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32(float (&c)[NT][4], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  if constexpr (NT == 8)
+    vst::wgmma_tf32_rs_n64(c, a, db, accumulate);
+  else
+    vst::wgmma_tf32_rs_n128(c, a, db, accumulate);
+}
+
+// f (+)= A B over one 32-deep panel in split TF32: per 8-deep step small
+// big, big small, big big; B's halves K-major panels at bbig and bsmall
+// (8 NT rows each). `accumulate` 0 starts f afresh.
+template <int NT>
+__device__ __forceinline__ void panel_products(float (&f)[NT][4], const uint32_t (&big)[4][4],
+                                               const uint32_t (&small)[4][4], uint32_t bbig,
+                                               uint32_t bsmall, int accumulate) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_tf32<NT>(f, small[j], vst::desc_kmajor(bbig, j), j == 0 ? accumulate : 1);
+    wgmma_tf32<NT>(f, big[j], vst::desc_kmajor(bsmall, j), 1);
+    wgmma_tf32<NT>(f, big[j], vst::desc_kmajor(bbig, j), 1);
   }
 }
 
-// The same rows read synchronously and multiplied by `mul` (q into qc:
-// one f32 multiply, the plain version's rounding).
-__device__ __forceinline__ void load_rows_scaled(float* tile, int ld, const float* src,
-                                                 long long head, long long stride, int r0,
-                                                 int rows, int c0, int cols, int tid, int nthr,
-                                                 float mul) {
-  const int per = cols >> 2;
-  const int dr = nthr / per, dc = nthr - dr * per;
-  for (int r = tid / per, c = tid - r * per; r < rows;) {
-    float4 x =
-        *reinterpret_cast<const float4*>(src + head + (long long)(r0 + r) * stride + c0 + 4 * c);
-    x.x *= mul;
-    x.y *= mul;
-    x.z *= mul;
-    x.w *= mul;
-    *reinterpret_cast<float4*>(tile + r * ld + 4 * c) = x;
-    r += dr;
-    c += dc;
-    if (c >= per) {
-      c -= per;
-      ++r;
+template <int NT>
+__device__ __forceinline__ void add_into(float (&run)[NT][4], const float (&f)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) run[i][e] += f[i][e];
+}
+
+// Shared memory and barriers of a kernel; barriers ready on return.
+struct RingSmem {
+  uint32_t base, full, empty;
+  __device__ __forceinline__ RingSmem(unsigned char* smem_raw, int stages, uint32_t stage_bytes) {
+    const uint32_t raw = vst::smem_u32(smem_raw);
+    base = (raw + 1023) & ~1023u;
+    full = base + stages * stage_bytes;
+    empty = full + 8 * stages;
+    if (threadIdx.x == 0) {
+      vst::ring_init(full, empty, stages, kConsumerWarps);
+      vst::mbar_fence_init();
     }
+    __syncthreads();
   }
-}
-
-// x[j] += the scores of rows r0 .. r0 + 15 of tile `a` against rows 8 j ..
-// 8 j + 7 of tile `bt`, over columns c0 .. c0 + 63 (8 steps of 8), bt's
-// values multiplied by `bmul` as they are read. The steps are unrolled two
-// at a time: fully unrolled in the kernels at D = 128, ptxas hoisted loads
-// until it spilled.
-__device__ __forceinline__ void partial_scores(float (&x)[kNT][4], const float* a,
-                                               const float* bt, int ld, int r0, int c0, int g,
-                                               int t, float bmul) {
-#pragma unroll 2
-  for (int kk = 0; kk < kCW / 8; ++kk) {
-    const vst::SplitA fa = vst::a_from_smem(a, ld, r0, c0 + 8 * kk, g, t);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      vst::mma_b_rows_t(x[j], fa, bt, ld, 8 * j, c0 + 8 * kk, g, t, bmul);
-  }
-}
-
-// acc (16 rows x columns c0 .. c0 + 63) += p b: p a 16 x kT tile in the
-// accumulator layout (P, P^T, dS or dS^T), b the kT rows of a tile, its
-// values multiplied by `bmul` as they are read.
-__device__ __forceinline__ void accumulate(float (&acc)[kCW / 8][4], const float (&p)[kNT][4],
-                                           const float* b, int ld, int c0, int g, int t,
-                                           float bmul) {
-#pragma unroll
-  for (int kc = 0; kc < kNT; ++kc) {
-    const vst::SplitA fa = vst::a_from_acc(p[kc]);
-#pragma unroll
-    for (int j = 0; j < kCW / 8; ++j)
-      vst::mma_b_rows(acc[j], fa, b, ld, 8 * kc, c0 + 8 * j, g, t, bmul);
-  }
-}
-
-// The row group's partial sums, added in a fixed order: warp w writes its
-// NX partial tiles to slot w (one float4 a lane an 8-column block), the
-// wg warps meet at named barrier `bar`, then each warp sets x to slot 0
-// and adds slots 1, .., wg - 1 in turn, so every warp holds the same
-// bits. Each tile's loop opens with a __syncthreads of the block, so the
-// slots are written again only after every warp has read them.
-template <int NX>
-__device__ __forceinline__ void group_sum(float (&x)[NX][kNT][4], float4* slots, int w, int wg,
-                                          int lane, int bar) {
-  constexpr int kSlot = NX * kNT * 32;
-  float4* mine = slots + w * kSlot + lane;
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      mine[(i * kNT + j) * 32] = make_float4(x[i][j][0], x[i][j][1], x[i][j][2], x[i][j][3]);
-  vst::named_sync(bar, 32 * wg);
-  const float4* s = slots + lane;
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const float4 y = s[(i * kNT + j) * 32];
-      x[i][j][0] = y.x;
-      x[i][j][1] = y.y;
-      x[i][j][2] = y.z;
-      x[i][j][3] = y.w;
-    }
-  for (int u = 1; u < wg; ++u) {
-    s += kSlot;
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float4 y = s[(i * kNT + j) * 32];
-        x[i][j][0] += y.x;
-        x[i][j][1] += y.y;
-        x[i][j][2] += y.z;
-        x[i][j][3] += y.w;
-      }
-  }
-}
-
-// Where a thread sits. blockDim.x = 32 wg rg: rg row groups of 16 rows,
-// wg warps each; block x = row tile * ng + column group cg. With ng = 1
-// (the whole head staged) a tile row is D + 4 floats; with column groups
-// it is one panel of pw = 64 wg columns + 4.
-struct Place {
-  bool whole;
-  int pw, ld, rows, cg, r_first, gi, w, r16, col, oc, ocols, lane, g, t, tid, nthr;
-  __device__ Place(int D, int wg, int ng) {
-    whole = ng == 1;
-    pw = whole ? D : kCW * wg;
-    ld = pw + 4;
-    nthr = blockDim.x;
-    rows = 16 * (nthr / (32 * wg));
-    cg = blockIdx.x % ng;
-    r_first = blockIdx.x / ng * rows;
-    tid = threadIdx.x;
-    const int warp = tid >> 5;
-    lane = tid & 31;
-    g = lane >> 2;
-    t = lane & 3;
-    gi = warp / wg;
-    w = warp - gi * wg;
-    r16 = 16 * gi;
-    col = kCW * w;
-    oc = cg * pw;
-    ocols = min(pw, D - oc);
-  }
-  // whether the warp has output columns (the last column group may leave
-  // some warps none)
-  __device__ bool owns() const { return col < ocols; }
 };
 
-// The stage pointers of the whole-head loop: tile `it` of the streamed
-// side in two stages of two [kT][ld] tensors. Each iteration waits for its
-// tile, meets the block at one __syncthreads (the tile is in; every warp
-// is done with tile it - 1, whose stage the next copies then refill) and
-// only then issues tile it + 1, so one barrier a tile orders the ring.
-__device__ __forceinline__ float* stage_of(float* st0, int ld, int it) {
-  return st0 + (it & 1) * 2 * kT * ld;
-}
+// ---- the forward's scores ---------------------------------------------------------
 
-// Forward. Grid (N / rows * ng, H, B). The block's qc rows stay staged
-// (whole head) while K and V stream in tiles of kT keys; per tile each warp
-// sums S over its columns, the row group adds the partial sums in warp
-// order, every warp runs the online softmax (the exact running max) on the
-// same S and accumulates its 64 columns of O. Warp 0 of each row group of
-// column group 0 writes LSE2.
-__global__ void __launch_bounds__(kFwdThreads)
-attn_fwd_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int H, int N, int D, int wg, int ng,
-                          long long sb, long long sn, long long sh, long long ob, long long on,
-                          long long oh, float qscale) {
-  extern __shared__ __align__(16) float fsm[];
-  const Place at(D, wg, ng);
-  const int ld = at.ld, g = at.g, t = at.t;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = at.r_first;
-  const long long head = (long long)b * sb + (long long)h * sh;
-  float* qs = fsm;                    // [rows][ld] qc
-  float* st0 = qs + at.rows * ld;     // K then V, [kT][ld] each: two stages, or one
-  float4* slots = reinterpret_cast<float4*>(st0 + (at.whole ? 4 : 2) * kT * ld) +
-                  at.gi * wg * kNT * 32;
-  const int nk = N / kT;
+// S2 = qc K^T in 128 x 128 tiles (queries by keys) of every head, `tiles`
+// = B H nt^2 (nt = ceil(N / 128)), tile i at key tile i % nt, query tile
+// i / nt % nt, head i / nt^2; the depth the head's D / 32 panels. A = q
+// (4-D map, 128-row boxes) times qscale as it is loaded (qc, one f32
+// multiply); B = K's halves ([B H, N, D] maps). Writes S2 into s_out [B H,
+// N, N] and each row's max over the tile's keys into mpart [B H N, nt].
+// Lane 4 g + t of warp i of consumer warpgroup w holds rows 64 w + 16 i +
+// g and + 8, columns 8 j + 2 t and + 1 (j < 16).
+__global__ void __launch_bounds__(kThreads, 1)
+tf32_scores_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mkb,
+                       const __grid_constant__ CUtensorMap mks, float* __restrict__ s_out,
+                       float* __restrict__ mpart, int H, int N, int D, float qscale, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem L(smem_raw, kStages, kStageBytes);
+  const int nt = (N + kTile - 1) / kTile, np = D / kDepth;
+  const int wg = threadIdx.x / 128;
 
-  auto stage = [&](int it) {   // K and V tile it, the whole head
-    float* kt = stage_of(st0, ld, it);
-    cp_rows(kt, ld, k, head, sn, it * kT, kT, 0, D, at.tid, at.nthr);
-    cp_rows(kt + kT * ld, ld, v, head, sn, it * kT, kT, 0, D, at.tid, at.nthr);
-    vst::cp_async_commit();
-  };
-  if (at.whole) {
-    stage(0);
-    load_rows_scaled(qs, ld, q, head, sn, q0, at.rows, 0, D, at.tid, at.nthr, qscale);
-  }
-
-  float acc[kCW / 8][4];
-#pragma unroll
-  for (int j = 0; j < kCW / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;   // running max, rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;               // this thread's share of the row sums
-
-  for (int it = 0; it < nk; ++it) {
-    float s[1][kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) s[0][j][0] = s[0][j][1] = s[0][j][2] = s[0][j][3] = 0.f;
-    const float* vt;
-    if (at.whole) {
-      vst::cp_async_wait<0>();
-      __syncthreads();
-      if (it + 1 < nk) stage(it + 1);
-      const float* kt = stage_of(st0, ld, it);
-      vt = kt + kT * ld;
-      partial_scores(s[0], qs, kt, ld, at.r16, at.col, g, t, 1.f);
-    } else {
-      for (int p = 0; p < ng; ++p) {   // panel p: qc and K columns p pw ..
-        const int c0 = p * at.pw, cols = min(at.pw, D - c0);
-        __syncthreads();   // the previous panel (and tile) is read
-        cp_rows(st0, ld, k, head, sn, it * kT, kT, c0, cols, at.tid, at.nthr);
-        vst::cp_async_commit();
-        load_rows_scaled(qs, ld, q, head, sn, q0, at.rows, c0, cols, at.tid, at.nthr, qscale);
-        vst::cp_async_wait<0>();
-        __syncthreads();
-        if (at.col < cols) partial_scores(s[0], qs, st0, ld, at.r16, at.col, g, t, 1.f);
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int ct = tile % nt, rt = tile / nt % nt, bh = tile / (nt * nt);
+      for (int p = 0; p < np; ++p, ++it) {
+        vst::ring_wait_free(L.empty, it, kStages);
+        const int s = it % kStages;
+        const uint32_t st = L.base + s * kStageBytes, bar = L.full + 8 * s;
+        vst::mbar_arrive_expect_tx(bar, kStageBytes);
+        vst::tma_load_4d(st, &mq, bar, kDepth * p, bh % H, kTile * rt, bh / H);
+        vst::tma_load_3d(st + kPanel128, &mkb, bar, kDepth * p, kTile * ct, bh);
+        vst::tma_load_3d(st + 2 * kPanel128, &mks, bar, kDepth * p, kTile * ct, bh);
       }
-      vt = st0 + kT * ld;   // V's columns of this block's group
-      cp_rows(st0 + kT * ld, ld, v, head, sn, it * kT, kT, at.oc, at.ocols, at.tid, at.nthr);
-      vst::cp_async_commit();
-      vst::cp_async_wait<0>();
-      __syncthreads();
     }
-    group_sum(s, slots, at.w, wg, at.lane, 1 + at.gi);
-
-    // online softmax: the exact running max, P = exp2(S2 - m) in f32
-    float n0 = m0, n1 = m1;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      n0 = fmaxf(n0, fmaxf(s[0][j][0], s[0][j][1]));
-      n1 = fmaxf(n1, fmaxf(s[0][j][2], s[0][j][3]));
-    }
-    n0 = quad_max(n0);
-    n1 = quad_max(n1);
-    const float a0 = exp2f(m0 - n0);   // 0 on the first tile (m = -inf)
-    const float a1 = exp2f(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[0][j][0] = exp2f(s[0][j][0] - n0);
-      s[0][j][1] = exp2f(s[0][j][1] - n0);
-      s[0][j][2] = exp2f(s[0][j][2] - n1);
-      s[0][j][3] = exp2f(s[0][j][3] - n1);
-      ps0 += s[0][j][0] + s[0][j][1];
-      ps1 += s[0][j][2] + s[0][j][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-#pragma unroll
-    for (int j = 0; j < kCW / 8; ++j) {
-      acc[j][0] *= a0;
-      acc[j][1] *= a0;
-      acc[j][2] *= a1;
-      acc[j][3] *= a1;
-    }
-    if (at.owns()) accumulate(acc, s[0], vt, ld, at.col, g, t, 1.f);   // O += P V
+    for (int i = 0; i < kStages; ++i, ++it) vst::ring_wait_free(L.empty, it, kStages);
+    return;
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  float* lrow = lse + ((long long)b * H + h) * N;
+  vst::regs_alloc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 64 * wg + 16 * warp + g;   // this thread's first tile row
+  vst::RingConsumer ring{L.base, kStageBytes, L.full, L.empty, kStages, lane};
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int ct = tile % nt, rt = tile / nt % nt, bh = tile / (nt * nt);
+    float run[16][4], f[16][4];
+    vst::zero_acc(run);
+    vst::zero_acc(f);
+    for (int p = 0; p < np; ++p) {
+      const uint32_t st = ring.next();
+      float x[4][4];
+      uint32_t big[4][4], small[4][4];
+      load_a(x, st, r, g, t);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + at.r16 + g + 8 * half;
-    const float l = half ? l1 : l0;
-    if (at.owns()) {
-      float* dst = o + (long long)b * ob + (long long)row * on + (long long)h * oh + at.oc +
-                   at.col + 2 * t;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < kCW / 8; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(acc[j][2 * half] / l, acc[j][2 * half + 1] / l);
+        for (int e = 0; e < 4; ++e) x[j][e] *= qscale;
+      split_frags(x, big, small);
+      vst::wgmma_fence();
+      panel_products<16>(f, big, small, st + kPanel128, st + 2 * kPanel128, 0);
+      vst::wgmma_commit();
+      vst::wgmma_wait<0>();
+      vst::fence_acc(f);
+      ring.release(1);
+      add_into(run, f);
     }
-    if (at.w == 0 && at.cg == 0 && t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
-  }
-}
-
-// dK/dV. Grid (N / rows * ng, H, B). The block's K and V rows stay staged
-// (whole head) while q and dO stream in tiles of kT queries; per tile each
-// warp sums S^T = K qc^T and dP^T = V dO^T over its columns (qc = q
-// qscale as each value is read), the row group adds the partial sums in
-// warp order, every warp forms P^T = exp2(S^T - LSE2) and dS^T = P^T
-// (dP^T - delta) and accumulates its 64 columns of dV += P^T dO and dK +=
-// dS^T qc.
-__global__ void __launch_bounds__(kBwdThreads)
-attn_bwd_dkdv_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ d_o,
-                               const float* __restrict__ lse, const float* __restrict__ delta,
-                               float* __restrict__ dk, float* __restrict__ dv, int H, int N,
-                               int D, int wg, int ng, long long sb, long long sn, long long sh,
-                               long long ob, long long on, long long oh, float qscale) {
-  extern __shared__ __align__(16) float fsm[];
-  const Place at(D, wg, ng);
-  const int ld = at.ld, g = at.g, t = at.t;
-  const int h = blockIdx.y, b = blockIdx.z, k0 = at.r_first;
-  const long long head = (long long)b * sb + (long long)h * sh;
-  const long long ohead = (long long)b * ob + (long long)h * oh;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-  float* ks = fsm;                    // [rows][ld] K
-  float* vs = ks + at.rows * ld;      // [rows][ld] V
-  float* st0 = vs + at.rows * ld;     // q then dO, [kT][ld] each: two stages, or one
-  float4* slots = reinterpret_cast<float4*>(st0 + (at.whole ? 4 : 2) * kT * ld) +
-                  at.gi * wg * 2 * kNT * 32;
-  const int nq = N / kT;
-
-  auto stage = [&](int it) {   // q and dO tile it, the whole head
-    float* qt = stage_of(st0, ld, it);
-    cp_rows(qt, ld, q, head, sn, it * kT, kT, 0, D, at.tid, at.nthr);
-    cp_rows(qt + kT * ld, ld, d_o, ohead, on, it * kT, kT, 0, D, at.tid, at.nthr);
-    vst::cp_async_commit();
-  };
-  if (at.whole) {
-    cp_rows(ks, ld, k, head, sn, k0, at.rows, 0, D, at.tid, at.nthr);
-    cp_rows(vs, ld, v, head, sn, k0, at.rows, 0, D, at.tid, at.nthr);
-    stage(0);   // one group with the resident rows
-  }
-
-  float adk[kCW / 8][4], adv[kCW / 8][4];
+    const long long head = (long long)bh * N;
 #pragma unroll
-  for (int j = 0; j < kCW / 8; ++j)
-    adk[j][0] = adk[j][1] = adk[j][2] = adk[j][3] = adv[j][0] = adv[j][1] = adv[j][2] =
-        adv[j][3] = 0.f;
-
-  for (int it = 0; it < nq; ++it) {
-    float x[2][kNT][4];   // S^T, dP^T: 16 keys x kT queries
+    for (int half = 0; half < 2; ++half) {
+      const int row = kTile * rt + r + 8 * half;
+      float m = -INFINITY;
+      if (row < N) {
+        float* out = s_out + (head + row) * N;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      x[0][j][0] = x[0][j][1] = x[0][j][2] = x[0][j][3] = x[1][j][0] = x[1][j][1] =
-          x[1][j][2] = x[1][j][3] = 0.f;
-    const float *qt, *dot;
-    if (at.whole) {
-      vst::cp_async_wait<0>();
-      __syncthreads();
-      if (it + 1 < nq) stage(it + 1);
-      qt = stage_of(st0, ld, it);
-      dot = qt + kT * ld;
-      partial_scores(x[0], ks, qt, ld, at.r16, at.col, g, t, qscale);
-      partial_scores(x[1], vs, dot, ld, at.r16, at.col, g, t, 1.f);
-    } else {
-      for (int p = 0; p < ng; ++p) {   // panel p of K, V, q and dO
-        const int c0 = p * at.pw, cols = min(at.pw, D - c0);
-        __syncthreads();
-        cp_rows(ks, ld, k, head, sn, k0, at.rows, c0, cols, at.tid, at.nthr);
-        cp_rows(vs, ld, v, head, sn, k0, at.rows, c0, cols, at.tid, at.nthr);
-        cp_rows(st0, ld, q, head, sn, it * kT, kT, c0, cols, at.tid, at.nthr);
-        cp_rows(st0 + kT * ld, ld, d_o, ohead, on, it * kT, kT, c0, cols, at.tid, at.nthr);
-        vst::cp_async_commit();
-        vst::cp_async_wait<0>();
-        __syncthreads();
-        if (at.col < cols) {
-          partial_scores(x[0], ks, st0, ld, at.r16, at.col, g, t, qscale);
-          partial_scores(x[1], vs, st0 + kT * ld, ld, at.r16, at.col, g, t, 1.f);
+        for (int j = 0; j < 16; ++j) {
+          const int col = kTile * ct + 8 * j + 2 * t;   // N is even: col + 1 < N too
+          if (col < N) {
+            const float a = run[j][2 * half], b = run[j][2 * half + 1];
+            *reinterpret_cast<float2*>(out + col) = make_float2(a, b);
+            m = fmaxf(m, fmaxf(a, b));
+          }
         }
       }
-      __syncthreads();   // q and dO of this block's group of columns
-      cp_rows(st0, ld, q, head, sn, it * kT, kT, at.oc, at.ocols, at.tid, at.nthr);
-      cp_rows(st0 + kT * ld, ld, d_o, ohead, on, it * kT, kT, at.oc, at.ocols, at.tid, at.nthr);
-      vst::cp_async_commit();
-      vst::cp_async_wait<0>();
-      __syncthreads();
-      qt = st0;
-      dot = st0 + kT * ld;
-    }
-    group_sum(x, slots, at.w, wg, at.lane, 1 + at.gi);
-
-    // P^T and dS^T; accumulator columns 2 t, 2 t + 1 of block j are queries
-    // it kT + 8 j + 2 t, + 1
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int qi = it * kT + 8 * j + 2 * t;
-      const float la = lrow[qi], lb = lrow[qi + 1], da = drow[qi], db = drow[qi + 1];
-      x[0][j][0] = exp2f(x[0][j][0] - la);
-      x[0][j][1] = exp2f(x[0][j][1] - lb);
-      x[0][j][2] = exp2f(x[0][j][2] - la);
-      x[0][j][3] = exp2f(x[0][j][3] - lb);
-      x[1][j][0] = x[0][j][0] * (x[1][j][0] - da);
-      x[1][j][1] = x[0][j][1] * (x[1][j][1] - db);
-      x[1][j][2] = x[0][j][2] * (x[1][j][2] - da);
-      x[1][j][3] = x[0][j][3] * (x[1][j][3] - db);
-    }
-    if (at.owns()) {
-      accumulate(adv, x[0], dot, ld, at.col, g, t, 1.f);    // dV += P^T dO
-      accumulate(adk, x[1], qt, ld, at.col, g, t, qscale);  // dK += dS^T qc
-    }
-  }
-
-  if (!at.owns()) return;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long out =
-        ohead + (long long)(k0 + at.r16 + g + 8 * half) * on + at.oc + at.col + 2 * t;
-#pragma unroll
-    for (int j = 0; j < kCW / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + out + 8 * j) =
-          make_float2(adk[j][2 * half] * kLn2, adk[j][2 * half + 1] * kLn2);
-      *reinterpret_cast<float2*>(dv + out + 8 * j) =
-          make_float2(adv[j][2 * half], adv[j][2 * half + 1]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (row < N && t == 0) mpart[(head + row) * nt + ct] = m;
     }
   }
 }
 
-// dQ. Grid (N / rows * ng, H, B). The block's qc rows (prescaled as they
-// are staged) and dO rows stay staged (whole head) while K and V stream in
-// tiles of kT keys; per tile each warp sums S = qc K^T and dP = dO V^T over
-// its columns, the row group adds the partial sums in warp order, every
-// warp forms P = exp2(S - LSE2) and dS = P (dP - delta) and accumulates
-// its 64 columns of dQ += dS K.
-__global__ void __launch_bounds__(kBwdThreads)
-attn_bwd_dq_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ d_o,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             float* __restrict__ dq, int H, int N, int D, int wg, int ng,
-                             long long sb, long long sn, long long sh, long long ob,
-                             long long on, long long oh, float qscale, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  const Place at(D, wg, ng);
-  const int ld = at.ld, g = at.g, t = at.t;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = at.r_first;
-  const long long head = (long long)b * sb + (long long)h * sh;
-  const long long ohead = (long long)b * ob + (long long)h * oh;
-  float* qs = fsm;                    // [rows][ld] qc
-  float* dos = qs + at.rows * ld;     // [rows][ld] dO
-  float* st0 = dos + at.rows * ld;    // K then V, [kT][ld] each: two stages, or one
-  float4* slots = reinterpret_cast<float4*>(st0 + (at.whole ? 4 : 2) * kT * ld) +
-                  at.gi * wg * 2 * kNT * 32;
-  const int nk = N / kT;
+// ---- the products with the depth over the keys or queries -----------------------
 
-  auto stage = [&](int it) {   // K and V tile it, the whole head
-    float* kt = stage_of(st0, ld, it);
-    cp_rows(kt, ld, k, head, sn, it * kT, kT, 0, D, at.tid, at.nthr);
-    cp_rows(kt + kT * ld, ld, v, head, sn, it * kT, kT, 0, D, at.tid, at.nthr);
-    vst::cp_async_commit();
-  };
-  if (at.whole) {
-    cp_rows(dos, ld, d_o, ohead, on, q0, at.rows, 0, D, at.tid, at.nthr);
-    stage(0);   // one group with the resident dO rows
-    load_rows_scaled(qs, ld, q, head, sn, q0, at.rows, 0, D, at.tid, at.nthr, qscale);
+// out = f (A B) in 128 x 128 tiles (rows by the head's columns) of every
+// head, `tiles` = B H nrt ndt (nrt = ceil(N / 128), ndt = ceil(D / 128)),
+// tile i at column tile i % ndt, row tile i / ndt % nrt, head i / (ndt
+// nrt); the depth the N / 32 panels of A's columns; B's halves [B H, D,
+// N] maps (the head's columns by the depth: V^T, dO^T, qc^T or K^T).
+//   kOut:   A = S2 rows ([B H, N, N] map), formed into P = exp2(S2 - m)
+//           as it is loaded (m of each row the max of its tiles' maxima
+//           in mpart), l = the row sum of P; out = O = (P V) / l; the
+//           blocks of column tile 0 write LSE2 = m + log2(l) into lse.
+//   kGrad:  A = P^T or dS^T rows; out = mul (A B) (dV, dK).
+//   kGradT: A = dS, read from dS^T ([B H, N, N] map, 32 x 32 boxes);
+//           out = mul (A B) (dQ).
+// out [B, N, H, D] with strides (ob, on, oh, 1).
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, 1)
+tf32_product_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mbb,
+                    const __grid_constant__ CUtensorMap mbs, const float* __restrict__ mpart,
+                    float* __restrict__ lse, float mul, float* __restrict__ out, int H, int N,
+                    int D, long long ob, long long on, long long oh, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem L(smem_raw, kStages, kStageBytes);
+  const int nrt = (N + kTile - 1) / kTile, ndt = (D + kTile - 1) / kTile, np = N / kDepth;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int ct = tile % ndt, rt = tile / ndt % nrt, bh = tile / (ndt * nrt);
+      for (int p = 0; p < np; ++p, ++it) {
+        vst::ring_wait_free(L.empty, it, kStages);
+        const int s = it % kStages;
+        const uint32_t st = L.base + s * kStageBytes, bar = L.full + 8 * s;
+        vst::mbar_arrive_expect_tx(bar, kStageBytes);
+        if constexpr (kKind == kGradT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            vst::tma_load_3d(st + 4096 * i, &ma, bar, kTile * rt + 32 * i, kDepth * p, bh);
+        } else {
+          vst::tma_load_3d(st, &ma, bar, kDepth * p, kTile * rt, bh);
+        }
+        vst::tma_load_3d(st + kPanel128, &mbb, bar, kDepth * p, kTile * ct, bh);
+        vst::tma_load_3d(st + 2 * kPanel128, &mbs, bar, kDepth * p, kTile * ct, bh);
+      }
+    }
+    for (int i = 0; i < kStages; ++i, ++it) vst::ring_wait_free(L.empty, it, kStages);
+    return;
   }
 
-  const long long hrow = ((long long)b * H + h) * N;
-  const int r0 = q0 + at.r16 + g;
-  const float l0 = lse[hrow + r0], l1 = lse[hrow + r0 + 8];
-  const float d0 = delta[hrow + r0], d1 = delta[hrow + r0 + 8];
-  float acc[kCW / 8][4];
+  vst::regs_alloc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 64 * wg + 16 * warp + g;
+  vst::RingConsumer ring{L.base, kStageBytes, L.full, L.empty, kStages, lane};
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int ct = tile % ndt, rt = tile / ndt % nrt, bh = tile / (ndt * nrt);
+    const long long head = (long long)bh * N;
+    const int row0 = kTile * rt + r;
+    float m0 = 0.f, m1 = 0.f, l0 = 0.f, l1 = 0.f;
+    if constexpr (kKind == kOut) {   // rows past N: any finite m (nothing is stored)
+      if (row0 < N) {
+        m0 = -INFINITY;
+        for (int i = 0; i < nrt; ++i) m0 = fmaxf(m0, mpart[(head + row0) * nrt + i]);
+      }
+      if (row0 + 8 < N) {
+        m1 = -INFINITY;
+        for (int i = 0; i < nrt; ++i) m1 = fmaxf(m1, mpart[(head + row0 + 8) * nrt + i]);
+      }
+    }
+    float run[16][4], f[16][4];
+    vst::zero_acc(run);
+    vst::zero_acc(f);
+    for (int p = 0; p < np; ++p) {
+      const uint32_t st = ring.next();
+      float x[4][4];
+      uint32_t big[4][4], small[4][4];
+      if constexpr (kKind == kGradT)
+        load_a_t(x, st, r, t);
+      else
+        load_a(x, st, r, g, t);
+      if constexpr (kKind == kOut) {
 #pragma unroll
-  for (int j = 0; j < kCW / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < nk; ++it) {
-    float x[2][kNT][4];   // S, dP: 16 queries x kT keys
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      x[0][j][0] = x[0][j][1] = x[0][j][2] = x[0][j][3] = x[1][j][0] = x[1][j][1] =
-          x[1][j][2] = x[1][j][3] = 0.f;
-    const float* kt;
-    if (at.whole) {
-      vst::cp_async_wait<0>();
-      __syncthreads();
-      if (it + 1 < nk) stage(it + 1);
-      kt = stage_of(st0, ld, it);
-      partial_scores(x[0], qs, kt, ld, at.r16, at.col, g, t, 1.f);
-      partial_scores(x[1], dos, kt + kT * ld, ld, at.r16, at.col, g, t, 1.f);
-    } else {
-      for (int p = 0; p < ng; ++p) {   // panel p of qc, dO, K and V
-        const int c0 = p * at.pw, cols = min(at.pw, D - c0);
-        __syncthreads();
-        cp_rows(dos, ld, d_o, ohead, on, q0, at.rows, c0, cols, at.tid, at.nthr);
-        cp_rows(st0, ld, k, head, sn, it * kT, kT, c0, cols, at.tid, at.nthr);
-        cp_rows(st0 + kT * ld, ld, v, head, sn, it * kT, kT, c0, cols, at.tid, at.nthr);
-        vst::cp_async_commit();
-        load_rows_scaled(qs, ld, q, head, sn, q0, at.rows, c0, cols, at.tid, at.nthr, qscale);
-        vst::cp_async_wait<0>();
-        __syncthreads();
-        if (at.col < cols) {
-          partial_scores(x[0], qs, st0, ld, at.r16, at.col, g, t, 1.f);
-          partial_scores(x[1], dos, st0 + kT * ld, ld, at.r16, at.col, g, t, 1.f);
+        for (int j = 0; j < 4; ++j) {
+          x[j][0] = exp2f(x[j][0] - m0);
+          x[j][1] = exp2f(x[j][1] - m1);
+          x[j][2] = exp2f(x[j][2] - m0);
+          x[j][3] = exp2f(x[j][3] - m1);
+          l0 += x[j][0] + x[j][2];
+          l1 += x[j][1] + x[j][3];
         }
       }
-      __syncthreads();   // K of this block's group of columns
-      cp_rows(st0, ld, k, head, sn, it * kT, kT, at.oc, at.ocols, at.tid, at.nthr);
-      vst::cp_async_commit();
-      vst::cp_async_wait<0>();
-      __syncthreads();
-      kt = st0;
+      split_frags(x, big, small);
+      vst::wgmma_fence();
+      panel_products<16>(f, big, small, st + kPanel128, st + 2 * kPanel128, p & 1);
+      vst::wgmma_commit();
+      vst::wgmma_wait<0>();
+      vst::fence_acc(f);
+      ring.release(1);
+      if (p & 1) add_into(run, f);   // a fresh sum each 64 of the depth (N % 64 == 0)
     }
-    group_sum(x, slots, at.w, wg, at.lane, 1 + at.gi);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      x[0][j][0] = exp2f(x[0][j][0] - l0);
-      x[0][j][1] = exp2f(x[0][j][1] - l0);
-      x[0][j][2] = exp2f(x[0][j][2] - l1);
-      x[0][j][3] = exp2f(x[0][j][3] - l1);
-      x[1][j][0] = x[0][j][0] * (x[1][j][0] - d0);
-      x[1][j][1] = x[0][j][1] * (x[1][j][1] - d0);
-      x[1][j][2] = x[0][j][2] * (x[1][j][2] - d1);
-      x[1][j][3] = x[0][j][3] * (x[1][j][3] - d1);
+    if constexpr (kKind == kOut) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     }
-    if (at.owns()) accumulate(acc, x[1], kt, ld, at.col, g, t, 1.f);   // dQ += dS K
-  }
-
-  if (!at.owns()) return;
+    const int h = bh % H, b = bh / H;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float* dst = dq + ohead + (long long)(r0 + 8 * half) * on + at.oc + at.col + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= N) continue;
+      float* dst = out + (long long)b * ob + (long long)row * on + (long long)h * oh;
+      const float l = half ? l1 : l0;
 #pragma unroll
-    for (int j = 0; j < kCW / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) =
-          make_float2(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+      for (int j = 0; j < 16; ++j) {
+        const int col = kTile * ct + 8 * j + 2 * t;
+        if (col >= D) continue;
+        const float a = run[j][2 * half], c = run[j][2 * half + 1];
+        *reinterpret_cast<float2*>(dst + col) =
+            kKind == kOut ? make_float2(a / l, c / l) : make_float2(a * mul, c * mul);
+      }
+      if (kKind == kOut && ct == 0 && t == 0) lse[head + row] = (half ? m1 : m0) + log2f(l);
+    }
   }
 }
 
-// A launch's shape: wg warps a row group, ng column groups, rg row groups
-// a block, and its shared memory.
-struct Plan {
-  int wg, ng, rg;
-  size_t smem;
-};
+// ---- the backward's scores ----------------------------------------------------------
 
-// The whole head while C = D / 64 <= 8 (one warp a 64-column chunk), else
-// column groups of at most 8 warps; then the most row groups, from
-// max_rg down by halves (1 where there are column groups), that fit
-// max_threads and 227 KB and keep at least two blocks an SM in the grid.
-// `nx`: the tensors of the block's own rows staged (forward 1, backward
-// 2), each also one tensor streamed and one partial tile a warp exchanged.
-cudaError_t plan(int B, int H, int N, int D, int nx, int max_threads, int max_rg, Plan* p) {
-  int dev = 0, sms = 0;
+// S^T = K qc^T and dP^T = V dO^T for tiles of 128 keys by 64 queries of
+// every head, `tiles` = B H nkt nqt (nkt = ceil(N / 128), nqt = N / 64),
+// tile i at query tile i % nqt, key tile i / nqt % nkt, head i / (nqt
+// nkt); the depth the head's D / 32 panels. A = K and V (4-D maps,
+// 128-row boxes); B = the halves of qc and dO ([B H, N, D] maps, 64-row
+// boxes). P^T = exp2(S^T - LSE2) and dS^T = P^T (dP^T - delta), each
+// query's LSE2 and delta read from [B H, N], stored into pt and dst [B H,
+// N, N] (keys by queries). Lane 4 g + t of warp i of warpgroup w holds
+// keys 64 w + 16 i + g and + 8, queries 8 j + 2 t and + 1 (j < 8).
+__global__ void __launch_bounds__(kThreads, 1)
+tf32_scores_bwd_kernel(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mqb,
+                       const __grid_constant__ CUtensorMap mqs,
+                       const __grid_constant__ CUtensorMap mdb,
+                       const __grid_constant__ CUtensorMap mds, const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ pt,
+                       float* __restrict__ dst, int H, int N, int D, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem L(smem_raw, kBwdStages, kBwdStageBytes);
+  const int nkt = (N + kTile - 1) / kTile, nqt = N / kScoreQueries, np = D / kDepth;
+  const int wg = threadIdx.x / 128;
+  constexpr uint32_t kQb = 2 * kPanel128, kQs = kQb + kPanel64, kDb = kQs + kPanel64,
+                     kDs = kDb + kPanel64;
+
+  if (wg == 2) {   // producer
+    vst::regs_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int qt = tile % nqt, kt = tile / nqt % nkt, bh = tile / (nqt * nkt);
+      const int h = bh % H, b = bh / H;
+      for (int p = 0; p < np; ++p, ++it) {
+        vst::ring_wait_free(L.empty, it, kBwdStages);
+        const int s = it % kBwdStages;
+        const uint32_t st = L.base + s * kBwdStageBytes, bar = L.full + 8 * s;
+        vst::mbar_arrive_expect_tx(bar, kBwdStageBytes);
+        vst::tma_load_4d(st, &mk, bar, kDepth * p, h, kTile * kt, b);
+        vst::tma_load_4d(st + kPanel128, &mv, bar, kDepth * p, h, kTile * kt, b);
+        vst::tma_load_3d(st + kQb, &mqb, bar, kDepth * p, kScoreQueries * qt, bh);
+        vst::tma_load_3d(st + kQs, &mqs, bar, kDepth * p, kScoreQueries * qt, bh);
+        vst::tma_load_3d(st + kDb, &mdb, bar, kDepth * p, kScoreQueries * qt, bh);
+        vst::tma_load_3d(st + kDs, &mds, bar, kDepth * p, kScoreQueries * qt, bh);
+      }
+    }
+    for (int i = 0; i < kBwdStages; ++i, ++it) vst::ring_wait_free(L.empty, it, kBwdStages);
+    return;
+  }
+
+  vst::regs_alloc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 64 * wg + 16 * warp + g;
+  vst::RingConsumer ring{L.base, kBwdStageBytes, L.full, L.empty, kBwdStages, lane};
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int qt = tile % nqt, kt = tile / nqt % nkt, bh = tile / (nqt * nkt);
+    float rs[8][4], rp[8][4], fs[8][4], fp[8][4];
+    vst::zero_acc(rs);
+    vst::zero_acc(rp);
+    vst::zero_acc(fs);
+    vst::zero_acc(fp);
+    for (int p = 0; p < np; ++p) {
+      const uint32_t st = ring.next();
+      float x[4][4];
+      uint32_t kb[4][4], ks[4][4], vb[4][4], vs[4][4];
+      load_a(x, st, r, g, t);
+      split_frags(x, kb, ks);
+      load_a(x, st + kPanel128, r, g, t);
+      split_frags(x, vb, vs);
+      vst::wgmma_fence();
+      panel_products<8>(fs, kb, ks, st + kQb, st + kQs, 0);
+      panel_products<8>(fp, vb, vs, st + kDb, st + kDs, 0);
+      vst::wgmma_commit();
+      vst::wgmma_wait<0>();
+      vst::fence_acc(fs);
+      vst::fence_acc(fp);
+      ring.release(1);
+      add_into(rs, fs);
+      add_into(rp, fp);
+    }
+    const long long head = (long long)bh * N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = kScoreQueries * qt + 8 * j + 2 * t;   // a query (< N: N % 64 == 0)
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + head + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta + head + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = kTile * kt + r + 8 * half;   // a key
+        if (row >= N) continue;
+        const float p0 = exp2f(rs[j][2 * half] - l2.x), p1 = exp2f(rs[j][2 * half + 1] - l2.y);
+        const long long at = (head + row) * N + col;
+        *reinterpret_cast<float2*>(pt + at) = make_float2(p0, p1);
+        *reinterpret_cast<float2*>(dst + at) =
+            make_float2(p0 * (rp[j][2 * half] - d2.x), p1 * (rp[j][2 * half + 1] - d2.y));
+      }
+    }
+  }
+}
+
+// ---- the split pre-pass ---------------------------------------------------------------
+
+// One head's f32 [N, D] (a [B, N, H, D] view with strides (sb, sn, sh,
+// 1)) times `mul` (qscale for qc, one f32 multiply; else 1), split into
+// big and small: into rows_big / rows_small [B H, N, D] where given, and
+// transposed into tr_big / tr_small [B H, D, N] where given. Grid (D / 32,
+// N / 32, B H), 256 threads a 32 x 32 tile.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ src, long long sb, long long sn, long long sh, int H,
+                  int N, int D, float mul, uint32_t* __restrict__ rows_big,
+                  uint32_t* __restrict__ rows_small, uint32_t* __restrict__ tr_big,
+                  uint32_t* __restrict__ tr_small) {
+  __shared__ uint32_t tb[32][33], ts[32][33];
+  const int d0 = 32 * blockIdx.x, n0 = 32 * blockIdx.y, bh = blockIdx.z;
+  const int h = bh % H, b = bh / H;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const float* head = src + (long long)b * sb + (long long)h * sh + d0 + tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 8 * i;
+    uint32_t big, small;
+    vst::split_tf32(head[(long long)n * sn] * mul, big, small);
+    if (rows_big != nullptr) {
+      const long long at = ((long long)bh * N + n) * D + d0 + tx;
+      rows_big[at] = big;
+      rows_small[at] = small;
+    }
+    tb[ty + 8 * i][tx] = big;
+    ts[ty + 8 * i][tx] = small;
+  }
+  if (tr_big == nullptr) return;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = ty + 8 * i;
+    const long long at = ((long long)bh * D + d0 + d) * N + n0 + tx;
+    tr_big[at] = tb[tx][d];
+    tr_small[at] = ts[tx][d];
+  }
+}
+
+// ---- host ------------------------------------------------------------------------------
+
+bool shapes_ok(int B, int H, int N, int D, const void* scratch) {
+  return scratch != nullptr && N > 0 && D >= 192 && N % 64 == 0 && D % 64 == 0 &&
+         (long long)B * H <= 65535 && (long long)B * H * N < (1ll << 31);
+}
+
+// The card's SM count (the persistent grids' size), asked once a device.
+cudaError_t sm_count(int* sms) {
+  static int cached[64] = {};
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int C = D / kCW;
-  p->ng = (C + kMaxWarps - 1) / kMaxWarps;
-  p->wg = (C + p->ng - 1) / p->ng;
-  const bool whole = p->ng == 1;
-  const size_t ld = (whole ? D : kCW * p->wg) + 4;
-  for (int rg = whole ? max_rg : 1;; rg /= 2) {
-    const size_t smem = sizeof(float) * ((size_t)nx * 16 * rg * ld + (whole ? 4 : 2) * kT * ld +
-                                         (size_t)rg * p->wg * nx * 16 * kT);
-    if (rg == 1 || (32 * p->wg * rg <= max_threads && smem <= kMaxSmem &&
-                    (long long)B * H * (N / (16 * rg)) >= 2LL * sms)) {
-      p->rg = rg;
-      p->smem = smem;
-      return smem <= kMaxSmem ? cudaSuccess : cudaErrorInvalidValue;
-    }
+  if (dev < 64 && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
   }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) cached[dev] = *sms;
+  return err;
+}
+
+unsigned persistent(long long tiles, int sms) {
+  return static_cast<unsigned>(tiles < sms ? tiles : sms);
+}
+
+void launch_split(const float* src, long long sb, long long sn, long long sh, int B, int H,
+                  int N, int D, float mul, float* rows, float* tr, cudaStream_t st) {
+  const long long half = (long long)B * H * N * D;
+  uint32_t* r = reinterpret_cast<uint32_t*>(rows);
+  uint32_t* t = reinterpret_cast<uint32_t*>(tr);
+  tf32_split_kernel<<<dim3(D / 32, N / 32, B * H), 256, 0, st>>>(
+      src, sb, sn, sh, H, N, D, mul, r, r ? r + half : nullptr, t, t ? t + half : nullptr);
 }
 
 }  // namespace
@@ -648,38 +599,94 @@ cudaError_t plan(int B, int H, int N, int D, int nx, int max_threads, int max_rg
 namespace vst {
 
 cudaError_t launch_attn_fwd_tf32_wide(const float* q, const float* k, const float* v, float* o,
-                                      float* lse, int B, int H, int N, int D, long long sb,
-                                      long long sn, long long sh, long long ob, long long on,
-                                      long long oh, float qscale, cudaStream_t st) {
-  if (D % kCW != 0 || D < 3 * kCW || N % 64 != 0) return cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = plan(B, H, N, D, 1, kFwdThreads, 4, &p);
-  if (err == cudaSuccess) err = vst::allow_smem(attn_fwd_tf32_wide_kernel, p.smem);
-  if (err != cudaSuccess) return err;
-  attn_fwd_tf32_wide_kernel<<<dim3(N / (16 * p.rg) * p.ng, H, B), 32 * p.wg * p.rg, p.smem,
-                              st>>>(q, k, v, o, lse, H, N, D, p.wg, p.ng, sb, sn, sh, ob, on,
-                                    oh, qscale);
+                                      float* lse, void* scratch, int B, int H, int N, int D,
+                                      long long sb, long long sn, long long sh, long long ob,
+                                      long long on, long long oh, float qscale, cudaStream_t st) {
+  if (!shapes_ok(B, H, N, D, scratch)) return cudaErrorInvalidValue;
+  const long long bh = (long long)B * H, bhn = bh * N, nt = (N + kTile - 1) / kTile;
+  float* s = static_cast<float*>(scratch);
+  float* mpart = s + bhn * N;
+  float* ksplit = mpart + bhn * nt;   // big, then small
+  float* vsplit = ksplit + 2 * bhn * D;
+  CUtensorMap mq, mkb, mks, ms, mvb, mvs;
+  if (!bhnd_tensor_map_f32(&mq, q, B, N, H, D, sb, sn, sh, kTile) ||
+      !heads_tensor_map_f32(&mkb, ksplit, bh, N, D, kTile) ||
+      !heads_tensor_map_f32(&mks, ksplit + bhn * D, bh, N, D, kTile) ||
+      !heads_tensor_map_f32(&ms, s, bh, N, N, kTile) ||
+      !heads_tensor_map_f32(&mvb, vsplit, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mvs, vsplit + bhn * D, bh, D, N, kTile))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  if ((err = allow_smem(tf32_scores_fwd_kernel, kSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(tf32_product_kernel<kOut>, kSmem)) != cudaSuccess) return err;
+  launch_split(k, sb, sn, sh, B, H, N, D, 1.f, ksplit, nullptr, st);
+  launch_split(v, sb, sn, sh, B, H, N, D, 1.f, nullptr, vsplit, st);
+  const long long score_tiles = bh * nt * nt;
+  tf32_scores_fwd_kernel<<<persistent(score_tiles, sms), kThreads, kSmem, st>>>(
+      mq, mkb, mks, s, mpart, H, N, D, qscale, static_cast<int>(score_tiles));
+  const long long out_tiles = bh * nt * ((D + kTile - 1) / kTile);
+  tf32_product_kernel<kOut><<<persistent(out_tiles, sms), kThreads, kSmem, st>>>(
+      ms, mvb, mvs, mpart, lse, 1.f, o, H, N, D, ob, on, oh, static_cast<int>(out_tiles));
   return cudaGetLastError();
 }
 
 cudaError_t launch_attn_bwd_tf32_wide(const float* q, const float* k, const float* v,
                                       const float* d_o, const float* lse, const float* delta,
-                                      float* dq, float* dk, float* dv, int B, int H, int N,
-                                      int D, long long sb, long long sn, long long sh,
-                                      long long ob, long long on, long long oh, float qscale,
-                                      float scale, cudaStream_t st) {
-  if (D % kCW != 0 || D < 3 * kCW || N % 64 != 0) return cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = plan(B, H, N, D, 2, kBwdThreads, 2, &p);
-  if (err == cudaSuccess) err = vst::allow_smem(attn_bwd_dkdv_tf32_wide_kernel, p.smem);
-  if (err == cudaSuccess) err = vst::allow_smem(attn_bwd_dq_tf32_wide_kernel, p.smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(N / (16 * p.rg) * p.ng, H, B);
-  const int threads = 32 * p.wg * p.rg;
-  attn_bwd_dkdv_tf32_wide_kernel<<<grid, threads, p.smem, st>>>(
-      q, k, v, d_o, lse, delta, dk, dv, H, N, D, p.wg, p.ng, sb, sn, sh, ob, on, oh, qscale);
-  attn_bwd_dq_tf32_wide_kernel<<<grid, threads, p.smem, st>>>(
-      q, k, v, d_o, lse, delta, dq, H, N, D, p.wg, p.ng, sb, sn, sh, ob, on, oh, qscale, scale);
+                                      float* dq, float* dk, float* dv, void* scratch, int B,
+                                      int H, int N, int D, long long sb, long long sn,
+                                      long long sh, long long ob, long long on, long long oh,
+                                      float qscale, float scale, cudaStream_t st) {
+  if (!shapes_ok(B, H, N, D, scratch)) return cudaErrorInvalidValue;
+  const long long bh = (long long)B * H, bhn = bh * N, nt = (N + kTile - 1) / kTile;
+  const long long half = bhn * D;   // one split half
+  float* pt = static_cast<float*>(scratch);
+  float* dst = pt + bhn * N;
+  float* qc = dst + bhn * N;          // [B H, N, D] big, small
+  float* dos = qc + 2 * half;
+  float* qct = dos + 2 * half;        // [B H, D, N] big, small
+  float* dot = qct + 2 * half;
+  float* kt = dot + 2 * half;
+  CUtensorMap mk, mv, mqb, mqs, mdb, mds, mpt, mdst, mdst_t, mdotb, mdots, mqctb, mqcts, mktb,
+      mkts;
+  if (!bhnd_tensor_map_f32(&mk, k, B, N, H, D, sb, sn, sh, kTile) ||
+      !bhnd_tensor_map_f32(&mv, v, B, N, H, D, sb, sn, sh, kTile) ||
+      !heads_tensor_map_f32(&mqb, qc, bh, N, D, kScoreQueries) ||
+      !heads_tensor_map_f32(&mqs, qc + half, bh, N, D, kScoreQueries) ||
+      !heads_tensor_map_f32(&mdb, dos, bh, N, D, kScoreQueries) ||
+      !heads_tensor_map_f32(&mds, dos + half, bh, N, D, kScoreQueries) ||
+      !heads_tensor_map_f32(&mpt, pt, bh, N, N, kTile) ||
+      !heads_tensor_map_f32(&mdst, dst, bh, N, N, kTile) ||
+      !heads_tensor_map_f32(&mdst_t, dst, bh, N, N, 32) ||
+      !heads_tensor_map_f32(&mdotb, dot, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mdots, dot + half, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mqctb, qct, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mqcts, qct + half, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mktb, kt, bh, D, N, kTile) ||
+      !heads_tensor_map_f32(&mkts, kt + half, bh, D, N, kTile))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  if ((err = allow_smem(tf32_scores_bwd_kernel, kBwdSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(tf32_product_kernel<kGrad>, kSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(tf32_product_kernel<kGradT>, kSmem)) != cudaSuccess) return err;
+  launch_split(q, sb, sn, sh, B, H, N, D, qscale, qc, qct, st);
+  launch_split(d_o, ob, on, oh, B, H, N, D, 1.f, dos, dot, st);
+  launch_split(k, sb, sn, sh, B, H, N, D, 1.f, nullptr, kt, st);
+  const long long score_tiles = bh * nt * (N / kScoreQueries);
+  tf32_scores_bwd_kernel<<<persistent(score_tiles, sms), kThreads, kBwdSmem, st>>>(
+      mk, mv, mqb, mqs, mdb, mds, lse, delta, pt, dst, H, N, D, static_cast<int>(score_tiles));
+  const long long tiles = bh * nt * ((D + kTile - 1) / kTile);
+  const unsigned grid = persistent(tiles, sms);
+  const int ti = static_cast<int>(tiles);
+  tf32_product_kernel<kGrad><<<grid, kThreads, kSmem, st>>>(mpt, mdotb, mdots, nullptr, nullptr,
+                                                            1.f, dv, H, N, D, ob, on, oh, ti);
+  tf32_product_kernel<kGrad><<<grid, kThreads, kSmem, st>>>(mdst, mqctb, mqcts, nullptr, nullptr,
+                                                            kLn2, dk, H, N, D, ob, on, oh, ti);
+  tf32_product_kernel<kGradT><<<grid, kThreads, kSmem, st>>>(
+      mdst_t, mktb, mkts, nullptr, nullptr, scale, dq, H, N, D, ob, on, oh, ti);
   return cudaGetLastError();
 }
 

@@ -8,21 +8,42 @@
 
 namespace vst {
 
-// O and LSE2 of f32 q, k, v at any D % 64 == 0 from 192 up; the layout
-// and preconditions of vst_dense_attn_fwd.
-cudaError_t launch_attn_fwd_tf32_wide(const float* q, const float* k, const float* v, float* o,
-                                      float* lse, int B, int H, int N, int D, long long sb,
-                                      long long sn, long long sh, long long ob, long long on,
-                                      long long oh, float qscale, cudaStream_t st);
+// Bytes of the forward's scratch at (B, H, N, D), in this order: S2 f32
+// [B H, N, N], the row maxima of each 128-key tile f32 [B H N,
+// ceil(N / 128)], then the split halves (big, small) of K f32 [B H, N, D]
+// and of V^T f32 [B H, D, N]. ops/denseattn.py:tf32_fwd_scratch_bytes
+// states the same sum.
+inline long long attn_tf32_fwd_scratch(int B, int H, int N, int D) {
+  const long long bhn = (long long)B * H * N;
+  return 4 * bhn * N + 4 * bhn * ((N + 127) / 128) + 16 * bhn * D;
+}
 
-// dK/dV, then dQ, of f32 inputs at any D % 64 == 0 from 192 up, from LSE2
-// and delta (the preprocess has run); the layout and preconditions of
-// vst_dense_attn_bwd.
+// Bytes of the backward's scratch, in this order: P^T and dS^T f32 [B H,
+// N, N] (keys by queries), then the split halves (big, small) of qc and dO
+// f32 [B H, N, D] and of qc^T, dO^T and K^T f32 [B H, D, N].
+// ops/denseattn.py:tf32_bwd_scratch_bytes states the same sum.
+inline long long attn_tf32_bwd_scratch(int B, int H, int N, int D) {
+  const long long bhn = (long long)B * H * N;
+  return 8 * bhn * N + 40 * bhn * D;
+}
+
+// O and LSE2 of f32 q, k, v at any D % 64 == 0 from 192 up; the layout
+// and preconditions of vst_dense_attn_fwd, and a scratch of
+// attn_tf32_fwd_scratch(B, H, N, D) bytes, 16-byte aligned.
+cudaError_t launch_attn_fwd_tf32_wide(const float* q, const float* k, const float* v, float* o,
+                                      float* lse, void* scratch, int B, int H, int N, int D,
+                                      long long sb, long long sn, long long sh, long long ob,
+                                      long long on, long long oh, float qscale, cudaStream_t st);
+
+// dQ, dK, dV of f32 inputs at any D % 64 == 0 from 192 up, from LSE2 and
+// delta (the preprocess has run); the layout and preconditions of
+// vst_dense_attn_bwd, and a scratch of attn_tf32_bwd_scratch(B, H, N, D)
+// bytes, 16-byte aligned.
 cudaError_t launch_attn_bwd_tf32_wide(const float* q, const float* k, const float* v,
                                       const float* d_o, const float* lse, const float* delta,
-                                      float* dq, float* dk, float* dv, int B, int H, int N,
-                                      int D, long long sb, long long sn, long long sh,
-                                      long long ob, long long on, long long oh, float qscale,
-                                      float scale, cudaStream_t st);
+                                      float* dq, float* dk, float* dv, void* scratch, int B,
+                                      int H, int N, int D, long long sb, long long sn,
+                                      long long sh, long long ob, long long on, long long oh,
+                                      float qscale, float scale, cudaStream_t st);
 
 }  // namespace vst

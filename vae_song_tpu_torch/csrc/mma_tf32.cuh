@@ -1,7 +1,8 @@
 // Split-TF32 helpers shared by the f32 attention forward
 // (dense_attn_fwd.cu) and backward (dense_attn_bwd.cu) at D = 64 and 128,
-// by their kernels for heads of 192 and wider (dense_attn_tf32_wide.cu),
-// and by the fused FFN's f32 kernels (ffn_fwd.cu, ffn_bwd.cu).
+// by the fused FFN's f32 kernels (ffn_fwd.cu, ffn_bwd.cu), and, for
+// split_tf32 alone, by the wgmma kernels for heads of 192 and wider
+// (dense_attn_tf32_wide.cu).
 //
 // The tensor cores take f32 data only as TF32 (10 mantissa bits). An f32
 // operand x is carried as two TF32 values, big = rna(x) and small =
@@ -152,8 +153,7 @@ __device__ __forceinline__ void mma_b_rows(float c[4], const SplitA& a, const fl
 }
 
 // The same three reads with the row stride `ld` a runtime value (the
-// kernels for heads of 192 and wider, dense_attn_tf32_wide.cu, whose
-// tiles are D + 4 or a column panel + 4 floats wide; ld = 4 (mod 32)
+// fused FFN's f32 kernels, ffn_tf32.cuh and ffn_bwd.cu; ld = 4 (mod 32)
 // keeps every read free of bank conflicts).
 __device__ __forceinline__ SplitA a_from_smem(const float* tile, int ld, int r0, int c0, int g,
                                               int t) {

@@ -3,8 +3,9 @@
 // reallocation, thread-block clusters and the sum of a tile over a
 // cluster. Used by the bf16 attention forward (dense_attn_fwd.cu) and
 // backward (dense_attn_bwd.cu) at head widths 64 to 2048, by the bf16
-// attention kernels for wider heads (dense_attn_scores.cu), and by the
-// fused FFN (ffn_fwd.cu, ffn_bwd.cu).
+// attention kernels for wider heads (dense_attn_scores.cu), by the f32
+// attention kernels for heads of 192 and wider (dense_attn_tf32_wide.cu:
+// TF32 wgmma) and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel
@@ -223,6 +224,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -556,6 +567,38 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&c)[16][4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 
+// TF32 (the f32 attention for heads of 192 and wider,
+// dense_attn_tf32_wide.cu). TF32 wgmma has no transpose: B is read
+// K-major, a 128-byte-swizzled panel of 32 f32 columns (one swizzle atom,
+// the layout a TMA box of {32 columns, rows} with CU_TENSOR_MAP_SWIZZLE_128B
+// writes), whose 8-deep k-step j (0..3) desc_kmajor(panel, j) gives; A
+// comes from registers in mma.sync's m16n8k8 TF32 A layout per warp. The
+// tensor cores read the top 19 bits of each 32-bit operand.
+//
+// c (64 x 64 f32) (+)= A (64 x 8 in registers) B (8 x 64 in shared
+// memory); `accumulate` 0 overwrites c (the first step of a fresh sum).
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&c)[8][4], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VST_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : VST_ACC32(c, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// c (64 x 128 f32) (+)= A (64 x 8 in registers) B (8 x 128 in shared
+// memory).
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&c)[16][4], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " VST_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : VST_ACC64(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef VST_D64
 #undef VST_ACC64
 #undef VST_C4
@@ -582,24 +625,40 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// Tensor map over a bf16 [B, N, H, D] view with element strides (sb, sn,
-// sh, 1): dims (D, H, N, B) innermost first, boxes of 64 columns x 64 rows
-// of one head, 128-byte swizzle; rows past N read as zeros.
-inline bool bhnd_tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
-                            long long sb, long long sn, long long sh) {
+// Tensor map over a [B, N, H, D] view of `type` elements of `bytes` bytes
+// with element strides (sb, sn, sh, 1): dims (D, H, N, B) innermost first,
+// boxes of `cols` columns x `rows` rows of one head, 128-byte swizzle; rows
+// past N read as zeros.
+inline bool bhnd_tensor_map_of(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                               const void* base, int B, int N, int H, int D, long long sb,
+                               long long sn, long long sh, int cols, int rows) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sn) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * bytes,
+                                 static_cast<cuuint64_t>(sn) * bytes,
+                                 static_cast<cuuint64_t>(sb) * bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16, boxes of 64 columns x 64 rows (one swizzle atom wide).
+inline bool bhnd_tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
+                            long long sb, long long sn, long long sh) {
+  return bhnd_tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, N, H, D, sb, sn,
+                            sh, 64, 64);
+}
+
+// f32, boxes of 32 columns (one swizzle atom wide) x `rows` rows.
+inline bool bhnd_tensor_map_f32(CUtensorMap* map, const void* base, int B, int N, int H, int D,
+                                long long sb, long long sn, long long sh, int rows) {
+  return bhnd_tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, B, N, H, D, sb, sn,
+                            sh, 32, rows);
 }
 
 // Tensor map over a contiguous row-major bf16 [rows, cols] matrix: dims
@@ -614,6 +673,25 @@ inline bool matrix_tensor_map(CUtensorMap* map, const void* base, long long rows
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over a contiguous f32 [heads, rows, cols] array: dims (cols,
+// rows, heads) innermost first, boxes of 32 columns x `box_rows` rows of
+// one head, 128-byte swizzle; rows past `rows` read as zeros.
+inline bool heads_tensor_map_f32(CUtensorMap* map, const void* base, long long heads, int rows,
+                                 int cols, int box_rows) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
+                                 static_cast<cuuint64_t>(rows) * cols * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

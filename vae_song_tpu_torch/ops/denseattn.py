@@ -30,9 +30,17 @@ backward's dK/dV and dQ kernels compute every product in split TF32 on
 the tensor cores (csrc/mma_tf32.cuh: three TF32 mma.sync products a
 product, f32-accurate, in place of the f32 FMA units' 67 TFLOP/s); the
 backward's preprocess writes delta only. f32 heads of 192 and wider take
-the split-TF32 kernels of csrc/dense_attn_tf32_wide.cu, which split the
-head's columns across the warps of a row group (counted apart in
-`tf32_wide_fwd.launches` and `tf32_wide_bwd.launches` as well).
+the split-TF32 wgmma/TMA kernels of csrc/dense_attn_tf32_wide.cu, products
+over written-out scores: a pre-pass splits the B operands (K and V^T
+forward; qc, dO, qc^T, dO^T, K^T backward) into TF32 halves laid out
+K-major (TF32 wgmma has no transpose), S2 = qc K^T goes to an f32
+scratch with each 128-key tile's row maxima, and O = P V takes P =
+exp2(S2 - m) as it loads S2; the backward writes P^T and dS^T out and
+makes dV, dK and dQ as products: 4 B H N^2 D forward, 10 backward.
+`_launch_fwd` and `_launch_bwd` allocate their scratches
+(`tf32_fwd_scratch_bytes`: 1.6 GB at B = 64, N = 2048, D = 256;
+`tf32_bwd_scratch_bytes`: 3.5 GB); counted apart in
+`tf32_wide_fwd.launches` and `tf32_wide_bwd.launches` as well.
 bf16 heads of 320 to 512 (`num_heads: 1` at d_model 320 to 512) take
 wgmma kernels fed by TMA through rings of 64-column panels: the
 forward's two consumer warpgroups each sum the scores over half the
@@ -204,15 +212,34 @@ def scores_fwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
     return 6 * bhn * n + 2 * bhn * d + 4 * bhn
 
 
+def tf32_fwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the forward scratch of the f32 kernels for heads of 192
+    and wider (csrc/dense_attn_tf32_wide.cuh: attn_tf32_fwd_scratch): S2
+    f32 [B H, N, N], each 128-key tile's row maxima f32 [B H N, ceil(N /
+    128)], the split halves of K [B H, N, D] and of V^T [B H, D, N]."""
+    bhn = b * h * n
+    return 4 * bhn * n + 4 * bhn * (-(-n // 128)) + 16 * bhn * d
+
+
+def tf32_bwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the backward scratch of the same kernels
+    (attn_tf32_bwd_scratch): P^T and dS^T f32 [B H, N, N], the split
+    halves of qc and dO [B H, N, D] and of qc^T, dO^T, K^T [B H, D, N]."""
+    bhn = b * h * n
+    return 8 * bhn * n + 40 * bhn * d
+
+
 def _launch_fwd(q, k, v, scale):
     _check_kernel_operands(q, k, v)
     b, n, h, d = q.shape
     sb, sn, sh, _ = q.stride()
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    # the kernels for bf16 heads wider than 2048 write the scores out
-    scratch = (torch.empty(scores_fwd_scratch_bytes(b, h, n, d), dtype=torch.uint8,
-                           device=q.device) if wgmma_scores(q.dtype, d) else None)
+    # the kernels for bf16 heads wider than 2048 and for f32 heads of 192
+    # and wider write the scores out
+    nbytes = (scores_fwd_scratch_bytes(b, h, n, d) if wgmma_scores(q.dtype, d)
+              else tf32_fwd_scratch_bytes(b, h, n, d) if tf32_wide(q.dtype, d) else 0)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     ob, on, oh, _ = o.stride()
     _kernels.launch(
         "vst_dense_attn_fwd", q.device,
@@ -272,11 +299,14 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     # their preprocess pass; the cluster kernels for heads of 576 to 2048
     # hand dS^T from the dK/dV kernel to the dQ kernel through a scratch
     # of [B H, N, N] bf16 (512 MiB at B = 64, H = 1, N = 2048), and the
-    # kernels for wider heads write P^T and dS^T into two such scratches
+    # kernels for wider heads write P^T and dS^T into two such scratches;
+    # the f32 kernels for heads of 192 and wider take theirs in its place
     qc = torch.empty_like(o) if q.dtype == torch.bfloat16 else None
     tiles = 2 if wgmma_scores(q.dtype, d) else 1 if wgmma_cluster(q.dtype, d) else 0
     ds = (torch.empty((tiles * b * h, n, n), dtype=torch.bfloat16, device=q.device)
-          if tiles else None)
+          if tiles else
+          torch.empty(tf32_bwd_scratch_bytes(b, h, n, d), dtype=torch.uint8, device=q.device)
+          if tf32_wide(q.dtype, d) else None)
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     _kernels.launch(
