@@ -34,8 +34,11 @@ non-zero exit code:
      (forward, and forward + backward) and, forward only (PyTorch has no
      backward for it), cuBLASLt's bias + ReLU epilogue
      (`torch._addmm_activation`, then `addmm` and the residual add) are
-     timed as references. The f32 attention cases (B = 4, and the f32
-     path's B = 64 on both routes at D = 64 and 128; on the BHND route the
+     timed as references. The f32 attention cases (B = 4, the f32 path's
+     B = 64, N = 192 and, after the other attention cases, from a generator
+     of their own, the decoder's B = 1, on both routes at D = 64 and 128,
+     the split-TF32 wgmma kernels that keep the scores on chip; on the
+     BHND route the
      kernels for heads of 192 and wider at the f32 num_heads 1 path's
      shape, B = 64, D = 256, at N = 192, at two heads of 192, and at one
      head of 512 with B = 1 and 8; all split TF32) hold their gradients
@@ -95,7 +98,8 @@ non-zero exit code:
      all rise. Then ms/step of `make_train_step` for SetVAE (B = 64) and
      SetLRVAE (its config's B = 16) on the host clock, and for SetVAE at
      B = 64 with `mixed_precision: false` (the f32 path), whose K1, K2, K4
-     and K5 counters must rise.
+     and K5 counters must rise, every K1 and K2 launch on the f32 kernels
+     for heads of 64 and 128 (their own counters).
   4c. the two further paths at full width: (1) the shipped SetVAE config
      with `num_heads: 2` (head width 128, the BHND route): one fake-data
      epoch of `train_and_test`, then the eval step's ms/batch and the
@@ -251,8 +255,12 @@ non-zero exit code:
      1 x 1 mesh (their mesh-shape rule patched to the one rank).
 
 The kernels' JSON line reports, for each kernel, its launches on the
-path that runs it (phase 4b for K1, K2, K4, K5; 4c for K3f, K3b, K6f,
-K6b, and for the f32 kernels for heads of 192 and wider, the rows
+path that runs it (phase 4b for K1, K2, K4, K5, and for the f32 kernels
+for heads of 64 and 128, the rows `dense_attn_tf32_narrow_fwd` and `_bwd`,
+at the f32 path's B = 64, D = 64 case, their largest error over the f32
+cases of both routes at D = 64 and 128, launches from 4b's f32 step; 4c
+for K3f, K3b, K6f, K6b, and for the f32 kernels for heads of 192 and
+wider, the rows
 `dense_attn_tf32_wide_fwd` and `_bwd`, the bf16 wgmma kernels for
 heads of 192 and 256, the rows `dense_attn_wgmma_wide_fwd` and `_bwd`,
 each at its num_heads 1 path's B = 64, D = 256 case, launches from 4c (3)
@@ -441,8 +449,9 @@ K1_BF16_LSE_TOL = 1e-3
 # K1_BF16_O_TOL.
 K1_BF16MAX_LSE_TOL = 2.0 ** -7
 # f32 attention: same math; the kernels take every product in split TF32
-# (f32-accurate: three TF32 products, each 8-deep step into a fresh
-# accumulator); the sums run in another order than the plain version's.
+# (f32-accurate: three TF32 products, each chain of at most 32 columns of
+# a score or 64 keys or queries of an output into a fresh accumulator);
+# the sums run in another order than the plain version's.
 # One-pass TF32 lands 11-270x outside these f32 bounds
 # (tests/test_torch_denseattn_f32split.py), so they tell the two apart.
 # Measured (H100, B = 64, N = 2048, D = 64): the kernel's O 6.2e-6 from a
@@ -540,10 +549,16 @@ NPTS = MODEL_PARAMS["num_points"]
 MICRO_BATCH = BATCH // TRAINER_OPTIONS["grad_accum"]
 # The f32 cases: B = 4 (the parent's times compare directly), the f32
 # path's B = 64 (`mixed_precision: false`), and N = 192 at B = 64.
+K1_F32_PATH_CASE = (BATCH, NPTS, 4, 64, torch.float32)
 K1_CASES = ((BATCH, NPTS, 4, 64, torch.bfloat16), (1, NPTS, 4, 64, torch.bfloat16),
             (MICRO_BATCH, NPTS, 4, 64, torch.bfloat16),
             (BATCH, 192, 4, 64, torch.bfloat16), (4, NPTS, 4, 64, torch.float32),
-            (BATCH, NPTS, 4, 64, torch.float32), (BATCH, 192, 4, 64, torch.float32))
+            K1_F32_PATH_CASE, (BATCH, 192, 4, 64, torch.float32))
+# The f32 kernels at 64 and 128 at the decoder's batch-constant layer, B =
+# 1, on each route: checked after K1_CASES and K3_CASES from a generator of
+# their own, so the inputs of every later check stay those the earlier
+# case lists draw.
+F32_B1_CASES = ((1, NPTS, 4, 64, torch.float32), (1, NPTS, 2, 128, torch.float32))
 # K4 and K5 at the main path's batch, then at phase 8's microbatch
 CHAMFER_BATCHES = (BATCH, MICRO_BATCH)
 # The f32 kernels for heads of 192 and wider at the shape of the f32
@@ -878,11 +893,11 @@ def check_attention(dev, gen, name, fwd, bwd, cases, f32_o_tol, wide=(), iters=1
                          peak)
         tag = f"{name} B={b} N={n} H={h} D={d} {str(dtype)[6:]}"
         against = "the plain version" if dtype == torch.bfloat16 else "float64"
-        # the cluster kernels' dQ reads the dK/dV kernel's dS^T, and the
-        # bf16 kernels above 2048 and the f32 ones from 192 write P^T and
-        # dS^T out: S and dP once
+        # the cluster kernels' dQ and the f32 kernels' read the dK/dV
+        # kernel's dS^T, and the bf16 kernels above 2048 and the f32 ones
+        # from 192 write P^T and dS^T out: S and dP once
         once = (denseattn.wgmma_cluster(dtype, d) or denseattn.wgmma_scores(dtype, d)
-                or denseattn.tf32_wide(dtype, d))
+                or denseattn.tf32_wide(dtype, d) or denseattn.tf32_narrow(dtype, d))
         executed = 10.0 if once else 14.0
         print(f"{tag} fwd: max|dO| {err_o:.3e} (bound {tol_o:.3e}) max|dLSE| {err_l:.3e} "
               f"(bound {tol_l:.3e}); repeat bitwise equal {repeat_f}; kernel {ms_f:.4f} ms "
@@ -1208,9 +1223,11 @@ COUNTERS = {
     "dense_attn_bwd": denseattn.dense_attention_bwd,
     "dense_attn_bhnd_fwd": denseattn.dense_attention_bhnd,
     "dense_attn_bhnd_bwd": denseattn.dense_attention_bwd_bhnd,
-    # f32 heads of 192 and wider, and bf16 heads of 192 and 256, of 320
-    # to 512, of 576 to 2048 and wider, also counted on their route's
-    # wrapper
+    # f32 heads of 64 and 128 and of 192 and wider, and bf16 heads of 192
+    # and 256, of 320 to 512, of 576 to 2048 and wider, also counted on
+    # their route's wrapper
+    "dense_attn_tf32_narrow_fwd": denseattn.tf32_narrow_fwd,
+    "dense_attn_tf32_narrow_bwd": denseattn.tf32_narrow_bwd,
     "dense_attn_tf32_wide_fwd": denseattn.tf32_wide_fwd,
     "dense_attn_tf32_wide_bwd": denseattn.tf32_wide_bwd,
     "dense_attn_wgmma_wide_fwd": denseattn.wgmma_wide_fwd,
@@ -1388,11 +1405,16 @@ def _train_and_test(params, epochs, dev):
 
 
 PACKED_PATH = ("dense_attn_fwd", "dense_attn_bwd", "chamfer_nn_packed", "chamfer_bwd")
+# the packed route in f32: K1 and K2 on the f32 kernels for heads of 64 and
+# 128
+F32_PACKED_PATH = ("dense_attn_fwd", "dense_attn_bwd", "dense_attn_tf32_narrow_fwd",
+                   "dense_attn_tf32_narrow_bwd", "chamfer_nn_packed", "chamfer_bwd")
 
 
 def phase_train(dev):
     """The main path: train_and_test, then the train step's ms/step.
-    Returns the main path's launches and the f32 step's ms/step."""
+    Returns the main path's launches, the f32 step's ms/step and its
+    launches."""
     _reset_launches()
     _train_and_test(MODEL_PARAMS, TRAIN_EPOCHS, dev)
     launches = _read_launches()
@@ -1401,13 +1423,13 @@ def phase_train(dev):
     _time_train_step("setvae", MODEL_PARAMS, BATCH, dev)
     _time_train_step("setlrvae", dict(MODEL_PARAMS, **SETLRVAE_PARAMS), SETLRVAE_BATCH, dev)
     # the f32 path (`mixed_precision: false`): every self-attention on the
-    # split-TF32 K1 and K2
+    # split-TF32 K1 and K2 for heads of 64
     _reset_launches()
     f32_ms = _time_train_step("setvae", dict(MODEL_PARAMS, mixed_precision=False), BATCH, dev,
                               "f32")
-    _expect_launches(_read_launches(), "the f32 SetVAE train step", PACKED_PATH,
-                     [k for k in COUNTERS if k not in PACKED_PATH])
-    return launches, f32_ms
+    f32_launches = _read_launches()
+    _expect_wide_path(f32_launches, "the f32 SetVAE train step", F32_PACKED_PATH)
+    return launches, f32_ms, f32_launches
 
 
 def phase_heads2(dev):
@@ -1445,11 +1467,11 @@ def phase_heads1_f32(dev):
 
 def _expect_wide_path(launches, path, ran):
     """Raise unless every kernel of `ran` launched, no other did, and
-    every BHND launch was one of the wide kernels of `ran` (ran[2:4])."""
+    every launch of the route's wrappers (ran[0:2]) was one of the
+    kernels ran[2:4] (the f32 or the wide kernels)."""
     _expect_launches(launches, path, ran, _others(ran))
-    if (launches[ran[2]], launches[ran[3]]) != (launches["dense_attn_bhnd_fwd"],
-                                                launches["dense_attn_bhnd_bwd"]):
-        raise AssertionError(f"{path} ran other BHND kernels: {launches}")
+    if (launches[ran[2]], launches[ran[3]]) != (launches[ran[0]], launches[ran[1]]):
+        raise AssertionError(f"{path} ran other {ran[0]} / {ran[1]} kernels: {launches}")
 
 
 WGMMA_WIDE_PATH = ("dense_attn_bhnd_fwd", "dense_attn_bhnd_bwd", "dense_attn_wgmma_wide_fwd",
@@ -1564,7 +1586,7 @@ def phase_fused_ffn(dev):
     return launches
 
 
-FUSED_FFN_F32_PATH = PACKED_PATH + ("ffn_fwd", "ffn_bwd", "ffn_tf32_fwd", "ffn_tf32_bwd")
+FUSED_FFN_F32_PATH = F32_PACKED_PATH + ("ffn_fwd", "ffn_bwd", "ffn_tf32_fwd", "ffn_tf32_bwd")
 
 
 def phase_fused_ffn_f32(dev, unfused_ms):
@@ -1583,8 +1605,7 @@ def phase_fused_ffn_f32(dev, unfused_ms):
         launches = _read_launches()
     print(f"f32 SetVAE B={BATCH} train step: with the fused FFN {ms:.3f} ms/step, without it "
           f"(phase 4b, same call) {unfused_ms:.3f} ms/step")
-    _expect_launches(launches, "the f32 VST_FUSED_FFN=1 path", FUSED_FFN_F32_PATH,
-                     _others(FUSED_FFN_F32_PATH))
+    _expect_wide_path(launches, "the f32 VST_FUSED_FFN=1 path", FUSED_FFN_F32_PATH)
     if (launches["ffn_tf32_fwd"], launches["ffn_tf32_bwd"]) != (launches["ffn_fwd"],
                                                                 launches["ffn_bwd"]):
         raise AssertionError(f"the f32 VST_FUSED_FFN=1 path ran other FFN kernels: {launches}")
@@ -3396,15 +3417,17 @@ def main():
         _arms_module().stop_build(arms_build)
         raise
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1, k2 = _timed(check_attention, dev, gen, "dense_attn (packed route)",
-                    denseattn.dense_attention_fwd, denseattn.dense_attention_bwd, K1_CASES,
-                    K1_F32_TOL)
+    k1, k2, k1_f32, k2_f32 = _timed(
+        check_attention, dev, gen, "dense_attn (packed route)", denseattn.dense_attention_fwd,
+        denseattn.dense_attention_bwd, K1_CASES, K1_F32_TOL,
+        ((denseattn.tf32_narrow, K1_F32_PATH_CASE),))
     _timed(check_cluster_fit, dev)
-    (k3f, k3b, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma, k3f_wider, k3b_wider, k3f_cluster,
-     k3b_cluster, k3f_scores, k3b_scores) = _timed(
+    (k3f, k3b, k3f_f32, k3b_f32, k3f_wide, k3b_wide, k3f_wgmma, k3b_wgmma, k3f_wider, k3b_wider,
+     k3f_cluster, k3b_cluster, k3f_scores, k3b_scores) = _timed(
         check_attention, dev, gen, "dense_attn (BHND route)", denseattn.dense_attention_bhnd,
         denseattn.dense_attention_bwd_bhnd, K3_CASES, K3_F32_O_TOL,
-        ((denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE),
+        ((denseattn.tf32_narrow, (BATCH, NPTS, 2, 128, torch.float32)),
+         (denseattn.tf32_wide, TF32_WIDE_CASE), (denseattn.wgmma_wide, WGMMA_WIDE_CASE),
          (denseattn.wgmma_wider, WGMMA_WIDER_CASE),
          (denseattn.wgmma_cluster, WGMMA_CLUSTER_CASE),
          (denseattn.wgmma_scores, WGMMA_SCORES_CASE)))
@@ -3413,7 +3436,20 @@ def main():
     k6f, k6b, k6f_tf32, k6b_tf32 = _timed(check_ffn, dev, gen)
     arm_rows = _timed(phase_attention_arms, dev, gen, arms_build)
     _timed(phase_eval_generation, dev)
-    main_path, f32_ms = _timed(phase_train, dev)
+    b1_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b1 = [_timed(check_attention, dev, b1_gen, name, fwd, bwd, (case,), tol,
+                 ((denseattn.tf32_narrow, case),))
+          for case, (name, fwd, bwd, tol) in zip(F32_B1_CASES, (
+              ("dense_attn (packed route)", denseattn.dense_attention_fwd,
+               denseattn.dense_attention_bwd, K1_F32_TOL),
+              ("dense_attn (BHND route)", denseattn.dense_attention_bhnd,
+               denseattn.dense_attention_bwd_bhnd, K3_F32_O_TOL)))]
+    # the f32 kernels for heads of 64 and 128 serve both routes: their rows
+    # report the packed route's f32 path case, and the largest error
+    for i, mine in enumerate((k1_f32, k2_f32)):
+        mine["max_abs_err"] = max([mine["max_abs_err"], (k3f_f32, k3b_f32)[i]["max_abs_err"]]
+                                  + [r[2 + i]["max_abs_err"] for r in b1])
+    main_path, f32_ms, f32_path = _timed(phase_train, dev)
     heads2 = _timed(phase_heads2, dev)
     heads1_f32 = _timed(phase_heads1_f32, dev)
     heads1_bf16 = _timed(phase_heads1_bf16, dev)
@@ -3440,6 +3476,10 @@ def main():
          k3f),
         ("dense_attn_bhnd_bwd", "dense_attn_bwd.cu", "vae_song_tpu/ops/denseattn.py:152", heads2,
          k3b),
+        ("dense_attn_tf32_narrow_fwd", "dense_attn_tf32.cu", "vae_song_tpu/ops/denseattn.py:408",
+         f32_path, k1_f32),
+        ("dense_attn_tf32_narrow_bwd", "dense_attn_tf32.cu", "vae_song_tpu/ops/denseattn.py:433",
+         f32_path, k2_f32),
         ("dense_attn_tf32_wide_fwd", "dense_attn_tf32_wide.cu",
          "vae_song_tpu/ops/denseattn.py:124", heads1_f32, k3f_wide),
         ("dense_attn_tf32_wide_bwd", "dense_attn_tf32_wide.cu",

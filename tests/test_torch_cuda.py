@@ -312,6 +312,72 @@ def test_f32_train_step_with_one_wide_head_runs_the_wide_kernels(dev):
             denseattn.tf32_wide_bwd.launches - start[1]) == (4, 4)
 
 
+def test_f32_train_step_runs_the_narrow_kernels(dev):
+    """Two f32 heads of 64 (mixed_precision false): K1 and K2, every launch
+    on the f32 kernels for heads of 64 and 128 (csrc/dense_attn_tf32.cu)."""
+    start = (denseattn.tf32_narrow_fwd.launches, denseattn.tf32_narrow_bwd.launches)
+    assert _train_step_launches(dev, mixed_precision=False) == [4, 4, 0, 0, 1, 1, 0, 0]
+    assert (denseattn.tf32_narrow_fwd.launches - start[0],
+            denseattn.tf32_narrow_bwd.launches - start[1]) == (4, 4)
+
+
+def _attn_f64(q, k, v, o, lse, do, scale):
+    """O and the gradients of f32 inputs in float64 (qc rounded to f32; the
+    backward from the given O and LSE2), [B, N, H, D]."""
+    qc = (q * (scale * denseattn.LOG2E)).double()
+    k, v, o, do = k.double(), v.double(), o.double(), do.double()
+    s = torch.einsum("bqhd,bkhd->bhqk", qc, k)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o64 = torch.einsum("bhqk,bkhd->bqhd", p, v) / p.sum(-1).permute(0, 2, 1)[..., None]
+    p = torch.exp2(s - lse.double()[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v)
+              - (do * o).sum(-1).permute(0, 2, 1)[..., None])
+    return (o64, torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qc) * denseattn.LN2,
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+@pytest.mark.parametrize("route,b,n,h,d", [
+    # the packed route's heads of 64, the BHND route's of 128: N = 192 (the
+    # forward's last 128-row block half past N), the decoder's B = 1 at the
+    # shipped length (64-row blocks), and B = 4 there (128-row blocks)
+    ("packed", 1, 192, 4, 64), ("packed", 1, 2048, 4, 64), ("packed", 4, 2048, 4, 64),
+    ("bhnd", 2, 192, 2, 128), ("bhnd", 1, 2048, 2, 128), ("bhnd", 4, 2048, 2, 128),
+])
+def test_f32_narrow_kernels_match_plain_and_float64(dev, route, b, n, h, d):
+    """The f32 kernels for heads of 64 and 128 on either route: O and LSE2
+    against the plain version (chip_smoke.py's K1_F32_TOL, K3_F32_O_TOL on
+    O at D = 128), the gradients within 1e-5 of max|d| of a float64
+    version, O and the gradients no farther from float64 than the plain
+    version; every launch on their own counters, the same bits twice."""
+    fwd, bwd = ((denseattn.dense_attention_fwd, denseattn.dense_attention_bwd) if route == "packed"
+                else (denseattn.dense_attention_bhnd, denseattn.dense_attention_bwd_bhnd))
+    gen = torch.Generator(device=dev).manual_seed(n + h + d)
+    q, k, v = _packed_views(b, n, h, d, torch.float32, gen, dev)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev)
+    scale = d ** -0.5
+    start = (denseattn.tf32_narrow_fwd.launches, denseattn.tf32_narrow_bwd.launches)
+    o, lse = fwd(q, k, v, scale)
+    got = bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (denseattn.tf32_narrow_fwd.launches - start[0],
+            denseattn.tf32_narrow_bwd.launches - start[1]) == (1, 1)
+    o_ref, lse_ref = denseattn.dense_attention_fwd_plain(q, k, v, scale)
+    want = denseattn.dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    f64 = _attn_f64(q, k, v, o, lse, do, scale)
+    o_tol = 1e-5 if d == 64 else 3e-5
+    assert (o - o_ref).abs().max() <= o_tol * max(1.0, o_ref.abs().max())
+    assert (lse - lse_ref).abs().max() <= 1e-5 * max(1.0, lse_ref.abs().max())
+    for x, plain, ref in zip((o, *got), (o_ref, *want), f64):
+        assert (x.double() - ref).abs().max() <= (plain.double() - ref).abs().max()
+    for g, ref in zip(got, f64[1:]):
+        assert (g.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    o2, lse2 = fwd(q, k, v, scale)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)          # no atomics
+    again = bwd(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))     # no atomics
+
+
 def test_bf16_train_step_with_one_wide_head_runs_the_wgmma_wide_kernels(dev):
     """One bf16 head of 256 (num_heads 1 at d_model 256): K3f and K3b,
     every launch on the wgmma kernels for heads of 192 and 256."""

@@ -1,42 +1,48 @@
-"""The arithmetic of the port's f32 attention kernels (csrc/mma_tf32.cuh;
-dense_attn_fwd.cu and dense_attn_bwd.cu at D = 64 and 128, mma.sync;
-dense_attn_tf32_wide.cu from D = 192 up, wgmma: split TF32 on the tensor
-cores) emulated in numpy and held, before the card runs it, to the JAX
-package's f32 Pallas kernels in interpret mode and to a float64 version,
-within the f32 bounds chip_smoke.py states; and a one-pass TF32 emulation
-of the same kernels, which must miss those bounds.
+"""The arithmetic of the port's f32 attention kernels (split TF32 on the
+tensor cores' wgmma: csrc/dense_attn_tf32.cu at D = 64 and 128,
+dense_attn_tf32_wide.cu from D = 192) emulated in numpy and held, before
+the card runs it, to the JAX package's f32 Pallas kernels in interpret mode
+and to a float64 version, within the f32 bounds chip_smoke.py states; and
+a one-pass TF32 emulation of the same kernels, which must miss those bounds.
 
 The emulation follows the kernels' order of work. At D = 64 and 128 the
-forward walks tiles of T = 2048 / D keys with the exact running max; the
-dK/dV kernel walks tiles of T queries and the dQ kernel tiles of T keys;
-the scores (S, S^T, dP, dP^T) of a tile are summed over the head by the
-warps of a row group, each over its own columns, and the partial sums are
-added in warp order (_score_parts): the forward's one warp sums the whole
-head, the backward's two the two halves. From D = 192 the scores are
-written out: S2 = qc K^T over the whole head, its exact row max, P =
-exp2(S2 - m), O = P V / l; backward S^T = K qc^T, dP^T = V dO^T, P^T and
-dS^T, then dV = P^T dO, dK = dS^T qc ln2, dQ = dS K scale, each product
-over its whole depth in the depth's order.
-A product is a sequence of 8-deep steps (m16n8k8 or m64nNk8);
-in split TF32 each f32 operand x is big = rna(x), small = rna(x - big)
-(rna: to TF32, nearest, ties away from zero; the hardware reads only the
-top 19 bits of an operand, which rna leaves set) and each step is three
-products, small big, big small, big big, into a fresh accumulator, whose
-sum is then added to the running f32 sum (to nearest). The fresh
-accumulator lasts one step at D = 64 and 128, and from D = 192 (_CHAIN)
-four steps of a score (32 of the head's columns: a wgmma panel) and eight
-of an output product (64 keys or queries). One product is
-modelled as its exact sum (TF32 products are exact in float64) added to
-the step's accumulator and rounded toward zero to f32: the tensor cores'
-rounding, which the card showed when the products were chained on the
-running sum (csrc/mma_tf32.cuh). Their alignment of the terms inside one
-product (a few bits past f32) is not modelled; chip_smoke.py phase 3
-holds the card to the same bounds. The row sums and delta are f32 sums
-in numpy's order, not the kernels'. At N = 2048, D = 256 (the f32
-`num_heads: 1` path) the same emulation lands at 0.39-0.53 of the bounds
-from float64; a fresh accumulator over 64 columns of a score would land
-at 0.71-0.86, and output products chained over their whole depth 2.4x
-outside them.
+scores stay on chip: the forward walks key tiles (64 keys at D = 64, 32 at
+128, _KEY_TILE) with the exact running max, S = qc K^T of a tile summed
+over the head's 32-column panels (a fresh accumulator a panel, added in
+panel order), O = O alpha + (P V over the tile, one fresh accumulator);
+the backward's dK/dV kernel walks tiles of queries (_query_tile): S^T
+= K qc^T and dP^T = V dO^T a fresh accumulator each 8 columns,
+P^T = exp2(S^T - LSE2), dS^T = P^T
+(dP^T - delta), dV += P^T dO and dK += dS^T qc, each tile one fresh
+accumulator, dS^T kept for dQ = dS K scale, a product with a fresh
+accumulator each 64 keys. From D = 192 the scores are written out: S2 =
+qc K^T over the whole head, its exact row max, P = exp2(S2 - m), O = P V /
+l; backward S^T = K qc^T, dP^T = V dO^T, P^T and dS^T, then dV = P^T dO,
+dK = dS^T qc ln2, dQ = dS K scale, each product over its whole depth in
+the depth's order. The permuted contraction of the kernels at 64 and 128
+(an accumulator tile as the A operand, csrc/mma_tf32.cuh) reorders the 8
+terms inside one step, which the model below sums exactly, so it changes
+nothing here; chip_smoke.py phase 3 checks it on the card.
+A product is a sequence of 8-deep steps (wgmma m64nNk8); in split TF32
+each f32 operand x is big = rna(x), small = rna(x - big) (rna: to TF32,
+nearest, ties away from zero; the hardware reads only the top 19 bits of
+an operand, which rna leaves set) and each step is three products, small
+big, big small, big big, into a fresh accumulator, whose sum is then added
+to the running f32 sum (to nearest). The fresh accumulator (_CHAIN) takes
+four steps of a score (32 of the head's columns: a wgmma panel; one step
+in the backward at D = 64 and 128) and, of an
+output product, the steps of its tile (D = 64 and 128) or eight (64 keys
+or queries, from D = 192). One product is modelled as its exact sum (TF32
+products are exact in float64) added to the step's accumulator and
+rounded toward zero to f32: the tensor cores' rounding, which the card
+showed when the products were chained on the running sum
+(csrc/mma_tf32.cuh). Their alignment of the terms inside one product (a
+few bits past f32) is not modelled; chip_smoke.py phase 3 holds the card
+to the same bounds. The row sums and delta are f32 sums in numpy's order,
+not the kernels'. At N = 2048, D = 256 (the f32 `num_heads: 1` path) the
+same emulation lands at 0.39-0.53 of the bounds from float64; a fresh
+accumulator over 64 columns of a score would land at 0.71-0.86, and
+output products chained over their whole depth 2.4x outside them.
 """
 
 import ast
@@ -92,22 +98,22 @@ def _grad_tol(d):
     return K2_F32_TOL if d <= 256 else K3_F32_WIDE_TOL
 
 
-def _tile(d):
-    """Rows of the other side a kernel at D = 64 or 128 walks at a time."""
-    return 2048 // d
+def _key_tile(d):
+    """Keys of a tile of the forward at D = 64 or 128 (a ring stage)."""
+    return 64 if d == 64 else 32
 
 
-def _score_parts(d, backward):
-    """The head columns each warp of a row group of the kernels at D = 64
-    and 128 sums a tile's scores over; the partial sums are added in this
-    order: the forward's one warp, the backward's pair of halves."""
-    return [np.arange(d)] if not backward else [np.arange(d // 2), np.arange(d // 2, d)]
+def _query_tile(d):
+    """Queries of a tile of the dK/dV kernel at D = 64 or 128 (each tile's
+    dV and dK one fresh accumulator)."""
+    return 64 if d == 64 else 32
 
 
-# 8-deep steps a fresh accumulator takes in the kernels from D = 192
-# (dense_attn_tf32_wide.cu): a score's 32-column wgmma panel, an output
-# product's two panels of 32 keys or queries.
-_CHAIN = {"score": 4, "product": 8}
+# 8-deep steps a fresh accumulator takes: a score's 32-column wgmma panel
+# (one step in the backward's S^T and dP^T at D = 64 and 128); an output
+# product's two panels of 32 keys or queries from D = 192
+# (dense_attn_tf32_wide.cu) and in the dQ product at 64 and 128.
+_CHAIN = {"score": 4, "score_bwd": 1, "product": 8}
 
 
 def _rna(x):
@@ -154,16 +160,12 @@ def _qc(q, scale):
     return q * np.float32(scale * LOG2E)
 
 
-def _scores(a, bt, split, parts):
-    """a @ bt^T ([..., M, D] by [..., T, D]) summed the kernels' way: one
-    partial sum a warp over its columns (`parts`), from zero, then the
-    partial sums added in warp order in f32."""
-    s = None
-    for cols in parts:
-        part = _mma(np.zeros(a.shape[:-1] + bt.shape[-2:-1], np.float32), a[..., cols],
-                    bt[..., cols].swapaxes(-1, -2), split)
-        s = part if s is None else s + part
-    return s
+def _scores(a, bt, split, chain=None):
+    """a @ bt^T ([..., M, D] by [..., T, D]) the kernels' way: a fresh
+    accumulator each `chain` 8-deep steps of the head (a 32-column panel
+    unless given), added in column order."""
+    return _mma(np.zeros(a.shape[:-1] + bt.shape[-2:-1], np.float32), a, bt.swapaxes(-1, -2),
+                split, chain or _CHAIN["score"])
 
 
 def _fwd_wide(q, k, v, scale, split):
@@ -196,18 +198,19 @@ def _fwd(q, k, v, scale, split):
     bh, n, d = q.shape
     if d >= 192:
         return _fwd_wide(q, k, v, scale, split)
-    t, parts = _tile(d), _score_parts(d, False)
+    t = _key_tile(d)
     qc = _qc(q, scale)
     acc = np.zeros((bh, n, d), np.float32)
     m = np.full((bh, n), -np.inf, np.float32)
     l = np.zeros((bh, n), np.float32)
     for t0 in range(0, n, t):
-        s = _scores(qc, k[:, t0:t0 + t], split, parts)
+        s = _scores(qc, k[:, t0:t0 + t], split)
         mn = np.maximum(m, s.max(axis=-1))
         alpha = np.exp2(m - mn)
         p = np.exp2(s - mn[..., None])
         l = l * alpha + p.sum(axis=-1, dtype=np.float32)
-        acc = _mma(acc * alpha[..., None], p, v[:, t0:t0 + t], split)
+        # the tile's P V in one fresh accumulator, added to O alpha
+        acc = _mma(acc * alpha[..., None], p, v[:, t0:t0 + t], split, t // 8)
         m = mn
     return acc / l[..., None], m + np.log2(l)
 
@@ -217,23 +220,21 @@ def _bwd(q, k, v, o, lse, do, scale, split):
     bh, n, d = q.shape
     if d >= 192:
         return _bwd_wide(q, k, v, o, lse, do, scale, split)
-    t, parts = _tile(d), _score_parts(d, True)
+    t = _query_tile(d)
     qc = _qc(q, scale)
     delta = (do * o).sum(axis=-1, dtype=np.float32)
     zeros = lambda *shape: np.zeros(shape, np.float32)
-    dk, dv, dq = zeros(bh, n, d), zeros(bh, n, d), zeros(bh, n, d)
-    for t0 in range(0, n, t):   # dK/dV: key rows against a tile of queries
+    dk, dv, dst = zeros(bh, n, d), zeros(bh, n, d), zeros(bh, n, n)
+    for t0 in range(0, n, t):   # dK/dV: every key against a tile of queries
         qt, dot = qc[:, t0:t0 + t], do[:, t0:t0 + t]
-        pt = np.exp2(_scores(k, qt, split, parts) - lse[:, None, t0:t0 + t])
-        dpt = _scores(v, dot, split, parts)
-        dst = pt * (dpt - delta[:, None, t0:t0 + t])
-        dv = _mma(dv, pt, dot, split)
-        dk = _mma(dk, dst, qt, split)
-    for t0 in range(0, n, t):   # dQ: query rows against a tile of keys
-        kt, vt = k[:, t0:t0 + t], v[:, t0:t0 + t]
-        p = np.exp2(_scores(qc, kt, split, parts) - lse[..., None])
-        dp = _scores(do, vt, split, parts)
-        dq = _mma(dq, p * (dp - delta[..., None]), kt, split)
+        pt = np.exp2(_scores(k, qt, split, _CHAIN["score_bwd"]) - lse[:, None, t0:t0 + t])
+        dpt = _scores(v, dot, split, _CHAIN["score_bwd"])
+        dst[..., t0:t0 + t] = pt * (dpt - delta[:, None, t0:t0 + t])
+        dv = _mma(dv, pt, dot, split, t // 8)
+        dk = _mma(dk, dst[..., t0:t0 + t], qt, split, t // 8)
+    # dQ = dS K from dS^T, a fresh accumulator each 64 keys
+    dq = _mma(zeros(bh, n, d), np.ascontiguousarray(dst.swapaxes(-1, -2)), k, split,
+              _CHAIN["product"])
     return dq * np.float32(scale), dk * np.float32(LN2), dv
 
 
@@ -356,6 +357,25 @@ def test_rna_rounds_to_nearest_ties_away():
     ok = np.isfinite(want) & (np.abs(xd) < 3e38)
     np.testing.assert_array_equal(got[ok], want[ok])
     assert (got[len(x) - 64:] == want[len(x) - 64:]).all() and (np.abs(got[-64:]) > np.abs(base)).all()
+
+
+def test_tf32_narrow_scratch_bytes_match_the_kernels():
+    """The scratches the wrapper allocates for the f32 kernels at D = 64
+    and 128 are the sizes the kernels carve up (csrc/dense_attn_tf32.cuh):
+    forward K and V^T in two halves each; backward dS^T [B H, N, N], qc,
+    dO, qc^T, dO^T and K^T in two halves each; all f32."""
+    from vae_song_tpu_torch.ops import denseattn
+    with open(os.path.join(os.path.dirname(SMOKE), "vae_song_tpu_torch", "csrc",
+                           "dense_attn_tf32.cuh")) as f:
+        text = f.read()
+    assert "return 16 * bhn * D;" in text
+    assert "return 4 * bhn * N + 40 * bhn * D;" in text
+    for b, h, n, d in ((64, 4, 2048, 64), (64, 2, 2048, 128), (1, 4, 192, 64)):
+        bhn = b * h * n
+        assert denseattn.tf32_narrow_fwd_scratch_bytes(b, h, n, d) == 4 * (
+            2 * bhn * d + 2 * b * h * d * n)
+        assert denseattn.tf32_narrow_bwd_scratch_bytes(b, h, n, d) == 4 * (
+            bhn * n + 2 * 2 * bhn * d + 3 * 2 * b * h * d * n)
 
 
 def test_tf32_wide_scratch_bytes_match_the_kernels():

@@ -1,7 +1,8 @@
 // Dense attention backward for Hopper (sm_90a), [B, N, H, D] layout read
-// through strides, any head width D % 64 == 0 (f32 from D = 192 up: the
-// split-TF32 wgmma kernels of dense_attn_tf32_wide.cu; bf16 above 2048:
-// the kernels of dense_attn_scores.cu; both launched from here).
+// through strides, any head width D % 64 == 0 (f32: the split-TF32 wgmma
+// kernels of dense_attn_tf32.cu at D = 64 and 128 and of
+// dense_attn_tf32_wide.cu from 192 up; bf16 above 2048: the kernels of
+// dense_attn_scores.cu; all launched from here).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_bwd_kernel_packed (K2, called
 // through _call_bwd_packed) and vae_song_tpu/ops/denseattn.py:_bwd_kernel
@@ -138,29 +139,16 @@
 // and the cluster route's dQ kernel dQ = scale dS K from dS^T: 10 B H N^2
 // D, each product made once.
 //
-// f32 inputs (mixed_precision: false) at D = 64 and 128: split-TF32
-// mma.sync kernels (mma_tf32.cuh) of the same three-pass shape, the f32
-// path of the same TPU kernels. What bounds them here: 10 B H N^2 D f32
-// operations (6.9e11 at the f32 path's B = 64, N = 2048, H D = 256), 10.3
-// ms at the FMA units' 67 TFLOP/s or 4.2 ms as split TF32 at 495; the two
-// kernels execute 14 B H N^2 D (S and dP in both) as mma.sync, which runs
-// at 115-135 TFLOP/s of TF32 products on an H100 (scripts/ab_attn_f32.py)
-// and sets their time. The preprocess writes delta only; the kernels
-// prescale q as they read it. dK/dV: a block owns 64 key rows and walks
-// tiles of T = 2048 / D queries; dQ: a block owns 64 query rows and walks
-// tiles of T keys; the other side streams through two cp.async stages,
-// rows padded to D + 4 floats. S and dP are computed once per tile pair
-// over the whole head: eight warps a block, two on each group
-// of 16 rows, each summing the scores over half the head; the pair swaps
-// its partial sums through shared memory and adds them (the same bits in
-// both warps), and each warp then accumulates half of the output columns,
-// so a thread holds D / 2 accumulator columns of dK and dV (64 registers
-// at D = 128, where a warp holding all D spilled). Each 8-deep step of a
-// product goes into a fresh accumulator added to the running sum in f32,
-// as in the forward. No atomics: the same bits on every run. f32 from D =
-// 192 up: the preprocess at any width, then dense_attn_tf32_wide.cu's
-// split-TF32 wgmma kernels over written-out P^T and dS^T (S and dP
-// computed once).
+// f32 inputs (mixed_precision: false), the f32 path of the same TPU
+// kernels: the preprocess (delta only) at any width, then split TF32 on
+// wgmma fed by TMA, launched from the dispatch below: at D = 64 and 128
+// dense_attn_tf32.cu's dK/dV kernel, which keeps S^T, P^T and dP^T on chip
+// and writes dS^T to an f32 scratch, and a dQ product over it (10 B H N^2
+// D; scripts/ab_attn_f32.py --dq-recompute A/Bs a dQ kernel that
+// recomputes S and dP instead); from D = 192 dense_attn_tf32_wide.cu's
+// products over written-out P^T and dS^T. Tested on the CPU by
+// tests/test_torch_denseattn_f32split.py's emulation and on the card by
+// chip_smoke.py phase 3 and scripts/ab_attn_f32.py.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -169,8 +157,8 @@
 
 #include "mma_bf16.cuh"
 #include "dense_attn_scores.cuh"
+#include "dense_attn_tf32.cuh"
 #include "dense_attn_tf32_wide.cuh"
-#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -1895,289 +1883,6 @@ attn_bwd_dq_ds_kernel(const __grid_constant__ CUtensorMap mds,
     dq_ds_consumer<4>(base, wg, nk, q0, cf, N, head, os.n, full0, empty0, dq, scale);
 }
 
-// ---- f32, D = 64 and 128: split-TF32 mma.sync kernels --------------------
-
-// Shared memory of both kernels: the block's own 64 rows of two tensors
-// (K and V, or qc and dO), resident; two stages of T rows of the other
-// side's two tensors (q and dO, or K and V), streamed; then the exchange
-// of partial scores between the warps of a pair (one T x 16 tile a warp).
-// Rows padded to D + 4 floats (mma_tf32.cuh's conflict-free strides). T D
-// = 2048 floats a tile: 32 rows at D = 64, 16 at D = 128 (84 and 107 KB
-// a block).
-template <int D>
-struct Tf32Bwd {
-  static constexpr int LD = D + 4;
-  static constexpr int T = 2048 / D;
-  static constexpr size_t bytes = ((2 * 64 + 4 * T) * LD + 8 * 16 * T) * sizeof(float);
-};
-
-// Adds the partner warp's partial tile to x (each warp writes its own to
-// `mine`, one value a lane a register, and reads the partner's from
-// `theirs`), the two warps meeting at named barrier `bar` before the
-// reads and again before the slots are written anew.
-template <int NT>
-__device__ __forceinline__ void swap_add(float (&x)[NT][4], float* mine, const float* theirs,
-                                         int bar) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mine[(4 * j + i) * 32] = x[j][i];
-  vst::named_sync(bar, 64);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[j][i] += theirs[(4 * j + i) * 32];
-  vst::named_sync(bar, 64);
-}
-
-// dK/dV. Grid (N / 64, H, B), 256 threads: eight warps, two on each group
-// of 16 key rows k0 + 16 (w % 4) .., warp w holding D / 2 columns of dK
-// and dV (columns (w / 4) D / 2 ..: 64 accumulator registers a thread at
-// D = 128, where a warp holding all D columns spilled at 255). For each
-// tile of T queries the two warps of a key group each sum S^T = K qc^T
-// and dP^T = V dO^T over their half of the head (qc = q * qscale as each
-// value is read), swap the partial sums and add them; then P^T =
-// exp2(S^T - LSE2), dS^T = P^T (dP^T - delta) in the accumulator layout,
-// and dV += P^T dO, dK += dS^T qc on the warp's columns, P^T and dS^T
-// being the A operands (mma_tf32.cuh's permuted contraction).
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-attn_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ d_o,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int H, int N,
-                          Strides s, Strides os, float qscale) {
-  using L = Tf32Bwd<D>;
-  constexpr int LD = L::LD, T = L::T, DC = D / 2;
-  extern __shared__ __align__(16) float fsm[];
-  float* ks = fsm;                      // [64][LD] K
-  float* vs = ks + 64 * LD;             // [64][LD] V
-  float* st0 = vs + 64 * LD;            // stage s: q at st0 + 2 s T LD, dO T LD after
-  float* xch = st0 + 4 * T * LD;        // [warp][16 T] partial scores
-  const int k0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr = 16 * (warp & 3), c0 = DC * (warp >> 2);   // key rows, columns
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const float* lrow = lse + ((long long)b * H + h) * N;
-  const float* drow = delta + ((long long)b * H + h) * N;
-  const int nq = N / T;
-
-  auto stage = [&](int it) {
-    float* qt = st0 + (it & 1) * 2 * T * LD;
-    vst::cp_async_rows<D, LD, T, 256>(qt, q, head, s.n, it * T, tid);
-    vst::cp_async_rows<D, LD, T, 256>(qt + T * LD, d_o, ohead, os.n, it * T, tid);
-    vst::cp_async_commit();
-  };
-  vst::cp_async_rows<D, LD, 64, 256>(ks, k, head, s.n, k0, tid);
-  vst::cp_async_rows<D, LD, 64, 256>(vs, v, head, s.n, k0, tid);
-  stage(0);   // one group with the resident rows
-
-  // this warp's and its partner's exchange slots
-  float* mine = xch + warp * 16 * T + lane;
-  const float* theirs = xch + (warp ^ 4) * 16 * T + lane;
-
-  float adk[DC / 8][4], adv[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j)
-    adk[j][0] = adk[j][1] = adk[j][2] = adk[j][3] = adv[j][0] = adv[j][1] = adv[j][2] =
-        adv[j][3] = 0.f;
-
-  for (int it = 0; it < nq; ++it) {
-    if (it + 1 < nq) {
-      stage(it + 1);
-      vst::cp_async_wait<1>();
-    } else {
-      vst::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* qt = st0 + (it & 1) * 2 * T * LD;
-    const float* dot = qt + T * LD;
-
-    // S^T = K qc^T and dP^T = V dO^T, 16 keys x T queries, over this
-    // warp's half of the head, then over the whole head. The steps along
-    // the head are unrolled two at a time: fully unrolled, ptxas hoisted
-    // loads until it spilled (at 128 registers a thread, and at 255 with
-    // tiles of 32 queries at D = 128).
-    float sc[T / 8][4], dp[T / 8][4];
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j)
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = c0; kk < c0 + DC; kk += 8) {
-      const vst::SplitA a = vst::a_from_smem<LD>(ks, kr, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j)
-        vst::mma_b_rows_t<LD>(sc[j], a, qt, 8 * j, kk, g, t, qscale);
-    }
-#pragma unroll 2
-    for (int kk = c0; kk < c0 + DC; kk += 8) {
-      const vst::SplitA a = vst::a_from_smem<LD>(vs, kr, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j) vst::mma_b_rows_t<LD>(dp[j], a, dot, 8 * j, kk, g, t);
-    }
-    swap_add<T / 8>(sc, mine, theirs, 1 + (warp & 3));
-    swap_add<T / 8>(dp, mine, theirs, 1 + (warp & 3));
-
-    // P^T and dS^T; accumulator columns 2 t, 2 t + 1 of block j are queries
-    // it T + 8 j + 2 t, + 1
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) {
-      const int qi = it * T + 8 * j + 2 * t;
-      const float la = lrow[qi], lb = lrow[qi + 1], da = drow[qi], db = drow[qi + 1];
-      sc[j][0] = exp2f(sc[j][0] - la);
-      sc[j][1] = exp2f(sc[j][1] - lb);
-      sc[j][2] = exp2f(sc[j][2] - la);
-      sc[j][3] = exp2f(sc[j][3] - lb);
-      dp[j][0] = sc[j][0] * (dp[j][0] - da);
-      dp[j][1] = sc[j][1] * (dp[j][1] - db);
-      dp[j][2] = sc[j][2] * (dp[j][2] - da);
-      dp[j][3] = sc[j][3] * (dp[j][3] - db);
-    }
-
-    // dV += P^T dO, dK += dS^T qc on this warp's columns
-#pragma unroll
-    for (int kc = 0; kc < T / 8; ++kc) {
-      const vst::SplitA ap = vst::a_from_acc(sc[kc]);
-#pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
-        vst::mma_b_rows<LD>(adv[j], ap, dot, 8 * kc, c0 + 8 * j, g, t);
-      const vst::SplitA ad = vst::a_from_acc(dp[kc]);
-#pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
-        vst::mma_b_rows<LD>(adk[j], ad, qt, 8 * kc, c0 + 8 * j, g, t, qscale);
-    }
-    __syncthreads();   // the stage is read; the next iteration refills it
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long out =
-        ohead + (long long)(k0 + kr + g + 8 * half) * os.n + c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + out + 8 * j) =
-          make_float2(adk[j][2 * half] * kLn2, adk[j][2 * half + 1] * kLn2);
-      *reinterpret_cast<float2*>(dv + out + 8 * j) =
-          make_float2(adv[j][2 * half], adv[j][2 * half + 1]);
-    }
-  }
-}
-
-// dQ. Grid (N / 64, H, B), 256 threads: eight warps, two on each group
-// of 16 query rows q0 + 16 (w % 4) .., warp w holding D / 2 columns of dQ
-// (columns (w / 4) D / 2 ..); the block's qc rows (prescaled once, as
-// they are staged) and dO rows stay resident. For each tile of T keys the
-// two warps of a row group each sum S = qc K^T and dP = dO V^T over their
-// half of the head, swap the partial sums and add them; then P = exp2(S -
-// LSE2), dS = P (dP - delta), and dQ += dS K on the warp's columns.
-template <int D>
-__global__ void __launch_bounds__(256, 2)
-attn_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ d_o,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int H, int N, Strides s, Strides os,
-                        float qscale, float scale) {
-  using L = Tf32Bwd<D>;
-  constexpr int LD = L::LD, T = L::T, DC = D / 2;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                      // [64][LD] qc
-  float* dos = qs + 64 * LD;            // [64][LD] dO
-  float* st0 = dos + 64 * LD;           // stage s: K at st0 + 2 s T LD, V T LD after
-  float* xch = st0 + 4 * T * LD;        // [warp][16 T] partial scores
-  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qr = 16 * (warp & 3), c0 = DC * (warp >> 2);   // query rows, columns
-  const long long head = (long long)b * s.b + (long long)h * s.h;
-  const long long ohead = (long long)b * os.b + (long long)h * os.h;
-  const int nk = N / T;
-
-  auto stage = [&](int it) {
-    float* kt = st0 + (it & 1) * 2 * T * LD;
-    vst::cp_async_rows<D, LD, T, 256>(kt, k, head, s.n, it * T, tid);
-    vst::cp_async_rows<D, LD, T, 256>(kt + T * LD, v, head, s.n, it * T, tid);
-    vst::cp_async_commit();
-  };
-  vst::cp_async_rows<D, LD, 64, 256>(dos, d_o, ohead, os.n, q0, tid);
-  stage(0);   // one group with the resident dO rows
-  vst::load_rows_scaled<D, LD, 64, 256>(qs, q, head, s.n, q0, tid, qscale);
-  float* mine = xch + warp * 16 * T + lane;
-  const float* theirs = xch + (warp ^ 4) * 16 * T + lane;
-
-  const long long hrow = ((long long)b * H + h) * N;
-  const int r0 = q0 + qr + g;
-  const float l0 = lse[hrow + r0], l1 = lse[hrow + r0 + 8];
-  const float d0 = delta[hrow + r0], d1 = delta[hrow + r0 + 8];
-  float acc[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      stage(it + 1);
-      vst::cp_async_wait<1>();
-    } else {
-      vst::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kt = st0 + (it & 1) * 2 * T * LD;
-    const float* vt = kt + T * LD;
-
-    // S = qc K^T and dP = dO V^T, 16 queries x T keys, over this warp's
-    // half of the head, then over the whole head
-    float sc[T / 8][4], dp[T / 8][4];
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j)
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = c0; kk < c0 + DC; kk += 8) {
-      const vst::SplitA a = vst::a_from_smem<LD>(qs, qr, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j) vst::mma_b_rows_t<LD>(sc[j], a, kt, 8 * j, kk, g, t);
-    }
-#pragma unroll 2
-    for (int kk = c0; kk < c0 + DC; kk += 8) {
-      const vst::SplitA a = vst::a_from_smem<LD>(dos, qr, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j) vst::mma_b_rows_t<LD>(dp[j], a, vt, 8 * j, kk, g, t);
-    }
-    swap_add<T / 8>(sc, mine, theirs, 1 + (warp & 3));
-    swap_add<T / 8>(dp, mine, theirs, 1 + (warp & 3));
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) {
-      sc[j][0] = exp2f(sc[j][0] - l0);
-      sc[j][1] = exp2f(sc[j][1] - l0);
-      sc[j][2] = exp2f(sc[j][2] - l1);
-      sc[j][3] = exp2f(sc[j][3] - l1);
-      dp[j][0] = sc[j][0] * (dp[j][0] - d0);
-      dp[j][1] = sc[j][1] * (dp[j][1] - d0);
-      dp[j][2] = sc[j][2] * (dp[j][2] - d1);
-      dp[j][3] = sc[j][3] * (dp[j][3] - d1);
-    }
-
-    // dQ += dS K on this warp's columns
-#pragma unroll
-    for (int kc = 0; kc < T / 8; ++kc) {
-      const vst::SplitA a = vst::a_from_acc(dp[kc]);
-#pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
-        vst::mma_b_rows<LD>(acc[j], a, kt, 8 * kc, c0 + 8 * j, g, t);
-    }
-    __syncthreads();   // the stage is read; the next iteration refills it
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float* dst = dq + ohead + (long long)(r0 + 8 * half) * os.n + c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j) =
-          make_float2(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
-  }
-}
-
 // ---- launchers ----------------------------------------------------------------
 
 template <typename T, int D>
@@ -2249,28 +1954,21 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
                              scale, st);
 }
 
-// f32 at D = 64 or 128: preprocess (delta), then the split-TF32 dK/dV
-// and dQ kernels, which prescale q themselves (no qc scratch).
+// f32 at D = 64 or 128: preprocess (delta), then the split-TF32 wgmma
+// kernels of dense_attn_tf32.cu over the scratch `ds` (their own split qc:
+// no qc scratch).
 template <int D>
 cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const void* o,
-                            const void* d_o, const float* lse, float* delta, void* /*qc*/,
-                            void* dq, void* dk, void* dv, int B, int H, int N, Strides s,
-                            Strides os, float qscale, float scale, cudaStream_t st) {
-  const dim3 grid(N / 64, H, B);
-  constexpr size_t smem = Tf32Bwd<D>::bytes;
-  cudaError_t err;
-  if ((err = vst::allow_smem(attn_bwd_dkdv_tf32_kernel<D>, smem)) != cudaSuccess) return err;
-  if ((err = vst::allow_smem(attn_bwd_dq_tf32_kernel<D>, smem)) != cudaSuccess) return err;
+                            const void* d_o, const float* lse, float* delta, void* ds, void* dq,
+                            void* dk, void* dv, int B, int H, int N, Strides s, Strides os,
+                            float qscale, float scale, cudaStream_t st) {
+  if (ds == nullptr) return cudaErrorInvalidValue;
   launch_preprocess<float, D>(q, o, d_o, nullptr, delta, B, H, N, s, os, qscale, st);
-  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-              *vf = static_cast<const float*>(v), *dof = static_cast<const float*>(d_o);
-  attn_bwd_dkdv_tf32_kernel<D><<<grid, 256, smem, st>>>(
-      qf, kf, vf, dof, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, N, s, os,
-      qscale);
-  attn_bwd_dq_tf32_kernel<D><<<grid, 256, smem, st>>>(qf, kf, vf, dof, lse, delta,
-                                                      static_cast<float*>(dq), H, N, s, os,
-                                                      qscale, scale);
-  return cudaGetLastError();
+  return vst::launch_attn_bwd_tf32(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(d_o), lse, delta, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), ds, B, H, N, D, s.b, s.n, s.h, os.b,
+      os.n, os.h, qscale, scale, st);
 }
 
 // bf16 at D = 320 to 512: preprocess (delta and qc), then the wgmma
@@ -2412,8 +2110,10 @@ cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, co
 // bf16 only; unused and may be null for f32): [B, N, H, D] with O's
 // strides; ds (scratch, bf16 from D = 576: [B H, N, N] bf16, contiguous,
 // dS^T from the dK/dV kernel to the dQ kernel, and above D = 2048 two of
-// them, P^T then dS^T; f32 from D = 192: attn_tf32_bwd_scratch(B, H, N,
-// D) bytes, dense_attn_tf32_wide.cuh; else unused and may be null).
+// them, P^T then dS^T; f32 at D = 64 and 128:
+// attn_tf32_narrow_bwd_scratch(B, H, N, D) bytes, dense_attn_tf32.cuh;
+// f32 from D = 192: attn_tf32_bwd_scratch(B, H, N, D) bytes,
+// dense_attn_tf32_wide.cuh; else unused and may be null).
 // N % 64 == 0, D % 64 == 0 (cudaErrorInvalidValue otherwise).
 // The caller checks all of it.
 // Launches preprocess, dK/dV and dQ in order on `stream`; returns
@@ -2432,12 +2132,14 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
   float* dl = static_cast<float*>(delta);
   cudaError_t err;
 #define VST_BWD_ARGS q, k, v, o, d_o, l, dl, qc, dq, dk, dv, B, H, N, s, os, qscale, scale, st
+#define VST_BWD_TF32(D)                                                                      \
+  launch_bwd_tf32<D>(q, k, v, o, d_o, l, dl, ds, dq, dk, dv, B, H, N, s, os, qscale, scale, st)
   switch (D) {
     case 64:
-      err = is_bf16 ? launch_bwd_wgmma<64>(VST_BWD_ARGS) : launch_bwd_tf32<64>(VST_BWD_ARGS);
+      err = is_bf16 ? launch_bwd_wgmma<64>(VST_BWD_ARGS) : VST_BWD_TF32(64);
       break;
     case 128:
-      err = is_bf16 ? launch_bwd_wgmma<128>(VST_BWD_ARGS) : launch_bwd_tf32<128>(VST_BWD_ARGS);
+      err = is_bf16 ? launch_bwd_wgmma<128>(VST_BWD_ARGS) : VST_BWD_TF32(128);
       break;
     default:
       if (D % 64 != 0 || D < 192) {
@@ -2461,6 +2163,7 @@ extern "C" int vst_dense_attn_bwd(int is_bf16, const void* q, const void* k,
       }
   }
 #undef VST_BWD_ARGS
+#undef VST_BWD_TF32
   return static_cast<int>(err);
 }
 

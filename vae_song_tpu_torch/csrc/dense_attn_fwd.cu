@@ -1,7 +1,7 @@
 // Dense attention forward for Hopper (sm_90a), [B, N, H, D] layout read
-// through strides, any head width D % 64 == 0 (f32 from D = 192 up:
-// dense_attn_tf32_wide.cu, bf16 above 2048: dense_attn_scores.cu, both
-// launched from the dispatch below).
+// through strides, any head width D % 64 == 0 (f32: dense_attn_tf32.cu at
+// D = 64 and 128, dense_attn_tf32_wide.cu from 192 up; bf16 above 2048:
+// dense_attn_scores.cu; all launched from the dispatch below).
 //
 // Replaces: vae_song_tpu/ops/denseattn.py:_fwd_kernel_packed (K1, called
 // through _call_fwd_packed: 64-wide heads in pairs) and
@@ -129,31 +129,17 @@
 // and the forward is S2 = qc k^T into an f32 scratch, a row pass and O =
 // P V, each a product made once (4 B H N^2 D).
 //
-// f32 inputs (mixed_precision: false) at D = 64 and 128: a split-TF32
-// mma.sync kernel (mma_tf32.cuh), the f32 path of the same two TPU
-// kernels (their "parity path", cd = f32: denseattn.py:82-85). What
-// bounds it here: 4 B H N^2 D f32 operations, 2.75e11 at the f32 path's
-// B = 64, N = 2048, H D = 256: 4.1 ms at the FMA units' 67 TFLOP/s; the
-// tensor cores give f32 accuracy only as three TF32 products a product,
-// 1.67 ms at 495 TFLOP/s. The register-fed mma.sync (any operand layout,
-// no transposed copies) is what these kernels issue, and on an H100 they
-// run at 115-135 TFLOP/s of TF32 products (scripts/ab_attn_f32.py), so
-// the tensor pipe's mma.sync rate, not the FMA units or memory, sets
-// their time. Design: a block owns 64 query rows of one (b, h), 16 a
-// warp, and all D columns of O, so the scores are computed once; qc is
-// staged once, prescaled in f32;
-// K and V stream in tiles of T = 2048 / D keys through two cp.async
-// stages, rows padded to D + 4 floats so every fragment read is free of
-// bank conflicts. S2 = qc K^T and O += P V are split-TF32 m16n8k8
-// products, each 8-deep step into a fresh accumulator added to the
-// running sum in f32 (the tensor cores round toward zero; chained on the
-// running sum that bias measured four to six times the plain version's
-// distance from float64). P is formed in the accumulator layout, with
-// the exact running max, and is the A operand of P V as it stands (the
-// permuted contraction of mma_tf32.cuh: no shuffle, no shared-memory
-// round trip). No atomics: the same bits on every run. f32 from D = 192
-// up: the split-TF32 wgmma kernels of dense_attn_tf32_wide.cu over
-// written-out scores.
+// f32 inputs (mixed_precision: false), the f32 path of the same two TPU
+// kernels (their "parity path", cd = f32: denseattn.py:82-85), are split
+// TF32 on wgmma fed by TMA at every width, launched from the dispatch
+// below: at D = 64 and 128 dense_attn_tf32.cu's kernel, which keeps the
+// scores on chip (a block of 128 queries, qc split in registers, K and V^T
+// split ahead by a pre-pass, the online softmax, P the register A operand
+// of P V); from D = 192 dense_attn_tf32_wide.cu's products over
+// written-out scores. Both are tested on the CPU by
+// tests/test_torch_denseattn_f32split.py's emulation of their order of
+// work, and on the card by chip_smoke.py phase 3 and
+// scripts/ab_attn_f32.py.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -164,8 +150,8 @@
 
 #include "mma_bf16.cuh"
 #include "dense_attn_scores.cuh"
+#include "dense_attn_tf32.cuh"
 #include "dense_attn_tf32_wide.cuh"
-#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -1088,136 +1074,6 @@ dense_attn_fwd_cluster_kernel(const __grid_constant__ CUtensorMap mq,
   vst::cluster_sync();   // no CTA leaves while another may still store into it
 }
 
-// ---- f32, D = 64 and 128: split-TF32 mma.sync kernel -------------------------
-
-// Shared memory: the block's 64 qc rows, then two stages of a K tile and
-// a V tile of T keys each; rows padded to D + 4 floats (mma_tf32.cuh's
-// conflict-free strides). T D = 2048 floats a tile: 32 keys at D = 64,
-// 16 at D = 128 (52 and 68 KB a block).
-template <int D>
-struct Tf32Fwd {
-  static constexpr int LD = D + 4;
-  static constexpr int T = 2048 / D;
-  static constexpr size_t bytes = (64 + 4 * T) * LD * sizeof(float);
-};
-
-// Grid (N / 64, H, B), 128 threads. Warp w owns query rows q0 + 16 w ..
-// + 15 and all D columns of O; lane = 4 g + t holds rows g and g + 8 of
-// those, columns 8 j + 2 t, + 1 of each 8-column block j (mma_tf32.cuh).
-template <int D>
-__global__ void __launch_bounds__(128)
-dense_attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int H, int N, long long sb, long long sn,
-                           long long sh, long long ob, long long on, long long oh,
-                           float qscale) {
-  using L = Tf32Fwd<D>;
-  constexpr int LD = L::LD, T = L::T;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                        // [64][LD] qc
-  float* kv0 = qs + 64 * LD;              // stage s: K at kv0 + 2 s T LD, V T LD after
-  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long head = (long long)b * sb + (long long)h * sh;
-  const int nk = N / T;
-
-  auto stage = [&](int it) {
-    float* ks = kv0 + (it & 1) * 2 * T * LD;
-    vst::cp_async_rows<D, LD, T, 128>(ks, k, head, sn, it * T, tid);
-    vst::cp_async_rows<D, LD, T, 128>(ks + T * LD, v, head, sn, it * T, tid);
-    vst::cp_async_commit();
-  };
-  stage(0);
-  vst::load_rows_scaled<D, LD, 64, 128>(qs, q, head, sn, q0, tid, qscale);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      stage(it + 1);
-      vst::cp_async_wait<1>();
-    } else {
-      vst::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* ks = kv0 + (it & 1) * 2 * T * LD;
-    const float* vs = ks + T * LD;
-
-    // S2 = qc K^T: 16 rows x T keys
-    float s[T / 8][4];
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const vst::SplitA a = vst::a_from_smem<LD>(qs, 16 * warp, 8 * kk, g, t);
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j) vst::mma_b_rows_t<LD>(s[j], a, ks, 8 * j, 8 * kk, g, t);
-    }
-
-    // online softmax: the exact running max, P = exp2(S2 - m) in f32
-    float n0 = m0, n1 = m1;
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) {
-      n0 = fmaxf(n0, fmaxf(s[j][0], s[j][1]));
-      n1 = fmaxf(n1, fmaxf(s[j][2], s[j][3]));
-    }
-    n0 = quad_max(n0);
-    n1 = quad_max(n1);
-    const float a0 = exp2f(m0 - n0);  // 0 on the first tile (m = -inf)
-    const float a1 = exp2f(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - n0);
-      s[j][1] = exp2f(s[j][1] - n0);
-      s[j][2] = exp2f(s[j][2] - n1);
-      s[j][3] = exp2f(s[j][3] - n1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= a0;
-      acc[j][1] *= a0;
-      acc[j][2] *= a1;
-      acc[j][3] *= a1;
-    }
-
-    // O += P V: each 8-key block of P is the A operand of one k-step
-#pragma unroll
-    for (int kc = 0; kc < T / 8; ++kc) {
-      const vst::SplitA a = vst::a_from_acc(s[kc]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) vst::mma_b_rows<LD>(acc[j], a, vs, 8 * kc, 8 * j, g, t);
-    }
-    __syncthreads();   // the stage is read; the next iteration refills it
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  float* lrow = lse + ((long long)b * H + h) * N;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + 16 * warp + g + 8 * half;
-    const float l = half ? l1 : l0;
-    float* dst = o + (long long)b * ob + (long long)row * on + (long long)h * oh;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
-          make_float2(acc[j][2 * half] / l, acc[j][2 * half + 1] / l);
-    if (t == 0) lrow[row] = (half ? m1 : m0) + log2f(l);
-  }
-}
-
 // bf16 at D = 320 to 512: the wgmma kernel with the scores split, over
 // tensor maps of q, k, v.
 cudaError_t launch_fwd_wider(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1315,30 +1171,16 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return launch_fwd_wgmma_nc<D, 2>(mq, mk, mv, o, lse, B, H, N, ob, on, oh, qscale, st);
 }
 
-// f32 at D = 64 or 128: the split-TF32 kernel.
-template <int D>
-cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int B, int H, int N, long long sb, long long sn, long long sh,
-                            long long ob, long long on, long long oh, float qscale,
-                            cudaStream_t st) {
-  constexpr size_t smem = Tf32Fwd<D>::bytes;
-  const cudaError_t err = vst::allow_smem(dense_attn_fwd_tf32_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dense_attn_fwd_tf32_kernel<D><<<dim3(N / 64, H, B), 128, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), H, N, sb, sn, sh, ob, on, oh, qscale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v: [B, N, H, D] with element strides (sb, sn, sh, 1), 16-byte
 // aligned rows; o: [B, N, H, D] with strides (ob, on, oh, 1); lse:
 // [B, H, N] f32, contiguous; scratch (bf16 with D > 2048:
 // attn_scores_fwd_scratch(B, H, N, D) bytes, dense_attn_scores.cuh; f32
-// with D >= 192: attn_tf32_fwd_scratch(B, H, N, D) bytes,
-// dense_attn_tf32_wide.cuh; else unused and may be null), 16-byte
-// aligned. N % 64 == 0, D % 64 == 0
+// at D = 64 and 128: attn_tf32_narrow_fwd_scratch(B, H, N, D) bytes,
+// dense_attn_tf32.cuh; f32 with D >= 192: attn_tf32_fwd_scratch(B, H, N,
+// D) bytes, dense_attn_tf32_wide.cuh; else unused and may be null),
+// 16-byte aligned. N % 64 == 0, D % 64 == 0
 // (cudaErrorInvalidValue otherwise). The caller checks all of it.
 // Returns cudaGetLastError() after the launches.
 extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
@@ -1350,12 +1192,17 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
   cudaError_t err;
 #define VST_FWD_ARGS q, k, v, o, lse, B, H, N, sb, sn, sh, ob, on, oh, qscale, st
 #define VST_FWD_ARGS_WIDE q, k, v, o, lse, B, H, N, D, sb, sn, sh, ob, on, oh, qscale, st
+#define VST_FWD_TF32                                                                            \
+  vst::launch_attn_fwd_tf32(static_cast<const float*>(q), static_cast<const float*>(k),         \
+                            static_cast<const float*>(v), static_cast<float*>(o),               \
+                            static_cast<float*>(lse), scratch, B, H, N, D, sb, sn, sh, ob, on, \
+                            oh, qscale, st)
   switch (D) {
     case 64:
-      err = is_bf16 ? launch_fwd_wgmma<64>(VST_FWD_ARGS) : launch_fwd_tf32<64>(VST_FWD_ARGS);
+      err = is_bf16 ? launch_fwd_wgmma<64>(VST_FWD_ARGS) : VST_FWD_TF32;
       break;
     case 128:
-      err = is_bf16 ? launch_fwd_wgmma<128>(VST_FWD_ARGS) : launch_fwd_tf32<128>(VST_FWD_ARGS);
+      err = is_bf16 ? launch_fwd_wgmma<128>(VST_FWD_ARGS) : VST_FWD_TF32;
       break;
     default:
       if (D % 64 != 0 || D < 192) {
@@ -1382,6 +1229,7 @@ extern "C" int vst_dense_attn_fwd(int is_bf16, const void* q, const void* k,
   }
 #undef VST_FWD_ARGS
 #undef VST_FWD_ARGS_WIDE
+#undef VST_FWD_TF32
   return static_cast<int>(err);
 }
 

@@ -1,8 +1,7 @@
-// Split-TF32 helpers shared by the f32 attention forward
-// (dense_attn_fwd.cu) and backward (dense_attn_bwd.cu) at D = 64 and 128,
-// by the fused FFN's f32 kernels (ffn_fwd.cu, ffn_bwd.cu), and, for
-// split_tf32 alone, by the wgmma kernels for heads of 192 and wider
-// (dense_attn_tf32_wide.cu).
+// Split-TF32 helpers of the f32 fused FFN's mma.sync kernels (ffn_fwd.cu,
+// ffn_bwd.cu, ffn_tf32.cuh) and, for split_tf32 alone, of the f32
+// attention's wgmma kernels (tf32_wgmma.cuh: dense_attn_tf32.cu,
+// dense_attn_tf32_wide.cu).
 //
 // The tensor cores take f32 data only as TF32 (10 mantissa bits). An f32
 // operand x is carried as two TF32 values, big = rna(x) and small =
@@ -78,15 +77,6 @@ __device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3
   return s;
 }
 
-// The A fragment of a [rows][LD] f32 shared tile: rows r0 .. r0 + 15,
-// columns c0 .. c0 + 7, in the standard layout. With LD = 4 (mod 32) the
-// 32 lanes read 32 distinct banks.
-template <int LD>
-__device__ __forceinline__ SplitA a_from_smem(const float* tile, int r0, int c0, int g, int t) {
-  const float* p = tile + (r0 + g) * LD + c0 + t;
-  return split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
-}
-
 // The A fragment of an accumulator tile c (16 x 8) for a product over its
 // 8 columns, in the permuted order described above.
 __device__ __forceinline__ SplitA a_from_acc(const float c[4]) {
@@ -122,39 +112,15 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, uint32_t
   c[3] += d[3];
 }
 
-// D += A B with B^T the rows n0 .. n0 + 7 of a [rows][LD] shared tile,
-// columns k0 .. k0 + 7 (B[k][n] = tile[n0 + n][k0 + k], the standard
-// order): S = X Y^T with Y in shared memory row by row. `mul` as in
-// mma_b_rows.
-template <int LD>
-__device__ __forceinline__ void mma_b_rows_t(float c[4], const SplitA& a, const float* tile,
-                                             int n0, int k0, int g, int t, float mul = 1.f) {
-  const float* p = tile + (n0 + g) * LD + k0 + t;
-  uint32_t bb0, bb1, bs0, bs1;
-  split_tf32(p[0] * mul, bb0, bs0);
-  split_tf32(p[4] * mul, bb1, bs1);
-  mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
-}
-
-// D += A B with B the rows k0 .. k0 + 7 of a [rows][LD] shared tile,
-// columns n0 .. n0 + 7, in the permuted contraction order of a_from_acc
-// (B row t = tile row k0 + 2t, B row t + 4 = tile row k0 + 2t + 1): O =
-// P Y with P an accumulator tile. With LD = 4 (mod 32) the lanes read 32
-// distinct banks. `mul` scales each element before the split (1 for a
-// plain read).
-template <int LD>
-__device__ __forceinline__ void mma_b_rows(float c[4], const SplitA& a, const float* tile,
-                                           int k0, int n0, int g, int t, float mul = 1.f) {
-  const float* p = tile + (k0 + 2 * t) * LD + n0 + g;
-  uint32_t bb0, bb1, bs0, bs1;
-  split_tf32(p[0] * mul, bb0, bs0);
-  split_tf32(p[LD] * mul, bb1, bs1);
-  mma_3xtf32(c, a, bb0, bb1, bs0, bs1);
-}
-
-// The same three reads with the row stride `ld` a runtime value (the
-// fused FFN's f32 kernels, ffn_tf32.cuh and ffn_bwd.cu; ld = 4 (mod 32)
-// keeps every read free of bank conflicts).
+// The fused FFN's reads of a [rows][ld] f32 shared tile (ffn_tf32.cuh and
+// ffn_bwd.cu; ld = 4 (mod 32) keeps every read free of bank conflicts): the
+// A fragment of rows r0 .. r0 + 15, columns c0 .. c0 + 7, in the standard
+// layout; D += A B with B^T the tile's rows n0 .. n0 + 7, columns k0 .. k0
+// + 7 (the standard order: S = X Y^T with Y row by row), and D += A B with
+// B the tile's rows k0 .. k0 + 7, columns n0 .. n0 + 7, in the permuted
+// contraction order of a_from_acc (B row t = tile row k0 + 2t, B row t + 4
+// = tile row k0 + 2t + 1: O = P Y with P an accumulator tile); `mul`
+// scales each B element before the split.
 __device__ __forceinline__ SplitA a_from_smem(const float* tile, int ld, int r0, int c0, int g,
                                               int t) {
   const float* p = tile + (r0 + g) * ld + c0 + t;
@@ -236,37 +202,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-// Rows r0 .. r0 + ROWS - 1 of one (b, h) head of an f32 [B, N, H, D]
-// tensor (`head` its element offset, `stride` its row stride, both
-// multiples of 4) into a [ROWS][LD] shared tile, 16 bytes a copy, by the
-// block's THREADS threads (not committed).
-template <int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void cp_async_rows(float* tile, const float* src, long long head,
-                                              long long stride, int r0, int tid) {
-#pragma unroll
-  for (int i = tid; i < ROWS * D / 4; i += THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    cp_async16(tile + r * LD + c, src + head + (long long)(r0 + r) * stride + c);
-  }
-}
-
-// The same rows read synchronously and multiplied by `mul` (the prescale
-// of q into qc: one f32 multiply, the plain version's rounding).
-template <int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows_scaled(float* tile, const float* src, long long head,
-                                                 long long stride, int r0, int tid, float mul) {
-#pragma unroll
-  for (int i = tid; i < ROWS * D / 4; i += THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float4 x = *reinterpret_cast<const float4*>(src + head + (long long)(r0 + r) * stride + c);
-    x.x *= mul;
-    x.y *= mul;
-    x.z *= mul;
-    x.w *= mul;
-    *reinterpret_cast<float4*>(tile + r * LD + c) = x;
-  }
 }
 
 }  // namespace vst

@@ -4,8 +4,9 @@
 // cluster. Used by the bf16 attention forward (dense_attn_fwd.cu) and
 // backward (dense_attn_bwd.cu) at head widths 64 to 2048, by the bf16
 // attention kernels for wider heads (dense_attn_scores.cu), by the f32
-// attention kernels for heads of 192 and wider (dense_attn_tf32_wide.cu:
-// TF32 wgmma) and by the fused FFN (ffn_fwd.cu, ffn_bwd.cu).
+// attention kernels (dense_attn_tf32.cu at 64 and 128,
+// dense_attn_tf32_wide.cu from 192: TF32 wgmma) and by the fused FFN
+// (ffn_fwd.cu, ffn_bwd.cu).
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns
 // (one swizzle atom wide), one 128-byte row per tile row, each panel
@@ -567,7 +568,7 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&c)[16][4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 
-// TF32 (the f32 attention for heads of 192 and wider,
+// TF32 (the f32 attention kernels, dense_attn_tf32.cu and
 // dense_attn_tf32_wide.cu). TF32 wgmma has no transpose: B is read
 // K-major, a 128-byte-swizzled panel of 32 f32 columns (one swizzle atom,
 // the layout a TMA box of {32 columns, rows} with CU_TENSOR_MAP_SWIZZLE_128B
@@ -575,8 +576,21 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&c)[16][4], const uint32_
 // comes from registers in mma.sync's m16n8k8 TF32 A layout per warp. The
 // tensor cores read the top 19 bits of each 32-bit operand.
 //
-// c (64 x 64 f32) (+)= A (64 x 8 in registers) B (8 x 64 in shared
+// c (64 x 32 f32) (+)= A (64 x 8 in registers) B (8 x 32 in shared
 // memory); `accumulate` 0 overwrites c (the first step of a fresh sum).
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&c)[4][4], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : VST_C4(c, 0), VST_C4(c, 1), VST_C4(c, 2), VST_C4(c, 3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// c (64 x 64 f32) (+)= A (64 x 8 in registers) B (8 x 64 in shared
+// memory).
 __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&c)[8][4], const uint32_t (&a)[4],
                                                   uint64_t db, int accumulate) {
   asm volatile(

@@ -25,11 +25,23 @@ other dP, and they swap them through shared memory) and the head's
 columns of dK, dV and dQ: each product once per tile pair, 14 B H N^2 D
 against the bound's 10 (counted apart in `wgmma_wide_fwd.launches` and
 `wgmma_wide_bwd.launches` as well). In f32
-(`mixed_precision: false`) at D = 64 and 128 the forward and the
-backward's dK/dV and dQ kernels compute every product in split TF32 on
-the tensor cores (csrc/mma_tf32.cuh: three TF32 mma.sync products a
-product, f32-accurate, in place of the f32 FMA units' 67 TFLOP/s); the
-backward's preprocess writes delta only. f32 heads of 192 and wider take
+(`mixed_precision: false`) every product is split TF32 on the tensor
+cores' wgmma (each operand as two TF32 halves, three TF32 products a
+product: f32-accurate, in place of the f32 FMA units' 67 TFLOP/s), and
+the backward's preprocess writes delta only. At D = 64 and 128 (the f32
+SetVAE path's four heads of 64, and two of 128) csrc/dense_attn_tf32.cu
+keeps the scores on chip: a pre-pass splits K and V^T (keys permuted in
+groups of 8, so that P in the accumulator layout is the A operand of P V
+as it stands), the forward is one kernel with an online softmax, the
+backward a dK/dV kernel that forms S^T, P^T, dP^T and dS^T on chip and
+writes dS^T to an f32 scratch, from which a product makes dQ: 4 B H N^2 D
+forward, 10 backward (`tf32_narrow_fwd_scratch_bytes`: 0.54 GB at B =
+64, H = 4, N = 2048, D = 64; `tf32_narrow_bwd_scratch_bytes`: 5.6 GB);
+counted apart in `tf32_narrow_fwd.launches` and `tf32_narrow_bwd.launches`
+as well. tests/test_torch_denseattn_f32split.py emulates both kernels'
+order of work in numpy on the CPU; chip_smoke.py phase 3 and
+scripts/ab_attn_f32.py hold them to their plain versions and to float64
+on the card. f32 heads of 192 and wider take
 the split-TF32 wgmma/TMA kernels of csrc/dense_attn_tf32_wide.cu, products
 over written-out scores: a pre-pass splits the B operands (K and V^T
 forward; qc, dO, qc^T, dO^T, K^T backward) into TF32 halves laid out
@@ -221,6 +233,22 @@ def tf32_fwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
     return 4 * bhn * n + 4 * bhn * (-(-n // 128)) + 16 * bhn * d
 
 
+def tf32_narrow_fwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the forward scratch of the f32 kernels for heads of 64 and
+    128 (csrc/dense_attn_tf32.cuh: attn_tf32_narrow_fwd_scratch): the split
+    halves of K [B H, N, D] and of V^T [B H, D, N]."""
+    bhn = b * h * n
+    return 16 * bhn * d
+
+
+def tf32_narrow_bwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the backward scratch of the same kernels
+    (attn_tf32_narrow_bwd_scratch): dS^T f32 [B H, N, N], the split halves
+    of qc and dO [B H, N, D] and of qc^T, dO^T, K^T [B H, D, N]."""
+    bhn = b * h * n
+    return 4 * bhn * n + 40 * bhn * d
+
+
 def tf32_bwd_scratch_bytes(b: int, h: int, n: int, d: int) -> int:
     """Bytes of the backward scratch of the same kernels
     (attn_tf32_bwd_scratch): P^T and dS^T f32 [B H, N, N], the split
@@ -236,9 +264,10 @@ def _launch_fwd(q, k, v, scale):
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     # the kernels for bf16 heads wider than 2048 and for f32 heads of 192
-    # and wider write the scores out
+    # and wider write the scores out; the f32 kernels split their B operands
     nbytes = (scores_fwd_scratch_bytes(b, h, n, d) if wgmma_scores(q.dtype, d)
-              else tf32_fwd_scratch_bytes(b, h, n, d) if tf32_wide(q.dtype, d) else 0)
+              else tf32_fwd_scratch_bytes(b, h, n, d) if tf32_wide(q.dtype, d)
+              else tf32_narrow_fwd_scratch_bytes(b, h, n, d) if tf32_narrow(q.dtype, d) else 0)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     ob, on, oh, _ = o.stride()
     _kernels.launch(
@@ -300,13 +329,15 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
     # hand dS^T from the dK/dV kernel to the dQ kernel through a scratch
     # of [B H, N, N] bf16 (512 MiB at B = 64, H = 1, N = 2048), and the
     # kernels for wider heads write P^T and dS^T into two such scratches;
-    # the f32 kernels for heads of 192 and wider take theirs in its place
+    # the f32 kernels take theirs in its place (dS^T and the split operands)
     qc = torch.empty_like(o) if q.dtype == torch.bfloat16 else None
     tiles = 2 if wgmma_scores(q.dtype, d) else 1 if wgmma_cluster(q.dtype, d) else 0
+    f32_bytes = (tf32_bwd_scratch_bytes(b, h, n, d) if tf32_wide(q.dtype, d)
+                 else tf32_narrow_bwd_scratch_bytes(b, h, n, d) if tf32_narrow(q.dtype, d)
+                 else 0)
     ds = (torch.empty((tiles * b * h, n, n), dtype=torch.bfloat16, device=q.device)
           if tiles else
-          torch.empty(tf32_bwd_scratch_bytes(b, h, n, d), dtype=torch.uint8, device=q.device)
-          if tf32_wide(q.dtype, d) else None)
+          torch.empty(f32_bytes, dtype=torch.uint8, device=q.device) if f32_bytes else None)
     sb, sn, sh, _ = q.stride()
     ob, on, oh, _ = o.stride()
     _kernels.launch(
@@ -318,6 +349,19 @@ def _launch_bwd(q, k, v, o, lse, do, scale):
         float(scale * LOG2E), float(scale),
     )
     return dq, dk, dv
+
+
+# Launches of the f32 kernels for heads of 64 and 128
+# (csrc/dense_attn_tf32.cu), which either route's wrapper may take; each is
+# also counted on its route's wrapper.
+tf32_narrow_fwd = types.SimpleNamespace(launches=0)
+tf32_narrow_bwd = types.SimpleNamespace(launches=0)
+
+
+def tf32_narrow(dtype, d: int) -> bool:
+    """Whether the kernels take operands of `dtype` with heads of `d` to
+    csrc/dense_attn_tf32.cu: the dispatch's rule, f32 and D = 64 or 128."""
+    return dtype == torch.float32 and d in (64, 128)
 
 
 # Launches of the f32 kernels for heads of 192 and wider
@@ -426,6 +470,8 @@ def _forward(q, k, v, scale, counter):
         return dense_attention_fwd_plain(q, k, v, scale)
     out = _launch_fwd(q, k, v, scale)
     counter.launches += 1
+    if tf32_narrow(q.dtype, q.shape[-1]):
+        tf32_narrow_fwd.launches += 1
     if tf32_wide(q.dtype, q.shape[-1]):
         tf32_wide_fwd.launches += 1
     if wgmma_wide(q.dtype, q.shape[-1]):
@@ -445,6 +491,8 @@ def _backward(q, k, v, o, lse, do, scale, counter):
         return dense_attention_bwd_plain(q, k, v, o, lse, do, scale)
     out = _launch_bwd(q, k, v, o, lse, do, scale)
     counter.launches += 1
+    if tf32_narrow(q.dtype, q.shape[-1]):
+        tf32_narrow_bwd.launches += 1
     if tf32_wide(q.dtype, q.shape[-1]):
         tf32_wide_bwd.launches += 1
     if wgmma_wide(q.dtype, q.shape[-1]):
